@@ -17,27 +17,59 @@ Phases, each announced by a ``[phase]`` line:
    the same path through the plain versions; embeddings must agree with
    the f32 path on a few chunks.
 
+5. attention kernels: the f32 attention forward (packed qkv and
+   head-major, one strided CUDA kernel) and its recompute-P backward
+   against their plain versions at bge-small widths (12 heads of 32),
+   ragged S and a fully masked row, at fixed shapes and at every (B, S)
+   the training and f32 serve phases give them; timed beside their
+   bound, the plain version and ``F.scaled_dot_product_attention`` (f32,
+   additive mask);
+6. training: ``train()`` fine-tunes ``checkpoints/alps-semantic`` in f32
+   at full width and depth for 20 steps of 32 (question, fact) pairs from
+   ``eval/data/alps_handmade_questions.json``, no batch holding one fact
+   twice (``positive_disjoint_stream``). Step 1 must match the
+   plain route (loss rel 1e-5, gradient cosine > 0.9999); the losses must
+   be finite and fall; the attention counters must read 12 layers x 2
+   encodes x 20 steps; a restore from the step-10 checkpoint must be
+   bit-exact and steps 11-20 must come out again (losses rel 1e-6).
+   Checkpoints go to a temporary directory outside the checkout;
+7. f32 serve: the trained params in an f32 ``BgeEmbedder`` embed the 155
+   facts into a ``SemanticRetriever`` and answer the 155 questions; the
+   forward counter must equal 12 x the encode batches and top-1 must
+   agree with the plain route.
+
 The second-to-last line is a JSON object with the kernels' numbers, the
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-the result is printed. Writes nothing but the kernels' build directory.
+the result is printed. Writes nothing in the checkout but the kernels'
+build directory.
 """
 
+import copy
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "checkpoints" / "alps-semantic"
 ORACLE_CHUNKS = ROOT / "tests" / "data" / "alps_oracle_chunks.json"
+QUESTIONS = ROOT / "eval" / "data" / "alps_handmade_questions.json"
 N_DOCS = 2048
 N_QUERIES = 64
 N_TOP1 = 16
 TOLERANCE = 3e-2  # bf16 kernel vs plain version: tests/test_fused_encoder.py's bf16 atol
 TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this close
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# f32 attention kernels vs plain versions: forward 2e-5, ten times the
+# reference's 2e-6 (tests/test_flash_attention.py) for another summation
+# order over S <= 512 keys; gradients the reference's own atol and rtol
+F32_FWD_TOL = 2e-5
+GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
 
 
 def phase(name: str) -> None:
@@ -58,8 +90,8 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -71,6 +103,416 @@ def synthetic_texts(vocab: dict, n: int, seed: int) -> list[str]:
     words = sorted(w for w in vocab if w.isascii() and w.isalpha() and w.islower() and len(w) > 1)
     rng = np.random.default_rng(seed)
     return [" ".join(rng.choice(words, size=int(rng.integers(200, 254)))) for _ in range(n)]
+
+
+def attention_inputs(torch, dev, b, s, heads, dh, seed):
+    """Seeded packed qkv [B, S, 3H] f32, a mask with ragged rows and one
+    fully masked row, and a cotangent [B, S, H]."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev)
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    lengths[0] = s
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32)
+    mask[-1] = 0
+    cot = torch.randn(b, s, heads * dh, generator=g).to(dev)
+    return qkv, mask.to(dev), cot
+
+
+def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
+    """Kernels 4, 5 and 8 against their plain versions (gated) at fixed
+    shapes and at ``path_shapes``, the (use, B, S) the training and f32
+    serve phases give them; timed beside their bound, the plain version
+    and SDPA."""
+    import torch.nn.functional as F
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+
+    def grads(fn, inputs, cot):
+        inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        (fn(*inputs) * cot).sum().backward()
+        return [t.grad for t in inputs]
+
+    def check_fwd(name, out, ref):
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{name}: kernel output is not finite")
+        err = (out - ref).abs().max().item()
+        if not err <= F32_FWD_TOL:
+            raise RuntimeError(f"{name}: kernel disagrees with its plain version by {err}")
+        return err
+
+    def check_grads(name, got, want):
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, w in zip(got, want):
+            excess = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
+            if not (torch.isfinite(a).all() and excess <= GRAD_ATOL):
+                raise RuntimeError(f"{name}: gradient off its plain version by {excess} past rtol")
+            err = max(err, (a - w).abs().max().item())
+        return err
+
+    # every shape gated: a full f32 serving bucket (B=128, S=256), a full
+    # training bucket (B=32, S=128), a ragged S, the longest S, and each
+    # shape the main path's phases below give the kernels
+    fixed = [("bucket", 128, 256), ("bucket", 32, 128), ("ragged", 32, 100), ("longest", 4, 512)]
+    for use, b, s in fixed + [t for t in path_shapes if t[1:] not in {f[1:] for f in fixed}]:
+        qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=b + s)
+        with torch.no_grad():
+            e4 = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
+                           fa.fused_qkv_attention(qkv, mask, heads, plain=True))
+            q, k, v = (t.contiguous() for t in fa._split_heads(qkv, heads))
+            e5 = check_fwd("flash_attention_fwd", fa.flash_attention(q, k, v, mask),
+                           fa.flash_attention(q, k, v, mask, plain=True))
+        e8p = check_grads(
+            "flash_attention_bwd (packed qkv)",
+            grads(lambda x: fa.fused_qkv_attention(x, mask, heads), [qkv], cot),
+            grads(lambda x: fa.fused_qkv_attention(x, mask, heads, plain=True), [qkv], cot),
+        )
+        cot_h = cot.view(b, s, heads, dh).transpose(1, 2).contiguous()
+        e8h = check_grads(
+            "flash_attention_bwd (head-major)",
+            grads(lambda *x: fa.flash_attention(*x, mask), [q, k, v], cot_h),
+            grads(lambda *x: fa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h),
+        )
+        print(f"attention kernels at B={b} S={s} ({use}; ragged rows, one fully masked): max abs err "
+              f"qkv_native {e4:.3g}, head-major {e5:.3g} (tolerance {F32_FWD_TOL}); backward "
+              f"packed {e8p:.3g}, head-major {e8h:.3g} (atol {GRAD_ATOL}, rtol {GRAD_RTOL})", flush=True)
+
+    f32 = 4
+    rows = {}
+
+    def row(name, kernel, plain, library, err, flops, nbytes, replaces, source, shape):
+        ms = cuda_ms(torch, kernel, iters=20)
+        plain_ms = cuda_ms(torch, plain, iters=5)
+        library_ms = cuda_ms(torch, library, iters=20)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        print(f"{name}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {shape} f32 {card}", flush=True)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        }
+
+    # kernel 4 at the f32 serving shape
+    b, s = 128, 256
+    hid = heads * dh
+    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=1)
+    keep = fa.mask_bias(mask)[:, None, None, :]
+    with torch.no_grad():
+        err = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
+                        fa.fused_qkv_attention(qkv, mask, heads, plain=True))
+
+        def sdpa_packed():
+            q, k, v = qkv.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep).transpose(1, 2).reshape(b, s, hid)
+
+        row("qkv_native_attention", lambda: fa.fused_qkv_attention(qkv, mask, heads),
+            lambda: fa.fused_qkv_attention(qkv, mask, heads, plain=True), sdpa_packed, err,
+            4 * b * heads * s * s * dh, (b * s * 3 * hid + b * s * hid + b * s) * f32,
+            "dial_rag_tpu/ops/flash_attention.py:638", "dial_rag_tpu_torch/csrc/flash_attention_fwd.cu",
+            f"qkv [{b},{s},{3 * hid}]")
+
+    # kernels 5 and 8 at the training shape, head-major
+    b, s = 32, 128
+    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=2)
+    q, k, v = (t.contiguous() for t in fa._split_heads(qkv, heads))
+    do = cot.view(b, s, heads, dh).transpose(1, 2).contiguous()
+    keep = fa.mask_bias(mask)[:, None, None, :]
+    head_bytes = b * heads * s * dh * f32
+    with torch.no_grad():
+        err = check_fwd("flash_attention_fwd", fa.flash_attention(q, k, v, mask),
+                        fa.flash_attention(q, k, v, mask, plain=True))
+        row("flash_attention_fwd", lambda: fa.flash_attention(q, k, v, mask),
+            lambda: fa.flash_attention(q, k, v, mask, plain=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), err,
+            4 * b * heads * s * s * dh, 4 * head_bytes + b * s * f32,
+            "dial_rag_tpu/ops/flash_attention.py:43", "dial_rag_tpu_torch/csrc/flash_attention_fwd.cu",
+            f"q, k, v [{b},{heads},{s},{dh}]")
+    grad_out = [torch.empty_like(t) for t in (q, k, v)]
+    got = fa.attention_backward_plain(q, k, v, do, mask)
+    fa._backward_kernel(q, k, v, do, *grad_out, mask)
+    err = check_grads("flash_attention_bwd", grad_out, got)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        F.scaled_dot_product_attention(*leaves, attn_mask=keep).backward(do)
+
+    row("flash_attention_bwd", lambda: fa._backward_kernel(q, k, v, do, *grad_out, mask),
+        lambda: fa.attention_backward_plain(q, k, v, do, mask), sdpa_fwd_bwd, err,
+        10 * b * heads * s * s * dh, 7 * head_bytes + b * s * f32,
+        "dial_rag_tpu/ops/flash_attention.py:313", "dial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
+        f"q, k, v, dO [{b},{heads},{s},{dh}]")
+    return rows
+
+
+def alps_questions() -> tuple[list[str], list[str]]:
+    """The 155 hand-written questions and the first fact of each."""
+    questions = json.loads(QUESTIONS.read_text())["questions"]
+    return [q["facts"][0] for q in questions], [q["question"] for q in questions]
+
+
+def training_setup(base):
+    """The fine-tuning run's config and its stream of (question, first
+    fact) pairs, no batch holding one fact twice."""
+    from dial_rag_tpu_torch.training.data import positive_disjoint_stream
+    from dial_rag_tpu_torch.training.loop import TrainConfig
+
+    cfg = TrainConfig(batch_size=32, seq_len=128, learning_rate=2e-5, warmup_steps=2, total_steps=20,
+                      checkpoint_every=10)
+    facts, questions = alps_questions()
+    pairs = [(base.query_instruction + q, f) for q, f in zip(questions, facts)]
+    return cfg, positive_disjoint_stream(pairs, cfg.batch_size, cfg.total_steps, seed=0)
+
+
+def main_path_shapes(base, cfg, stream) -> list[tuple[str, int, int]]:
+    """(use, B, S) of every attention call of the training and f32 serve
+    phases: each training batch (q and p padded to one S), and each encode
+    of the serve (the facts in ``batch_size`` rows, the questions in one
+    encode), padded as ``BgeEmbedder`` pads them."""
+    from dial_rag_tpu_torch.embeddings.embedder import _bucket_rows
+    from dial_rag_tpu_torch.training.loop import pairs_to_batches
+
+    shapes = {("training", *batch["q_ids"].shape) for batch in pairs_to_batches(base.tokenizer, stream, cfg)}
+    facts, questions = alps_questions()
+    n = base.batch_size
+    for i in range(0, len(facts), n):
+        ids, _ = base.tokenizer.encode_batch(facts[i : i + n], max_len=base.max_len)
+        shapes.add(("f32 serve", n if len(facts) > n else _bucket_rows(len(facts), n), ids.shape[1]))
+    ids, _ = base.tokenizer.encode_batch([base.query_instruction + q for q in questions], max_len=base.max_len)
+    shapes.add(("f32 serve", _bucket_rows(len(questions), n), ids.shape[1]))
+    return sorted(shapes)
+
+
+def training_phase(torch, card, base, num_layers: int, cfg, stream):
+    """Fine-tunes ``base``'s f32 params with ``train()`` on ``stream``;
+    returns the trained params and the attention counters of the 20-step
+    run."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss, create_train_state, make_train_step
+    from dial_rag_tpu_torch.training.loop import (
+        Checkpointer, make_optimizer, pairs_to_batches, train, trainable_params,
+    )
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    model, dev = base.encoder.config, base.device
+    init = {"embeddings": base.params["embeddings"], "layers": base.params["layers"]}
+    first = next(pairs_to_batches(base.tokenizer, stream, cfg))
+    s = first["q_ids"].shape[1]
+    print(f"training: {len(stream)} (question, fact) pairs, batch {cfg.batch_size}, S={s}, "
+          f"{cfg.total_steps} steps, lr {cfg.learning_rate}, warmup {cfg.warmup_steps}", flush=True)
+
+    # step 1 through the kernels and through the plain route
+    def loss_and_grads(impl):
+        params = trainable_params(init, dev)
+        loss = contrastive_loss(params, first, num_heads=model.num_heads, temperature=cfg.temperature,
+                                attention_impl=impl)
+        loss.backward()
+        return loss.item(), [t.grad for t in param_leaves(params)]
+
+    loss_k, grads_k = loss_and_grads("pallas")
+    loss_p, grads_p = loss_and_grads("pallas_plain")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos_min, zero = 1.0, 0
+    for gk, gp in zip(grads_k, grads_p):
+        if not gp.abs().max() > 0:
+            zero += 1
+            continue
+        cos = torch.nn.functional.cosine_similarity(gk.flatten().double(), gp.flatten().double(), dim=0).item()
+        cos_min = min(cos_min, cos)
+    print(f"step 1, kernels vs plain route: loss {loss_k:.8f} vs {loss_p:.8f} (rel {rel:.3g}, limit 1e-5); "
+          f"gradient cosine min {cos_min:.8f} over {len(grads_p) - zero} tensors (limit 0.9999; "
+          f"{zero} all-zero in the plain route)", flush=True)
+    if not (rel <= 1e-5 and cos_min > 0.9999):
+        raise RuntimeError("step 1 through the kernels disagrees with the plain route")
+    del grads_k, grads_p
+
+    # where one step spends the card's time (profiler, one step)
+    params = trainable_params(init, dev)
+    state = create_train_state(params, *make_optimizer(cfg, params))
+    step_fn = make_train_step(model, temperature=cfg.temperature)
+    step_fn(state, first)  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(state, first)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    print(f"profile of one train step (B={cfg.batch_size}, S={s}): device time {total_us / 1e3:.3f} ms {card}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+    del state, params, step_fn
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        run_dir, resume_dir = Path(tmp) / "run", Path(tmp) / "resume"
+        times, snapshot = [], {}
+        last = [0.0]
+
+        def on_step(state, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append(now - last[0])
+            last[0] = now
+            if state.step == 10:
+                snapshot["params"] = host_copy(param_leaves(state.params))
+                snapshot["optimizer"] = host_copy(state.optimizer.state_dict())
+                snapshot["scheduler"] = host_copy(state.scheduler.state_dict())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**20
+        fa.reset_launches()
+        last[0] = time.perf_counter()
+        trained, losses = train(model, cfg, stream, base.tokenizer, checkpoint_dir=str(run_dir), init=init,
+                                device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for i, (loss, dt) in enumerate(zip(losses, times), start=1):
+            print(f"  step {i:2d}: loss {loss:.6f}, {dt * 1e3:.2f} ms, {cfg.batch_size / dt:.1f} pairs/s")
+        steady = sorted(times[1:])[len(times[1:]) // 2]
+        print(f"training: median step {steady * 1e3:.2f} ms, {cfg.batch_size / steady:.1f} pairs/s "
+              f"(steps 2-{cfg.total_steps}, host clock ending in synchronize, checkpoint saves included); "
+              f"peak memory {peak:.1f} MiB, of which {held:.1f} MiB held before the run {card}")
+        expected = num_layers * 2 * cfg.total_steps
+        print(f"training launches {launches}; expected {expected} forward and backward "
+              f"({num_layers} layers x 2 encodes x {cfg.total_steps} steps)", flush=True)
+        if not all(np.isfinite(losses)) or len(losses) != cfg.total_steps:
+            raise RuntimeError(f"training losses: {losses}")
+        if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            raise RuntimeError(f"training did not reduce the loss: {losses}")
+        if launches["qkv_native_attention"] != expected or launches["flash_attention_bwd"] != expected:
+            raise RuntimeError("the training path bypassed the attention kernels")
+
+        # restore from the step-10 checkpoint: bit-exact, then resume 11-20
+        if Checkpointer(str(run_dir)).steps() != [10, 20]:
+            raise RuntimeError(f"checkpoints: {Checkpointer(str(run_dir)).steps()}")
+        resume_dir.mkdir()
+        step10 = Checkpointer(str(run_dir)).path(10)
+        shutil.copy(step10, resume_dir / step10.name)
+        params = trainable_params(init, dev)
+        state = create_train_state(params, *make_optimizer(cfg, params))
+        if Checkpointer(str(resume_dir)).restore(state) != 10:
+            raise RuntimeError("no step-10 checkpoint to restore")
+        exact = all(torch.equal(a.cpu(), b) for a, b in zip(param_leaves(state.params), snapshot["params"]))
+        opt_now, opt_then = state.optimizer.state_dict(), snapshot["optimizer"]
+        for i, st in opt_then["state"].items():
+            exact &= all(torch.equal(st[key], opt_now["state"][i][key].cpu()) for key in st)
+        exact &= opt_now["param_groups"] == opt_then["param_groups"]
+        exact &= state.scheduler.state_dict() == snapshot["scheduler"]
+        if not exact:
+            raise RuntimeError("the step-10 checkpoint does not restore params and optimizer state exactly")
+        del state, params
+        fa.reset_launches()
+        _, resumed = train(model, cfg, stream, base.tokenizer, checkpoint_dir=str(resume_dir), init=init,
+                           device=dev)
+        resume_launches = dict(fa.LAUNCHES)
+        worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[10:]))
+        print(f"restore of step 10: params, optimizer and scheduler state bit-exact; resumed steps 11-20 "
+              f"losses within rel {worst:.3g} of the first run (limit 1e-6); launches {resume_launches}")
+        if len(resumed) != 10 or not worst <= 1e-6:
+            raise RuntimeError(f"resume did not reproduce steps 11-20: {resumed} vs {losses[10:]}")
+        if resume_launches["qkv_native_attention"] != expected // 2:
+            raise RuntimeError(f"resume launches {resume_launches}")
+    return trained, launches
+
+
+def host_copy(obj):
+    """A copy of a (nested) state dict with every tensor on the host, so a
+    snapshot takes no device memory."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [host_copy(v) for v in obj]
+    return copy.deepcopy(obj)
+
+
+def recall_at_1(embedder, facts, questions) -> float:
+    import numpy as np
+
+    d = embedder.embed_documents(facts)
+    q = embedder.embed_queries(questions)
+    dist = (q**2).sum(1)[:, None] - 2 * q @ d.T + (d**2).sum(1)[None, :]
+    return float(np.mean(np.argmin(dist, axis=1) == np.arange(len(questions))))
+
+
+def f32_serve_phase(torch, card, base, trained) -> int:
+    """The trained params served in f32: returns the forward counter."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import build_chunks_list
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.models.bert import BertEncoder
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
+
+    facts, queries = alps_questions()
+    cfg = base.encoder.config
+    params = dict(trained)
+    if "pooling_idf" in base.params:
+        params["pooling_idf"] = base.params["pooling_idf"]
+
+    def embedder(impl):
+        return BgeEmbedder(
+            tokenizer=base.tokenizer,
+            encoder=BertEncoder(cfg, compute_dtype=torch.float32, attention_impl=impl,
+                                pooling=base.encoder.pooling),
+            params=params, device=base.device, query_instruction=base.query_instruction, model_id="trained",
+        )
+
+    serve, plain = embedder("auto"), embedder("pallas_plain")
+    serve.embed_documents(facts[:8])  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(
+        serve, build_chunks_list([(f, {}) for f in facts]))})()
+    retriever = SemanticRetriever.from_doc_records(serve, [record], k=1)
+    hits = retriever.retrieve_batch(queries)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = fa.LAUNCHES["qkv_native_attention"]
+    # the facts in bulk batches, the questions in one encode
+    n_batches = -(-len(facts) // serve.batch_size) + 1
+    print(f"f32 serve: {len(facts)} facts indexed and {len(queries)} questions answered in {elapsed:.3f} s; "
+          f"launches {dict(fa.LAUNCHES)}; encode batches {n_batches} {card}")
+    if launches != cfg.num_layers * n_batches:
+        raise RuntimeError(f"f32 serve launched the attention kernel {launches} times, expected "
+                           f"{cfg.num_layers * n_batches}: the path bypassed it")
+    doc_emb = np.concatenate(record.embeddings_index)
+    if doc_emb.shape != (len(facts), cfg.hidden_size) or not np.isfinite(doc_emb).all():
+        raise RuntimeError(f"bad f32 fact embeddings: shape {doc_emb.shape}")
+    q_kernel = serve.embed_queries(queries)
+    d_plain, q_plain = plain.embed_documents(facts), plain.embed_queries(queries)
+    print(f"f32 serve, kernel route vs plain route: max abs diff documents "
+          f"{np.abs(doc_emb - d_plain).max():.3g}, queries {np.abs(q_kernel - q_plain).max():.3g}")
+    plain_top = np.argmin(((q_plain[:, None, :] - d_plain[None, :, :]) ** 2).sum(-1), axis=1)
+    ties = 0
+    for qi, h in enumerate(hits):
+        ck, cp = h[0].chunk_id, int(plain_top[qi])
+        if ck == cp:
+            continue
+        d = ((doc_emb[[ck, cp]] - q_kernel[qi]) ** 2).sum(axis=1)
+        gap = abs(float(d[0] - d[1]))
+        print(f"top-1 near-tie, question {qi}: kernel fact {ck} vs plain fact {cp}, distance gap {gap:.3g}")
+        if gap >= TIE_GAP:
+            raise RuntimeError(f"f32 serve top-1 of question {qi} differs from the plain route by {gap}")
+        ties += 1
+    recall = float(np.mean([h[0].chunk_id == i for i, h in enumerate(hits)]))
+    print(f"f32 serve top-1 of {len(queries)} questions: kernel route = plain route ({ties} near-ties "
+          f"below {TIE_GAP}); recall@1 before training {recall_at_1(base, facts, queries):.4f}, after "
+          f"{recall:.4f} (not gated)", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -335,7 +777,27 @@ def main() -> int:
             raise RuntimeError(f"1M index top-1 of query {qi} is {big_hits[qi][0].chunk_id}, f64 says {best[0]}")
     print(f"dense index 1M x {hid} f32 ({big.nbytes / 1e9:.2f} GB): find_batch of {N_QUERIES} "
           f"{t_big * 1e3:.2f} ms, find {t_big1 * 1e3:.2f} ms; top-1 = f64 scan on 4 queries {card}")
-    print(f"peak memory (whole run): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}")
+    print(f"peak memory (bf16 main path and 1M index): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"{card}")
+    del big, mat, d64, qd, embedder, retriever
+
+    phase("attention kernels")
+    base = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), compute_dtype=torch.float32, device="cuda")
+    train_cfg, stream = training_setup(base)
+    path_shapes = main_path_shapes(base, train_cfg, stream)
+    print(f"attention shapes of the training and f32 serve phases (use, B, S): {path_shapes}", flush=True)
+    rows.update(attention_rows(torch, dev, card, cfg.num_heads, hid // cfg.num_heads, path_shapes))
+
+    phase("training")
+    trained, train_launches = training_phase(torch, card, base, cfg.num_layers, train_cfg, stream)
+    for name in ("qkv_native_attention", "flash_attention_fwd", "flash_attention_bwd"):
+        rows[name]["launches"] = train_launches[name]
+
+    phase("f32 serve")
+    serve_launches = f32_serve_phase(torch, card, base, trained)
+    print(f"qkv_native_attention launches: training {train_launches['qkv_native_attention']}, "
+          f"f32 serve {serve_launches}; flash_attention_fwd (the head-major wrapper of the same CUDA "
+          f"kernel) is off both paths at S <= 512", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,6 +9,11 @@ of two (one batch) or to ``batch_size`` (a bulk encode), as the reference
 pads them. PyTorch launches asynchronously, so the host tokenizes the next
 batch while the card encodes the current one; the results come back to
 the host in one copy.
+
+On the card the encoder's "auto" route takes the fused bf16 blocks under
+bf16 and the f32 attention kernels ("pallas") under f32. An embedder
+built from trained params (``training.loop.train``) serves them as they
+are.
 """
 
 import hashlib

@@ -16,19 +16,33 @@ Attention routes (``attention_impl``):
   kernels on a CUDA tensor;
 - ``"fused_plain"``: the same blocks through their plain versions, the
   reference the kernels are held against on the card;
-- ``"auto"``: ``"fused"`` on CUDA under bf16 at S <= 512 (the reference
-  routes its bf16 TPU encode to the same two blocks), else ``"xla"``.
+- ``"pallas"``: the unfused layer with its attention through
+  ``ops.flash_attention.fused_qkv_attention`` (the reference's "pallas"
+  route), whose autograd function launches the hand-written f32
+  attention kernels forward and backward on a CUDA tensor;
+- ``"pallas_plain"``: the same autograd function on its plain versions;
+- ``"auto"``: the reference's TPU choice on a CUDA tensor: ``"fused"``
+  with tanh GELU at S <= 512, else ``"pallas"`` (its f32 route: serving
+  and training). Where the port lacks that route's kernels (the fused
+  blocks in f32, the attention kernels in bf16 or at S > 512) the route
+  raises and names them; it never falls back to plain PyTorch on the
+  card. ``"xla"`` is the route on the CPU.
+
+``bert_forward`` is differentiable; ``remat=True`` recomputes each layer
+in the backward (``torch.utils.checkpoint``) instead of saving it.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from dial_rag_tpu_torch.ops import flash_attention as fa
 from dial_rag_tpu_torch.ops import fused_encoder as fe
 
 LAYERNORM_EPS = 1e-12
-ATTENTION_IMPLS = ("auto", "xla", "fused", "fused_plain")
+ATTENTION_IMPLS = ("auto", "xla", "fused", "fused_plain", "pallas", "pallas_plain")
 
 
 @dataclass(frozen=True)
@@ -150,7 +164,9 @@ def prepare_params(params: dict, device, compute_dtype) -> dict:
     once here keeps it out of every forward."""
 
     def move(t, dtype=torch.float32):
-        return t.to(device=device, dtype=dtype).contiguous()
+        # detached: an encoder serves trained params as they are, and a
+        # training run that goes on does not change what it serves
+        return t.detach().to(device=device, dtype=dtype).contiguous()
 
     out = {
         "embeddings": {
@@ -188,19 +204,25 @@ def _dense(x, p):
     return (fe._f32_matmul(x, p["kernel"], x.dtype) + p["bias"].float()).to(x.dtype)
 
 
-def _xla_layer(x, layer, bias, num_heads, gelu):
-    """The reference's unfused layer ("xla" route), cast for cast."""
-    b, s, h = x.shape
-    dh = h // num_heads
-    qkv = _dense(x, layer["qkv"]).reshape(b, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
+def _xla_attention(qkv, bias, num_heads):
+    """The reference's unfused attention ("xla" route), cast for cast:
+    [B, S, 3H] -> [B, S, H]."""
+    b, s, three_h = qkv.shape
+    dh = three_h // 3 // num_heads
+    q, k, v = qkv.reshape(b, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     scores = q.float() @ k.float().transpose(-1, -2)
     scores = scores / np.sqrt(dh) + bias[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = (probs.float() @ v.float()).to(x.dtype)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h)
+    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    ctx = (probs.float() @ v.float()).to(qkv.dtype)
+    return ctx.transpose(1, 2).reshape(b, s, three_h // 3)
+
+
+def _unfused_layer(x, layer, attend, gelu):
+    """One layer in the reference's unfused order: QKV product, attention
+    (``attend``: [B, S, 3H] -> [B, S, H]), out-projection, residual and
+    LayerNorm, FFN."""
     x = _layernorm(
-        x + _dense(ctx, layer["attn_out"]),
+        x + _dense(attend(_dense(x, layer["qkv"])), layer["attn_out"]),
         layer["attn_ln"]["scale"],
         layer["attn_ln"]["bias"],
     )
@@ -211,6 +233,29 @@ def _xla_layer(x, layer, bias, num_heads, gelu):
         ffn = torch.nn.functional.gelu(ffn, approximate="tanh")
     ffn = _dense(ffn, layer["ffn_out"])
     return _layernorm(x + ffn, layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"])
+
+
+def _fused_layer(x, layer, attention_mask, num_heads, attn_block, ffn_block):
+    x = attn_block(
+        x,
+        attention_mask,
+        layer["qkv"]["kernel"],
+        layer["qkv"]["bias"],
+        layer["attn_out"]["kernel"],
+        layer["attn_out"]["bias"],
+        layer["attn_ln"]["scale"],
+        layer["attn_ln"]["bias"],
+        num_heads,
+    )
+    return ffn_block(
+        x,
+        layer["ffn_in"]["kernel"],
+        layer["ffn_in"]["bias"],
+        layer["ffn_out"]["kernel"],
+        layer["ffn_out"]["bias"],
+        layer["ffn_ln"]["scale"],
+        layer["ffn_ln"]["bias"],
+    )
 
 
 def embed_tokens(params, input_ids: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -226,6 +271,20 @@ def embed_tokens(params, input_ids: torch.Tensor, compute_dtype) -> torch.Tensor
     return _layernorm(x, emb["layernorm"]["scale"], emb["layernorm"]["bias"]).to(compute_dtype)
 
 
+def resolve_attention_impl(attention_impl, input_ids, gelu):
+    """``"auto"`` -> on a CUDA tensor, the route the reference's TPU run
+    takes (``dial_rag_tpu/models/bert.py:510-523``); on the CPU, "xla"."""
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unsupported attention_impl: {attention_impl!r}")
+    if attention_impl != "auto":
+        return attention_impl
+    if not input_ids.is_cuda:
+        return "xla"
+    if fe.supports_fused_block(input_ids.shape[1]) and gelu == "tanh":
+        return "fused"
+    return "pallas"
+
+
 def bert_forward(
     params,
     input_ids: torch.Tensor,
@@ -234,62 +293,52 @@ def bert_forward(
     num_heads: int,
     compute_dtype=torch.float32,
     attention_impl: str = "auto",
+    remat: bool = False,
     gelu: str = "auto",
 ) -> torch.Tensor:
     """[B, S] ids + mask -> [B, S, H] hidden states in ``compute_dtype``.
 
     ``gelu``: "exact" (erf, HF BertModel), "tanh", or "auto" = exact under
-    f32 and tanh under bf16, as in the reference."""
-    if attention_impl not in ATTENTION_IMPLS:
-        raise ValueError(f"unsupported attention_impl: {attention_impl!r}")
+    f32 and tanh under bf16, as in the reference. ``remat=True`` wraps each
+    layer in ``torch.utils.checkpoint``: under autograd its activations are
+    recomputed in the backward instead of saved."""
     if gelu == "auto":
         gelu = "exact" if compute_dtype == torch.float32 else "tanh"
+    attention_impl = resolve_attention_impl(attention_impl, input_ids, gelu)
     s = input_ids.shape[1]
-    if attention_impl == "auto":
-        attention_impl = (
-            "fused"
-            if input_ids.is_cuda
-            and compute_dtype == torch.bfloat16
-            and fe.supports_fused_block(s)
-            and gelu == "tanh"
-            else "xla"
-        )
     if attention_impl in ("fused", "fused_plain"):
         if not fe.supports_fused_block(s):
             raise ValueError(f"attention_impl={attention_impl!r} needs S <= 512, got S={s}")
         if gelu != "tanh":
             raise ValueError(f"attention_impl={attention_impl!r} implements tanh GELU only")
-    if attention_impl == "fused":
-        attn_block, ffn_block = fe.fused_attention_block, fe.fused_ffn_block
+        blocks = (
+            (fe.fused_attention_block, fe.fused_ffn_block)
+            if attention_impl == "fused"
+            else (fe.fused_attention_block_plain, fe.fused_ffn_block_plain)
+        )
+
+        def layer_fn(x, layer):
+            return _fused_layer(x, layer, attention_mask, num_heads, *blocks)
     else:
-        attn_block, ffn_block = fe.fused_attention_block_plain, fe.fused_ffn_block_plain
+        if attention_impl == "xla":
+            bias = fe.mask_bias(attention_mask)
+
+            def attend(qkv):
+                return _xla_attention(qkv, bias, num_heads)
+        else:
+            plain = attention_impl == "pallas_plain"
+
+            # the reference's "pallas" attention at S <= 512; longer
+            # sequences take its blocked kernels, so this raises there
+            def attend(qkv):
+                return fa.fused_qkv_attention(qkv, attention_mask, num_heads, plain=plain)
+
+        def layer_fn(x, layer):
+            return _unfused_layer(x, layer, attend, gelu)
 
     x = embed_tokens(params, input_ids, compute_dtype)
-    bias = fe.mask_bias(attention_mask)
     for layer in params["layers"]:
-        if attention_impl == "xla":
-            x = _xla_layer(x, layer, bias, num_heads, gelu)
-            continue
-        x = attn_block(
-            x,
-            attention_mask,
-            layer["qkv"]["kernel"],
-            layer["qkv"]["bias"],
-            layer["attn_out"]["kernel"],
-            layer["attn_out"]["bias"],
-            layer["attn_ln"]["scale"],
-            layer["attn_ln"]["bias"],
-            num_heads,
-        )
-        x = ffn_block(
-            x,
-            layer["ffn_in"]["kernel"],
-            layer["ffn_in"]["bias"],
-            layer["ffn_out"]["kernel"],
-            layer["ffn_out"]["bias"],
-            layer["ffn_ln"]["scale"],
-            layer["ffn_ln"]["bias"],
-        )
+        x = checkpoint(layer_fn, x, layer, use_reentrant=False) if remat else layer_fn(x, layer)
     return x
 
 

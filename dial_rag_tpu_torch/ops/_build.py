@@ -39,6 +39,12 @@ SIGNATURES = {
     "fused_ffn": {
         "dial_ffn_block_bf16": [_P] * 8 + [_I, _I, _P],
     },
+    "flash_attention_fwd": {
+        "dial_attention_fwd_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
+    },
+    "flash_attention_bwd": {
+        "dial_attention_bwd_f32": [_P] * 10 + [_I, _I, _I, _F, _P],
+    },
 }
 
 

@@ -5,13 +5,17 @@ so it runs on a machine with the card and PyTorch only:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: the root conftest configures JAX for the CPU tests.)
-Tolerance: bf16 3e-2, the reference's own bf16 tolerance for its fused
-blocks (tests/test_fused_encoder.py).
+Tolerances: bf16 3e-2, the reference's own bf16 tolerance for its fused
+blocks (tests/test_fused_encoder.py); the f32 attention forward 2e-5, ten
+times the reference's 2e-6 (tests/test_flash_attention.py) for another
+summation order over S <= 512 keys; its gradients atol 5e-5, rtol 1e-4,
+the reference's own.
 """
 
 import pytest
 import torch
 
+from dial_rag_tpu_torch.ops import flash_attention as tfa
 from dial_rag_tpu_torch.ops import fused_encoder as tfe
 
 
@@ -77,3 +81,99 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def _attention_inputs(device, b, s, heads=12, dh=32, seed=5):
+    """Packed qkv [B, S, 3H] f32, a ragged mask with one fully masked row,
+    and a cotangent [B, S, H]."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(device)
+    mask = torch.ones(b, s, dtype=torch.int32)
+    mask[0, s // 2 :] = 0
+    mask[-1, :] = 0
+    cot = torch.randn(b, s, heads * dh, generator=g).to(device)
+    return qkv, mask.to(device), cot
+
+
+def _grads(fn, inputs, cot):
+    inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    (fn(*inputs) * cot).sum().backward()
+    return [t.grad for t in inputs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (4, 64)])
+def test_attention_kernels_match_plain_on_card(cuda_device, b, s):
+    """Kernels 4 (packed qkv) and 5 (head-major) forward, and kernel 8
+    through both backwards, against the plain versions: a ragged S (not a
+    multiple of the 32-row tiles), the longest S and a fully masked row."""
+    heads = 12
+    qkv, mask, cot = _attention_inputs(cuda_device, b, s, heads)
+    tfa.reset_launches()
+    out = tfa.fused_qkv_attention(qkv, mask, heads)
+    ref = tfa.fused_qkv_attention(qkv, mask, heads, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-5
+    got = _grads(lambda x: tfa.fused_qkv_attention(x, mask, heads), [qkv], cot)[0]
+    want = _grads(lambda x: tfa.fused_qkv_attention(x, mask, heads, plain=True), [qkv], cot)[0]
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+
+    q, k, v = (t.contiguous() for t in tfa._split_heads(qkv, heads))
+    cot_h = cot.view(b, s, heads, -1).transpose(1, 2).contiguous()
+    out = tfa.flash_attention(q, k, v, mask)
+    ref = tfa.flash_attention(q, k, v, mask, plain=True)
+    assert (out - ref).abs().max().item() <= 2e-5
+    got = _grads(lambda *x: tfa.flash_attention(*x, mask), [q, k, v], cot_h)
+    want = _grads(lambda *x: tfa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"qkv_native_attention": 2, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_attention_kernel_backward_is_reproducible(cuda_device):
+    """No atomics: two backward calls give the same bits."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, 128)
+    a = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
+    b = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
+    qkv, mask, _ = _attention_inputs(cuda_device, 1, 64)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.fused_qkv_attention(qkv.bfloat16(), mask, 12)
+    q = torch.zeros(1, 2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.flash_attention(q, q, q, mask)
+    long_qkv = torch.zeros(1, 520, 1152, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        tfa.fused_qkv_attention(long_qkv, torch.ones(1, 520, device=cuda_device), 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,gelu,s,error,match",
+    [
+        (torch.bfloat16, "exact", 64, ValueError, "float32"),
+        (torch.float32, "tanh", 64, ValueError, "bfloat16"),
+        (torch.float32, "exact", 600, NotImplementedError, "blocked"),
+    ],
+)
+def test_auto_route_raises_where_kernels_are_missing(cuda_device, dtype, gelu, s, error, match):
+    """"auto" on the card takes the reference's TPU route; where the port
+    lacks that route's kernels (the attention kernels in bf16 or at S >
+    512, the fused blocks in f32) it raises instead of running plain
+    PyTorch."""
+    from dial_rag_tpu_torch.models.bert import BertConfig, bert_forward, init_params, prepare_params
+
+    config = BertConfig(vocab_size=64, hidden_size=384, num_layers=1, num_heads=12,
+                        intermediate_size=1536, max_position_embeddings=1024)
+    params = prepare_params(init_params(config, torch.Generator().manual_seed(0)), cuda_device, dtype)
+    ids = torch.ones(2, s, dtype=torch.long, device=cuda_device)
+    mask = torch.ones(2, s, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(error, match=match):
+        bert_forward(params, ids, mask, num_heads=12, compute_dtype=dtype, gelu=gelu)

@@ -1,10 +1,11 @@
 """The port stands alone: ``dial_rag_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``dial_rag_tpu``, nor the packages the card's
-machine lacks (safetensors, pydantic, yaml, aiohttp).
+machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax).
 
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
-main path end to end. An AST scan checks the sources as well.
+main path end to end, one f32 "pallas" encode and one training step. An
+AST scan checks the sources as well.
 """
 
 import ast
@@ -17,7 +18,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dial_rag_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "dial_rag_tpu", "safetensors", "pydantic", "yaml", "aiohttp")
+FORBIDDEN = (
+    "jax", "jaxlib", "dial_rag_tpu", "safetensors", "pydantic", "yaml", "aiohttp", "optax", "orbax",
+)
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -38,6 +41,7 @@ for mod in pkgutil.walk_packages(dial_rag_tpu_torch.__path__, "dial_rag_tpu_torc
 import torch
 from dial_rag_tpu_torch.documents.model import build_chunks_list
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+from dial_rag_tpu_torch.models.bert import BertEncoder
 from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
 
 emb = BgeEmbedder.from_hf_checkpoint(
@@ -52,6 +56,24 @@ record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(e
 retriever = SemanticRetriever.from_doc_records(emb, [record], k=2)
 hits = retriever.retrieve_batch(["highest mountains in europe", "rivers of the alps"])
 assert [len(h) for h in hits] == [2, 2], hits
+
+# the f32 "pallas" route (its autograd function on the plain versions here)
+ids, mask = emb.tokenizer.encode_batch(["glaciers carve valleys"])
+enc = emb.encoder
+pallas = BertEncoder(enc.config, compute_dtype=torch.float32, attention_impl="pallas", pooling=enc.pooling)
+out = pallas.encode(emb.params, torch.from_numpy(ids).long(), torch.from_numpy(mask))
+ref = enc.encode(emb.params, torch.from_numpy(ids).long(), torch.from_numpy(mask))
+assert torch.allclose(out, ref, atol=1e-5), (out - ref).abs().max()
+
+# one training step
+import dataclasses
+from dial_rag_tpu_torch.models.bert import BertConfig
+from dial_rag_tpu_torch.training.loop import TrainConfig, train
+cfg = TrainConfig(batch_size=2, seq_len=32, total_steps=1, warmup_steps=1, checkpoint_every=10)
+tiny = dataclasses.replace(BertConfig.tiny(), vocab_size=enc.config.vocab_size)
+_, losses = train(tiny, cfg, [("alps", "the alps"), ("rhine", "the rhine")], emb.tokenizer,
+                  device="cpu")
+assert len(losses) == 1 and losses[0] == losses[0], losses
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("OK", hits[0][0].chunk_id, hits[1][0].chunk_id)
