@@ -7,9 +7,10 @@ Phases, each announced by a ``[phase]`` line:
 
 1. device: the card's name, CUDA version and ``nvidia-smi`` name/power limit;
 2. build: ``nvcc`` builds the kernels in ``dial_rag_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version at B=128,
-   S=256, H=384 bf16 with the shipped checkpoint's layer-0 weights, and
-   timed (CUDA events) beside its bound and a PyTorch composition;
+3. kernels: each bf16 block kernel (attention, FFN, whole layer) against
+   its plain PyTorch version at B=128, S=256, H=384 with the shipped
+   checkpoint's layer-0 weights, and timed (CUDA events) beside its bound
+   and a PyTorch composition;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
    2048 chunks into a ``SemanticRetriever`` and answers queries; a seeded
    1M x 384 f32 ``DenseIndex`` answers ``find_batch``. The kernels' launch
@@ -17,13 +18,24 @@ Phases, each announced by a ``[phase]`` line:
    the same path through the plain versions; embeddings must agree with
    the f32 path on a few chunks.
 
-5. attention kernels: the f32 attention forward (packed qkv and
-   head-major, one strided CUDA kernel) and its recompute-P backward
+   whole-layer serve: 256 of those chunks and 16 queries through the
+   "fused_layer" route (the whole-layer kernel); its launches must equal
+   12 x the encode batches, its embeddings agree with the "fused" and
+   "fused_layer_plain" routes and its top-1 with the plain route;
+5. attention kernels: the f32 single-tile attention forward (packed qkv
+   and head-major, one strided CUDA kernel) and its recompute-P backward
    against their plain versions at bge-small widths (12 heads of 32),
-   ragged S and a fully masked row, at fixed shapes and at every (B, S)
-   the training and f32 serve phases give them; timed beside their
-   bound, the plain version and ``F.scaled_dot_product_attention`` (f32,
-   additive mask);
+   ragged S and a fully masked row, at fixed shapes, at S = 520 and at the
+   longest S their shared memory takes, and at every (B, S) the training
+   and f32 serve phases give them; past that S they must raise. The
+   long-sequence forwards (query-blocked and KV-blocked, f32 and bf16)
+   against theirs at [4, 12, 1024], [2, 12, 2048], [1, 12, 4096] and
+   [1, 12, 8192] (log-sum-exp too). Each timed beside its bound, the plain
+   version and ``F.scaled_dot_product_attention`` (additive mask);
+   bf16 gradient: one bf16 ``contrastive_loss`` backward through "auto"
+   (the fused block kernels, recompute backward) against the
+   "fused_plain" route: the whole gradient's cosine > 0.9999, and each
+   tensor at least as close as the plain "xla" route is;
 6. training: ``train()`` fine-tunes ``checkpoints/alps-semantic`` in f32
    at full width and depth for 20 steps of 32 (question, fact) pairs from
    ``eval/data/alps_handmade_questions.json``, no batch holding one fact
@@ -36,7 +48,15 @@ Phases, each announced by a ``[phase]`` line:
 7. f32 serve: the trained params in an f32 ``BgeEmbedder`` embed the 155
    facts into a ``SemanticRetriever`` and answer the 155 questions; the
    forward counter must equal 12 x the encode batches and top-1 must
-   agree with the plain route.
+   agree with the plain route;
+8. long-document serve: a bge-small-width, 12-layer encoder with 8192
+   positions and seeded weights, the ``alps-semantic`` vocabulary and
+   tokenizer buckets up to 8192, indexes long texts made of the Alps
+   oracle chunks (encode batches at S = 1024, 2048, 4096 and 8192) in bf16
+   and in f32 and answers queries; the query-blocked and KV-blocked
+   kernels' launches must equal 12 x their encode batches, the
+   embeddings agree with the "pallas_plain" route (cosine) and top-1
+   with it apart from near-ties.
 
 The second-to-last line is a JSON object with the kernels' numbers, the
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -70,6 +90,24 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # order over S <= 512 keys; gradients the reference's own atol and rtol
 F32_FWD_TOL = 2e-5
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
+LSE_TOL = 1e-5  # the reference's long-context lse tolerance (tests/test_flash_attention.py)
+GRAD_COS = 0.9999  # bf16 gradients, kernel route vs plain route (the whole gradient)
+# per tensor, the kernel route's cosine to the "fused_plain" route may fall
+# at most this below the "xla" route's: on an H100 80GB HBM3 (700 W) it
+# lay 2.3e-5 or more above it for every tensor of the first 6 batches
+GRAD_COS_EPS = 0.0
+# long-document serve: buckets past 512, rows per encode batch, and the
+# token count of each text (four encode batches, at S = 1024, 2048, 4096
+# and 8192; the last batch has two pad rows, which are fully masked)
+LONG_BUCKETS = (1024, 2048, 4096, 8192)
+LONG_MAX_POSITIONS = 8192
+LONG_BATCH = 4
+LONG_TARGETS = (1000, 700, 850, 1020, 2000, 1500, 1800, 1200, 4000, 3000, 2500, 4090, 8000, 6000)
+LONG_QUERIES = 8
+LAYER_SUBSET = 256  # chunks of the main path served through the whole-layer route
+# whole-layer route vs its plain composition, bf16 document embeddings
+# (unit norm): the measured cosine is 0.999975 on an H100 80GB HBM3 at 700 W
+LAYER_PLAIN_COS = 0.9999
 
 
 def phase(name: str) -> None:
@@ -152,9 +190,14 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
         return err
 
     # every shape gated: a full f32 serving bucket (B=128, S=256), a full
-    # training bucket (B=32, S=128), a ragged S, the longest S, and each
-    # shape the main path's phases below give the kernels
-    fixed = [("bucket", 128, 256), ("bucket", 32, 128), ("ragged", 32, 100), ("longest", 4, 512)]
+    # training bucket (B=32, S=128), a ragged S, S = 512, S = 520 (past
+    # one 512 tile, not a multiple of 256: still single-tile, as in the
+    # reference), the longest S the backward's shared memory takes, and
+    # each shape the main path's phases below give the kernels
+    fwd_max, bwd_max = fa.single_tile_max_s("fwd"), fa.single_tile_max_s("bwd")
+    print(f"single-tile limits on this card: forward S <= {fwd_max}, backward S <= {bwd_max}", flush=True)
+    fixed = [("bucket", 128, 256), ("bucket", 32, 128), ("ragged", 32, 100), ("one tile", 4, 512),
+             ("past one tile", 2, 520), ("backward limit", 2, bwd_max)]
     for use, b, s in fixed + [t for t in path_shapes if t[1:] not in {f[1:] for f in fixed}]:
         qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=b + s)
         with torch.no_grad():
@@ -177,6 +220,28 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
         print(f"attention kernels at B={b} S={s} ({use}; ragged rows, one fully masked): max abs err "
               f"qkv_native {e4:.3g}, head-major {e5:.3g} (tolerance {F32_FWD_TOL}); backward "
               f"packed {e8p:.3g}, head-major {e8h:.3g} (atol {GRAD_ATOL}, rtol {GRAD_RTOL})", flush=True)
+
+    # the forward at its own limit (B=2: a ragged row and a fully masked
+    # one), and both kernels past their limits, where they must raise
+    qkv, mask, _ = attention_inputs(torch, dev, 2, fwd_max, heads, dh, seed=fwd_max)
+    q, k, v = fa._split_heads(qkv, heads)
+    with torch.no_grad():
+        e4 = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
+                       fa.fused_qkv_attention(qkv, mask, heads, plain=True))
+        e5 = check_fwd("flash_attention_fwd", fa.flash_attention(q, k, v, mask),
+                       fa.flash_attention(q, k, v, mask, plain=True))
+    print(f"attention forward at B=2 S={fwd_max} (forward limit): max abs err qkv_native {e4:.3g}, "
+          f"head-major {e5:.3g} (tolerance {F32_FWD_TOL})")
+    for direction, limit in (("fwd", fwd_max), ("bwd", bwd_max)):
+        s = limit + 64
+        qkv, mask, cot = attention_inputs(torch, dev, 1, s, heads, dh, seed=s)
+        try:
+            grads(lambda x: fa.fused_qkv_attention(x, mask, heads), [qkv], cot)
+        except NotImplementedError as e:
+            print(f"single-tile {direction} past its limit, S={s}: raises NotImplementedError ({e})")
+        else:
+            raise RuntimeError(f"the single-tile {direction} kernel took S={s}, past its limit {limit}")
+    sys.stdout.flush()
 
     f32 = 4
     rows = {}
@@ -246,6 +311,94 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
         10 * b * heads * s * s * dh, 7 * head_bytes + b * s * f32,
         "dial_rag_tpu/ops/flash_attention.py:313", "dial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
         f"q, k, v, dO [{b},{heads},{s},{dh}]")
+    return rows
+
+
+def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
+    """Kernels 6 (query-blocked) and 7 (KV-blocked, with its log-sum-exp)
+    against their plain versions in f32 and bf16, q, k and v read as views
+    of a packed qkv as the model reads them. Gated at fixed shapes and at
+    each encode batch of the long-document phase (``path``: the lengths of
+    its rows, pad rows 0), there once with the batch's own lengths and
+    once with a full row, ragged rows and a fully masked one; at B = 1 the
+    one row is ragged. Each kernel is timed in both dtypes beside its
+    bound, the plain version and SDPA with the additive mask; the row
+    holds the bf16 times (the serving dtype)."""
+    import torch.nn.functional as F
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+
+    def inputs(b, s, dtype, seed, lengths=None):
+        g = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev, dtype)
+        if lengths is None:
+            lengths = torch.randint(s // 2, s, (b,), generator=g)
+            if b > 2:
+                lengths[0] = s
+            if b > 1:
+                lengths[-1] = 0
+        mask = (torch.arange(s)[None, :] < torch.as_tensor(lengths)[:, None]).to(torch.int32)
+        return (*fa._split_heads(qkv, heads), mask.to(dev))
+
+    def gate(name, b, s, lengths, what):
+        for dtype, tol in ((torch.float32, F32_FWD_TOL), (torch.bfloat16, TOLERANCE)):
+            q, k, v, mask = inputs(b, s, dtype, seed=b * s, lengths=lengths)
+            with torch.no_grad():
+                o, lse = fa._forward(q, k, v, mask)
+                ref, ref_lse = fa._forward(q, k, v, mask, plain=True)
+            torch.cuda.synchronize()
+            if not torch.isfinite(o.float()).all() or (lse is not None and not torch.isfinite(lse).all()):
+                raise RuntimeError(f"{name}: kernel output is not finite")
+            err = (o.float() - ref.float()).abs().max().item()
+            lse_err = None if lse is None else (lse - ref_lse).abs().max().item()
+            print(f"{name} at [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}, {what} (row lengths "
+                  f"{mask.sum(1).tolist()}): max abs err {err:.3g} (tolerance {tol})"
+                  + ("" if lse is None else f", lse {lse_err:.3g} (tolerance {LSE_TOL})"), flush=True)
+            if not err <= tol or (lse is not None and not lse_err <= LSE_TOL):
+                raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
+
+    rows = {}
+    for name, route, shapes, timed, replaces in (
+        ("attention_q_blocked", "q_blocked", [(4, 1024), (2, 2048), (1, 4096)], (1, 4096),
+         "dial_rag_tpu/ops/flash_attention.py:115"),
+        ("attention_kv_blocked_fwd", "kv_blocked", [(1, 8192)], (1, 8192),
+         "dial_rag_tpu/ops/flash_attention.py:165"),
+    ):
+        own = [(len(lengths), s, lengths) for s, lengths in path if fa.attention_route(s) == route]
+        if not own:
+            raise RuntimeError(f"the long-document phase gives the {route} kernel no batch")
+        for b, s in shapes + [(b, s) for b, s, _ in own if (b, s) not in shapes]:
+            if fa.attention_route(s) != route:
+                raise RuntimeError(f"S={s} does not take the {route} kernel")
+            gate(name, b, s, None, "ragged rows" + (", one fully masked" if b > 1 else ""))
+        for b, s, lengths in own:
+            gate(name, b, s, lengths, "the long-document batch's own rows")
+        b, s = timed
+        row = None
+        for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+            q, k, v, mask = inputs(b, s, dtype, seed=7)
+            size = q.element_size()
+            keep = fa.mask_bias(mask)[:, None, None, :].to(dtype)
+            with torch.no_grad():
+                err = (fa._forward(q, k, v, mask)[0].float() - fa._forward(q, k, v, mask, plain=True)[0].float())
+                err = err.abs().max().item()
+                ms = cuda_ms(torch, lambda: fa._forward(q, k, v, mask), iters=10)
+                plain_ms = cuda_ms(torch, lambda: fa._forward(q, k, v, mask, plain=True), iters=3)
+                library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), iters=10)
+            flops = 4 * b * heads * s * s * dh
+            nbytes = 4 * b * heads * s * dh * size + b * s * 4 + (b * heads * s * 4 if route == "kv_blocked" else 0)
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB) {card}", flush=True)
+            if not err <= (F32_FWD_TOL if dtype == torch.float32 else TOLERANCE):
+                raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
+            row = {
+                "name": name, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long.cu",
+                "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            }
+        rows[name] = row
     return rows
 
 
@@ -496,23 +649,314 @@ def f32_serve_phase(torch, card, base, trained) -> int:
     d_plain, q_plain = plain.embed_documents(facts), plain.embed_queries(queries)
     print(f"f32 serve, kernel route vs plain route: max abs diff documents "
           f"{np.abs(doc_emb - d_plain).max():.3g}, queries {np.abs(q_kernel - q_plain).max():.3g}")
-    plain_top = np.argmin(((q_plain[:, None, :] - d_plain[None, :, :]) ** 2).sum(-1), axis=1)
-    ties = 0
-    for qi, h in enumerate(hits):
-        ck, cp = h[0].chunk_id, int(plain_top[qi])
-        if ck == cp:
-            continue
-        d = ((doc_emb[[ck, cp]] - q_kernel[qi]) ** 2).sum(axis=1)
-        gap = abs(float(d[0] - d[1]))
-        print(f"top-1 near-tie, question {qi}: kernel fact {ck} vs plain fact {cp}, distance gap {gap:.3g}")
-        if gap >= TIE_GAP:
-            raise RuntimeError(f"f32 serve top-1 of question {qi} differs from the plain route by {gap}")
-        ties += 1
+    ties = top1_agree([h[0].chunk_id for h in hits], nearest(q_plain, d_plain), doc_emb, q_kernel, "f32 serve")
     recall = float(np.mean([h[0].chunk_id == i for i, h in enumerate(hits)]))
     print(f"f32 serve top-1 of {len(queries)} questions: kernel route = plain route ({ties} near-ties "
           f"below {TIE_GAP}); recall@1 before training {recall_at_1(base, facts, queries):.4f}, after "
           f"{recall:.4f} (not gated)", flush=True)
     return launches
+
+
+def leaf_names(tree, prefix="") -> list[str]:
+    """The names of ``param_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def bf16_gradient_readings(torch, base, cfg, batch) -> dict:
+    """One bf16 ``contrastive_loss`` backward on ``batch`` through "auto"
+    (on the card: the fused block kernels forward, their recompute
+    backward), "fused_plain" and "xla" (a second plain bf16 composition of
+    the same layer). The cosines of "auto" and of "xla" against
+    "fused_plain", per tensor (tensors the reference leaves all zero are
+    skipped) and of the whole gradient."""
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss
+    from dial_rag_tpu_torch.training.loop import trainable_params
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    model, dev = base.encoder.config, base.device
+    init = {"embeddings": base.params["embeddings"], "layers": base.params["layers"]}
+
+    def loss_and_grads(impl):
+        params = trainable_params(init, dev)
+        fe.reset_launches()
+        loss = contrastive_loss(params, batch, num_heads=model.num_heads, temperature=cfg.temperature,
+                                compute_dtype=torch.bfloat16, attention_impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), [t.grad for t in param_leaves(params)], dict(fe.LAUNCHES)
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    loss_k, grads_k, launches = loss_and_grads("auto")
+    loss_p, grads_p, _ = loss_and_grads("fused_plain")
+    loss_x, grads_x, _ = loss_and_grads("xla")
+    if not all(torch.isfinite(g).all() for g in grads_k):
+        raise RuntimeError("a bf16 gradient through the kernels is not finite")
+    kept = [i for i, r in enumerate(grads_p) if r.abs().max() > 0]
+    names = leaf_names(init)
+    whole = [cos(torch.cat([g.flatten() for g in grads]), torch.cat([r.flatten() for r in grads_p]))
+             for grads in (grads_k, grads_x)]
+    return {
+        "loss": {"auto": loss_k, "fused_plain": loss_p, "xla": loss_x}, "launches": launches,
+        "names": [names[i] for i in kept], "whole_k": whole[0], "whole_x": whole[1],
+        "per_k": [cos(grads_k[i], grads_p[i]) for i in kept], "per_x": [cos(grads_x[i], grads_p[i]) for i in kept],
+    }
+
+
+def bf16_gradient_phase(torch, base, cfg, stream) -> None:
+    """bf16 gradients of the kernel route against the "fused_plain" route
+    on the first training batch: the whole gradient's cosine must exceed
+    GRAD_COS, and each tensor's cosine may fall at most GRAD_COS_EPS below
+    the same tensor's cosine between the "xla" and "fused_plain" routes,
+    two plain compositions that differ only in bf16 rounding (the loss's
+    temperature, 0.02, scales every difference of the embeddings by 50)."""
+    from dial_rag_tpu_torch.training.loop import pairs_to_batches
+
+    first = next(pairs_to_batches(base.tokenizer, stream, cfg))
+    r = bf16_gradient_readings(torch, base, cfg, first)
+    per_k, per_x, names = r["per_k"], r["per_x"], r["names"]
+    short = [x - k for k, x in zip(per_k, per_x)]
+    worst = max(range(len(short)), key=short.__getitem__)
+    expected = base.encoder.config.num_layers * 2
+    print(f"bf16 contrastive_loss (B={first['q_ids'].shape[0]}, S={first['q_ids'].shape[1]}), against the "
+          f"\"fused_plain\" route: losses {r['loss']}; gradient cosine whole \"auto\" (kernels) "
+          f"{r['whole_k']:.8f} (limit {GRAD_COS}), \"xla\" {r['whole_x']:.8f}; per tensor min \"auto\" "
+          f"{min(per_k):.8f}, \"xla\" {min(per_x):.8f}; largest shortfall of \"auto\" below \"xla\" "
+          f"{short[worst]:.3g} at {names[worst]} ({per_k[worst]:.8f} vs {per_x[worst]:.8f}, limit "
+          f"{GRAD_COS_EPS}); {len(per_k)} tensors; launches {r['launches']}, expected {expected} per block",
+          flush=True)
+    if r["launches"]["fused_attention_block"] != expected or r["launches"]["fused_ffn_block"] != expected:
+        raise RuntimeError("the bf16 training forward bypassed the fused block kernels")
+    if not r["whole_k"] > GRAD_COS:
+        raise RuntimeError(f"bf16 gradients through the kernels disagree with the plain route: whole {r['whole_k']}")
+    bad = [(n, k, x) for n, k, x, d in zip(names, per_k, per_x, short) if not d <= GRAD_COS_EPS]
+    if bad:
+        raise RuntimeError(f"bf16 gradients through the kernels fall more than {GRAD_COS_EPS} below the "
+                           f"plain-vs-plain cosine at (tensor, auto, xla): {bad}")
+
+
+def top1_agree(kernel_top, plain_top, doc_emb, q_emb, what) -> int:
+    """Top-1 of the kernel route equal to the plain route's, apart from
+    near-ties (distance gap below TIE_GAP); returns the near-ties."""
+    ties = 0
+    for qi, (ck, cp) in enumerate(zip(kernel_top, plain_top)):
+        if ck == cp:
+            continue
+        d = ((doc_emb[[ck, cp]] - q_emb[qi]) ** 2).sum(axis=1)
+        gap = abs(float(d[0] - d[1]))
+        print(f"top-1 near-tie, {what} query {qi}: kernel {ck} vs plain {cp}, distance gap {gap:.3g}")
+        if gap >= TIE_GAP:
+            raise RuntimeError(f"{what}: top-1 of query {qi} differs from the plain route by {gap}")
+        ties += 1
+    return ties
+
+
+def nearest(q, d):
+    import numpy as np
+
+    return np.argmin(((q[:, None, :] - d[None, :, :]) ** 2).sum(-1), axis=1)
+
+
+def whole_layer_phase(torch, card, embedder, texts, queries) -> int:
+    """A subset of the main path's chunks and queries served in bf16
+    through the "fused_layer" route; returns the whole-layer kernel's
+    launches in that run."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder, _bucket_rows
+    from dial_rag_tpu_torch.models.bert import BertEncoder, _layer_weights, embed_tokens
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+
+    cfg = embedder.encoder.config
+    docs, queries = texts[:LAYER_SUBSET], queries[:N_TOP1]
+
+    def route(impl):
+        return BgeEmbedder(
+            tokenizer=embedder.tokenizer,
+            encoder=BertEncoder(cfg, compute_dtype=torch.bfloat16, attention_impl=impl,
+                                pooling=embedder.encoder.pooling),
+            params=embedder.params, device=embedder.device, query_instruction=embedder.query_instruction,
+            batch_size=embedder.batch_size, model_id=embedder.model_id,
+        )
+
+    layer, plain = route("fused_layer"), route("fused_layer_plain")
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    d_layer = layer.embed_documents(docs)
+    q_layer = layer.embed_queries(queries)
+    elapsed = time.perf_counter() - t0
+    launches = fe.LAUNCHES["fused_layer_block"]
+    n_batches = -(-len(docs) // layer.batch_size) + 1
+    print(f"whole-layer serve: {len(docs)} chunks and {len(queries)} queries in {elapsed:.3f} s; launches "
+          f"{dict(fe.LAUNCHES)}; encode batches {n_batches} {card}")
+    if launches != cfg.num_layers * n_batches or launches == 0:
+        raise RuntimeError(f"the whole-layer route launched its kernel {launches} times, expected "
+                           f"{cfg.num_layers * n_batches}: it bypassed the kernel")
+    if not np.isfinite(d_layer).all() or d_layer.shape != (len(docs), cfg.hidden_size):
+        raise RuntimeError(f"bad whole-layer embeddings: {d_layer.shape}")
+    d_fused, d_plain = embedder.embed_documents(docs), plain.embed_documents(docs)
+    q_plain = plain.embed_queries(queries)
+    # kernel 3 runs the device code of kernels 1 and 2 in their order, so
+    # its embeddings equal the "fused" route's bit for bit
+    for other, d, limit in (("fused", d_fused, None), ("fused_layer_plain", d_plain, LAYER_PLAIN_COS)):
+        cos = (d_layer * d).sum(axis=1)
+        print(f"whole-layer route vs \"{other}\" route, {len(docs)} chunks: max abs diff "
+              f"{np.abs(d_layer - d).max():.3g}, cosine min {cos.min():.8f} "
+              f"({'bit-equal required' if limit is None else f'limit {limit}'})")
+        if (limit is None and not np.array_equal(d_layer, d)) or (limit is not None and not cos.min() > limit):
+            raise RuntimeError(f"whole-layer embeddings disagree with the {other} route: cosine {cos.min()}")
+    ties = top1_agree(nearest(q_layer, d_layer), nearest(q_plain, d_plain), d_layer, q_layer, "whole-layer")
+    print(f"whole-layer top-1 of {len(queries)} queries: kernel route = plain route ({ties} near-ties below "
+          f"{TIE_GAP})")
+
+    # the kernel against its plain version at each serve shape (layer 0)
+    weights = _layer_weights(embedder.params["layers"][0])
+    for texts_b, rows in ((docs[: layer.batch_size], layer.batch_size),
+                          ([layer.query_instruction + q for q in queries], _bucket_rows(len(queries), layer.batch_size))):
+        ids, mask = layer.tokenizer.encode_batch(texts_b, max_len=layer.max_len)
+        ids = np.pad(ids, ((0, rows - len(texts_b)), (0, 0)))
+        mask = np.pad(mask, ((0, rows - len(texts_b)), (0, 0)))
+        ids_t = torch.from_numpy(ids).to(embedder.device, dtype=torch.long)
+        mask_t = torch.from_numpy(mask).to(embedder.device)
+        x = embed_tokens(embedder.params, ids_t, torch.bfloat16)
+        with torch.no_grad():
+            err = (fe.fused_layer_block(x, mask_t, weights, cfg.num_heads).float()
+                   - fe.fused_layer_block_plain(x, mask_t, weights, cfg.num_heads).float()).abs().max().item()
+        print(f"fused_layer_block at the serve shape B={rows} S={ids.shape[1]}: max abs err {err:.3g} "
+              f"(tolerance {TOLERANCE})")
+        if not err <= TOLERANCE:
+            raise RuntimeError(f"fused_layer_block disagrees with its plain version at B={rows} S={ids.shape[1]}")
+    sys.stdout.flush()
+    return launches
+
+
+def long_texts(tokenizer, targets) -> list[str]:
+    """Long texts made of the Alps oracle chunks: text i repeats chunks i
+    and i + 1, whole words, up to ``targets[i]`` tokens with [CLS] and
+    [SEP]; the real tokenizer counts them."""
+    chunks = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
+    out = []
+    for i, target in enumerate(targets):
+        words = (chunks[i % len(chunks)] + " " + chunks[(i + 1) % len(chunks)]).split()
+        picked, count, j = [], 2, 0
+        while True:
+            w = words[j % len(words)]
+            n = len(tokenizer.encode(w, max_len=1 << 30)) - 2
+            if count + n > target:
+                break
+            picked.append(w)
+            count += n
+            j += 1
+        out.append(" ".join(picked))
+    return out
+
+
+def long_path(tokenizer, docs, max_len) -> list[tuple[int, list[int]]]:
+    """(S, row lengths) of each encode batch of ``docs`` at LONG_BATCH
+    rows, padded as ``BgeEmbedder`` pads them (pad rows have length 0)."""
+    from dial_rag_tpu_torch.embeddings.embedder import _bucket_rows
+
+    rows = _bucket_rows(len(docs), LONG_BATCH) if len(docs) <= LONG_BATCH else LONG_BATCH
+    out = []
+    for i in range(0, len(docs), LONG_BATCH):
+        _, mask = tokenizer.encode_batch(docs[i : i + LONG_BATCH], max_len=max_len)
+        lengths = [int(n) for n in mask.sum(axis=1)]
+        out.append((mask.shape[1], lengths + [0] * (rows - len(lengths))))
+    return out
+
+
+def long_document_phase(torch, card, dev, config, params, tokenizer, docs, max_len) -> dict:
+    """Long texts indexed in bf16 and in f32 by an encoder whose "auto"
+    route takes the blocked attention kernels past S = 512; returns the
+    kernels' launches per dtype."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import build_chunks_list
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.models.bert import BertEncoder
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
+
+    chunks = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
+    queries = [" ".join(chunks[i].split()[:12]) for i in range(LONG_QUERIES)]
+    shapes = [s for s, _ in long_path(tokenizer, docs, max_len)]
+    tokens = sum(len(tokenizer.encode(t, max_len)) for t in docs)
+    routes = [fa.attention_route(s) for s in shapes]
+    print(f"long documents: {len(docs)} texts, {tokens} tokens, encode batches of {LONG_BATCH} rows at S = "
+          f"{shapes} ({routes}); {config.num_layers} layers, H={config.hidden_size}, "
+          f"{config.max_position_embeddings} positions, seeded weights", flush=True)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def embedder(impl):
+            return BgeEmbedder(tokenizer=tokenizer,
+                               encoder=BertEncoder(config, compute_dtype=dtype, attention_impl=impl, pooling="mean"),
+                               params=params, device=dev, batch_size=LONG_BATCH, max_len=max_len,
+                               model_id="long-seeded")
+
+        serve, plain = embedder("auto"), embedder("pallas_plain")
+        name = str(dtype)[6:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(
+            serve, build_chunks_list([(t, {}) for t in docs]))})()
+        retriever = SemanticRetriever.from_doc_records(serve, [record], k=1)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        hits = retriever.retrieve_batch(queries)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        expected = {r: config.num_layers * routes.count(r) for r in ("q_blocked", "kv_blocked")}
+        got = {"q_blocked": launches["attention_q_blocked"], "kv_blocked": launches["attention_kv_blocked_fwd"]}
+        print(f"long-document serve {name}: index build {len(docs)} texts, {tokens} tokens in {t_build:.3f} s: "
+              f"{len(docs) / t_build:.2f} chunks/s, {tokens / t_build:.0f} tokens/s; peak memory {peak:.1f} MiB; "
+              f"launches {launches}, expected {expected} {card}", flush=True)
+        if got != expected or not all(got.values()):
+            raise RuntimeError(f"long-document serve {name} bypassed the blocked kernels: {got} vs {expected}")
+        doc_emb = np.concatenate(record.embeddings_index)
+        if doc_emb.shape != (len(docs), config.hidden_size) or not np.isfinite(doc_emb).all():
+            raise RuntimeError(f"bad long-document embeddings: {doc_emb.shape}")
+        q_kernel = serve.embed_queries(queries)
+        d_plain, q_plain = plain.embed_documents(docs), plain.embed_queries(queries)
+        cos = (doc_emb * d_plain).sum(axis=1)
+        print(f"long-document serve {name}, kernel route vs \"pallas_plain\": max abs diff documents "
+              f"{np.abs(doc_emb - d_plain).max():.3g}, cosine min {cos.min():.8f}; queries "
+              f"{np.abs(q_kernel - q_plain).max():.3g}")
+        if not cos.min() > (0.999 if dtype == torch.bfloat16 else 0.99999):
+            raise RuntimeError(f"long-document embeddings ({name}) disagree with the plain route: {cos.min()}")
+        ties = top1_agree([h[0].chunk_id for h in hits], nearest(q_plain, d_plain), doc_emb, q_kernel,
+                          f"long-document {name}")
+        print(f"long-document {name} top-1 of {len(queries)} queries: kernel route = plain route ({ties} "
+              f"near-ties below {TIE_GAP})", flush=True)
+
+        # where one encode of the last (longest) batch spends the card's time
+        ids, mask = tokenizer.encode_batch(docs[(len(docs) - 1) // LONG_BATCH * LONG_BATCH :], max_len=max_len)
+        ids = torch.from_numpy(np.pad(ids, ((0, LONG_BATCH - len(ids)), (0, 0)))).to(dev, dtype=torch.long)
+        mask = torch.from_numpy(np.pad(mask, ((0, LONG_BATCH - len(mask)), (0, 0)))).to(dev)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            serve.encoder.encode(serve.params, ids, mask)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        print(f"profile of one long-document encode ({name}, B={LONG_BATCH}, S={ids.shape[1]}): device time "
+              f"{total_us / 1e3:.3f} ms {card}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+        sys.stdout.flush()
+        out[name] = launches
+        del serve, plain, retriever, record
+    return out
 
 
 def main() -> int:
@@ -601,14 +1045,19 @@ def main() -> int:
             (xx + o).float(), (hid,), layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], 1e-12
         ).bfloat16()
 
-    def ffn_library():
-        xx = ffn_args[0].view(m, hid)
+    def ffn_library(a=None):
+        xx = (ffn_args[0] if a is None else a).view(m, hid)
         h = torch.addmm(lib_bias["ffn_in"], xx, layer["ffn_in"]["kernel"])
         h = torch.nn.functional.gelu(h, approximate="tanh")
         y = torch.addmm(lib_bias["ffn_out"], h, layer["ffn_out"]["kernel"])
         return torch.nn.functional.layer_norm(
             (xx + y).float(), (hid,), layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"], 1e-12
         ).bfloat16()
+
+    layer_args = (x, mask_t, tuple(attn_args[2:8]) + tuple(ffn_args[1:]), heads)
+    layer_flops = attn_flops + ffn_flops
+    # x in, out, the mask, every weight once (a stays on chip)
+    layer_bytes = attn_bytes + ffn_bytes - 2 * m * hid * bf16
 
     rows = {}
     for name, kernel, plain, args, library, flops, nbytes, source, replaces in (
@@ -618,6 +1067,9 @@ def main() -> int:
         ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
          ffn_library, ffn_flops, ffn_bytes, "dial_rag_tpu_torch/csrc/fused_ffn.cu",
          "dial_rag_tpu/ops/fused_encoder.py:76"),
+        ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
+         lambda: ffn_library(attn_library()), layer_flops, layer_bytes, "dial_rag_tpu_torch/csrc/fused_layer.cu",
+         "dial_rag_tpu/ops/fused_encoder.py:365"),
     ):
         out = kernel(*args)
         ref = plain(*args)
@@ -641,7 +1093,7 @@ def main() -> int:
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
-    del x, a, attn_args, ffn_args
+    del x, a, attn_args, ffn_args, layer_args
 
     phase("main path")
     # host tokenization of the same texts, timed apart: the build's host share
@@ -678,7 +1130,7 @@ def main() -> int:
     launches = dict(fe.LAUNCHES)
     n_batches = -(-N_DOCS // embedder.batch_size) + 2 * -(-N_QUERIES // embedder.batch_size) + 5
     print(f"launches {launches}; encode batches {n_batches}; layers {cfg.num_layers}")
-    for name in rows:
+    for name in ("fused_attention_block", "fused_ffn_block"):
         rows[name]["launches"] = launches[name]
         if launches[name] != cfg.num_layers * n_batches:
             raise RuntimeError(f"{name} launched {launches[name]} times, expected "
@@ -717,17 +1169,8 @@ def main() -> int:
         plain_embedder, [type("R", (), {"embeddings_index": [e[None] for e in plain_doc]})()], k=1
     ).index
     plain_top = plain_index.find_batch(q_plain)
-    ties = 0
-    for qi in range(N_TOP1):
-        ck, cp = kernel_top[qi][0].chunk_id, plain_top[qi][0].chunk_id
-        if ck == cp:
-            continue
-        d = ((doc_emb[[ck, cp]] - q_kernel[qi]) ** 2).sum(axis=1)
-        gap = abs(float(d[0] - d[1]))
-        print(f"top-1 near-tie, query {qi}: kernel chunk {ck} vs plain chunk {cp}, distance gap {gap:.3g}")
-        if gap >= TIE_GAP:
-            raise RuntimeError(f"top-1 of query {qi} differs from the plain path by {gap}")
-        ties += 1
+    ties = top1_agree([h[0].chunk_id for h in kernel_top], [h[0].chunk_id for h in plain_top], doc_emb, q_kernel,
+                      "bf16 main path")
     print(f"top-1 of {N_TOP1} queries: kernel path = plain path ({ties} near-ties below {TIE_GAP})")
 
     # f32 reference on a few real chunks: the path the CPU tests pin to JAX
@@ -779,7 +1222,11 @@ def main() -> int:
           f"{t_big * 1e3:.2f} ms, find {t_big1 * 1e3:.2f} ms; top-1 = f64 scan on 4 queries {card}")
     print(f"peak memory (bf16 main path and 1M index): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"{card}")
-    del big, mat, d64, qd, embedder, retriever
+    del big, mat, d64, qd
+
+    phase("whole-layer serve")
+    rows["fused_layer_block"]["launches"] = whole_layer_phase(torch, card, embedder, texts, queries)
+    del embedder, retriever
 
     phase("attention kernels")
     base = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), compute_dtype=torch.float32, device="cuda")
@@ -787,6 +1234,9 @@ def main() -> int:
     path_shapes = main_path_shapes(base, train_cfg, stream)
     print(f"attention shapes of the training and f32 serve phases (use, B, S): {path_shapes}", flush=True)
     rows.update(attention_rows(torch, dev, card, cfg.num_heads, hid // cfg.num_heads, path_shapes))
+
+    phase("bf16 gradient")
+    bf16_gradient_phase(torch, base, train_cfg, stream)
 
     phase("training")
     trained, train_launches = training_phase(torch, card, base, cfg.num_layers, train_cfg, stream)
@@ -798,6 +1248,27 @@ def main() -> int:
     print(f"qkv_native_attention launches: training {train_launches['qkv_native_attention']}, "
           f"f32 serve {serve_launches}; flash_attention_fwd (the head-major wrapper of the same CUDA "
           f"kernel) is off both paths at S <= 512", flush=True)
+    del base, trained
+
+    phase("long-document serve")
+    from dial_rag_tpu_torch.models.bert import BertConfig, init_params
+    from dial_rag_tpu_torch.models.tokenizer import DEFAULT_BUCKETS, WordPieceTokenizer
+
+    long_cfg = BertConfig(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
+                          num_heads=cfg.num_heads, intermediate_size=cfg.intermediate_size,
+                          max_position_embeddings=LONG_MAX_POSITIONS, type_vocab_size=cfg.type_vocab_size)
+    long_tokenizer = WordPieceTokenizer.from_vocab_file(str(CHECKPOINT / "vocab.txt"),
+                                                        buckets=DEFAULT_BUCKETS + LONG_BUCKETS)
+    long_docs = long_texts(long_tokenizer, LONG_TARGETS)
+    path = long_path(long_tokenizer, long_docs, LONG_BUCKETS[-1])
+    print(f"long-document encode batches (S, row lengths): {path}", flush=True)
+    rows.update(long_attention_rows(torch, dev, card, cfg.num_heads, hid // cfg.num_heads, path))
+    long_params = init_params(long_cfg, torch.Generator().manual_seed(0))
+    long_launches = long_document_phase(torch, card, dev, long_cfg, long_params, long_tokenizer, long_docs,
+                                        max_len=LONG_BUCKETS[-1])
+    rows["attention_q_blocked"]["launches"] = sum(v["attention_q_blocked"] for v in long_launches.values())
+    rows["attention_kv_blocked_fwd"]["launches"] = sum(
+        v["attention_kv_blocked_fwd"] for v in long_launches.values())
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

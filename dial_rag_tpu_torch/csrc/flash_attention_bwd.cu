@@ -1,7 +1,7 @@
 // Single-tile attention backward (recompute P), f32, for Hopper (sm_90a).
 //
 // Replaces: dial_rag_tpu/ops/flash_attention.py::_attention_bwd_kernel
-// (pallas_call in _backward, S <= 512), the backward of both
+// (pallas_call in _backward, S <= 512 or S % 256 != 0), the backward of both
 // fused_qkv_attention and flash_attention. With S = scale q k^T + bias,
 // P = softmax(S) and O = P V:
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(dP * P));
@@ -29,6 +29,8 @@
 //        tile that rebuilds P from the saved max and denominator with the
 //        same expression, and dV += P^T dO, dK += (scale dS)^T Q kept in
 //        registers.
+// The dq pass's [32, S] score tile bounds S: 1472 on an H100's 227 KB
+// (dial_attention_bwd_max_seq works it out; the wrapper raises beyond it).
 #include <cstdint>
 
 #include "attention_f32.cuh"
@@ -251,4 +253,20 @@ extern "C" int dial_attention_bwd_f32(const void* q, const void* k, const void* 
                                                        static_cast<float*>(dk), static_cast<float*>(dv), vw, seq,
                                                        scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point. Writes to *max_seq (an int) the longest S, a multiple of
+// 64, whose dynamic shared memory (dq_smem_bytes) fits the opt-in per-block
+// limit of the current device; returns the CUDA error of the query.
+extern "C" int dial_attention_bwd_max_seq(void* max_seq) {
+  using namespace dial::attn;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int s = 0;
+  while (dq_smem_bytes(s + kChunk) <= static_cast<size_t>(limit)) s += kChunk;
+  *static_cast<int*>(max_seq) = s;
+  return 0;
 }

@@ -4,8 +4,8 @@
 // strided kernel:
 //   _qkv_native_kernel (pallas_call in _qkv_native_forward): q, k, v read
 //     straight from the packed [B, S, 3H] QKV projection, out as [B, S, H];
-//   _attention_kernel (pallas_call in _forward, S <= 512): head-major
-//     [B, h, S, Dh] in and out.
+//   _attention_kernel (pallas_call in _forward, S <= 512 or S % 256 != 0):
+//     head-major [B, h, S, Dh] in and out.
 // Each operand arrives as a base pointer plus batch, head and row strides,
 // so both layouts are read in place with no relayout. Computes
 //   o = softmax(q k^T * scale + bias) v,  bias = (1 - mask) * f32.min,
@@ -20,7 +20,9 @@
 //
 // Design: one block per (32-query tile, head, batch row), 256 threads.
 // The tile's full score rows live in dynamic shared memory (32 x S f32,
-// 64 KB at S = 512, above the 48 KB default). K, then V, stream through a
+// 64 KB at S = 512, above the 48 KB default), which bounds S: 1600 on an
+// H100's 227 KB (dial_attention_fwd_max_seq works it out; the wrapper
+// raises beyond it). K, then V, stream through a
 // 64-key staging tile. Thread t owns query row t / 8 and every 8th key
 // (scores) or every 8th head column (P . V); its q row sits in registers.
 // TF32 and the tensor cores are not used: the products stay full f32, as
@@ -113,4 +115,20 @@ extern "C" int dial_attention_fwd_f32(const void* q, const void* k, const void* 
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias), static_cast<float*>(o), vw, seq, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point. Writes to *max_seq (an int) the longest S, a multiple of
+// 64, whose dynamic shared memory (fwd_smem_bytes) fits the opt-in per-block
+// limit of the current device; returns the CUDA error of the query.
+extern "C" int dial_attention_fwd_max_seq(void* max_seq) {
+  using namespace dial::attn;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int s = 0;
+  while (fwd_smem_bytes(s + kChunk) <= static_cast<size_t>(limit)) s += kChunk;
+  *static_cast<int*>(max_seq) = s;
+  return 0;
 }

@@ -1,0 +1,327 @@
+// Long-sequence attention forwards, f32 and bf16, for Hopper (sm_90a).
+//
+// Replaces two TPU kernels of dial_rag_tpu/ops/flash_attention.py (the
+// pallas_calls in _forward for S > 512 with S % 256 == 0):
+//   _attention_q_blocked_kernel (S <= 4096 or S % 512 != 0): per 256-query
+//     block, the exact per-row softmax over every key, P cast to the input
+//     dtype after the division, then P . V;
+//   _attention_kv_blocked_fwd_kernel (the rest): the online softmax over
+//     512-key blocks (running max m from f32.min, corr = exp(m_prev -
+//     m_next), e = exp(s - m_next) cast to the input dtype before P . V,
+//     o = acc / l at the end), which also writes lse = m + log(l), f32
+//     [B, h, S], for the blocked backward.
+// Both take head-major [B, h, S, 32] views with (batch, head, row) element
+// strides, as flash_attention_fwd.cu does, so q, k and v are read straight
+// out of the packed [B, S, 3H] projection and o can be written in the
+// [B, S, H] layout the next product reads. bias = (1 - mask) * f32.min,
+// never -inf: a fully masked row gets uniform weights and stays finite.
+//
+// Bound on an H100 SXM: 4 * B * h * S^2 * 32 FLOPs; at [1, 12, 8192, 32]
+// that is 103 GFLOP, 1.5 ms at 67 TFLOP/s in f32 (0.10 ms at 989 TFLOP/s
+// in bf16), against 13 MB of q, k, v and o: bound by operations.
+//
+// Design. The TPU kernels keep K and V whole in VMEM (the query-blocked
+// one) or walk 512-key blocks with the running statistics in VMEM
+// scratch. At S = 4096 f32 K and V alone take 1 MB; an H100 block has
+// 227 KB. So one block per (32-query tile, head, batch row), 256 threads,
+// thread t owning query row t / 8 (in registers) and every 8th key of a
+// 64-key chunk that K and V stream through in shared memory:
+//   q-blocked: pass 1 over the key chunks finds each row's max and
+//     softmax denominator (a running pair per thread, merged across the
+//     row's 8 threads); pass 2 rebuilds the scores, divides, casts P as
+//     the TPU kernel does, and accumulates P . V. The softmax stays exact
+//     per row, normalised before the cast; only the denominator is summed
+//     in another order.
+//   kv-blocked: one pass; m, l and the accumulator live in registers and
+//     are rescaled at every 64-key chunk. The TPU kernel rescales at every
+//     512 keys, so the two round differently by about one ulp per rescale.
+// Products run on the CUDA cores in f32 for both dtypes (a bf16 x bf16
+// product is exact in f32): the f32 path keeps the reference's HIGHEST
+// precision with no TF32, and the bf16 path accumulates in f32 like the
+// TPU's preferred_element_type. One template serves both; the dtype only
+// changes the loads, the cast of P (or e) and the store.
+#include <cfloat>
+#include <cstdint>
+
+#include "attention_f32.cuh"
+
+namespace dial {
+namespace attn {
+namespace {
+
+struct LongViews {
+  View q, k, v, o;
+};
+
+constexpr int kPerThread = kDh / kPhases;  // head columns of o a thread owns
+constexpr int kKeysPerThread = kChunk / kPhases;
+// row stride of the [kRows, kChunk] probability tile: the 4 rows and 8
+// phases of a warp land on 32 distinct banks
+constexpr int kPLd = kChunk + 8;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x after a round trip through T: the cast of P (or e) before P . V
+template <typename T>
+__device__ __forceinline__ float through(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Rows [r0, r0 + NROWS) of one head into a [NROWS, kPad] f32 tile. S is a
+// multiple of kChunk (the wrapper checks), so every row is real.
+template <int NROWS, typename T>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* base, long long row_stride, int r0) {
+  for (int i = threadIdx.x; i < NROWS * kDh; i += kThreads) {
+    const int r = i / kDh, d = i % kDh;
+    dst[r * kPad + d] = to_f32(base[(r0 + r) * row_stride + d]);
+  }
+}
+
+// The max and the sum over the 8 neighbouring lanes that share a row.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = kPhases / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = kPhases / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+struct BlockSmem {
+  float k[kChunk * kPad];  // K chunk; the q tile at first
+  float v[kChunk * kPad];  // V chunk
+  float p[kRows * kPLd];   // P (or e) of the chunk, cast through T
+  float bias[kChunk];
+};
+
+// Loads key chunk c0 (K, V when `with_v`, the bias) and leaves this
+// thread's kKeysPerThread scores (keys j + 8 i of the chunk) in `sc`.
+template <typename T>
+__device__ __forceinline__ void chunk_scores(BlockSmem& sm, float* sc, const float* q_row, const T* k_head,
+                                             const T* v_head, const float* bias_row, const LongViews& vw, int c0,
+                                             bool with_v, float scale) {
+  load_rows_f32<kChunk>(sm.k, k_head, vw.k.r, c0);
+  if (with_v) load_rows_f32<kChunk>(sm.v, v_head, vw.v.r, c0);
+  if (threadIdx.x < kChunk) sm.bias[threadIdx.x] = bias_row[c0 + threadIdx.x];
+  __syncthreads();
+  const int j = threadIdx.x % kPhases;
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int c = j + kPhases * i;
+    sc[i] = scaled_score(dot_dh(q_row, sm.k + c * kPad), scale, sm.bias[c]);
+  }
+}
+
+// acc[t] += sum over the chunk's keys c of P[r, c] v[c, j + 8t]
+__device__ __forceinline__ void accumulate_pv(const BlockSmem& sm, float* acc) {
+  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
+  for (int c = 0; c < kChunk; ++c) {
+    const float p = sm.p[r * kPLd + c];
+#pragma unroll
+    for (int t = 0; t < kPerThread; ++t) acc[t] = fmaf(p, sm.v[c * kPad + j + kPhases * t], acc[t]);
+  }
+}
+
+// Sets up a block: its (query tile, head, batch row) bases, the bias row
+// and this thread's q row in registers.
+template <typename T>
+struct BlockSetup {
+  const T* k_head;
+  const T* v_head;
+  T* o_head;
+  const float* bias_row;
+  int q0;
+};
+
+template <typename T>
+__device__ __forceinline__ BlockSetup<T> setup(BlockSmem& sm, float* q_row, const T* q, const T* k, const T* v,
+                                               const float* bias, T* o, const LongViews& vw, int s) {
+  BlockSetup<T> bs;
+  bs.q0 = blockIdx.x * kRows;
+  const int head = blockIdx.y, b = blockIdx.z;
+  bs.k_head = k + b * vw.k.b + head * vw.k.h;
+  bs.v_head = v + b * vw.v.b + head * vw.v.h;
+  bs.o_head = o + b * vw.o.b + head * vw.o.h;
+  bs.bias_row = bias + static_cast<long long>(b) * s;
+  load_rows_f32<kRows>(sm.k, q + b * vw.q.b + head * vw.q.h, vw.q.r, bs.q0);
+  __syncthreads();
+  const int r = threadIdx.x / kPhases;
+#pragma unroll
+  for (int d = 0; d < kDh; ++d) q_row[d] = sm.k[r * kPad + d];
+  __syncthreads();
+  return bs;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* o_head, long long row_stride, int q0, const float* vals) {
+  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
+  T* o_row = o_head + (q0 + r) * row_stride;
+#pragma unroll
+  for (int t = 0; t < kPerThread; ++t) o_row[j + kPhases * t] = from_f32<T>(vals[t]);
+}
+
+// ---- _attention_q_blocked_kernel -------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    q_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ bias, T* __restrict__ o, LongViews vw, int s, float scale) {
+  __shared__ BlockSmem sm;
+  float q_row[kDh];
+  const BlockSetup<T> bs = setup(sm, q_row, q, k, v, bias, o, vw, s);
+  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
+  float sc[kKeysPerThread];
+
+  // pass 1: this thread's running max and denominator over its keys
+  float m = -INFINITY, l = 0.f;
+  for (int c0 = 0; c0 < s; c0 += kChunk) {
+    chunk_scores(sm, sc, q_row, bs.k_head, bs.v_head, bs.bias_row, vw, c0, false, scale);
+    float cm = sc[0];
+#pragma unroll
+    for (int i = 1; i < kKeysPerThread; ++i) cm = fmaxf(cm, sc[i]);
+    const float m_new = fmaxf(m, cm);
+    float add = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeysPerThread; ++i) add += expf(__fsub_rn(sc[i], m_new));
+    l = l * expf(m - m_new) + add;
+    m = m_new;
+    __syncthreads();
+  }
+  // merged over the row's 8 threads: the row max and sum(exp(s - max))
+  const float m_row = row_max(m);
+  const float l_row = row_sum(l * expf(m - m_row));
+
+  // pass 2: P = exp(s - max) / l, cast through T, then P . V
+  float acc[kPerThread] = {};
+  for (int c0 = 0; c0 < s; c0 += kChunk) {
+    chunk_scores(sm, sc, q_row, bs.k_head, bs.v_head, bs.bias_row, vw, c0, true, scale);
+#pragma unroll
+    for (int i = 0; i < kKeysPerThread; ++i)
+      sm.p[r * kPLd + j + kPhases * i] = through<T>(prob(sc[i], m_row, l_row));
+    __syncthreads();
+    accumulate_pv(sm, acc);
+    __syncthreads();
+  }
+  store_row(bs.o_head, vw.o.r, bs.q0, acc);
+}
+
+// ---- _attention_kv_blocked_fwd_kernel --------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    kv_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse, LongViews vw,
+                      int s, float scale) {
+  __shared__ BlockSmem sm;
+  float q_row[kDh];
+  const BlockSetup<T> bs = setup(sm, q_row, q, k, v, bias, o, vw, s);
+  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
+  float sc[kKeysPerThread];
+
+  // the row's running max (from f32.min, as the TPU kernel starts it),
+  // denominator and accumulator, the same in the row's 8 threads
+  float m = -FLT_MAX, l = 0.f;
+  float acc[kPerThread] = {};
+  for (int c0 = 0; c0 < s; c0 += kChunk) {
+    chunk_scores(sm, sc, q_row, bs.k_head, bs.v_head, bs.bias_row, vw, c0, true, scale);
+    float cm = sc[0];
+#pragma unroll
+    for (int i = 1; i < kKeysPerThread; ++i) cm = fmaxf(cm, sc[i]);
+    const float m_next = fmaxf(m, row_max(cm));
+    const float corr = expf(__fsub_rn(m, m_next));
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeysPerThread; ++i) {
+      const float e = expf(__fsub_rn(sc[i], m_next));
+      part += e;
+      sm.p[r * kPLd + j + kPhases * i] = through<T>(e);
+    }
+    l = __fadd_rn(__fmul_rn(l, corr), row_sum(part));
+    m = m_next;
+    __syncthreads();
+    float pv[kPerThread] = {};
+    accumulate_pv(sm, pv);
+#pragma unroll
+    for (int t = 0; t < kPerThread; ++t) acc[t] = __fadd_rn(__fmul_rn(acc[t], corr), pv[t]);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < kPerThread; ++t) acc[t] = __fdiv_rn(acc[t], l);
+  store_row(bs.o_head, vw.o.r, bs.q0, acc);
+  if (j == 0) lse[(static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * s + bs.q0 + r] = m + logf(l);
+}
+
+LongViews read_views(const void* strides) {
+  const long long* st = static_cast<const long long*>(strides);
+  LongViews vw;
+  View* views[] = {&vw.q, &vw.k, &vw.v, &vw.o};
+  for (int i = 0; i < 4; ++i) *views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  return vw;
+}
+
+template <typename T>
+int launch_q_blocked(const void* q, const void* k, const void* v, const void* bias, void* o, const void* strides,
+                     int batch, int heads, int seq, float scale, void* stream) {
+  if (seq % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  q_blocked_kernel<T><<<dim3(seq / kRows, heads, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(o), read_views(strides), seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_kv_blocked(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
+                      const void* strides, int batch, int heads, int seq, float scale, void* stream) {
+  if (seq % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  kv_blocked_kernel<T><<<dim3(seq / kRows, heads, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(o), static_cast<float*>(lse), read_views(strides), seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace attn
+}  // namespace dial
+
+// C entry points. q, k, v, o: device pointers (f32 or bf16 as the name
+// says) to [B, h, S, 32] views whose (batch, head, row) element strides
+// are `strides[0..11]` (a host array: q, k, v, o in turn); bias: f32
+// [B, S]; lse: f32 [B, h, S]. S must be a multiple of 64. Launch on
+// `stream` and return cudaGetLastError() (0 on success).
+extern "C" int dial_attention_q_blocked_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
+                                            const void* strides, int batch, int heads, int seq, float scale,
+                                            void* stream) {
+  return dial::attn::launch_q_blocked<float>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
+}
+
+extern "C" int dial_attention_q_blocked_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
+                                             const void* strides, int batch, int heads, int seq, float scale,
+                                             void* stream) {
+  return dial::attn::launch_q_blocked<dial::bf16>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
+}
+
+extern "C" int dial_attention_kv_blocked_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
+                                             void* lse, const void* strides, int batch, int heads, int seq,
+                                             float scale, void* stream) {
+  return dial::attn::launch_kv_blocked<float>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale, stream);
+}
+
+extern "C" int dial_attention_kv_blocked_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
+                                              void* lse, const void* strides, int batch, int heads, int seq,
+                                              float scale, void* stream) {
+  return dial::attn::launch_kv_blocked<dial::bf16>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale,
+                                                   stream);
+}

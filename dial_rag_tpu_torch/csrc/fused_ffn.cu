@@ -25,25 +25,14 @@
 // both weight panels once (2.4 MB, mostly from L2): 1.2 GB of L2 reads
 // for the 512 blocks at the shape above, the traffic a larger row block
 // or thread-block clusters sharing the panels would cut.
-#include "common.cuh"
+// The chunk loop (ffn_tile) lives in fused_blocks.cuh, which
+// fused_layer.cu shares.
+#include "fused_blocks.cuh"
 
 namespace dial {
 namespace {
 
-constexpr int kFBM = 64, kFCH = 64, kFThreads = 256;
-constexpr size_t kXBytes = kFBM * kHidden * sizeof(bf16);     // 48 KB
-constexpr size_t kW1Bytes = kHidden * kFCH * sizeof(bf16);    // 48 KB
-constexpr size_t kW2Bytes = kFCH * kHidden * sizeof(bf16);    // 48 KB
-constexpr size_t kHfBytes = kFBM * kFCH * sizeof(float);      // 16 KB
-constexpr size_t kHbBytes = kFBM * kFCH * sizeof(bf16);       //  8 KB
-constexpr size_t kFfnSmem = kXBytes + kW1Bytes + kW2Bytes + kHfBytes + kHbBytes;
-// the [64, 384] f32 accumulator image reuses the two weight panels
-static_assert(kFBM * kHidden * sizeof(float) <= kW1Bytes + kW2Bytes, "accumulator image must fit");
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
-  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));
-}
+constexpr size_t kFfnSmem = kXBytes + kFfnWorkBytes;
 
 __global__ void __launch_bounds__(kFThreads)
     ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const float* __restrict__ b1,
@@ -51,76 +40,9 @@ __global__ void __launch_bounds__(kFThreads)
                const float* __restrict__ beta, bf16* __restrict__ out, int m, int inter) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_x = reinterpret_cast<bf16*>(smem);
-  bf16* s_w1 = reinterpret_cast<bf16*>(smem + kXBytes);
-  bf16* s_w2 = reinterpret_cast<bf16*>(smem + kXBytes + kW1Bytes);
-  float* s_hf = reinterpret_cast<float*>(smem + kXBytes + kW1Bytes + kW2Bytes);
-  bf16* s_hb = reinterpret_cast<bf16*>(smem + kXBytes + kW1Bytes + kW2Bytes + kHfBytes);
-  float* s_c = reinterpret_cast<float*>(smem + kXBytes);  // after the last chunk only
-
   const int m0 = blockIdx.x * kFBM;
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / 4, wc = warp % 4;         // second product: 32 rows x 96 cols a warp
-  const int hr = warp / 2, hc = (warp % 2) * 2;   // first product: 16 rows x 32 cols a warp
-
   load_tile<kFBM, kHidden, kFThreads>(s_x, x + static_cast<size_t>(m0) * kHidden, kHidden, m - m0);
-
-  FragC acc[2][6];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int c0 = 0; c0 < inter; c0 += kFCH) {
-    load_tile<kHidden, kFCH, kFThreads>(s_w1, w1 + c0, inter, kHidden);
-    load_tile<kFCH, kHidden, kFThreads>(s_w2, w2 + static_cast<size_t>(c0) * kHidden, kHidden, kFCH);
-    __syncthreads();
-
-    // h chunk [64, 64] = x [64, 384] . W1[:, c0:c0+64]
-    FragC h[2];
-    wmma::fill_fragment(h[0], 0.f);
-    wmma::fill_fragment(h[1], 0.f);
-    for (int kk = 0; kk < kHidden; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, s_x + hr * 16 * kHidden + kk, kHidden);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, s_w1 + kk * kFCH + (hc + j) * 16, kFCH);
-        wmma::mma_sync(h[j], fa, fb, h[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s_hf + hr * 16 * kFCH + (hc + j) * 16, h[j], kFCH, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kFBM * kFCH; i += kFThreads)
-      s_hb[i] = __float2bfloat16(gelu_tanh(s_hf[i] + b1[c0 + i % kFCH]));
-    __syncthreads();
-
-    // acc [64, 384] += bf16(h chunk) . W2[c0:c0+64, :]
-#pragma unroll
-    for (int kk = 0; kk < kFCH; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], s_hb + (wr * 32 + i * 16) * kFCH + kk, kFCH);
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, s_w2 + kk * kHidden + wc * 96 + j * 16, kHidden);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-      wmma::store_matrix_sync(s_c + (wr * 32 + i * 16) * kHidden + wc * 96 + j * 16, acc[i][j], kHidden,
-                              wmma::mem_row_major);
-  __syncthreads();
+  const float* s_c = ffn_tile(s_x, smem + kXBytes, w1, b1, w2, inter);
   residual_layernorm_rows<kFBM, kFThreads / 32>(s_c, s_x, kHidden, b2, gamma, beta,
                                                 out + static_cast<size_t>(m0) * kHidden, m - m0);
 }

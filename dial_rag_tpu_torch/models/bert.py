@@ -16,17 +16,23 @@ Attention routes (``attention_impl``):
   kernels on a CUDA tensor;
 - ``"fused_plain"``: the same blocks through their plain versions, the
   reference the kernels are held against on the card;
+- ``"fused_layer"``: each layer is one ``ops.fused_encoder.fused_layer_block``
+  (the whole-layer kernel; the post-attention state stays on chip);
+  ``"fused_layer_plain"``: the same through its plain version;
 - ``"pallas"``: the unfused layer with its attention through
-  ``ops.flash_attention.fused_qkv_attention`` (the reference's "pallas"
-  route), whose autograd function launches the hand-written f32
-  attention kernels forward and backward on a CUDA tensor;
-- ``"pallas_plain"``: the same autograd function on its plain versions;
+  ``ops.flash_attention``, as the reference's "pallas" route: at S <= 512
+  ``fused_qkv_attention`` on the packed qkv, longer sequences split into
+  heads for ``flash_attention`` (the query-blocked or KV-blocked forward
+  above S = 512, by S). Their autograd functions launch the hand-written
+  attention kernels on a CUDA tensor;
+- ``"pallas_plain"``: the same autograd functions on their plain versions;
 - ``"auto"``: the reference's TPU choice on a CUDA tensor: ``"fused"``
-  with tanh GELU at S <= 512, else ``"pallas"`` (its f32 route: serving
-  and training). Where the port lacks that route's kernels (the fused
-  blocks in f32, the attention kernels in bf16 or at S > 512) the route
-  raises and names them; it never falls back to plain PyTorch on the
-  card. ``"xla"`` is the route on the CPU.
+  with tanh GELU at S <= 512, else ``"pallas"`` (its f32 route, and every
+  S > 512, bf16 included). Where the port lacks that route's kernels (the
+  fused blocks in f32, the single-tile attention kernels in bf16, the
+  backward above S = 512 at a blocked S) the route raises and names them;
+  it never falls back to plain PyTorch on the card. ``"xla"`` is the
+  route on the CPU.
 
 ``bert_forward`` is differentiable; ``remat=True`` recomputes each layer
 in the backward (``torch.utils.checkpoint``) instead of saving it.
@@ -42,7 +48,9 @@ from dial_rag_tpu_torch.ops import flash_attention as fa
 from dial_rag_tpu_torch.ops import fused_encoder as fe
 
 LAYERNORM_EPS = 1e-12
-ATTENTION_IMPLS = ("auto", "xla", "fused", "fused_plain", "pallas", "pallas_plain")
+ATTENTION_IMPLS = (
+    "auto", "xla", "fused", "fused_plain", "fused_layer", "fused_layer_plain", "pallas", "pallas_plain",
+)
 
 
 @dataclass(frozen=True)
@@ -258,6 +266,28 @@ def _fused_layer(x, layer, attention_mask, num_heads, attn_block, ffn_block):
     )
 
 
+def _layer_weights(layer) -> tuple:
+    """The reference's 12-tuple of one layer's weights for ``fused_layer_block``."""
+    return tuple(
+        layer[name][key]
+        for name, key in (
+            ("qkv", "kernel"), ("qkv", "bias"), ("attn_out", "kernel"), ("attn_out", "bias"),
+            ("attn_ln", "scale"), ("attn_ln", "bias"), ("ffn_in", "kernel"), ("ffn_in", "bias"),
+            ("ffn_out", "kernel"), ("ffn_out", "bias"), ("ffn_ln", "scale"), ("ffn_ln", "bias"),
+        )
+    )
+
+
+def _pallas_attention(qkv, attention_mask, num_heads, plain):
+    """The reference's "pallas" attention: [B, S, 3H] -> [B, S, H]."""
+    b, s, three_h = qkv.shape
+    if fa.supports_fused_qkv(s):
+        return fa.fused_qkv_attention(qkv, attention_mask, num_heads, plain=plain)
+    # heads split (views of qkv) for the blocked kernels, then merged
+    ctx = fa.flash_attention(*fa._split_heads(qkv, num_heads), attention_mask, plain=plain)
+    return ctx.transpose(1, 2).reshape(b, s, three_h // 3)
+
+
 def embed_tokens(params, input_ids: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Word + position + token-type embeddings, LayerNorm in f32, then the
     cast to ``compute_dtype``: the input of layer 0."""
@@ -306,11 +336,17 @@ def bert_forward(
         gelu = "exact" if compute_dtype == torch.float32 else "tanh"
     attention_impl = resolve_attention_impl(attention_impl, input_ids, gelu)
     s = input_ids.shape[1]
-    if attention_impl in ("fused", "fused_plain"):
+    if attention_impl.startswith("fused"):
         if not fe.supports_fused_block(s):
             raise ValueError(f"attention_impl={attention_impl!r} needs S <= 512, got S={s}")
         if gelu != "tanh":
             raise ValueError(f"attention_impl={attention_impl!r} implements tanh GELU only")
+    if attention_impl in ("fused_layer", "fused_layer_plain"):
+        block = fe.fused_layer_block if attention_impl == "fused_layer" else fe.fused_layer_block_plain
+
+        def layer_fn(x, layer):
+            return block(x, attention_mask, _layer_weights(layer), num_heads)
+    elif attention_impl in ("fused", "fused_plain"):
         blocks = (
             (fe.fused_attention_block, fe.fused_ffn_block)
             if attention_impl == "fused"
@@ -328,10 +364,8 @@ def bert_forward(
         else:
             plain = attention_impl == "pallas_plain"
 
-            # the reference's "pallas" attention at S <= 512; longer
-            # sequences take its blocked kernels, so this raises there
             def attend(qkv):
-                return fa.fused_qkv_attention(qkv, attention_mask, num_heads, plain=plain)
+                return _pallas_attention(qkv, attention_mask, num_heads, plain)
 
         def layer_fn(x, layer):
             return _unfused_layer(x, layer, attend, gelu)

@@ -39,11 +39,20 @@ SIGNATURES = {
     "fused_ffn": {
         "dial_ffn_block_bf16": [_P] * 8 + [_I, _I, _P],
     },
+    "fused_layer": {
+        "dial_layer_block_bf16": [_P] * 17 + [_I, _I, _I, _I, _F, _P],
+    },
     "flash_attention_fwd": {
         "dial_attention_fwd_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
+        "dial_attention_fwd_max_seq": [_P],
     },
     "flash_attention_bwd": {
         "dial_attention_bwd_f32": [_P] * 10 + [_I, _I, _I, _F, _P],
+        "dial_attention_bwd_max_seq": [_P],
+    },
+    "flash_attention_long": {
+        **{f"dial_attention_q_blocked_{t}": [_P] * 6 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
+        **{f"dial_attention_kv_blocked_{t}": [_P] * 7 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
     },
 }
 

@@ -1,39 +1,59 @@
-"""Single-tile fused attention with a recompute-P backward (counterpart of
-the S <= 512 part of ``dial_rag_tpu/ops/flash_attention.py``).
+"""Fused attention with a recompute-P backward (counterpart of
+``dial_rag_tpu/ops/flash_attention.py``).
 
 - ``fused_qkv_attention(qkv, mask, num_heads)``: attention read straight
   from the packed QKV projection ``[B, S, 3H]`` (head j of q at columns
   ``j*Dh``, of k at ``H + j*Dh``, of v at ``2H + j*Dh``), written as
   ``[B, S, H]`` (TPU kernel ``_qkv_native_kernel``);
 - ``flash_attention(q, k, v, mask)``: the same attention on head-major
-  ``[B, h, S, Dh]`` tensors (TPU kernel ``_attention_kernel``).
+  ``[B, h, S, Dh]`` tensors, dispatched by S as the reference's
+  ``_forward`` dispatches it: the single-tile ``_attention_kernel`` for
+  ``S <= 512`` or ``S % 256 != 0``; else the query-blocked
+  ``_attention_q_blocked_kernel`` for ``S <= 4096`` or ``S % 512 != 0``;
+  else the KV-blocked online-softmax ``_attention_kv_blocked_fwd_kernel``,
+  which also gives the log-sum-exp for a blocked backward.
 
 Both are ``torch.autograd.Function``s whose backward is the recompute-P
 backward of ``_attention_bwd_kernel``. On a CUDA tensor they launch the
 hand-written Hopper kernels (``csrc/flash_attention_fwd.cu``, one strided
-kernel for both layouts; ``csrc/flash_attention_bwd.cu``) or raise; they
-never fall back. On a CPU tensor, or with ``plain=True``, they run the
-plain PyTorch versions beside them, which follow the TPU kernels' order:
-``scores * scale + bias``, row max, exp, sum, divide, then ``P . V``; the
-mask bias is ``(1 - mask) * f32.min``, never -inf, so a fully masked row
-gets uniform weights and stays finite.
+kernel for both single-tile layouts; ``csrc/flash_attention_bwd.cu``;
+``csrc/flash_attention_long.cu`` for the two blocked forwards) or raise;
+they never fall back. On a CPU tensor, or with ``plain=True``, they run
+the plain PyTorch versions beside them, which follow the TPU kernels'
+order: ``scores * scale + bias``, row max, exp, sum, divide, then
+``P . V``; the mask bias is ``(1 - mask) * f32.min``, never -inf, so a
+fully masked row gets uniform weights and stays finite. The backward of a
+blocked shape (the reference's kernels 9-11) is not ported yet and raises.
 
 ``LAUNCHES`` counts calls that reached a kernel, per TPU kernel: a
 backward call counts once however many launches it makes.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from dial_rag_tpu_torch.ops.fused_encoder import KERNEL_HEAD_DIM, _raise_on, mask_bias
 
-# the single-tile bound of the reference; longer sequences take its
-# query-blocked and KV-blocked kernels, which the port has not yet
+# the reference's dispatch thresholds, under its names (a test patches
+# both packages alike): sequences up to _FULL_TILE_MAX_S, or not a
+# multiple of _Q_BLOCK, take one [S, S] score tile per head; up to
+# _Q_BLOCKED_MAX_S (or not a multiple of _KV_BLOCK) the query-blocked
+# kernel; beyond, the online softmax over _KV_BLOCK keys at a time
 _FULL_TILE_MAX_S = 512
+_Q_BLOCK = 256
+_Q_BLOCKED_MAX_S = 4096
+_KV_BLOCK = 512
 
-LAUNCHES = {"qkv_native_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+LAUNCHES = {
+    "qkv_native_attention": 0,
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd": 0,
+    "attention_q_blocked": 0,
+    "attention_kv_blocked_fwd": 0,
+}
 
 
 def reset_launches() -> None:
@@ -42,19 +62,19 @@ def reset_launches() -> None:
 
 
 def supports_fused_qkv(s: int) -> bool:
-    """The single-tile design point: one [S, S] score tile per head."""
+    """Where the reference's "pallas" route takes the layout-native kernel
+    (one [S, S] score tile per head); ``fused_qkv_attention`` itself has
+    no S bound, apart from the card's shared memory."""
     return s <= _FULL_TILE_MAX_S
 
 
-def _check_single_tile(s: int) -> None:
-    if not supports_fused_qkv(s):
-        raise NotImplementedError(
-            f"S={s} > {_FULL_TILE_MAX_S} needs the reference's blocked kernels "
-            "(dial_rag_tpu/ops/flash_attention.py: _attention_q_blocked_kernel, "
-            "_attention_kv_blocked_fwd_kernel, _attention_bwd_q_blocked_kernel, "
-            "_bwd_dq_kv_blocked_kernel, _bwd_dkv_kv_blocked_kernel), which are "
-            "not ported yet"
-        )
+def attention_route(s: int) -> str:
+    """The reference's ``_forward``/``_backward`` choice of kernel by S."""
+    if s <= _FULL_TILE_MAX_S or s % _Q_BLOCK != 0:
+        return "single_tile"
+    if s <= _Q_BLOCKED_MAX_S or s % _KV_BLOCK != 0:
+        return "q_blocked"
+    return "kv_blocked"
 
 
 def _probs_plain(q, k, bias):
@@ -70,6 +90,44 @@ def attention_forward_plain(q, k, v, attention_mask):
     """q, k, v: [B, h, S, Dh]; mask [B, S] -> [B, h, S, Dh] in q's dtype."""
     p = _probs_plain(q, k, mask_bias(attention_mask))
     return (p.to(q.dtype).float() @ v.float()).to(q.dtype)
+
+
+def attention_q_blocked_plain(q, k, v, attention_mask):
+    """Plain version of ``_attention_q_blocked_kernel``: per block of
+    ``_Q_BLOCK`` queries, the exact per-row softmax over every key, P cast
+    to the input dtype after the division, then P . V in f32."""
+    bias = mask_bias(attention_mask)
+    vf = v.float()
+    outs = [
+        _probs_plain(q[:, :, q0 : q0 + _Q_BLOCK], k, bias).to(q.dtype).float() @ vf
+        for q0 in range(0, q.shape[2], _Q_BLOCK)
+    ]
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def attention_kv_blocked_plain(q, k, v, attention_mask):
+    """Plain version of ``_attention_kv_blocked_fwd_kernel``: the online
+    softmax over blocks of ``_KV_BLOCK`` keys. The running max starts at
+    f32.min; per block ``corr = exp(m_prev - m_next)``, ``e = exp(s -
+    m_next)`` is cast to the input dtype before P . V, and ``o = acc / l``
+    at the end. Returns (o, lse) with ``lse = m + log(l)`` [B, h, S] f32."""
+    b, h, s, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    bias = mask_bias(attention_mask)[:, None, None, :]
+    qf = q.float()
+    m = torch.full((b, h, s, 1), torch.finfo(torch.float32).min, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    acc = torch.zeros((b, h, s, dh), device=q.device)
+    for k0 in range(0, s, _KV_BLOCK):
+        blk = slice(k0, k0 + _KV_BLOCK)
+        scores = (qf @ k[:, :, blk].float().transpose(-1, -2)) * scale + bias[..., blk]
+        m_next = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_next)
+        e = torch.exp(scores - m_next)
+        l = l * corr + e.sum(dim=-1, keepdim=True)
+        acc = acc * corr + e.to(q.dtype).float() @ v[:, :, blk].float()
+        m = m_next
+    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def attention_backward_plain(q, k, v, do, attention_mask):
@@ -117,13 +175,13 @@ def qkv_attention_backward_plain(qkv, do, attention_mask, num_heads):
 # ---- kernel wrappers -------------------------------------------------------
 
 
-def _check_kernel_input(name, t):
+def _check_kernel_input(name, t, dtypes=(torch.float32,)):
     if not t.is_cuda:
         raise ValueError(f"{name} must be on the card, got {t.device}")
-    if t.dtype != torch.float32:
+    if t.dtype not in dtypes:
         raise ValueError(
-            f"the attention kernels take float32 (a bf16 instantiation is not "
-            f"written yet), got {name} {t.dtype}"
+            f"this attention kernel takes {' or '.join(map(str, dtypes))} (other "
+            f"instantiations are not written yet), got {name} {t.dtype}"
         )
     if t.shape[-1] != KERNEL_HEAD_DIM or t.stride(-1) != 1:
         raise ValueError(
@@ -144,14 +202,47 @@ def _kernel_bias(attention_mask, b, s, device):
     return mask_bias(attention_mask.to(device)).contiguous()
 
 
+def single_tile_max_s(direction: str, device=None) -> int:
+    """The longest S the single-tile CUDA kernel (``"fwd"`` or ``"bwd"``)
+    takes on ``device``: its [32, S] f32 score tile and staging buffers
+    must fit in the shared memory one block may opt in to. The kernel's
+    library works it out from its own layout (1600 forward and 1472
+    backward on an H100's 227 KB)."""
+    index = torch.device(device if device is not None else "cuda").index
+    return _max_seq(direction, torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _max_seq(direction: str, index: int) -> int:
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    out = ctypes.c_int(0)
+    lib = build_kernels().libs[f"flash_attention_{direction}"]
+    with torch.cuda.device(index):
+        err = getattr(lib, f"dial_attention_{direction}_max_seq")(ctypes.addressof(out))
+    _raise_on(err, f"attention {direction} shared-memory query")
+    return out.value
+
+
+def _check_single_tile_limit(s, direction, device):
+    max_s = single_tile_max_s(direction, device)
+    if s > max_s:
+        raise NotImplementedError(
+            f"S={s} exceeds the single-tile attention {direction} kernel's limit of "
+            f"S <= {max_s} on this card: its [32, S] f32 score tile must fit in a "
+            "block's shared memory (the reference runs this S on its single-tile "
+            "kernel too; a tiled kernel for it is not written)"
+        )
+
+
 def _forward_kernel(q, k, v, o, attention_mask):
-    """Launches the strided forward on [B, h, S, Dh] views q, k, v -> o."""
+    """Launches the single-tile strided forward on [B, h, S, Dh] views q, k, v -> o."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         _check_kernel_input(name, t)
     b, h, s, dh = q.shape
-    _check_single_tile(s)
+    _check_single_tile_limit(s, "fwd", q.device)
     bias = _kernel_bias(attention_mask, b, s, q.device)
     strides = _strides(q, k, v, o)
     lib = build_kernels().libs["flash_attention_fwd"]
@@ -164,6 +255,42 @@ def _forward_kernel(q, k, v, o, attention_mask):
     _raise_on(err, "attention forward")
 
 
+_LONG_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _long_kernel(route, q, k, v, attention_mask):
+    """Launches a blocked forward (``route`` "q_blocked" or "kv_blocked")
+    on [B, h, S, Dh] views; returns (o, lse-or-None). o is laid out
+    [B, S, h, Dh] in memory, so the model's merge of the heads is a view."""
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_input(name, t, tuple(_LONG_DTYPES))
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k and v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, s, dh = q.shape
+    if s % 64:
+        raise ValueError(f"the blocked attention kernels take S % 64 == 0, got {s}")
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = _strides(q, k, v, o)
+    lib = build_kernels().libs["flash_attention_long"]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr())
+    args = (ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh), stream)
+    suffix = _LONG_DTYPES[q.dtype]
+    with torch.cuda.device(q.device):
+        if route == "q_blocked":
+            lse = None
+            err = getattr(lib, f"dial_attention_q_blocked_{suffix}")(*ptrs, *args)
+        else:
+            lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+            err = getattr(lib, f"dial_attention_kv_blocked_{suffix}")(*ptrs, lse.data_ptr(), *args)
+    _raise_on(err, f"attention {route} forward")
+    LAUNCHES["attention_q_blocked" if route == "q_blocked" else "attention_kv_blocked_fwd"] += 1
+    return o, lse
+
+
 def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     """Launches the two-pass recompute-P backward on [B, h, S, Dh] views."""
     from dial_rag_tpu_torch.ops._build import build_kernels
@@ -171,7 +298,7 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq), ("dk", dk), ("dv", dv)):
         _check_kernel_input(name, t)
     b, h, s, dh = q.shape
-    _check_single_tile(s)
+    _check_single_tile_limit(s, "bwd", q.device)
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
     rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
@@ -196,7 +323,6 @@ class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, attention_mask, num_heads, plain):
         b, s, three_h = qkv.shape
-        _check_single_tile(s)
         ctx.num_heads, ctx.plain = num_heads, plain
         ctx.save_for_backward(qkv, attention_mask)
         if not _use_kernel(qkv, plain):
@@ -228,22 +354,43 @@ class _FusedQKVAttention(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+def _forward(q, k, v, attention_mask, plain=False):
+    """The reference's ``_forward``: (o, lse-or-None) by S; lse only from
+    the KV-blocked kernel, where a blocked backward needs it."""
+    route = attention_route(q.shape[2])
+    if not _use_kernel(q, plain):
+        if route == "single_tile":
+            return attention_forward_plain(q, k, v, attention_mask), None
+        if route == "q_blocked":
+            return attention_q_blocked_plain(q, k, v, attention_mask), None
+        return attention_kv_blocked_plain(q, k, v, attention_mask)
+    if route != "single_tile":
+        return _long_kernel(route, q, k, v, attention_mask)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _forward_kernel(q, k, v, out, attention_mask)
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, None
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, attention_mask, plain):
-        _check_single_tile(q.shape[2])
         ctx.plain = plain
         ctx.save_for_backward(q, k, v, attention_mask)
-        if not _use_kernel(q, plain):
-            return attention_forward_plain(q, k, v, attention_mask)
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _forward_kernel(q, k, v, out, attention_mask)
-        LAUNCHES["flash_attention_fwd"] += 1
-        return out
+        return _forward(q, k, v, attention_mask, plain)[0]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, attention_mask = ctx.saved_tensors
+        s = q.shape[2]
+        if attention_route(s) != "single_tile":
+            raise NotImplementedError(
+                f"the attention backward at S={s} takes the reference's blocked "
+                "backward kernels (dial_rag_tpu/ops/flash_attention.py: "
+                "_attention_bwd_q_blocked_kernel, _bwd_dq_kv_blocked_kernel, "
+                "_bwd_dkv_kv_blocked_kernel), which are not ported yet (ROADMAP.md, "
+                "queue 2, item 1)"
+            )
         do = do.contiguous()
         if not _use_kernel(q, ctx.plain):
             return (*attention_backward_plain(q, k, v, do, attention_mask), None, None)
@@ -261,6 +408,8 @@ def fused_qkv_attention(qkv, attention_mask, num_heads: int, plain: bool = False
 
 
 def flash_attention(q, k, v, attention_mask, plain: bool = False):
-    """Head-major attention: q, k, v [B, h, S, Dh], mask [B, S] ->
-    [B, h, S, Dh] in q's dtype. Differentiable w.r.t. q, k and v."""
+    """Head-major attention: q, k, v [B, h, S, Dh] (any strides with a
+    unit head-dim stride), mask [B, S] -> [B, h, S, Dh] in q's dtype,
+    dispatched by S as the reference dispatches it. Differentiable w.r.t.
+    q, k and v where the backward's kernel is ported (single-tile S)."""
     return _FlashAttention.apply(q, k, v, attention_mask, plain)

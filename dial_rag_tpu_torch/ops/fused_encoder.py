@@ -1,16 +1,26 @@
-"""The two fused blocks of a bge-small encoder layer (counterpart of
+"""The fused blocks of a bge-small encoder layer (counterpart of
 ``dial_rag_tpu/ops/fused_encoder.py``).
 
 - ``fused_attention_block``: ``LN(x + W_out.MHA(bf16(W_qkv.x + b_qkv)) + b_out)``;
-- ``fused_ffn_block``: ``LN(x + W2.bf16(gelu_tanh(W1.x + b1)) + b2)``.
+- ``fused_ffn_block``: ``LN(x + W2.bf16(gelu_tanh(W1.x + b1)) + b2)``;
+- ``fused_layer_block``: the two in one layer, ``a`` (the post-attention
+  state, cast to the compute type) kept on chip.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu``) or raises; it never
-falls back. On a CPU tensor it runs the plain PyTorch version beside it,
-which follows the TPU kernel's own order of casts (``_attn_block_kernel``,
-``_ffn_kernel``): products accumulate in f32 and are not rounded before
-the bias, residual and LayerNorm; qkv, the probabilities, ctx and the
-GELU output are cast to the compute type where the TPU kernel casts them.
+(``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu``, ``csrc/fused_layer.cu``)
+or raises; it never falls back. On a CPU tensor it runs the plain PyTorch
+version beside it, which follows the TPU kernel's own order of casts
+(``_attn_block_kernel``, ``_ffn_kernel``, ``_layer_kernel``): products
+accumulate in f32 and are not rounded before the bias, residual and
+LayerNorm; qkv, the probabilities, ctx, ``a`` and the GELU output are cast
+to the compute type where the TPU kernel casts them.
+
+Each wrapper goes through one ``torch.autograd.Function`` whose backward
+recomputes the block through its plain version and differentiates that, as the
+reference's ``custom_vjp`` backwards do (``_attn_block_bwd``, ``_ffn_bwd``,
+``_layer_bwd``); the reference has no backward kernel for them. Matrices
+are cast to the compute type and vectors to f32 before the function, so
+f32 parameters train through a bf16 block.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels.
@@ -25,7 +35,7 @@ LAYERNORM_EPS = 1e-12
 KERNEL_HIDDEN = 384
 KERNEL_HEAD_DIM = 32
 
-LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0}
+LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
 
 
 def reset_launches() -> None:
@@ -117,31 +127,26 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-def fused_attention_block(
-    x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads
-):
-    """LN(x + W_out.Attention(W_qkv.x + b) + b_out). x: [B, S, H],
-    mask: [B, S] (1 = real token); returns [B, S, H] in x's dtype. Weights
-    are [in, out]."""
-    if not x.is_cuda:
-        return fused_attention_block_plain(
-            x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads
-        )
+def _on_card(x) -> bool:
+    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
+    return x.is_cuda
+
+
+def _recompute_grads(plain, inputs, needs, dout):
+    """Gradients of ``plain`` at ``inputs`` for those that ``needs`` marks,
+    by autograd through the plain version (None for the rest)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, dout) if wanted else ())
+    return [next(grads) if n else None for n in needs]
+
+
+def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads):
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    _check_kernel_x(x)
     b, s, hid = x.shape
-    if num_heads * KERNEL_HEAD_DIM != hid:
-        raise ValueError(f"the attention kernel takes head_dim {KERNEL_HEAD_DIM}")
-    if not supports_fused_block(s):
-        raise ValueError(f"the attention kernel takes S <= 512, got {s}")
-    mask = attention_mask.to(torch.int32).contiguous()
-    _check_cuda("attention_mask", mask, torch.int32, (b, s))
-    _check_cuda("wqkv", wqkv, torch.bfloat16, (hid, 3 * hid))
-    _check_cuda("wout", wout, torch.bfloat16, (hid, hid))
-    _check_cuda("bqkv", bqkv, torch.float32, (3 * hid,))
-    for name, t in (("bout", bout), ("ln scale", g), ("ln bias", beta)):
-        _check_cuda(name, t, torch.float32, (hid,))
+    mask = _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta)
     lib = build_kernels().libs["fused_attention"]
     qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
@@ -158,15 +163,25 @@ def fused_attention_block(
     return out
 
 
-def fused_ffn_block(x, w1, b1, w2, b2, g, beta):
-    """LN(x + W2.GELU_tanh(W1.x + b1) + b2). x: [B, S, H]; returns the same
-    shape and dtype. Weights are [in, out]."""
-    if not x.is_cuda:
-        return fused_ffn_block_plain(x, w1, b1, w2, b2, g, beta)
-    from dial_rag_tpu_torch.ops._build import build_kernels
-
+def _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta):
+    """Checks what the attention kernels take; returns the int32 mask."""
     _check_kernel_x(x)
     b, s, hid = x.shape
+    if num_heads * KERNEL_HEAD_DIM != hid:
+        raise ValueError(f"the attention kernels take head_dim {KERNEL_HEAD_DIM}")
+    if not supports_fused_block(s):
+        raise ValueError(f"the attention kernels take S <= 512, got {s}")
+    mask = attention_mask.to(torch.int32).contiguous()
+    _check_cuda("attention_mask", mask, torch.int32, (b, s))
+    _check_cuda("wqkv", wqkv, torch.bfloat16, (hid, 3 * hid))
+    _check_cuda("wout", wout, torch.bfloat16, (hid, hid))
+    _check_cuda("bqkv", bqkv, torch.float32, (3 * hid,))
+    for name, t in (("bout", bout), ("ln scale", g), ("ln bias", beta)):
+        _check_cuda(name, t, torch.float32, (hid,))
+    return mask
+
+
+def _check_ffn_weights(hid, w1, b1, w2, b2, g, beta):
     inter = w1.shape[1]
     if inter % 64:
         raise ValueError(f"the FFN kernel takes an intermediate width % 64 == 0, got {inter}")
@@ -175,6 +190,15 @@ def fused_ffn_block(x, w1, b1, w2, b2, g, beta):
     _check_cuda("b1", b1, torch.float32, (inter,))
     for name, t in (("b2", b2), ("ln scale", g), ("ln bias", beta)):
         _check_cuda(name, t, torch.float32, (hid,))
+    return inter
+
+
+def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    _check_kernel_x(x)
+    b, s, hid = x.shape
+    inter = _check_ffn_weights(hid, w1, b1, w2, b2, g, beta)
     lib = build_kernels().libs["fused_ffn"]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -186,3 +210,93 @@ def fused_ffn_block(x, w1, b1, w2, b2, g, beta):
     _raise_on(err, "fused_ffn_block")
     LAUNCHES["fused_ffn_block"] += 1
     return out
+
+
+def _layer_block_kernel(x, attention_mask, weights, num_heads):
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    b, s, hid = x.shape
+    mask = _check_attention_inputs(x, attention_mask, num_heads, *weights[:6])
+    inter = _check_ffn_weights(hid, *weights[6:])
+    lib = build_kernels().libs["fused_layer"]
+    qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
+    ctx = torch.empty_like(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.dial_layer_block_bf16(
+            x.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in weights),
+            qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            b, s, num_heads, inter, 1.0 / math.sqrt(KERNEL_HEAD_DIM), _stream(x),
+        )
+    _raise_on(err, "fused_layer_block")
+    LAUNCHES["fused_layer_block"] += 1
+    return out
+
+
+class _FusedBlock(torch.autograd.Function):
+    """``kernel(x, *weights)`` on the card, ``plain(x, *weights)`` on the
+    CPU; the backward differentiates ``plain`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, plain, kernel, x, *weights):
+        ctx.plain = plain
+        ctx.save_for_backward(x, *weights)
+        return (kernel if _on_card(x) else plain)(x, *weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _recompute_grads(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], dout)
+        return None, None, *grads
+
+
+def _cast(dtype, matrices, vectors):
+    """Matrices in the compute type, vectors in f32, as the kernels take
+    them (no-ops where they already are); autograd carries the casts."""
+    return [w.to(dtype) for w in matrices], [v.float() for v in vectors]
+
+
+def fused_attention_block(
+    x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads
+):
+    """LN(x + W_out.Attention(W_qkv.x + b) + b_out). x: [B, S, H],
+    mask: [B, S] (1 = real token); returns [B, S, H] in x's dtype. Weights
+    are [in, out]. Differentiable w.r.t. x and every weight."""
+    (wqkv, wout), (bqkv, bout, g, beta) = _cast(x.dtype, (wqkv, wout), (bqkv, bout, g, beta))
+    return _FusedBlock.apply(
+        lambda x, *w: fused_attention_block_plain(x, attention_mask, *w, num_heads),
+        lambda x, *w: _attention_block_kernel(x, attention_mask, *w, num_heads),
+        x, wqkv, bqkv, wout, bout, g, beta,
+    )
+
+
+def fused_ffn_block(x, w1, b1, w2, b2, g, beta):
+    """LN(x + W2.GELU_tanh(W1.x + b1) + b2). x: [B, S, H]; returns the same
+    shape and dtype. Weights are [in, out]. Differentiable w.r.t. x and
+    every weight."""
+    (w1, w2), (b1, b2, g, beta) = _cast(x.dtype, (w1, w2), (b1, b2, g, beta))
+    return _FusedBlock.apply(fused_ffn_block_plain, _ffn_block_kernel, x, w1, b1, w2, b2, g, beta)
+
+
+def fused_layer_block_plain(x, attention_mask, weights, num_heads):
+    """Plain version of the whole-layer kernel (``_layer_kernel``): the
+    attention block, whose output ``a`` is cast to x's dtype, then the FFN
+    block. ``weights`` is the reference's 12-tuple (wqkv, bqkv, wout, bout,
+    attn_ln_scale, attn_ln_bias, w1, b1, w2, b2, ffn_ln_scale, ffn_ln_bias)."""
+    wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2 = weights
+    a = fused_attention_block_plain(x, attention_mask, wqkv, bqkv, wout, bout, g1, beta1, num_heads)
+    return fused_ffn_block_plain(a, w1, b1, w2, b2, g2, beta2)
+
+
+def fused_layer_block(x, attention_mask, weights, num_heads):
+    """One encoder layer, LN(a + FFN(a)) with a = LN(x + Attention(x)),
+    ``a`` kept on chip. ``weights`` as for ``fused_layer_block_plain``.
+    Differentiable w.r.t. x and every weight."""
+    wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2 = weights
+    (wqkv, wout, w1, w2), (bqkv, bout, g1, beta1, b1, b2, g2, beta2) = _cast(
+        x.dtype, (wqkv, wout, w1, w2), (bqkv, bout, g1, beta1, b1, b2, g2, beta2)
+    )
+    return _FusedBlock.apply(
+        lambda x, *w: fused_layer_block_plain(x, attention_mask, w, num_heads),
+        lambda x, *w: _layer_block_kernel(x, attention_mask, w, num_heads),
+        x, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2,
+    )

@@ -23,7 +23,7 @@ from dial_rag_tpu.models.bert import BertConfig as JaxConfig
 from dial_rag_tpu.models.bert import bert_forward as jax_bert_forward
 from dial_rag_tpu.models.bert import init_params as jax_init_params
 from dial_rag_tpu.ops import flash_attention as jfa
-from dial_rag_tpu_torch.models.bert import bert_forward, resolve_attention_impl
+from dial_rag_tpu_torch.models.bert import _pallas_attention, bert_forward, resolve_attention_impl
 from dial_rag_tpu_torch.ops import flash_attention as tfa
 from dial_rag_tpu_torch.weights import params_from_jax_numpy
 
@@ -122,11 +122,14 @@ def test_fully_masked_row_stays_finite(layout):
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_longer_than_one_tile_raises(layout):
-    """S > 512 needs the reference's blocked kernels, not ported yet."""
-    port_fn, _, split, _ = LAYOUTS[layout]
-    qkv, mask, _ = _inputs(520, seed=0)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        port_fn([torch.from_numpy(x) for x in split(qkv)], torch.from_numpy(mask))
+    """S = 520 is longer than one 512 tile but not a multiple of 256, so
+    the reference still runs its single-tile kernels (4 or 5 forward, 8
+    backward) there, and so does the port: forward and gradients match,
+    where the port used to raise."""
+    out, ref, grads, ref_grads = _run_both(layout, 520, seed=520)
+    np.testing.assert_allclose(out, ref, atol=2e-6)
+    for g, r in zip(grads, ref_grads):
+        np.testing.assert_allclose(g, r, atol=5e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_plain"])
@@ -166,7 +169,7 @@ def test_bert_forward_pallas_route_matches_jax(impl):
         (True, torch.bfloat16, "tanh", 128, "fused"),
         (True, torch.float32, "exact", 128, "pallas"),
         (True, torch.float32, "exact", 512, "pallas"),
-        (True, torch.float32, "exact", 600, "pallas"),
+        (True, torch.float32, "exact", 520, "pallas"),
         (True, torch.bfloat16, "exact", 128, "pallas"),
         (False, torch.float32, "exact", 128, "xla"),
         (False, torch.bfloat16, "tanh", 128, "xla"),
@@ -175,12 +178,17 @@ def test_bert_forward_pallas_route_matches_jax(impl):
 def test_auto_route(is_cuda, dtype, gelu, s, want):
     """"auto" mirrors dial_rag_tpu/models/bert.py:510-523 on a CUDA tensor,
     whatever the dtype: fused blocks with tanh GELU at S <= 512, else the
-    attention kernels, which raise where the port lacks them (S > 512
-    here, bf16 in tests/test_torch_kernels_cuda.py) instead of falling
-    back to plain PyTorch; the plain "xla" route on the CPU."""
+    attention kernels, which raise where the port lacks them (bf16 in
+    tests/test_torch_kernels_cuda.py) instead of falling back to plain
+    PyTorch; the plain "xla" route on the CPU. Where "auto" gives
+    "pallas" above S = 512, that route's attention (heads split, then
+    ``flash_attention``: the single-tile kernels at S = 520) matches the
+    reference's on the CPU."""
     ids = types.SimpleNamespace(is_cuda=is_cuda, shape=(2, s))
     assert resolve_attention_impl("auto", ids, gelu) == want
     if want == "pallas" and s > 512:
-        qkv = torch.zeros((2, s, 3 * 12 * 32), dtype=dtype)
-        with pytest.raises(NotImplementedError, match="blocked"):
-            tfa.fused_qkv_attention(qkv, torch.ones((2, s), dtype=torch.int32), 12)
+        qkv, mask, _ = _inputs(s, seed=s)
+        out = _pallas_attention(torch.from_numpy(qkv), torch.from_numpy(mask), HEADS, plain=False)
+        q, k, v = (jnp.asarray(x) for x in _heads(qkv))
+        ref = jfa.flash_attention(q, k, v, jnp.asarray(mask)).transpose(0, 2, 1, 3).reshape(B, s, -1)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)

@@ -6,8 +6,12 @@ plain PyTorch versions for CPU tensors. Same numpy inputs from a seed,
 the tolerances of tests/test_fused_encoder.py: f32 2e-5, bf16 3e-2 (one
 bf16 ulp at the LayerNorm output's scale). The CUDA kernels themselves are
 held against the plain versions on the card in test_torch_kernels_cuda.py.
+The gradients of both blocks (their recompute backward through the plain
+versions) are held to ``jax.vjp`` of the reference blocks, f32, with
+tests/test_fused_encoder.py:96-139's atol 1e-4 and rtol 1e-3.
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -70,4 +74,39 @@ def test_cpu_wrappers_count_no_launch():
     x = torch.from_numpy(_x(rng, np.float32))
     w = [torch.from_numpy(a) for a in _weights(rng, [(H, INTER), (INTER,), (INTER, H), (H,)])]
     tfe.fused_ffn_block(x, *w)
-    assert tfe.LAUNCHES == {"fused_attention_block": 0, "fused_ffn_block": 0}
+    assert tfe.LAUNCHES == {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
+
+
+def _check_vjp(port_fn, jax_fn, x, args, mask=None):
+    """Gradients of sum(out * cot) with respect to x and every weight,
+    the port's autograd against ``jax.vjp`` of the reference block."""
+    cot = np.random.default_rng(9).standard_normal(x.shape).astype(np.float32)
+    j_mask = () if mask is None else (jnp.asarray(mask),)
+    t_mask = () if mask is None else (torch.from_numpy(mask),)
+    _, vjp = jax.vjp(lambda x, *w: jax_fn(x, *j_mask, *w), jnp.asarray(x), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(cot))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, *args)]
+    (port_fn(leaves[0], *t_mask, *leaves[1:]) * torch.from_numpy(cot)).sum().backward()
+    assert len(leaves) == len(want)
+    for t, g in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-3)
+
+
+def test_ffn_block_gradients_match_jax_vjp():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((B, 16, H)).astype(np.float32)
+    w = _weights(rng, [(H, INTER), (INTER,), (INTER, H), (H,)])
+    _check_vjp(tfe.fused_ffn_block, jfe.fused_ffn_block, x, w)
+
+
+def test_attention_block_gradients_match_jax_vjp():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((B, 16, H)).astype(np.float32)
+    w = _weights(rng, [(H, 3 * H), (3 * H,), (H, H), (H,)])
+    mask = np.ones((B, 16), np.int32)
+    mask[1, 10:] = 0
+    _check_vjp(
+        lambda x, m, *w: tfe.fused_attention_block(x, m, *w, HEADS),
+        lambda x, m, *w: jfe.fused_attention_block(x, m, *w, HEADS),
+        x, w, mask,
+    )

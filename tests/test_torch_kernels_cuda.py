@@ -8,8 +8,9 @@ so it runs on a machine with the card and PyTorch only:
 Tolerances: bf16 3e-2, the reference's own bf16 tolerance for its fused
 blocks (tests/test_fused_encoder.py); the f32 attention forward 2e-5, ten
 times the reference's 2e-6 (tests/test_flash_attention.py) for another
-summation order over S <= 512 keys; its gradients atol 5e-5, rtol 1e-4,
-the reference's own.
+summation order over the keys; its gradients atol 5e-5, rtol 1e-4, the
+reference's own; the KV-blocked kernel's log-sum-exp 1e-5, the
+reference's long-context lse tolerance.
 """
 
 import pytest
@@ -102,11 +103,12 @@ def _grads(fn, inputs, cot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (4, 64)])
+@pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (4, 64), (2, 520)])
 def test_attention_kernels_match_plain_on_card(cuda_device, b, s):
     """Kernels 4 (packed qkv) and 5 (head-major) forward, and kernel 8
     through both backwards, against the plain versions: a ragged S (not a
-    multiple of the 32-row tiles), the longest S and a fully masked row."""
+    multiple of the 32-row tiles), S = 512, S = 520 (past one 512 tile but
+    not a multiple of 256, so still single-tile) and a fully masked row."""
     heads = 12
     qkv, mask, cot = _attention_inputs(cuda_device, b, s, heads)
     tfa.reset_launches()
@@ -129,7 +131,8 @@ def test_attention_kernels_match_plain_on_card(cuda_device, b, s):
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-4)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"qkv_native_attention": 2, "flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    assert tfa.LAUNCHES == {"qkv_native_attention": 2, "flash_attention_fwd": 2, "flash_attention_bwd": 2,
+                            "attention_q_blocked": 0, "attention_kv_blocked_fwd": 0}
 
 
 @pytest.mark.cuda
@@ -149,9 +152,13 @@ def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
     q = torch.zeros(1, 2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
         tfa.flash_attention(q, q, q, mask)
-    long_qkv = torch.zeros(1, 520, 1152, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        tfa.fused_qkv_attention(long_qkv, torch.ones(1, 520, device=cuda_device), 12)
+    # past the single-tile kernels' shared-memory limit, which the error names
+    for direction in ("fwd", "bwd"):
+        s = tfa.single_tile_max_s(direction) + 64
+        long_qkv = torch.zeros(1, s, 1152, device=cuda_device, requires_grad=direction == "bwd")
+        with pytest.raises(NotImplementedError, match=f"limit of S <= {s - 64}"):
+            out = tfa.fused_qkv_attention(long_qkv, torch.ones(1, s, device=cuda_device), 12)
+            out.sum().backward()
 
 
 @pytest.mark.cuda
@@ -160,20 +167,133 @@ def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
     [
         (torch.bfloat16, "exact", 64, ValueError, "float32"),
         (torch.float32, "tanh", 64, ValueError, "bfloat16"),
-        (torch.float32, "exact", 600, NotImplementedError, "blocked"),
+        (torch.bfloat16, "exact", 520, ValueError, "float32"),
+        (torch.float32, "exact", 1700, NotImplementedError, "limit"),
     ],
 )
 def test_auto_route_raises_where_kernels_are_missing(cuda_device, dtype, gelu, s, error, match):
     """"auto" on the card takes the reference's TPU route; where the port
-    lacks that route's kernels (the attention kernels in bf16 or at S >
-    512, the fused blocks in f32) it raises instead of running plain
-    PyTorch."""
+    lacks that route's kernels (the single-tile attention kernels in bf16
+    or past their shared-memory limit, the fused blocks in f32) it raises
+    instead of running plain PyTorch."""
     from dial_rag_tpu_torch.models.bert import BertConfig, bert_forward, init_params, prepare_params
 
     config = BertConfig(vocab_size=64, hidden_size=384, num_layers=1, num_heads=12,
-                        intermediate_size=1536, max_position_embeddings=1024)
+                        intermediate_size=1536, max_position_embeddings=2048)
     params = prepare_params(init_params(config, torch.Generator().manual_seed(0)), cuda_device, dtype)
     ids = torch.ones(2, s, dtype=torch.long, device=cuda_device)
     mask = torch.ones(2, s, dtype=torch.int32, device=cuda_device)
     with pytest.raises(error, match=match):
         bert_forward(params, ids, mask, num_heads=12, compute_dtype=dtype, gelu=gelu)
+
+
+@pytest.mark.cuda
+def test_single_tile_kernels_at_their_limit(cuda_device):
+    """Kernels 4 and 5 at the longest S their forward takes, kernel 8 at
+    the longest its backward takes, against the plain versions."""
+    fwd_s, bwd_s = tfa.single_tile_max_s("fwd"), tfa.single_tile_max_s("bwd")
+    assert fwd_s >= bwd_s > 512
+    qkv, mask, cot = _attention_inputs(cuda_device, 1, fwd_s)
+    out = tfa.fused_qkv_attention(qkv, mask, 12)
+    ref = tfa.fused_qkv_attention(qkv, mask, 12, plain=True)
+    assert (out - ref).abs().max().item() <= 2e-5
+    q, k, v = tfa._split_heads(qkv, 12)
+    assert tfa.attention_route(fwd_s) == "single_tile"
+    assert (tfa.flash_attention(q, k, v, mask) - tfa.flash_attention(q, k, v, mask, plain=True)).abs().max() <= 2e-5
+    qkv, mask, cot = _attention_inputs(cuda_device, 1, bwd_s)
+    got = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
+    want = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12, plain=True), [qkv], cot)[0]
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize(
+    "route,b,s", [("q_blocked", 2, 768), ("q_blocked", 1, 4096), ("kv_blocked", 1, 4608), ("kv_blocked", 3, 8192)]
+)
+def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, route, b, s):
+    """Kernels 6 (query-blocked) and 7 (KV-blocked, with its log-sum-exp)
+    against their plain versions, q, k and v read as strided views of a
+    packed qkv, a ragged mask and a fully masked row."""
+    qkv, mask, _ = _attention_inputs(cuda_device, b + 1, s)
+    q, k, v = tfa._split_heads(qkv.to(dtype), 12)
+    assert tfa.attention_route(s) == route
+    tfa.reset_launches()
+    out, lse = tfa._forward(q, k, v, mask)
+    ref, ref_lse = tfa._forward(q, k, v, mask, plain=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    name = "attention_q_blocked" if route == "q_blocked" else "attention_kv_blocked_fwd"
+    assert tfa.LAUNCHES[name] == 1
+    if route == "kv_blocked":
+        assert torch.isfinite(lse).all() and (lse - ref_lse).abs().max().item() <= 1e-5
+    else:
+        assert lse is None and ref_lse is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (1, 64)])
+def test_layer_kernel_matches_plain_on_card(cuda_device, b, s):
+    """Kernel 3 (the whole layer) against its plain version at bge-small
+    widths, bf16: a ragged S, the longest S and a masked row."""
+    hid, heads, inter = 384, 12, 1536
+    g = torch.Generator().manual_seed(4)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g) * scale).to(cuda_device, dtype)
+
+    x = rnd(b, s, hid, dtype=torch.bfloat16)
+    mask = torch.ones(b, s, dtype=torch.int32)
+    mask[-1, 40:] = 0
+    mask = mask.to(cuda_device)
+    ones, zeros = torch.ones(hid, device=cuda_device), torch.zeros(hid, device=cuda_device)
+    weights = (
+        rnd(hid, 3 * hid, scale=0.05, dtype=torch.bfloat16), rnd(3 * hid, scale=0.02),
+        rnd(hid, hid, scale=0.05, dtype=torch.bfloat16), rnd(hid, scale=0.02), ones, zeros,
+        rnd(hid, inter, scale=0.05, dtype=torch.bfloat16), rnd(inter, scale=0.02),
+        rnd(inter, hid, scale=0.05, dtype=torch.bfloat16), rnd(hid, scale=0.02), ones, zeros,
+    )
+    tfe.reset_launches()
+    out = tfe.fused_layer_block(x, mask, weights, heads)
+    ref = tfe.fused_layer_block_plain(x, mask, weights, heads)
+    torch.cuda.synchronize()
+    assert tfe.LAUNCHES["fused_layer_block"] == 1
+    assert (out.float() - ref.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.cuda
+def test_fused_block_gradients_on_card(cuda_device):
+    """The fused blocks train in bf16 on the card: their backward
+    recomputes through the plain versions, so the gradients through the
+    kernel route equal those through the plain route."""
+    hid, heads, inter, b, s = 384, 12, 1536, 2, 64
+    g = torch.Generator().manual_seed(6)
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(cuda_device).requires_grad_(True)
+
+    x = leaf(b, s, hid)
+    mask = torch.ones(b, s, dtype=torch.int32, device=cuda_device)
+    mask[1, 30:] = 0
+    attn_w = [leaf(hid, 3 * hid, scale=0.05), leaf(3 * hid, scale=0.02), leaf(hid, hid, scale=0.05),
+              leaf(hid, scale=0.02), leaf(hid, scale=0.1), leaf(hid, scale=0.1)]
+    ffn_w = [leaf(hid, inter, scale=0.05), leaf(inter, scale=0.02), leaf(inter, hid, scale=0.05),
+             leaf(hid, scale=0.02), leaf(hid, scale=0.1), leaf(hid, scale=0.1)]
+    cot = torch.randn(b, s, hid, generator=g).to(cuda_device)
+
+    def grads(attn, ffn):
+        for t in [x, *attn_w, *ffn_w]:
+            t.grad = None
+        a = attn(x.bfloat16(), mask, *attn_w, heads)
+        (ffn(a, *ffn_w).float() * cot).sum().backward()
+        return [t.grad.clone() for t in [x, *attn_w, *ffn_w]]
+
+    tfe.reset_launches()
+    got = grads(tfe.fused_attention_block, tfe.fused_ffn_block)
+    assert tfe.LAUNCHES["fused_attention_block"] == tfe.LAUNCHES["fused_ffn_block"] == 1
+    want = grads(tfe.fused_attention_block_plain, tfe.fused_ffn_block_plain)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        cos = torch.nn.functional.cosine_similarity(a.flatten().double(), w.flatten().double(), dim=0)
+        assert cos.item() > 0.9999

@@ -4,7 +4,8 @@ machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax).
 
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
-main path end to end, one f32 "pallas" encode and one training step. An
+main path end to end, one f32 "pallas" encode, the long-document
+"pallas" route and the whole-layer route, and one training step. An
 AST scan checks the sources as well.
 """
 
@@ -65,9 +66,21 @@ out = pallas.encode(emb.params, torch.from_numpy(ids).long(), torch.from_numpy(m
 ref = enc.encode(emb.params, torch.from_numpy(ids).long(), torch.from_numpy(mask))
 assert torch.allclose(out, ref, atol=1e-5), (out - ref).abs().max()
 
-# one training step
+# the long-document "pallas" route (S = 768: the query-blocked forward)
+# and the whole-layer route, on their plain versions here
 import dataclasses
-from dial_rag_tpu_torch.models.bert import BertConfig
+from dial_rag_tpu_torch.models.bert import BertConfig, bert_forward, init_params
+long_cfg = dataclasses.replace(BertConfig.tiny(), max_position_embeddings=1024)
+long_params = init_params(long_cfg, torch.Generator().manual_seed(0))
+long_ids = torch.randint(5, long_cfg.vocab_size, (1, 768), generator=torch.Generator().manual_seed(1))
+long_mask = torch.ones(1, 768, dtype=torch.int32)
+for impl, dtype in (("pallas", torch.float32), ("fused_layer", torch.bfloat16)):
+    h = bert_forward(long_params, long_ids[:, : 768 if impl == "pallas" else 64],
+                     long_mask[:, : 768 if impl == "pallas" else 64], num_heads=long_cfg.num_heads,
+                     compute_dtype=dtype, attention_impl=impl)
+    assert torch.isfinite(h.float()).all(), impl
+
+# one training step
 from dial_rag_tpu_torch.training.loop import TrainConfig, train
 cfg = TrainConfig(batch_size=2, seq_len=32, total_steps=1, warmup_steps=1, checkpoint_every=10)
 tiny = dataclasses.replace(BertConfig.tiny(), vocab_size=enc.config.vocab_size)
