@@ -56,9 +56,27 @@ Phases, each announced by a ``[phase]`` line:
    and in f32 and answers queries; the query-blocked and KV-blocked
    kernels' launches must equal 12 x their encode batches, the
    embeddings agree with the "pallas_plain" route (cosine) and top-1
-   with it apart from near-ties.
+   with it apart from near-ties;
+9. long-context backward kernels: the query-blocked backward (TPU kernel
+   9) and the KV-blocked dQ and dK/dV passes (kernels 10 and 11) against
+   their plain versions at [4, 12, S, 32] for S = 1024, 4096, 8192 (the
+   training phase's) and 4352 (query-blocked above 4096), in f32 and bf16,
+   standard-normal inputs, ragged rows and a fully masked one, the
+   KV-blocked passes fed the forward kernel's o and lse; each timed at the
+   training phase's shape beside its bound, the plain version and SDPA
+   forward + backward;
+10. long-context training: ``train()`` trains that seeded encoder in f32 on
+   12 Alps (question, passage) pairs, each passage its fact and a long
+   text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
+   repeating them 4 times. Each batch's loss and gradients through the
+   kernels must match the "pallas_plain" route (loss rel 1e-5, cosine >
+   0.9999 per tensor); the losses must be finite, each batch's loss lower
+   at its last appearance than at its first, and the counters must read
+   12 layers x 2 encodes x the steps at each route for kernels 6, 7, 9, 10
+   and 11. Prints the median step per S, a profile of one step per S and
+   the peak memory.
 
-The second-to-last line is a JSON object with the kernels' numbers, the
+Each phase prints its seconds. The second-to-last line is a JSON object with the kernels' numbers, the
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the result is printed. Writes nothing in the checkout but the kernels'
 build directory.
@@ -104,14 +122,36 @@ LONG_MAX_POSITIONS = 8192
 LONG_BATCH = 4
 LONG_TARGETS = (1000, 700, 850, 1020, 2000, 1500, 1800, 1200, 4000, 3000, 2500, 4090, 8000, 6000)
 LONG_QUERIES = 8
+# long-context training: 4 (question, passage) pairs a batch, the passages
+# (fact + long text) sized so the three batches land at S = 1024, 4096 and
+# 8192 (token targets of the long text after the fact); the stream repeats
+# the three batches LONG_TRAIN_CYCLES times
+LONG_TRAIN_BATCH = 4
+LONG_TRAIN_TARGETS = ((600, 950, 800, 700), (2500, 4000, 3000, 3500), (8000, 5000, 6500, 7000))
+LONG_TRAIN_SEQS = (1024, 4096, 8192)
+LONG_TRAIN_CYCLES = 4
+LONG_TRAIN_LR = 1e-4
+# blocked backward kernels vs plain versions in bf16: of the plain
+# gradient's largest magnitude (gradients are not O(1))
+BF16_GRAD_REL = 3e-2
 LAYER_SUBSET = 256  # chunks of the main path served through the whole-layer route
 # whole-layer route vs its plain composition, bf16 document embeddings
 # (unit norm): the measured cosine is 0.999975 on an H100 80GB HBM3 at 700 W
 LAYER_PLAIN_COS = 0.9999
 
 
-def phase(name: str) -> None:
-    print(f"[phase] {name}", flush=True)
+_PHASE = {}
+
+
+def phase(name: str | None) -> None:
+    """Announces phase ``name`` (None: the end of the last one), after the
+    seconds the previous phase took."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"[phase] {_PHASE['name']}: {now - _PHASE['t0']:.1f} s", flush=True)
+    if name is not None:
+        print(f"[phase] {name}", flush=True)
+        _PHASE.update(name=name, t0=now)
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -126,6 +166,26 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, what: str, card: str, top: int = 8) -> float:
+    """Runs ``fn`` once under ``torch.profiler`` and prints its device
+    time and the ``top`` kernels by device time; returns the total in ms.
+    User-annotation ranges (an optimizer step's) span kernels that are
+    already counted, so they are left out of the total and the list."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    total_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile of {what}: device time {total_ms:.3f} ms {card}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+    sys.stdout.flush()
+    return total_ms
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -490,16 +550,7 @@ def training_phase(torch, card, base, num_layers: int, cfg, stream):
     state = create_train_state(params, *make_optimizer(cfg, params))
     step_fn = make_train_step(model, temperature=cfg.temperature)
     step_fn(state, first)  # warm-up
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step_fn(state, first)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    print(f"profile of one train step (B={cfg.batch_size}, S={s}): device time {total_us / 1e3:.3f} ms {card}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+    device_profile(torch, lambda: step_fn(state, first), f"one train step (B={cfg.batch_size}, S={s})", card, 10)
     del state, params, step_fn
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
@@ -942,21 +993,294 @@ def long_document_phase(torch, card, dev, config, params, tokenizer, docs, max_l
         ids, mask = tokenizer.encode_batch(docs[(len(docs) - 1) // LONG_BATCH * LONG_BATCH :], max_len=max_len)
         ids = torch.from_numpy(np.pad(ids, ((0, LONG_BATCH - len(ids)), (0, 0)))).to(dev, dtype=torch.long)
         mask = torch.from_numpy(np.pad(mask, ((0, LONG_BATCH - len(mask)), (0, 0)))).to(dev)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            serve.encoder.encode(serve.params, ids, mask)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        total_us = sum(e.self_device_time_total for e in events)
-        print(f"profile of one long-document encode ({name}, B={LONG_BATCH}, S={ids.shape[1]}): device time "
-              f"{total_us / 1e3:.3f} ms {card}")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
-        sys.stdout.flush()
+        device_profile(torch, lambda: serve.encoder.encode(serve.params, ids, mask),
+                       f"one long-document encode ({name}, B={LONG_BATCH}, S={ids.shape[1]})", card, 6)
         out[name] = launches
         del serve, plain, retriever, record
     return out
+
+
+def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, timed) -> dict:
+    """Kernels 9 (query-blocked backward) and 10, 11 (the KV-blocked dQ and
+    dK/dV passes) against their plain versions at [batch, heads, S, dh] for
+    every S in ``seqs``, in f32 and bf16: standard-normal qkv and dO (peaked
+    attention), a full row, a row padded across a 512-key block, a ragged
+    row and a fully masked one. q, k and v are strided views of a packed
+    qkv, the gradients are written into a packed dqkv, dO is a transposed
+    view; the KV-blocked passes and their plain version get the forward
+    kernel's o and lse (gates: ``check``). Each kernel is then gated and
+    timed at ``timed[name]`` (B, S) in both dtypes beside its bound, the
+    plain version and SDPA forward + backward with the additive mask; the
+    row holds the f32 times (the training dtype)."""
+    import torch.nn.functional as F
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+
+    def inputs(b, s, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev, dtype)
+        do = torch.randn(b, s, heads, dh, generator=g).to(dev, dtype).transpose(1, 2)
+        lengths = torch.randint(s // 2, s, (b,), generator=g)
+        lengths[0], lengths[1], lengths[-1] = s, s // 3 + 100, 0
+        mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32)
+        return (*fa._split_heads(qkv, heads), do, mask.to(dev))
+
+    def run(q, k, v, do, mask, plain):
+        """(dq, dk, dv) of the blocked backward, after the forward kernel's
+        o and lse (the kernels write into a packed dqkv), and the
+        KV-blocked backward's plain version evaluated in f64 (else None)."""
+        with torch.no_grad():
+            o, lse = fa._forward(q, k, v, mask)
+            if plain:
+                if lse is None:
+                    return fa.attention_bwd_q_blocked_plain(q, k, v, do, mask), None
+                return (fa.attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, mask),
+                        fa.attention_bwd_kv_blocked_plain(*(t.double() for t in (q, k, v, o)), lse, do.double(), mask))
+            b, _, s, _ = q.shape
+            grads = fa._split_heads(torch.empty(b, s, 3 * heads * dh, dtype=q.dtype, device=dev), heads)
+            if lse is None:
+                fa._bwd_q_blocked_kernel(q, k, v, do, *grads, mask)
+            else:
+                delta = fa._bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, grads[0], mask)
+                err = (delta - (do.float() * o.float()).sum(dim=-1)).abs().max().item()
+                if not err <= GRAD_ATOL:
+                    raise RuntimeError(f"bwd_dq_kv_blocked: delta off rowsum(dO O) by {err}")
+                fa._bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, *grads[1:], mask)
+            return grads
+
+    def excess(a, w):
+        return ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
+
+    def check(name, got, want, exact, mask, dtype, which=(0, 1, 2)):
+        """f32: the excess of |kernel - plain| over atol after rtol; in a
+        fully masked row of the KV-blocked backward, where P = 1 makes every
+        gradient a sum of S terms of size 1 whose f32 rounding alone exceeds
+        atol, the kernel's excess against the f64 evaluation may not exceed
+        the plain version's (or atol). bf16: per batch row, max |kernel -
+        plain| over max |plain|. ``which``: the gradients (0 dq, 1 dk, 2 dv)
+        to read."""
+        torch.cuda.synchronize()
+        masked = mask.sum(dim=1) == 0
+        readings = []
+        for i in which:
+            g, a, w = ("dq", "dk", "dv")[i], got[i].float(), want[i].float()
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"{name}: {g} is not finite")
+            if dtype == torch.float32:
+                apart = ~masked if exact is not None else torch.ones_like(masked)
+                err = excess(a[apart], w[apart])
+                ok, reading = err <= GRAD_ATOL, f"{g} {err:.3g}"
+                if exact is not None and masked.any():
+                    e = exact[i][masked]
+                    k_ex, p_ex = excess(a[masked].double(), e), excess(w[masked].double(), e)
+                    ok = ok and k_ex <= max(GRAD_ATOL, p_ex)
+                    reading += f" (fully masked rows against f64: kernel {k_ex:.3g}, plain {p_ex:.3g})"
+            else:
+                err = max(((a[r] - w[r]).abs().max() / w[r].abs().max().clamp_min(1e-30)).item()
+                          for r in range(a.shape[0]))
+                ok, reading = err <= BF16_GRAD_REL, f"{g} {err:.3g}"
+            if not ok:
+                raise RuntimeError(f"{name}: {g} off its plain version: {reading}")
+            readings.append(reading)
+        return ", ".join(readings)
+
+    names = {"q_blocked": "attention_bwd_q_blocked", "kv_blocked": "bwd_dq_kv_blocked + bwd_dkv_kv_blocked"}
+    for s in seqs:
+        route = fa.attention_route(s)
+        if route == "single_tile":
+            raise RuntimeError(f"S={s} takes no blocked kernel")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, mask = inputs(batch, s, dtype, seed=s)
+            want, exact = run(q, k, v, do, mask, True)
+            reading = check(names[route], run(q, k, v, do, mask, False), want, exact, mask, dtype)
+            del want, exact
+            what = (f"excess of |kernel - plain| over atol after rtol (atol {GRAD_ATOL}, rtol {GRAD_RTOL})"
+                    if dtype == torch.float32 else f"max abs err / max |plain| per row (limit {BF16_GRAD_REL})")
+            print(f"{names[route]} at [{batch}, {heads}, {s}, {dh}] {str(dtype)[6:]} (row lengths "
+                  f"{mask.sum(1).tolist()}): {what}: {reading}", flush=True)
+            del q, k, v, do
+
+    rows = {}
+    f32 = 4
+    outputs = {"attention_bwd_q_blocked": (0, 1, 2), "bwd_dq_kv_blocked": (0,), "bwd_dkv_kv_blocked": (1, 2)}
+    for name, replaces in (("attention_bwd_q_blocked", "dial_rag_tpu/ops/flash_attention.py:360"),
+                           ("bwd_dq_kv_blocked", "dial_rag_tpu/ops/flash_attention.py:417"),
+                           ("bwd_dkv_kv_blocked", "dial_rag_tpu/ops/flash_attention.py:461")):
+        b, s = timed[name]
+        for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+            q, k, v, do, mask = inputs(b, s, dtype, seed=11)
+            size, head = q.element_size(), b * heads * s * dh * q.element_size()
+            with torch.no_grad():
+                o, lse = fa._forward(q, k, v, mask)
+            dq, dk, dv = (torch.empty(t.shape, dtype=dtype, device=dev) for t in (q, k, v))
+            if name == "attention_bwd_q_blocked":
+                if lse is not None:
+                    raise RuntimeError(f"S={s} does not take the query-blocked backward")
+                kernel = lambda: fa._bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, mask)  # noqa: E731
+                plain = lambda: fa.attention_bwd_q_blocked_plain(q, k, v, do, mask)  # noqa: E731
+                flops, nbytes = 10 * b * heads * s * s * dh, 7 * head + b * s * f32
+            elif name == "bwd_dq_kv_blocked":
+                kernel = lambda: fa._bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, mask)  # noqa: E731
+                plain = lambda: fa.attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, mask)  # noqa: E731
+                flops, nbytes = 6 * b * heads * s * s * dh, 6 * head + 2 * b * heads * s * f32 + b * s * f32
+            else:
+                delta = fa._bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, mask)
+                kernel = lambda: fa._bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, mask)  # noqa: E731
+                plain = lambda: fa.attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, mask)  # noqa: E731
+                flops, nbytes = 8 * b * heads * s * s * dh, 6 * head + 2 * b * heads * s * f32 + b * s * f32
+            want = plain()
+            exact = None
+            if lse is not None and dtype == torch.float32:
+                exact = fa.attention_bwd_kv_blocked_plain(*(t.double() for t in (q, k, v, o)), lse, do.double(), mask)
+            kernel()
+            check(name, (dq, dk, dv), want, exact, mask, dtype, outputs[name])
+            err = max((grad.float() - want[i].float()).abs().max().item()
+                      for i, grad in enumerate((dq, dk, dv)) if i in outputs[name])
+            ms = cuda_ms(torch, kernel, iters=5, warmup=1)
+            plain_ms = cuda_ms(torch, plain, iters=2, warmup=1)
+            del want, exact
+
+            # SDPA forward + backward, the yardstick (rows 10 and 11 share it)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            keep = fa.mask_bias(mask)[:, None, None, :].to(dtype)
+
+            def sdpa():
+                for t in leaves:
+                    t.grad = None
+                F.scaled_dot_product_attention(*leaves, attn_mask=keep).backward(do)
+
+            library_ms = cuda_ms(torch, sdpa, iters=5, warmup=1)
+            del leaves
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
+                  f"TFLOP/s, {nbytes / 1e6:.2f} MB) {card}", flush=True)
+            rows[name] = {
+                "name": name, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long_bwd.cu",
+                "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            }
+            del q, k, v, do, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+    return rows
+
+
+def long_training_pairs(tokenizer, cycles: int) -> list[tuple[str, str]]:
+    """The long-context training stream: batch g holds the (question,
+    passage) pairs 4 g .. 4 g + 3 of the Alps questions, each passage its
+    question's fact followed by a long text of LONG_TRAIN_TARGETS[g][i]
+    tokens; the batches in turn, ``cycles`` times."""
+    facts, questions = alps_questions()
+    flat = [t for batch in LONG_TRAIN_TARGETS for t in batch]
+    texts = long_texts(tokenizer, flat)
+    pairs = [(questions[i], f"{facts[i]} {texts[i]}") for i in range(len(flat))]
+    return pairs * cycles
+
+
+def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream) -> dict:
+    """Contrastive training of the seeded long-context encoder in f32 with
+    ``train()`` on ``stream`` (the same few batches repeated): each distinct
+    batch's loss and gradients through the kernels against the
+    "pallas_plain" route, one profiled step per S, then the run; returns
+    the attention counters of the run."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss, create_train_state, make_train_step
+    from dial_rag_tpu_torch.training.loop import make_optimizer, pairs_to_batches, train, trainable_params
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    batches = list(pairs_to_batches(tokenizer, stream, cfg))
+    n_distinct = len(stream) // cfg.batch_size // LONG_TRAIN_CYCLES
+    distinct = batches[:n_distinct]
+    seqs = [b["p_ids"].shape[1] for b in distinct]
+    routes = [fa.attention_route(s) for s in seqs]
+    print(f"long-context training: {config.num_layers} layers, H={config.hidden_size}, "
+          f"{config.max_position_embeddings} positions, seeded weights, f32; {len(batches)} steps of "
+          f"{cfg.batch_size} pairs: {n_distinct} batches at S = {seqs} ({routes}; the questions padded to the "
+          f"passages' S), each seen {LONG_TRAIN_CYCLES} times; passage lengths "
+          f"{[b['p_mask'].sum(1).tolist() for b in distinct]}; lr {cfg.learning_rate}, warmup "
+          f"{cfg.warmup_steps}", flush=True)
+    if seqs != [b["q_ids"].shape[1] for b in distinct] or "single_tile" in routes:
+        raise RuntimeError(f"long-context batches at S = {seqs}: each must take a blocked kernel")
+
+    # each distinct batch through the kernels and through the plain route
+    for s, batch in zip(seqs, distinct):
+        def loss_and_grads(impl):
+            p = trainable_params(params, dev)
+            loss = contrastive_loss(p, batch, num_heads=config.num_heads, temperature=cfg.temperature,
+                                    attention_impl=impl)
+            loss.backward()
+            return loss.item(), [t.grad for t in param_leaves(p)]
+
+        loss_k, grads_k = loss_and_grads("pallas")
+        loss_p, grads_p = loss_and_grads("pallas_plain")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        cos = [torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+               for a, b in zip(grads_k, grads_p) if b.abs().max() > 0]
+        print(f"long-context batch at S={s}, kernels vs \"pallas_plain\": loss {loss_k:.8f} vs {loss_p:.8f} "
+              f"(rel {rel:.3g}, limit 1e-5); gradient cosine min {min(cos):.8f} over {len(cos)} tensors (limit "
+              f"{GRAD_COS})", flush=True)
+        if not (rel <= 1e-5 and min(cos) > GRAD_COS and all(torch.isfinite(g).all() for g in grads_k)):
+            raise RuntimeError(f"long-context training at S={s} through the kernels disagrees with the plain route")
+        del grads_k, grads_p
+
+    # where one step at each S spends the card's time (profiler, one step
+    # each, after a step that sets up the optimizer's state)
+    trainable = trainable_params(params, dev)
+    state = create_train_state(trainable, *make_optimizer(cfg, trainable))
+    step_fn = make_train_step(config, temperature=cfg.temperature)
+    step_fn(state, distinct[0])
+    for s, batch in zip(seqs, distinct):
+        device_profile(torch, lambda: step_fn(state, batch),
+                       f"one long-context train step (B={cfg.batch_size}, S={s})", card)
+    del state, step_fn, trainable
+
+    times, last = [], [0.0]
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**20
+    fa.reset_launches()
+    last[0] = time.perf_counter()
+    _, losses = train(config, cfg, stream, tokenizer, init=params, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for i, (loss, dt) in enumerate(zip(losses, times)):
+        s = seqs[i % n_distinct]
+        print(f"  step {i + 1:2d}: S={s}, loss {loss:.6f}, {dt * 1e3:.2f} ms, {cfg.batch_size / dt:.2f} pairs/s")
+    for g, s in enumerate(seqs):
+        steady = sorted(times[g + n_distinct :: n_distinct])
+        median = steady[len(steady) // 2]
+        print(f"long-context training at S={s}: median step {median * 1e3:.2f} ms, {cfg.batch_size / median:.2f} "
+              f"pairs/s (appearances 2-{LONG_TRAIN_CYCLES}; host clock ending in synchronize) {card}")
+    print(f"long-context training: peak memory {peak:.1f} MiB, of which {held:.1f} MiB held before the run {card}")
+    steps = {r: routes.count(r) * LONG_TRAIN_CYCLES for r in ("q_blocked", "kv_blocked")}
+    per = config.num_layers * 2  # layers x (question and passage encodes)
+    expected = {
+        "attention_q_blocked": per * steps["q_blocked"], "attention_bwd_q_blocked": per * steps["q_blocked"],
+        "attention_kv_blocked_fwd": per * steps["kv_blocked"], "bwd_dq_kv_blocked": per * steps["kv_blocked"],
+        "bwd_dkv_kv_blocked": per * steps["kv_blocked"],
+    }
+    print(f"long-context training launches {launches}; expected {expected} ({config.num_layers} layers x 2 "
+          f"encodes x the steps at each route)", flush=True)
+    if not all(np.isfinite(losses)) or len(losses) != len(batches):
+        raise RuntimeError(f"long-context training losses: {losses}")
+    if any(launches[name] != n or n == 0 for name, n in expected.items()):
+        raise RuntimeError("the long-context training path bypassed the blocked attention kernels")
+    for g, s in enumerate(seqs):
+        first, final = losses[g], losses[g + n_distinct * (LONG_TRAIN_CYCLES - 1)]
+        print(f"long-context batch at S={s}: loss {first:.6f} at its first appearance, {final:.6f} at its last")
+        if not final < first:
+            raise RuntimeError(f"long-context training did not reduce the loss of the S={s} batch: {losses}")
+    return launches
 
 
 def main() -> int:
@@ -1186,16 +1510,8 @@ def main() -> int:
     ids_b, mask_b = embedder.tokenizer.encode_batch(texts[len(oracle) : len(oracle) + b])
     ids_b = torch.from_numpy(ids_b).to(dev, dtype=torch.long)
     mask_b = torch.from_numpy(mask_b).to(dev)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        embedder.encoder.encode(embedder.params, ids_b, mask_b)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    print(f"profile of one encode batch (B={b}, S={s}): device time {total_us / 1e3:.3f} ms {card}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+    device_profile(torch, lambda: embedder.encoder.encode(embedder.params, ids_b, mask_b),
+                   f"one encode batch (B={b}, S={s})", card)
 
     # seeded 1M x 384 f32 dense index on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1270,6 +1586,27 @@ def main() -> int:
     rows["attention_kv_blocked_fwd"]["launches"] = sum(
         v["attention_kv_blocked_fwd"] for v in long_launches.values())
 
+    phase("long-context backward kernels")
+    from dial_rag_tpu_torch.training.loop import TrainConfig
+
+    heads, dh = cfg.num_heads, hid // cfg.num_heads
+    train_seqs = sorted(set(LONG_TRAIN_SEQS)) + [4352]  # 4352: query-blocked above 4096 (S % 512 != 0)
+    rows.update(long_backward_rows(
+        torch, dev, card, heads, dh, LONG_TRAIN_BATCH, train_seqs,
+        timed={"attention_bwd_q_blocked": (LONG_TRAIN_BATCH, 4096), "bwd_dq_kv_blocked": (LONG_TRAIN_BATCH, 8192),
+               "bwd_dkv_kv_blocked": (LONG_TRAIN_BATCH, 8192)}))
+
+    phase("long-context training")
+    long_train_cfg = TrainConfig(batch_size=LONG_TRAIN_BATCH, seq_len=LONG_BUCKETS[-1],
+                                 learning_rate=LONG_TRAIN_LR, warmup_steps=2,
+                                 total_steps=len(LONG_TRAIN_SEQS) * LONG_TRAIN_CYCLES)
+    long_stream = long_training_pairs(long_tokenizer, LONG_TRAIN_CYCLES)
+    long_train_launches = long_training_phase(torch, card, dev, long_cfg, long_params, long_tokenizer,
+                                              long_train_cfg, long_stream)
+    for name in ("attention_bwd_q_blocked", "bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"):
+        rows[name]["launches"] = long_train_launches[name]
+
+    phase(None)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

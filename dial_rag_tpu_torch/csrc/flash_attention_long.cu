@@ -43,7 +43,7 @@
 #include <cfloat>
 #include <cstdint>
 
-#include "attention_f32.cuh"
+#include "attention_long.cuh"
 
 namespace dial {
 namespace attn {
@@ -52,55 +52,6 @@ namespace {
 struct LongViews {
   View q, k, v, o;
 };
-
-constexpr int kPerThread = kDh / kPhases;  // head columns of o a thread owns
-constexpr int kKeysPerThread = kChunk / kPhases;
-// row stride of the [kRows, kChunk] probability tile: the 4 rows and 8
-// phases of a warp land on 32 distinct banks
-constexpr int kPLd = kChunk + 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x after a round trip through T: the cast of P (or e) before P . V
-template <typename T>
-__device__ __forceinline__ float through(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Rows [r0, r0 + NROWS) of one head into a [NROWS, kPad] f32 tile. S is a
-// multiple of kChunk (the wrapper checks), so every row is real.
-template <int NROWS, typename T>
-__device__ __forceinline__ void load_rows_f32(float* dst, const T* base, long long row_stride, int r0) {
-  for (int i = threadIdx.x; i < NROWS * kDh; i += kThreads) {
-    const int r = i / kDh, d = i % kDh;
-    dst[r * kPad + d] = to_f32(base[(r0 + r) * row_stride + d]);
-  }
-}
-
-// The max and the sum over the 8 neighbouring lanes that share a row.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = kPhases / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kPhases / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 struct BlockSmem {
   float k[kChunk * kPad];  // K chunk; the q tile at first

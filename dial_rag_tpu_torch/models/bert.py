@@ -23,16 +23,16 @@ Attention routes (``attention_impl``):
   ``ops.flash_attention``, as the reference's "pallas" route: at S <= 512
   ``fused_qkv_attention`` on the packed qkv, longer sequences split into
   heads for ``flash_attention`` (the query-blocked or KV-blocked forward
-  above S = 512, by S). Their autograd functions launch the hand-written
-  attention kernels on a CUDA tensor;
+  above S = 512, by S, and the matching blocked backward). Their autograd
+  functions launch the hand-written attention kernels on a CUDA tensor;
 - ``"pallas_plain"``: the same autograd functions on their plain versions;
 - ``"auto"``: the reference's TPU choice on a CUDA tensor: ``"fused"``
   with tanh GELU at S <= 512, else ``"pallas"`` (its f32 route, and every
-  S > 512, bf16 included). Where the port lacks that route's kernels (the
-  fused blocks in f32, the single-tile attention kernels in bf16, the
-  backward above S = 512 at a blocked S) the route raises and names them;
-  it never falls back to plain PyTorch on the card. ``"xla"`` is the
-  route on the CPU.
+  S > 512, bf16 included; its backward runs the blocked backward kernels
+  there). Where the port lacks that route's kernels (the fused blocks in
+  f32, the single-tile attention kernels in bf16) the route raises and
+  names them; it never falls back to plain PyTorch on the card.
+  ``"xla"`` is the route on the CPU.
 
 ``bert_forward`` is differentiable; ``remat=True`` recomputes each layer
 in the backward (``torch.utils.checkpoint``) instead of saving it.

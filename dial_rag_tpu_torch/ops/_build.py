@@ -54,6 +54,11 @@ SIGNATURES = {
         **{f"dial_attention_q_blocked_{t}": [_P] * 6 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
         **{f"dial_attention_kv_blocked_{t}": [_P] * 7 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
     },
+    "flash_attention_long_bwd": {
+        **{f"dial_attention_bwd_q_blocked_{t}": [_P] * 11 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
+        **{f"dial_attention_bwd_{p}_kv_blocked_{t}": [_P] * 10 + [_I, _I, _I, _F, _P]
+           for p in ("dq", "dkv") for t in ("f32", "bf16")},
+    },
 }
 
 

@@ -13,17 +13,23 @@
   else the KV-blocked online-softmax ``_attention_kv_blocked_fwd_kernel``,
   which also gives the log-sum-exp for a blocked backward.
 
-Both are ``torch.autograd.Function``s whose backward is the recompute-P
-backward of ``_attention_bwd_kernel``. On a CUDA tensor they launch the
-hand-written Hopper kernels (``csrc/flash_attention_fwd.cu``, one strided
-kernel for both single-tile layouts; ``csrc/flash_attention_bwd.cu``;
-``csrc/flash_attention_long.cu`` for the two blocked forwards) or raise;
-they never fall back. On a CPU tensor, or with ``plain=True``, they run
-the plain PyTorch versions beside them, which follow the TPU kernels'
+Both are ``torch.autograd.Function``s with a recompute-P backward,
+dispatched as the reference's ``_bwd_rule`` dispatches it: after the
+KV-blocked forward (which left a log-sum-exp) the two passes
+``_bwd_dq_kv_blocked_kernel`` and ``_bwd_dkv_kv_blocked_kernel``; at any
+other blocked S ``_attention_bwd_q_blocked_kernel``; else the single-tile
+``_attention_bwd_kernel``. On a CUDA tensor they launch the hand-written
+Hopper kernels (``csrc/flash_attention_fwd.cu``, one strided kernel for
+both single-tile layouts; ``csrc/flash_attention_bwd.cu``;
+``csrc/flash_attention_long.cu`` for the two blocked forwards;
+``csrc/flash_attention_long_bwd.cu`` for the three blocked backwards) or
+raise; they never fall back. On a CPU tensor, or with ``plain=True``, they
+run the plain PyTorch versions beside them, which follow the TPU kernels'
 order: ``scores * scale + bias``, row max, exp, sum, divide, then
 ``P . V``; the mask bias is ``(1 - mask) * f32.min``, never -inf, so a
-fully masked row gets uniform weights and stays finite. The backward of a
-blocked shape (the reference's kernels 9-11) is not ported yet and raises.
+fully masked row stays finite (uniform weights, except in the KV-blocked
+backward, where ``exp(s - lse)`` gives it weight 1 per key, as in the
+reference). No plain version builds a [B, h, S, S] tensor at a blocked S.
 
 ``LAUNCHES`` counts calls that reached a kernel, per TPU kernel: a
 backward call counts once however many launches it makes.
@@ -53,6 +59,9 @@ LAUNCHES = {
     "flash_attention_bwd": 0,
     "attention_q_blocked": 0,
     "attention_kv_blocked_fwd": 0,
+    "attention_bwd_q_blocked": 0,
+    "bwd_dq_kv_blocked": 0,
+    "bwd_dkv_kv_blocked": 0,
 }
 
 
@@ -144,6 +153,68 @@ def attention_backward_plain(q, k, v, do, attention_mask):
     dq = ds_c @ k.float()
     dk = ds_c.transpose(-1, -2) @ q.float()
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_q_blocked_plain(q, k, v, do, attention_mask):
+    """Plain version of ``_attention_bwd_q_blocked_kernel``: per block of
+    ``_Q_BLOCK`` queries, P exact over every key (as the forward builds
+    it), dV += cast(P)^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) from
+    the f32 P, dQ = cast(scale dS) K per block, dK += cast(scale dS)^T Q;
+    dK and dV summed in f32 over the blocks and cast at the end."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bias = mask_bias(attention_mask)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for q0 in range(0, q.shape[2], _Q_BLOCK):
+        blk = slice(q0, q0 + _Q_BLOCK)
+        p = _probs_plain(q[:, :, blk], k, bias)
+        dob = do[:, :, blk].float()
+        dv += p.to(q.dtype).float().transpose(-1, -2) @ dob
+        dp = dob @ vf.transpose(-1, -2)
+        ds_c = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(q.dtype).float()
+        dqs.append((ds_c @ kf).to(q.dtype))
+        dk += ds_c.transpose(-1, -2) @ q[:, :, blk].float()
+    return torch.cat(dqs, dim=2), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _sum_over_query_blocks(a, b):
+    """a^T b for a [B, h, S, K], b [B, h, S, D], as the reference's dK/dV
+    pass forms it: one product per block of ``_Q_BLOCK`` queries, the
+    blocks summed in f32."""
+    bb, h, s, kk = a.shape
+    g = s // _Q_BLOCK
+    a = a.reshape(bb, h, g, _Q_BLOCK, kk).transpose(-1, -2)
+    return (a @ b.reshape(bb, h, g, _Q_BLOCK, -1)).sum(dim=2)
+
+
+def attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, attention_mask):
+    """Plain version of ``_bwd_dq_kv_blocked_kernel`` and
+    ``_bwd_dkv_kv_blocked_kernel``: delta = rowsum(dO O) in f32 from the
+    forward's o; per block of ``_KV_BLOCK`` keys, P = exp(s - lse),
+    dP = dO V^T, dS = cast(P (dP - delta) scale), dQ += dS K (f32 over the
+    key blocks), dV = cast(P)^T dO and dK = dS^T Q (f32 over the query
+    blocks). f64 inputs run it all in f64 (the same expressions, a
+    yardstick for the f32 rounding)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bias = mask_bias(attention_mask)[:, None, None, :]
+    qf, dof = q.to(acc), do.to(acc)
+    delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
+    lse = lse[..., None]
+    dq = torch.zeros(q.shape, dtype=acc, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, q.shape[2], _KV_BLOCK):
+        blk = slice(k0, k0 + _KV_BLOCK)
+        kb, vb = k[:, :, blk].to(acc), v[:, :, blk].to(acc)
+        p = torch.exp((qf @ kb.transpose(-1, -2)) * scale + bias[..., blk] - lse)
+        dp = dof @ vb.transpose(-1, -2)
+        ds_c = (p * (dp - delta) * scale).to(q.dtype).to(acc)
+        dq += ds_c @ kb
+        dvs.append(_sum_over_query_blocks(p.to(q.dtype).to(acc), dof).to(v.dtype))
+        dks.append(_sum_over_query_blocks(ds_c, qf).to(k.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
 
 
 def _split_heads(qkv, num_heads):
@@ -258,19 +329,34 @@ def _forward_kernel(q, k, v, o, attention_mask):
 _LONG_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _check_long_inputs(**tensors):
+    """The blocked kernels take [B, h, S, 32] views of one dtype, f32 or
+    bf16, with S % 64 == 0."""
+    for name, t in tensors.items():
+        _check_kernel_input(name, t, tuple(_LONG_DTYPES))
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    if len(set(dtypes.values())) != 1:
+        raise ValueError(f"the blocked attention kernels take one dtype, got {dtypes}")
+    s = tensors["q"].shape[2]
+    if s % 64:
+        raise ValueError(f"the blocked attention kernels take S % 64 == 0, got {s}")
+
+
+def _check_rows(name, t, shape):
+    """A per-row statistic (lse, delta): a contiguous f32 [B, h, S] tensor."""
+    if not (t.is_cuda and t.dtype == torch.float32 and tuple(t.shape) == shape and t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous f32 {list(shape)} tensor on the card, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _long_kernel(route, q, k, v, attention_mask):
     """Launches a blocked forward (``route`` "q_blocked" or "kv_blocked")
     on [B, h, S, Dh] views; returns (o, lse-or-None). o is laid out
     [B, S, h, Dh] in memory, so the model's merge of the heads is a view."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_input(name, t, tuple(_LONG_DTYPES))
-    if not q.dtype == k.dtype == v.dtype:
-        raise ValueError(f"q, k and v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_long_inputs(q=q, k=k, v=v)
     b, h, s, dh = q.shape
-    if s % 64:
-        raise ValueError(f"the blocked attention kernels take S % 64 == 0, got {s}")
     bias = _kernel_bias(attention_mask, b, s, q.device)
     o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = _strides(q, k, v, o)
@@ -313,6 +399,66 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
         )
     _raise_on(err, "attention backward")
     LAUNCHES["flash_attention_bwd"] += 1
+
+
+def _launch_long_bwd(entry, what, q, pointers, views):
+    """Calls ``entry`` of ``csrc/flash_attention_long_bwd.cu`` (in q's
+    dtype) with the tensors' pointers, the (batch, head, row) strides of
+    ``views``, B, h, S, the scale and the current stream; raises on a CUDA
+    error."""
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    b, h, s, dh = q.shape
+    strides = _strides(*views)
+    lib = build_kernels().libs["flash_attention_long_bwd"]
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"{entry}_{_LONG_DTYPES[q.dtype]}")(
+            *(t.data_ptr() for t in pointers), ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, what)
+
+
+def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
+    """Launches the query-blocked backward (TPU kernel 9, two passes) on
+    [B, h, S, Dh] views, writing dq, dk and dv."""
+    _check_long_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    b, h, s, _ = q.shape
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    # per (b, head, query row): softmax max and denominator, and delta
+    stats = torch.empty((b, h, s, 2), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch_long_bwd("dial_attention_bwd_q_blocked", "attention q_blocked backward", q,
+                     (q, k, v, do, bias, dq, dk, dv, stats, delta), (q, k, v, do, dq, dk, dv))
+    LAUNCHES["attention_bwd_q_blocked"] += 1
+
+
+def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
+    """Launches the dQ pass of the KV-blocked backward (TPU kernel 10):
+    writes dq and returns delta = rowsum(dO O), f32 [B, h, S], for the
+    dK/dV pass."""
+    _check_long_inputs(q=q, k=k, v=v, o=o, do=do, dq=dq)
+    b, h, s, _ = q.shape
+    _check_rows("lse", lse, (b, h, s))
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch_long_bwd("dial_attention_bwd_dq_kv_blocked", "attention kv_blocked dQ backward", q,
+                     (q, k, v, o, do, bias, lse, dq, delta), (q, k, v, o, do, dq))
+    LAUNCHES["bwd_dq_kv_blocked"] += 1
+    return delta
+
+
+def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
+    """Launches the dK/dV pass of the KV-blocked backward (TPU kernel 11)
+    with the forward's lse and the dQ pass's delta."""
+    _check_long_inputs(q=q, k=k, v=v, do=do, dk=dk, dv=dv)
+    b, h, s, _ = q.shape
+    _check_rows("lse", lse, (b, h, s))
+    _check_rows("delta", delta, (b, h, s))
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    _launch_long_bwd("dial_attention_bwd_dkv_kv_blocked", "attention kv_blocked dK/dV backward", q,
+                     (q, k, v, do, bias, lse, delta, dk, dv), (q, k, v, do, dk, dv))
+    LAUNCHES["bwd_dkv_kv_blocked"] += 1
 
 
 def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
@@ -372,31 +518,44 @@ def _forward(q, k, v, attention_mask, plain=False):
     return out, None
 
 
+def _backward(q, k, v, o, lse, do, attention_mask, plain=False):
+    """The reference's ``_bwd_rule``: (dq, dk, dv) by what the forward
+    left: lse -> the KV-blocked passes (kernels 10, 11); a blocked S
+    without it -> the query-blocked backward (kernel 9); else the
+    single-tile backward (kernel 8)."""
+    blocked = attention_route(q.shape[2]) != "single_tile"
+    if not _use_kernel(q, plain):
+        if lse is not None:
+            return attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, attention_mask)
+        if blocked:
+            return attention_bwd_q_blocked_plain(q, k, v, do, attention_mask)
+        return attention_backward_plain(q, k, v, do, attention_mask)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if lse is not None:
+        delta = _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask)
+        _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask)
+    elif blocked:
+        _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask)
+    else:
+        _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, attention_mask, plain):
         ctx.plain = plain
-        ctx.save_for_backward(q, k, v, attention_mask)
-        return _forward(q, k, v, attention_mask, plain)[0]
+        o, lse = _forward(q, k, v, attention_mask, plain)
+        # o is kept only for the KV-blocked backward's delta, as the
+        # reference's _fwd_rule keeps it; the model's merge of the heads
+        # reads it without writing (autograd's version check would raise)
+        ctx.save_for_backward(q, k, v, attention_mask, None if lse is None else o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, attention_mask = ctx.saved_tensors
-        s = q.shape[2]
-        if attention_route(s) != "single_tile":
-            raise NotImplementedError(
-                f"the attention backward at S={s} takes the reference's blocked "
-                "backward kernels (dial_rag_tpu/ops/flash_attention.py: "
-                "_attention_bwd_q_blocked_kernel, _bwd_dq_kv_blocked_kernel, "
-                "_bwd_dkv_kv_blocked_kernel), which are not ported yet (ROADMAP.md, "
-                "queue 2, item 1)"
-            )
-        do = do.contiguous()
-        if not _use_kernel(q, ctx.plain):
-            return (*attention_backward_plain(q, k, v, do, attention_mask), None, None)
-        grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)]
-        _backward_kernel(q, k, v, do, *grads, attention_mask)
-        return (*grads, None, None)
+        q, k, v, attention_mask, o, lse = ctx.saved_tensors
+        return (*_backward(q, k, v, o, lse, do.contiguous(), attention_mask, ctx.plain), None, None)
 
 
 def fused_qkv_attention(qkv, attention_mask, num_heads: int, plain: bool = False):
@@ -411,5 +570,5 @@ def flash_attention(q, k, v, attention_mask, plain: bool = False):
     """Head-major attention: q, k, v [B, h, S, Dh] (any strides with a
     unit head-dim stride), mask [B, S] -> [B, h, S, Dh] in q's dtype,
     dispatched by S as the reference dispatches it. Differentiable w.r.t.
-    q, k and v where the backward's kernel is ported (single-tile S)."""
+    q, k and v at every S (the backward dispatched as the reference's)."""
     return _FlashAttention.apply(q, k, v, attention_mask, plain)

@@ -10,7 +10,9 @@ blocks (tests/test_fused_encoder.py); the f32 attention forward 2e-5, ten
 times the reference's 2e-6 (tests/test_flash_attention.py) for another
 summation order over the keys; its gradients atol 5e-5, rtol 1e-4, the
 reference's own; the KV-blocked kernel's log-sum-exp 1e-5, the
-reference's long-context lse tolerance.
+reference's long-context lse tolerance; the blocked backward kernels
+(9-11) f32 atol 5e-5, rtol 1e-4 and bf16 3e-2 of the plain gradient's
+largest magnitude.
 """
 
 import pytest
@@ -132,7 +134,8 @@ def test_attention_kernels_match_plain_on_card(cuda_device, b, s):
         torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-4)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES == {"qkv_native_attention": 2, "flash_attention_fwd": 2, "flash_attention_bwd": 2,
-                            "attention_q_blocked": 0, "attention_kv_blocked_fwd": 0}
+                            "attention_q_blocked": 0, "attention_kv_blocked_fwd": 0, "attention_bwd_q_blocked": 0,
+                            "bwd_dq_kv_blocked": 0, "bwd_dkv_kv_blocked": 0}
 
 
 @pytest.mark.cuda
@@ -230,6 +233,72 @@ def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, ro
         assert torch.isfinite(lse).all() and (lse - ref_lse).abs().max().item() <= 1e-5
     else:
         assert lse is None and ref_lse is None
+
+
+def _long_grads(fn, q, k, v, cot):
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    (fn(*xs).float() * cot).sum().backward()
+    return [x.grad for x in xs]
+
+
+def _excess(a, w, rtol=1e-4):
+    return ((a - w).abs() - rtol * w.abs()).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,b,s", [("q_blocked", 2, 1024), ("q_blocked", 2, 4352), ("kv_blocked", 2, 8192)])
+def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b, s):
+    """Kernels 9 (query-blocked) and 10-11 (KV-blocked, from the forward's
+    o and lse) against their plain versions through ``flash_attention``'s
+    backward, q, k and v strided views of a packed qkv, standard-normal
+    inputs, a row ragged across a 512-key block and a fully masked row.
+    f32: atol 5e-5, rtol 1e-4 (the single-tile backward's), except in the
+    KV-blocked backward's fully masked row: there P = 1 for every key
+    (exp(s - lse) with s = lse = f32.min, as in the reference), so each
+    gradient is a sum of S = 8192 terms of size 1 whose f32 rounding alone
+    exceeds atol, and the kernel must be at least as close as the plain
+    version to the same expressions evaluated in f64. bf16: per batch row,
+    3e-2 of the plain gradient's largest magnitude."""
+    qkv, mask, cot = _attention_inputs(cuda_device, b + 1, s)
+    mask[-2, s // 3 :] = 0
+    q, k, v = tfa._split_heads(qkv.to(dtype), 12)
+    cot = cot.view(b + 1, s, 12, -1).transpose(1, 2)
+    assert tfa.attention_route(s) == route
+    tfa.reset_launches()
+    got = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
+    torch.cuda.synchronize()
+    names = ["attention_bwd_q_blocked"] if route == "q_blocked" else ["bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"]
+    assert all(tfa.LAUNCHES[n] == 1 for n in names)
+    want = _long_grads(lambda *x: tfa.flash_attention(*x, mask, plain=True), q, k, v, cot)
+    exact = None
+    if route == "kv_blocked" and dtype == torch.float32:
+        with torch.no_grad():
+            o, lse = tfa._forward(q, k, v, mask)
+            do = cot.to(dtype)
+            exact = tfa.attention_bwd_kv_blocked_plain(*(t.double() for t in (q, k, v, o)), lse, do.double(), mask)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        if dtype == torch.bfloat16:
+            for r in range(b + 1):
+                assert (a[r].float() - w[r].float()).abs().max().item() <= 3e-2 * w[r].float().abs().max().item()
+        elif exact is None:
+            torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-4)
+        else:
+            torch.testing.assert_close(a[:-1], w[:-1], atol=5e-5, rtol=1e-4)
+            e = exact[i][-1]
+            assert _excess(a[-1].double(), e) <= max(5e-5, _excess(w[-1].double(), e))
+
+
+@pytest.mark.cuda
+def test_long_backward_is_reproducible(cuda_device):
+    """No atomics: two blocked backward calls give the same bits."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, 1024)
+    q, k, v = tfa._split_heads(qkv, 12)
+    cot = cot.view(2, 1024, 12, -1).transpose(1, 2)
+    a = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
+    b = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ tests/test_flash_attention.py runs them: ``_attention_q_blocked_kernel``
 log-sum-exp), each in f32 and bf16, and the whole encoder's "pallas" route
 at S = 768 and S = 1024. On a CPU tensor the port's ``flash_attention``
 runs the plain versions that the CUDA kernels are held to on the card
-(tests/test_torch_kernels_cuda.py).
+(tests/test_torch_kernels_cuda.py). The blocked backward is held against
+the reference in tests/test_torch_long_backward.py.
 
 Tolerances: f32 o atol 5e-6 and lse 1e-5, the reference's long-context
 tolerances (tests/test_flash_attention.py:142-211); bf16 3e-2, the
@@ -101,18 +102,6 @@ def test_fully_masked_row_stays_finite(route, s, kv_blocked):
     np.testing.assert_allclose(o[0, 0, 0], v[0, 0].mean(axis=0), atol=5e-6)
     if lse is not None:
         np.testing.assert_allclose(lse, j_lse, rtol=1e-6)
-
-
-@pytest.mark.parametrize("s", [768, 1024])
-def test_blocked_backward_raises(s, kv_blocked):
-    """The blocked backward kernels are not ported: the backward raises
-    and names them; it does not differentiate the plain forward."""
-    q, k, v, mask = _inputs(1, 1, s, seed=14, np_dtype=np.float32, pad_from=s)
-    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
-    for plain in (False, True):
-        out = tfa.flash_attention(*xs, torch.from_numpy(mask), plain=plain)
-        with pytest.raises(NotImplementedError, match="_bwd_dq_kv_blocked_kernel"):
-            out.sum().backward()
 
 
 @pytest.mark.parametrize("s", [768, 1024])
