@@ -7,10 +7,11 @@ Phases, each announced by a ``[phase]`` line:
 
 1. device: the card's name, CUDA version and ``nvidia-smi`` name/power limit;
 2. build: ``nvcc`` builds the kernels in ``dial_rag_tpu_torch/csrc``;
-3. kernels: each bf16 block kernel (attention, FFN, whole layer) against
-   its plain PyTorch version at B=128, S=256, H=384 with the shipped
-   checkpoint's layer-0 weights, and timed (CUDA events) beside its bound
-   and a PyTorch composition;
+3. kernels: each block kernel (attention, FFN, whole layer) in each
+   instantiation (bf16 and f32; H=384 with the shipped checkpoint's
+   layer-0 weights, H=768 with a seeded bge-base-width encoder's) against
+   its plain PyTorch version at B=128, S=256, and timed (CUDA events)
+   beside its bound and a PyTorch composition;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
    2048 chunks into a ``SemanticRetriever`` and answers queries; a seeded
    1M x 384 f32 ``DenseIndex`` answers ``find_batch``. The kernels' launch
@@ -22,9 +23,10 @@ Phases, each announced by a ``[phase]`` line:
    "fused_layer" route (the whole-layer kernel); its launches must equal
    12 x the encode batches, its embeddings agree with the "fused" and
    "fused_layer_plain" routes and its top-1 with the plain route;
-5. attention kernels: the f32 single-tile attention forward (packed qkv
+5. attention kernels: the single-tile attention forward (packed qkv
    and head-major, one strided CUDA kernel) and its recompute-P backward
-   against their plain versions at bge-small widths (12 heads of 32),
+   against their plain versions in each instantiation (f32 and bf16, 12
+   heads of 32 and of 64),
    ragged S and a fully masked row, at fixed shapes, at S = 520 and at the
    longest S their shared memory takes, and at every (B, S) the training
    and f32 serve phases give them; past that S they must raise. The
@@ -32,6 +34,11 @@ Phases, each announced by a ``[phase]`` line:
    against theirs at [4, 12, 1024], [2, 12, 2048], [1, 12, 4096] and
    [1, 12, 8192] (log-sum-exp too). Each timed beside its bound, the plain
    version and ``F.scaled_dot_product_attention`` (additive mask);
+   auto repair: "auto" on a seeded 1-layer encoder at H=384 and 768
+   where the port once raised, (f32, tanh GELU) through kernels 1-2 (and
+   "fused_layer", kernel 3), (bf16, exact) through kernels 4 and 8, bf16
+   and f32 at S = 520 through kernels 5 and 8, each against the plain
+   route; (f32, exact, S = 1700) must still raise;
    bf16 gradient: one bf16 ``contrastive_loss`` backward through "auto"
    (the fused block kernels, recompute backward) against the
    "fused_plain" route: the whole gradient's cosine > 0.9999, and each
@@ -49,7 +56,16 @@ Phases, each announced by a ``[phase]`` line:
    facts into a ``SemanticRetriever`` and answer the 155 questions; the
    forward counter must equal 12 x the encode batches and top-1 must
    agree with the plain route;
-8. long-document serve: a bge-small-width, 12-layer encoder with 8192
+8. bge-base serve: a seeded encoder at BAAI/bge-base-en-v1.5's widths
+   (12 layers, H=768, 12 heads of 64, FFN 3072, 512 positions, CLS
+   pooling, the alps-semantic vocabulary) embeds the main path's 2048
+   chunks in bf16 through "auto" (kernels 1-2) and answers its 64
+   queries; top-1 must equal the "fused_plain" route's; then the
+   "fused_layer" route on 256 of them, bit-equal to "fused"; bge-base
+   training: ``train()`` fine-tunes that encoder in f32 for 10 steps of 32
+   Alps (question, fact) pairs at S = 64 (kernels 4 and 8 at head_dim
+   64), each batch against the "pallas_plain" route, the loss falling;
+9. long-document serve: a bge-small-width, 12-layer encoder with 8192
    positions and seeded weights, the ``alps-semantic`` vocabulary and
    tokenizer buckets up to 8192, indexes long texts made of the Alps
    oracle chunks (encode batches at S = 1024, 2048, 4096 and 8192) in bf16
@@ -57,7 +73,7 @@ Phases, each announced by a ``[phase]`` line:
    kernels' launches must equal 12 x their encode batches, the
    embeddings agree with the "pallas_plain" route (cosine) and top-1
    with it apart from near-ties;
-9. long-context backward kernels: the query-blocked backward (TPU kernel
+10. long-context backward kernels: the query-blocked backward (TPU kernel
    9) and the KV-blocked dQ and dK/dV passes (kernels 10 and 11) against
    their plain versions at [4, 12, S, 32] for S = 1024, 4096, 8192 (the
    training phase's) and 4352 (query-blocked above 4096), in f32 and bf16,
@@ -65,7 +81,7 @@ Phases, each announced by a ``[phase]`` line:
    KV-blocked passes fed the forward kernel's o and lse; each timed at the
    training phase's shape beside its bound, the plain version and SDPA
    forward + backward;
-10. long-context training: ``train()`` trains that seeded encoder in f32 on
+11. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
    repeating them 4 times. Each batch's loss and gradients through the
@@ -134,10 +150,23 @@ LONG_TRAIN_LR = 1e-4
 # blocked backward kernels vs plain versions in bf16: of the plain
 # gradient's largest magnitude (gradients are not O(1))
 BF16_GRAD_REL = 3e-2
+# kernels 1-3 in bf16 at H 768 vs plain versions: of each row's largest
+# plain value, the limit the bf16 gradients use (``block_tolerance``)
+BF16_ROW_REL = 3e-2
 LAYER_SUBSET = 256  # chunks of the main path served through the whole-layer route
 # whole-layer route vs its plain composition, bf16 document embeddings
 # (unit norm): the measured cosine is 0.999975 on an H100 80GB HBM3 at 700 W
 LAYER_PLAIN_COS = 0.9999
+# bge-base serve, kernel route vs "fused_plain", bf16 document and query
+# embeddings (unit norm): the long-document serve's bf16 limit
+BASE_PLAIN_COS = 0.999
+# BAAI/bge-base-en-v1.5's published widths (config.json: hidden_size 768,
+# num_attention_heads 12, intermediate_size 3072, 12 layers, 512
+# positions), seeded weights: no bge-base checkpoint is in the repository
+BASE_WIDTHS = {"hidden_size": 768, "num_layers": 12, "num_heads": 12, "intermediate_size": 3072,
+               "max_position_embeddings": 512}
+BASE_TRAIN_STEPS = 10
+BASE_TRAIN_LR = 1e-4
 
 
 _PHASE = {}
@@ -193,6 +222,32 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> t
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def block_tolerance(dtype, hid: int) -> tuple[float, bool]:
+    """Kernels 1-3's output gate: (tolerance, whether it is of each row's
+    largest plain value). bf16 at H 768 is held per row (BF16_ROW_REL):
+    its LayerNorm outputs reach |v| >= 4, where one bf16 ulp (2^-5)
+    exceeds TOLERANCE, and the kernel and the plain version, summing in
+    different orders, can round such a value to neighbouring bf16 values."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return F32_FWD_TOL, False
+    return (BF16_ROW_REL, True) if hid == 768 else (TOLERANCE, False)
+
+
+def over_limit(out, ref, tol: float, per_row: bool = False) -> float:
+    """The largest |out - ref| over its limit: ``tol``, or with
+    ``per_row`` ``tol`` times the largest |ref| of each row (the last
+    dimension). At most 1 passes."""
+    out, ref = out.float(), ref.float()
+    limit = tol * ref.abs().amax(dim=-1, keepdim=True) if per_row else tol
+    return ((out - ref).abs() / limit).max().item()
+
+
+def tolerance_text(tol: float, per_row: bool) -> str:
+    return f"{tol} of each row's largest plain value" if per_row else f"{tol}"
+
+
 def synthetic_texts(vocab: dict, n: int, seed: int) -> list[str]:
     """Texts of 200-253 whole vocab words, one WordPiece token each, so a
     batch of them fills the 256-token bucket."""
@@ -203,11 +258,11 @@ def synthetic_texts(vocab: dict, n: int, seed: int) -> list[str]:
     return [" ".join(rng.choice(words, size=int(rng.integers(200, 254)))) for _ in range(n)]
 
 
-def attention_inputs(torch, dev, b, s, heads, dh, seed):
-    """Seeded packed qkv [B, S, 3H] f32, a mask with ragged rows and one
-    fully masked row, and a cotangent [B, S, H]."""
+def attention_inputs(torch, dev, b, s, heads, dh, seed, dtype=None):
+    """Seeded packed qkv [B, S, 3H] (f32 unless ``dtype``), a mask with
+    ragged rows and one fully masked row, and a cotangent [B, S, H] f32."""
     g = torch.Generator().manual_seed(seed)
-    qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev)
+    qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev, dtype or torch.float32)
     lengths = torch.randint(1, s + 1, (b,), generator=g)
     lengths[0] = s
     mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32)
@@ -216,50 +271,78 @@ def attention_inputs(torch, dev, b, s, heads, dh, seed):
     return qkv, mask.to(dev), cot
 
 
-def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
-    """Kernels 4, 5 and 8 against their plain versions (gated) at fixed
-    shapes and at ``path_shapes``, the (use, B, S) the training and f32
-    serve phases give them; timed beside their bound, the plain version
-    and SDPA."""
+def instantiation(name: str, dtype, width: str) -> str:
+    """The kernels JSON row name of one instantiation: the bare name for
+    the one earlier slices ported (bf16 at H 384 for kernels 1-3, f32 at
+    head_dim 32 for kernels 4, 5, 8), else the name with (dtype, width)."""
+    import torch
+
+    first = (torch.bfloat16, "H 384") if name.startswith("fused_") else (torch.float32, "head_dim 32")
+    return name if (dtype, width) == first else f"{name} ({str(dtype)[6:]}, {width})"
+
+
+def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) -> dict:
+    """Kernels 4, 5 and 8 in ``dtype`` at head width ``dh`` against their
+    plain versions (gated) at fixed shapes and at ``path_shapes``, the
+    (use, B, S) the main path's phases give them, at the longest S their
+    shared memory takes and past it (where they must raise); timed beside
+    their bound, the plain version and SDPA. bf16 gradients are held per
+    batch row to BF16_GRAD_REL of the plain gradient's largest value."""
     import torch.nn.functional as F
 
     from dial_rag_tpu_torch.ops import flash_attention as fa
 
+    bf16 = dtype == torch.bfloat16
+    tol = TOLERANCE if bf16 else F32_FWD_TOL
+    kind = f"{str(dtype)[6:]}, head_dim {dh}"
+
     def grads(fn, inputs, cot):
         inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
-        (fn(*inputs) * cot).sum().backward()
+        (fn(*inputs).float() * cot).sum().backward()
         return [t.grad for t in inputs]
 
     def check_fwd(name, out, ref):
         torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise RuntimeError(f"{name}: kernel output is not finite")
-        err = (out - ref).abs().max().item()
-        if not err <= F32_FWD_TOL:
-            raise RuntimeError(f"{name}: kernel disagrees with its plain version by {err}")
+        if not torch.isfinite(out.float()).all():
+            raise RuntimeError(f"{name} ({kind}): kernel output is not finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= tol:
+            raise RuntimeError(f"{name} ({kind}): kernel disagrees with its plain version by {err}")
         return err
 
     def check_grads(name, got, want):
         torch.cuda.synchronize()
         err = 0.0
         for a, w in zip(got, want):
-            excess = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
-            if not (torch.isfinite(a).all() and excess <= GRAD_ATOL):
-                raise RuntimeError(f"{name}: gradient off its plain version by {excess} past rtol")
+            a, w = a.float(), w.float()
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"{name} ({kind}): gradient is not finite")
+            if bf16:
+                rel = max(((a[r] - w[r]).abs().max() / w[r].abs().max().clamp_min(1e-30)).item()
+                          for r in range(a.shape[0]))
+                if not rel <= BF16_GRAD_REL:
+                    raise RuntimeError(f"{name} ({kind}): gradient off its plain version by {rel} of a row's largest")
+            else:
+                excess = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
+                if not excess <= GRAD_ATOL:
+                    raise RuntimeError(f"{name} ({kind}): gradient off its plain version by {excess} past rtol")
             err = max(err, (a - w).abs().max().item())
         return err
 
-    # every shape gated: a full f32 serving bucket (B=128, S=256), a full
+    grad_tol = (f"per row {BF16_GRAD_REL} of the largest plain gradient" if bf16
+                else f"atol {GRAD_ATOL}, rtol {GRAD_RTOL}")
+    # every shape gated: a full serving bucket (B=128, S=256), a full
     # training bucket (B=32, S=128), a ragged S, S = 512, S = 520 (past
     # one 512 tile, not a multiple of 256: still single-tile, as in the
     # reference), the longest S the backward's shared memory takes, and
-    # each shape the main path's phases below give the kernels
-    fwd_max, bwd_max = fa.single_tile_max_s("fwd"), fa.single_tile_max_s("bwd")
-    print(f"single-tile limits on this card: forward S <= {fwd_max}, backward S <= {bwd_max}", flush=True)
+    # each shape the main path's phases give the kernels
+    fwd_max, bwd_max = fa.single_tile_max_s("fwd", head_dim=dh), fa.single_tile_max_s("bwd", head_dim=dh)
+    print(f"single-tile limits on this card at head_dim {dh}: forward S <= {fwd_max}, backward S <= {bwd_max}",
+          flush=True)
     fixed = [("bucket", 128, 256), ("bucket", 32, 128), ("ragged", 32, 100), ("one tile", 4, 512),
              ("past one tile", 2, 520), ("backward limit", 2, bwd_max)]
     for use, b, s in fixed + [t for t in path_shapes if t[1:] not in {f[1:] for f in fixed}]:
-        qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=b + s)
+        qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=b + s, dtype=dtype)
         with torch.no_grad():
             e4 = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
                            fa.fused_qkv_attention(qkv, mask, heads, plain=True))
@@ -277,54 +360,73 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
             grads(lambda *x: fa.flash_attention(*x, mask), [q, k, v], cot_h),
             grads(lambda *x: fa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h),
         )
-        print(f"attention kernels at B={b} S={s} ({use}; ragged rows, one fully masked): max abs err "
-              f"qkv_native {e4:.3g}, head-major {e5:.3g} (tolerance {F32_FWD_TOL}); backward "
-              f"packed {e8p:.3g}, head-major {e8h:.3g} (atol {GRAD_ATOL}, rtol {GRAD_RTOL})", flush=True)
+        print(f"attention kernels ({kind}) at B={b} S={s} ({use}; ragged rows, one fully masked): max abs err "
+              f"qkv_native {e4:.3g}, head-major {e5:.3g} (tolerance {tol}); backward packed {e8p:.3g}, "
+              f"head-major {e8h:.3g} ({grad_tol})", flush=True)
 
     # the forward at its own limit (B=2: a ragged row and a fully masked
-    # one), and both kernels past their limits, where they must raise
-    qkv, mask, _ = attention_inputs(torch, dev, 2, fwd_max, heads, dh, seed=fwd_max)
+    # one), and both kernels past their limits, where they must raise. At
+    # head_dim 64 the forward's limit (1536 on an H100) is a multiple of
+    # 256, where the head-major dispatch takes the query-blocked kernel,
+    # which has no head_dim 64 instantiation yet: there it must raise, and
+    # kernel 5 is gated 64 rows below the limit
+    qkv, mask, _ = attention_inputs(torch, dev, 2, fwd_max, heads, dh, seed=fwd_max, dtype=dtype)
     q, k, v = fa._split_heads(qkv, heads)
+    s5 = fwd_max if dh == 32 else fwd_max - 64
+    expected = "single_tile" if dh == 32 else "q_blocked"
+    if fa.attention_route(fwd_max) != expected or fa.attention_route(s5) != "single_tile":
+        raise RuntimeError(f"head-major dispatch at head_dim {dh}: S={fwd_max} takes "
+                           f"{fa.attention_route(fwd_max)}, expected {expected}")
     with torch.no_grad():
         e4 = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
                        fa.fused_qkv_attention(qkv, mask, heads, plain=True))
-        e5 = check_fwd("flash_attention_fwd", fa.flash_attention(q, k, v, mask),
-                       fa.flash_attention(q, k, v, mask, plain=True))
-    print(f"attention forward at B=2 S={fwd_max} (forward limit): max abs err qkv_native {e4:.3g}, "
-          f"head-major {e5:.3g} (tolerance {F32_FWD_TOL})")
+        if dh != 32:
+            try:
+                fa.flash_attention(q, k, v, mask)
+            except ValueError as e:
+                print(f"head-major attention ({kind}) at S={fwd_max}: the query-blocked route raises ({e})")
+            else:
+                raise RuntimeError(f"the query-blocked kernel took head_dim {dh}")
+        q5, k5, v5, m5 = q[:, :, :s5], k[:, :, :s5], v[:, :, :s5], mask[:, :s5]
+        e5 = check_fwd("flash_attention_fwd", fa.flash_attention(q5, k5, v5, m5),
+                       fa.flash_attention(q5, k5, v5, m5, plain=True))
+    print(f"attention forward ({kind}) at B=2 S={fwd_max} (forward limit): max abs err qkv_native {e4:.3g}; "
+          f"head-major at S={s5} {e5:.3g} (tolerance {tol})")
     for direction, limit in (("fwd", fwd_max), ("bwd", bwd_max)):
         s = limit + 64
-        qkv, mask, cot = attention_inputs(torch, dev, 1, s, heads, dh, seed=s)
+        qkv, mask, cot = attention_inputs(torch, dev, 1, s, heads, dh, seed=s, dtype=dtype)
         try:
             grads(lambda x: fa.fused_qkv_attention(x, mask, heads), [qkv], cot)
         except NotImplementedError as e:
-            print(f"single-tile {direction} past its limit, S={s}: raises NotImplementedError ({e})")
+            print(f"single-tile {direction} ({kind}) past its limit, S={s}: raises NotImplementedError ({e})")
         else:
-            raise RuntimeError(f"the single-tile {direction} kernel took S={s}, past its limit {limit}")
+            raise RuntimeError(f"the single-tile {direction} kernel ({kind}) took S={s}, past its limit {limit}")
     sys.stdout.flush()
 
-    f32 = 4
+    size = 2 if bf16 else 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     rows = {}
 
     def row(name, kernel, plain, library, err, flops, nbytes, replaces, source, shape):
         ms = cuda_ms(torch, kernel, iters=20)
         plain_ms = cuda_ms(torch, plain, iters=5)
         library_ms = cuda_ms(torch, library, iters=20)
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-        print(f"{name}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA f32 "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB), {shape} f32 {card}", flush=True)
-        rows[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        print(f"{name} ({kind}): max_abs_err {err:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB), {shape} {card}", flush=True)
+        key = instantiation(name, dtype, f"head_dim {dh}")
+        rows[key] = {
+            "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
 
-    # kernel 4 at the f32 serving shape
+    # kernel 4 at the serving shape
     b, s = 128, 256
     hid = heads * dh
-    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=1)
-    keep = fa.mask_bias(mask)[:, None, None, :]
+    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=1, dtype=dtype)
+    keep = fa.mask_bias(mask)[:, None, None, :].to(dtype)
     with torch.no_grad():
         err = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
                         fa.fused_qkv_attention(qkv, mask, heads, plain=True))
@@ -335,24 +437,24 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
 
         row("qkv_native_attention", lambda: fa.fused_qkv_attention(qkv, mask, heads),
             lambda: fa.fused_qkv_attention(qkv, mask, heads, plain=True), sdpa_packed, err,
-            4 * b * heads * s * s * dh, (b * s * 3 * hid + b * s * hid + b * s) * f32,
+            4 * b * heads * s * s * dh, (b * s * 3 * hid + b * s * hid) * size + b * s * 4,
             "dial_rag_tpu/ops/flash_attention.py:638", "dial_rag_tpu_torch/csrc/flash_attention_fwd.cu",
             f"qkv [{b},{s},{3 * hid}]")
 
     # kernels 5 and 8 at the training shape, head-major
     b, s = 32, 128
-    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=2)
+    qkv, mask, cot = attention_inputs(torch, dev, b, s, heads, dh, seed=2, dtype=dtype)
     q, k, v = (t.contiguous() for t in fa._split_heads(qkv, heads))
-    do = cot.view(b, s, heads, dh).transpose(1, 2).contiguous()
-    keep = fa.mask_bias(mask)[:, None, None, :]
-    head_bytes = b * heads * s * dh * f32
+    do = cot.view(b, s, heads, dh).transpose(1, 2).contiguous().to(dtype)
+    keep = fa.mask_bias(mask)[:, None, None, :].to(dtype)
+    head_bytes = b * heads * s * dh * size
     with torch.no_grad():
         err = check_fwd("flash_attention_fwd", fa.flash_attention(q, k, v, mask),
                         fa.flash_attention(q, k, v, mask, plain=True))
         row("flash_attention_fwd", lambda: fa.flash_attention(q, k, v, mask),
             lambda: fa.flash_attention(q, k, v, mask, plain=True),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), err,
-            4 * b * heads * s * s * dh, 4 * head_bytes + b * s * f32,
+            4 * b * heads * s * s * dh, 4 * head_bytes + b * s * 4,
             "dial_rag_tpu/ops/flash_attention.py:43", "dial_rag_tpu_torch/csrc/flash_attention_fwd.cu",
             f"q, k, v [{b},{heads},{s},{dh}]")
     grad_out = [torch.empty_like(t) for t in (q, k, v)]
@@ -368,7 +470,7 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes) -> dict:
 
     row("flash_attention_bwd", lambda: fa._backward_kernel(q, k, v, do, *grad_out, mask),
         lambda: fa.attention_backward_plain(q, k, v, do, mask), sdpa_fwd_bwd, err,
-        10 * b * heads * s * s * dh, 7 * head_bytes + b * s * f32,
+        10 * b * heads * s * s * dh, 7 * head_bytes + b * s * 4,
         "dial_rag_tpu/ops/flash_attention.py:313", "dial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
         f"q, k, v, dO [{b},{heads},{s},{dh}]")
     return rows
@@ -878,11 +980,13 @@ def whole_layer_phase(torch, card, embedder, texts, queries) -> int:
         mask_t = torch.from_numpy(mask).to(embedder.device)
         x = embed_tokens(embedder.params, ids_t, torch.bfloat16)
         with torch.no_grad():
-            err = (fe.fused_layer_block(x, mask_t, weights, cfg.num_heads).float()
-                   - fe.fused_layer_block_plain(x, mask_t, weights, cfg.num_heads).float()).abs().max().item()
-        print(f"fused_layer_block at the serve shape B={rows} S={ids.shape[1]}: max abs err {err:.3g} "
-              f"(tolerance {TOLERANCE})")
-        if not err <= TOLERANCE:
+            out = fe.fused_layer_block(x, mask_t, weights, cfg.num_heads)
+            ref = fe.fused_layer_block_plain(x, mask_t, weights, cfg.num_heads)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol, per_row = block_tolerance(out.dtype, cfg.hidden_size)
+        print(f"fused_layer_block at the serve shape B={rows} S={ids.shape[1]} H={cfg.hidden_size}: max abs err "
+              f"{err:.3g} (tolerance {tolerance_text(tol, per_row)}: {over_limit(out, ref, tol, per_row):.3g} of it)")
+        if not over_limit(out, ref, tol, per_row) <= 1:
             raise RuntimeError(f"fused_layer_block disagrees with its plain version at B={rows} S={ids.shape[1]}")
     sys.stdout.flush()
     return launches
@@ -1283,6 +1387,339 @@ def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream
     return launches
 
 
+def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
+    """Kernels 1-3 in x's dtype at x's width against their plain versions
+    on one layer's weights (``layer``: matrices in x's dtype, vectors f32)
+    at x's shape, each timed (CUDA events) beside its bound, the plain
+    version and a PyTorch composition of the same block (cuBLAS products,
+    SDPA with a boolean mask, ``layer_norm``): a yardstick used nowhere in
+    the port."""
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+
+    dtype = x.dtype
+    b, s, hid = x.shape
+    inter = layer["ffn_in"]["kernel"].shape[1]
+    tol, per_row = block_tolerance(dtype, hid)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    attn_args = (
+        x, mask, layer["qkv"]["kernel"], layer["qkv"]["bias"], layer["attn_out"]["kernel"],
+        layer["attn_out"]["bias"], layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], heads,
+    )
+    a = fe.fused_attention_block_plain(*attn_args)
+    ffn_args = (
+        a, layer["ffn_in"]["kernel"], layer["ffn_in"]["bias"], layer["ffn_out"]["kernel"],
+        layer["ffn_out"]["bias"], layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"],
+    )
+    m, e, f32 = b * s, x.element_size(), 4
+    vec_bytes = (3 * hid + 3 * hid) * f32  # bqkv + bout, gamma, beta
+    attn_flops = 2 * m * hid * 3 * hid + 2 * 2 * b * heads * s * s * (hid // heads) + 2 * m * hid * hid
+    attn_bytes = 2 * m * hid * e + m * f32 + (hid * 3 * hid + hid * hid) * e + vec_bytes
+    ffn_flops = 2 * 2 * m * hid * inter
+    ffn_bytes = 2 * m * hid * e + 2 * hid * inter * e + (inter + 3 * hid) * f32
+
+    lib_bias = {k: layer[k]["bias"].to(dtype) for k in ("qkv", "attn_out", "ffn_in", "ffn_out")}
+    keep = mask.bool()[:, None, None, :]
+
+    def attn_library():
+        xx = attn_args[0].view(m, hid)
+        qkv = torch.addmm(lib_bias["qkv"], xx, layer["qkv"]["kernel"])
+        q, k, v = qkv.view(b, s, 3, heads, hid // heads).permute(2, 0, 3, 1, 4)
+        ctx = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        o = torch.addmm(lib_bias["attn_out"], ctx.transpose(1, 2).reshape(m, hid), layer["attn_out"]["kernel"])
+        return torch.nn.functional.layer_norm(
+            (xx + o).float(), (hid,), layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], 1e-12
+        ).to(dtype)
+
+    def ffn_library(a=None):
+        xx = (ffn_args[0] if a is None else a).view(m, hid)
+        h = torch.addmm(lib_bias["ffn_in"], xx, layer["ffn_in"]["kernel"])
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        y = torch.addmm(lib_bias["ffn_out"], h, layer["ffn_out"]["kernel"])
+        return torch.nn.functional.layer_norm(
+            (xx + y).float(), (hid,), layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"], 1e-12
+        ).to(dtype)
+
+    layer_args = (x, mask, tuple(attn_args[2:8]) + tuple(ffn_args[1:]), heads)
+    # x in, out, the mask, every weight once (a stays on chip)
+    layer_bytes = attn_bytes + ffn_bytes - 2 * m * hid * e
+
+    rows = {}
+    for name, kernel, plain, args, library, flops, nbytes, source, replaces in (
+        ("fused_attention_block", fe.fused_attention_block, fe.fused_attention_block_plain, attn_args,
+         attn_library, attn_flops, attn_bytes, "dial_rag_tpu_torch/csrc/fused_attention.cu",
+         "dial_rag_tpu/ops/fused_encoder.py:177"),
+        ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
+         ffn_library, ffn_flops, ffn_bytes, "dial_rag_tpu_torch/csrc/fused_ffn.cu",
+         "dial_rag_tpu/ops/fused_encoder.py:76"),
+        ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
+         lambda: ffn_library(attn_library()), attn_flops + ffn_flops, layer_bytes,
+         "dial_rag_tpu_torch/csrc/fused_layer.cu", "dial_rag_tpu/ops/fused_encoder.py:365"),
+    ):
+        out = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all() or out.dtype != dtype:
+            raise RuntimeError(f"{name}: kernel output is not finite {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        lib_err = (library().float().view_as(ref) - ref.float()).abs().max().item()
+        ms = cuda_ms(torch, lambda: kernel(*args), iters=20)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
+        library_ms = cuda_ms(torch, library, iters=20)
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        key = instantiation(name, dtype, f"H {hid}")
+        print(f"{key}: max_abs_err {err:.6g} (tolerance {tolerance_text(tol, per_row)}"
+              f": {over_limit(out, ref, tol, per_row):.3g} of it); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, composition {library_ms:.4f} ms (its err {lib_err:.3g}), "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
+              f"{nbytes / 1e6:.2f} MB), B={b} S={s} H={hid} {str(dtype)[6:]} {card}", flush=True)
+        if not over_limit(out, ref, tol, per_row) <= 1:
+            raise RuntimeError(f"{key}: kernel disagrees with its plain version by {err}")
+        rows[key] = {
+            "name": key, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        }
+    return rows
+
+
+def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
+    """"auto" on the card where the port once raised, on a seeded 1-layer
+    encoder at bge-small and bge-base widths, forward and backward (to
+    the word embeddings): (f32, tanh GELU, S = 64) through kernels 1-2,
+    and the same through "fused_layer" (kernel 3); (bf16, exact, S = 64)
+    through kernel 4 and its backward (kernel 8); bf16 and f32 at S = 520
+    through kernel 5 and kernel 8. Each hidden state must match the plain
+    route (f32 F32_FWD_TOL, bf16 TOLERANCE), each gradient's cosine to it
+    exceed GRAD_COS, each kernel launch once; (f32, exact, S = 1700) must
+    still raise, naming the single-tile limit. Returns the launches by
+    kernels JSON row."""
+    from dial_rag_tpu_torch.models.bert import BertConfig, bert_forward, init_params, prepare_params
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        (f32, "tanh", 64, "auto", "fused_plain", ("fused_attention_block", "fused_ffn_block")),
+        (f32, "tanh", 64, "fused_layer", "fused_layer_plain", ("fused_layer_block",)),
+        (bf16, "exact", 64, "auto", "pallas_plain", ("qkv_native_attention", "flash_attention_bwd")),
+        (bf16, "exact", 520, "auto", "pallas_plain", ("flash_attention_fwd", "flash_attention_bwd")),
+        (f32, "exact", 520, "auto", "pallas_plain", ("flash_attention_fwd", "flash_attention_bwd")),
+    ]
+    launched = {}
+    for hid in (384, 768):
+        config = BertConfig(vocab_size=vocab_size, hidden_size=hid, num_layers=1, num_heads=12,
+                            intermediate_size=4 * hid, max_position_embeddings=2048)
+        raw = init_params(config, torch.Generator().manual_seed(0))
+        for dtype, gelu, s, impl, plain, kernels in cases:
+            params = prepare_params(raw, dev, dtype)
+            g = torch.Generator().manual_seed(s)
+            ids = torch.randint(5, vocab_size, (2, s), generator=g).to(dev)
+            mask = torch.ones(2, s, dtype=torch.int32)
+            mask[1, s // 3 :] = 0
+            mask = mask.to(dev)
+            word = params["embeddings"]["word"].requires_grad_(True)
+            # a random cotangent: the sum of a LayerNorm output has no gradient
+            cot = torch.randn(2, s, hid, generator=g).to(dev)
+
+            def run(route):
+                word.grad = None
+                out = bert_forward(params, ids, mask, num_heads=12, compute_dtype=dtype, gelu=gelu,
+                                   attention_impl=route)
+                (out.float() * cot).sum().backward()
+                torch.cuda.synchronize()
+                return out.detach(), word.grad.clone()
+
+            fe.reset_launches()
+            fa.reset_launches()
+            out, grad = run(impl)
+            counts = {**fe.LAUNCHES, **fa.LAUNCHES}
+            ref, ref_grad = run(plain)
+            tol = F32_FWD_TOL if dtype == f32 else TOLERANCE
+            err = (out.float() - ref.float()).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(grad.flatten().double(), ref_grad.flatten().double(), dim=0)
+            ran = {k: counts[k] for k in kernels}
+            print(f"\"{impl}\" at H={hid}, {str(dtype)[6:]}, {gelu} GELU, S={s}: launches {ran}; hidden states vs "
+                  f"\"{plain}\" max abs err {err:.3g} (tolerance {tol}); gradient cosine {cos.item():.8f} "
+                  f"(limit {GRAD_COS})", flush=True)
+            if not (all(n == 1 for n in ran.values()) and err <= tol and cos.item() > GRAD_COS
+                    and torch.isfinite(out.float()).all()):
+                raise RuntimeError(f"\"{impl}\" at H={hid} {dtype} {gelu} S={s} did not run its kernels or "
+                                   f"disagrees with the plain route")
+            for k in kernels:
+                width = f"H {hid}" if k.startswith("fused_") else f"head_dim {hid // 12}"
+                key = instantiation(k, dtype, width)
+                launched[key] = launched.get(key, 0) + counts[k]
+
+    params = prepare_params(init_params(BertConfig(vocab_size=vocab_size, num_layers=1, max_position_embeddings=2048),
+                                        torch.Generator().manual_seed(0)), dev, f32)
+    ids = torch.ones(2, 1700, dtype=torch.long, device=dev)
+    try:
+        bert_forward(params, ids, torch.ones_like(ids), num_heads=12, compute_dtype=f32, gelu="exact")
+    except NotImplementedError as e:
+        if "limit" not in str(e):
+            raise
+        print(f"\"auto\" at H=384, float32, exact GELU, S=1700: raises NotImplementedError ({e})", flush=True)
+    else:
+        raise RuntimeError("\"auto\" at S = 1700 ran past the single-tile kernels' limit")
+    return launched
+
+
+def base_serve_phase(torch, card, base, texts, queries, tokens: int) -> dict:
+    """The seeded bge-base-width encoder (``base``, bf16, "auto") indexes
+    ``texts`` into a SemanticRetriever and answers ``queries``: kernels 1
+    and 2 must launch 12 x the encode batches, the embeddings be unit norm
+    and within BASE_PLAIN_COS cosine of the "fused_plain" route's, and
+    top-1 of every query equal that route's (near-ties below TIE_GAP
+    allowed). Prints the build, query and memory numbers and
+    one encode batch's device time by kernel; returns the launches."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import build_chunks_list
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.models.bert import BertEncoder
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
+
+    cfg = base.encoder.config
+    print(f"bge-base serve: {cfg.num_layers} layers, H={cfg.hidden_size}, {cfg.num_heads} heads of "
+          f"{cfg.hidden_size // cfg.num_heads}, FFN {cfg.intermediate_size}, {cfg.max_position_embeddings} positions, "
+          f"seeded weights, bf16, {base.encoder.pooling} pooling; {len(texts)} chunks, {len(queries)} queries",
+          flush=True)
+    chunks = build_chunks_list([(t, {}) for t in texts])
+    base.embed_documents(texts[: base.batch_size])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(base, chunks)})()
+    retriever = SemanticRetriever.from_doc_records(base, [record], k=1)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    retriever.retrieve_batch(queries)  # warm-up at the query shapes
+    t0 = time.perf_counter()
+    hits = retriever.retrieve_batch(queries)
+    t_batch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(fe.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_batches = -(-len(texts) // base.batch_size) + 2  # the queries in one encode, twice
+    print(f"bge-base index build: {len(texts)} chunks, {tokens} tokens in {t_build:.3f} s: "
+          f"{len(texts) / t_build:.1f} chunks/s, {tokens / t_build:.0f} tokens/s; {len(queries)} queries in one "
+          f"batch {t_batch * 1e3:.2f} ms; peak memory {peak:.1f} MiB; launches {launches}; encode batches "
+          f"{n_batches} {card}", flush=True)
+    for name in ("fused_attention_block", "fused_ffn_block"):
+        if launches[name] != cfg.num_layers * n_batches:
+            raise RuntimeError(f"bge-base serve: {name} launched {launches[name]} times, expected "
+                               f"{cfg.num_layers * n_batches}")
+    doc_emb = np.concatenate(record.embeddings_index)
+    norms = np.linalg.norm(doc_emb, axis=1)
+    if doc_emb.shape != (len(texts), cfg.hidden_size) or not np.allclose(norms, 1.0, atol=1e-3):
+        raise RuntimeError(f"bad bge-base embeddings: shape {doc_emb.shape}, norms {norms.min()}..{norms.max()}")
+
+    plain = BgeEmbedder(tokenizer=base.tokenizer,
+                        encoder=BertEncoder(cfg, compute_dtype=torch.bfloat16, attention_impl="fused_plain",
+                                            pooling=base.encoder.pooling),
+                        params=base.params, device=base.device, query_instruction=base.query_instruction,
+                        model_id=base.model_id)
+    d_plain, q_plain = plain.embed_documents(texts), plain.embed_queries(queries)
+    q_kernel = base.embed_queries(queries)
+    cos, q_cos = (doc_emb * d_plain).sum(axis=1), (q_kernel * q_plain).sum(axis=1)
+    print(f"bge-base, kernel route vs \"fused_plain\": documents max abs diff {np.abs(doc_emb - d_plain).max():.3g}, "
+          f"cosine min {cos.min():.8f}; queries max abs diff {np.abs(q_kernel - q_plain).max():.3g}, cosine min "
+          f"{q_cos.min():.8f} (limit {BASE_PLAIN_COS})")
+    if not (cos.min() > BASE_PLAIN_COS and q_cos.min() > BASE_PLAIN_COS):
+        raise RuntimeError(f"bge-base serve: kernel route off the plain route, cosine min {cos.min()} (documents), "
+                           f"{q_cos.min()} (queries)")
+    ties = top1_agree([h[0].chunk_id for h in hits], nearest(q_plain, d_plain), doc_emb, q_kernel, "bge-base serve")
+    print(f"bge-base top-1 of {len(queries)} queries: kernel route = plain route ({ties} near-ties below {TIE_GAP}, "
+          f"{ties / len(queries):.1%} of the queries)")
+
+    ids, mask = base.tokenizer.encode_batch(texts[-base.batch_size :])  # synthetic texts: S = 256
+    ids = torch.from_numpy(ids).to(base.device, dtype=torch.long)
+    mask = torch.from_numpy(mask).to(base.device)
+    device_profile(torch, lambda: base.encoder.encode(base.params, ids, mask),
+                   f"one bge-base encode batch (B={ids.shape[0]}, S={ids.shape[1]})", card)
+    return launches
+
+
+def base_training_phase(torch, card, dev, model, params, tokenizer, stream) -> dict:
+    """The seeded bge-base-width encoder (``model``, f32 ``params``)
+    trained by ``train()`` in f32 on ``stream`` (Alps (question, fact)
+    pairs), BASE_TRAIN_STEPS steps of 32 pairs at S = 64. Each batch through the kernels (kernels 4 and 8 at
+    head_dim 64) must match the "pallas_plain" route at the initial
+    params (loss rel 1e-5, cosine > GRAD_COS per tensor); the losses must
+    be finite and fall; the counters must read 12 layers x 2 encodes x the
+    steps. Returns the attention counters of the run."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss
+    from dial_rag_tpu_torch.training.loop import TrainConfig, pairs_to_batches, train, trainable_params
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    cfg = TrainConfig(batch_size=32, seq_len=128, learning_rate=BASE_TRAIN_LR, warmup_steps=2,
+                      total_steps=BASE_TRAIN_STEPS, checkpoint_every=BASE_TRAIN_STEPS)
+    stream = stream[: cfg.batch_size * cfg.total_steps]
+    init = {"embeddings": params["embeddings"], "layers": params["layers"]}
+    batches = list(pairs_to_batches(tokenizer, stream, cfg))
+    seqs = sorted({b["q_ids"].shape[1] for b in batches})
+    print(f"bge-base training: f32, {len(batches)} steps of {cfg.batch_size} (question, fact) pairs at S = {seqs}, "
+          f"lr {cfg.learning_rate}, warmup {cfg.warmup_steps}", flush=True)
+    worst_rel, worst_cos = 0.0, 1.0
+    for batch in batches:
+        def loss_and_grads(impl):
+            params = trainable_params(init, dev)
+            loss = contrastive_loss(params, batch, num_heads=model.num_heads, temperature=cfg.temperature,
+                                    attention_impl=impl)
+            loss.backward()
+            return loss.item(), [t.grad for t in param_leaves(params)]
+
+        loss_k, grads_k = loss_and_grads("pallas")
+        loss_p, grads_p = loss_and_grads("pallas_plain")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        cos = min(torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+                  for a, b in zip(grads_k, grads_p) if b.abs().max() > 0)
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        if not (rel <= 1e-5 and cos > GRAD_COS and all(torch.isfinite(g).all() for g in grads_k)):
+            raise RuntimeError(f"bge-base training batch through the kernels disagrees with the plain route: "
+                               f"loss rel {rel}, cosine {cos}")
+        del grads_k, grads_p
+    print(f"bge-base training, each of the {len(batches)} batches at the initial params, kernels vs "
+          f"\"pallas_plain\": loss rel at most {worst_rel:.3g} (limit 1e-5), gradient cosine per tensor at least "
+          f"{worst_cos:.8f} (limit {GRAD_COS})", flush=True)
+
+    times, last = [], [0.0]
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    last[0] = time.perf_counter()
+    _, losses = train(model, cfg, stream, tokenizer, init=init, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for i, (loss, dt) in enumerate(zip(losses, times), start=1):
+        print(f"  step {i:2d}: loss {loss:.6f}, {dt * 1e3:.2f} ms, {cfg.batch_size / dt:.1f} pairs/s")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    expected = model.num_layers * 2 * cfg.total_steps
+    print(f"bge-base training: median step {steady * 1e3:.2f} ms, {cfg.batch_size / steady:.1f} pairs/s (steps "
+          f"2-{cfg.total_steps}, host clock ending in synchronize); peak memory {peak:.1f} MiB; launches "
+          f"{launches}, expected {expected} forward and backward {card}", flush=True)
+    if not all(np.isfinite(losses)) or len(losses) != cfg.total_steps:
+        raise RuntimeError(f"bge-base training losses: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise RuntimeError(f"bge-base training did not reduce the loss: {losses}")
+    if launches["qkv_native_attention"] != expected or launches["flash_attention_bwd"] != expected:
+        raise RuntimeError("the bge-base training path bypassed the attention kernels")
+    return launches
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -1301,6 +1738,7 @@ def main() -> int:
     from dial_rag_tpu_torch.models.bert import BertEncoder, embed_tokens
     from dial_rag_tpu_torch.ops import fused_encoder as fe
     from dial_rag_tpu_torch.ops._build import build_kernels
+    from dial_rag_tpu_torch.training.loop import pairs_to_batches
     from dial_rag_tpu_torch.documents.model import build_chunks_list
     from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
     from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
@@ -1326,98 +1764,34 @@ def main() -> int:
     sys.stdout.flush()
 
     phase("kernels")
+    from dial_rag_tpu_torch.models.bert import BertConfig, init_params
+
     embedder = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), compute_dtype=torch.bfloat16, device="cuda")
     cfg = embedder.encoder.config
     oracle = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
     texts = oracle + synthetic_texts(embedder.tokenizer.vocab, N_DOCS - len(oracle), seed=0)
-    b, s, hid, inter, heads = 128, 256, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads
+    b, s, hid = 128, 256, cfg.hidden_size
     ids, mask = embedder.tokenizer.encode_batch(texts[len(oracle) : len(oracle) + b])
     assert ids.shape == (b, s), ids.shape
     ids_t = torch.from_numpy(ids).to(dev, dtype=torch.long)
     mask_t = torch.from_numpy(mask).to(dev)
-    layer = embedder.params["layers"][0]
-    x = embed_tokens(embedder.params, ids_t, torch.bfloat16)
-    attn_args = (
-        x, mask_t, layer["qkv"]["kernel"], layer["qkv"]["bias"], layer["attn_out"]["kernel"],
-        layer["attn_out"]["bias"], layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], heads,
-    )
-    a = fe.fused_attention_block_plain(*attn_args)
-    ffn_args = (
-        a, layer["ffn_in"]["kernel"], layer["ffn_in"]["bias"], layer["ffn_out"]["kernel"],
-        layer["ffn_out"]["bias"], layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"],
-    )
-    m = b * s
-    f32, bf16 = 4, 2
-    vec_bytes = (3 * hid + 3 * hid) * f32  # bqkv + bout, gamma, beta
-    attn_flops = 2 * m * hid * 3 * hid + 2 * 2 * b * heads * s * s * (hid // heads) + 2 * m * hid * hid
-    attn_bytes = 2 * m * hid * bf16 + m * f32 + (hid * 3 * hid + hid * hid) * bf16 + vec_bytes
-    ffn_flops = 2 * 2 * m * hid * inter
-    ffn_bytes = 2 * m * hid * bf16 + 2 * hid * inter * bf16 + (inter + 3 * hid) * f32
-
-    # PyTorch compositions of the same blocks (cuBLAS products, SDPA): a
-    # yardstick for the kernels, used nowhere in the port
-    lib_bias = {k: layer[k]["bias"].bfloat16() for k in ("qkv", "attn_out", "ffn_in", "ffn_out")}
-    keep = mask_t.bool()[:, None, None, :]
-
-    def attn_library():
-        xx = attn_args[0].view(m, hid)
-        qkv = torch.addmm(lib_bias["qkv"], xx, layer["qkv"]["kernel"])
-        q, k, v = qkv.view(b, s, 3, heads, hid // heads).permute(2, 0, 3, 1, 4)
-        ctx = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        o = torch.addmm(lib_bias["attn_out"], ctx.transpose(1, 2).reshape(m, hid), layer["attn_out"]["kernel"])
-        return torch.nn.functional.layer_norm(
-            (xx + o).float(), (hid,), layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], 1e-12
-        ).bfloat16()
-
-    def ffn_library(a=None):
-        xx = (ffn_args[0] if a is None else a).view(m, hid)
-        h = torch.addmm(lib_bias["ffn_in"], xx, layer["ffn_in"]["kernel"])
-        h = torch.nn.functional.gelu(h, approximate="tanh")
-        y = torch.addmm(lib_bias["ffn_out"], h, layer["ffn_out"]["kernel"])
-        return torch.nn.functional.layer_norm(
-            (xx + y).float(), (hid,), layer["ffn_ln"]["scale"], layer["ffn_ln"]["bias"], 1e-12
-        ).bfloat16()
-
-    layer_args = (x, mask_t, tuple(attn_args[2:8]) + tuple(ffn_args[1:]), heads)
-    layer_flops = attn_flops + ffn_flops
-    # x in, out, the mask, every weight once (a stays on chip)
-    layer_bytes = attn_bytes + ffn_bytes - 2 * m * hid * bf16
-
+    # the seeded encoder at BAAI/bge-base-en-v1.5's widths, with the
+    # alps-semantic vocabulary and CLS pooling
+    base_cfg = BertConfig(vocab_size=cfg.vocab_size, type_vocab_size=cfg.type_vocab_size, **BASE_WIDTHS)
+    base_params = init_params(base_cfg, torch.Generator().manual_seed(0))
+    bge_base = BgeEmbedder(tokenizer=embedder.tokenizer,
+                           encoder=BertEncoder(base_cfg, compute_dtype=torch.bfloat16, pooling="cls"),
+                           params=base_params, device="cuda", model_id="bge-base-seeded")
+    # kernels 1-3 in each instantiation at B=128, S=256: bge-small widths on
+    # the checkpoint's layer 0, bge-base widths on the seeded encoder's
     rows = {}
-    for name, kernel, plain, args, library, flops, nbytes, source, replaces in (
-        ("fused_attention_block", fe.fused_attention_block, fe.fused_attention_block_plain, attn_args,
-         attn_library, attn_flops, attn_bytes, "dial_rag_tpu_torch/csrc/fused_attention.cu",
-         "dial_rag_tpu/ops/fused_encoder.py:177"),
-        ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
-         ffn_library, ffn_flops, ffn_bytes, "dial_rag_tpu_torch/csrc/fused_ffn.cu",
-         "dial_rag_tpu/ops/fused_encoder.py:76"),
-        ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
-         lambda: ffn_library(attn_library()), layer_flops, layer_bytes, "dial_rag_tpu_torch/csrc/fused_layer.cu",
-         "dial_rag_tpu/ops/fused_encoder.py:365"),
-    ):
-        out = kernel(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out.float()).all():
-            raise RuntimeError(f"{name}: kernel output is not finite")
-        err = (out.float() - ref.float()).abs().max().item()
-        lib_err = (library().float().view_as(ref) - ref.float()).abs().max().item()
-        ms = cuda_ms(torch, lambda: kernel(*args), iters=20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
-        library_ms = cuda_ms(torch, library, iters=20)
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(f"{name}: max_abs_err {err:.6g} (tolerance {TOLERANCE}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, composition {library_ms:.4f} ms (its err {lib_err:.3g}), "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
-              f"B={b} S={s} H={hid} {card}", flush=True)
-        if not err <= TOLERANCE:
-            raise RuntimeError(f"{name}: kernel disagrees with its plain version by {err}")
-        rows[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        }
-    del x, a, attn_args, ffn_args, layer_args
+    for params, heads in ((embedder.params, cfg.num_heads), (bge_base.params, base_cfg.num_heads)):
+        for dtype in (torch.bfloat16, torch.float32):
+            layer = {name: {k: v.to(dtype) if k == "kernel" else v for k, v in sub.items()}
+                     for name, sub in params["layers"][0].items()}
+            x = embed_tokens(params, ids_t, dtype)
+            rows.update(block_rows(torch, card, layer, x, mask_t, heads))
+            del layer, x
 
     phase("main path")
     # host tokenization of the same texts, timed apart: the build's host share
@@ -1542,6 +1916,7 @@ def main() -> int:
 
     phase("whole-layer serve")
     rows["fused_layer_block"]["launches"] = whole_layer_phase(torch, card, embedder, texts, queries)
+    embedder_tokenizer = embedder.tokenizer
     del embedder, retriever
 
     phase("attention kernels")
@@ -1549,7 +1924,20 @@ def main() -> int:
     train_cfg, stream = training_setup(base)
     path_shapes = main_path_shapes(base, train_cfg, stream)
     print(f"attention shapes of the training and f32 serve phases (use, B, S): {path_shapes}", flush=True)
-    rows.update(attention_rows(torch, dev, card, cfg.num_heads, hid // cfg.num_heads, path_shapes))
+    rows.update(attention_rows(torch, dev, card, cfg.num_heads, hid // cfg.num_heads, path_shapes, torch.float32))
+    # the instantiations this slice adds, at the shapes their phases below
+    # give them: the "auto" repair (S = 64 and 520) and the bge-base
+    # fine-tune (its training batches)
+    repair_shapes = [("auto repair", 2, 64), ("auto repair", 2, 520)]
+    base_shapes = sorted({("bge-base training", *batch["q_ids"].shape)
+                          for batch in pairs_to_batches(base.tokenizer, stream[: 32 * BASE_TRAIN_STEPS], train_cfg)})
+    for dtype, dh, shapes in ((torch.bfloat16, 32, repair_shapes), (torch.float32, 64, repair_shapes + base_shapes),
+                              (torch.bfloat16, 64, repair_shapes)):
+        rows.update(attention_rows(torch, dev, card, 12, dh, shapes, dtype))
+
+    phase("auto repair")
+    for key, n in auto_repair_phase(torch, dev, cfg.vocab_size).items():
+        rows[key]["launches"] = n
 
     phase("bf16 gradient")
     bf16_gradient_phase(torch, base, train_cfg, stream)
@@ -1566,8 +1954,21 @@ def main() -> int:
           f"kernel) is off both paths at S <= 512", flush=True)
     del base, trained
 
+    phase("bge-base serve")
+    base_launches = base_serve_phase(torch, card, bge_base, texts, queries, tokens)
+    for name in ("fused_attention_block", "fused_ffn_block"):
+        rows[instantiation(name, torch.bfloat16, "H 768")]["launches"] = base_launches[name]
+    rows[instantiation("fused_layer_block", torch.bfloat16, "H 768")]["launches"] = whole_layer_phase(
+        torch, card, bge_base, texts, queries)
+    del bge_base
+
+    phase("bge-base training")
+    base_train = base_training_phase(torch, card, dev, base_cfg, base_params, embedder_tokenizer, stream)
+    for name in ("qkv_native_attention", "flash_attention_bwd"):
+        rows[instantiation(name, torch.float32, "head_dim 64")]["launches"] = base_train[name]
+    del base_params
+
     phase("long-document serve")
-    from dial_rag_tpu_torch.models.bert import BertConfig, init_params
     from dial_rag_tpu_torch.models.tokenizer import DEFAULT_BUCKETS, WordPieceTokenizer
 
     long_cfg = BertConfig(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size, num_layers=cfg.num_layers,
@@ -1607,6 +2008,9 @@ def main() -> int:
         rows[name]["launches"] = long_train_launches[name]
 
     phase(None)
+    unread = [name for name, row in rows.items() if row["launches"] is None]
+    if unread:
+        raise RuntimeError(f"no phase read the launches of {unread}")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

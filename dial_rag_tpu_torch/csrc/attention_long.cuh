@@ -15,26 +15,6 @@ constexpr int kKeysPerThread = kChunk / kPhases;
 // phases of a warp land on 32 distinct banks
 constexpr int kPLd = kChunk + 8;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x after a round trip through T: the reference's casts of P, e and dS
-template <typename T>
-__device__ __forceinline__ float through(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // Rows [r0, r0 + NROWS) of one head into a [NROWS, kPad] f32 tile. S is a
 // multiple of kChunk (the wrapper checks), so every row is real.
 template <int NROWS, typename T>

@@ -1,5 +1,6 @@
 """BERT-family text encoder in PyTorch (counterpart of
-``dial_rag_tpu/models/bert.py``): the bge-small sentence encoder.
+``dial_rag_tpu/models/bert.py``): a BERT-family sentence encoder (bge,
+e5, gte, MiniLM), its widths from the checkpoint's config.
 
 Parameters are a plain dict of tensors in the reference's layout (dense
 kernels [in, out], QKV fused into one [H, 3H] kernel), so a JAX parameter
@@ -27,12 +28,16 @@ Attention routes (``attention_impl``):
   functions launch the hand-written attention kernels on a CUDA tensor;
 - ``"pallas_plain"``: the same autograd functions on their plain versions;
 - ``"auto"``: the reference's TPU choice on a CUDA tensor: ``"fused"``
-  with tanh GELU at S <= 512, else ``"pallas"`` (its f32 route, and every
-  S > 512, bf16 included; its backward runs the blocked backward kernels
-  there). Where the port lacks that route's kernels (the fused blocks in
-  f32, the single-tile attention kernels in bf16) the route raises and
-  names them; it never falls back to plain PyTorch on the card.
-  ``"xla"`` is the route on the CPU.
+  with tanh GELU at S <= 512 (kernels 1-2, f32 or bf16), else
+  ``"pallas"`` (exact GELU at S <= 512: kernels 4 and 8; every S > 512,
+  bf16 included: kernel 5 at a single-tile S, the blocked kernels and
+  their backward past it). The kernels take the widths of
+  ``ops.fused_encoder.KERNEL_INSTANTIATIONS`` (bge-small and bge-base:
+  H 384 with 12 heads of 32, H 768 with 12 heads of 64; the blocked
+  kernels head_dim 32 only). Where the port lacks a route's kernel (another
+  width; past the single-tile kernels' shared memory) the route raises and
+  names it; it never falls back to plain PyTorch on the card. ``"xla"`` is
+  the route on the CPU.
 
 ``bert_forward`` is differentiable; ``remat=True`` recomputes each layer
 in the backward (``torch.utils.checkpoint``) instead of saving it.

@@ -34,21 +34,21 @@ _F = ctypes.c_float
 # C signatures of the entry points, by source stem
 SIGNATURES = {
     "fused_attention": {
-        "dial_attention_block_bf16": [_P] * 11 + [_I, _I, _I, _F, _P],
+        f"dial_attention_block_{t}": [_P] * 11 + [_I, _I, _I, _I, _F, _P] for t in ("bf16", "f32")
     },
     "fused_ffn": {
-        "dial_ffn_block_bf16": [_P] * 8 + [_I, _I, _P],
+        f"dial_ffn_block_{t}": [_P] * 8 + [_I, _I, _I, _P] for t in ("bf16", "f32")
     },
     "fused_layer": {
-        "dial_layer_block_bf16": [_P] * 17 + [_I, _I, _I, _I, _F, _P],
+        f"dial_layer_block_{t}": [_P] * 17 + [_I] * 5 + [_F, _P] for t in ("bf16", "f32")
     },
     "flash_attention_fwd": {
-        "dial_attention_fwd_f32": [_P] * 6 + [_I, _I, _I, _F, _P],
-        "dial_attention_fwd_max_seq": [_P],
+        **{f"dial_attention_fwd_{t}": [_P] * 6 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
+        "dial_attention_fwd_max_seq": [_I, _P],
     },
     "flash_attention_bwd": {
-        "dial_attention_bwd_f32": [_P] * 10 + [_I, _I, _I, _F, _P],
-        "dial_attention_bwd_max_seq": [_P],
+        **{f"dial_attention_bwd_{t}": [_P] * 10 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
+        "dial_attention_bwd_max_seq": [_I, _P],
     },
     "flash_attention_long": {
         **{f"dial_attention_q_blocked_{t}": [_P] * 6 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},

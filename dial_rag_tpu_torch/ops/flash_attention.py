@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from dial_rag_tpu_torch.ops.fused_encoder import KERNEL_HEAD_DIM, _raise_on, mask_bias
+from dial_rag_tpu_torch.ops.fused_encoder import KERNEL_DTYPES, _raise_on, check_kernel_supports, mask_bias
 
 # the reference's dispatch thresholds, under its names (a test patches
 # both packages alike): sequences up to _FULL_TILE_MAX_S, or not a
@@ -246,19 +246,23 @@ def qkv_attention_backward_plain(qkv, do, attention_mask, num_heads):
 # ---- kernel wrappers -------------------------------------------------------
 
 
-def _check_kernel_input(name, t, dtypes=(torch.float32,)):
+def _check_kernel_input(name, t):
+    """A [..., Dh] view on the card with a unit head-dim stride."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be on the card, got {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(
-            f"this attention kernel takes {' or '.join(map(str, dtypes))} (other "
-            f"instantiations are not written yet), got {name} {t.dtype}"
-        )
-    if t.shape[-1] != KERNEL_HEAD_DIM or t.stride(-1) != 1:
-        raise ValueError(
-            f"the attention kernels take head_dim {KERNEL_HEAD_DIM} with unit "
-            f"stride, got {name} of shape {tuple(t.shape)}, strides {t.stride()}"
-        )
+    if t.stride(-1) != 1:
+        raise ValueError(f"the attention kernels take a unit head-dim stride, got {name} strides {t.stride()}")
+
+
+def _check_single_tile_inputs(**tensors):
+    """The single-tile kernels take [B, h, S, Dh] views of one dtype and
+    head width from ``KERNEL_INSTANTIATIONS`` (f32 or bf16, 32 or 64)."""
+    for name, t in tensors.items():
+        _check_kernel_input(name, t)
+        check_kernel_supports(t.dtype, head_dim=t.shape[-1])
+    kinds = {name: (t.dtype, t.shape[-1]) for name, t in tensors.items()}
+    if len(set(kinds.values())) != 1:
+        raise ValueError(f"the attention kernels take one dtype and head width, got {kinds}")
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -273,36 +277,36 @@ def _kernel_bias(attention_mask, b, s, device):
     return mask_bias(attention_mask.to(device)).contiguous()
 
 
-def single_tile_max_s(direction: str, device=None) -> int:
+def single_tile_max_s(direction: str, head_dim: int, device=None) -> int:
     """The longest S the single-tile CUDA kernel (``"fwd"`` or ``"bwd"``)
-    takes on ``device``: its [32, S] f32 score tile and staging buffers
-    must fit in the shared memory one block may opt in to. The kernel's
-    library works it out from its own layout (1600 forward and 1472
-    backward on an H100's 227 KB)."""
+    takes on ``device`` at ``head_dim``: its [32, S] f32 score tile and
+    staging buffers must fit in the shared memory one block may opt in to.
+    The kernel's library works it out from its own layout (1600 forward
+    and 1472 backward at head_dim 32 on an H100's 227 KB)."""
     index = torch.device(device if device is not None else "cuda").index
-    return _max_seq(direction, torch.cuda.current_device() if index is None else index)
+    return _max_seq(direction, torch.cuda.current_device() if index is None else index, head_dim)
 
 
 @functools.cache
-def _max_seq(direction: str, index: int) -> int:
+def _max_seq(direction: str, index: int, head_dim: int) -> int:
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     out = ctypes.c_int(0)
     lib = build_kernels().libs[f"flash_attention_{direction}"]
     with torch.cuda.device(index):
-        err = getattr(lib, f"dial_attention_{direction}_max_seq")(ctypes.addressof(out))
+        err = getattr(lib, f"dial_attention_{direction}_max_seq")(head_dim, ctypes.addressof(out))
     _raise_on(err, f"attention {direction} shared-memory query")
     return out.value
 
 
-def _check_single_tile_limit(s, direction, device):
-    max_s = single_tile_max_s(direction, device)
+def _check_single_tile_limit(s, direction, device, head_dim):
+    max_s = single_tile_max_s(direction, head_dim, device)
     if s > max_s:
         raise NotImplementedError(
             f"S={s} exceeds the single-tile attention {direction} kernel's limit of "
-            f"S <= {max_s} on this card: its [32, S] f32 score tile must fit in a "
-            "block's shared memory (the reference runs this S on its single-tile "
-            "kernel too; a tiled kernel for it is not written)"
+            f"S <= {max_s} at head_dim {head_dim} on this card: its [32, S] f32 score tile "
+            "must fit in a block's shared memory (the reference runs this S on its "
+            "single-tile kernel too; a tiled kernel for it is not written)"
         )
 
 
@@ -310,30 +314,31 @@ def _forward_kernel(q, k, v, o, attention_mask):
     """Launches the single-tile strided forward on [B, h, S, Dh] views q, k, v -> o."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        _check_kernel_input(name, t)
+    _check_single_tile_inputs(q=q, k=k, v=v, o=o)
     b, h, s, dh = q.shape
-    _check_single_tile_limit(s, "fwd", q.device)
+    _check_single_tile_limit(s, "fwd", q.device, dh)
     bias = _kernel_bias(attention_mask, b, s, q.device)
     strides = _strides(q, k, v, o)
     lib = build_kernels().libs["flash_attention_fwd"]
     with torch.cuda.device(q.device):
-        err = lib.dial_attention_fwd_f32(
+        err = getattr(lib, f"dial_attention_fwd_{KERNEL_DTYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr(),
-            ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh),
+            ctypes.addressof(strides), b, h, s, dh, 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "attention forward")
 
 
-_LONG_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
 def _check_long_inputs(**tensors):
     """The blocked kernels take [B, h, S, 32] views of one dtype, f32 or
-    bf16, with S % 64 == 0."""
+    bf16, with S % 64 == 0 (head_dim 64 for them is a later slice)."""
     for name, t in tensors.items():
-        _check_kernel_input(name, t, tuple(_LONG_DTYPES))
+        _check_kernel_input(name, t)
+        if t.dtype not in KERNEL_DTYPES or t.shape[-1] != 32:
+            raise ValueError(
+                f"the blocked attention kernels take f32 or bf16 with head_dim 32, got {name} "
+                f"{t.dtype} of shape {tuple(t.shape)}"
+            )
     dtypes = {name: t.dtype for name, t in tensors.items()}
     if len(set(dtypes.values())) != 1:
         raise ValueError(f"the blocked attention kernels take one dtype, got {dtypes}")
@@ -364,7 +369,7 @@ def _long_kernel(route, q, k, v, attention_mask):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr())
     args = (ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh), stream)
-    suffix = _LONG_DTYPES[q.dtype]
+    suffix = KERNEL_DTYPES[q.dtype]
     with torch.cuda.device(q.device):
         if route == "q_blocked":
             lse = None
@@ -381,20 +386,19 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     """Launches the two-pass recompute-P backward on [B, h, S, Dh] views."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq), ("dk", dk), ("dv", dv)):
-        _check_kernel_input(name, t)
+    _check_single_tile_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
     b, h, s, dh = q.shape
-    _check_single_tile_limit(s, "bwd", q.device)
+    _check_single_tile_limit(s, "bwd", q.device, dh)
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
     rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, do, dq, dk, dv)
     lib = build_kernels().libs["flash_attention_bwd"]
     with torch.cuda.device(q.device):
-        err = lib.dial_attention_bwd_f32(
+        err = getattr(lib, f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows.data_ptr(),
-            ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh),
+            ctypes.addressof(strides), b, h, s, dh, 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "attention backward")
@@ -412,7 +416,7 @@ def _launch_long_bwd(entry, what, q, pointers, views):
     strides = _strides(*views)
     lib = build_kernels().libs["flash_attention_long_bwd"]
     with torch.cuda.device(q.device):
-        err = getattr(lib, f"{entry}_{_LONG_DTYPES[q.dtype]}")(
+        err = getattr(lib, f"{entry}_{KERNEL_DTYPES[q.dtype]}")(
             *(t.data_ptr() for t in pointers), ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh),
             torch.cuda.current_stream(q.device).cuda_stream,
         )

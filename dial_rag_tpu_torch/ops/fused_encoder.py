@@ -1,14 +1,18 @@
-"""The fused blocks of a bge-small encoder layer (counterpart of
+"""The fused blocks of a BERT encoder layer (counterpart of
 ``dial_rag_tpu/ops/fused_encoder.py``).
 
-- ``fused_attention_block``: ``LN(x + W_out.MHA(bf16(W_qkv.x + b_qkv)) + b_out)``;
-- ``fused_ffn_block``: ``LN(x + W2.bf16(gelu_tanh(W1.x + b1)) + b2)``;
+- ``fused_attention_block``: ``LN(x + W_out.MHA(T(W_qkv.x + b_qkv)) + b_out)``;
+- ``fused_ffn_block``: ``LN(x + W2.T(gelu_tanh(W1.x + b1)) + b2)``,
+  T the compute type (x's dtype);
 - ``fused_layer_block``: the two in one layer, ``a`` (the post-attention
   state, cast to the compute type) kept on chip.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu``, ``csrc/fused_layer.cu``)
-or raises; it never falls back. On a CPU tensor it runs the plain PyTorch
+or raises; it never falls back. The kernels are instantiated for
+``KERNEL_INSTANTIATIONS``, {f32, bf16} x {(H 384, head_dim 32), (H 768,
+head_dim 64)} (bge-small and bge-base widths); ``kernel_supports`` is the
+predicate every wrapper checks. On a CPU tensor it runs the plain PyTorch
 version beside it, which follows the TPU kernel's own order of casts
 (``_attn_block_kernel``, ``_ffn_kernel``, ``_layer_kernel``): products
 accumulate in f32 and are not rounded before the bias, residual and
@@ -31,9 +35,13 @@ import math
 import torch
 
 LAYERNORM_EPS = 1e-12
-# widths the CUDA kernels are specialised for (bge-small)
-KERNEL_HIDDEN = 384
-KERNEL_HEAD_DIM = 32
+# (dtype, hidden, head_dim) the CUDA kernels are instantiated for: the
+# bge-small and bge-base widths (12 heads of 32 and of 64), each in f32
+# and bf16; the FFN width is any multiple of 64
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+KERNEL_INSTANTIATIONS = tuple(
+    (dtype, hidden, head_dim) for dtype in KERNEL_DTYPES for hidden, head_dim in ((384, 32), (768, 64))
+)
 
 LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
 
@@ -41,6 +49,25 @@ LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kernel_supports(dtype, hidden=None, head_dim=None) -> bool:
+    """Whether a CUDA kernel is instantiated for (dtype, hidden, head_dim);
+    None matches any width (the FFN has no head_dim, the attention kernels
+    take any number of heads)."""
+    return any(
+        dtype == d and hidden in (None, h) and head_dim in (None, dh) for d, h, dh in KERNEL_INSTANTIATIONS
+    )
+
+
+def check_kernel_supports(dtype, hidden=None, head_dim=None) -> None:
+    """Raises ValueError, naming the instantiations, unless ``kernel_supports``."""
+    if not kernel_supports(dtype, hidden, head_dim):
+        names = ", ".join(f"({str(d)[6:]}, H {h}, head_dim {dh})" for d, h, dh in KERNEL_INSTANTIATIONS)
+        raise ValueError(
+            f"no CUDA kernel is instantiated for dtype {dtype}, H {hidden}, head_dim {head_dim}: "
+            f"the kernels take (dtype, H, head_dim) in {{{names}}}"
+        )
 
 
 def supports_fused_block(s: int) -> bool:
@@ -110,12 +137,12 @@ def _check_cuda(name, t, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_kernel_x(x):
-    _check_cuda("x", x, torch.bfloat16)
-    if x.ndim != 3 or x.shape[2] != KERNEL_HIDDEN:
-        raise ValueError(
-            f"the CUDA kernels take x [B, S, {KERNEL_HIDDEN}] bf16, got {tuple(x.shape)}"
-        )
+def _check_kernel_x(x, head_dim=None):
+    """x [B, S, H] on the card, contiguous, of an instantiated (dtype, H, head_dim)."""
+    if x.ndim != 3:
+        raise ValueError(f"the CUDA kernels take x [B, S, H], got {tuple(x.shape)}")
+    check_kernel_supports(x.dtype, x.shape[2], head_dim)
+    _check_cuda("x", x, x.dtype)
 
 
 def _stream(x) -> int:
@@ -146,17 +173,17 @@ def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, 
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
-    mask = _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta)
+    mask, dh = _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta)
     lib = build_kernels().libs["fused_attention"]
     qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.dial_attention_block_bf16(
+        err = getattr(lib, f"dial_attention_block_{KERNEL_DTYPES[x.dtype]}")(
             x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wout.data_ptr(), bout.data_ptr(), g.data_ptr(), beta.data_ptr(),
             qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, s, num_heads, 1.0 / math.sqrt(KERNEL_HEAD_DIM), _stream(x),
+            b, s, num_heads, dh, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_attention_block")
     LAUNCHES["fused_attention_block"] += 1
@@ -164,29 +191,31 @@ def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, 
 
 
 def _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta):
-    """Checks what the attention kernels take; returns the int32 mask."""
-    _check_kernel_x(x)
+    """Checks what the attention kernels take; returns the int32 mask and
+    the head width."""
     b, s, hid = x.shape
-    if num_heads * KERNEL_HEAD_DIM != hid:
-        raise ValueError(f"the attention kernels take head_dim {KERNEL_HEAD_DIM}")
+    if hid % num_heads:
+        raise ValueError(f"H={hid} is not a multiple of num_heads={num_heads}")
+    dh = hid // num_heads
+    _check_kernel_x(x, dh)
     if not supports_fused_block(s):
         raise ValueError(f"the attention kernels take S <= 512, got {s}")
     mask = attention_mask.to(torch.int32).contiguous()
     _check_cuda("attention_mask", mask, torch.int32, (b, s))
-    _check_cuda("wqkv", wqkv, torch.bfloat16, (hid, 3 * hid))
-    _check_cuda("wout", wout, torch.bfloat16, (hid, hid))
+    _check_cuda("wqkv", wqkv, x.dtype, (hid, 3 * hid))
+    _check_cuda("wout", wout, x.dtype, (hid, hid))
     _check_cuda("bqkv", bqkv, torch.float32, (3 * hid,))
     for name, t in (("bout", bout), ("ln scale", g), ("ln bias", beta)):
         _check_cuda(name, t, torch.float32, (hid,))
-    return mask
+    return mask, dh
 
 
-def _check_ffn_weights(hid, w1, b1, w2, b2, g, beta):
-    inter = w1.shape[1]
+def _check_ffn_weights(x, w1, b1, w2, b2, g, beta):
+    hid, inter = x.shape[2], w1.shape[1]
     if inter % 64:
         raise ValueError(f"the FFN kernel takes an intermediate width % 64 == 0, got {inter}")
-    _check_cuda("w1", w1, torch.bfloat16, (hid, inter))
-    _check_cuda("w2", w2, torch.bfloat16, (inter, hid))
+    _check_cuda("w1", w1, x.dtype, (hid, inter))
+    _check_cuda("w2", w2, x.dtype, (inter, hid))
     _check_cuda("b1", b1, torch.float32, (inter,))
     for name, t in (("b2", b2), ("ln scale", g), ("ln bias", beta)):
         _check_cuda(name, t, torch.float32, (hid,))
@@ -198,14 +227,14 @@ def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
 
     _check_kernel_x(x)
     b, s, hid = x.shape
-    inter = _check_ffn_weights(hid, w1, b1, w2, b2, g, beta)
+    inter = _check_ffn_weights(x, w1, b1, w2, b2, g, beta)
     lib = build_kernels().libs["fused_ffn"]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.dial_ffn_block_bf16(
+        err = getattr(lib, f"dial_ffn_block_{KERNEL_DTYPES[x.dtype]}")(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            b * s, inter, _stream(x),
+            b * s, hid, inter, _stream(x),
         )
     _raise_on(err, "fused_ffn_block")
     LAUNCHES["fused_ffn_block"] += 1
@@ -216,17 +245,17 @@ def _layer_block_kernel(x, attention_mask, weights, num_heads):
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
-    mask = _check_attention_inputs(x, attention_mask, num_heads, *weights[:6])
-    inter = _check_ffn_weights(hid, *weights[6:])
+    mask, dh = _check_attention_inputs(x, attention_mask, num_heads, *weights[:6])
+    inter = _check_ffn_weights(x, *weights[6:])
     lib = build_kernels().libs["fused_layer"]
     qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.dial_layer_block_bf16(
+        err = getattr(lib, f"dial_layer_block_{KERNEL_DTYPES[x.dtype]}")(
             x.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in weights),
             qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, s, num_heads, inter, 1.0 / math.sqrt(KERNEL_HEAD_DIM), _stream(x),
+            b, s, num_heads, dh, inter, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_layer_block")
     LAUNCHES["fused_layer_block"] += 1

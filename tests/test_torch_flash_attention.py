@@ -178,9 +178,10 @@ def test_bert_forward_pallas_route_matches_jax(impl):
 def test_auto_route(is_cuda, dtype, gelu, s, want):
     """"auto" mirrors dial_rag_tpu/models/bert.py:510-523 on a CUDA tensor,
     whatever the dtype: fused blocks with tanh GELU at S <= 512, else the
-    attention kernels, which raise where the port lacks them (bf16 in
-    tests/test_torch_kernels_cuda.py) instead of falling back to plain
-    PyTorch; the plain "xla" route on the CPU. Where "auto" gives
+    attention kernels, in f32 and bf16 (tests/test_torch_kernels_cuda.py
+    runs both on the card; past the kernels' shared memory they raise
+    instead of falling back to plain PyTorch); the plain "xla" route on
+    the CPU. Where "auto" gives
     "pallas" above S = 512, that route's attention (heads split, then
     ``flash_attention``: the single-tile kernels at S = 520) matches the
     reference's on the CPU."""

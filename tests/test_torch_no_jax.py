@@ -5,7 +5,8 @@ machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax).
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
 main path end to end, one f32 "pallas" encode, the long-document
-"pallas" route and the whole-layer route, and one training step. An
+"pallas" route and the whole-layer route, an encode at head_dim 64, and
+one training step. An
 AST scan checks the sources as well.
 """
 
@@ -79,6 +80,15 @@ for impl, dtype in (("pallas", torch.float32), ("fused_layer", torch.bfloat16)):
                      long_mask[:, : 768 if impl == "pallas" else 64], num_heads=long_cfg.num_heads,
                      compute_dtype=dtype, attention_impl=impl)
     assert torch.isfinite(h.float()).all(), impl
+
+# a bge-base-proportioned encode (heads of 64, the kernels' second width)
+# through the whole-layer and "pallas" routes, plain versions here
+base_cfg = dataclasses.replace(BertConfig.tiny(), hidden_size=128, num_heads=2, intermediate_size=512)
+base_params = init_params(base_cfg, torch.Generator().manual_seed(2))
+for impl, dtype in (("pallas", torch.float32), ("fused_layer", torch.bfloat16)):
+    h = bert_forward(base_params, long_ids[:, :64], long_mask[:, :64], num_heads=base_cfg.num_heads,
+                     compute_dtype=dtype, attention_impl=impl)
+    assert h.shape == (1, 64, 128) and torch.isfinite(h.float()).all(), impl
 
 # one training step
 from dial_rag_tpu_torch.training.loop import TrainConfig, train
