@@ -22,10 +22,8 @@ constexpr int kRows = 32;      // query rows (or keys) a block owns
 constexpr int kChunk = 64;     // keys streamed through shared memory at a time
 constexpr int kThreads = 256;  // 8 warps; thread t owns row t / 8, phase t % 8
 constexpr int kPhases = 8;
-// head width of the blocked kernels (attention_long.cuh); the single-tile
-// kernels below take theirs as the template parameter DH
-constexpr int kDh = 32;
-constexpr int kPad = kDh + 1;  // padded [*, Dh] rows: lanes on distinct banks
+// f32 [*, DH] tiles in shared memory have rows of DH + 1 floats, so the
+// lanes of a warp reading one column land on distinct banks
 
 // Element strides of one [B, h, S, Dh] operand; the head dimension has
 // unit stride. A packed [B, S, 3H] qkv is read as three such views.
@@ -40,7 +38,7 @@ __host__ __device__ inline int score_ld(int s) { return padded_seq(s) + 1; }
 
 // a . b over the head width, in one fixed order (d = 0..DH-1, fused
 // multiply-add); every pass that forms a score or a dP uses it.
-template <int DH = kDh>
+template <int DH>
 __device__ __forceinline__ float dot_dh(const float* a, const float* b) {
   float acc = 0.f;
 #pragma unroll

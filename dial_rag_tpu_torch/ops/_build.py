@@ -43,20 +43,21 @@ SIGNATURES = {
         f"dial_layer_block_{t}": [_P] * 17 + [_I] * 5 + [_F, _P] for t in ("bf16", "f32")
     },
     "flash_attention_fwd": {
-        **{f"dial_attention_fwd_{t}": [_P] * 6 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
+        "dial_attention_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
         "dial_attention_fwd_max_seq": [_I, _P],
     },
     "flash_attention_bwd": {
         **{f"dial_attention_bwd_{t}": [_P] * 10 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
         "dial_attention_bwd_max_seq": [_I, _P],
     },
+    "attention_tc": {"dial_attention_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _P]},
     "flash_attention_long": {
-        **{f"dial_attention_q_blocked_{t}": [_P] * 6 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
-        **{f"dial_attention_kv_blocked_{t}": [_P] * 7 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
+        "dial_attention_q_blocked_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
+        **{f"dial_attention_kv_blocked_{t}": [_P] * 7 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
     },
     "flash_attention_long_bwd": {
-        **{f"dial_attention_bwd_q_blocked_{t}": [_P] * 11 + [_I, _I, _I, _F, _P] for t in ("f32", "bf16")},
-        **{f"dial_attention_bwd_{p}_kv_blocked_{t}": [_P] * 10 + [_I, _I, _I, _F, _P]
+        **{f"dial_attention_bwd_q_blocked_{t}": [_P] * 11 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
+        **{f"dial_attention_bwd_{p}_kv_blocked_{t}": [_P] * 10 + [_I] * 4 + [_F, _P]
            for p in ("dq", "dkv") for t in ("f32", "bf16")},
     },
 }

@@ -19,19 +19,34 @@ KV-blocked forward (which left a log-sum-exp) the two passes
 ``_bwd_dq_kv_blocked_kernel`` and ``_bwd_dkv_kv_blocked_kernel``; at any
 other blocked S ``_attention_bwd_q_blocked_kernel``; else the single-tile
 ``_attention_bwd_kernel``. On a CUDA tensor they launch the hand-written
-Hopper kernels (``csrc/flash_attention_fwd.cu``, one strided kernel for
-both single-tile layouts; ``csrc/flash_attention_bwd.cu``;
-``csrc/flash_attention_long.cu`` for the two blocked forwards;
-``csrc/flash_attention_long_bwd.cu`` for the three blocked backwards) or
-raise; they never fall back. On a CPU tensor, or with ``plain=True``, they
-run the plain PyTorch versions beside them, which follow the TPU kernels'
-order: ``scores * scale + bias``, row max, exp, sum, divide, then
-``P . V``; the mask bias is ``(1 - mask) * f32.min``, never -inf, so a
-fully masked row stays finite (uniform weights, except in the KV-blocked
-backward, where ``exp(s - lse)`` gives it weight 1 per key, as in the
-reference). No plain version builds a [B, h, S, S] tensor at a blocked S.
+Hopper kernels or raise; they never fall back:
 
-``LAUNCHES`` counts calls that reached a kernel, per TPU kernel: a
+- forward in bf16: one tensor-core kernel (``csrc/attention_tc.cu``) for
+  the single-tile and query-blocked forwards in both layouts, at any S;
+- forward in f32: the single-tile CUDA-core kernel
+  (``csrc/flash_attention_fwd.cu``) up to the S its shared memory takes
+  (``single_tile_max_s``), the query-blocked kernel's code
+  (``csrc/flash_attention_long.cu``) past it and on the query-blocked
+  route: both compute the same function, as the reference's kernels do;
+- the KV-blocked forward (``csrc/flash_attention_long.cu``) in both dtypes;
+- backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``) up to
+  its limit, the query-blocked backward's code past it and on the
+  query-blocked route, the KV-blocked passes after the KV-blocked forward
+  (``csrc/flash_attention_long_bwd.cu``), in both dtypes.
+
+Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
+On a CPU tensor, or with ``plain=True``, they run the plain PyTorch
+versions beside them, which follow the TPU kernels' order: ``scores *
+scale + bias``, row max, exp, sum, divide, then ``P . V``; the mask bias
+is ``(1 - mask) * f32.min``, never -inf, so a fully masked row stays
+finite (uniform weights, except in the KV-blocked backward, where ``exp(s
+- lse)`` gives it weight 1 per key, as in the reference). No plain version
+builds a [B, h, S, S] tensor at a blocked S.
+
+``LAUNCHES`` counts launches per CUDA kernel wrapper, so the counters say
+which code ran: the single-tile forward by layout
+(``qkv_native_attention``, ``flash_attention_fwd``), the tensor-core
+forward (``attention_tc``, any layout), and one key per other kernel; a
 backward call counts once however many launches it makes.
 """
 
@@ -56,6 +71,7 @@ _KV_BLOCK = 512
 LAUNCHES = {
     "qkv_native_attention": 0,
     "flash_attention_fwd": 0,
+    "attention_tc": 0,
     "flash_attention_bwd": 0,
     "attention_q_blocked": 0,
     "attention_kv_blocked_fwd": 0,
@@ -73,7 +89,7 @@ def reset_launches() -> None:
 def supports_fused_qkv(s: int) -> bool:
     """Where the reference's "pallas" route takes the layout-native kernel
     (one [S, S] score tile per head); ``fused_qkv_attention`` itself has
-    no S bound, apart from the card's shared memory."""
+    no S bound."""
     return s <= _FULL_TILE_MAX_S
 
 
@@ -246,19 +262,15 @@ def qkv_attention_backward_plain(qkv, do, attention_mask, num_heads):
 # ---- kernel wrappers -------------------------------------------------------
 
 
-def _check_kernel_input(name, t):
-    """A [..., Dh] view on the card with a unit head-dim stride."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be on the card, got {t.device}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"the attention kernels take a unit head-dim stride, got {name} strides {t.stride()}")
-
-
-def _check_single_tile_inputs(**tensors):
-    """The single-tile kernels take [B, h, S, Dh] views of one dtype and
-    head width from ``KERNEL_INSTANTIATIONS`` (f32 or bf16, 32 or 64)."""
+def _check_attention_inputs(**tensors):
+    """The attention kernels take [B, h, S, Dh] views on the card with a
+    unit head-dim stride, of one dtype and head width that
+    ``kernel_supports`` (f32 or bf16; 32 or 64)."""
     for name, t in tensors.items():
-        _check_kernel_input(name, t)
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be on the card, got {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"the attention kernels take a unit head-dim stride, got {name} strides {t.stride()}")
         check_kernel_supports(t.dtype, head_dim=t.shape[-1])
     kinds = {name: (t.dtype, t.shape[-1]) for name, t in tensors.items()}
     if len(set(kinds.values())) != 1:
@@ -282,7 +294,8 @@ def single_tile_max_s(direction: str, head_dim: int, device=None) -> int:
     takes on ``device`` at ``head_dim``: its [32, S] f32 score tile and
     staging buffers must fit in the shared memory one block may opt in to.
     The kernel's library works it out from its own layout (1600 forward
-    and 1472 backward at head_dim 32 on an H100's 227 KB)."""
+    and 1472 backward at head_dim 32 on an H100's 227 KB). Past it the
+    wrappers take the query-blocked kernels' code, which has no S limit."""
     index = torch.device(device if device is not None else "cuda").index
     return _max_seq(direction, torch.cuda.current_device() if index is None else index, head_dim)
 
@@ -299,52 +312,97 @@ def _max_seq(direction: str, index: int, head_dim: int) -> int:
     return out.value
 
 
-def _check_single_tile_limit(s, direction, device, head_dim):
-    max_s = single_tile_max_s(direction, head_dim, device)
-    if s > max_s:
-        raise NotImplementedError(
-            f"S={s} exceeds the single-tile attention {direction} kernel's limit of "
-            f"S <= {max_s} at head_dim {head_dim} on this card: its [32, S] f32 score tile "
-            "must fit in a block's shared memory (the reference runs this S on its "
-            "single-tile kernel too; a tiled kernel for it is not written)"
-        )
-
-
-def _forward_kernel(q, k, v, o, attention_mask):
-    """Launches the single-tile strided forward on [B, h, S, Dh] views q, k, v -> o."""
+def _launch(stem, entry, what, q, pointers, views):
+    """Calls ``entry`` of ``csrc/<stem>.cu`` with the tensors' pointers, the
+    (batch, head, row) strides of ``views``, B, h, S, head_dim, the scale
+    1/sqrt(head_dim) and q's current stream; raises on a CUDA error."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    _check_single_tile_inputs(q=q, k=k, v=v, o=o)
     b, h, s, dh = q.shape
-    _check_single_tile_limit(s, "fwd", q.device, dh)
-    bias = _kernel_bias(attention_mask, b, s, q.device)
-    strides = _strides(q, k, v, o)
-    lib = build_kernels().libs["flash_attention_fwd"]
+    strides = _strides(*views)
+    lib = build_kernels().libs[stem]
     with torch.cuda.device(q.device):
-        err = getattr(lib, f"dial_attention_fwd_{KERNEL_DTYPES[q.dtype]}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr(),
-            ctypes.addressof(strides), b, h, s, dh, 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream,
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in pointers), ctypes.addressof(strides), b, h, s, dh,
+            1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, "attention forward")
+    _raise_on(err, what)
 
 
-def _check_long_inputs(**tensors):
-    """The blocked kernels take [B, h, S, 32] views of one dtype, f32 or
-    bf16, with S % 64 == 0 (head_dim 64 for them is a later slice)."""
-    for name, t in tensors.items():
-        _check_kernel_input(name, t)
-        if t.dtype not in KERNEL_DTYPES or t.shape[-1] != 32:
-            raise ValueError(
-                f"the blocked attention kernels take f32 or bf16 with head_dim 32, got {name} "
-                f"{t.dtype} of shape {tuple(t.shape)}"
-            )
-    dtypes = {name: t.dtype for name, t in tensors.items()}
-    if len(set(dtypes.values())) != 1:
-        raise ValueError(f"the blocked attention kernels take one dtype, got {dtypes}")
-    s = tensors["q"].shape[2]
-    if s % 64:
-        raise ValueError(f"the blocked attention kernels take S % 64 == 0, got {s}")
+def _forward_kernel(q, k, v, o, attention_mask, counter="flash_attention_fwd"):
+    """Launches the single-tile f32 forward (CUDA cores) on [B, h, S, Dh]
+    views q, k, v -> o; S within ``single_tile_max_s("fwd", Dh)``. Counts
+    the launch under ``counter``, the LAUNCHES key of the caller's layout
+    (TPU kernel 4: packed qkv; 5: head-major)."""
+    _check_attention_inputs(q=q, k=k, v=v, o=o)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the single-tile CUDA-core forward takes f32, got {q.dtype}")
+    b, h, s, dh = q.shape
+    if s > single_tile_max_s("fwd", dh, q.device):
+        raise ValueError(f"S={s} is past the single-tile forward's shared-memory limit at head_dim {dh}")
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    _launch("flash_attention_fwd", "dial_attention_fwd_f32", "attention forward", q, (q, k, v, bias, o),
+            (q, k, v, o))
+    LAUNCHES[counter] += 1
+
+
+def _tc_kernel(q, k, v, o, attention_mask):
+    """Launches the bf16 tensor-core forward (TPU kernels 4, 5 and 6 in
+    bf16, any S) on [B, h, S, Dh] views q, k, v -> o. Its 16-byte copies
+    need q, k and v 16-byte aligned with strides in multiples of 8."""
+    _check_attention_inputs(q=q, k=k, v=v, o=o)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core attention forward takes bf16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"the tensor-core attention forward takes 16-byte aligned rows, got {name} at "
+                             f"{t.data_ptr()} with strides {t.stride()}")
+    if o.data_ptr() % 4 or any(st % 2 for st in o.stride()[:3]):
+        raise ValueError(f"the tensor-core attention forward writes pairs of values, got o strides {o.stride()}")
+    b, h, s, _ = q.shape
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    _launch("attention_tc", "dial_attention_tc_bf16", "attention tensor-core forward", q, (q, k, v, bias, o),
+            (q, k, v, o))
+    LAUNCHES["attention_tc"] += 1
+
+
+def _q_blocked_kernel(q, k, v, o, attention_mask):
+    """Launches the query-blocked f32 forward (TPU kernel 6; CUDA cores,
+    any S) on [B, h, S, Dh] views q, k, v -> o."""
+    _check_attention_inputs(q=q, k=k, v=v, o=o)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the query-blocked CUDA-core forward takes f32 (bf16 takes the tensor cores), got {q.dtype}")
+    b, h, s, _ = q.shape
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    _launch("flash_attention_long", "dial_attention_q_blocked_f32", "attention q_blocked forward", q,
+            (q, k, v, bias, o), (q, k, v, o))
+    LAUNCHES["attention_q_blocked"] += 1
+
+
+def _kv_blocked_kernel(q, k, v, o, attention_mask):
+    """Launches the KV-blocked forward (TPU kernel 7) on [B, h, S, Dh]
+    views q, k, v -> o; returns its lse, f32 [B, h, S]."""
+    _check_attention_inputs(q=q, k=k, v=v, o=o)
+    b, h, s, _ = q.shape
+    bias = _kernel_bias(attention_mask, b, s, q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_long", f"dial_attention_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
+            "attention kv_blocked forward", q, (q, k, v, bias, o, lse), (q, k, v, o))
+    LAUNCHES["attention_kv_blocked_fwd"] += 1
+    return lse
+
+
+def _forward_into(q, k, v, o, attention_mask, single_tile, counter="flash_attention_fwd"):
+    """The forward on the card of the single-tile (``single_tile``) or
+    query-blocked route into o: bf16 on the tensor-core kernel; f32 on the
+    single-tile kernel (its launch counted under ``counter``) up to its
+    shared-memory limit, else on the query-blocked kernel's code."""
+    if q.dtype == torch.bfloat16:
+        _tc_kernel(q, k, v, o, attention_mask)
+    elif single_tile and q.shape[2] <= single_tile_max_s("fwd", q.shape[-1], q.device):
+        _forward_kernel(q, k, v, o, attention_mask, counter)
+    else:
+        _q_blocked_kernel(q, k, v, o, attention_mask)
 
 
 def _check_rows(name, t, shape):
@@ -354,86 +412,33 @@ def _check_rows(name, t, shape):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _long_kernel(route, q, k, v, attention_mask):
-    """Launches a blocked forward (``route`` "q_blocked" or "kv_blocked")
-    on [B, h, S, Dh] views; returns (o, lse-or-None). o is laid out
-    [B, S, h, Dh] in memory, so the model's merge of the heads is a view."""
-    from dial_rag_tpu_torch.ops._build import build_kernels
-
-    _check_long_inputs(q=q, k=k, v=v)
-    b, h, s, dh = q.shape
-    bias = _kernel_bias(attention_mask, b, s, q.device)
-    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = _strides(q, k, v, o)
-    lib = build_kernels().libs["flash_attention_long"]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr())
-    args = (ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh), stream)
-    suffix = KERNEL_DTYPES[q.dtype]
-    with torch.cuda.device(q.device):
-        if route == "q_blocked":
-            lse = None
-            err = getattr(lib, f"dial_attention_q_blocked_{suffix}")(*ptrs, *args)
-        else:
-            lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-            err = getattr(lib, f"dial_attention_kv_blocked_{suffix}")(*ptrs, lse.data_ptr(), *args)
-    _raise_on(err, f"attention {route} forward")
-    LAUNCHES["attention_q_blocked" if route == "q_blocked" else "attention_kv_blocked_fwd"] += 1
-    return o, lse
-
-
 def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
-    """Launches the two-pass recompute-P backward on [B, h, S, Dh] views."""
-    from dial_rag_tpu_torch.ops._build import build_kernels
-
-    _check_single_tile_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    """Launches the two-pass single-tile recompute-P backward (TPU kernel
+    8) on [B, h, S, Dh] views; S within ``single_tile_max_s("bwd", Dh)``."""
+    _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
     b, h, s, dh = q.shape
-    _check_single_tile_limit(s, "bwd", q.device, dh)
+    if s > single_tile_max_s("bwd", dh, q.device):
+        raise ValueError(f"S={s} is past the single-tile backward's shared-memory limit at head_dim {dh}")
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
     rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, do, dq, dk, dv)
-    lib = build_kernels().libs["flash_attention_bwd"]
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows.data_ptr(),
-            ctypes.addressof(strides), b, h, s, dh, 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _raise_on(err, "attention backward")
+    _launch("flash_attention_bwd", f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}", "attention backward", q,
+            (q, k, v, do, bias, dq, dk, dv, rows), (q, k, v, do, dq, dk, dv))
     LAUNCHES["flash_attention_bwd"] += 1
 
 
-def _launch_long_bwd(entry, what, q, pointers, views):
-    """Calls ``entry`` of ``csrc/flash_attention_long_bwd.cu`` (in q's
-    dtype) with the tensors' pointers, the (batch, head, row) strides of
-    ``views``, B, h, S, the scale and the current stream; raises on a CUDA
-    error."""
-    from dial_rag_tpu_torch.ops._build import build_kernels
-
-    b, h, s, dh = q.shape
-    strides = _strides(*views)
-    lib = build_kernels().libs["flash_attention_long_bwd"]
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"{entry}_{KERNEL_DTYPES[q.dtype]}")(
-            *(t.data_ptr() for t in pointers), ctypes.addressof(strides), b, h, s, 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _raise_on(err, what)
-
-
 def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
-    """Launches the query-blocked backward (TPU kernel 9, two passes) on
-    [B, h, S, Dh] views, writing dq, dk and dv."""
-    _check_long_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    """Launches the query-blocked backward (TPU kernel 9, two passes, any
+    S) on [B, h, S, Dh] views, writing dq, dk and dv."""
+    _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max and denominator, and delta
     stats = torch.empty((b, h, s, 2), dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch_long_bwd("dial_attention_bwd_q_blocked", "attention q_blocked backward", q,
-                     (q, k, v, do, bias, dq, dk, dv, stats, delta), (q, k, v, do, dq, dk, dv))
+    _launch("flash_attention_long_bwd", f"dial_attention_bwd_q_blocked_{KERNEL_DTYPES[q.dtype]}",
+            "attention q_blocked backward", q, (q, k, v, do, bias, dq, dk, dv, stats, delta),
+            (q, k, v, do, dq, dk, dv))
     LAUNCHES["attention_bwd_q_blocked"] += 1
 
 
@@ -441,13 +446,13 @@ def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
     """Launches the dQ pass of the KV-blocked backward (TPU kernel 10):
     writes dq and returns delta = rowsum(dO O), f32 [B, h, S], for the
     dK/dV pass."""
-    _check_long_inputs(q=q, k=k, v=v, o=o, do=do, dq=dq)
+    _check_attention_inputs(q=q, k=k, v=v, o=o, do=do, dq=dq)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     bias = _kernel_bias(attention_mask, b, s, q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch_long_bwd("dial_attention_bwd_dq_kv_blocked", "attention kv_blocked dQ backward", q,
-                     (q, k, v, o, do, bias, lse, dq, delta), (q, k, v, o, do, dq))
+    _launch("flash_attention_long_bwd", f"dial_attention_bwd_dq_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
+            "attention kv_blocked dQ backward", q, (q, k, v, o, do, bias, lse, dq, delta), (q, k, v, o, do, dq))
     LAUNCHES["bwd_dq_kv_blocked"] += 1
     return delta
 
@@ -455,14 +460,25 @@ def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
 def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
     """Launches the dK/dV pass of the KV-blocked backward (TPU kernel 11)
     with the forward's lse and the dQ pass's delta."""
-    _check_long_inputs(q=q, k=k, v=v, do=do, dk=dk, dv=dv)
+    _check_attention_inputs(q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     _check_rows("delta", delta, (b, h, s))
     bias = _kernel_bias(attention_mask, b, s, q.device)
-    _launch_long_bwd("dial_attention_bwd_dkv_kv_blocked", "attention kv_blocked dK/dV backward", q,
-                     (q, k, v, do, bias, lse, delta, dk, dv), (q, k, v, do, dk, dv))
+    _launch("flash_attention_long_bwd", f"dial_attention_bwd_dkv_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
+            "attention kv_blocked dK/dV backward", q, (q, k, v, do, bias, lse, delta, dk, dv),
+            (q, k, v, do, dk, dv))
     LAUNCHES["bwd_dkv_kv_blocked"] += 1
+
+
+def _backward_into(q, k, v, do, dq, dk, dv, attention_mask, single_tile):
+    """The backward on the card without an lse: the single-tile kernel
+    (``single_tile``: the single-tile route) up to its shared-memory limit,
+    else the query-blocked backward's code."""
+    if single_tile and q.shape[2] <= single_tile_max_s("bwd", q.shape[-1], q.device):
+        _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask)
+    else:
+        _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask)
 
 
 def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
@@ -481,8 +497,8 @@ class _FusedQKVAttention(torch.autograd.Function):
             raise ValueError("fused_qkv_attention takes a contiguous [B, S, 3H] qkv")
         out = torch.empty((b, s, three_h // 3), dtype=qkv.dtype, device=qkv.device)
         q, k, v = _split_heads(qkv, num_heads)
-        _forward_kernel(q, k, v, out.view(b, s, num_heads, -1).transpose(1, 2), attention_mask)
-        LAUNCHES["qkv_native_attention"] += 1
+        _forward_into(q, k, v, out.view(b, s, num_heads, -1).transpose(1, 2), attention_mask, True,
+                      "qkv_native_attention")
         return out
 
     @staticmethod
@@ -495,18 +511,21 @@ class _FusedQKVAttention(torch.autograd.Function):
         b, s, three_h = qkv.shape
         # the kernel writes dq, dk and dv straight into the packed gradient
         dqkv = torch.empty_like(qkv)
-        _backward_kernel(
+        _backward_into(
             *_split_heads(qkv, num_heads),
             do.view(b, s, num_heads, -1).transpose(1, 2),
             *_split_heads(dqkv, num_heads),
             attention_mask,
+            single_tile=True,
         )
         return dqkv, None, None, None
 
 
 def _forward(q, k, v, attention_mask, plain=False):
     """The reference's ``_forward``: (o, lse-or-None) by S; lse only from
-    the KV-blocked kernel, where a blocked backward needs it."""
+    the KV-blocked kernel, where a blocked backward needs it. On the card o
+    is laid out [B, S, h, Dh] in memory, so the model's merge of the heads
+    is a view."""
     route = attention_route(q.shape[2])
     if not _use_kernel(q, plain):
         if route == "single_tile":
@@ -514,19 +533,20 @@ def _forward(q, k, v, attention_mask, plain=False):
         if route == "q_blocked":
             return attention_q_blocked_plain(q, k, v, attention_mask), None
         return attention_kv_blocked_plain(q, k, v, attention_mask)
-    if route != "single_tile":
-        return _long_kernel(route, q, k, v, attention_mask)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _forward_kernel(q, k, v, out, attention_mask)
-    LAUNCHES["flash_attention_fwd"] += 1
-    return out, None
+    b, h, s, dh = q.shape
+    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if route == "kv_blocked":
+        return o, _kv_blocked_kernel(q, k, v, o, attention_mask)
+    _forward_into(q, k, v, o, attention_mask, route == "single_tile")
+    return o, None
 
 
 def _backward(q, k, v, o, lse, do, attention_mask, plain=False):
     """The reference's ``_bwd_rule``: (dq, dk, dv) by what the forward
     left: lse -> the KV-blocked passes (kernels 10, 11); a blocked S
     without it -> the query-blocked backward (kernel 9); else the
-    single-tile backward (kernel 8)."""
+    single-tile backward (kernel 8), whose code past its shared-memory
+    limit is kernel 9's."""
     blocked = attention_route(q.shape[2]) != "single_tile"
     if not _use_kernel(q, plain):
         if lse is not None:
@@ -538,10 +558,8 @@ def _backward(q, k, v, o, lse, do, attention_mask, plain=False):
     if lse is not None:
         delta = _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask)
         _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask)
-    elif blocked:
-        _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask)
     else:
-        _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask)
+        _backward_into(q, k, v, do, dq, dk, dv, attention_mask, single_tile=not blocked)
     return dq, dk, dv
 
 

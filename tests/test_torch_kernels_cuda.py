@@ -12,10 +12,14 @@ summation order over the keys; its gradients atol 5e-5, rtol 1e-4, the
 reference's own; the KV-blocked kernel's log-sum-exp 1e-5, the
 reference's long-context lse tolerance; the blocked backward kernels
 (9-11) f32 atol 5e-5, rtol 1e-4 and bf16 3e-2 of the plain gradient's
-largest magnitude. Kernels 1-5 and 8 run at every instantiation of
+largest magnitude. Every kernel runs at every instantiation of
 ``fused_encoder.KERNEL_INSTANTIATIONS``: f32 and bf16 at bge-small widths
-(H 384, 12 heads of 32) and bge-base widths (H 768, 12 heads of 64); their
-bf16 gradients are held to 3e-2 of each batch row's largest plain value.
+(H 384, 12 heads of 32) and bge-base widths (H 768, 12 heads of 64), the
+blocked kernels at head_dim 32 and 64, the bf16 attention forward
+(kernels 4, 5, 6) on the tensor-core kernel; the single-tile shapes past
+the single-tile kernels' shared-memory limit on the query-blocked
+kernels' code; bf16 gradients are held to 3e-2 of each batch row's
+largest plain value.
 The bf16 outputs of kernels 1-3 at H 768 are held to 3e-2 of each row's
 largest plain value (a row: one token's H values), the limit the bf16
 gradients use: there LayerNorm outputs reach |value| >= 4, where one bf16
@@ -53,6 +57,16 @@ def _assert_close(out, ref, atol, per_row=False):
     out, ref = out.float(), ref.float()
     limit = atol * ref.abs().amax(dim=-1, keepdim=True) if per_row else atol
     assert ((out - ref).abs() <= limit).all(), (out - ref).abs().max().item()
+
+
+def _assert_head_close(out, ref, rel=3e-2):
+    """bf16 attention outputs [B, h, S, Dh]: |out - ref| <= ``rel`` times
+    the largest |ref| of each (batch row, head). A typical output is about
+    sqrt(e / S), so an absolute 3e-2 alone is as large as what it compares
+    at long S."""
+    out, ref = out.float(), ref.float()
+    limit = rel * ref.abs().amax(dim=(2, 3), keepdim=True).clamp_min(torch.finfo(torch.float32).tiny)
+    assert ((out - ref).abs() <= limit).all(), ((out - ref).abs() / limit).max().item()
 
 
 def _block_inputs(device, b, s, dtype, hid, inter, seed):
@@ -188,9 +202,11 @@ def test_attention_kernels_match_plain_on_card(cuda_device, b, s, dtype, dh, ato
     want = _grads(lambda *x: tfa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h)
     _assert_grads_close(got, want, dtype)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"qkv_native_attention": 2, "flash_attention_fwd": 2, "flash_attention_bwd": 2,
-                            "attention_q_blocked": 0, "attention_kv_blocked_fwd": 0, "attention_bwd_q_blocked": 0,
-                            "bwd_dq_kv_blocked": 0, "bwd_dkv_kv_blocked": 0}
+    # f32 on the single-tile CUDA-core forward, per layout; bf16 on the
+    # tensor-core forward (both layouts); the backward on kernel 8
+    fwd = ({"attention_tc": 4} if dtype == torch.bfloat16
+           else {"qkv_native_attention": 2, "flash_attention_fwd": 2})
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), **fwd, "flash_attention_bwd": 2}
 
 
 @pytest.mark.cuda
@@ -204,10 +220,13 @@ def test_attention_kernel_backward_is_reproducible(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
-    """bf16 now has kernels: at each head width the bf16 kernels run and
-    match the plain version; a dtype or head width with no instantiation
-    raises, naming the set; past the single-tile kernels' shared-memory
-    limit they raise, naming it."""
+    """bf16 has kernels: at each head width the bf16 kernels run and match
+    the plain version; a dtype or head width with no instantiation raises,
+    naming the set. Past the single-tile kernels' shared-memory limit,
+    where they used to raise, the forward (f32: the query-blocked code;
+    bf16: the tensor-core kernel, which has no limit) and the backward
+    (the query-blocked backward's code) run and match the plain versions,
+    in both dtypes at both head widths."""
     for dh in (32, 64):
         qkv, mask, _ = _attention_inputs(cuda_device, 2, 64, dh=dh, dtype=torch.bfloat16)
         out = tfa.fused_qkv_attention(qkv, mask, 12)
@@ -220,14 +239,23 @@ def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
     q = torch.zeros(1, 2, 64, 48, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16, H 768, head_dim 64"):
         tfa.flash_attention(q, q, q, mask)
-    # past the single-tile kernels' shared-memory limit, which the error names
-    for dh in (32, 64):
-        for direction in ("fwd", "bwd"):
-            s = tfa.single_tile_max_s(direction, head_dim=dh) + 64
-            long_qkv = torch.zeros(1, s, 36 * dh, device=cuda_device, requires_grad=direction == "bwd")
-            with pytest.raises(NotImplementedError, match=f"limit of S <= {s - 64} at head_dim {dh}"):
-                out = tfa.fused_qkv_attention(long_qkv, torch.ones(1, s, device=cuda_device), 12)
-                out.sum().backward()
+    # past the single-tile kernels' shared-memory limits
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        for dh in (32, 64):
+            for direction in ("fwd", "bwd"):
+                s = tfa.single_tile_max_s(direction, head_dim=dh) + 64
+                qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh, dtype=dtype)
+                tfa.reset_launches()
+                got = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)
+                torch.cuda.synchronize()
+                fwd = "attention_tc" if dtype == torch.bfloat16 else (
+                    "attention_q_blocked" if direction == "fwd" else "qkv_native_attention")
+                assert tfa.LAUNCHES[fwd] == 1 and tfa.LAUNCHES["attention_bwd_q_blocked"] == 1, tfa.LAUNCHES
+                assert tfa.LAUNCHES["flash_attention_bwd"] == 0
+                want = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12, plain=True), [qkv], cot)
+                _assert_grads_close(got, want, dtype)
+                out = tfa.fused_qkv_attention(qkv, mask, 12)
+                _assert_close(out, tfa.fused_qkv_attention(qkv, mask, 12, plain=True), atol)
 
 
 def _one_layer(device, dtype, hid, max_positions):
@@ -240,16 +268,40 @@ def _one_layer(device, dtype, hid, max_positions):
 
 @pytest.mark.cuda
 def test_auto_route_raises_where_kernels_are_missing(cuda_device):
-    """"auto" on the card takes the reference's TPU route; past the
-    single-tile attention kernels' shared-memory limit the port has no
-    kernel, and it raises instead of running plain PyTorch."""
+    """"auto" on the card takes the reference's TPU route. At S = 1700
+    (f32, exact GELU) the single-tile kernels' shared memory runs out,
+    where the port used to raise; now the forward and backward take the
+    query-blocked kernels' code, which launches once each and matches the
+    plain route."""
     from dial_rag_tpu_torch.models.bert import bert_forward
 
     params = _one_layer(cuda_device, torch.float32, 384, 2048)
-    ids = torch.ones(2, 1700, dtype=torch.long, device=cuda_device)
-    mask = torch.ones(2, 1700, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="limit"):
-        bert_forward(params, ids, mask, num_heads=12, compute_dtype=torch.float32, gelu="exact")
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(5, 64, (2, 1700), generator=g).to(cuda_device)
+    mask = torch.ones(2, 1700, dtype=torch.int32)
+    mask[1, 600:] = 0
+    mask = mask.to(cuda_device)
+    emb = params["embeddings"]["word"].requires_grad_(True)
+    cot = torch.randn(2, 1700, 384, generator=g).to(cuda_device)
+
+    def run(impl):
+        emb.grad = None
+        out = bert_forward(params, ids, mask, num_heads=12, compute_dtype=torch.float32, gelu="exact",
+                           attention_impl=impl)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), emb.grad.clone()
+
+    assert 1700 > tfa.single_tile_max_s("fwd", head_dim=32) and tfa.attention_route(1700) == "single_tile"
+    tfa.reset_launches()
+    out, grad = run("auto")
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), "attention_q_blocked": 1,
+                            "attention_bwd_q_blocked": 1}, tfa.LAUNCHES
+    ref, ref_grad = run("pallas_plain")
+    assert torch.isfinite(out).all()
+    _assert_close(out, ref, 2e-5)
+    cos = torch.nn.functional.cosine_similarity(grad.flatten().double(), ref_grad.flatten().double(), dim=0)
+    assert cos.item() > 0.9999
 
 
 @pytest.mark.cuda
@@ -258,14 +310,15 @@ def test_auto_route_raises_where_kernels_are_missing(cuda_device):
     "dtype,gelu,s,launched,plain_route,atol",
     [
         (torch.float32, "tanh", 64, ("fused_attention_block", "fused_ffn_block"), "fused_plain", 2e-5),
-        (torch.bfloat16, "exact", 64, ("qkv_native_attention", "flash_attention_bwd"), "pallas_plain", 3e-2),
-        (torch.bfloat16, "exact", 520, ("flash_attention_fwd", "flash_attention_bwd"), "pallas_plain", 3e-2),
+        (torch.bfloat16, "exact", 64, ("attention_tc", "flash_attention_bwd"), "pallas_plain", 3e-2),
+        (torch.bfloat16, "exact", 520, ("attention_tc", "flash_attention_bwd"), "pallas_plain", 3e-2),
     ],
 )
 def test_auto_route_runs_the_kernels(cuda_device, hid, dtype, gelu, s, launched, plain_route, atol):
     """The routes the port once refused: (f32, tanh) through kernels 1-2,
-    (bf16, exact) through kernel 4 and its backward (kernel 8), bf16 at
-    S = 520 through kernel 5 and kernel 8; each hidden state within the
+    (bf16, exact) through kernel 4 (the tensor-core forward) and its
+    backward (kernel 8), bf16 at S = 520 through kernel 5 (the same
+    tensor-core forward) and kernel 8; each hidden state within the
     dtype's tolerance of the plain route, each launch counted."""
     from dial_rag_tpu_torch.models.bert import bert_forward
 
@@ -317,11 +370,9 @@ def test_single_tile_kernels_at_their_limit(cuda_device, dtype, dh, atol):
     else:
         # the forward's limit at head_dim 64 (1536 on an H100) is a multiple
         # of 256, where the head-major dispatch takes the query-blocked
-        # kernel, which has no head_dim 64 instantiation yet; kernel 5 is
-        # gated 64 rows below it
+        # route (at head_dim 64 too now); kernel 5 is gated 64 rows below it
         assert tfa.attention_route(fwd_s) == "q_blocked"
-        with pytest.raises(ValueError, match="head_dim 32"):
-            tfa.flash_attention(q, k, v, mask)
+        _assert_close(tfa.flash_attention(q, k, v, mask), tfa.flash_attention(q, k, v, mask, plain=True), atol)
         s5 = fwd_s - 64
         assert tfa.attention_route(s5) == "single_tile"
         q, k, v = (t[:, :, :s5] for t in (q, k, v))
@@ -334,15 +385,48 @@ def test_single_tile_kernels_at_their_limit(cuda_device, dtype, dh, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("b,s", [(3, 64), (2, 100), (2, 256), (2, 520), (2, 1700), (2, 4096)])
+def test_tensor_core_forward_matches_plain_on_card(cuda_device, b, s, dh):
+    """The bf16 tensor-core forward, which serves kernels 4 (packed qkv),
+    5 (head-major, single-tile S) and 6 (head-major, query-blocked S), at
+    each head width: ragged S (100, 520, 1700: a ragged last key chunk),
+    one and many 64-key chunks, a half-masked row and a fully masked one
+    (uniform over its S real keys), against the plain versions within 3e-2
+    and within 3e-2 of each (batch row, head)'s largest plain value."""
+    qkv, mask, _ = _attention_inputs(cuda_device, b, s, dh=dh, dtype=torch.bfloat16)
+    tfa.reset_launches()
+    out = tfa.fused_qkv_attention(qkv, mask, 12)
+    q, k, v = tfa._split_heads(qkv, 12)
+    head_major = tfa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), "attention_tc": 2}, tfa.LAUNCHES
+    for got, ref in ((out, tfa.fused_qkv_attention(qkv, mask, 12, plain=True)),
+                     (head_major, tfa.flash_attention(q, k, v, mask, plain=True))):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        _assert_close(got, ref, 3e-2)
+        if got.dim() == 3:
+            got, ref = (x.view(b, s, 12, dh).transpose(1, 2) for x in (got, ref))
+        _assert_head_close(got, ref)
+    # the fully masked row: every query's output is the mean of its S values
+    mean = v[-1:].float().mean(dim=2, keepdim=True).expand(-1, -1, s, -1)
+    _assert_close(head_major[-1:], mean, 3e-2)
+    _assert_head_close(head_major[-1:], mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize(
     "route,b,s", [("q_blocked", 2, 768), ("q_blocked", 1, 4096), ("kv_blocked", 1, 4608), ("kv_blocked", 3, 8192)]
 )
-def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, route, b, s):
-    """Kernels 6 (query-blocked) and 7 (KV-blocked, with its log-sum-exp)
-    against their plain versions, q, k and v read as strided views of a
-    packed qkv, a ragged mask and a fully masked row."""
-    qkv, mask, _ = _attention_inputs(cuda_device, b + 1, s)
+def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, route, b, s, dh):
+    """Kernels 6 (query-blocked; in bf16 the tensor-core forward) and 7
+    (KV-blocked, with its log-sum-exp) against their plain versions at
+    head_dim 32 and 64, q, k and v read as strided views of a packed qkv,
+    a ragged mask and a fully masked row; bf16 also within 3e-2 of each
+    (batch row, head)'s largest plain value."""
+    qkv, mask, _ = _attention_inputs(cuda_device, b + 1, s, dh=dh)
     q, k, v = tfa._split_heads(qkv.to(dtype), 12)
     assert tfa.attention_route(s) == route
     tfa.reset_launches()
@@ -351,8 +435,12 @@ def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, ro
     torch.cuda.synchronize()
     assert out.dtype == dtype and torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= atol
-    name = "attention_q_blocked" if route == "q_blocked" else "attention_kv_blocked_fwd"
-    assert tfa.LAUNCHES[name] == 1
+    if dtype == torch.bfloat16:
+        _assert_head_close(out, ref)
+    name = {"kv_blocked": "attention_kv_blocked_fwd", "q_blocked": "attention_q_blocked"}[route]
+    if route == "q_blocked" and dtype == torch.bfloat16:
+        name = "attention_tc"
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), name: 1}, tfa.LAUNCHES
     if route == "kv_blocked":
         assert torch.isfinite(lse).all() and (lse - ref_lse).abs().max().item() <= 1e-5
     else:
@@ -370,9 +458,10 @@ def _excess(a, w, rtol=1e-4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route,b,s", [("q_blocked", 2, 1024), ("q_blocked", 2, 4352), ("kv_blocked", 2, 8192)])
-def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b, s):
+def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b, s, dh):
     """Kernels 9 (query-blocked) and 10-11 (KV-blocked, from the forward's
     o and lse) against their plain versions through ``flash_attention``'s
     backward, q, k and v strided views of a packed qkv, standard-normal
@@ -383,8 +472,8 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
     gradient is a sum of S = 8192 terms of size 1 whose f32 rounding alone
     exceeds atol, and the kernel must be at least as close as the plain
     version to the same expressions evaluated in f64. bf16: per batch row,
-    3e-2 of the plain gradient's largest magnitude."""
-    qkv, mask, cot = _attention_inputs(cuda_device, b + 1, s)
+    3e-2 of the plain gradient's largest magnitude. At head_dim 32 and 64."""
+    qkv, mask, cot = _attention_inputs(cuda_device, b + 1, s, dh=dh)
     mask[-2, s // 3 :] = 0
     q, k, v = tfa._split_heads(qkv.to(dtype), 12)
     cot = cot.view(b + 1, s, 12, -1).transpose(1, 2)

@@ -2,8 +2,8 @@
 Pallas kernels, run in interpret mode on the CPU as
 tests/test_flash_attention.py runs them: ``_attention_q_blocked_kernel``
 (kernel 6) and ``_attention_kv_blocked_fwd_kernel`` (kernel 7, with its
-log-sum-exp), each in f32 and bf16, and the whole encoder's "pallas" route
-at S = 768 and S = 1024. On a CPU tensor the port's ``flash_attention``
+log-sum-exp), each in f32 and bf16 at head_dim 32 and 64, and the whole
+encoder's "pallas" route at S = 768 and S = 1024. On a CPU tensor the port's ``flash_attention``
 runs the plain versions that the CUDA kernels are held to on the card
 (tests/test_torch_kernels_cuda.py). The blocked backward is held against
 the reference in tests/test_torch_long_backward.py.
@@ -44,11 +44,11 @@ def kv_blocked(monkeypatch):
     monkeypatch.setattr(tfa, "_Q_BLOCKED_MAX_S", 512)
 
 
-def _inputs(b, h, s, seed, np_dtype, pad_from):
-    """q, k, v [B, h, S, 32] and a mask whose last row is padded from
+def _inputs(b, h, s, seed, np_dtype, pad_from, dh=32):
+    """q, k, v [B, h, S, dh] and a mask whose last row is padded from
     ``pad_from`` on."""
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((b, h, s, 32)).astype(np.float32).astype(np_dtype) for _ in range(3))
+    q, k, v = (rng.standard_normal((b, h, s, dh)).astype(np.float32).astype(np_dtype) for _ in range(3))
     mask = np.ones((b, s), np.int32)
     mask[-1, pad_from:] = 0
     return q, k, v, mask
@@ -63,27 +63,30 @@ def _run(q, k, v, mask, t_dtype):
             None if j_lse is None else np.asarray(j_lse))
 
 
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_q_blocked_matches_jax(dtype):
-    """Kernel 6 at S = 768 (three 256-query blocks) with a padded tail."""
+def test_q_blocked_matches_jax(dtype, dh):
+    """Kernel 6 at S = 768 (three 256-query blocks) with a padded tail, at
+    head_dim 32 and 64."""
     np_dtype, t_dtype, atol = DTYPES[dtype]
     s = 768
     assert tfa.attention_route(s) == "q_blocked"
-    q, k, v, mask = _inputs(2, 2, s, seed=11, np_dtype=np_dtype, pad_from=s - 100)
+    q, k, v, mask = _inputs(2, 2, s, seed=11, np_dtype=np_dtype, pad_from=s - 100, dh=dh)
     o, lse, j_o, j_lse = _run(q, k, v, mask, t_dtype)
     assert lse is None and j_lse is None
     np.testing.assert_allclose(o[0], j_o[0], atol=atol)
     np.testing.assert_allclose(o[1, :, : s - 100], j_o[1, :, : s - 100], atol=atol)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_kv_blocked_matches_jax(dtype, kv_blocked):
+def test_kv_blocked_matches_jax(dtype, dh, kv_blocked):
     """Kernel 7 at S = 1024 (two 512-key blocks), padding crossing the
-    block boundary; o and the log-sum-exp."""
+    block boundary; o and the log-sum-exp, at head_dim 32 and 64."""
     np_dtype, t_dtype, atol = DTYPES[dtype]
     s = 1024
     assert tfa.attention_route(s) == "kv_blocked"
-    q, k, v, mask = _inputs(2, 2, s, seed=12, np_dtype=np_dtype, pad_from=s // 3)
+    q, k, v, mask = _inputs(2, 2, s, seed=12, np_dtype=np_dtype, pad_from=s // 3, dh=dh)
     o, lse, j_o, j_lse = _run(q, k, v, mask, t_dtype)
     np.testing.assert_allclose(o[0], j_o[0], atol=atol)
     np.testing.assert_allclose(o[1, :, : s // 3], j_o[1, :, : s // 3], atol=atol)

@@ -3,8 +3,11 @@ package's, whose Pallas kernels run in interpret mode on the CPU as
 tests/test_flash_attention.py runs them: ``_attention_bwd_q_blocked_kernel``
 (kernel 9) at S = 1024 and 4352, and ``_bwd_dq_kv_blocked_kernel`` with
 ``_bwd_dkv_kv_blocked_kernel`` (kernels 10 and 11) at S = 1024, each in f32
-and bf16, with a ragged row whose padding crosses a 512-key block and a
-fully masked row; then the gradients of a pooled ``bert_forward`` on the
+and bf16 and at S = 1024 at head_dim 32 and 64, with a ragged row whose
+padding crosses a 512-key block and a fully masked row; the single-tile
+forward and backward at S = 1700, past the single-tile CUDA kernels'
+shared-memory limit; the dispatch on the card (which code each S and
+dtype takes); then the gradients of a pooled ``bert_forward`` on the
 "pallas" route and one ``contrastive_loss`` with its passages at a blocked
 S. On a CPU tensor the port's backward runs the plain versions that the
 CUDA kernels are held to on the card (tests/test_torch_kernels_cuda.py).
@@ -49,12 +52,12 @@ def kv_blocked(monkeypatch):
     monkeypatch.setattr(tfa, "_Q_BLOCKED_MAX_S", 512)
 
 
-def _inputs(b, h, s, seed, np_dtype):
-    """q, k, v and a cotangent [B, h, S, 32], standard normal; a mask whose
+def _inputs(b, h, s, seed, np_dtype, dh=32):
+    """q, k, v and a cotangent [B, h, S, dh], standard normal; a mask whose
     second-to-last row is padded from S/3 on (crossing the 512-key block at
     S = 1024) and whose last row is fully masked (B >= 3 keeps a full row)."""
     rng = np.random.default_rng(seed)
-    q, k, v, cot = (rng.standard_normal((b, h, s, 32)).astype(np.float32).astype(np_dtype) for _ in range(4))
+    q, k, v, cot = (rng.standard_normal((b, h, s, dh)).astype(np.float32).astype(np_dtype) for _ in range(4))
     mask = np.ones((b, s), np.int32)
     mask[-2, s // 3 :] = 0
     mask[-1] = 0
@@ -86,41 +89,84 @@ def _assert_grads_close(port, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,s", [(3, 2, 1024), (2, 1, 4352)])
-def test_q_blocked_backward_matches_jax(dtype, b, h, s):
-    """Kernel 9: at S = 1024, and at S = 4352 (a multiple of 256 but not
-    of 512 above 4096: still query-blocked) on one head."""
+@pytest.mark.parametrize("b,h,s,dh", [(3, 2, 1024, 32), (2, 1, 4352, 32), (3, 2, 1024, 64)])
+def test_q_blocked_backward_matches_jax(dtype, b, h, s, dh):
+    """Kernel 9: at S = 1024 at head_dim 32 and 64, and at S = 4352 (a
+    multiple of 256 but not of 512 above 4096: still query-blocked) on one
+    head."""
     np_dtype, t_dtype = DTYPES[dtype]
     assert tfa.attention_route(s) == "q_blocked"
-    port, ref = _grads(*_inputs(b, h, s, seed=s + b, np_dtype=np_dtype), t_dtype)
+    port, ref = _grads(*_inputs(b, h, s, seed=s + b, np_dtype=np_dtype, dh=dh), t_dtype)
     _assert_grads_close(port, ref, dtype)
 
 
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_kv_blocked_backward_matches_jax(dtype, kv_blocked):
+def test_kv_blocked_backward_matches_jax(dtype, dh, kv_blocked):
     """Kernels 10 and 11 at S = 1024 (two 512-key blocks, four 256-query
-    blocks): P from the forward's lse, delta = rowsum(dO O)."""
+    blocks), at head_dim 32 and 64: P from the forward's lse, delta =
+    rowsum(dO O)."""
     np_dtype, t_dtype = DTYPES[dtype]
     assert tfa.attention_route(1024) == "kv_blocked"
-    port, ref = _grads(*_inputs(3, 2, 1024, seed=21, np_dtype=np_dtype), t_dtype)
+    port, ref = _grads(*_inputs(3, 2, 1024, seed=21, np_dtype=np_dtype, dh=dh), t_dtype)
     _assert_grads_close(port, ref, dtype)
 
 
-def _recording_kernels(monkeypatch, calls):
-    """Every CUDA wrapper replaced by its plain version, recording its
-    name, and the dispatch made to believe the tensors lie on the card:
-    the control flow of a CUDA backward, run on the CPU."""
-    monkeypatch.setattr(tfa, "_use_kernel", lambda t, plain: not plain)
+@pytest.mark.parametrize("masked", ["padded tail", "fully masked"])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_single_tile_past_the_kernel_limit_matches_jax(dtype, dh, masked):
+    """S = 1700: a single-tile S (not a multiple of 256) past the
+    single-tile CUDA kernels' shared-memory limits at both head widths, the
+    S the port once refused. The port's plain forward and backward (which
+    its kernels past that limit, the query-blocked codes, are held to on
+    the card) against the JAX package's single-tile ``flash_attention``
+    and its VJP in interpret mode: B = 1, 2 heads, a padded tail or a
+    fully masked row. Forward f32 2e-5 (tests/test_torch_kernels_cuda.py's
+    f32 forward tolerance), bf16 3e-2; gradients as above."""
+    np_dtype, t_dtype = DTYPES[dtype]
+    s = 1700
+    assert tfa.attention_route(s) == "single_tile"
+    rng = np.random.default_rng(dh + len(masked))
+    q, k, v, cot = (rng.standard_normal((1, 2, s, dh)).astype(np.float32).astype(np_dtype) for _ in range(4))
+    mask = np.ones((1, s), np.int32)
+    mask[0, 1100 if masked == "padded tail" else 0 :] = 0
+    out = tfa.flash_attention(*(torch.from_numpy(np.asarray(a, np.float32)).to(t_dtype) for a in (q, k, v)),
+                              torch.from_numpy(mask))
+    ref = jfa.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=2e-5 if dtype == "f32" else BF16_REL)
+    port, ref_grads = _grads(q, k, v, cot, mask, t_dtype)
+    _assert_grads_close(port, ref_grads, dtype)
 
-    def fwd(q, k, v, o, mask):
+
+def _recording_kernels(monkeypatch, calls, limits=(1600, 1472)):
+    """Every CUDA wrapper replaced by its plain version, recording its
+    name, the single-tile kernels' shared-memory limits set to ``limits``
+    (forward, backward; an H100's at head_dim 32 by default), and the
+    dispatch made to believe the tensors lie on the card: the control flow
+    of a CUDA forward and backward, run on the CPU."""
+    monkeypatch.setattr(tfa, "_use_kernel", lambda t, plain: not plain)
+    monkeypatch.setattr(tfa, "single_tile_max_s", lambda direction, head_dim, device=None: dict(
+        zip(("fwd", "bwd"), limits))[direction])
+
+    def fwd(q, k, v, o, mask, counter="flash_attention_fwd"):
         calls.append("fwd")
         o.copy_(tfa.attention_forward_plain(q, k, v, mask))
 
-    def long_fwd(route, q, k, v, mask):
-        calls.append(route)
-        if route == "q_blocked":
-            return tfa.attention_q_blocked_plain(q, k, v, mask), None
-        return tfa.attention_kv_blocked_plain(q, k, v, mask)
+    def tc(q, k, v, o, mask):
+        calls.append("tc")
+        o.copy_(tfa.attention_forward_plain(q, k, v, mask))
+
+    def q_blocked(q, k, v, o, mask):
+        calls.append("q_blocked")
+        o.copy_(tfa.attention_q_blocked_plain(q, k, v, mask))
+
+    def kv_blocked(q, k, v, o, mask):
+        calls.append("kv_blocked")
+        out, lse = tfa.attention_kv_blocked_plain(q, k, v, mask)
+        o.copy_(out)
+        return lse
 
     def bwd(q, k, v, do, dq, dk, dv, mask):
         calls.append("bwd")
@@ -147,24 +193,29 @@ def _recording_kernels(monkeypatch, calls):
         for out, g in zip((dk, dv), stash["dkv"]):
             out.copy_(g)
 
-    for name, fn in (("_forward_kernel", fwd), ("_long_kernel", long_fwd), ("_backward_kernel", bwd),
+    for name, fn in (("_forward_kernel", fwd), ("_tc_kernel", tc), ("_q_blocked_kernel", q_blocked),
+                     ("_kv_blocked_kernel", kv_blocked), ("_backward_kernel", bwd),
                      ("_bwd_q_blocked_kernel", bwd_q_blocked), ("_bwd_dq_kv_blocked_kernel", bwd_dq),
                      ("_bwd_dkv_kv_blocked_kernel", bwd_dkv)):
         monkeypatch.setattr(tfa, name, fn)
 
 
 @pytest.mark.parametrize(
-    "s,calls",
-    [(512, ["fwd", "bwd"]), (768, ["q_blocked", "bwd_q_blocked"]), (4352, ["q_blocked", "bwd_q_blocked"]),
-     (1024, ["kv_blocked", "bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"])],
+    "s,calls,limits",
+    [(512, ["fwd", "bwd"], (1600, 1472)), (768, ["q_blocked", "bwd_q_blocked"], (1600, 1472)),
+     (4352, ["q_blocked", "bwd_q_blocked"], (1600, 1472)),
+     (1024, ["kv_blocked", "bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"], (1600, 1472)),
+     (300, ["q_blocked", "bwd_q_blocked"], (256, 256)), (300, ["fwd", "bwd_q_blocked"], (320, 256))],
 )
-def test_backward_dispatch_follows_bwd_rule(s, calls, monkeypatch, kv_blocked):
+def test_backward_dispatch_follows_bwd_rule(s, calls, limits, monkeypatch, kv_blocked):
     """On the card the backward takes the kernel the reference's
     ``_bwd_rule`` takes: kernels 10 and 11 (the dQ pass's delta handed to
     the dK/dV pass) after a forward that left an lse, kernel 9 at another
-    blocked S, kernel 8 else; the gradients are the plain route's."""
+    blocked S, kernel 8 else, and kernel 9's code for a single-tile S past
+    kernel 8's shared-memory limit (as the f32 forward past kernel 5's
+    takes kernel 6's code); the gradients are the plain route's."""
     seen = []
-    _recording_kernels(monkeypatch, seen)
+    _recording_kernels(monkeypatch, seen, limits)
     q, k, v, cot, mask = _inputs(3, 1, s, seed=s, np_dtype=np.float32)
     cot_t, mask_t = torch.from_numpy(cot), torch.from_numpy(mask)
 
@@ -178,6 +229,35 @@ def test_backward_dispatch_follows_bwd_rule(s, calls, monkeypatch, kv_blocked):
     for a, w in zip(got, grads(True)):
         torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
     assert seen == calls  # plain=True reached no wrapper
+
+
+@pytest.mark.parametrize(
+    "dtype,s,calls,limits",
+    [("f32", 200, ["fwd", "bwd"], (256, 256)), ("f32", 300, ["q_blocked", "bwd_q_blocked"], (256, 256)),
+     ("bf16", 300, ["tc", "bwd_q_blocked"], (256, 256)), ("bf16", 200, ["tc", "bwd"], (256, 256))],
+)
+def test_fused_qkv_dispatch_past_the_limit(dtype, s, calls, limits, monkeypatch):
+    """``fused_qkv_attention`` on the card (kernel 4 and its backward,
+    kernel 8): f32 on the single-tile kernel up to its shared-memory limit
+    and on the query-blocked kernels' code past it, bf16 forward on the
+    tensor-core kernel at any S; the gradients are the plain route's."""
+    np_dtype, t_dtype = DTYPES[dtype]
+    seen = []
+    _recording_kernels(monkeypatch, seen, limits)
+    rng = np.random.default_rng(s)
+    qkv = torch.from_numpy(rng.standard_normal((2, s, 3 * 2 * 32)).astype(np.float32)).to(t_dtype)
+    cot = torch.from_numpy(rng.standard_normal((2, s, 2 * 32)).astype(np.float32))
+    mask = torch.ones(2, s, dtype=torch.int32)
+    mask[1, s // 2 :] = 0
+
+    def grads(plain):
+        x = qkv.clone().requires_grad_(True)
+        (tfa.fused_qkv_attention(x, mask, 2, plain=plain).float() * cot).sum().backward()
+        return x.grad
+
+    got = grads(False)
+    assert seen == calls
+    torch.testing.assert_close(got, grads(True), atol=1e-5, rtol=1e-5)
 
 
 def _long_config():
