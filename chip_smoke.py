@@ -11,7 +11,8 @@ Phases, each announced by a ``[phase]`` line:
    instantiation (bf16 and f32; H=384 with the shipped checkpoint's
    layer-0 weights, H=768 with a seeded bge-base-width encoder's) against
    its plain PyTorch version at B=128, S=256, and timed (CUDA events)
-   beside its bound and a PyTorch composition;
+   beside its bound and a PyTorch composition; the bf16 FFN (kernel 2) also
+   at bge-large's H=1024 on a seeded layer;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
    2048 chunks into a ``SemanticRetriever`` and answers queries; a seeded
    1M x 384 f32 ``DenseIndex`` answers ``find_batch``. The kernels' launch
@@ -32,7 +33,9 @@ Phases, each announced by a ``[phase]`` line:
    forward and the backwards on the query-blocked kernels' code, as the
    launch counters must show) and at every (B, S) the training and f32
    serve phases give them; the bf16 tensor-core forward at S = 64 to 4096
-   at both head widths. Each timed beside its bound, the plain version
+   and the bf16 KV-blocked tensor-core forward (kernel 7) at S = 4608 and
+   8192 (log-sum-exp too), at both head widths. Each timed beside its
+   bound, the plain version
    and ``F.scaled_dot_product_attention`` (additive mask);
    auto repair: "auto" on a seeded 1-layer encoder at H=384 and 768
    where the port once raised, (f32, tanh GELU) through kernels 1-2 (and
@@ -62,7 +65,8 @@ Phases, each announced by a ``[phase]`` line:
    pooling, the alps-semantic vocabulary) embeds the main path's 2048
    chunks in bf16 through "auto" (kernels 1-2) and answers its 64
    queries; top-1 must equal the "fused_plain" route's; then the
-   "fused_layer" route on 256 of them, bit-equal to "fused"; bge-base
+   "fused_layer" route on 256 of them, within cosine 0.9999 of "fused"
+   (kernel 3 keeps its own bf16 FFN tile); bge-base
    training: ``train()`` fine-tunes that encoder in f32 for 10 steps of 32
    Alps (question, fact) pairs at S = 64 (kernels 4 and 8 at head_dim
    64), each batch against the "pallas_plain" route, the loss falling;
@@ -113,6 +117,7 @@ import collections
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -175,6 +180,19 @@ PAST_LIMIT_S = 1700
 # ragged S, a 256 bucket, past one 512 tile (ragged), past the
 # single-tile limits (ragged) and a query-blocked S
 TC_SEQS = (64, 100, 256, 520, PAST_LIMIT_S, 4096)
+# (B, S) of the KV-blocked tensor-core forward's gates (kernel 7 in bf16):
+# the shortest S the route takes (S > 4096, S % 512 == 0) with one ragged
+# row, and the long-document phase's longest with a full, a ragged and a
+# fully masked row
+KV_TC_SHAPES = ((1, 4608), (3, 8192))
+# dynamic shared memory of csrc/ffn_tc.cu's products (kSmemBytes): a
+# 4-stage ring of [256, 64] and [64, 128] bf16 tiles, + 1024 B to align it
+FFN_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
+# bge-large's width (BAAI/bge-large-en-v1.5 config.json: hidden_size 1024,
+# num_attention_heads 16, intermediate_size 4096), seeded weights: the
+# bf16 FFN kernel's H 1024 instantiation, gated and timed; no phase runs an
+# encoder at that width yet (kernels 1 and 3 lack it)
+LARGE_WIDTHS = {"hidden_size": 1024, "num_layers": 1, "num_heads": 16, "intermediate_size": 4096}
 # blocked backward kernels vs plain versions in bf16: of the plain
 # gradient's largest magnitude (gradients are not O(1))
 BF16_GRAD_REL = 3e-2
@@ -214,6 +232,30 @@ def phase(name: str | None) -> None:
     if name is not None:
         print(f"[phase] {name}", flush=True)
         _PHASE.update(name=name, t0=now)
+
+
+def kernel_resources(build) -> None:
+    """Prints the registers, spill and static shared memory a thread block
+    of each bf16 tensor-core kernel of this slice takes, from ``-Xptxas
+    -v``, and the dynamic shared memory it is launched with (the FFN
+    products': ffn_tc.cu's kSmemBytes, FFN_TC_SMEM)."""
+
+    def width(line: str) -> str:  # the int template argument of a mangled name
+        return re.search(r"ILi(\d+)E", line).group(1)
+
+    kernels = (
+        ("attention_tc", "kv_blocked_tc_kernel", 0, lambda line: f"KV-blocked forward, head_dim {width(line)}, "
+                                                                 f"128 threads"),
+        ("ffn_tc", "gemm_kernel", FFN_TC_SMEM,
+         lambda line: f"FFN {'up' if 'EpilogueE0E' in line else 'down'} product, 512 threads"),
+        ("ffn_tc", "layernorm_kernel", 0, lambda line: f"FFN LayerNorm, H {width(line)}, 256 threads"),
+    )
+    for stem, kernel, dynamic, label in kernels:
+        lines = build.ptxas[stem]
+        for i, line in enumerate(lines):
+            if kernel in line and i + 2 < len(lines):
+                print(f"resources of csrc/{stem}.cu's {label(line)}: {lines[i + 2]}; {lines[i + 1]}; "
+                      f"{dynamic} B dynamic shared memory a block")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -278,7 +320,7 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> t
 
 def block_tolerance(dtype, hid: int) -> tuple[float, bool]:
     """Kernels 1-3's output gate: (tolerance, whether it is of each row's
-    largest plain value). bf16 at H 768 is held per row (BF16_ROW_REL):
+    largest plain value). bf16 at H >= 768 is held per row (BF16_ROW_REL):
     its LayerNorm outputs reach |v| >= 4, where one bf16 ulp (2^-5)
     exceeds TOLERANCE, and the kernel and the plain version, summing in
     different orders, can round such a value to neighbouring bf16 values."""
@@ -286,7 +328,7 @@ def block_tolerance(dtype, hid: int) -> tuple[float, bool]:
 
     if dtype != torch.bfloat16:
         return F32_FWD_TOL, False
-    return (BF16_ROW_REL, True) if hid == 768 else (TOLERANCE, False)
+    return (BF16_ROW_REL, True) if hid >= 768 else (TOLERANCE, False)
 
 
 def over_limit(out, ref, tol: float, per_row: bool = False) -> float:
@@ -569,7 +611,10 @@ def tensor_core_gates(torch, dev, heads: int) -> None:
     the mean of its S values of v), and ragged S (100, 520, 1700: a ragged
     last 64-key chunk). Two planted faults, emulated on the plain version,
     must read past ``head_over``'s limit: a kernel that skipped the full
-    row's middle 64-key chunk, and one that placed the mask one key late."""
+    row's middle 64-key chunk, and one that placed the mask one key late.
+    Then the KV-blocked tensor-core forward (kernel 7 in bf16) at
+    KV_TC_SHAPES and both head widths, the same way, its log-sum-exp also
+    against the plain version's (LSE_TOL)."""
     from dial_rag_tpu_torch.ops import flash_attention as fa
 
     for dh in (32, 64):
@@ -614,6 +659,53 @@ def tensor_core_gates(torch, dev, heads: int) -> None:
                                    f"tell a planted fault from the plain version ({faults})")
             if not (torch.isfinite(packed.float()).all() and torch.isfinite(head_major.float()).all()):
                 raise RuntimeError(f"tensor-core forward at S={s} head_dim {dh}: output not finite")
+
+    for dh in (32, 64):
+        for b, s in KV_TC_SHAPES:
+            g = torch.Generator().manual_seed(b * s + dh)
+            qkv = torch.randn(b, s, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
+            # row 0 full at B = 3, else ragged; a ragged row; the last fully masked
+            lengths = torch.randint(s // 2, s, (b,), generator=g)
+            if b > 2:
+                lengths[0] = s
+                lengths[-1] = 0
+            mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
+            q, k, v = fa._split_heads(qkv, heads)
+            assert fa.attention_route(s) == "kv_blocked"
+            fa.reset_launches()
+            with torch.no_grad():
+                o, lse = fa._forward(q, k, v, mask)
+                torch.cuda.synchronize()
+                launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+                ref, ref_lse = fa._forward(q, k, v, mask, plain=True)
+                err = (o.float() - ref.float()).abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                overs = [head_over(o, ref)]
+                masked = 0.0
+                if b > 2:
+                    mean = v[-1:].float().mean(dim=2, keepdim=True).expand(-1, -1, s, -1)
+                    masked = (o[-1:].float() - mean).abs().max().item()
+                    overs.append(head_over(o[-1:], mean))
+                chunk = (int(lengths[0]) // 2) // 64 * 64
+                dropped = mask.clone()
+                dropped[0, chunk : chunk + 64] = 0
+                planted = [fa._forward(q, k, v, m, plain=True)[0] for m in (dropped, torch.roll(mask, 1, dims=1))]
+                faults = [head_over(f, ref) for f in planted]
+            print(f"KV-blocked tensor-core forward (kernel 7) at [{b}, {heads}, {s}, {dh}] bf16 (row lengths "
+                  f"{mask.sum(1).tolist()}): launches {launches}; max abs err {err:.4g}, fully masked row vs the "
+                  f"mean of v {masked:.4g} (tolerance {TOLERANCE}); of {BF16_HEAD_REL} of each (batch row, head)'s "
+                  f"largest plain value: {', '.join(f'{x:.3g}' for x in overs)}; lse {lse_err:.3g} (tolerance "
+                  f"{LSE_TOL}); planted faults: keys {chunk}-{chunk + 63} of row 0 dropped {faults[0]:.3g}, the "
+                  f"mask one key late {faults[1]:.3g}", flush=True)
+            if launches != {"attention_kv_blocked_fwd": 1} or not (
+                    max(err, masked) <= TOLERANCE and max(overs) <= 1 and lse_err <= LSE_TOL):
+                raise RuntimeError(f"KV-blocked tensor-core forward at B={b} S={s} head_dim {dh}: launches "
+                                   f"{launches}, errors {err}, {masked}, of the per-head limit {overs}, lse {lse_err}")
+            if not min(faults) > 1:
+                raise RuntimeError(f"KV-blocked tensor-core forward at B={b} S={s} head_dim {dh}: the per-head "
+                                   f"limit does not tell a planted fault from the plain version ({faults})")
+            if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+                raise RuntimeError(f"KV-blocked tensor-core forward at B={b} S={s} head_dim {dh}: not finite")
 
 
 def tensor_core_waves(torch, dev, card, heads: int) -> None:
@@ -728,11 +820,11 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
                   f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB) {card}", flush=True)
             if not (err <= (F32_FWD_TOL if dtype == torch.float32 else TOLERANCE) and over <= 1):
                 raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
-            tensor_cores = route == "q_blocked" and dtype == torch.bfloat16
             key = instantiation(name, dtype, f"head_dim {dh}")
             rows[key] = {
                 "name": key, "route": "cuda",
-                "source": f"dial_rag_tpu_torch/csrc/{'attention_tc' if tensor_cores else 'flash_attention_long'}.cu",
+                "source": f"dial_rag_tpu_torch/csrc/"
+                          f"{'attention_tc' if dtype == torch.bfloat16 else 'flash_attention_long'}.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
@@ -1131,8 +1223,10 @@ def whole_layer_phase(torch, card, embedder, texts, queries) -> int:
         raise RuntimeError(f"bad whole-layer embeddings: {d_layer.shape}")
     d_fused, d_plain = embedder.embed_documents(docs), plain.embed_documents(docs)
     q_plain = plain.embed_queries(queries)
-    # kernel 3 runs the device code of kernels 1 and 2 in their order, so
-    # its embeddings equal the "fused" route's bit for bit
+    # kernel 3 runs kernel 1's device code and then an FFN whose products
+    # sum in kernel 2's order (f32 accumulators, K ascending in 16-deep
+    # tensor-core steps in bf16) with kernel 2's epilogue, so its
+    # embeddings equal the "fused" route's bit for bit
     for other, d, limit in (("fused", d_fused, None), ("fused_layer_plain", d_plain, LAYER_PLAIN_COS)):
         cos = (d_layer * d).sum(axis=1)
         print(f"whole-layer route vs \"{other}\" route, {len(docs)} chunks: max abs diff "
@@ -1570,13 +1664,14 @@ def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream
     return launches
 
 
-def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
-    """Kernels 1-3 in x's dtype at x's width against their plain versions
-    on one layer's weights (``layer``: matrices in x's dtype, vectors f32)
-    at x's shape, each timed (CUDA events) beside its bound, the plain
-    version and a PyTorch composition of the same block (cuBLAS products,
-    SDPA with a boolean mask, ``layer_norm``): a yardstick used nowhere in
-    the port."""
+def block_rows(torch, card, layer, x, mask, heads: int, ffn_only: bool = False) -> dict:
+    """Kernels 1-3 in x's dtype at x's width (kernel 2 alone with
+    ``ffn_only``, on the plain attention block's output) against their
+    plain versions on one layer's weights (``layer``: matrices in x's
+    dtype, vectors f32) at x's shape, each timed (CUDA events) beside its
+    bound, the plain version and a PyTorch composition of the same block
+    (cuBLAS products, SDPA with a boolean mask, ``layer_norm``): a
+    yardstick used nowhere in the port."""
     from dial_rag_tpu_torch.ops import fused_encoder as fe
 
     dtype = x.dtype
@@ -1632,12 +1727,15 @@ def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
          attn_library, attn_flops, attn_bytes, "dial_rag_tpu_torch/csrc/fused_attention.cu",
          "dial_rag_tpu/ops/fused_encoder.py:177"),
         ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
-         ffn_library, ffn_flops, ffn_bytes, "dial_rag_tpu_torch/csrc/fused_ffn.cu",
+         ffn_library, ffn_flops, ffn_bytes,
+         f"dial_rag_tpu_torch/csrc/{'ffn_tc' if dtype == torch.bfloat16 else 'fused_ffn'}.cu",
          "dial_rag_tpu/ops/fused_encoder.py:76"),
         ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
          lambda: ffn_library(attn_library()), attn_flops + ffn_flops, layer_bytes,
          "dial_rag_tpu_torch/csrc/fused_layer.cu", "dial_rag_tpu/ops/fused_encoder.py:365"),
     ):
+        if ffn_only and name != "fused_ffn_block":
+            continue
         out = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -1963,10 +2061,11 @@ def main() -> int:
     for stem, lines in build.ptxas.items():
         for line in lines:
             print(f"ptxas {stem}: {line}")
+    kernel_resources(build)
     sys.stdout.flush()
 
     phase("kernels")
-    from dial_rag_tpu_torch.models.bert import BertConfig, init_params
+    from dial_rag_tpu_torch.models.bert import BertConfig, init_params, prepare_params
 
     embedder = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), compute_dtype=torch.bfloat16, device="cuda")
     cfg = embedder.encoder.config
@@ -1996,6 +2095,13 @@ def main() -> int:
             x = embed_tokens(params, ids_t, dtype)
             rows.update(block_rows(torch, card, layer, x, mask_t, heads))
             del layer, x
+    # kernel 2 in bf16 at bge-large's width, on a seeded layer's weights
+    large_cfg = BertConfig(vocab_size=cfg.vocab_size, type_vocab_size=cfg.type_vocab_size,
+                           max_position_embeddings=cfg.max_position_embeddings, **LARGE_WIDTHS)
+    large = prepare_params(init_params(large_cfg, torch.Generator().manual_seed(0)), dev, torch.bfloat16)
+    rows.update(block_rows(torch, card, large["layers"][0], embed_tokens(large, ids_t, torch.bfloat16), mask_t,
+                           large_cfg.num_heads, ffn_only=True))
+    del large
 
     phase("main path")
     # host tokenization of the same texts, timed apart: the build's host share
@@ -2238,9 +2344,11 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = launched[name]
     # the bf16 KV-blocked backward passes: no phase trains in bf16 past
-    # S = 4096, so they are gated and timed but off the main path
+    # S = 4096; the FFN at H 1024: no phase runs an encoder that wide. So
+    # they are gated and timed but off the main path
     off_path = {instantiation(name, torch.bfloat16, f"head_dim {dh}")
                 for name in ("bwd_dq_kv_blocked", "bwd_dkv_kv_blocked") for dh in (32, 64)}
+    off_path.add(instantiation("fused_ffn_block", torch.bfloat16, "H 1024"))
     idle = [name for name, row in rows.items() if row["launches"] == 0 and name not in off_path]
     if idle:
         raise RuntimeError(f"the main path never launched {idle}")

@@ -1,31 +1,39 @@
-// Attention forward on Hopper's tensor cores, bf16, head_dim 32 and 64
+// Attention forwards on Hopper's tensor cores, bf16, head_dim 32 and 64
 // (sm_90a).
 //
-// Replaces, in bf16, three TPU kernels of dial_rag_tpu/ops/flash_attention.py
-// that compute one function, o = softmax(q k^T * scale + bias) v with
+// Replaces, in bf16, four TPU kernels of dial_rag_tpu/ops/flash_attention.py.
+// Three compute one function, o = softmax(q k^T * scale + bias) v with
 // bias = (1 - mask) * f32.min, the softmax exact per row, P normalised in
 // f32 and cast to bf16 after the division, P . V accumulated in f32 and o
-// cast to bf16 once:
+// cast to bf16 once (attention_tc_kernel):
 //   _qkv_native_kernel (pallas_call in _qkv_native_forward): q, k, v read
 //     straight from the packed [B, S, 3H] projection, o written [B, S, H];
 //   _attention_kernel (pallas_call in _forward, S <= 512 or S % 256 != 0):
 //     head-major [B, h, S, Dh] views;
 //   _attention_q_blocked_kernel (pallas_call in _forward, 512 < S <= 4096
 //     or S % 512 != 0): the same per 256-query block.
+// The fourth, _attention_kv_blocked_fwd_kernel (pallas_call in _forward,
+// S > 4096 and S % 512 == 0), is the online softmax over 512-key blocks
+// (kv_blocked_tc_kernel, below): the running max m from f32.min, per block
+// m_next = max(m, the block's row max), corr = exp(m - m_next) and
+// e = exp(s - m_next) in f32, l = l corr + sum(e) in f32, acc = acc corr +
+// bf16(e) . V in f32; at the end o = bf16(acc / l) and lse = m + log(l),
+// f32 [B, h, S], which the blocked backward reads.
 // Every operand arrives as a base pointer plus (batch, head, row) element
-// strides, so the three differ only in their strides: one kernel, one
-// entry point, no S limit.
+// strides, so the layouts differ only in their strides; no S limit.
 //
 // Bound on an H100 SXM: 4 * B * h * S^2 * Dh FLOPs at 989 TFLOP/s, against
-// q, k, v and o read and written once. The packed qkv [128, 256, 3H] at 12
-// heads of 64 is 25.8 GFLOP (0.026 ms) against 201 MB (0.060 ms): bound by
-// bytes; [1, 12, 4096, 32] is 25.8 GFLOP (0.026 ms) against 13 MB: bound
-// by operations.
+// q, k, v and o read and written once (and lse written). The packed qkv
+// [128, 256, 3H] at 12 heads of 64 is 25.8 GFLOP (0.026 ms) against 201 MB
+// (0.060 ms): bound by bytes; [1, 12, 4096, 32] is 25.8 GFLOP (0.026 ms)
+// against 13 MB, [1, 12, 8192, 64] 206 GFLOP (0.208 ms) against 50 MB:
+// bound by operations.
 //
-// What held the CUDA-core kernels it replaces back: every product ran in
-// f32 on the CUDA cores (67 TFLOP/s at best), bf16 exactly as slow as f32,
-// and the single-tile kernel kept a [32, S] f32 score tile in shared
-// memory, which capped S and occupancy. The design:
+// What held the CUDA-core kernels they replace back: every product ran in
+// f32 on the CUDA cores (67 TFLOP/s at best), bf16 exactly as slow as f32;
+// the single-tile kernel kept a [32, S] f32 score tile in shared memory,
+// which capped S and occupancy; the KV-blocked one gave a block 32 query
+// rows, so K and V were read S / 32 times per head. The design:
 //   - a block of 4 warps owns 64 query rows (16 a warp) of one (batch row,
 //     head); K and V stream through shared memory in 64-key chunks,
 //     double-buffered with 16-byte cp.async copies (2 stages x K and V x
@@ -36,14 +44,22 @@
 //     bf16 in, f32 accumulators; fragments come by ldmatrix (V by
 //     ldmatrix.trans) from rows padded by 8 bf16, so the 8 row addresses
 //     of each 8x8 matrix fall on distinct banks; P goes from the score
-//     accumulators straight into the A fragments of P . V in registers;
-//   - two passes, as the reference's exact softmax asks: pass 1 keeps each
+//     accumulators straight into the A fragments of P . V in registers
+//     (tensor_core.cuh holds these pieces, shared with ffn_tc.cu);
+//   - exact softmax: two passes, as the reference asks: pass 1 keeps each
 //     row's running max and denominator (the four lanes that share a row
 //     merge them by __shfl_xor_sync); pass 2 recomputes the scores, forms
 //     p = exp(s - m) / l (correctly rounded, by a reciprocal and one
 //     fma correction: div_by), casts it to bf16 after the division, as
 //     the TPU kernels do, and accumulates P . V in f32. No online
 //     rescaling of the output, which would move where bf16 rounds;
+//   - KV-blocked: the max moves once per 512 keys, as in the reference,
+//     with no [rows, 512] score tile: each block takes two sub-passes over
+//     its eight chunks, (a) Q K^T for the row max alone (K only), then,
+//     after acc and l are rescaled by corr, (b) Q K^T again, e in f32 into
+//     l and bf16(e) . V into acc. One ring of 16 steps per block carries
+//     both, so no copy waits at a sub-pass boundary. Q K^T runs twice:
+//     1.5 times the bound's operations, as the exact softmax's two passes;
 //   - the mask bias is f32.min, never -inf, so a fully masked row stays
 //     finite and uniform over its S real keys; a key past S (the ragged
 //     last chunk) gets a -inf bias and weight exactly 0, and a query row
@@ -54,14 +70,13 @@
 // kernel that stays far from its bound.
 #include <cfloat>
 #include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace dial {
 namespace tc {
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -88,60 +103,6 @@ struct Smem {
   float bias[kStages][kKeys];
 };
 static_assert(sizeof(Smem<64>) <= 48 * 1024, "the block's shared memory must fit statically");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x / l correctly rounded, from r = the correctly rounded 1 / l: q = x r
-// is within an ulp of x / l, and one step q + (x - l q) r with the
-// residual exact by fma rounds it correctly (Markstein) for every normal
-// quotient. Three instructions where __fdiv_rn takes about nine: the
-// division of every probability is a large share of this kernel's
-// arithmetic.
-__device__ __forceinline__ float div_by(float x, float l, float r) {
-  const float q = x * r;
-  return fmaf(fmaf(-q, l, x), r, q);
-}
-
-// Two f32 rounded to bf16, the first in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Rows [r0, r0 + ROWS) of one head (row stride `ld` elements) into a
 // [ROWS, DH + 8] shared tile by cp.async, 16 bytes a copy; rows past S
@@ -198,43 +159,112 @@ __device__ __forceinline__ void chunk_scores(float (&acc)[kKeyTiles][4], const u
       acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], scale), sm.bias[st][8 * n + 2 * (lane % 4) + e % 2]);
 }
 
-// Waits for key chunk c (started by the previous call, or by the first
-// issue_chunk for c = 0) after starting chunk c + 1's copies into the
-// other stage, so they fly while chunk c is computed; returns c's stage.
+// Waits for ring step t's copies (started by the previous call, or by an
+// issue_chunk before the loop for t = 0) after starting step t + 1's --
+// key chunk `next`, with V when `next_v` -- into the other stage, so they
+// fly while step t is computed; returns step t's stage.
 template <int DH>
-__device__ __forceinline__ int next_chunk(Smem<DH>& sm, int c, int n_chunks, const bf16* k_head, const bf16* v_head,
-                                          const float* bias_row, const Views& vw, int s, bool with_v) {
-  if (c + 1 < n_chunks) {
-    issue_chunk(sm, (c + 1) % kStages, c + 1, k_head, v_head, bias_row, vw, s, with_v);
+__device__ __forceinline__ int next_chunk(Smem<DH>& sm, int t, int n_steps, int next, bool next_v,
+                                          const bf16* k_head, const bf16* v_head, const float* bias_row,
+                                          const Views& vw, int s) {
+  if (t + 1 < n_steps) {
+    issue_chunk(sm, (t + 1) % kStages, next, k_head, v_head, bias_row, vw, s, next_v);
     cp_async_wait<1>();
   } else {
     cp_async_wait<0>();
   }
   __syncthreads();
-  return c % kStages;
+  return t % kStages;
 }
 
+// The warp's 16 query rows q0 + 16 warp .. + 15 of one head as A
+// fragments, through the block's q tile; rows past S are zeros.
+template <int DH>
+__device__ __forceinline__ void q_fragments(uint32_t (&qa)[DH / 16][4], Smem<DH>& sm, const bf16* q_head,
+                                            long long ld, int q0, int s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  load_rows_async<kRows, DH>(sm.q, q_head, ld, q0, s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldmatrix_x4(qa[kk], sm.q + (16 * warp + lane % 16) * Smem<DH>::kLd + 16 * kk + (lane / 16) * 8);
+}
+
+// oacc += bf16(p) . V for the chunk in stage `st`: p is this warp's
+// [16, 64] score tile in chunk_scores' layout, cast to bf16 into the A
+// fragments of the product straight from the registers.
+template <int DH>
+__device__ __forceinline__ void accumulate_pv(float (&oacc)[DH / 8][4], const float (&p)[kKeyTiles][4],
+                                              const Smem<DH>& sm, int st) {
+  constexpr int kLd = Smem<DH>::kLd;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    // the A fragment of keys 16 kk .. 16 kk + 15: score n-tiles 2 kk and 2 kk + 1
+    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      // V rows (keys) 16 kk .. + 15, head columns 16 dp .. + 15, transposed
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, sm.v[st] + (16 * kk + ((lane / 8) % 2) * 8 + lane % 8) * kLd + 16 * dp + (lane / 16) * 8);
+      mma_bf16(oacc[2 * dp], pa, bv[0], bv[1]);
+      mma_bf16(oacc[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+  }
+}
+
+// o rows g and g + 8 of the warp (below S), head columns 8 n + 2 (lane %
+// 4) + {0, 1}: oacc[n][2 h + j], divided by l[h] (div_by) when DIVIDE,
+// rounded to bf16 once.
+template <int DH, bool DIVIDE>
+__device__ __forceinline__ void store_o(bf16* o_head, long long ld, int q0, int s, const float (&oacc)[DH / 8][4],
+                                        const float (&l)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+    if (row >= s) continue;
+    bf16* o_row = o_head + row * ld + 2 * (lane % 4);
+    const float r = DIVIDE ? __frcp_rn(l[h]) : 1.f;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      float a = oacc[n][2 * h], b = oacc[n][2 * h + 1];
+      if (DIVIDE) a = div_by(a, l[h], r), b = div_by(b, l[h], r);
+      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * n) = __floats2bfloat162_rn(a, b);
+    }
+  }
+}
+
+// The max and the sum over the four lanes that hold one row's keys.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- _attention_kernel, _qkv_native_kernel, _attention_q_blocked_kernel ----
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
     attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                         const float* __restrict__ bias, bf16* __restrict__ o, Views vw, int s, float scale) {
-  constexpr int kLd = Smem<DH>::kLd, kSteps = DH / 16, kDTiles = DH / 8;
+  constexpr int kDTiles = DH / 8;
   __shared__ __align__(16) Smem<DH> sm;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
   const bf16* k_head = k + b * vw.k.b + head * vw.k.h;
   const bf16* v_head = v + b * vw.v.b + head * vw.v.h;
   const float* bias_row = bias + static_cast<long long>(b) * s;
 
   // the warp's 16 query rows as A fragments, in registers for both passes
-  load_rows_async<kRows, DH>(sm.q, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-    ldmatrix_x4(qa[kk], sm.q + (16 * warp + lane % 16) * kLd + 16 * kk + (lane / 16) * 8);
+  uint32_t qa[DH / 16][4];
+  q_fragments(qa, sm, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
 
   // pass 1: this lane's running max and denominator of its two rows (g
   // and g + 8) over its keys. The max starts at f32.min, not -inf, so a
@@ -243,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
   issue_chunk(sm, 0, 0, k_head, v_head, bias_row, vw, s, false);
   for (int c = 0; c < n_chunks; ++c) {
-    const int st = next_chunk(sm, c, n_chunks, k_head, v_head, bias_row, vw, s, false);
+    const int st = next_chunk(sm, c, n_chunks, c + 1, false, k_head, v_head, bias_row, vw, s);
     float acc[kKeyTiles][4];
     chunk_scores(acc, qa, sm, st, scale);
 #pragma unroll
@@ -265,14 +295,8 @@ __global__ void __launch_bounds__(kThreads)
   float m_row[2], l_row[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float mx = m[h];
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float sum = l[h] * expf(__fsub_rn(m[h], mx));
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    m_row[h] = mx;
-    l_row[h] = sum;
+    m_row[h] = quad_max(m[h]);
+    l_row[h] = quad_sum(l[h] * expf(__fsub_rn(m[h], m_row[h])));
   }
 
   // pass 2: p = exp(s - max) / l cast to bf16, then o += P . V in f32
@@ -284,7 +308,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
   issue_chunk(sm, 0, 0, k_head, v_head, bias_row, vw, s, true);
   for (int c = 0; c < n_chunks; ++c) {
-    const int st = next_chunk(sm, c, n_chunks, k_head, v_head, bias_row, vw, s, true);
+    const int st = next_chunk(sm, c, n_chunks, c + 1, true, k_head, v_head, bias_row, vw, s);
     float acc[kKeyTiles][4];
     chunk_scores(acc, qa, sm, st, scale);
 #pragma unroll
@@ -292,67 +316,164 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc[n][e] = div_by(expf(__fsub_rn(acc[n][e], m_row[e / 2])), l_row[e / 2], r_row[e / 2]);
+    accumulate_pv(oacc, acc, sm, st);
+    __syncthreads();
+  }
+  store_o<DH, false>(o + b * vw.o.b + head * vw.o.h, vw.o.r, q0, s, oacc, l_row);
+}
+
+// ---- _attention_kv_blocked_fwd_kernel --------------------------------------
+constexpr int kKvBlock = 512;                   // keys between max updates: the reference's _KV_BLOCK
+constexpr int kBlockChunks = kKvBlock / kKeys;  // 64-key chunks of a 512-key block
+
+// Ring step t of the KV-blocked kernel: 512-key block t / 16, whose first
+// 8 steps (sub-pass a) bring K alone and whose last 8 (sub-pass b) bring
+// K and V, of its chunks 8 (t / 16) .. + 7 in turn.
+__device__ __forceinline__ int step_chunk(int t) { return t / (2 * kBlockChunks) * kBlockChunks + t % kBlockChunks; }
+__device__ __forceinline__ bool step_with_v(int t) { return t / kBlockChunks % 2 == 1; }
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    kv_blocked_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const float* __restrict__ bias, bf16* __restrict__ o, float* __restrict__ lse, Views vw,
+                         int s, float scale) {
+  constexpr int kDTiles = DH / 8;
+  __shared__ __align__(16) Smem<DH> sm;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const bf16* k_head = k + b * vw.k.b + head * vw.k.h;
+  const bf16* v_head = v + b * vw.v.b + head * vw.v.h;
+  const float* bias_row = bias + static_cast<long long>(b) * s;
+
+  uint32_t qa[DH / 16][4];
+  q_fragments(qa, sm, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
+
+  // per row (g and g + 8 of the warp): the running max, from f32.min as
+  // the reference starts it and the same in the row's four lanes; this
+  // lane's share of the denominator (its keys' e); and the block's max
+  // over this lane's keys while sub-pass (a) runs
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, block_max[2];
+  float oacc[kDTiles][4];
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      // the A fragment of keys 16 kk .. 16 kk + 15: score n-tiles 2 kk and 2 kk + 1
-      const uint32_t pa[4] = {pack_bf16(acc[2 * kk][0], acc[2 * kk][1]), pack_bf16(acc[2 * kk][2], acc[2 * kk][3]),
-                              pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]),
-                              pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3])};
+  for (int n = 0; n < kDTiles; ++n)
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        // V rows (keys) 16 kk .. + 15, head columns 16 dp .. + 15, transposed
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sm.v[st] + (16 * kk + ((lane / 8) % 2) * 8 + lane % 8) * kLd + 16 * dp + (lane / 16) * 8);
-        mma_bf16(oacc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(oacc[2 * dp + 1], pa, bv[2], bv[3]);
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  // a ragged S (the route gives none) reads its last block's keys past S
+  // as zeros with a -inf bias: weight exactly 0
+  const int n_steps = 2 * kBlockChunks * ((s + kKvBlock - 1) / kKvBlock);
+  issue_chunk(sm, 0, 0, k_head, v_head, bias_row, vw, s, false);
+  for (int t = 0; t < n_steps; ++t) {
+    const int st = next_chunk(sm, t, n_steps, step_chunk(t + 1), step_with_v(t + 1), k_head, v_head, bias_row,
+                              vw, s);
+    float acc[kKeyTiles][4];
+    chunk_scores(acc, qa, sm, st, scale);
+    if (!step_with_v(t)) {
+      // (a): the block's row max; at its last chunk, m_next = max(m, it)
+      // and corr = exp(m - m_next) rescale l and the accumulator, as the
+      // reference does once per 512 keys
+      if (t % kBlockChunks == 0) block_max[0] = block_max[1] = -INFINITY;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int n = 0; n < kKeyTiles; ++n)
+          block_max[h] = fmaxf(block_max[h], fmaxf(acc[n][2 * h], acc[n][2 * h + 1]));
+      if (t % kBlockChunks == kBlockChunks - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float m_next = fmaxf(m[h], quad_max(block_max[h]));
+          const float corr = expf(__fsub_rn(m[h], m_next));
+          l[h] = __fmul_rn(l[h], corr);
+#pragma unroll
+          for (int n = 0; n < kDTiles; ++n) {
+            oacc[n][2 * h] = __fmul_rn(oacc[n][2 * h], corr);
+            oacc[n][2 * h + 1] = __fmul_rn(oacc[n][2 * h + 1], corr);
+          }
+          m[h] = m_next;
+        }
       }
+    } else {
+      // (b): e = exp(s - m_next) in f32, summed into l in f32; bf16(e) . V
+      // accumulated in f32
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[n][e] = expf(__fsub_rn(acc[n][e], m[e / 2]));
+          l[e / 2] += acc[n][e];
+        }
+      accumulate_pv(oacc, acc, sm, st);
     }
     __syncthreads();
   }
-
-  // o rows g and g + 8 of the warp, head columns 8 n + 2 (lane % 4) + {0, 1}
-  bf16* o_head = o + b * vw.o.b + head * vw.o.h;
+  // o = acc / l, cast to bf16 once; lse = m + log(l), f32 [B, h, S]
+  const float l_row[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  store_o<DH, true>(o + b * vw.o.b + head * vw.o.h, vw.o.r, q0, s, oacc, l_row);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + 16 * warp + lane / 4 + 8 * h;
-    if (row >= s) continue;
-    bf16* o_row = o_head + row * vw.o.r + 2 * (lane % 4);
-#pragma unroll
-    for (int n = 0; n < kDTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * n) = __floats2bfloat162_rn(oacc[n][2 * h], oacc[n][2 * h + 1]);
+    if (lane % 4 == 0 && row < s)
+      lse[(static_cast<long long>(b) * gridDim.y + head) * s + row] = m[h] + logf(l_row[h]);
   }
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* o, const Views& vw, int batch,
-           int heads, int seq, float scale, void* stream) {
-  attention_tc_kernel<DH><<<dim3((seq + kRows - 1) / kRows, heads, batch), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(o), vw, seq, scale);
+Views read_views(const void* strides) {
+  const long long* st = static_cast<const long long*>(strides);
+  Views vw;
+  View* views[] = {&vw.q, &vw.k, &vw.v, &vw.o};
+  for (int i = 0; i < 4; ++i) *views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  return vw;
+}
+
+// Calls launch(std::integral_constant<int, DH>{}) at head_dim DH = 32 or
+// 64 (else cudaErrorInvalidValue); returns cudaGetLastError()
+template <class Launch>
+int at_head_dim(int head_dim, const Launch& launch) {
+  if (head_dim == 32)
+    launch(std::integral_constant<int, 32>{});
+  else if (head_dim == 64)
+    launch(std::integral_constant<int, 64>{});
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+
+// one block a 64-row query tile of one (head, batch row)
+dim3 grid_of(int batch, int heads, int seq) { return dim3((seq + kRows - 1) / kRows, heads, batch); }
 
 }  // namespace
 }  // namespace tc
 }  // namespace dial
 
-// C entry point. q, k, v, o: device pointers to bf16 [B, h, S, head_dim]
+// C entry points. q, k, v, o: device pointers to bf16 [B, h, S, head_dim]
 // views whose (batch, head, row) element strides are `strides[0..11]` (a
 // host array: q, k, v, o in turn); q, k and v 16-byte aligned with strides
 // that are multiples of 8 elements, o 4-byte aligned with even strides;
-// bias: f32 [B, S]. Any S >= 1; head_dim 32 or 64 (else
-// cudaErrorInvalidValue). Launches on `stream` and returns
+// bias: f32 [B, S]; lse: f32 [B, h, S]. Any S >= 1; head_dim 32 or 64
+// (else cudaErrorInvalidValue). Launch on `stream` and return
 // cudaGetLastError() (0 on success).
 extern "C" int dial_attention_tc_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
                                       const void* strides, int batch, int heads, int seq, int head_dim, float scale,
                                       void* stream) {
   using namespace dial::tc;
-  const long long* st = static_cast<const long long*>(strides);
-  Views vw;
-  View* views[] = {&vw.q, &vw.k, &vw.v, &vw.o};
-  for (int i = 0; i < 4; ++i) *views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
-  if (head_dim == 32) return launch<32>(q, k, v, bias, o, vw, batch, heads, seq, scale, stream);
-  if (head_dim == 64) return launch<64>(q, k, v, bias, o, vw, batch, heads, seq, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Views vw = read_views(strides);
+  return at_head_dim(head_dim, [&](auto dh) {
+    attention_tc_kernel<decltype(dh)::value><<<grid_of(batch, heads, seq), kThreads, 0,
+                                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(bias), static_cast<bf16*>(o), vw, seq, scale);
+  });
+}
+
+// The KV-blocked forward (TPU kernel 7) in bf16; writes lse too.
+extern "C" int dial_attention_kv_blocked_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
+                                              void* lse, const void* strides, int batch, int heads, int seq,
+                                              int head_dim, float scale, void* stream) {
+  using namespace dial::tc;
+  const Views vw = read_views(strides);
+  return at_head_dim(head_dim, [&](auto dh) {
+    kv_blocked_tc_kernel<decltype(dh)::value><<<grid_of(batch, heads, seq), kThreads, 0,
+                                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(bias), static_cast<bf16*>(o), static_cast<float*>(lse), vw, seq, scale);
+  });
 }

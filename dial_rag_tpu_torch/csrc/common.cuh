@@ -1,8 +1,8 @@
 // Helpers shared by the encoder-block and attention kernels (sm_90a): the
-// element-type casts, warp reductions, a 16-byte tile copy and the
-// residual + LayerNorm epilogue. The kernels are templates on the element
-// type (float or bf16) and on the widths (H, head_dim); the Python
-// wrappers check that an instantiation exists before launching.
+// element-type casts, warp reductions, the tanh GELU, a 16-byte tile copy
+// and the residual + LayerNorm epilogue. The kernels are templates on the
+// element type (float or bf16) and on the widths (H, head_dim); the
+// Python wrappers check that an instantiation exists before launching.
 #pragma once
 
 #include <cstdint>
@@ -52,6 +52,11 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
+  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));
 }
 
 // Copies a [rows, cols] tile of T (row stride `ld` elements in global

@@ -6,8 +6,9 @@
 //   _attention_q_blocked_kernel (S <= 4096 or S % 512 != 0), in f32: per
 //     256-query block, the exact per-row softmax over every key, then
 //     P . V (in bf16 the tensor-core kernel of attention_tc.cu takes it);
-//   _attention_kv_blocked_fwd_kernel (the rest), in f32 and bf16: the
-//     online softmax over 512-key blocks (running max m from f32.min,
+//   _attention_kv_blocked_fwd_kernel (the rest), in f32 (in bf16 the
+//     tensor-core kernel of attention_tc.cu takes it): the online softmax
+//     over 512-key blocks (running max m from f32.min,
 //     corr = exp(m_prev - m_next), e = exp(s - m_next) cast to the input
 //     dtype before P . V, o = acc / l at the end), which also writes
 //     lse = m + log(l), f32 [B, h, S], for the blocked backward.
@@ -22,9 +23,8 @@
 // never -inf: a fully masked row gets uniform weights and stays finite.
 //
 // Bound on an H100 SXM: 4 * B * h * S^2 * Dh FLOPs; at [1, 12, 8192, 32]
-// that is 103 GFLOP, 1.5 ms at 67 TFLOP/s in f32 (0.10 ms at 989 TFLOP/s
-// in bf16), against 13 MB of q, k, v and o: bound by operations; twice
-// that at head_dim 64.
+// that is 103 GFLOP, 1.5 ms at 67 TFLOP/s in f32, against 26 MB of q, k,
+// v and o: bound by operations; twice that at head_dim 64.
 //
 // Design. The TPU kernels keep K and V whole in VMEM (the query-blocked
 // one) or walk 512-key blocks with the running statistics in VMEM
@@ -41,11 +41,9 @@
 //   kv-blocked: one pass; m, l and the accumulator live in registers and
 //     are rescaled at every 64-key chunk. The TPU kernel rescales at every
 //     512 keys, so the two round differently by about one ulp per rescale.
-// Products run on the CUDA cores in f32 for both dtypes (a bf16 x bf16
-// product is exact in f32): the f32 path keeps the reference's HIGHEST
-// precision with no TF32, and the bf16 path accumulates in f32 like the
-// TPU's preferred_element_type. One template serves both; the dtype only
-// changes the loads, the cast of e and the store.
+// Products run on the CUDA cores in full f32: the reference's HIGHEST
+// precision, with no TF32. The kernels are templates on the element type
+// (the loads, the cast of P or e and the store), instantiated for f32.
 #include <cfloat>
 #include <cstdint>
 
@@ -256,10 +254,9 @@ int kv_blocked(const void* q, const void* k, const void* v, const void* bias, vo
 }  // namespace attn
 }  // namespace dial
 
-// C entry points. q, k, v, o: device pointers (f32 or bf16 as the name
-// says) to [B, h, S, head_dim] views whose (batch, head, row) element
-// strides are `strides[0..11]` (a host array: q, k, v, o in turn); bias:
-// f32 [B, S]; lse: f32 [B, h, S]. Any S >= 1; head_dim 32 or 64 (else
+// C entry points. q, k, v, o: device pointers to f32 [B, h, S, head_dim]
+// views whose (batch, head, row) element strides are `strides[0..11]` (a
+// host array: q, k, v, o in turn); bias: f32 [B, S]; lse: f32 [B, h, S]. Any S >= 1; head_dim 32 or 64 (else
 // cudaErrorInvalidValue). Launch on `stream` and return cudaGetLastError()
 // (0 on success).
 extern "C" int dial_attention_q_blocked_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
@@ -275,11 +272,4 @@ extern "C" int dial_attention_kv_blocked_f32(const void* q, const void* k, const
                                              void* lse, const void* strides, int batch, int heads, int seq,
                                              int head_dim, float scale, void* stream) {
   return dial::attn::kv_blocked<float>(q, k, v, bias, o, lse, strides, batch, heads, seq, head_dim, scale, stream);
-}
-
-extern "C" int dial_attention_kv_blocked_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
-                                              void* lse, const void* strides, int batch, int heads, int seq,
-                                              int head_dim, float scale, void* stream) {
-  return dial::attn::kv_blocked<dial::bf16>(q, k, v, bias, o, lse, strides, batch, heads, seq, head_dim, scale,
-                                            stream);
 }

@@ -112,11 +112,6 @@ __host__ __device__ constexpr bool fits() {
 static_assert(fits<bf16, 384>() && fits<bf16, 768>() && fits<float, 384>() && fits<float, 768>(),
               "an instantiation's tiles exceed a block's shared memory");
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
-  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));
-}
-
 // ---- f32 on the CUDA cores ---------------------------------------------
 // Thread t of 256 owns rows (t / 32) * TM .. + TM of the block's tile and
 // columns t % 32 + 32 j, j < TN: a warp reads one broadcast A value per

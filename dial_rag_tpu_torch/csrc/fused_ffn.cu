@@ -1,21 +1,22 @@
-// Fused FFN block of a BERT encoder layer, for Hopper (sm_90a).
+// Fused FFN block of a BERT encoder layer in f32, for Hopper (sm_90a).
 //
-// Replaces: dial_rag_tpu/ops/fused_encoder.py::_ffn_kernel (pallas_call in
-// _ffn_forward, wrapper fused_ffn_block). Computes, over rows of [B*S, H],
+// Replaces, in f32: dial_rag_tpu/ops/fused_encoder.py::_ffn_kernel
+// (pallas_call in _ffn_forward, wrapper fused_ffn_block; in bf16
+// ffn_tc.cu takes it). Computes, over rows of [B*S, H],
 //   out = LN(x + W2 . T(gelu_tanh(f32(W1 . x + b1))) + b2)
-// with f32 accumulation, GELU and LayerNorm (eps 1e-12) in f32, T out. T is
-// bf16 or f32, H 384 or 768, the intermediate width any multiple of 64.
+// with f32 accumulation, GELU and LayerNorm (eps 1e-12) in f32, T out. The
+// kernel is a template on T; its entry point instantiates T = f32, at H
+// 384 or 768, the intermediate width any multiple of 64 (fused_layer.cu
+// runs its bf16 tile).
 //
-// Bound on an H100 SXM at B=128, S=256 (32768 rows):
-//   H=384, I=1536, bf16: 2 x 2 x 32768 x 384 x 1536 = 77.3 GFLOP
-//     -> 0.078 ms at 989 TFLOP/s; x 25.2 MB in, out 25.2 MB, W1 + W2
-//     2.4 MB -> 0.0158 ms at 3.35 TB/s;
-//   H=768, I=3072, bf16: 309.2 GFLOP -> 0.313 ms;
-//   H=384, f32: 77.3 GFLOP -> 1.154 ms at 67 TFLOP/s (CUDA cores).
-//   So the block is bound by operations.
+// Bound on an H100 SXM at B=128, S=256 (32768 rows), f32 on the CUDA
+// cores: H=384, I=1536: 2 x 2 x 32768 x 384 x 1536 = 77.3 GFLOP -> 1.154
+// ms at 67 TFLOP/s; H=768, I=3072: 309.2 GFLOP -> 4.615 ms; x in and out
+// 50.3 MB at H=384 -> 0.015 ms at 3.35 TB/s. So the block is bound by
+// operations.
 //
-// Design. One block of 8 warps owns a tile of rows (Tiles<T, H>: 64 rows
-// at bf16 x 384, 32 at bf16 x 768 and f32 x 384, 16 at f32 x 768) and
+// Design. One block of 8 warps owns a tile of rows (Tiles<T, H>: 32 rows
+// at f32 x 384, 16 at f32 x 768; more in bf16, fused_layer.cu's) and
 // keeps them in shared memory. It walks the intermediate columns in
 // chunks (64, 32, 32, 16 columns): the chunk of h = x . W1 goes to shared
 // memory, takes b1, tanh GELU in f32 and the cast to T there, and is at
@@ -26,8 +27,8 @@
 // B*S are zero-filled on load and never stored (the TPU kernel halves its
 // row block until it divides B*S instead). Each block reads both weight
 // panels once (mostly from L2), the traffic a larger row block or
-// thread-block clusters sharing the panels would cut. bf16 products on
-// the tensor cores (WMMA), f32 ones on the CUDA cores in full f32. The
+// thread-block clusters sharing the panels would cut. f32 products run on
+// the CUDA cores in full f32 (bf16 ones, in fused_layer.cu, on WMMA). The
 // chunk loop (ffn_tile) lives in fused_blocks.cuh, which fused_layer.cu
 // shares.
 #include "fused_blocks.cuh"
@@ -78,16 +79,10 @@ int ffn_block_any(const void* x, const void* w1, const void* b1, const void* w2,
 }  // namespace
 }  // namespace dial
 
-// C entry points, one per dtype T. x, w1 [H, I], w2 [I, H] and out are
-// device pointers of T; b1, b2, gamma, beta are f32. rows = B*S; hidden
-// 384 or 768 and inter a multiple of 64 (else cudaErrorInvalidValue).
+// C entry point. x, w1 [H, I], w2 [I, H] and out are device pointers of
+// f32; b1, b2, gamma, beta are f32. rows = B*S; hidden 384 or 768 and
+// inter a multiple of 64 (else cudaErrorInvalidValue).
 // Launches on `stream` and returns the first CUDA error (0 on success).
-extern "C" int dial_ffn_block_bf16(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                                   const void* gamma, const void* beta, void* out, int rows, int hidden, int inter,
-                                   void* stream) {
-  return dial::ffn_block_any<dial::bf16>(x, w1, b1, w2, b2, gamma, beta, out, rows, hidden, inter, stream);
-}
-
 extern "C" int dial_ffn_block_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                                   const void* gamma, const void* beta, void* out, int rows, int hidden, int inter,
                                   void* stream) {

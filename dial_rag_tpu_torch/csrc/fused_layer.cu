@@ -16,21 +16,24 @@
 //
 // Design. What the TPU kernel saves over its two-block composition is the
 // round trip of the post-attention state a through device memory. Here a
-// layer is three launches, against four for fused_attention.cu +
-// fused_ffn.cu:
+// layer is three launches, against four for fused_attention.cu and the
+// FFN in f32 (fused_ffn.cu), five in bf16 (ffn_tc.cu):
 //   (a), (b) the qkv projection and the attention of fused_attention.cu
 //       (fused_blocks.cuh): qkv [B, S, 3H] and ctx [B, S, H] still go
 //       through device memory, as they do in kernel 1;
 //   (c) layer_tail_kernel, one block of 8 warps per tile of rows
 //       (Tiles<T, H>): ctx . W_out + b_out, the residual with x and the
-//       LayerNorm give a, kept in shared memory as T; then the FFN of
-//       fused_ffn.cu over that tile (W1 + b1, tanh GELU, W2 + b2), the
-//       residual with a and the second LayerNorm, and only out is stored.
+//       LayerNorm give a, kept in shared memory as T; then the FFN tile
+//       of fused_blocks.cuh over that tile (W1 + b1, tanh GELU, W2 +
+//       b2), the residual with a and the second LayerNorm, and only out
+//       is stored.
 // Shared memory: a plus the larger of the out-projection's staging and
 // accumulator image and the FFN's panels: 172, 194, 148 and 145 KB at
 // bf16 x 384, bf16 x 768, f32 x 384 and f32 x 768 (layer_smem). It runs
-// the device code of kernels 1 and 2 in their order, so its output equals
-// theirs bit for bit.
+// the device code of kernel 1 and, in f32, of kernel 2; in bf16 kernel 2
+// is ffn_tc.cu, whose products sum K in this FFN tile's order (f32
+// accumulators, ascending 16-deep tensor-core steps) and whose epilogue
+// is the same, so its output equals theirs bit for bit.
 #include "fused_blocks.cuh"
 
 namespace dial {

@@ -33,11 +33,11 @@ Attention routes (``attention_impl``):
   bf16 included: kernel 5 at a single-tile S, the blocked kernels and
   their backward past it). The kernels take the widths of
   ``ops.fused_encoder.KERNEL_INSTANTIATIONS`` (bge-small and bge-base:
-  H 384 with 12 heads of 32, H 768 with 12 heads of 64; the blocked
-  kernels head_dim 32 only). Where the port lacks a route's kernel (another
-  width; past the single-tile kernels' shared memory) the route raises and
-  names it; it never falls back to plain PyTorch on the card. ``"xla"`` is
-  the route on the CPU.
+  H 384 with 12 heads of 32, H 768 with 12 heads of 64; the FFN kernel
+  also bf16 at H 1024, but not the attention block, so "auto" raises
+  there). Where the port lacks a route's kernel (another width) the route
+  raises and names it; it never falls back to plain PyTorch on the card.
+  ``"xla"`` is the route on the CPU.
 
 ``bert_forward`` is differentiable; ``remat=True`` recomputes each layer
 in the backward (``torch.utils.checkpoint``) instead of saving it.

@@ -36,9 +36,8 @@ SIGNATURES = {
     "fused_attention": {
         f"dial_attention_block_{t}": [_P] * 11 + [_I, _I, _I, _I, _F, _P] for t in ("bf16", "f32")
     },
-    "fused_ffn": {
-        f"dial_ffn_block_{t}": [_P] * 8 + [_I, _I, _I, _P] for t in ("bf16", "f32")
-    },
+    "fused_ffn": {"dial_ffn_block_f32": [_P] * 8 + [_I, _I, _I, _P]},
+    "ffn_tc": {"dial_ffn_block_bf16": [_P] * 10 + [_I, _I, _I, _P]},
     "fused_layer": {
         f"dial_layer_block_{t}": [_P] * 17 + [_I] * 5 + [_F, _P] for t in ("bf16", "f32")
     },
@@ -50,10 +49,13 @@ SIGNATURES = {
         **{f"dial_attention_bwd_{t}": [_P] * 10 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
         "dial_attention_bwd_max_seq": [_I, _P],
     },
-    "attention_tc": {"dial_attention_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _P]},
+    "attention_tc": {
+        "dial_attention_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _P],
+        "dial_attention_kv_blocked_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+    },
     "flash_attention_long": {
         "dial_attention_q_blocked_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
-        **{f"dial_attention_kv_blocked_{t}": [_P] * 7 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
+        "dial_attention_kv_blocked_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     },
     "flash_attention_long_bwd": {
         **{f"dial_attention_bwd_q_blocked_{t}": [_P] * 11 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},

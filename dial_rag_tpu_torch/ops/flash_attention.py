@@ -21,14 +21,15 @@ other blocked S ``_attention_bwd_q_blocked_kernel``; else the single-tile
 ``_attention_bwd_kernel``. On a CUDA tensor they launch the hand-written
 Hopper kernels or raise; they never fall back:
 
-- forward in bf16: one tensor-core kernel (``csrc/attention_tc.cu``) for
-  the single-tile and query-blocked forwards in both layouts, at any S;
+- forward in bf16: the tensor-core kernels of ``csrc/attention_tc.cu``,
+  one for the single-tile and query-blocked forwards in both layouts, at
+  any S, one for the KV-blocked forward;
 - forward in f32: the single-tile CUDA-core kernel
   (``csrc/flash_attention_fwd.cu``) up to the S its shared memory takes
   (``single_tile_max_s``), the query-blocked kernel's code
   (``csrc/flash_attention_long.cu``) past it and on the query-blocked
   route: both compute the same function, as the reference's kernels do;
-- the KV-blocked forward (``csrc/flash_attention_long.cu``) in both dtypes;
+- the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``);
 - backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``) up to
   its limit, the query-blocked backward's code past it and on the
   query-blocked route, the KV-blocked passes after the KV-blocked forward
@@ -346,10 +347,10 @@ def _forward_kernel(q, k, v, o, attention_mask, counter="flash_attention_fwd"):
     LAUNCHES[counter] += 1
 
 
-def _tc_kernel(q, k, v, o, attention_mask):
-    """Launches the bf16 tensor-core forward (TPU kernels 4, 5 and 6 in
-    bf16, any S) on [B, h, S, Dh] views q, k, v -> o. Its 16-byte copies
-    need q, k and v 16-byte aligned with strides in multiples of 8."""
+def _check_tc_inputs(q, k, v, o):
+    """The bf16 tensor-core forwards' inputs: their 16-byte copies need q,
+    k and v 16-byte aligned with strides in multiples of 8; o is written in
+    pairs of values."""
     _check_attention_inputs(q=q, k=k, v=v, o=o)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core attention forward takes bf16, got {q.dtype}")
@@ -359,6 +360,12 @@ def _tc_kernel(q, k, v, o, attention_mask):
                              f"{t.data_ptr()} with strides {t.stride()}")
     if o.data_ptr() % 4 or any(st % 2 for st in o.stride()[:3]):
         raise ValueError(f"the tensor-core attention forward writes pairs of values, got o strides {o.stride()}")
+
+
+def _tc_kernel(q, k, v, o, attention_mask):
+    """Launches the bf16 tensor-core forward (TPU kernels 4, 5 and 6 in
+    bf16, any S) on [B, h, S, Dh] views q, k, v -> o."""
+    _check_tc_inputs(q, k, v, o)
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("attention_tc", "dial_attention_tc_bf16", "attention tensor-core forward", q, (q, k, v, bias, o),
@@ -380,14 +387,20 @@ def _q_blocked_kernel(q, k, v, o, attention_mask):
 
 
 def _kv_blocked_kernel(q, k, v, o, attention_mask):
-    """Launches the KV-blocked forward (TPU kernel 7) on [B, h, S, Dh]
-    views q, k, v -> o; returns its lse, f32 [B, h, S]."""
-    _check_attention_inputs(q=q, k=k, v=v, o=o)
+    """Launches the KV-blocked forward (TPU kernel 7; f32 on the CUDA
+    cores, bf16 on the tensor cores) on [B, h, S, Dh] views q, k, v -> o;
+    returns its lse, f32 [B, h, S]."""
+    if q.dtype == torch.bfloat16:
+        _check_tc_inputs(q, k, v, o)
+        stem = "attention_tc"
+    else:
+        _check_attention_inputs(q=q, k=k, v=v, o=o)
+        stem = "flash_attention_long"
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_long", f"dial_attention_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
-            "attention kv_blocked forward", q, (q, k, v, bias, o, lse), (q, k, v, o))
+    _launch(stem, f"dial_attention_kv_blocked_{KERNEL_DTYPES[q.dtype]}", "attention kv_blocked forward", q,
+            (q, k, v, bias, o, lse), (q, k, v, o))
     LAUNCHES["attention_kv_blocked_fwd"] += 1
     return lse
 

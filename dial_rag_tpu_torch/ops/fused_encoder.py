@@ -8,15 +8,17 @@
   state, cast to the compute type) kept on chip.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu``, ``csrc/fused_layer.cu``)
-or raises; it never falls back. The kernels are instantiated for
-``KERNEL_INSTANTIATIONS``, {f32, bf16} x {(H 384, head_dim 32), (H 768,
-head_dim 64)} (bge-small and bge-base widths); ``kernel_supports`` is the
-predicate every wrapper checks. On a CPU tensor it runs the plain PyTorch
-version beside it, which follows the TPU kernel's own order of casts
-(``_attn_block_kernel``, ``_ffn_kernel``, ``_layer_kernel``): products
-accumulate in f32 and are not rounded before the bias, residual and
-LayerNorm; qkv, the probabilities, ctx, ``a`` and the GELU output are cast
+(``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu`` in f32 and
+``csrc/ffn_tc.cu`` in bf16, ``csrc/fused_layer.cu``) or raises; it never
+falls back. The kernels are instantiated for ``KERNEL_INSTANTIATIONS``,
+{f32, bf16} x {(H 384, head_dim 32), (H 768, head_dim 64)} (bge-small and
+bge-base widths); ``kernel_supports`` is the predicate the attention and
+whole-layer wrappers check. The FFN kernel also takes bf16 at H 1024
+(bge-large's width): ``FFN_INSTANTIATIONS``, ``ffn_kernel_supports``. On
+a CPU tensor it runs the plain PyTorch version beside it, which follows
+the TPU kernel's own order of casts (``_attn_block_kernel``,
+``_ffn_kernel``, ``_layer_kernel``): products accumulate in f32 and are
+not rounded before the bias, residual and LayerNorm; qkv, the probabilities, ctx, ``a`` and the GELU output are cast
 to the compute type where the TPU kernel casts them.
 
 Each wrapper goes through one ``torch.autograd.Function`` whose backward
@@ -37,11 +39,14 @@ import torch
 LAYERNORM_EPS = 1e-12
 # (dtype, hidden, head_dim) the CUDA kernels are instantiated for: the
 # bge-small and bge-base widths (12 heads of 32 and of 64), each in f32
-# and bf16; the FFN width is any multiple of 64
+# and bf16; the FFN width is any multiple of 64 (of 128 in bf16)
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL_INSTANTIATIONS = tuple(
     (dtype, hidden, head_dim) for dtype in KERNEL_DTYPES for hidden, head_dim in ((384, 32), (768, 64))
 )
+# (dtype, hidden) of the FFN kernel: the widths above and, in bf16 on the
+# tensor-core kernel, bge-large's H 1024
+FFN_INSTANTIATIONS = tuple((dtype, hidden) for dtype, hidden, _ in KERNEL_INSTANTIATIONS) + ((torch.bfloat16, 1024),)
 
 LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
 
@@ -68,6 +73,19 @@ def check_kernel_supports(dtype, hidden=None, head_dim=None) -> None:
             f"no CUDA kernel is instantiated for dtype {dtype}, H {hidden}, head_dim {head_dim}: "
             f"the kernels take (dtype, H, head_dim) in {{{names}}}"
         )
+
+
+def ffn_kernel_supports(dtype, hidden) -> bool:
+    """Whether the FFN kernel is instantiated for (dtype, hidden)."""
+    return (dtype, hidden) in FFN_INSTANTIATIONS
+
+
+def check_ffn_kernel_supports(dtype, hidden) -> None:
+    """Raises ValueError, naming the instantiations, unless ``ffn_kernel_supports``."""
+    if not ffn_kernel_supports(dtype, hidden):
+        names = ", ".join(f"({str(d)[6:]}, H {h})" for d, h in FFN_INSTANTIATIONS)
+        raise ValueError(f"no FFN kernel is instantiated for dtype {dtype}, H {hidden}: the FFN kernel takes "
+                         f"(dtype, H) in {{{names}}}")
 
 
 def supports_fused_block(s: int) -> bool:
@@ -212,8 +230,9 @@ def _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout
 
 def _check_ffn_weights(x, w1, b1, w2, b2, g, beta):
     hid, inter = x.shape[2], w1.shape[1]
-    if inter % 64:
-        raise ValueError(f"the FFN kernel takes an intermediate width % 64 == 0, got {inter}")
+    step = 128 if x.dtype == torch.bfloat16 else 64
+    if inter % step:
+        raise ValueError(f"the FFN kernel takes an intermediate width % {step} == 0 in {x.dtype}, got {inter}")
     _check_cuda("w1", w1, x.dtype, (hid, inter))
     _check_cuda("w2", w2, x.dtype, (inter, hid))
     _check_cuda("b1", b1, torch.float32, (inter,))
@@ -223,19 +242,34 @@ def _check_ffn_weights(x, w1, b1, w2, b2, g, beta):
 
 
 def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
+    """f32: one launch of ``csrc/fused_ffn.cu``. bf16: the three launches
+    of ``csrc/ffn_tc.cu`` (the up product into h [B*S, I] bf16, the down
+    product into y [B*S, H] f32, the residual + LayerNorm), which read x,
+    W1 and W2 by 16-byte copies. Counted once either way."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    _check_kernel_x(x)
+    if x.ndim != 3:
+        raise ValueError(f"the CUDA kernels take x [B, S, H], got {tuple(x.shape)}")
+    check_ffn_kernel_supports(x.dtype, x.shape[2])
+    _check_cuda("x", x, x.dtype)
     b, s, hid = x.shape
     inter = _check_ffn_weights(x, w1, b1, w2, b2, g, beta)
-    lib = build_kernels().libs["fused_ffn"]
     out = torch.empty_like(x)
+    vectors = (b2.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"the bf16 FFN kernel reads {name} by 16-byte copies, got it at {t.data_ptr()}")
+        h = torch.empty((b * s, inter), dtype=x.dtype, device=x.device)
+        y = torch.empty((b * s, hid), dtype=torch.float32, device=x.device)
+        entry = build_kernels().libs["ffn_tc"].dial_ffn_block_bf16
+        scratch = (h.data_ptr(), y.data_ptr())
+    else:
+        entry = build_kernels().libs["fused_ffn"].dial_ffn_block_f32
+        scratch = ()
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"dial_ffn_block_{KERNEL_DTYPES[x.dtype]}")(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            b * s, hid, inter, _stream(x),
-        )
+        err = entry(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *vectors, *scratch,
+                    b * s, hid, inter, _stream(x))
     _raise_on(err, "fused_ffn_block")
     LAUNCHES["fused_ffn_block"] += 1
     return out

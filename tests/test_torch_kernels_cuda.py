@@ -116,13 +116,14 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, dtype, hid, heads, inter
 @pytest.mark.cuda
 def test_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
     """A CUDA tensor goes to the kernel or raises; it never falls back:
-    a dtype or a width with no instantiation raises, naming the set."""
-    for dtype, hid in ((torch.float16, 384), (torch.float32, 512)):
+    a dtype or a width with no instantiation raises, naming the set (the
+    FFN's own: H 1024 in bf16 only)."""
+    for dtype, hid in ((torch.float16, 384), (torch.float32, 512), (torch.float32, 1024)):
         x = torch.zeros(2, 8, hid, device=cuda_device, dtype=dtype)
         w = torch.zeros(hid, 1536, device=cuda_device, dtype=dtype)
         v = torch.zeros(1536, device=cuda_device)
         h = torch.zeros(hid, device=cuda_device)
-        with pytest.raises(ValueError, match="H 768, head_dim 64"):
+        with pytest.raises(ValueError, match="bfloat16, H 1024"):
             tfe.fused_ffn_block(x, w, v, w.T.contiguous(), h, h, h)
 
 
@@ -447,6 +448,51 @@ def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, ro
         assert lse is None and ref_lse is None
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("b,s", [(1, 4608), (3, 8192)])
+def test_kv_blocked_tensor_core_forward_on_card(cuda_device, b, s, dh):
+    """Kernel 7 in bf16 (the tensor-core kernel) against its plain version
+    with a score offset that grows every 512-key block (q[..., 0] = 1,
+    k[..., 0] = 8 j in block j), so the row max rises from block to block
+    and corr < 1 rescales l and the accumulator: o within 3e-2 and within
+    3e-2 of each (batch row, head)'s largest plain value, lse within 1e-5;
+    a ragged row and, at B = 3, a full and a fully masked one."""
+    qkv, _, _ = _attention_inputs(cuda_device, b, s, dh=dh, dtype=torch.float32)
+    lengths = torch.tensor([s - 300] if b == 1 else [s, s - 300, 0])
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(cuda_device, torch.int32)
+    q, k, v = (t.clone() for t in tfa._split_heads(qkv, 12))
+    q[..., 0] = 1.0
+    k[..., 0] = 8.0 * (torch.arange(s, device=cuda_device) // tfa._KV_BLOCK)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert tfa.attention_route(s) == "kv_blocked"
+    tfa.reset_launches()
+    out, lse = tfa._forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), "attention_kv_blocked_fwd": 1}, tfa.LAUNCHES
+    ref, ref_lse = tfa._forward(q, k, v, mask, plain=True)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    _assert_close(out, ref, 3e-2)
+    _assert_head_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (1, 64)])
+def test_ffn_kernel_at_h1024_on_card(cuda_device, b, s):
+    """Kernel 2 in bf16 at bge-large's width (H 1024, FFN 4096), which only
+    the FFN kernel has: against its plain version within 3e-2 of each
+    row's largest plain value, one launch; a ragged row count."""
+    x, _, weights = _block_inputs(cuda_device, b, s, torch.bfloat16, 1024, 4096, seed=7)
+    assert tfe.ffn_kernel_supports(torch.bfloat16, 1024) and not tfe.kernel_supports(torch.bfloat16, 1024)
+    tfe.reset_launches()
+    out = tfe.fused_ffn_block(x, *weights[6:])
+    torch.cuda.synchronize()
+    assert tfe.LAUNCHES["fused_ffn_block"] == 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    _assert_close(out, tfe.fused_ffn_block_plain(x, *weights[6:]), 3e-2, per_row=True)
+
+
 def _long_grads(fn, q, k, v, cot):
     xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     (fn(*xs).float() * cot).sum().backward()
@@ -520,7 +566,8 @@ def test_long_backward_is_reproducible(cuda_device):
 def test_layer_kernel_matches_plain_on_card(cuda_device, b, s, dtype, hid, heads, inter, atol, per_row):
     """Kernel 3 (the whole layer) against its plain version at each
     instantiation: a ragged S, the longest S and a masked row; and equal,
-    bit for bit, to kernels 1 and 2 in turn, whose device code it runs."""
+    bit for bit, to kernels 1 and 2 in turn (in bf16 its FFN tile sums in
+    the order of kernel 2's tensor-core products, csrc/ffn_tc.cu)."""
     x, mask, weights = _block_inputs(cuda_device, b, s, dtype, hid, inter, seed=4)
     tfe.reset_launches()
     out = tfe.fused_layer_block(x, mask, weights, heads)

@@ -13,7 +13,8 @@ tolerances (tests/test_flash_attention.py:142-211); bf16 3e-2, the
 reference's bf16 tolerance; hidden states atol 1e-5, the reference's
 pallas-vs-xla encoder tolerance. Kernel 7 runs at S = 1024 with
 ``_Q_BLOCKED_MAX_S`` lowered to 512 in both packages, as the reference's
-own test lowers it, so the CPU run stays small.
+own test lowers it, so the CPU run stays small; in bf16 also at S = 1536
+with the row max rising from block to block (the 512-key rescale).
 """
 
 import jax
@@ -92,6 +93,32 @@ def test_kv_blocked_matches_jax(dtype, dh, kv_blocked):
     np.testing.assert_allclose(o[1, :, : s // 3], j_o[1, :, : s // 3], atol=atol)
     assert lse.shape == j_lse.shape == (2, 2, s)
     np.testing.assert_allclose(lse, j_lse, atol=1e-5 if dtype == "f32" else 3e-2)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_kv_blocked_rising_max_matches_jax(dh, kv_blocked):
+    """Kernel 7 in bf16 at S = 1536 (three 512-key blocks) with a score
+    offset that grows block by block (q[..., 0] = 1, k[..., 0] = 0, 32, 64
+    per block), so every row's max rises in the second and third blocks and
+    corr = exp(m - m_next) < 1 rescales l and the accumulator, where
+    bf16(e) is formed against the block's own max; the last row padded
+    inside the third block. o within 3e-2, lse within the file's bf16
+    tolerance, at head_dim 32 and 64."""
+    np_dtype, t_dtype, atol = DTYPES["bf16"]
+    s, blk = 1536, tfa._KV_BLOCK
+    assert tfa.attention_route(s) == "kv_blocked" and s == 3 * blk
+    q, k, v, mask = _inputs(2, 2, s, seed=14, np_dtype=np.float32, pad_from=s - 200, dh=dh)
+    q[..., 0] = 1.0
+    k[..., 0] = np.repeat([0.0, 32.0, 64.0], blk)
+    q, k, v = (a.astype(np_dtype) for a in (q, k, v))
+    scores = np.einsum("bhqd,bhkd->bhqk", np.asarray(q, np.float64), np.asarray(k, np.float64))
+    scores = np.where(mask[:, None, None, :] == 1, scores, -np.inf)
+    block_max = scores.reshape(2, 2, s, 3, blk).max(axis=-1)
+    assert (np.diff(block_max, axis=-1) > 0).all()  # the max rises at blocks 2 and 3 in every row
+    o, lse, j_o, j_lse = _run(q, k, v, mask, t_dtype)
+    np.testing.assert_allclose(o[0], j_o[0], atol=atol)
+    np.testing.assert_allclose(o[1, :, : s - 200], j_o[1, :, : s - 200], atol=atol)
+    np.testing.assert_allclose(lse, j_lse, atol=3e-2)
 
 
 @pytest.mark.parametrize("route,s", [("q_blocked", 768), ("kv_blocked", 1024)])

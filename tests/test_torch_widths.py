@@ -102,6 +102,25 @@ def test_fused_blocks_at_head_dim_64_match_jax(block, dtype):
     np.testing.assert_allclose(out.float().numpy()[real], np.asarray(ref, np.float32)[real], atol=atol)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ffn_block_at_bge_large_width_matches_jax(dtype):
+    """The FFN block at bge-large's width (H 1024, FFN 4096), which the bf16
+    FFN kernel takes while kernels 1 and 3 do not: the port's plain version
+    (the kernel's yardstick on the card) against the reference's Pallas
+    kernel in interpret mode on 48 rows; f32 2e-5, bf16 3e-2."""
+    np_dtype, t_dtype, _, atol = DTYPES[dtype]
+    hid, inter = 1024, 4096
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 24, hid)).astype(np.float32).astype(np_dtype)
+    w = [(rng.standard_normal(shape) * scale).astype(np.float32)
+         for shape, scale in (((hid, inter), 0.05), ((inter,), 0.02), ((inter, hid), 0.05), ((hid,), 0.02))]
+    w += [np.ones(hid, np.float32), np.zeros(hid, np.float32)]
+    ref = jfe.fused_ffn_block(jnp.asarray(x), *map(jnp.asarray, w))
+    out = tfe.fused_ffn_block(torch.from_numpy(np.asarray(x, np.float32)).to(t_dtype), *map(torch.from_numpy, w))
+    assert out.dtype == t_dtype and out.shape == x.shape
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=atol)
+
+
 def _attention_case(layout, s, dtype, seed):
     """Outputs and gradients of sum(out * cot) of both packages' attention
     (``fused_qkv``: packed [B, S, 3H]; ``flash``: head-major [B, h, S, 64])
@@ -247,13 +266,17 @@ def test_from_hf_checkpoint_at_base_proportions(tmp_path):
 SUPPORTED = [(torch.float32, 384, 32), (torch.float32, 768, 64), (torch.bfloat16, 384, 32),
              (torch.bfloat16, 768, 64)]
 UNSUPPORTED = [(torch.float16, 384, 32), (torch.float32, 512, 64), (torch.bfloat16, 768, 32),
-               (torch.float32, 1024, 64)]
+               (torch.float32, 1024, 64), (torch.bfloat16, 1024, 64), (torch.bfloat16, 512, 64)]
+# the FFN kernel's own widths: kernels 1-3's, and H 1024 in bf16
+FFN_SUPPORTED = [(d, h) for d, h, _ in SUPPORTED] + [(torch.bfloat16, 1024)]
 
 
 @pytest.mark.parametrize("dtype,hidden,head_dim", SUPPORTED + UNSUPPORTED)
 def test_kernel_support_predicate(dtype, hidden, head_dim):
     """The kernels take {f32, bf16} x {(H 384, head_dim 32), (H 768,
-    head_dim 64)}; anything else raises a ValueError naming that set."""
+    head_dim 64)}; anything else raises a ValueError naming that set. The
+    FFN kernel has its own check, which also takes bf16 at H 1024 (where
+    kernels 1 and 3, and so "auto", still refuse)."""
     assert tfe.kernel_supports(dtype, hidden, head_dim) == ((dtype, hidden, head_dim) in SUPPORTED)
     if (dtype, hidden, head_dim) in SUPPORTED:
         tfe.check_kernel_supports(dtype, hidden, head_dim)
@@ -263,3 +286,11 @@ def test_kernel_support_predicate(dtype, hidden, head_dim):
             tfe.check_kernel_supports(dtype, hidden, head_dim)
         for d, h, dh in SUPPORTED:
             assert f"({str(d)[6:]}, H {h}, head_dim {dh})" in str(err.value)
+    assert tfe.ffn_kernel_supports(dtype, hidden) == ((dtype, hidden) in FFN_SUPPORTED)
+    if (dtype, hidden) in FFN_SUPPORTED:
+        tfe.check_ffn_kernel_supports(dtype, hidden)
+    else:
+        with pytest.raises(ValueError) as err:
+            tfe.check_ffn_kernel_supports(dtype, hidden)
+        for d, h in FFN_SUPPORTED:
+            assert f"({str(d)[6:]}, H {h})" in str(err.value)
