@@ -11,8 +11,11 @@ Phases, each announced by a ``[phase]`` line:
    instantiation (bf16 and f32; H=384 with the shipped checkpoint's
    layer-0 weights, H=768 with a seeded bge-base-width encoder's) against
    its plain PyTorch version at B=128, S=256, and timed (CUDA events)
-   beside its bound and a PyTorch composition; the bf16 FFN (kernel 2) also
-   at bge-large's H=1024 on a seeded layer;
+   beside its bound and a PyTorch composition, the whole layer also
+   bit-equal to kernels 1 then 2, and kernel 1 in bf16 profiled by stage
+   (QKV projection, attention, output projection, LayerNorm); the bf16
+   kernels 1-3 also at bge-large's H=1024 (16 heads of 64) on a seeded
+   layer;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
    2048 chunks into a ``SemanticRetriever`` and answers queries; a seeded
    1M x 384 f32 ``DenseIndex`` answers ``find_batch``. The kernels' launch
@@ -65,8 +68,8 @@ Phases, each announced by a ``[phase]`` line:
    pooling, the alps-semantic vocabulary) embeds the main path's 2048
    chunks in bf16 through "auto" (kernels 1-2) and answers its 64
    queries; top-1 must equal the "fused_plain" route's; then the
-   "fused_layer" route on 256 of them, within cosine 0.9999 of "fused"
-   (kernel 3 keeps its own bf16 FFN tile); bge-base
+   "fused_layer" route on 256 of them, bit-equal to "fused" (kernel 3
+   runs kernels 1 and 2's launch sequences); bge-base
    training: ``train()`` fine-tunes that encoder in f32 for 10 steps of 32
    Alps (question, fact) pairs at S = 64 (kernels 4 and 8 at head_dim
    64), each batch against the "pallas_plain" route, the loss falling;
@@ -185,13 +188,13 @@ TC_SEQS = (64, 100, 256, 520, PAST_LIMIT_S, 4096)
 # row, and the long-document phase's longest with a full, a ragged and a
 # fully masked row
 KV_TC_SHAPES = ((1, 4608), (3, 8192))
-# dynamic shared memory of csrc/ffn_tc.cu's products (kSmemBytes): a
+# dynamic shared memory of csrc/gemm_tc.cuh's products (kSmemBytes): a
 # 4-stage ring of [256, 64] and [64, 128] bf16 tiles, + 1024 B to align it
-FFN_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
+GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
 # bge-large's width (BAAI/bge-large-en-v1.5 config.json: hidden_size 1024,
 # num_attention_heads 16, intermediate_size 4096), seeded weights: the
-# bf16 FFN kernel's H 1024 instantiation, gated and timed; no phase runs an
-# encoder at that width yet (kernels 1 and 3 lack it)
+# bf16 H 1024 instantiations of kernels 1-3, gated and timed; no phase
+# runs an encoder at that width
 LARGE_WIDTHS = {"hidden_size": 1024, "num_layers": 1, "num_heads": 16, "intermediate_size": 4096}
 # blocked backward kernels vs plain versions in bf16: of the plain
 # gradient's largest magnitude (gradients are not O(1))
@@ -236,24 +239,33 @@ def phase(name: str | None) -> None:
 
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
-    of each bf16 tensor-core kernel of this slice takes, from ``-Xptxas
-    -v``, and the dynamic shared memory it is launched with (the FFN
-    products': ffn_tc.cu's kSmemBytes, FFN_TC_SMEM)."""
+    of the bf16 KV-blocked forward, the products and the LayerNorm pass
+    takes, from ``-Xptxas -v``, and the dynamic shared memory it is
+    launched with (the products': gemm_tc.cuh's kSmemBytes,
+    GEMM_TC_SMEM)."""
 
     def width(line: str) -> str:  # the int template argument of a mangled name
         return re.search(r"ILi(\d+)E", line).group(1)
 
+    products = {"0": "FFN up product (GELU epilogue)", "1": "f32 product (FFN down, output projection)",
+                "2": "QKV projection (bias epilogue)"}
+
+    def product(line: str) -> str:  # gemm_kernel's Epilogue argument
+        epilogue = re.search(r"EpilogueE(\d)E", line).group(1)
+        return f"{products[epilogue]}, 512 threads"
+
+    # (source stem, substrings of the kernel's mangled name, dynamic shared memory, label)
     kernels = (
-        ("attention_tc", "kv_blocked_tc_kernel", 0, lambda line: f"KV-blocked forward, head_dim {width(line)}, "
-                                                                 f"128 threads"),
-        ("ffn_tc", "gemm_kernel", FFN_TC_SMEM,
-         lambda line: f"FFN {'up' if 'EpilogueE0E' in line else 'down'} product, 512 threads"),
-        ("ffn_tc", "layernorm_kernel", 0, lambda line: f"FFN LayerNorm, H {width(line)}, 256 threads"),
+        ("attention_tc", ("kv_blocked_tc_kernel",), 0,
+         lambda line: f"KV-blocked forward, head_dim {width(line)}, 128 threads"),
+        ("ffn_tc", ("gemm_kernel",), GEMM_TC_SMEM, product),
+        ("ffn_tc", ("layernorm_kernel",), 0, lambda line: f"LayerNorm, H {width(line)}, 256 threads"),
+        ("fused_attention", ("gemm_kernel", "EpilogueE2E"), GEMM_TC_SMEM, product),
     )
-    for stem, kernel, dynamic, label in kernels:
+    for stem, names, dynamic, label in kernels:
         lines = build.ptxas[stem]
         for i, line in enumerate(lines):
-            if kernel in line and i + 2 < len(lines):
+            if all(n in line for n in names) and i + 2 < len(lines):
                 print(f"resources of csrc/{stem}.cu's {label(line)}: {lines[i + 2]}; {lines[i + 1]}; "
                       f"{dynamic} B dynamic shared memory a block")
 
@@ -292,7 +304,10 @@ def device_profile(torch, fn, what: str, card: str, top: int = 8) -> float:
     total_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profile of {what}: device time {total_ms:.3f} ms {card}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:90]}")
+        # the port's kernels by their own names: gemm_kernel<(Epilogue)2> is
+        # the QKV product, 0 the FFN's up product, 1 the products into f32
+        name = re.sub(r"\(anonymous namespace\)::|dial::\w+::", "", e.key)
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {name[:90]}")
     sys.stdout.flush()
     return total_ms
 
@@ -1223,10 +1238,9 @@ def whole_layer_phase(torch, card, embedder, texts, queries) -> int:
         raise RuntimeError(f"bad whole-layer embeddings: {d_layer.shape}")
     d_fused, d_plain = embedder.embed_documents(docs), plain.embed_documents(docs)
     q_plain = plain.embed_queries(queries)
-    # kernel 3 runs kernel 1's device code and then an FFN whose products
-    # sum in kernel 2's order (f32 accumulators, K ascending in 16-deep
-    # tensor-core steps in bf16) with kernel 2's epilogue, so its
-    # embeddings equal the "fused" route's bit for bit
+    # kernel 3 in bf16 runs kernels 1's and 2's launch sequences
+    # themselves (csrc/encoder_tc.cuh), so its embeddings equal the
+    # "fused" route's bit for bit
     for other, d, limit in (("fused", d_fused, None), ("fused_layer_plain", d_plain, LAYER_PLAIN_COS)):
         cos = (d_layer * d).sum(axis=1)
         print(f"whole-layer route vs \"{other}\" route, {len(docs)} chunks: max abs diff "
@@ -1664,14 +1678,15 @@ def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream
     return launches
 
 
-def block_rows(torch, card, layer, x, mask, heads: int, ffn_only: bool = False) -> dict:
-    """Kernels 1-3 in x's dtype at x's width (kernel 2 alone with
-    ``ffn_only``, on the plain attention block's output) against their
-    plain versions on one layer's weights (``layer``: matrices in x's
-    dtype, vectors f32) at x's shape, each timed (CUDA events) beside its
-    bound, the plain version and a PyTorch composition of the same block
-    (cuBLAS products, SDPA with a boolean mask, ``layer_norm``): a
-    yardstick used nowhere in the port."""
+def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
+    """Kernels 1-3 in x's dtype at x's width (kernel 2 on the plain
+    attention block's output) against their plain versions on one layer's
+    weights (``layer``: matrices in x's dtype, vectors f32) at x's shape,
+    each timed (CUDA events) beside its bound, the plain version and a
+    PyTorch composition of the same block (cuBLAS products, SDPA with a
+    boolean mask, ``layer_norm``): a yardstick used nowhere in the port.
+    Kernel 3 must equal kernels 1 then 2 bit for bit; kernel 1 in bf16 is
+    profiled by stage (its four launches)."""
     from dial_rag_tpu_torch.ops import fused_encoder as fe
 
     dtype = x.dtype
@@ -1721,21 +1736,22 @@ def block_rows(torch, card, layer, x, mask, heads: int, ffn_only: bool = False) 
     # x in, out, the mask, every weight once (a stays on chip)
     layer_bytes = attn_bytes + ffn_bytes - 2 * m * hid * e
 
+    bf16 = dtype == torch.bfloat16
     rows = {}
     for name, kernel, plain, args, library, flops, nbytes, source, replaces in (
         ("fused_attention_block", fe.fused_attention_block, fe.fused_attention_block_plain, attn_args,
-         attn_library, attn_flops, attn_bytes, "dial_rag_tpu_torch/csrc/fused_attention.cu",
+         attn_library, attn_flops, attn_bytes,
+         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'fused_attention.cu'}",
          "dial_rag_tpu/ops/fused_encoder.py:177"),
         ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
          ffn_library, ffn_flops, ffn_bytes,
-         f"dial_rag_tpu_torch/csrc/{'ffn_tc' if dtype == torch.bfloat16 else 'fused_ffn'}.cu",
+         f"dial_rag_tpu_torch/csrc/{'ffn_tc' if bf16 else 'fused_ffn'}.cu",
          "dial_rag_tpu/ops/fused_encoder.py:76"),
         ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
          lambda: ffn_library(attn_library()), attn_flops + ffn_flops, layer_bytes,
-         "dial_rag_tpu_torch/csrc/fused_layer.cu", "dial_rag_tpu/ops/fused_encoder.py:365"),
+         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'fused_layer.cu'}",
+         "dial_rag_tpu/ops/fused_encoder.py:365"),
     ):
-        if ffn_only and name != "fused_ffn_block":
-            continue
         out = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -1755,6 +1771,14 @@ def block_rows(torch, card, layer, x, mask, heads: int, ffn_only: bool = False) 
               f"{nbytes / 1e6:.2f} MB), B={b} S={s} H={hid} {str(dtype)[6:]} {card}", flush=True)
         if not over_limit(out, ref, tol, per_row) <= 1:
             raise RuntimeError(f"{key}: kernel disagrees with its plain version by {err}")
+        if name == "fused_layer_block":
+            two = fe.fused_ffn_block(fe.fused_attention_block(*attn_args), *ffn_args[1:])
+            print(f"{key} vs kernels 1 then 2: max abs diff {(out.float() - two.float()).abs().max().item():.3g} "
+                  f"(bit-equal required)")
+            if not torch.equal(out, two):
+                raise RuntimeError(f"{key} differs from kernels 1 then 2")
+        if name == "fused_attention_block" and bf16:
+            device_profile(torch, lambda: kernel(*args), f"{key}'s stages at B={b} S={s}", card)
         rows[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2095,12 +2119,12 @@ def main() -> int:
             x = embed_tokens(params, ids_t, dtype)
             rows.update(block_rows(torch, card, layer, x, mask_t, heads))
             del layer, x
-    # kernel 2 in bf16 at bge-large's width, on a seeded layer's weights
+    # kernels 1-3 in bf16 at bge-large's width, on a seeded layer's weights
     large_cfg = BertConfig(vocab_size=cfg.vocab_size, type_vocab_size=cfg.type_vocab_size,
                            max_position_embeddings=cfg.max_position_embeddings, **LARGE_WIDTHS)
     large = prepare_params(init_params(large_cfg, torch.Generator().manual_seed(0)), dev, torch.bfloat16)
     rows.update(block_rows(torch, card, large["layers"][0], embed_tokens(large, ids_t, torch.bfloat16), mask_t,
-                           large_cfg.num_heads, ffn_only=True))
+                           large_cfg.num_heads))
     del large
 
     phase("main path")
@@ -2156,6 +2180,8 @@ def main() -> int:
           f"the same texts alone {t_tok:.3f} s {card}")
     print(f"query: {N_QUERIES} queries in one batch {t_batch * 1e3:.2f} ms; single query median "
           f"{sorted(single_ms)[2]:.2f} ms {card}")
+    # against the host clock above: how far the host paces a single query
+    device_profile(torch, lambda: retriever.retrieve(queries[0]), "one single query", card, top=4)
     print(f"peak memory (index build + queries): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}",
           flush=True)
 
@@ -2344,11 +2370,12 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = launched[name]
     # the bf16 KV-blocked backward passes: no phase trains in bf16 past
-    # S = 4096; the FFN at H 1024: no phase runs an encoder that wide. So
-    # they are gated and timed but off the main path
+    # S = 4096; kernels 1-3 at H 1024: no phase runs an encoder that wide.
+    # So they are gated and timed but off the main path
     off_path = {instantiation(name, torch.bfloat16, f"head_dim {dh}")
                 for name in ("bwd_dq_kv_blocked", "bwd_dkv_kv_blocked") for dh in (32, 64)}
-    off_path.add(instantiation("fused_ffn_block", torch.bfloat16, "H 1024"))
+    off_path |= {instantiation(name, torch.bfloat16, "H 1024")
+                 for name in ("fused_attention_block", "fused_ffn_block", "fused_layer_block")}
     idle = [name for name, row in rows.items() if row["launches"] == 0 and name not in off_path]
     if idle:
         raise RuntimeError(f"the main path never launched {idle}")

@@ -57,12 +57,6 @@ __device__ __forceinline__ float prob(float score, float m, float l) {
   return __fdiv_rn(expf(__fsub_rn(score, m)), l);
 }
 
-// The additive mask bias of one key: given as f32 (1 - mask) * f32.min by
-// the attention wrappers, or formed here from the int32 mask the fused
-// blocks take, with the same value.
-__device__ __forceinline__ float bias_value(float b) { return b; }
-__device__ __forceinline__ float bias_value(int32_t m) { return (1.f - static_cast<float>(m)) * -FLT_MAX; }
-
 // Copies rows [r0, r0 + NROWS) of one head of a view into an f32
 // [NROWS, DH + 1] tile, zero past `s`.
 template <int NROWS, int DH, typename T>

@@ -5,22 +5,16 @@
 // Python wrappers check that an instantiation exists before launching.
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace dial {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr float kLayerNormEps = 1e-12f;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -41,6 +35,12 @@ template <typename T>
 __device__ __forceinline__ float through(float x) {
   return to_f32(from_f32<T>(x));
 }
+
+// The additive mask bias of one key: given as f32 (1 - mask) * f32.min by
+// the attention wrappers, or formed in the kernel from the int32 mask the
+// fused blocks take, with the same value.
+__device__ __forceinline__ float bias_value(float b) { return b; }
+__device__ __forceinline__ float bias_value(int32_t m) { return (1.f - static_cast<float>(m)) * -FLT_MAX; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -5,44 +5,59 @@
 // Computes, per batch row,
 //   out = LN(x + W_out . MHA(T(W_qkv . x + b_qkv)) + b_out)
 // with f32 accumulation, f32 softmax over scores*scale + (1-mask)*f32.min,
-// probabilities cast to T before P.V, LayerNorm eps 1e-12, T out. T is
-// bf16 or f32, at (H 384, 12 heads of 32) or (H 768, 12 heads of 64).
+// probabilities cast to T after the division, before P.V, ctx cast to T
+// once, the output projection never rounded before the bias, residual and
+// LayerNorm (eps 1e-12), T out. bf16 at (H 384, 12 heads of 32), (H 768,
+// 12 heads of 64) and bge-large's (H 1024, 16 heads of 64); f32 at the
+// first two.
 //
-// Bound on an H100 SXM at B=128, S=256 (m = 32768 rows):
-//   H=384, bf16: QKV 29.0 + QK^T 6.4 + PV 6.4 + out-proj 9.7 = 51.5 GFLOP
-//     -> 0.052 ms at 989 TFLOP/s; x 25.2 MB in, out 25.2 MB -> 0.0154 ms;
+// Bound on an H100 SXM at B=128, S=256 (m = 32768 rows), QKV + QK^T + PV
+// + output projection:
+//   H=384, bf16: 29.0 + 6.4 + 6.4 + 9.7 = 51.5 GFLOP -> 0.052 ms at 989
+//     TFLOP/s; x 25.2 MB in, out 25.2 MB -> 0.015 ms;
 //   H=768, bf16: 116.0 + 12.9 + 12.9 + 38.7 = 180.4 GFLOP -> 0.182 ms;
+//   H=1024, bf16: 206.2 + 17.2 + 17.2 + 68.7 = 309.2 GFLOP -> 0.313 ms;
+//     x in and out 134 MB -> 0.040 ms;
 //   H=384, f32: 51.5 GFLOP -> 0.769 ms at 67 TFLOP/s (CUDA cores).
-//   So the block is bound by operations.
+// So the block is bound by operations.
 //
-// Design. The TPU kernel keeps the whole [S, S] f32 score tile of a head
-// in 16 MiB of VMEM; an H100 block has 227 KB of shared memory, so the
-// work is split into three launches:
-//   (a) the QKV projection: [B*S, H] x [H, 3H] + b -> scratch [B, S, 3H]
-//       of T;
-//   (b) the attention, one block per (64-query tile (bf16) or 32-query
-//       tile (f32), head, batch row), reading q/k/v straight out of the
-//       [B, S, 3H] layout. bf16: two passes over 64-key tiles on the
-//       tensor cores, the first finding each row's max and softmax
-//       denominator, the second forming the normalised probabilities, so
-//       P is cast to bf16 after the division, exactly where the TPU kernel
-//       casts it. f32: the single-tile attention kernel's device code
-//       (attention_f32.cuh), exact per-row softmax in f32;
-//   (c) proj_residual_layernorm_kernel: [rows, H] of ctx . W_out, then
-//       bias, residual and LayerNorm, one row per warp.
-// (a), (b) and the product of (c) live in fused_blocks.cuh, which
-// fused_layer.cu shares. bf16 products on the tensor cores (WMMA, f32
-// accumulators); f32 products on the CUDA cores in full f32. What the
-// design still moves through device memory and the TPU kernel did not:
-// the qkv scratch (75.5 MB written, read back at H=384 bf16) and ctx
-// (25.2 MB). Keeping them on chip is the first target of a later
-// optimisation.
+// Design. The TPU kernel keeps a batch row's qkv [S, 3H] and each head's
+// [S, S] f32 score tile in VMEM; an H100 block has 227 KB of shared
+// memory and a [rows, H] f32 accumulator for the LayerNorm outgrows an
+// SM's registers, so the block is four launches (bf16, encoder_tc.cuh's
+// attention_block), each at the tiles that suit it:
+//   (a) gemm_kernel<kBiasBf16>: qkv = bf16(f32(x . W_qkv) + b_qkv), the
+//       [m, 3H] scratch, on wgmma (gemm_tc.cuh: 256 x 128 tiles, a
+//       4-stage 128-byte-swizzled cp.async ring);
+//   (b) attention_tc_kernel (attention_tc.cuh, TPU kernel 4's forward):
+//       q, k and v read by strides straight from the packed qkv, two
+//       exact-softmax passes over 64-key chunks on mma.sync, P cast to
+//       bf16 after the division, ctx [B, S, H] written once in bf16; it
+//       forms each key's bias (1 - mask) * f32.min from the int32 mask;
+//   (c) gemm_kernel<kF32>: y = f32(ctx . W_out), the [m, H] f32 scratch;
+//   (d) layernorm_kernel<H>: out = bf16(LN(x + (y + b_out))), one warp a
+//       row: the reference's order, attn_out = dot + b_out, r = x +
+//       attn_out.
+// The cast points are the reference's: qkv after the bias, P after the
+// division, ctx once, y never rounded. What goes through device memory
+// that the TPU kernel kept on chip: qkv (H 768: 2 x 151 MB), ctx (2 x 50
+// MB) and y (2 x 101 MB), 0.180 ms at 3.35 TB/s, as long again as the
+// 0.182 ms bound. What still holds it back: the products' own limits
+// (gemm_tc.cuh: no TMA producer warp, no clusters, no persistent
+// schedule), the shallow K of the projections at H 384 (six 64-deep
+// slices, two of them the ring's prologue), the output projection's few
+// column tiles (N = H: 384 blocks at H 384), and the attention's two
+// passes (Q K^T twice).
+// f32 keeps the CUDA-core code of fused_blocks.cuh: (a) and (b) as
+// launch_qkv_attention, then proj_residual_layernorm_kernel for (c) and
+// (d) in one launch, one row per warp.
+#include "encoder_tc.cuh"
 #include "fused_blocks.cuh"
 
 namespace dial {
 namespace {
 
-// ---- (c) out = LN(x + ctx . W_out + b_out) -------------------------------
+// ---- f32 (c) + (d): out = LN(x + ctx . W_out + b_out) ----------------------
 template <typename T, int H>
 __global__ void __launch_bounds__(kBlockThreads)
     proj_residual_layernorm_kernel(const T* __restrict__ a, const T* __restrict__ w,
@@ -57,61 +72,68 @@ __global__ void __launch_bounds__(kBlockThreads)
                                                         beta, out + static_cast<size_t>(m0) * H, m - m0);
 }
 
-template <typename T, int H, int DH>
-cudaError_t attention_block(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
-                            const void* bout, const void* gamma, const void* beta, void* qkv, void* ctx, void* out,
-                            int batch, int seq, int num_heads, float scale, cudaStream_t st) {
-  constexpr int kRows = Tiles<T, H>::kRows;
+template <int H, int DH>
+cudaError_t attention_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
+                                const void* wout, const void* bout, const void* gamma, const void* beta, void* qkv,
+                                void* ctx, void* out, int batch, int seq, int num_heads, float scale,
+                                cudaStream_t st) {
+  constexpr int kRows = Tiles<float, H>::kRows;
   const int m = batch * seq;
-  cudaError_t err = launch_qkv_attention<T, H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
+  cudaError_t err = launch_qkv_attention<H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = proj_bytes<T, H>();
-  err = cudaFuncSetAttribute(proj_residual_layernorm_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem = proj_bytes<float, H>();
+  err = cudaFuncSetAttribute(proj_residual_layernorm_kernel<float, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  proj_residual_layernorm_kernel<T, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
-      static_cast<const T*>(ctx), static_cast<const T*>(wout), static_cast<const float*>(bout),
-      static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<T*>(out), m);
+  proj_residual_layernorm_kernel<float, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
+      static_cast<const float*>(ctx), static_cast<const float*>(wout), static_cast<const float*>(bout),
+      static_cast<const float*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<float*>(out), m);
   return cudaGetLastError();
-}
-
-template <typename T>
-int attention_block_any(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
-                        const void* bout, const void* gamma, const void* beta, void* qkv, void* ctx, void* out,
-                        int batch, int seq, int num_heads, int head_dim, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hidden = num_heads * head_dim;
-  if (hidden == 384 && head_dim == 32)
-    return attention_block<T, 384, 32>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv, ctx, out, batch, seq,
-                                       num_heads, scale, st);
-  if (hidden == 768 && head_dim == 64)
-    return attention_block<T, 768, 64>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv, ctx, out, batch, seq,
-                                       num_heads, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace dial
 
-// C entry points, one per dtype T. All pointers are device pointers: x,
-// wqkv, wout, qkv (scratch [B, S, 3H]), ctx (scratch [B, S, H]) and out
-// are T; bqkv, bout, gamma, beta are f32; mask is int32 [B, S]. H =
-// num_heads * head_dim must be 384 with head_dim 32 or 768 with head_dim
-// 64 (else cudaErrorInvalidValue). Launches the three kernels on
-// `stream` and returns the first CUDA error (0 on success).
+// C entry points, one per dtype. All pointers are device pointers.
+//
+// bf16: x, wqkv [H, 3H], wout [H, H], qkv (scratch [B, S, 3H]), ctx
+// (scratch [B, S, H]) and out are bf16, x, wqkv and wout 16-byte aligned;
+// mask is int32 [B, S]; bqkv, bout, gamma, beta and y (scratch [B, S, H])
+// are f32. (H = num_heads * head_dim, head_dim) is (384, 32), (768, 64)
+// or (1024, 64). Launches the four kernels on `stream`.
+//
+// f32: x, wqkv, wout, qkv, ctx and out are f32, mask int32 [B, S]; (H,
+// head_dim) is (384, 32) or (768, 64). Launches the three kernels.
+//
+// Another width is cudaErrorInvalidValue. Each returns the first CUDA
+// error (0 on success).
 extern "C" int dial_attention_block_bf16(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                                          const void* wout, const void* bout, const void* gamma, const void* beta,
-                                         void* qkv, void* ctx, void* out, int batch, int seq, int num_heads,
+                                         void* qkv, void* ctx, void* y, void* out, int batch, int seq, int num_heads,
                                          int head_dim, float scale, void* stream) {
-  return dial::attention_block_any<dial::bf16>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv, ctx, out, batch,
-                                               seq, num_heads, head_dim, scale, stream);
+  using dial::bf16;
+  return static_cast<int>(dial::enc::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+    return dial::enc::attention_block<decltype(hid)::value, decltype(dh)::value>(
+        static_cast<const bf16*>(x), static_cast<const int32_t*>(mask), static_cast<const bf16*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const bf16*>(wout), static_cast<const float*>(bout),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<bf16*>(qkv),
+        static_cast<bf16*>(ctx), static_cast<float*>(y), static_cast<bf16*>(out), batch, seq, scale,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 extern "C" int dial_attention_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                                         const void* wout, const void* bout, const void* gamma, const void* beta,
                                         void* qkv, void* ctx, void* out, int batch, int seq, int num_heads,
                                         int head_dim, float scale, void* stream) {
-  return dial::attention_block_any<float>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv, ctx, out, batch, seq,
-                                          num_heads, head_dim, scale, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hidden = num_heads * head_dim;
+  if (hidden == 384 && head_dim == 32)
+    return static_cast<int>(dial::attention_block_f32<384, 32>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv,
+                                                               ctx, out, batch, seq, num_heads, scale, st));
+  if (hidden == 768 && head_dim == 64)
+    return static_cast<int>(dial::attention_block_f32<768, 64>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv,
+                                                               ctx, out, batch, seq, num_heads, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,7 @@
 //   out = LN(x + W2 . T(gelu_tanh(f32(W1 . x + b1))) + b2)
 // with f32 accumulation, GELU and LayerNorm (eps 1e-12) in f32, T out. The
 // kernel is a template on T; its entry point instantiates T = f32, at H
-// 384 or 768, the intermediate width any multiple of 64 (fused_layer.cu
-// runs its bf16 tile).
+// 384 or 768, the intermediate width any multiple of 64.
 //
 // Bound on an H100 SXM at B=128, S=256 (32768 rows), f32 on the CUDA
 // cores: H=384, I=1536: 2 x 2 x 32768 x 384 x 1536 = 77.3 GFLOP -> 1.154
@@ -16,7 +15,7 @@
 // operations.
 //
 // Design. One block of 8 warps owns a tile of rows (Tiles<T, H>: 32 rows
-// at f32 x 384, 16 at f32 x 768; more in bf16, fused_layer.cu's) and
+// at H 384, 16 at H 768) and
 // keeps them in shared memory. It walks the intermediate columns in
 // chunks (64, 32, 32, 16 columns): the chunk of h = x . W1 goes to shared
 // memory, takes b1, tanh GELU in f32 and the cast to T there, and is at
@@ -27,10 +26,9 @@
 // B*S are zero-filled on load and never stored (the TPU kernel halves its
 // row block until it divides B*S instead). Each block reads both weight
 // panels once (mostly from L2), the traffic a larger row block or
-// thread-block clusters sharing the panels would cut. f32 products run on
-// the CUDA cores in full f32 (bf16 ones, in fused_layer.cu, on WMMA). The
-// chunk loop (ffn_tile) lives in fused_blocks.cuh, which fused_layer.cu
-// shares.
+// thread-block clusters sharing the panels would cut. Products run on the
+// CUDA cores in full f32. The chunk loop (ffn_tile) lives in
+// fused_blocks.cuh, which fused_layer.cu shares.
 #include "fused_blocks.cuh"
 
 namespace dial {

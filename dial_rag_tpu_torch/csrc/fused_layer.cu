@@ -6,34 +6,44 @@
 //   out = T(LN(a + W2 . T(gelu_tanh(W1 . a + b1)) + b2))
 // with the TPU kernel's cast points: qkv, P (after the division), ctx, a
 // and the GELU output are cast to T (bf16 or f32); products accumulate in
-// f32; both LayerNorms (eps 1e-12) run in f32. H 384 (12 heads of 32) or
-// 768 (12 heads of 64).
+// f32; both LayerNorms (eps 1e-12) run in f32. bf16 at H 384 (12 heads of
+// 32), 768 (12 heads of 64) and 1024 (16 heads of 64); f32 at the first
+// two.
 //
-// Bound on an H100 SXM at B=128, S=256: the attention block's work plus
-// the FFN's, 128.8 GFLOP at H=384 (0.130 ms at 989 TFLOP/s bf16) and
-// 489.6 GFLOP at H=768 (0.495 ms); x in and out only (a never leaves the
-// chip), 0.016 ms at 3.35 TB/s at H=384 bf16: bound by operations.
+// Bound on an H100 SXM at B=128, S=256, I = 4H: the attention block's
+// work plus the FFN's, 128.8 GFLOP at H=384 (0.130 ms at 989 TFLOP/s
+// bf16), 489.6 GFLOP at H=768 (0.495 ms) and 859.0 GFLOP at H=1024 (0.869
+// ms); x in and out only, 0.015 ms at 3.35 TB/s at H=384 bf16: bound by
+// operations.
 //
-// Design. What the TPU kernel saves over its two-block composition is the
-// round trip of the post-attention state a through device memory. Here a
-// layer is three launches, against four for fused_attention.cu and the
-// FFN in f32 (fused_ffn.cu), five in bf16 (ffn_tc.cu):
-//   (a), (b) the qkv projection and the attention of fused_attention.cu
-//       (fused_blocks.cuh): qkv [B, S, 3H] and ctx [B, S, H] still go
-//       through device memory, as they do in kernel 1;
-//   (c) layer_tail_kernel, one block of 8 warps per tile of rows
-//       (Tiles<T, H>): ctx . W_out + b_out, the residual with x and the
-//       LayerNorm give a, kept in shared memory as T; then the FFN tile
-//       of fused_blocks.cuh over that tile (W1 + b1, tanh GELU, W2 +
-//       b2), the residual with a and the second LayerNorm, and only out
-//       is stored.
-// Shared memory: a plus the larger of the out-projection's staging and
-// accumulator image and the FFN's panels: 172, 194, 148 and 145 KB at
-// bf16 x 384, bf16 x 768, f32 x 384 and f32 x 768 (layer_smem). It runs
-// the device code of kernel 1 and, in f32, of kernel 2; in bf16 kernel 2
-// is ffn_tc.cu, whose products sum K in this FFN tile's order (f32
-// accumulators, ascending 16-deep tensor-core steps) and whose epilogue
-// is the same, so its output equals theirs bit for bit.
+// Design, bf16: the seven launches of kernel 1 then kernel 2
+// (encoder_tc.cuh's layer_block: attention_block, then ffn_block on its
+// output), through the same launch functions, tiles and summation orders,
+// so the layer equals kernels 1 then 2 bit for bit. What the TPU kernel
+// saves over that composition is the round trip of the post-attention
+// state a through device memory; here a goes through device memory in
+// bf16, the value the reference rounds it to, so no bit of the contract
+// moves, and it costs 2 x 50.3 MB at H 768, B=128, S=256: about 0.03 ms
+// at 3.35 TB/s against the layer's 0.495 ms bound. Keeping a on chip
+// would need its [rows, H] f32 LayerNorm accumulator there (a [128, 768]
+// tile is 384 KB, more than an SM's registers) and so small row tiles
+// that stream every weight panel once a block: not worth 0.03 ms on this
+// card. What still holds the layer back is kernels 1's and 2's (their
+// notes: the products without a TMA producer warp, clusters or a
+// persistent schedule; the attention's two passes; qkv, ctx, y and h
+// through device memory).
+//
+// Design, f32 (CUDA cores): three launches, (a) and (b) of
+// fused_blocks.cuh's launch_qkv_attention, then layer_tail_kernel, one
+// block of 8 warps per tile of rows (Tiles<float, H>): ctx . W_out +
+// b_out, the residual with x and the LayerNorm give a, kept in shared
+// memory; then the FFN tile of fused_blocks.cuh over that tile (W1 + b1,
+// tanh GELU, W2 + b2), the residual with a and the second LayerNorm, and
+// only out is stored. Shared memory: a plus the larger of the
+// out-projection's staging and accumulator image and the FFN's panels:
+// 148 and 145 KB at H 384 and 768 (layer_smem). It runs the device code
+// of kernels 1 and 2 in f32 (fused_attention.cu, fused_ffn.cu).
+#include "encoder_tc.cuh"
 #include "fused_blocks.cuh"
 
 namespace dial {
@@ -65,63 +75,65 @@ __global__ void __launch_bounds__(kBlockThreads)
                                                         out + static_cast<size_t>(m0) * H, rows);
 }
 
-template <typename T, int H, int DH>
-cudaError_t layer_block(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
-                        const void* bout, const void* g1, const void* beta1, const void* w1, const void* b1,
-                        const void* w2, const void* b2, const void* g2, const void* beta2, void* qkv, void* ctx,
-                        void* out, int batch, int seq, int num_heads, int inter, float scale, cudaStream_t st) {
-  constexpr int kRows = Tiles<T, H>::kRows;
+template <int H, int DH>
+cudaError_t layer_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
+                            const void* bout, const void* g1, const void* beta1, const void* w1, const void* b1,
+                            const void* w2, const void* b2, const void* g2, const void* beta2, void* qkv, void* ctx,
+                            void* out, int batch, int seq, int num_heads, int inter, float scale, cudaStream_t st) {
+  constexpr int kRows = Tiles<float, H>::kRows;
   const int m = batch * seq;
-  cudaError_t err = launch_qkv_attention<T, H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
+  cudaError_t err = launch_qkv_attention<H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = layer_smem<T, H>();
-  err = cudaFuncSetAttribute(layer_tail_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem = layer_smem<float, H>();
+  err = cudaFuncSetAttribute(layer_tail_kernel<float, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  layer_tail_kernel<T, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
-      static_cast<const T*>(ctx), static_cast<const T*>(wout), static_cast<const float*>(bout),
-      static_cast<const T*>(x), static_cast<const float*>(g1), static_cast<const float*>(beta1),
-      static_cast<const T*>(w1), static_cast<const float*>(b1), static_cast<const T*>(w2),
+  layer_tail_kernel<float, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
+      static_cast<const float*>(ctx), static_cast<const float*>(wout), static_cast<const float*>(bout),
+      static_cast<const float*>(x), static_cast<const float*>(g1), static_cast<const float*>(beta1),
+      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(g2), static_cast<const float*>(beta2),
-      static_cast<T*>(out), m, inter);
+      static_cast<float*>(out), m, inter);
   return cudaGetLastError();
-}
-
-template <typename T>
-int layer_block_any(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
-                    const void* bout, const void* g1, const void* beta1, const void* w1, const void* b1,
-                    const void* w2, const void* b2, const void* g2, const void* beta2, void* qkv, void* ctx,
-                    void* out, int batch, int seq, int num_heads, int head_dim, int inter, float scale,
-                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hidden = num_heads * head_dim;
-  if (inter % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (hidden == 384 && head_dim == 32)
-    return layer_block<T, 384, 32>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2, qkv, ctx,
-                                   out, batch, seq, num_heads, inter, scale, st);
-  if (hidden == 768 && head_dim == 64)
-    return layer_block<T, 768, 64>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2, qkv, ctx,
-                                   out, batch, seq, num_heads, inter, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace dial
 
-// C entry points, one per dtype T. All pointers are device pointers: x,
-// wqkv [H, 3H], wout [H, H], w1 [H, I], w2 [I, H], qkv (scratch [B, S,
-// 3H]), ctx (scratch [B, S, H]) and out are T; bqkv, bout, g1, beta1, b1,
-// b2, g2, beta2 are f32; mask is int32 [B, S]. (H, head_dim) is (384, 32)
-// or (768, 64) and I a multiple of 64 (else cudaErrorInvalidValue).
-// Launches the three kernels on `stream` and returns the first CUDA error
-// (0 on success).
+// C entry points, one per dtype. All pointers are device pointers; wqkv
+// is [H, 3H], wout [H, H], w1 [H, I], w2 [I, H]; bqkv, bout, g1, beta1,
+// b1, b2, g2 and beta2 are f32.
+//
+// bf16: x, the matrices, qkv (scratch [B, S, 3H]), ctx, a (scratch [B, S,
+// H]), h (scratch [B, S, I]) and out are bf16, x and the matrices 16-byte
+// aligned; mask is int32 [B, S]; y (scratch [B, S, H]) is f32. (H =
+// num_heads * head_dim, head_dim) is (384, 32), (768, 64) or (1024, 64)
+// and I a multiple of 128. Launches the seven kernels on `stream`.
+//
+// f32: x, the matrices, qkv, ctx and out are f32, mask int32 [B, S]; (H,
+// head_dim) is (384, 32) or (768, 64) and I a multiple of 64. Launches
+// the three kernels.
+//
+// Anything else is cudaErrorInvalidValue. Each returns the first CUDA
+// error (0 on success).
 extern "C" int dial_layer_block_bf16(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                                      const void* wout, const void* bout, const void* g1, const void* beta1,
                                      const void* w1, const void* b1, const void* w2, const void* b2, const void* g2,
-                                     const void* beta2, void* qkv, void* ctx, void* out, int batch, int seq,
-                                     int num_heads, int head_dim, int inter, float scale, void* stream) {
-  return dial::layer_block_any<dial::bf16>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2,
-                                           qkv, ctx, out, batch, seq, num_heads, head_dim, inter, scale, stream);
+                                     const void* beta2, void* qkv, void* ctx, void* y, void* a, void* h, void* out,
+                                     int batch, int seq, int num_heads, int head_dim, int inter, float scale,
+                                     void* stream) {
+  using dial::bf16;
+  if (inter % dial::gemm::kBN) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dial::enc::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+    return dial::enc::layer_block<decltype(hid)::value, decltype(dh)::value>(
+        static_cast<const bf16*>(x), static_cast<const int32_t*>(mask), static_cast<const bf16*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const bf16*>(wout), static_cast<const float*>(bout),
+        static_cast<const float*>(g1), static_cast<const float*>(beta1), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+        static_cast<const float*>(g2), static_cast<const float*>(beta2), static_cast<bf16*>(qkv),
+        static_cast<bf16*>(ctx), static_cast<float*>(y), static_cast<bf16*>(a), static_cast<bf16*>(h),
+        static_cast<bf16*>(out), batch, seq, inter, scale, static_cast<cudaStream_t>(stream));
+  }));
 }
 
 extern "C" int dial_layer_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
@@ -129,6 +141,16 @@ extern "C" int dial_layer_block_f32(const void* x, const void* mask, const void*
                                     const void* w1, const void* b1, const void* w2, const void* b2, const void* g2,
                                     const void* beta2, void* qkv, void* ctx, void* out, int batch, int seq,
                                     int num_heads, int head_dim, int inter, float scale, void* stream) {
-  return dial::layer_block_any<float>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2, qkv,
-                                      ctx, out, batch, seq, num_heads, head_dim, inter, scale, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hidden = num_heads * head_dim;
+  if (inter % 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden == 384 && head_dim == 32)
+    return static_cast<int>(dial::layer_block_f32<384, 32>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2,
+                                                           b2, g2, beta2, qkv, ctx, out, batch, seq, num_heads,
+                                                           inter, scale, st));
+  if (hidden == 768 && head_dim == 64)
+    return static_cast<int>(dial::layer_block_f32<768, 64>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2,
+                                                           b2, g2, beta2, qkv, ctx, out, batch, seq, num_heads,
+                                                           inter, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 // Tensor-core building blocks shared by the bf16 kernels (sm_90a): the
-// attention forwards of attention_tc.cu (mma.sync) and the FFN products of
-// ffn_tc.cu (wgmma). 16-byte cp.async copies into shared memory
-// (zero-filled where a row is past the data), ldmatrix fragment loads
-// from rows padded by 8 bf16, the m16n8k16 bf16 product with f32
+// attention forwards of attention_tc.cuh and attention_tc.cu (mma.sync)
+// and the encoder blocks' products of gemm_tc.cuh (wgmma). 16-byte
+// cp.async copies into shared memory (zero-filled where a row is past the
+// data), ldmatrix fragment loads from rows padded by 8 bf16, the
+// m16n8k16 bf16 product with f32
 // accumulators and two conversions of its results; and Hopper's
 // warpgroup product, wgmma m64n128k16, on operands in 128-byte-swizzled
 // shared memory.

@@ -33,10 +33,11 @@ Attention routes (``attention_impl``):
   bf16 included: kernel 5 at a single-tile S, the blocked kernels and
   their backward past it). The kernels take the widths of
   ``ops.fused_encoder.KERNEL_INSTANTIATIONS`` (bge-small and bge-base:
-  H 384 with 12 heads of 32, H 768 with 12 heads of 64; the FFN kernel
-  also bf16 at H 1024, but not the attention block, so "auto" raises
-  there). Where the port lacks a route's kernel (another width) the route
-  raises and names it; it never falls back to plain PyTorch on the card.
+  H 384 with 12 heads of 32, H 768 with 12 heads of 64; in bf16 also
+  bge-large's H 1024 with 16 heads of 64, so bf16 "auto" runs kernels 1-2
+  there, while f32 "fused" at H 1024 raises). Where the port lacks a
+  route's kernel (another width) the route raises and names it; it never
+  falls back to plain PyTorch on the card.
   ``"xla"`` is the route on the CPU.
 
 ``bert_forward`` is differentiable; ``remat=True`` recomputes each layer

@@ -34,12 +34,14 @@ _F = ctypes.c_float
 # C signatures of the entry points, by source stem
 SIGNATURES = {
     "fused_attention": {
-        f"dial_attention_block_{t}": [_P] * 11 + [_I, _I, _I, _I, _F, _P] for t in ("bf16", "f32")
+        "dial_attention_block_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
+        "dial_attention_block_f32": [_P] * 11 + [_I] * 4 + [_F, _P],
     },
     "fused_ffn": {"dial_ffn_block_f32": [_P] * 8 + [_I, _I, _I, _P]},
     "ffn_tc": {"dial_ffn_block_bf16": [_P] * 10 + [_I, _I, _I, _P]},
     "fused_layer": {
-        f"dial_layer_block_{t}": [_P] * 17 + [_I] * 5 + [_F, _P] for t in ("bf16", "f32")
+        "dial_layer_block_bf16": [_P] * 20 + [_I] * 5 + [_F, _P],
+        "dial_layer_block_f32": [_P] * 17 + [_I] * 5 + [_F, _P],
     },
     "flash_attention_fwd": {
         "dial_attention_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _P],

@@ -5,17 +5,20 @@
 - ``fused_ffn_block``: ``LN(x + W2.T(gelu_tanh(W1.x + b1)) + b2)``,
   T the compute type (x's dtype);
 - ``fused_layer_block``: the two in one layer, ``a`` (the post-attention
-  state, cast to the compute type) kept on chip.
+  state) cast to the compute type between them (kept on chip in f32; in
+  bf16 kernels 1 then 2 in one call).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu`` in f32 and
 ``csrc/ffn_tc.cu`` in bf16, ``csrc/fused_layer.cu``) or raises; it never
-falls back. The kernels are instantiated for ``KERNEL_INSTANTIATIONS``,
-{f32, bf16} x {(H 384, head_dim 32), (H 768, head_dim 64)} (bge-small and
-bge-base widths); ``kernel_supports`` is the predicate the attention and
-whole-layer wrappers check. The FFN kernel also takes bf16 at H 1024
-(bge-large's width): ``FFN_INSTANTIATIONS``, ``ffn_kernel_supports``. On
-a CPU tensor it runs the plain PyTorch version beside it, which follows
+falls back. In bf16 the three run on the tensor cores as launch sequences
+of ``wgmma`` products, the tensor-core attention and a LayerNorm pass
+(``csrc/encoder_tc.cuh``); in f32 on the CUDA cores. The kernels are
+instantiated for ``KERNEL_INSTANTIATIONS``: f32 at (H 384, head_dim 32)
+and (H 768, head_dim 64) (bge-small and bge-base widths), bf16 also at
+(H 1024, head_dim 64) (bge-large's); ``kernel_supports`` is the predicate
+the wrappers check (the FFN's without a head width). On a CPU tensor
+each wrapper runs the plain PyTorch version beside it, which follows
 the TPU kernel's own order of casts (``_attn_block_kernel``,
 ``_ffn_kernel``, ``_layer_kernel``): products accumulate in f32 and are
 not rounded before the bias, residual and LayerNorm; qkv, the probabilities, ctx, ``a`` and the GELU output are cast
@@ -37,16 +40,18 @@ import math
 import torch
 
 LAYERNORM_EPS = 1e-12
-# (dtype, hidden, head_dim) the CUDA kernels are instantiated for: the
-# bge-small and bge-base widths (12 heads of 32 and of 64), each in f32
-# and bf16; the FFN width is any multiple of 64 (of 128 in bf16)
+# (hidden, head_dim) the CUDA kernels are instantiated for, per dtype: the
+# bge-small and bge-base widths (12 heads of 32 and of 64) in both, and in
+# bf16 bge-large's (16 heads of 64); the FFN width is any multiple of 64
+# (of 128 in bf16)
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+KERNEL_WIDTHS = {
+    torch.float32: ((384, 32), (768, 64)),
+    torch.bfloat16: ((384, 32), (768, 64), (1024, 64)),
+}
 KERNEL_INSTANTIATIONS = tuple(
-    (dtype, hidden, head_dim) for dtype in KERNEL_DTYPES for hidden, head_dim in ((384, 32), (768, 64))
+    (dtype, hidden, head_dim) for dtype, widths in KERNEL_WIDTHS.items() for hidden, head_dim in widths
 )
-# (dtype, hidden) of the FFN kernel: the widths above and, in bf16 on the
-# tensor-core kernel, bge-large's H 1024
-FFN_INSTANTIATIONS = tuple((dtype, hidden) for dtype, hidden, _ in KERNEL_INSTANTIATIONS) + ((torch.bfloat16, 1024),)
 
 LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
 
@@ -73,19 +78,6 @@ def check_kernel_supports(dtype, hidden=None, head_dim=None) -> None:
             f"no CUDA kernel is instantiated for dtype {dtype}, H {hidden}, head_dim {head_dim}: "
             f"the kernels take (dtype, H, head_dim) in {{{names}}}"
         )
-
-
-def ffn_kernel_supports(dtype, hidden) -> bool:
-    """Whether the FFN kernel is instantiated for (dtype, hidden)."""
-    return (dtype, hidden) in FFN_INSTANTIATIONS
-
-
-def check_ffn_kernel_supports(dtype, hidden) -> None:
-    """Raises ValueError, naming the instantiations, unless ``ffn_kernel_supports``."""
-    if not ffn_kernel_supports(dtype, hidden):
-        names = ", ".join(f"({str(d)[6:]}, H {h})" for d, h in FFN_INSTANTIATIONS)
-        raise ValueError(f"no FFN kernel is instantiated for dtype {dtype}, H {hidden}: the FFN kernel takes "
-                         f"(dtype, H) in {{{names}}}")
 
 
 def supports_fused_block(s: int) -> bool:
@@ -187,20 +179,32 @@ def _recompute_grads(plain, inputs, needs, dout):
     return [next(grads) if n else None for n in needs]
 
 
+def _check_aligned(what, **tensors):
+    """The tensor-core kernels read these by 16-byte copies."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} reads {name} by 16-byte copies, got it at {t.data_ptr()}")
+
+
 def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads):
+    """f32: the three CUDA-core launches of ``csrc/fused_attention.cu``.
+    bf16: its four tensor-core launches (the QKV product into qkv [B*S,
+    3H] bf16, the attention into ctx [B*S, H] bf16, the output product
+    into y [B*S, H] f32, the residual + LayerNorm), which read x, W_qkv
+    and W_out by 16-byte copies. Counted once either way."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
     mask, dh = _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta)
-    lib = build_kernels().libs["fused_attention"]
-    qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
-    ctx = torch.empty_like(x)
+    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x)]
+    if x.dtype == torch.bfloat16:
+        _check_aligned("the bf16 attention block", x=x, wqkv=wqkv, wout=wout)
+        scratch.append(torch.empty((b, s, hid), dtype=torch.float32, device=x.device))
     out = torch.empty_like(x)
+    lib = build_kernels().libs["fused_attention"]
     with torch.cuda.device(x.device):
         err = getattr(lib, f"dial_attention_block_{KERNEL_DTYPES[x.dtype]}")(
-            x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wout.data_ptr(), bout.data_ptr(), g.data_ptr(), beta.data_ptr(),
-            qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in (x, mask, wqkv, bqkv, wout, bout, g, beta, *scratch, out)),
             b, s, num_heads, dh, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_attention_block")
@@ -248,18 +252,13 @@ def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
     W1 and W2 by 16-byte copies. Counted once either way."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
-    if x.ndim != 3:
-        raise ValueError(f"the CUDA kernels take x [B, S, H], got {tuple(x.shape)}")
-    check_ffn_kernel_supports(x.dtype, x.shape[2])
-    _check_cuda("x", x, x.dtype)
+    _check_kernel_x(x)
     b, s, hid = x.shape
     inter = _check_ffn_weights(x, w1, b1, w2, b2, g, beta)
     out = torch.empty_like(x)
     vectors = (b2.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr())
     if x.dtype == torch.bfloat16:
-        for name, t in (("x", x), ("w1", w1), ("w2", w2)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"the bf16 FFN kernel reads {name} by 16-byte copies, got it at {t.data_ptr()}")
+        _check_aligned("the bf16 FFN kernel", x=x, w1=w1, w2=w2)
         h = torch.empty((b * s, inter), dtype=x.dtype, device=x.device)
         y = torch.empty((b * s, hid), dtype=torch.float32, device=x.device)
         entry = build_kernels().libs["ffn_tc"].dial_ffn_block_bf16
@@ -276,19 +275,26 @@ def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
 
 
 def _layer_block_kernel(x, attention_mask, weights, num_heads):
+    """f32: the three CUDA-core launches of ``csrc/fused_layer.cu``. bf16:
+    kernel 1's four launches into a [B*S, H] bf16 scratch, then kernel 2's
+    three on it (scratch qkv, ctx, y, a and h as in those wrappers). Counted
+    once either way."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
     mask, dh = _check_attention_inputs(x, attention_mask, num_heads, *weights[:6])
     inter = _check_ffn_weights(x, *weights[6:])
-    lib = build_kernels().libs["fused_layer"]
-    qkv = torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device)
-    ctx = torch.empty_like(x)
+    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x)]
+    if x.dtype == torch.bfloat16:
+        wqkv, _, wout, _, _, _, w1, _, w2, _, _, _ = weights
+        _check_aligned("the bf16 layer", x=x, wqkv=wqkv, wout=wout, w1=w1, w2=w2)
+        scratch += [torch.empty((b, s, hid), dtype=torch.float32, device=x.device), torch.empty_like(x),
+                    torch.empty((b, s, inter), dtype=x.dtype, device=x.device)]
     out = torch.empty_like(x)
+    lib = build_kernels().libs["fused_layer"]
     with torch.cuda.device(x.device):
         err = getattr(lib, f"dial_layer_block_{KERNEL_DTYPES[x.dtype]}")(
-            x.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in weights),
-            qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in (x, mask, *weights, *scratch, out)),
             b, s, num_heads, dh, inter, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_layer_block")
@@ -351,8 +357,8 @@ def fused_layer_block_plain(x, attention_mask, weights, num_heads):
 
 
 def fused_layer_block(x, attention_mask, weights, num_heads):
-    """One encoder layer, LN(a + FFN(a)) with a = LN(x + Attention(x)),
-    ``a`` kept on chip. ``weights`` as for ``fused_layer_block_plain``.
+    """One encoder layer, LN(a + FFN(a)) with a = LN(x + Attention(x)) in
+    the compute type. ``weights`` as for ``fused_layer_block_plain``.
     Differentiable w.r.t. x and every weight."""
     wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2, b2, g2, beta2 = weights
     (wqkv, wout, w1, w2), (bqkv, bout, g1, beta1, b1, b2, g2, beta2) = _cast(

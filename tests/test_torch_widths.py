@@ -105,7 +105,7 @@ def test_fused_blocks_at_head_dim_64_match_jax(block, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_ffn_block_at_bge_large_width_matches_jax(dtype):
     """The FFN block at bge-large's width (H 1024, FFN 4096), which the bf16
-    FFN kernel takes while kernels 1 and 3 do not: the port's plain version
+    FFN kernel takes, as kernels 1 and 3 do: the port's plain version
     (the kernel's yardstick on the card) against the reference's Pallas
     kernel in interpret mode on 48 rows; f32 2e-5, bf16 3e-2."""
     np_dtype, t_dtype, _, atol = DTYPES[dtype]
@@ -119,6 +119,58 @@ def test_ffn_block_at_bge_large_width_matches_jax(dtype):
     out = tfe.fused_ffn_block(torch.from_numpy(np.asarray(x, np.float32)).to(t_dtype), *map(torch.from_numpy, w))
     assert out.dtype == t_dtype and out.shape == x.shape
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=atol)
+
+
+LARGE_HID, LARGE_HEADS, LARGE_INTER = 1024, 16, 4096
+
+
+def _large_case(dtype, seed):
+    """x [2, 24, 1024] in ``dtype``, a ragged mask and one layer's weights
+    (the reference's 12-tuple, numpy f32) at bge-large's widths."""
+    np_dtype = DTYPES[dtype][0]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 24, LARGE_HID)).astype(np.float32).astype(np_dtype)
+    mask = np.ones((2, 24), np.int32)
+    mask[1, 9:] = 0
+
+    def w(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    ones, zeros = np.ones(LARGE_HID, np.float32), np.zeros(LARGE_HID, np.float32)
+    weights = (w(LARGE_HID, 3 * LARGE_HID, scale=0.05), w(3 * LARGE_HID, scale=0.02),
+               w(LARGE_HID, LARGE_HID, scale=0.05), w(LARGE_HID, scale=0.02), ones, zeros,
+               w(LARGE_HID, LARGE_INTER, scale=0.05), w(LARGE_INTER, scale=0.02),
+               w(LARGE_INTER, LARGE_HID, scale=0.05), w(LARGE_HID, scale=0.02), ones, zeros)
+    return x, mask, weights
+
+
+def _large_block_matches_jax(block, dtype, seed):
+    """The port's plain version of ``block`` (the kernel's yardstick on the
+    card) against the reference's Pallas kernel in interpret mode at
+    bge-large's widths, 16 heads of 64, on the real tokens."""
+    _, t_dtype, _, atol = DTYPES[dtype]
+    x, mask, weights = _large_case(dtype, seed)
+    port_fn, jax_fn = _block_fns(block)
+    ref = jax_fn(jnp.asarray(x), jnp.asarray(mask), tuple(map(jnp.asarray, weights)), LARGE_HEADS)
+    out = port_fn(torch.from_numpy(np.asarray(x, np.float32)).to(t_dtype), torch.from_numpy(mask),
+                  tuple(torch.from_numpy(w) for w in weights), LARGE_HEADS)
+    assert out.dtype == t_dtype and out.shape == x.shape
+    real = mask.astype(bool)
+    np.testing.assert_allclose(out.float().numpy()[real], np.asarray(ref, np.float32)[real], atol=atol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_block_at_bge_large_width_matches_jax(dtype):
+    """Kernel 1's function at H 1024 (16 heads of 64), the width its bf16
+    kernel takes: f32 2e-5, bf16 3e-2, a ragged mask."""
+    _large_block_matches_jax("attention", dtype, seed=13)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_layer_block_at_bge_large_width_matches_jax(dtype):
+    """Kernel 3's function at H 1024 (16 heads of 64, FFN 4096), the width
+    its bf16 kernel takes: f32 2e-5, bf16 3e-2, a ragged mask."""
+    _large_block_matches_jax("layer", dtype, seed=14)
 
 
 def _attention_case(layout, s, dtype, seed):
@@ -264,19 +316,19 @@ def test_from_hf_checkpoint_at_base_proportions(tmp_path):
 
 
 SUPPORTED = [(torch.float32, 384, 32), (torch.float32, 768, 64), (torch.bfloat16, 384, 32),
-             (torch.bfloat16, 768, 64)]
+             (torch.bfloat16, 768, 64), (torch.bfloat16, 1024, 64)]
 UNSUPPORTED = [(torch.float16, 384, 32), (torch.float32, 512, 64), (torch.bfloat16, 768, 32),
-               (torch.float32, 1024, 64), (torch.bfloat16, 1024, 64), (torch.bfloat16, 512, 64)]
-# the FFN kernel's own widths: kernels 1-3's, and H 1024 in bf16
-FFN_SUPPORTED = [(d, h) for d, h, _ in SUPPORTED] + [(torch.bfloat16, 1024)]
+               (torch.float32, 1024, 64), (torch.bfloat16, 512, 64)]
+# the FFN kernel's (dtype, H): the same widths without a head width
+FFN_SUPPORTED = [(d, h) for d, h, _ in SUPPORTED]
 
 
 @pytest.mark.parametrize("dtype,hidden,head_dim", SUPPORTED + UNSUPPORTED)
 def test_kernel_support_predicate(dtype, hidden, head_dim):
-    """The kernels take {f32, bf16} x {(H 384, head_dim 32), (H 768,
-    head_dim 64)}; anything else raises a ValueError naming that set. The
-    FFN kernel has its own check, which also takes bf16 at H 1024 (where
-    kernels 1 and 3, and so "auto", still refuse)."""
+    """The kernels take f32 at (H 384, head_dim 32) and (H 768, head_dim
+    64) and bf16 at those and (H 1024, head_dim 64); anything else raises a
+    ValueError naming that set. The FFN kernel, which has no head width,
+    takes the (dtype, H) pairs of that set."""
     assert tfe.kernel_supports(dtype, hidden, head_dim) == ((dtype, hidden, head_dim) in SUPPORTED)
     if (dtype, hidden, head_dim) in SUPPORTED:
         tfe.check_kernel_supports(dtype, hidden, head_dim)
@@ -286,11 +338,9 @@ def test_kernel_support_predicate(dtype, hidden, head_dim):
             tfe.check_kernel_supports(dtype, hidden, head_dim)
         for d, h, dh in SUPPORTED:
             assert f"({str(d)[6:]}, H {h}, head_dim {dh})" in str(err.value)
-    assert tfe.ffn_kernel_supports(dtype, hidden) == ((dtype, hidden) in FFN_SUPPORTED)
-    if (dtype, hidden) in FFN_SUPPORTED:
-        tfe.check_ffn_kernel_supports(dtype, hidden)
-    else:
+    assert tfe.kernel_supports(dtype, hidden) == ((dtype, hidden) in FFN_SUPPORTED)
+    if (dtype, hidden) not in FFN_SUPPORTED:
         with pytest.raises(ValueError) as err:
-            tfe.check_ffn_kernel_supports(dtype, hidden)
-        for d, h in FFN_SUPPORTED:
-            assert f"({str(d)[6:]}, H {h})" in str(err.value)
+            tfe.check_kernel_supports(dtype, hidden)
+        for d, h, dh in SUPPORTED:
+            assert f"({str(d)[6:]}, H {h}, head_dim {dh})" in str(err.value)
