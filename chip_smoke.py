@@ -6,7 +6,8 @@
 Phases, each announced by a ``[phase]`` line:
 
 1. device: the card's name, CUDA version and ``nvidia-smi`` name/power limit;
-2. build: ``nvcc`` builds the kernels in ``dial_rag_tpu_torch/csrc``;
+2. build: ``nvcc`` builds the kernels in ``dial_rag_tpu_torch/csrc`` and
+   prints the registers, spill and shared memory of the newer ones;
 3. kernels: each block kernel (attention, FFN, whole layer) in each
    instantiation (bf16 and f32; H=384 with the shipped checkpoint's
    layer-0 weights, H=768 with a seeded bge-base-width encoder's) against
@@ -84,15 +85,20 @@ Phases, each announced by a ``[phase]`` line:
    long-sequence forwards (query-blocked and KV-blocked, f32 and bf16)
    against theirs at [4, 12, 1024], [2, 12, 2048], [1, 12, 4096] and
    [1, 12, 8192] (log-sum-exp too) and at that phase's encode batches,
-   each timed;
+   each timed; the f32 query-blocked kernel (split-TF32 products on the
+   tensor cores) and its plain version are also read against the plain
+   version evaluated in f64 at each gated shape;
 10. long-context backward kernels: the query-blocked backward (TPU kernel
    9) and the KV-blocked dQ and dK/dV passes (kernels 10 and 11) against
    their plain versions at [4, 12, S, 32] for S = 1024, 4096, 8192 (the
    training phase's) and 4352 (query-blocked above 4096), in f32 and bf16,
    standard-normal inputs, ragged rows and a fully masked one, the
-   KV-blocked passes fed the forward kernel's o and lse; each timed at the
-   training phase's shape beside its bound, the plain version and SDPA
-   forward + backward;
+   KV-blocked passes fed the forward kernel's o and lse, the f32
+   query-blocked backward (split-TF32 products) and its plain version also
+   read against the plain version evaluated in f64; each timed at the
+   training phase's shape beside its bound (the split-TF32 kernels also
+   beside their 3xTF32 bound), the plain version and SDPA forward +
+   backward;
 11. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
@@ -101,8 +107,8 @@ Phases, each announced by a ``[phase]`` line:
    0.9999 per tensor); the losses must be finite, each batch's loss lower
    at its last appearance than at its first, and the counters must read
    12 layers x 2 encodes x the steps at each route for kernels 6, 7, 9, 10
-   and 11. Prints the median step per S, a profile of one step per S and
-   the peak memory;
+   and 11. Prints the median step per S, a profile of one step per S
+   (each kernel's device time and share of the step) and the peak memory;
 12. phases 9-11 again with a seeded encoder at BAAI/bge-base-en-v1.5's
    widths (12 layers, H=768, 12 heads of 64, FFN 3072) and 8192
    positions: the long-document serve in bf16 and f32, the blocked
@@ -139,6 +145,9 @@ TOLERANCE = 3e-2  # bf16 kernel vs plain version: tests/test_fused_encoder.py's 
 TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this close
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
+# f32-grade products as three TF32 tensor-core passes (495 TFLOP/s dense
+# TF32 / 3): the split-TF32 kernels 6 and 9 in f32, beside the f32 bound
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 attention kernels vs plain versions: forward 2e-5, ten times the
 # reference's 2e-6 (tests/test_flash_attention.py) for another summation
@@ -191,6 +200,16 @@ KV_TC_SHAPES = ((1, 4608), (3, 8192))
 # dynamic shared memory of csrc/gemm_tc.cuh's products (kSmemBytes): a
 # 4-stage ring of [256, 64] and [64, 128] bf16 tiles, + 1024 B to align it
 GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
+# the status of the rows a redesign PR changed, in the kernels JSON line
+REDESIGNED = "redesigned (3xTF32), PR 13"
+
+
+def tf32_smem(dh: int) -> int:
+    """Dynamic shared memory of a split-TF32 attention block
+    (csrc/tensor_core_tf32.cuh's Layout): two fixed [64, dh + 4] f32
+    tiles and two ring stages of two such tiles and 256 floats."""
+    tile = 64 * (dh + 4)
+    return 4 * (2 * tile + 2 * (2 * tile + 256))
 # bge-large's width (BAAI/bge-large-en-v1.5 config.json: hidden_size 1024,
 # num_attention_heads 16, intermediate_size 4096), seeded weights: the
 # bf16 H 1024 instantiations of kernels 1-3, gated and timed; no phase
@@ -239,10 +258,11 @@ def phase(name: str | None) -> None:
 
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
-    of the bf16 KV-blocked forward, the products and the LayerNorm pass
-    takes, from ``-Xptxas -v``, and the dynamic shared memory it is
-    launched with (the products': gemm_tc.cuh's kSmemBytes,
-    GEMM_TC_SMEM)."""
+    of the bf16 KV-blocked forward, the products, the LayerNorm pass and
+    the split-TF32 kernels 6 and 9 in f32 takes, from ``-Xptxas -v``, and
+    the dynamic shared memory it is launched with (the products':
+    gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the split-TF32 kernels':
+    ``tf32_smem``)."""
 
     def width(line: str) -> str:  # the int template argument of a mangled name
         return re.search(r"ILi(\d+)E", line).group(1)
@@ -262,6 +282,15 @@ def kernel_resources(build) -> None:
         ("ffn_tc", ("layernorm_kernel",), 0, lambda line: f"LayerNorm, H {width(line)}, 256 threads"),
         ("fused_attention", ("gemm_kernel", "EpilogueE2E"), GEMM_TC_SMEM, product),
     )
+    for dh in (32, 64):
+        kernels += (
+            ("flash_attention_long", ("q_blocked_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+             lambda line: f"query-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", ("q_blocked_dq_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+             lambda line: f"query-blocked f32 backward dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", ("q_blocked_dkv_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+             lambda line: f"query-blocked f32 backward dK/dV pass (3xTF32), head_dim {width(line)}, 128 threads"),
+        )
     for stem, names, dynamic, label in kernels:
         lines = build.ptxas[stem]
         for i, line in enumerate(lines):
@@ -307,7 +336,8 @@ def device_profile(torch, fn, what: str, card: str, top: int = 8) -> float:
         # the port's kernels by their own names: gemm_kernel<(Epilogue)2> is
         # the QKV product, 0 the FFN's up product, 1 the products into f32
         name = re.sub(r"\(anonymous namespace\)::|dial::\w+::", "", e.key)
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {name[:90]}")
+        share = 100 * e.self_device_time_total / 1e3 / total_ms if total_ms > 0 else 0.0
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {share:5.1f}%  {e.count:4d} x  {name[:90]}")
     sys.stdout.flush()
     return total_ms
 
@@ -762,7 +792,10 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
     0), there once with the batch's own lengths and once with a full row,
     ragged rows and a fully masked one; at B = 1 the one row is ragged.
     Each kernel is timed in both dtypes beside its bound, the plain version
-    and SDPA with the additive mask, one row per dtype."""
+    and SDPA with the additive mask, one row per dtype. The query-blocked
+    kernel in f32 (split-TF32 products) and its plain version are also
+    read against the plain version evaluated in f64 at each gated shape (a
+    reading, not a gate)."""
     import torch.nn.functional as F
 
     from dial_rag_tpu_torch.ops import flash_attention as fa
@@ -791,11 +824,18 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
             err = (o.float() - ref.float()).abs().max().item()
             over = head_over(o, ref) if dtype == torch.bfloat16 else 0.0
             lse_err = None if lse is None else (lse - ref_lse).abs().max().item()
+            f64 = ""
+            if dtype == torch.float32 and lse is None:
+                with torch.no_grad():
+                    exact = fa.attention_q_blocked_plain(q.double(), k.double(), v.double(), mask)
+                f64 = (f"; against f64: kernel {(o.double() - exact).abs().max().item():.3g}, plain "
+                       f"{(ref.double() - exact).abs().max().item():.3g}")
+                del exact
             print(f"{name} at [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}, {what} (row lengths "
                   f"{mask.sum(1).tolist()}): max abs err {err:.3g} (tolerance {tol}"
                   + (f"; {over:.3g} of {BF16_HEAD_REL} of each (batch row, head)'s largest plain value"
                      if dtype == torch.bfloat16 else "") + ")"
-                  + ("" if lse is None else f", lse {lse_err:.3g} (tolerance {LSE_TOL})"), flush=True)
+                  + ("" if lse is None else f", lse {lse_err:.3g} (tolerance {LSE_TOL})") + f64, flush=True)
             if not (err <= tol and over <= 1) or (lse is not None and not lse_err <= LSE_TOL):
                 raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
 
@@ -830,9 +870,13 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
             flops = 4 * b * heads * s * s * dh
             nbytes = 4 * b * heads * s * dh * size + b * s * 4 + (b * heads * s * 4 if route == "kv_blocked" else 0)
             bound_ms, bound_by = bound(flops, nbytes, peak)
+            tf32 = dtype == torch.float32 and route == "q_blocked"
+            tf32_bound = bound(flops, nbytes, PEAK_3XTF32_FLOPS)[0] if tf32 else None
             print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB) {card}", flush=True)
+                  f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB)"
+                  + (f", 3xTF32 bound {tf32_bound:.4f} ms (at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32 else "")
+                  + f" {card}", flush=True)
             if not (err <= (F32_FWD_TOL if dtype == torch.float32 else TOLERANCE) and over <= 1):
                 raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
             key = instantiation(name, dtype, f"head_dim {dh}")
@@ -843,6 +887,8 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
+            if tf32:
+                rows[key].update(status=REDESIGNED, bound_3xtf32_ms=tf32_bound)
     return rows
 
 
@@ -1402,7 +1448,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
     kernel's o and lse (gates: ``check``). Each kernel is then gated and
     timed at ``timed[name]`` (B, S) in both dtypes beside its bound, the
     plain version and SDPA forward + backward with the additive mask, one
-    row per dtype."""
+    row per dtype. The query-blocked backward in f32 (split-TF32 products)
+    and its plain version are also read against the plain version
+    evaluated in f64 at each gated S (a reading, not a gate)."""
     import torch.nn.functional as F
 
     from dial_rag_tpu_torch.ops import flash_attention as fa
@@ -1483,8 +1531,15 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, mask = inputs(batch, s, dtype, seed=s)
             want, exact = run(q, k, v, do, mask, True)
-            reading = check(names[route], run(q, k, v, do, mask, False), want, exact, mask, dtype)
-            del want, exact
+            got = run(q, k, v, do, mask, False)
+            reading = check(names[route], got, want, exact, mask, dtype)
+            if route == "q_blocked" and dtype == torch.float32:
+                with torch.no_grad():
+                    exact = fa.attention_bwd_q_blocked_plain(*(t.double() for t in (q, k, v, do)), mask)
+                reading += "; against f64, kernel / plain: " + ", ".join(
+                    f"{g} {excess(a.double(), e):.3g} / {excess(w.double(), e):.3g}"
+                    for g, a, w, e in zip(("dq", "dk", "dv"), got, want, exact))
+            del want, exact, got
             what = (f"excess of |kernel - plain| over atol after rtol (atol {GRAD_ATOL}, rtol {GRAD_RTOL})"
                     if dtype == torch.float32 else f"max abs err / max |plain| per row (limit {BF16_GRAD_REL})")
             print(f"{names[route]} at [{batch}, {heads}, {s}, {dh}] {str(dtype)[6:]} (row lengths "
@@ -1543,15 +1598,21 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             library_ms = cuda_ms(torch, sdpa, iters=5, warmup=1)
             del leaves
             bound_ms, bound_by = bound(flops, nbytes, peak)
+            tf32 = dtype == torch.float32 and name == "attention_bwd_q_blocked"
+            tf32_bound = bound(flops, nbytes, PEAK_3XTF32_FLOPS)[0] if tf32 else None
             print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
-                  f"TFLOP/s, {nbytes / 1e6:.2f} MB) {card}", flush=True)
+                  f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB)"
+                  + (f", 3xTF32 bound {tf32_bound:.4f} ms (at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32 else "")
+                  + f" {card}", flush=True)
             key = instantiation(name, dtype, f"head_dim {dh}")
             rows[key] = {
                 "name": key, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long_bwd.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
+            if tf32:
+                rows[key].update(status=REDESIGNED, bound_3xtf32_ms=tf32_bound)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return rows

@@ -27,12 +27,15 @@ Hopper kernels or raise; they never fall back:
 - forward in f32: the single-tile CUDA-core kernel
   (``csrc/flash_attention_fwd.cu``) up to the S its shared memory takes
   (``single_tile_max_s``), the query-blocked kernel's code
-  (``csrc/flash_attention_long.cu``) past it and on the query-blocked
-  route: both compute the same function, as the reference's kernels do;
-- the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``);
+  (``csrc/flash_attention_long.cu``: split-TF32 products on the tensor
+  cores) past it and on the query-blocked route: both compute the same
+  function, as the reference's kernels do;
+- the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``, CUDA
+  cores);
 - backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``) up to
   its limit, the query-blocked backward's code past it and on the
-  query-blocked route, the KV-blocked passes after the KV-blocked forward
+  query-blocked route (in f32 split-TF32 products on the tensor cores), the
+  KV-blocked passes after the KV-blocked forward
   (``csrc/flash_attention_long_bwd.cu``), in both dtypes.
 
 Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
@@ -104,8 +107,9 @@ def attention_route(s: int) -> str:
 
 
 def _probs_plain(q, k, bias):
+    acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = q.float() @ k.float().transpose(-1, -2)
+    scores = q.to(acc) @ k.to(acc).transpose(-1, -2)
     scores = scores * scale + bias[:, None, None, :]
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
@@ -121,11 +125,13 @@ def attention_forward_plain(q, k, v, attention_mask):
 def attention_q_blocked_plain(q, k, v, attention_mask):
     """Plain version of ``_attention_q_blocked_kernel``: per block of
     ``_Q_BLOCK`` queries, the exact per-row softmax over every key, P cast
-    to the input dtype after the division, then P . V in f32."""
+    to the input dtype after the division, then P . V in f32. f64 inputs
+    run it all in f64 (a yardstick for the f32 rounding)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
     bias = mask_bias(attention_mask)
-    vf = v.float()
+    vf = v.to(acc)
     outs = [
-        _probs_plain(q[:, :, q0 : q0 + _Q_BLOCK], k, bias).to(q.dtype).float() @ vf
+        _probs_plain(q[:, :, q0 : q0 + _Q_BLOCK], k, bias).to(q.dtype).to(acc) @ vf
         for q0 in range(0, q.shape[2], _Q_BLOCK)
     ]
     return torch.cat(outs, dim=2).to(q.dtype)
@@ -177,22 +183,24 @@ def attention_bwd_q_blocked_plain(q, k, v, do, attention_mask):
     ``_Q_BLOCK`` queries, P exact over every key (as the forward builds
     it), dV += cast(P)^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) from
     the f32 P, dQ = cast(scale dS) K per block, dK += cast(scale dS)^T Q;
-    dK and dV summed in f32 over the blocks and cast at the end."""
+    dK and dV summed in f32 over the blocks and cast at the end. f64
+    inputs run it all in f64 (a yardstick for the f32 rounding)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(q.shape[-1])
     bias = mask_bias(attention_mask)
-    kf, vf = k.float(), v.float()
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kf, vf = k.to(acc), v.to(acc)
+    dk = torch.zeros(k.shape, dtype=acc, device=k.device)
+    dv = torch.zeros(v.shape, dtype=acc, device=v.device)
     dqs = []
     for q0 in range(0, q.shape[2], _Q_BLOCK):
         blk = slice(q0, q0 + _Q_BLOCK)
         p = _probs_plain(q[:, :, blk], k, bias)
-        dob = do[:, :, blk].float()
-        dv += p.to(q.dtype).float().transpose(-1, -2) @ dob
+        dob = do[:, :, blk].to(acc)
+        dv += p.to(q.dtype).to(acc).transpose(-1, -2) @ dob
         dp = dob @ vf.transpose(-1, -2)
-        ds_c = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(q.dtype).float()
+        ds_c = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(q.dtype).to(acc)
         dqs.append((ds_c @ kf).to(q.dtype))
-        dk += ds_c.transpose(-1, -2) @ q[:, :, blk].float()
+        dk += ds_c.transpose(-1, -2) @ q[:, :, blk].to(acc)
     return torch.cat(dqs, dim=2), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -347,6 +355,17 @@ def _forward_kernel(q, k, v, o, attention_mask, counter="flash_attention_fwd"):
     LAUNCHES[counter] += 1
 
 
+def _check_16_byte_rows(what, **tensors):
+    """Kernels that copy their operands' rows 16 bytes at a time (cp.async)
+    take views 16-byte aligned, with (batch, head, row) strides in whole
+    16 bytes."""
+    for name, t in tensors.items():
+        per = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % per for st in t.stride()[:3]):
+            raise ValueError(f"the {what} takes 16-byte aligned rows, got {name} at {t.data_ptr()} with strides "
+                             f"{t.stride()}")
+
+
 def _check_tc_inputs(q, k, v, o):
     """The bf16 tensor-core forwards' inputs: their 16-byte copies need q,
     k and v 16-byte aligned with strides in multiples of 8; o is written in
@@ -354,10 +373,7 @@ def _check_tc_inputs(q, k, v, o):
     _check_attention_inputs(q=q, k=k, v=v, o=o)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core attention forward takes bf16, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"the tensor-core attention forward takes 16-byte aligned rows, got {name} at "
-                             f"{t.data_ptr()} with strides {t.stride()}")
+    _check_16_byte_rows("tensor-core attention forward", q=q, k=k, v=v)
     if o.data_ptr() % 4 or any(st % 2 for st in o.stride()[:3]):
         raise ValueError(f"the tensor-core attention forward writes pairs of values, got o strides {o.stride()}")
 
@@ -374,11 +390,14 @@ def _tc_kernel(q, k, v, o, attention_mask):
 
 
 def _q_blocked_kernel(q, k, v, o, attention_mask):
-    """Launches the query-blocked f32 forward (TPU kernel 6; CUDA cores,
-    any S) on [B, h, S, Dh] views q, k, v -> o."""
+    """Launches the query-blocked f32 forward (TPU kernel 6; split-TF32
+    products on the tensor cores, any S) on [B, h, S, Dh] views q, k, v ->
+    o; q, k and v 16-byte aligned rows (cp.async copies)."""
     _check_attention_inputs(q=q, k=k, v=v, o=o)
     if q.dtype != torch.float32:
-        raise ValueError(f"the query-blocked CUDA-core forward takes f32 (bf16 takes the tensor cores), got {q.dtype}")
+        raise ValueError(f"the query-blocked f32 forward takes f32 (bf16 takes the bf16 tensor-core kernel), "
+                         f"got {q.dtype}")
+    _check_16_byte_rows("query-blocked f32 forward", q=q, k=k, v=v)
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("flash_attention_long", "dial_attention_q_blocked_f32", "attention q_blocked forward", q,
@@ -442,8 +461,12 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
 
 def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     """Launches the query-blocked backward (TPU kernel 9, two passes, any
-    S) on [B, h, S, Dh] views, writing dq, dk and dv."""
+    S) on [B, h, S, Dh] views, writing dq, dk and dv: in f32 split-TF32
+    products on the tensor cores (q, k, v and do 16-byte aligned rows), in
+    bf16 the CUDA cores."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    if q.dtype == torch.float32:
+        _check_16_byte_rows("query-blocked f32 backward", q=q, k=k, v=v, do=do)
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max and denominator, and delta

@@ -542,7 +542,9 @@ def _excess(a, w, rtol=1e-4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("route,b,s", [("q_blocked", 2, 1024), ("q_blocked", 2, 4352), ("kv_blocked", 2, 8192)])
+@pytest.mark.parametrize(
+    "route,b,s", [("q_blocked", 2, 1024), ("q_blocked", 2, 4096), ("q_blocked", 2, 4352), ("kv_blocked", 2, 8192)]
+)
 def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b, s, dh):
     """Kernels 9 (query-blocked) and 10-11 (KV-blocked, from the forward's
     o and lse) against their plain versions through ``flash_attention``'s
@@ -554,7 +556,8 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
     gradient is a sum of S = 8192 terms of size 1 whose f32 rounding alone
     exceeds atol, and the kernel must be at least as close as the plain
     version to the same expressions evaluated in f64. bf16: per batch row,
-    3e-2 of the plain gradient's largest magnitude. At head_dim 32 and 64."""
+    3e-2 of the plain gradient's largest magnitude. At head_dim 32 and 64;
+    S = 4096 is the shape chip_smoke.py times kernel 9 at."""
     qkv, mask, cot = _attention_inputs(cuda_device, b + 1, s, dh=dh)
     mask[-2, s // 3 :] = 0
     q, k, v = tfa._split_heads(qkv.to(dtype), 12)
@@ -586,9 +589,12 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
 
 
 @pytest.mark.cuda
-def test_long_backward_is_reproducible(cuda_device):
-    """No atomics: two blocked backward calls give the same bits."""
-    qkv, mask, cot = _attention_inputs(cuda_device, 2, 1024)
+@pytest.mark.parametrize("dh", [32, 64])
+def test_long_backward_is_reproducible(cuda_device, dh):
+    """No atomics: two blocked backward calls give the same bits, in f32
+    at head_dim 32 and 64 (the split-TF32 kernel 9; head_dim 64 holds the
+    most registers)."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, 1024, dh=dh)
     q, k, v = tfa._split_heads(qkv, 12)
     cot = cot.view(2, 1024, 12, -1).transpose(1, 2)
     a = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
