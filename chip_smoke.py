@@ -29,14 +29,17 @@ Phases, each announced by a ``[phase]`` line:
    12 x the encode batches, its embeddings agree with the "fused" and
    "fused_layer_plain" routes and its top-1 with the plain route;
 5. attention kernels: the single-tile attention forward (packed qkv
-   and head-major: in f32 one strided CUDA-core kernel, in bf16 the
-   tensor-core forward) and its recompute-P backward against their plain
-   versions in each instantiation (f32 and bf16, 12 heads of 32 and of
-   64), ragged S and a fully masked row, at fixed shapes, at S = 520, at
-   the longest S their shared memory takes, past it (S = 1700: the f32
-   forward and the backwards on the query-blocked kernels' code, as the
-   launch counters must show) and at every (B, S) the training and f32
-   serve phases give them; the bf16 tensor-core forward at S = 64 to 4096
+   and head-major: in f32 one strided split-TF32 tensor-core kernel, in
+   bf16 the tensor-core forward) and its recompute-P backward (in f32
+   one split-TF32 launch a (head, batch row) up to S = 128, in bf16 two
+   CUDA-core passes) against their plain versions in each instantiation
+   (f32 and bf16, 12 heads of 32 and of 64), ragged S and a fully masked
+   row, at fixed shapes, at S = 520, at the longest S their shared memory
+   takes, past it (S = 1700, and every f32 S past 128 for the backward:
+   the query-blocked kernels' code, as the launch counters must show) and
+   at every (B, S) the training and f32 serve phases give them; the f32
+   single-tile backward also timed against the query-blocked backward's
+   code at [32, 12, 128 and 64, Dh]; the bf16 tensor-core forward at S = 64 to 4096
    and the bf16 KV-blocked tensor-core forward (kernel 7) at S = 4608 and
    8192 (log-sum-exp too), at both head widths. Each timed beside its
    bound, the plain version
@@ -44,7 +47,8 @@ Phases, each announced by a ``[phase]`` line:
    auto repair: "auto" on a seeded 1-layer encoder at H=384 and 768
    where the port once raised, (f32, tanh GELU) through kernels 1-2 (and
    "fused_layer", kernel 3), (bf16, exact) through kernels 4 and 8, bf16
-   and f32 at S = 520 through kernels 5 and 8, and at S = 1700, past the
+   and f32 at S = 520 through kernels 5 and 8 (the f32 backward past S =
+   128 on kernel 9's code), and at S = 1700, past the
    single-tile kernels' shared memory, through the query-blocked codes,
    each against the plain route;
    bf16 gradient: one bf16 ``contrastive_loss`` backward through "auto"
@@ -96,9 +100,9 @@ Phases, each announced by a ``[phase]`` line:
    KV-blocked passes fed the forward kernel's o and lse, the f32
    query-blocked backward (split-TF32 products) and its plain version also
    read against the plain version evaluated in f64; each timed at the
-   training phase's shape beside its bound (the split-TF32 kernels also
-   beside their 3xTF32 bound), the plain version and SDPA forward +
-   backward;
+   training phase's shape beside its bound (the split-TF32 kernel's at the
+   3xTF32 rate, its CUDA-core f32 bound beside it), the plain version and
+   SDPA forward + backward;
 11. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
@@ -146,7 +150,8 @@ TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this cl
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
 # f32-grade products as three TF32 tensor-core passes (495 TFLOP/s dense
-# TF32 / 3): the split-TF32 kernels 6 and 9 in f32, beside the f32 bound
+# TF32 / 3): the rate of the split-TF32 kernels' bound (kernels 4-6, 8
+# and 9 in f32), their CUDA-core f32 bound kept beside it
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 attention kernels vs plain versions: forward 2e-5, ten times the
@@ -200,8 +205,11 @@ KV_TC_SHAPES = ((1, 4608), (3, 8192))
 # dynamic shared memory of csrc/gemm_tc.cuh's products (kSmemBytes): a
 # 4-stage ring of [256, 64] and [64, 128] bf16 tiles, + 1024 B to align it
 GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
-# the status of the rows a redesign PR changed, in the kernels JSON line
-REDESIGNED = "redesigned (3xTF32), PR 13"
+# the status, in the kernels JSON line, of the f32 rows redesigned on
+# split-TF32 products: the query-blocked kernels 6 and 9, the single-tile
+# kernels 4 (with 5) and 8
+REDESIGNED = "redesigned (3xTF32, query-blocked)"
+REDESIGNED_SINGLE_TILE = "redesigned (3xTF32, single tile)"
 
 
 def tf32_smem(dh: int) -> int:
@@ -210,6 +218,19 @@ def tf32_smem(dh: int) -> int:
     tiles and two ring stages of two such tiles and 256 floats."""
     tile = 64 * (dh + 4)
     return 4 * (2 * tile + 2 * (2 * tile + 256))
+
+
+def library_smem(build, stem: str, entry: str, dh: int, s: int) -> int:
+    """The dynamic shared memory a block of a single-tile f32 kernel is
+    launched with at head_dim dh and S = s, as its library's ``entry``
+    query (``*_smem_bytes``) works it out from the kernel's own layout."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    err = getattr(build.libs[stem], entry)(dh, s, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{entry}({dh}, {s}) returned CUDA error {err}")
+    return out.value
 # bge-large's width (BAAI/bge-large-en-v1.5 config.json: hidden_size 1024,
 # num_attention_heads 16, intermediate_size 4096), seeded weights: the
 # bf16 H 1024 instantiations of kernels 1-3, gated and timed; no phase
@@ -259,10 +280,12 @@ def phase(name: str | None) -> None:
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
     of the bf16 KV-blocked forward, the products, the LayerNorm pass and
-    the split-TF32 kernels 6 and 9 in f32 takes, from ``-Xptxas -v``, and
-    the dynamic shared memory it is launched with (the products':
-    gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the split-TF32 kernels':
-    ``tf32_smem``)."""
+    the split-TF32 kernels 4 (with 5), 6, 8 and 9 in f32 takes, from
+    ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
+    products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
+    split-TF32 kernels': ``tf32_smem``; the single-tile ones' at the main
+    path's S, as their libraries report it: the forward's at 256, the
+    backward's at 64 and 128)."""
 
     def width(line: str) -> str:  # the int template argument of a mangled name
         return re.search(r"ILi(\d+)E", line).group(1)
@@ -290,6 +313,14 @@ def kernel_resources(build) -> None:
              lambda line: f"query-blocked f32 backward dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long_bwd", ("q_blocked_dkv_tf32_kernelILi" + str(dh),), tf32_smem(dh),
              lambda line: f"query-blocked f32 backward dK/dV pass (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_fwd", ("single_tile_tf32_kernelILi" + str(dh),),
+             library_smem(build, "flash_attention_fwd", "dial_attention_fwd_smem_bytes", dh, 256),
+             lambda line: f"single-tile f32 forward (3xTF32), head_dim {width(line)}, 128 threads, at S = 256"),
+            ("flash_attention_bwd", ("single_tile_bwd_tf32_kernelILi" + str(dh),),
+             f"{library_smem(build, 'flash_attention_bwd', 'dial_attention_bwd_smem_bytes_f32', dh, 64)} B at "
+             f"S = 64 (128 threads), "
+             f"{library_smem(build, 'flash_attention_bwd', 'dial_attention_bwd_smem_bytes_f32', dh, 128)}",
+             lambda line: f"single-tile f32 backward (3xTF32), head_dim {width(line)}, 256 threads at S = 128"),
         )
     for stem, names, dynamic, label in kernels:
         lines = build.ptxas[stem]
@@ -342,20 +373,28 @@ def device_profile(torch, fn, what: str, card: str, top: int = 8) -> float:
     return total_ms
 
 
-def kernel_device_ms(torch, fn, match: str, iters: int = 20) -> float:
+def kernel_device_ms(torch, fn, match: str, iters: int = 20, attempts: int = 3) -> float:
     """Device time per call of ``fn`` spent in kernels whose name holds
     ``match`` ("" for every kernel), by ``torch.profiler`` after one
-    warm-up call: a kernel's own time where the host paces its launches."""
+    warm-up call: a kernel's own time where the host paces its launches.
+    A profile that shows no such kernel is printed with the kernels it
+    does show and taken again, up to ``attempts`` profiles in all (one
+    call on an H100 once returned a profile without the kernel that the
+    same code showed in four calls before)."""
     fn()
 
     def calls():
         for _ in range(iters):
             fn()
 
-    us = sum(e.self_device_time_total for e in device_events(torch, calls) if match in e.key)
-    if not us > 0:
-        raise RuntimeError(f"the profile of {iters} calls shows no kernel named like {match!r}")
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        events = device_events(torch, calls)
+        us = sum(e.self_device_time_total for e in events if match in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+        print(f"the profile of {iters} calls shows no kernel named like {match!r}, only "
+              f"{sorted(e.key[:80] for e in events)[:8]}; profiling again", flush=True)
+    raise RuntimeError(f"{attempts} profiles of {iters} calls show no kernel named like {match!r}")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -505,10 +544,13 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
     # reference), the longest S the backward's shared memory takes, S =
     # 1700 past both limits, and each shape the main path's phases give
     # the kernels
-    fwd_max, bwd_max = fa.single_tile_max_s("fwd", head_dim=dh), fa.single_tile_max_s("bwd", head_dim=dh)
-    print(f"single-tile limits on this card at head_dim {dh}: forward S <= {fwd_max}, backward S <= {bwd_max}",
-          flush=True)
-    if not PAST_LIMIT_S > fwd_max >= bwd_max or fa.attention_route(PAST_LIMIT_S) != "single_tile":
+    # the f32 forward's limit (the bf16 forward, the tensor-core kernel,
+    # has none) and the backward's in this dtype
+    fwd_max = fa.single_tile_max_s("fwd", head_dim=dh)
+    bwd_max = fa.single_tile_max_s("bwd", head_dim=dh, dtype=dtype)
+    print(f"single-tile limits on this card at head_dim {dh}: f32 forward S <= {fwd_max}, {str(dtype)[6:]} "
+          f"backward S <= {bwd_max}", flush=True)
+    if not PAST_LIMIT_S > max(fwd_max, bwd_max) or fa.attention_route(PAST_LIMIT_S) != "single_tile":
         raise RuntimeError(f"S={PAST_LIMIT_S} is not a single-tile S past both limits at head_dim {dh}")
     fixed = [("bucket", 128, 256), ("bucket", 32, 128), ("ragged", 32, 100), ("one tile", 4, 512),
              ("past one tile", 2, 520), ("backward limit", 2, bwd_max), ("past both limits", 2, PAST_LIMIT_S)]
@@ -544,16 +586,15 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
               f"{e8p:.3g}, head-major {e8h:.3g} ({grad_tol})", flush=True)
 
     # the forward at its own limit (B=2: a ragged row and a fully masked
-    # one). At head_dim 64 the forward's limit (1536 on an H100) is a
-    # multiple of 256, where the head-major dispatch takes the
-    # query-blocked route; kernel 5 is gated 64 rows below the limit
+    # one). Where the limit is a multiple of 256 past 512 the head-major
+    # dispatch takes the query-blocked route there; kernel 5 is then gated
+    # 64 rows below it
     qkv, mask, _ = attention_inputs(torch, dev, 2, fwd_max, heads, dh, seed=fwd_max, dtype=dtype)
     q, k, v = fa._split_heads(qkv, heads)
-    s5 = fwd_max if dh == 32 else fwd_max - 64
-    expected = "single_tile" if dh == 32 else "q_blocked"
-    if fa.attention_route(fwd_max) != expected or fa.attention_route(s5) != "single_tile":
-        raise RuntimeError(f"head-major dispatch at head_dim {dh}: S={fwd_max} takes "
-                           f"{fa.attention_route(fwd_max)}, expected {expected}")
+    expected = fa.attention_route(fwd_max)
+    s5 = fwd_max if expected == "single_tile" else fwd_max - 64
+    if fa.attention_route(s5) != "single_tile":
+        raise RuntimeError(f"head-major dispatch at head_dim {dh}: S={s5} takes {fa.attention_route(s5)}")
     with torch.no_grad():
         e4 = check_fwd("qkv_native_attention", fa.fused_qkv_attention(qkv, mask, heads),
                        fa.fused_qkv_attention(qkv, mask, heads, plain=True), packed=True)
@@ -567,7 +608,9 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
     sys.stdout.flush()
 
     size = 2 if bf16 else 4
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    # the f32 kernels form their products in split TF32: their bound is at
+    # the 3xTF32 rate, the CUDA-core f32 one printed and kept beside it
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS
     fwd_source = f"dial_rag_tpu_torch/csrc/{'attention_tc' if bf16 else 'flash_attention_fwd'}.cu"
     rows = {}
 
@@ -575,24 +618,31 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
         """Times ``kernel`` by CUDA events, or, with ``device_kernel`` (a
         call the host paces: its Python and the mask-bias kernel outlast
         the kernel), by the profiler's device time of the kernels named
-        like ``device_kernel``, the call's CUDA-event time printed beside."""
+        like ``device_kernel``, the call's CUDA-event time printed beside.
+        The f32 rows (split-TF32 products) are bound at the 3xTF32 rate and
+        also give their bound at the CUDA cores' f32 rate."""
         call_ms = cuda_ms(torch, kernel, iters=20)
         ms = call_ms if device_kernel is None else kernel_device_ms(torch, kernel, device_kernel)
         plain_ms = cuda_ms(torch, plain, iters=5)
         library_ms = cuda_ms(torch, library, iters=20)
         bound_ms, bound_by = bound(flops, nbytes, peak)
+        f32_bound = None if bf16 else bound(flops, nbytes, PEAK_F32_FLOPS)
         device = "" if device_kernel is None else (
             f" (device time of its {device_kernel}* kernels; the call {call_ms:.4f} ms; SDPA's kernels "
             f"{kernel_device_ms(torch, library, ''):.4f} ms)")
         print(f"{name} ({kind}): max_abs_err {err:.6g}; kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms, SDPA "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at "
-              f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB), {shape} {card}", flush=True)
+              f"{peak / 1e12:.0f} TFLOP/s{'' if bf16 else ' 3xTF32'}, {nbytes / 1e6:.2f} MB)"
+              + (f", CUDA-core f32 bound {f32_bound[0]:.4f} ms by {f32_bound[1]} (at {PEAK_F32_FLOPS / 1e12:.0f} "
+                 f"TFLOP/s)" if f32_bound else "") + f", {shape} {card}", flush=True)
         key = instantiation(name, dtype, f"head_dim {dh}")
         rows[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
+        if f32_bound:
+            rows[key].update(status=REDESIGNED_SINGLE_TILE, bound_f32_ms=f32_bound[0])
 
     # kernel 4 at the serving shape
     b, s = 128, 256
@@ -627,7 +677,7 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), err,
             4 * b * heads * s * s * dh, 4 * head_bytes + b * s * 4,
             "dial_rag_tpu/ops/flash_attention.py:43", fwd_source, f"q, k, v [{b},{heads},{s},{dh}]",
-            device_kernel="attention_tc_kernel" if bf16 else "attention_fwd_kernel")
+            device_kernel="attention_tc_kernel" if bf16 else "single_tile_tf32_kernel")
     grad_out = [torch.empty_like(t) for t in (q, k, v)]
     got = fa.attention_backward_plain(q, k, v, do, mask)
     fa._backward_kernel(q, k, v, do, *grad_out, mask)
@@ -643,8 +693,41 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
         lambda: fa.attention_backward_plain(q, k, v, do, mask), sdpa_fwd_bwd, err,
         10 * b * heads * s * s * dh, 7 * head_bytes + b * s * 4,
         "dial_rag_tpu/ops/flash_attention.py:313", "dial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
-        f"q, k, v, dO [{b},{heads},{s},{dh}]", device_kernel="attention_bwd_d")
+        f"q, k, v, dO [{b},{heads},{s},{dh}]",
+        device_kernel="attention_bwd_d" if bf16 else "single_tile_bwd_tf32")
+    if not bf16:
+        backward_designs(torch, dev, card, heads, dh)
     return rows
+
+
+def backward_designs(torch, dev, card, heads: int, dh: int) -> None:
+    """The two split-TF32 designs for the f32 single-tile backward, timed
+    by device time at [32, heads, S, dh] for S = 128 (kernel 8's row) and
+    64 (the training phases'): (a) the one-launch kernel (a whole [S, S]
+    tile a block, what the wrapper takes up to S = 128) and (b) two passes
+    by query and key tiles, the query-blocked backward's split-TF32 code
+    (what it takes past that). Both are gated against the plain version."""
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+
+    for s in (128, 64):
+        qkv, mask, cot = attention_inputs(torch, dev, 32, s, heads, dh, seed=3 + s)
+        q, k, v = (t.contiguous() for t in fa._split_heads(qkv, heads))
+        do = cot.view(32, s, heads, dh).transpose(1, 2).contiguous()
+        want = fa.attention_backward_plain(q, k, v, do, mask)
+        times = {}
+        for design, kernel, match in (("(a) one launch", fa._backward_kernel, "single_tile_bwd_tf32"),
+                                      ("(b) two passes", fa._bwd_q_blocked_kernel, "q_blocked_d")):
+            got = [torch.empty_like(t) for t in (q, k, v)]
+            kernel(q, k, v, do, *got, mask)
+            torch.cuda.synchronize()
+            for a, w in zip(got, want):
+                excess = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
+                if not excess <= GRAD_ATOL:
+                    raise RuntimeError(f"f32 backward {design} at S={s}, head_dim {dh}: off the plain version by "
+                                       f"{excess} past rtol")
+            times[design] = kernel_device_ms(torch, lambda: kernel(q, k, v, do, *got, mask), match)
+        print(f"f32 single-tile backward designs at [32, {heads}, {s}, {dh}] (device time): "
+              + ", ".join(f"{d} {t:.4f} ms" for d, t in times.items()) + f" {card}", flush=True)
 
 
 def tensor_core_gates(torch, dev, heads: int) -> None:
@@ -856,7 +939,12 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
         for b, s, lengths in own:
             gate(name, b, s, lengths, "the long-document batch's own rows")
         b, s = timed
-        for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+        for dtype in (torch.float32, torch.bfloat16):
+            # f32 kernel 6 forms its products in split TF32: bound at the
+            # 3xTF32 rate, the CUDA-core f32 one beside it; f32 kernel 7 on
+            # the CUDA cores
+            tf32 = dtype == torch.float32 and route == "q_blocked"
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS if tf32 else PEAK_F32_FLOPS)
             q, k, v, mask = inputs(b, s, dtype, seed=7)
             size = q.element_size()
             keep = fa.mask_bias(mask)[:, None, None, :].to(dtype)
@@ -870,13 +958,13 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
             flops = 4 * b * heads * s * s * dh
             nbytes = 4 * b * heads * s * dh * size + b * s * 4 + (b * heads * s * 4 if route == "kv_blocked" else 0)
             bound_ms, bound_by = bound(flops, nbytes, peak)
-            tf32 = dtype == torch.float32 and route == "q_blocked"
-            tf32_bound = bound(flops, nbytes, PEAK_3XTF32_FLOPS)[0] if tf32 else None
+            f32_bound = bound(flops, nbytes, PEAK_F32_FLOPS)[0] if tf32 else None
             print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB)"
-                  + (f", 3xTF32 bound {tf32_bound:.4f} ms (at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32 else "")
-                  + f" {card}", flush=True)
+                  f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s{' 3xTF32' if tf32 else ''}, "
+                  f"{nbytes / 1e6:.2f} MB)"
+                  + (f", CUDA-core f32 bound {f32_bound:.4f} ms (at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32
+                     else "") + f" {card}", flush=True)
             if not (err <= (F32_FWD_TOL if dtype == torch.float32 else TOLERANCE) and over <= 1):
                 raise RuntimeError(f"{name}: kernel disagrees with its plain version at B={b} S={s} {dtype}")
             key = instantiation(name, dtype, f"head_dim {dh}")
@@ -888,7 +976,7 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
             if tf32:
-                rows[key].update(status=REDESIGNED, bound_3xtf32_ms=tf32_bound)
+                rows[key].update(status=REDESIGNED, bound_f32_ms=f32_bound)
     return rows
 
 
@@ -980,7 +1068,7 @@ def training_phase(torch, card, base, num_layers: int, cfg, stream):
     state = create_train_state(params, *make_optimizer(cfg, params))
     step_fn = make_train_step(model, temperature=cfg.temperature)
     step_fn(state, first)  # warm-up
-    device_profile(torch, lambda: step_fn(state, first), f"one train step (B={cfg.batch_size}, S={s})", card, 10)
+    device_profile(torch, lambda: step_fn(state, first), f"one train step (B={cfg.batch_size}, S={s})", card, 16)
     del state, params, step_fn
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
@@ -1553,7 +1641,12 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                            ("bwd_dq_kv_blocked", "dial_rag_tpu/ops/flash_attention.py:417"),
                            ("bwd_dkv_kv_blocked", "dial_rag_tpu/ops/flash_attention.py:461")):
         b, s = timed[name]
-        for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+        for dtype in (torch.bfloat16, torch.float32):
+            # f32 kernel 9 forms its products in split TF32: bound at the
+            # 3xTF32 rate, the CUDA-core f32 one beside it; f32 kernels 10
+            # and 11 on the CUDA cores
+            tf32 = dtype == torch.float32 and name == "attention_bwd_q_blocked"
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS if tf32 else PEAK_F32_FLOPS)
             q, k, v, do, mask = inputs(b, s, dtype, seed=11)
             size, head = q.element_size(), b * heads * s * dh * q.element_size()
             with torch.no_grad():
@@ -1598,13 +1691,13 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             library_ms = cuda_ms(torch, sdpa, iters=5, warmup=1)
             del leaves
             bound_ms, bound_by = bound(flops, nbytes, peak)
-            tf32 = dtype == torch.float32 and name == "attention_bwd_q_blocked"
-            tf32_bound = bound(flops, nbytes, PEAK_3XTF32_FLOPS)[0] if tf32 else None
+            f32_bound = bound(flops, nbytes, PEAK_F32_FLOPS)[0] if tf32 else None
             print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB)"
-                  + (f", 3xTF32 bound {tf32_bound:.4f} ms (at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32 else "")
-                  + f" {card}", flush=True)
+                  f"by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s{' 3xTF32' if tf32 else ''}, "
+                  f"{nbytes / 1e6:.2f} MB)"
+                  + (f", CUDA-core f32 bound {f32_bound:.4f} ms (at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32
+                     else "") + f" {card}", flush=True)
             key = instantiation(name, dtype, f"head_dim {dh}")
             rows[key] = {
                 "name": key, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long_bwd.cu",
@@ -1612,7 +1705,7 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
             if tf32:
-                rows[key].update(status=REDESIGNED, bound_3xtf32_ms=tf32_bound)
+                rows[key].update(status=REDESIGNED, bound_f32_ms=f32_bound)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return rows
@@ -1855,7 +1948,8 @@ def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
     and the same through "fused_layer" (kernel 3); (bf16, exact, S = 64)
     through kernel 4 (the tensor-core forward) and its backward (kernel
     8); bf16 and f32 at S = 520 through kernel 5 (in bf16 the tensor-core
-    forward) and kernel 8; bf16 and f32 at S = PAST_LIMIT_S, past the
+    forward) and kernel 8 (in f32, past its S = 128, kernel 9's code);
+    bf16 and f32 at S = PAST_LIMIT_S, past the
     single-tile kernels' shared memory, through the tensor-core forward
     (bf16) or kernel 6's code (f32) and kernel 9's code. Each hidden state
     must match the plain route (f32 F32_FWD_TOL, bf16 TOLERANCE; at S =
@@ -1878,7 +1972,7 @@ def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
         (bf16, "exact", 520, "auto", "pallas_plain",
          {"attention_tc": "flash_attention_fwd", "flash_attention_bwd": "flash_attention_bwd"}),
         (f32, "exact", 520, "auto", "pallas_plain",
-         {"flash_attention_fwd": "flash_attention_fwd", "flash_attention_bwd": "flash_attention_bwd"}),
+         {"flash_attention_fwd": "flash_attention_fwd", "attention_bwd_q_blocked": "attention_bwd_q_blocked"}),
         (bf16, "exact", PAST_LIMIT_S, "auto", "pallas_plain",
          {"attention_tc": "flash_attention_fwd", "attention_bwd_q_blocked": "attention_bwd_q_blocked"}),
         (f32, "exact", PAST_LIMIT_S, "auto", "pallas_plain",

@@ -1,12 +1,14 @@
-// Pieces shared by the single-tile attention forward and backward
-// (flash_attention_fwd.cu, flash_attention_bwd.cu) and by the f32 fused
-// blocks (fused_blocks.cuh). The forward and backward recompute the same
-// probabilities, so the arithmetic that produces them lives here once: a
-// pass that rebuilds P from a saved row max and denominator gets the
-// forward's bits exactly. The single-tile code is a template on the
-// element type T (f32 or bf16: loads and stores in T, every product and
-// sum in f32, P cast through T where the reference casts it) and on the
-// head width DH (32 or 64).
+// The CUDA-core single-tile attention: the forward of the f32 fused
+// blocks (fused_blocks.cuh, kernels 1 and 3 in f32) and the probabilities
+// the bf16 single-tile backward (flash_attention_bwd.cu) rebuilds; their
+// arithmetic lives here once, so a pass that rebuilds P from a saved row
+// max and denominator gets the forward's bits exactly. Also the views,
+// the padding of S, the score expression and the shared-memory limit
+// query that the f32 split-TF32 single-tile kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu) and the long-sequence kernels share. The
+// single-tile code is a template on the element type T (f32 or bf16:
+// loads and stores in T, every product and sum in f32, P cast through T
+// where the reference casts it) and on the head width DH (32 or 64).
 #pragma once
 
 #include <cfloat>

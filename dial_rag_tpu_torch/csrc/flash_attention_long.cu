@@ -167,13 +167,14 @@ __global__ void __launch_bounds__(tf32::kThreads)
   // key chunk c (V too when with_v) and its bias (-inf past S) into stage c % 2
   auto issue = [&](int c, bool with_v) {
     const int c0 = c * tf32::kTileRows, st = c % 2;
-    tf32::copy_tile_async<DH>(sm.tile(st, 0), k_head, vw.k.r, c0, s);
-    if (with_v) tf32::copy_tile_async<DH>(sm.tile(st, 1), v_head, vw.v.r, c0, s);
+    tf32::copy_rows_async<DH>(sm.tile(st, 0), k_head, vw.k.r, c0, tf32::kTileRows, s, tf32::kThreads);
+    if (with_v) tf32::copy_rows_async<DH>(sm.tile(st, 1), v_head, vw.v.r, c0, tf32::kTileRows, s, tf32::kThreads);
     if (threadIdx.x < tf32::kTileRows) sm.extra(st)[threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
   };
 
   // the block's 64 query rows, copied with the first key chunk
-  tf32::copy_tile_async<DH>(sm.fixed(0), q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
+  tf32::copy_rows_async<DH>(sm.fixed(0), q + b * vw.q.b + head * vw.q.h, vw.q.r,
+                            q0, tf32::kTileRows, s, tf32::kThreads);
 
   // pass 1: this lane's running max and denominator of its two rows (g and
   // g + 8) over its keys. The max starts at f32.min, not -inf, so a lane

@@ -378,8 +378,8 @@ __global__ void __launch_bounds__(tf32::kThreads)
   const int n_chunks = (s + tf32::kTileRows - 1) / tf32::kTileRows;
   auto issue = [&](int chunk) {
     const int c0 = chunk * tf32::kTileRows, st = chunk % 2;
-    tf32::copy_tile_async<DH>(sm.tile(st, 0), k_head, vw.k.r, c0, s);
-    tf32::copy_tile_async<DH>(sm.tile(st, 1), v_head, vw.v.r, c0, s);
+    tf32::copy_rows_async<DH>(sm.tile(st, 0), k_head, vw.k.r, c0, tf32::kTileRows, s, tf32::kThreads);
+    tf32::copy_rows_async<DH>(sm.tile(st, 1), v_head, vw.v.r, c0, tf32::kTileRows, s, tf32::kThreads);
     if (threadIdx.x < tf32::kTileRows) sm.extra(st)[threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
   };
   // the scores (q . k * scale + bias) and dP (dO . v) of half `hf` of the chunk in stage st
@@ -393,8 +393,10 @@ __global__ void __launch_bounds__(tf32::kThreads)
       for (int e = 0; e < 4; ++e) x[n][e] = scaled_score(x[n][e], scale, key_bias_s[8 * n + e % 2]);
   };
 
-  tf32::copy_tile_async<DH>(sm.fixed(0), q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
-  tf32::copy_tile_async<DH>(sm.fixed(1), d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, q0, s);
+  tf32::copy_rows_async<DH>(sm.fixed(0), q + b * vw.q.b + head * vw.q.h, vw.q.r,
+                            q0, tf32::kTileRows, s, tf32::kThreads);
+  tf32::copy_rows_async<DH>(sm.fixed(1), d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r,
+                            q0, tf32::kTileRows, s, tf32::kThreads);
 
   // sweep 1: per lane, over its keys, the running max m, sum(exp(s - m))
   // and sum(exp(s - m) dP) of its two rows, rescaled whenever m grows; m
@@ -510,8 +512,8 @@ __global__ void __launch_bounds__(tf32::kThreads)
   const int n_chunks = (s + tf32::kTileRows - 1) / tf32::kTileRows;
   auto issue = [&](int chunk) {
     const int c0 = chunk * tf32::kTileRows, st = chunk % 2;
-    tf32::copy_tile_async<DH>(sm.tile(st, 0), q_head, vw.q.r, c0, s);
-    tf32::copy_tile_async<DH>(sm.tile(st, 1), do_head, vw.d_o.r, c0, s);
+    tf32::copy_rows_async<DH>(sm.tile(st, 0), q_head, vw.q.r, c0, tf32::kTileRows, s, tf32::kThreads);
+    tf32::copy_rows_async<DH>(sm.tile(st, 1), do_head, vw.d_o.r, c0, tf32::kTileRows, s, tf32::kThreads);
     if (threadIdx.x < tf32::kTileRows && c0 + threadIdx.x < s) {
       const long long row = rows0 + c0 + threadIdx.x;
       float* r = sm.extra(st) + 4 * threadIdx.x;
@@ -526,8 +528,10 @@ __global__ void __launch_bounds__(tf32::kThreads)
   const float kb[2] = {key_bias(bias_row, k0 + 16 * warp + lane / 4, s),
                        key_bias(bias_row, k0 + 16 * warp + lane / 4 + 8, s)};
 
-  tf32::copy_tile_async<DH>(sm.fixed(0), k + b * vw.k.b + head * vw.k.h, vw.k.r, k0, s);
-  tf32::copy_tile_async<DH>(sm.fixed(1), v + b * vw.v.b + head * vw.v.h, vw.v.r, k0, s);
+  tf32::copy_rows_async<DH>(sm.fixed(0), k + b * vw.k.b + head * vw.k.h, vw.k.r,
+                            k0, tf32::kTileRows, s, tf32::kThreads);
+  tf32::copy_rows_async<DH>(sm.fixed(1), v + b * vw.v.b + head * vw.v.h, vw.v.r,
+                            k0, tf32::kTileRows, s, tf32::kThreads);
 
   float dk_sum[DH / 8][4] = {}, dv_sum[DH / 8][4] = {};
   issue(0);

@@ -1,7 +1,9 @@
-// Split-TF32 (3xTF32) building blocks for the f32 blocked attention
-// kernels on Hopper's tensor cores (sm_90a): flash_attention_long.cu's
-// query-blocked forward and flash_attention_long_bwd.cu's query-blocked
-// backward (TPU kernels 6 and 9 in f32).
+// Split-TF32 (3xTF32) building blocks for the f32 attention kernels on
+// Hopper's tensor cores (sm_90a): flash_attention_long.cu's query-blocked
+// forward and flash_attention_long_bwd.cu's query-blocked backward (TPU
+// kernels 6 and 9 in f32), flash_attention_fwd.cu's single-tile forward
+// and flash_attention_bwd.cu's single-tile backward (TPU kernels 4, 5 and
+// 8 in f32).
 //
 // The method. An f32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), each rounded to nearest with ties away (cvt.rna.tf32.f32,
@@ -138,13 +140,18 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileRows = 16 * kWarps;  // rows of the block's own tile and of a ring chunk
 constexpr int kExtra = 4 * kTileRows;   // floats of per-row values (a bias, row statistics) a stage holds
 
-// Rows [r0, r0 + 64) of one head (row stride `row_stride` floats) into
-// a [64, kLd<DH>] shared tile by 16-byte cp.async copies from the
-// block's threads; rows past S are zero-filled.
+// Rows [r0, r0 + rows) of one head (row stride `row_stride` floats) into
+// a [rows, kLd<DH>] shared tile by 16-byte cp.async copies from the
+// block's `threads` threads; rows past S are zero-filled. The query-blocked
+// kernels pass their constant thread count (with blockDim.x there their
+// forward spilled registers and kernels 6 and 9 ran 2-4% slower on an
+// H100), the single-tile kernels blockDim.x (the constant cost the
+// single-tile forward registers and time at head_dim 32).
 template <int DH>
-__device__ __forceinline__ void copy_tile_async(float* dst, const float* head, long long row_stride, int r0, int s) {
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* head, long long row_stride, int r0,
+                                                int rows, int s, int threads) {
   constexpr int kVecs = DH / 4;
-  for (int i = threadIdx.x; i < kTileRows * kVecs; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kVecs; i += threads) {
     const int r = i / kVecs, c = (i % kVecs) * 4;
     const bool valid = r0 + r < s;
     tc::cp_async16(dst + r * kLd<DH> + c, valid ? head + (r0 + r) * row_stride + c : head, valid);
@@ -205,6 +212,24 @@ __device__ __forceinline__ void product_rows(float (&acc)[NT][4], const float* a
   }
 }
 
+// acc[n] = A B^T as product_rows computes it (the same order), with A the
+// warp's 16 rows already split, one fragment per 8 head columns.
+template <int NT, int DH>
+__device__ __forceinline__ void product_frags(float (&acc)[NT][4], const FragA (&a)[DH / 8], const float* b) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      FragB fb;
+      load_b_rows(fb, b + 8 * n * kLd<DH> + 8 * ks, kLd<DH>);
+      mma3(acc[n], a[ks], fb);
+    }
+}
+
 // out += p R: p a D-layout tile [16, 8 NT] (the warp's 16 rows by 8 NT
 // keys or queries), R rows 0 .. 8 NT - 1 of `rows` ([*, kLd]); out[j]
 // holds head columns 8 j .. 8 j + 7.
@@ -241,6 +266,24 @@ __device__ __forceinline__ void store_rows(float* head, long long row_stride, in
       dst[8 * j + 1] = vals[j][2 * h + 1];
     }
   }
+}
+
+// ---- the single-tile kernels' pieces -------------------------------------
+// (flash_attention_fwd.cu, flash_attention_bwd.cu: blocks of any number of
+// warps, 16 rows a warp)
+
+// A[m][slot] = t[row][m], m < 16: the transpose of 8 rows of a row-major
+// f32 tile (row stride ld) against 16 of its columns, with slot c <- row
+// 2c and slot c + 4 <- row 2c + 1 (load_b_pairs' order). With the rows
+// queries and the columns keys, P^T or dS^T as the A operand of a product
+// over the queries. For ld = 4 (mod 16) the lanes fall on 32 banks.
+__device__ __forceinline__ void load_a_pairs_t(FragA& f, const float* t, int ld) {
+  const int lane = threadIdx.x % 32;
+  const float* p = t + 2 * (lane % 4) * ld + lane / 4;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8], f.hi[1], f.lo[1]);
+  split(p[ld], f.hi[2], f.lo[2]);
+  split(p[ld + 8], f.hi[3], f.lo[3]);
 }
 
 }  // namespace tf32

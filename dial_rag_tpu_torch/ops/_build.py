@@ -46,10 +46,13 @@ SIGNATURES = {
     "flash_attention_fwd": {
         "dial_attention_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
         "dial_attention_fwd_max_seq": [_I, _P],
+        "dial_attention_fwd_smem_bytes": [_I, _I, _P],
     },
     "flash_attention_bwd": {
-        **{f"dial_attention_bwd_{t}": [_P] * 10 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
-        "dial_attention_bwd_max_seq": [_I, _P],
+        "dial_attention_bwd_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "dial_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_F, _P],
+        **{f"dial_attention_bwd_max_seq_{t}": [_I, _P] for t in ("f32", "bf16")},
+        "dial_attention_bwd_smem_bytes_f32": [_I, _I, _P],
     },
     "attention_tc": {
         "dial_attention_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _P],

@@ -24,18 +24,19 @@ Hopper kernels or raise; they never fall back:
 - forward in bf16: the tensor-core kernels of ``csrc/attention_tc.cu``,
   one for the single-tile and query-blocked forwards in both layouts, at
   any S, one for the KV-blocked forward;
-- forward in f32: the single-tile CUDA-core kernel
-  (``csrc/flash_attention_fwd.cu``) up to the S its shared memory takes
-  (``single_tile_max_s``), the query-blocked kernel's code
-  (``csrc/flash_attention_long.cu``: split-TF32 products on the tensor
-  cores) past it and on the query-blocked route: both compute the same
-  function, as the reference's kernels do;
+- forward in f32: the single-tile kernel (``csrc/flash_attention_fwd.cu``:
+  split-TF32 products on the tensor cores, Q K^T formed once) up to the S
+  its shared memory takes (``single_tile_max_s``), the query-blocked
+  kernel's code (``csrc/flash_attention_long.cu``, also split TF32) past
+  it and on the query-blocked route: both compute the same function, as
+  the reference's kernels do;
 - the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``, CUDA
   cores);
-- backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``) up to
-  its limit, the query-blocked backward's code past it and on the
-  query-blocked route (in f32 split-TF32 products on the tensor cores), the
-  KV-blocked passes after the KV-blocked forward
+- backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``; in
+  f32 one launch of split-TF32 products per (head, batch row), in bf16 two
+  CUDA-core passes) up to its dtype's limit, the query-blocked backward's
+  code past it and on the query-blocked route (in f32 split-TF32 products
+  on the tensor cores), the KV-blocked passes after the KV-blocked forward
   (``csrc/flash_attention_long_bwd.cu``), in both dtypes.
 
 Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
@@ -298,26 +299,33 @@ def _kernel_bias(attention_mask, b, s, device):
     return mask_bias(attention_mask.to(device)).contiguous()
 
 
-def single_tile_max_s(direction: str, head_dim: int, device=None) -> int:
-    """The longest S the single-tile CUDA kernel (``"fwd"`` or ``"bwd"``)
-    takes on ``device`` at ``head_dim``: its [32, S] f32 score tile and
-    staging buffers must fit in the shared memory one block may opt in to.
-    The kernel's library works it out from its own layout (1600 forward
-    and 1472 backward at head_dim 32 on an H100's 227 KB). Past it the
-    wrappers take the query-blocked kernels' code, which has no S limit."""
+def single_tile_max_s(direction: str, head_dim: int, device=None, dtype=torch.float32) -> int:
+    """The longest S the single-tile CUDA kernel (``"fwd"``: the f32
+    forward; ``"bwd"``: the backward in ``dtype``) takes on ``device`` at
+    ``head_dim``: its score tiles and operand tiles must fit in the shared
+    memory one block may opt in to. The kernel's library works it out from
+    its own layout (on an H100's 227 KB: forward 768 at head_dim 32, 704
+    at 64; f32 backward 128, a whole [S, S] tile a block; bf16 backward
+    1472 at head_dim 32). Past it the wrappers take the query-blocked
+    kernels' code, which has no S limit. The bf16 forward (the tensor-core
+    kernel) has no limit, so ``"fwd"`` raises on any other dtype than f32."""
+    if direction == "fwd" and dtype != torch.float32:
+        raise ValueError(f"only the f32 single-tile forward has an S limit, not the {dtype} one")
+    check_kernel_supports(dtype, head_dim=head_dim)
     index = torch.device(device if device is not None else "cuda").index
-    return _max_seq(direction, torch.cuda.current_device() if index is None else index, head_dim)
+    name = "dial_attention_fwd_max_seq" if direction == "fwd" else f"dial_attention_bwd_max_seq_{KERNEL_DTYPES[dtype]}"
+    return _max_seq(f"flash_attention_{direction}", name, torch.cuda.current_device() if index is None else index,
+                    head_dim)
 
 
 @functools.cache
-def _max_seq(direction: str, index: int, head_dim: int) -> int:
+def _max_seq(stem: str, name: str, index: int, head_dim: int) -> int:
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     out = ctypes.c_int(0)
-    lib = build_kernels().libs[f"flash_attention_{direction}"]
     with torch.cuda.device(index):
-        err = getattr(lib, f"dial_attention_{direction}_max_seq")(head_dim, ctypes.addressof(out))
-    _raise_on(err, f"attention {direction} shared-memory query")
+        err = getattr(build_kernels().libs[stem], name)(head_dim, ctypes.addressof(out))
+    _raise_on(err, f"{name} (shared-memory query)")
     return out.value
 
 
@@ -339,13 +347,15 @@ def _launch(stem, entry, what, q, pointers, views):
 
 
 def _forward_kernel(q, k, v, o, attention_mask, counter="flash_attention_fwd"):
-    """Launches the single-tile f32 forward (CUDA cores) on [B, h, S, Dh]
-    views q, k, v -> o; S within ``single_tile_max_s("fwd", Dh)``. Counts
-    the launch under ``counter``, the LAUNCHES key of the caller's layout
-    (TPU kernel 4: packed qkv; 5: head-major)."""
+    """Launches the single-tile f32 forward (split-TF32 products on the
+    tensor cores) on [B, h, S, Dh] views q, k, v -> o; S within
+    ``single_tile_max_s("fwd", Dh)``; q, k and v 16-byte aligned rows
+    (cp.async copies). Counts the launch under ``counter``, the LAUNCHES
+    key of the caller's layout (TPU kernel 4: packed qkv; 5: head-major)."""
     _check_attention_inputs(q=q, k=k, v=v, o=o)
     if q.dtype != torch.float32:
-        raise ValueError(f"the single-tile CUDA-core forward takes f32, got {q.dtype}")
+        raise ValueError(f"the single-tile f32 forward takes f32 (bf16 takes the tensor-core kernel), got {q.dtype}")
+    _check_16_byte_rows("single-tile f32 forward", q=q, k=k, v=v)
     b, h, s, dh = q.shape
     if s > single_tile_max_s("fwd", dh, q.device):
         raise ValueError(f"S={s} is past the single-tile forward's shared-memory limit at head_dim {dh}")
@@ -445,17 +455,25 @@ def _check_rows(name, t, shape):
 
 
 def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
-    """Launches the two-pass single-tile recompute-P backward (TPU kernel
-    8) on [B, h, S, Dh] views; S within ``single_tile_max_s("bwd", Dh)``."""
+    """Launches the single-tile recompute-P backward (TPU kernel 8) on [B,
+    h, S, Dh] views; S within ``single_tile_max_s("bwd", Dh, dtype=...)``:
+    in f32 one launch of split-TF32 products on the tensor cores (q, k, v
+    and do 16-byte aligned rows), in bf16 two passes on the CUDA cores."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
     b, h, s, dh = q.shape
-    if s > single_tile_max_s("bwd", dh, q.device):
-        raise ValueError(f"S={s} is past the single-tile backward's shared-memory limit at head_dim {dh}")
+    if s > single_tile_max_s("bwd", dh, q.device, q.dtype):
+        raise ValueError(f"S={s} is past the single-tile backward's shared-memory limit at head_dim {dh} in "
+                         f"{q.dtype}")
     bias = _kernel_bias(attention_mask, b, s, q.device)
-    # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
-    rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        _check_16_byte_rows("single-tile f32 backward", q=q, k=k, v=v, do=do)
+        pointers = (q, k, v, do, bias, dq, dk, dv)
+    else:
+        # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
+        rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
+        pointers = (q, k, v, do, bias, dq, dk, dv, rows)
     _launch("flash_attention_bwd", f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}", "attention backward", q,
-            (q, k, v, do, bias, dq, dk, dv, rows), (q, k, v, do, dq, dk, dv))
+            pointers, (q, k, v, do, dq, dk, dv))
     LAUNCHES["flash_attention_bwd"] += 1
 
 
@@ -509,9 +527,9 @@ def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
 
 def _backward_into(q, k, v, do, dq, dk, dv, attention_mask, single_tile):
     """The backward on the card without an lse: the single-tile kernel
-    (``single_tile``: the single-tile route) up to its shared-memory limit,
-    else the query-blocked backward's code."""
-    if single_tile and q.shape[2] <= single_tile_max_s("bwd", q.shape[-1], q.device):
+    (``single_tile``: the single-tile route) up to its dtype's
+    shared-memory limit, else the query-blocked backward's code."""
+    if single_tile and q.shape[2] <= single_tile_max_s("bwd", q.shape[-1], q.device, q.dtype):
         _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask)
     else:
         _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask)

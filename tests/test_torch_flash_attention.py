@@ -132,6 +132,15 @@ def test_longer_than_one_tile_raises(layout):
         np.testing.assert_allclose(g, r, atol=5e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_single_tile_forward_limit_is_f32_only(head_dim):
+    """Only the f32 single-tile forward has a shared-memory S limit (the
+    bf16 forward, the tensor-core kernel, has none): asked for a bf16
+    forward limit, ``single_tile_max_s`` raises before it reaches a card."""
+    with pytest.raises(ValueError, match="only the f32 single-tile forward"):
+        tfa.single_tile_max_s("fwd", head_dim, dtype=torch.bfloat16)
+
+
 @pytest.mark.parametrize("impl", ["pallas", "pallas_plain"])
 def test_bert_forward_pallas_route_matches_jax(impl):
     """The port's "pallas" routes (on the CPU, the plain versions inside

@@ -28,6 +28,8 @@ ulp (2^-5) exceeds 3e-2, and the kernel and the plain version, summing in
 different orders, can round such a value to neighbouring bf16 values.
 """
 
+import collections
+
 import pytest
 import torch
 
@@ -205,20 +207,87 @@ def test_attention_kernels_match_plain_on_card(cuda_device, b, s, dtype, dh, ato
     want = _grads(lambda *x: tfa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h)
     _assert_grads_close(got, want, dtype)
     torch.cuda.synchronize()
-    # f32 on the single-tile CUDA-core forward, per layout; bf16 on the
-    # tensor-core forward (both layouts); the backward on kernel 8
+    # f32 on the single-tile split-TF32 forward, per layout; bf16 on the
+    # tensor-core forward (both layouts); the backward on kernel 8 up to
+    # its dtype's limit (f32: S = 128), past it on kernel 9's code
     fwd = ({"attention_tc": 4} if dtype == torch.bfloat16
            else {"qkv_native_attention": 2, "flash_attention_fwd": 2})
-    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), **fwd, "flash_attention_bwd": 2}
+    bwd = ("flash_attention_bwd" if s <= tfa.single_tile_max_s("bwd", head_dim=dh, dtype=dtype)
+           else "attention_bwd_q_blocked")
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), **fwd, bwd: 2}
 
 
 @pytest.mark.cuda
-def test_attention_kernel_backward_is_reproducible(cuda_device):
-    """No atomics: two backward calls give the same bits."""
-    qkv, mask, cot = _attention_inputs(cuda_device, 2, 128)
+@pytest.mark.parametrize("dh", [32, 64])
+def test_attention_kernel_backward_is_reproducible(cuda_device, dh):
+    """No atomics: two backward calls (the f32 split-TF32 kernel 8) give
+    the same bits."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, 128, dh=dh)
+    tfa.reset_launches()
     a = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
     b = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
+    assert tfa.LAUNCHES["flash_attention_bwd"] == 2
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("limit,offset", [(None, 64), (None, 100), (None, 128), (None, 512), (None, 520),
+                                          ("fwd", 0), ("bwd", 0), ("fwd", 64), ("bwd", 64)])
+def test_f32_split_tf32_single_tile_kernels_on_card(cuda_device, limit, offset, dh):
+    """Kernels 4 (packed qkv) and 5 (head-major) in f32, the split-TF32
+    single-tile forward, and kernel 8 in f32, the split-TF32 single-tile
+    backward, against the plain versions in both layouts, with a ragged
+    and a fully masked row: at S = 64, 100, 128, 512 and 520, at the
+    forward's and the backward's shared-memory limits (``limit``) and 64
+    past each, where the launch counters must show kernel 6's code (the
+    forward) or kernel 9's (the backward)."""
+    fwd_max, bwd_max = tfa.single_tile_max_s("fwd", head_dim=dh), tfa.single_tile_max_s("bwd", head_dim=dh)
+    assert fwd_max > 512 and bwd_max >= 128
+    s = offset + {None: 0, "fwd": fwd_max, "bwd": bwd_max}[limit]
+    b = 2 if s > 256 else 3
+    qkv, mask, cot = _attention_inputs(cuda_device, b, s, dh=dh)
+    q, k, v = (t.contiguous() for t in tfa._split_heads(qkv, 12))
+    cot_h = cot.view(b, s, 12, dh).transpose(1, 2).contiguous()
+    tfa.reset_launches()
+    with torch.no_grad():
+        _assert_close(tfa.fused_qkv_attention(qkv, mask, 12), tfa.fused_qkv_attention(qkv, mask, 12, plain=True),
+                      2e-5)
+        if tfa.attention_route(s) == "single_tile":
+            _assert_close(tfa.flash_attention(q, k, v, mask), tfa.flash_attention(q, k, v, mask, plain=True), 2e-5)
+    got = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)
+    _assert_grads_close(got, _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12, plain=True), [qkv], cot),
+                        torch.float32)
+    got = _grads(lambda *x: tfa.flash_attention(*x, mask), [q, k, v], cot_h)
+    _assert_grads_close(got, _grads(lambda *x: tfa.flash_attention(*x, mask, plain=True), [q, k, v], cot_h),
+                        torch.float32)
+    torch.cuda.synchronize()
+    # the code each call took: the packed layout is single-tile at every S
+    # (kernel 4, kernel 6's code past the forward's limit); head-major by
+    # the route, then the limit
+    single = tfa.attention_route(s) == "single_tile"
+    packed_bwd = "flash_attention_bwd" if s <= bwd_max else "attention_bwd_q_blocked"
+    major_fwd = "flash_attention_fwd" if single and s <= fwd_max else "attention_q_blocked"
+    want = collections.Counter({"qkv_native_attention" if s <= fwd_max else "attention_q_blocked": 2})
+    want[major_fwd] += 2 if single else 1
+    want[packed_bwd] += 1
+    want["attention_bwd_q_blocked" if not single else packed_bwd] += 1
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == dict(want), tfa.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
+    """The f32 single-tile kernels copy rows 16 bytes at a time: a view
+    whose rows are not 16-byte aligned raises (no fallback)."""
+    x = torch.randn(2, 2, 64, 36, device=cuda_device)
+    q = x[..., 1:33]  # unit head-dim stride, rows 4 bytes past 16-byte alignment
+    mask = torch.ones(2, 64, dtype=torch.int32, device=cuda_device)
+    o = torch.empty(2, 2, 64, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._forward_kernel(q, q, q, o, mask)
+    grads = [torch.empty(2, 2, 64, 32, device=cuda_device) for _ in range(3)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._backward_kernel(q, q, q, q, *grads, mask)
 
 
 @pytest.mark.cuda
@@ -228,8 +297,8 @@ def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
     naming the set. Past the single-tile kernels' shared-memory limit,
     where they used to raise, the forward (f32: the query-blocked code;
     bf16: the tensor-core kernel, which has no limit) and the backward
-    (the query-blocked backward's code) run and match the plain versions,
-    in both dtypes at both head widths."""
+    (past its dtype's limit: the query-blocked backward's code) run and
+    match the plain versions, in both dtypes at both head widths."""
     for dh in (32, 64):
         qkv, mask, _ = _attention_inputs(cuda_device, 2, 64, dh=dh, dtype=torch.bfloat16)
         out = tfa.fused_qkv_attention(qkv, mask, 12)
@@ -246,15 +315,23 @@ def test_attention_kernels_raise_on_bf16_and_long_sequences(cuda_device):
     for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
         for dh in (32, 64):
             for direction in ("fwd", "bwd"):
-                s = tfa.single_tile_max_s(direction, head_dim=dh) + 64
+                # "fwd": past the f32 forward's limit, in both dtypes (the
+                # bf16 forward has none)
+                limit_dtype = dtype if direction == "bwd" else torch.float32
+                s = tfa.single_tile_max_s(direction, head_dim=dh, dtype=limit_dtype) + 64
                 qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh, dtype=dtype)
                 tfa.reset_launches()
                 got = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)
                 torch.cuda.synchronize()
                 fwd = "attention_tc" if dtype == torch.bfloat16 else (
                     "attention_q_blocked" if direction == "fwd" else "qkv_native_attention")
-                assert tfa.LAUNCHES[fwd] == 1 and tfa.LAUNCHES["attention_bwd_q_blocked"] == 1, tfa.LAUNCHES
-                assert tfa.LAUNCHES["flash_attention_bwd"] == 0
+                # past the f32 forward's limit the bf16 backward (its own,
+                # longer limit) is still kernel 8
+                past_bwd = s > tfa.single_tile_max_s("bwd", head_dim=dh, dtype=dtype)
+                bwd, other = (("attention_bwd_q_blocked", "flash_attention_bwd") if past_bwd
+                              else ("flash_attention_bwd", "attention_bwd_q_blocked"))
+                assert tfa.LAUNCHES[fwd] == 1 and tfa.LAUNCHES[bwd] == 1, tfa.LAUNCHES
+                assert tfa.LAUNCHES[other] == 0
                 want = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12, plain=True), [qkv], cot)
                 _assert_grads_close(got, want, dtype)
                 out = tfa.fused_qkv_attention(qkv, mask, 12)
@@ -390,25 +467,22 @@ def test_auto_route_at_bge_large_width_runs_kernels_1_and_2(cuda_device, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dh,atol", ATTENTION)
 def test_single_tile_kernels_at_their_limit(cuda_device, dtype, dh, atol):
-    """Kernels 4 and 5 at the longest S their forward takes, kernel 8 at
-    the longest its backward takes, against the plain versions, at each
-    instantiation."""
-    fwd_s, bwd_s = tfa.single_tile_max_s("fwd", head_dim=dh), tfa.single_tile_max_s("bwd", head_dim=dh)
-    assert fwd_s >= bwd_s > 512
+    """Kernels 4 and 5 at the longest S the f32 forward takes, kernel 8 at
+    the longest its backward takes in the dtype, against the plain
+    versions, at each instantiation (the bf16 forward, the tensor-core
+    kernel, has no limit: it runs at the f32 forward's)."""
+    fwd_s = tfa.single_tile_max_s("fwd", head_dim=dh)
+    bwd_s = tfa.single_tile_max_s("bwd", head_dim=dh, dtype=dtype)
+    assert fwd_s > 512 and bwd_s >= (128 if dtype == torch.float32 else 1024)
     qkv, mask, cot = _attention_inputs(cuda_device, 1, fwd_s, dh=dh, dtype=dtype)
     out = tfa.fused_qkv_attention(qkv, mask, 12)
     ref = tfa.fused_qkv_attention(qkv, mask, 12, plain=True)
     _assert_close(out, ref, atol)
     q, k, v = tfa._split_heads(qkv, 12)
-    if dh == 32:
-        assert tfa.attention_route(fwd_s) == "single_tile"
-        _assert_close(tfa.flash_attention(q, k, v, mask), tfa.flash_attention(q, k, v, mask, plain=True), atol)
-    else:
-        # the forward's limit at head_dim 64 (1536 on an H100) is a multiple
-        # of 256, where the head-major dispatch takes the query-blocked
-        # route (at head_dim 64 too now); kernel 5 is gated 64 rows below it
-        assert tfa.attention_route(fwd_s) == "q_blocked"
-        _assert_close(tfa.flash_attention(q, k, v, mask), tfa.flash_attention(q, k, v, mask, plain=True), atol)
+    _assert_close(tfa.flash_attention(q, k, v, mask), tfa.flash_attention(q, k, v, mask, plain=True), atol)
+    if tfa.attention_route(fwd_s) != "single_tile":
+        # a limit that is a multiple of 256 past 512 takes the query-blocked
+        # route head-major; kernel 5 is gated 64 rows below it
         s5 = fwd_s - 64
         assert tfa.attention_route(s5) == "single_tile"
         q, k, v = (t[:, :, :s5] for t in (q, k, v))

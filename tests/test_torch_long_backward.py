@@ -147,7 +147,7 @@ def _recording_kernels(monkeypatch, calls, limits=(1600, 1472)):
     dispatch made to believe the tensors lie on the card: the control flow
     of a CUDA forward and backward, run on the CPU."""
     monkeypatch.setattr(tfa, "_use_kernel", lambda t, plain: not plain)
-    monkeypatch.setattr(tfa, "single_tile_max_s", lambda direction, head_dim, device=None: dict(
+    monkeypatch.setattr(tfa, "single_tile_max_s", lambda direction, head_dim, device=None, dtype=None: dict(
         zip(("fwd", "bwd"), limits))[direction])
 
     def fwd(q, k, v, o, mask, counter="flash_attention_fwd"):

@@ -1,7 +1,11 @@
-"""The split-TF32 (3xTF32) arithmetic of the port's f32 query-blocked
-attention kernels (TPU kernels 6 and 9 on Hopper's tensor cores:
-``dial_rag_tpu_torch/csrc/tensor_core_tf32.cuh``), modelled in plain
-PyTorch on the CPU and held against the JAX package.
+"""The split-TF32 (3xTF32) arithmetic of the port's f32 attention
+kernels on Hopper's tensor cores (``dial_rag_tpu_torch/csrc/
+tensor_core_tf32.cuh``): the query-blocked forward and backward (TPU
+kernels 6 and 9) and the single-tile forward and backward (TPU kernels 4,
+5 and 8), modelled in plain PyTorch on the CPU and held against the JAX
+package: its query-blocked route at S = 1024, its single-tile route
+(``_forward``, ``_backward`` and ``fused_qkv_attention`` with its VJP, in
+interpret mode) at S <= 520.
 
 The model. ``split_tf32`` rounds an f32 value to 10 mantissa bits, to
 nearest with ties away from zero, by integer bit operations, as
@@ -11,7 +15,10 @@ term is a product of two TF32 values, exact in f64, and the three are
 summed in f32, the small terms first, as the kernels' ``mma3`` orders them.
 The attention around the products follows the kernels: scores * scale +
 bias, the exact row softmax, P . V and the gradients' long sums taken as
-partials per 64-row chunk added in f32.
+partials per 64-row chunk added in f32. The single-tile kernels compute
+the same expressions in the same chunks (Q K^T once in the forward; in
+the backward dP twice, delta = rowsum(dP P) as the reference forms it),
+so one model serves both.
 
 Two kinds of value behave otherwise under ``rna`` and are not tested here:
 values within a TF32 ulp of f32's largest round to inf, and subnormals
@@ -26,6 +33,7 @@ the port imports it.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,14 +85,15 @@ def _probs(q, k, mask):
 
 
 def forward_model(q, k, v, mask):
-    """The f32 query-blocked forward: o = sum over key chunks of P . V."""
+    """The f32 query-blocked and single-tile forwards: o = sum over key
+    chunks of P . V."""
     p = _probs(q, k, mask)
     return _chunked(lambda c: mm3(p[..., c], v[:, :, c]), q.shape[2])
 
 
 def backward_model(q, k, v, do, mask):
-    """The f32 query-blocked backward's two passes: dQ over key chunks,
-    dK and dV over query chunks."""
+    """The f32 query-blocked backward's two passes and the single-tile
+    backward's steps: dQ over key chunks, dK and dV over query chunks."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, mask)
     dp = mm3(do, v.transpose(-1, -2))
@@ -134,13 +143,26 @@ def _inputs(b, h, s, dh, seed):
     return q, k, v, do, mask
 
 
+# sequence lengths of the model tests: the single-tile route at a
+# training bucket (64), ragged (100), the single-tile backward's limit on
+# an H100 (128), one full tile (512), past it but not a multiple of 256
+# (520: still single-tile), and the query-blocked route (1024)
+SEQS = [64, 100, 128, 512, 520, 1024]
+
+
+def _jax_route(s: int) -> str:
+    return "single_tile" if s <= jfa._FULL_TILE_MAX_S or s % jfa._Q_BLOCK else "q_blocked"
+
+
 @pytest.mark.parametrize("dh", [32, 64])
-def test_forward_model_matches_jax(dh):
-    """Kernel 6's split-TF32 arithmetic against the JAX package's
-    ``_forward`` (the query-blocked Pallas kernel in interpret mode) at
-    S = 1024, within the f32 forward gate 2e-5."""
-    q, k, v, _, mask = _inputs(3, 2, 1024, dh, seed=dh)
-    assert jfa._FULL_TILE_MAX_S < 1024 <= jfa._Q_BLOCKED_MAX_S
+@pytest.mark.parametrize("s", SEQS)
+def test_forward_model_matches_jax(s, dh):
+    """Kernels 5 and 6's split-TF32 arithmetic against the JAX package's
+    ``_forward`` (the single-tile Pallas kernel at S <= 520, the
+    query-blocked one at S = 1024, in interpret mode), within the f32
+    forward gate 2e-5."""
+    q, k, v, _, mask = _inputs(3, 2, s, dh, seed=dh + s)
+    assert _jax_route(s) == ("q_blocked" if s == 1024 else "single_tile")
     out = forward_model(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
     ref, lse = jfa._forward(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
     assert lse is None
@@ -148,14 +170,50 @@ def test_forward_model_matches_jax(dh):
 
 
 @pytest.mark.parametrize("dh", [32, 64])
-def test_backward_model_matches_jax(dh):
-    """Kernel 9's split-TF32 arithmetic against the JAX package's
-    ``_backward`` (the query-blocked Pallas backward in interpret mode) at
-    S = 1024 with a ragged and a fully masked row, within the f32 gradient
-    gates atol 5e-5, rtol 1e-4."""
-    q, k, v, do, mask = _inputs(3, 2, 1024, dh, seed=dh + 1)
+@pytest.mark.parametrize("s", SEQS)
+def test_backward_model_matches_jax(s, dh):
+    """Kernels 8 and 9's split-TF32 arithmetic against the JAX package's
+    ``_backward`` (the single-tile Pallas backward at S <= 520, the
+    query-blocked one at S = 1024, in interpret mode) with a ragged and a
+    fully masked row, within the f32 gradient gates atol 5e-5, rtol
+    1e-4."""
+    q, k, v, do, mask = _inputs(3, 2, s, dh, seed=dh + s + 1)
     got = backward_model(*(torch.from_numpy(a) for a in (q, k, v, do)), torch.from_numpy(mask))
     want = jfa._backward(jnp.asarray(mask), *(jnp.asarray(a) for a in (q, k, v, do)))
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-5, rtol=1e-4, err_msg=name)
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, H] -> [B, h, S, Dh]."""
+    b, s, hid = x.shape
+    return x.reshape(b, s, heads, hid // heads).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", [64, 100, 128, 512, 520])
+def test_packed_model_matches_jax(s, dh):
+    """Kernel 4 and its backward (kernel 8 on the packed layout): the
+    model on the heads of a packed qkv [B, S, 3H], the gradients repacked,
+    against the JAX package's ``fused_qkv_attention`` and its VJP (the
+    layout-native Pallas kernel and the single-tile backward in interpret
+    mode), with a ragged and a fully masked row; forward 2e-5, gradient
+    atol 5e-5, rtol 1e-4."""
+    heads = 2
+    rng = np.random.default_rng(s + dh + 2)
+    qkv = rng.standard_normal((3, s, 3 * heads * dh)).astype(np.float32)
+    cot = rng.standard_normal((3, s, heads * dh)).astype(np.float32)
+    _, _, _, _, mask = _inputs(3, heads, s, dh, seed=0)
+    qkv_t = torch.from_numpy(qkv)
+    q, k, v = (_heads(x, heads) for x in qkv_t.chunk(3, dim=-1))
+    mask_t = torch.from_numpy(mask)
+    out = forward_model(q, k, v, mask_t).transpose(1, 2).reshape(3, s, heads * dh)
+    grads = backward_model(q, k, v, _heads(torch.from_numpy(cot), heads), mask_t)
+    dqkv = torch.cat([g.transpose(1, 2).reshape(3, s, heads * dh) for g in grads], dim=-1)
+
+    ref, vjp = jax.vjp(lambda x: jfa.fused_qkv_attention(x, jnp.asarray(mask), heads), jnp.asarray(qkv))
+    (ref_dqkv,) = vjp(jnp.asarray(cot))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    assert torch.isfinite(dqkv).all()
+    np.testing.assert_allclose(dqkv.numpy(), np.asarray(ref_dqkv), atol=5e-5, rtol=1e-4)
