@@ -99,10 +99,12 @@ Phases, each announced by a ``[phase]`` line:
    standard-normal inputs, ragged rows and a fully masked one, the
    KV-blocked passes fed the forward kernel's o and lse, the f32
    query-blocked backward (split-TF32 products) and its plain version also
-   read against the plain version evaluated in f64; each timed at the
-   training phase's shape beside its bound (the split-TF32 kernel's at the
-   3xTF32 rate, its CUDA-core f32 bound beside it), the plain version and
-   SDPA forward + backward;
+   read against the plain version evaluated in f64; the f32 KV-blocked
+   passes (split-TF32 products too) and their plain version also read
+   against the f64 evaluation on every row; each timed at the training
+   phase's shape beside its bound (the f32 kernels' at the 3xTF32 rate,
+   their CUDA-core f32 bound beside it), the plain version, SDPA forward +
+   backward and SDPA's backward alone;
 11. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
@@ -150,8 +152,8 @@ TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this cl
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
 # f32-grade products as three TF32 tensor-core passes (495 TFLOP/s dense
-# TF32 / 3): the rate of the split-TF32 kernels' bound (kernels 4-6, 8
-# and 9 in f32), their CUDA-core f32 bound kept beside it
+# TF32 / 3): the rate of the split-TF32 kernels' bound (kernels 4-6 and
+# 8-11 in f32), their CUDA-core f32 bound kept beside it
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # f32 attention kernels vs plain versions: forward 2e-5, ten times the
@@ -207,9 +209,10 @@ KV_TC_SHAPES = ((1, 4608), (3, 8192))
 GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
 # the status, in the kernels JSON line, of the f32 rows redesigned on
 # split-TF32 products: the query-blocked kernels 6 and 9, the single-tile
-# kernels 4 (with 5) and 8
+# kernels 4 (with 5) and 8, the KV-blocked backward passes 10 and 11
 REDESIGNED = "redesigned (3xTF32, query-blocked)"
 REDESIGNED_SINGLE_TILE = "redesigned (3xTF32, single tile)"
+REDESIGNED_KV_BLOCKED = "redesigned (3xTF32, KV-blocked)"
 
 
 def tf32_smem(dh: int) -> int:
@@ -280,7 +283,7 @@ def phase(name: str | None) -> None:
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
     of the bf16 KV-blocked forward, the products, the LayerNorm pass and
-    the split-TF32 kernels 4 (with 5), 6, 8 and 9 in f32 takes, from
+    the split-TF32 kernels 4 (with 5), 6, 8, 9, 10 and 11 in f32 takes, from
     ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
     products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
     split-TF32 kernels': ``tf32_smem``; the single-tile ones' at the main
@@ -309,10 +312,14 @@ def kernel_resources(build) -> None:
         kernels += (
             ("flash_attention_long", ("q_blocked_tf32_kernelILi" + str(dh),), tf32_smem(dh),
              lambda line: f"query-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
-            ("flash_attention_long_bwd", ("q_blocked_dq_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+            ("flash_attention_long_bwd", (f"dq_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
              lambda line: f"query-blocked f32 backward dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
-            ("flash_attention_long_bwd", ("q_blocked_dkv_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+            ("flash_attention_long_bwd", (f"dkv_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
              lambda line: f"query-blocked f32 backward dK/dV pass (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dq_tf32_kernelILi{dh}ELb1E",), tf32_smem(dh),
+             lambda line: f"KV-blocked f32 dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dkv_tf32_kernelILi{dh}ELb1E",), tf32_smem(dh),
+             lambda line: f"KV-blocked f32 dK/dV pass (3xTF32), head_dim {width(line)}, 128 threads"),
             ("flash_attention_fwd", ("single_tile_tf32_kernelILi" + str(dh),),
              library_smem(build, "flash_attention_fwd", "dial_attention_fwd_smem_bytes", dh, 256),
              lambda line: f"single-tile f32 forward (3xTF32), head_dim {width(line)}, 128 threads, at S = 256"),
@@ -716,7 +723,7 @@ def backward_designs(torch, dev, card, heads: int, dh: int) -> None:
         want = fa.attention_backward_plain(q, k, v, do, mask)
         times = {}
         for design, kernel, match in (("(a) one launch", fa._backward_kernel, "single_tile_bwd_tf32"),
-                                      ("(b) two passes", fa._bwd_q_blocked_kernel, "q_blocked_d")):
+                                      ("(b) two passes", fa._bwd_q_blocked_kernel, "_tf32_kernel")):
             got = [torch.empty_like(t) for t in (q, k, v)]
             kernel(q, k, v, do, *got, mask)
             torch.cuda.synchronize()
@@ -1535,10 +1542,12 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
     view; the KV-blocked passes and their plain version get the forward
     kernel's o and lse (gates: ``check``). Each kernel is then gated and
     timed at ``timed[name]`` (B, S) in both dtypes beside its bound, the
-    plain version and SDPA forward + backward with the additive mask, one
-    row per dtype. The query-blocked backward in f32 (split-TF32 products)
-    and its plain version are also read against the plain version
-    evaluated in f64 at each gated S (a reading, not a gate)."""
+    plain version, SDPA forward + backward with the additive mask and
+    SDPA's backward alone (``library_bwd_ms``: after one forward,
+    ``torch.autograd.grad`` with the graph retained), one row per dtype.
+    The f32 kernels (split-TF32 products) and their plain versions are also
+    read against the plain version evaluated in f64 at each gated S, every
+    row (a reading, not a gate)."""
     import torch.nn.functional as F
 
     from dial_rag_tpu_torch.ops import flash_attention as fa
@@ -1621,10 +1630,11 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             want, exact = run(q, k, v, do, mask, True)
             got = run(q, k, v, do, mask, False)
             reading = check(names[route], got, want, exact, mask, dtype)
-            if route == "q_blocked" and dtype == torch.float32:
-                with torch.no_grad():
-                    exact = fa.attention_bwd_q_blocked_plain(*(t.double() for t in (q, k, v, do)), mask)
-                reading += "; against f64, kernel / plain: " + ", ".join(
+            if dtype == torch.float32:
+                if route == "q_blocked":
+                    with torch.no_grad():
+                        exact = fa.attention_bwd_q_blocked_plain(*(t.double() for t in (q, k, v, do)), mask)
+                reading += "; against f64 (every row), kernel / plain: " + ", ".join(
                     f"{g} {excess(a.double(), e):.3g} / {excess(w.double(), e):.3g}"
                     for g, a, w, e in zip(("dq", "dk", "dv"), got, want, exact))
             del want, exact, got
@@ -1642,11 +1652,10 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                            ("bwd_dkv_kv_blocked", "dial_rag_tpu/ops/flash_attention.py:461")):
         b, s = timed[name]
         for dtype in (torch.bfloat16, torch.float32):
-            # f32 kernel 9 forms its products in split TF32: bound at the
-            # 3xTF32 rate, the CUDA-core f32 one beside it; f32 kernels 10
-            # and 11 on the CUDA cores
-            tf32 = dtype == torch.float32 and name == "attention_bwd_q_blocked"
-            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS if tf32 else PEAK_F32_FLOPS)
+            # the f32 kernels form their products in split TF32: bound at
+            # the 3xTF32 rate, the CUDA-core f32 one beside it
+            tf32 = dtype == torch.float32
+            peak = PEAK_3XTF32_FLOPS if tf32 else PEAK_BF16_FLOPS
             q, k, v, do, mask = inputs(b, s, dtype, seed=11)
             size, head = q.element_size(), b * heads * s * dh * q.element_size()
             with torch.no_grad():
@@ -1689,11 +1698,17 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                 F.scaled_dot_product_attention(*leaves, attn_mask=keep).backward(do)
 
             library_ms = cuda_ms(torch, sdpa, iters=5, warmup=1)
-            del leaves
+            # SDPA's backward alone: the whole backward, the yardstick of the
+            # pair of KV-blocked passes (and of kernel 9)
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+            library_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                                     iters=5, warmup=1)
+            del leaves, out
             bound_ms, bound_by = bound(flops, nbytes, peak)
             f32_bound = bound(flops, nbytes, PEAK_F32_FLOPS)[0] if tf32 else None
             print(f"{name}: [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}: max_abs_err {err:.6g}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms, SDPA forward + backward {library_ms:.4f} ms, SDPA backward "
+                  f"{library_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s{' 3xTF32' if tf32 else ''}, "
                   f"{nbytes / 1e6:.2f} MB)"
                   + (f", CUDA-core f32 bound {f32_bound:.4f} ms (at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32
@@ -1703,9 +1718,11 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                 "name": key, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long_bwd.cu",
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "library_bwd_ms": library_bwd_ms,
             }
             if tf32:
-                rows[key].update(status=REDESIGNED, bound_f32_ms=f32_bound)
+                status = REDESIGNED if name == "attention_bwd_q_blocked" else REDESIGNED_KV_BLOCKED
+                rows[key].update(status=status, bound_f32_ms=f32_bound)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return rows

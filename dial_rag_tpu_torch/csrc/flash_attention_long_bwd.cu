@@ -33,46 +33,47 @@
 // backward's 257.7 GFLOP take 3.85 ms at 67 TFLOP/s in f32 on the CUDA
 // cores and 1.56 ms at 165 TFLOP/s of 3xTF32 (495 / 3); 7.69 and 3.12 ms
 // at head_dim 64. At [4, 12, 8192, 32] the dQ and dK/dV passes' 618.5 and
-// 824.6 GFLOP take 9.23 and 12.31 ms in f32 (0.63, 0.83 ms at 989 TFLOP/s
-// in bf16); twice that at head_dim 64. Their 176-201 MB of operands take
-// 0.05-0.1 ms: bound by operations.
+// 824.6 GFLOP take 9.23 and 12.31 ms in f32 on the CUDA cores, 3.75 and
+// 5.00 ms at 3xTF32's 165 TFLOP/s (0.63, 0.83 ms at 989 TFLOP/s in bf16);
+// twice that at head_dim 64. Their 176-201 MB of operands take 0.05-0.1
+// ms: bound by operations.
 //
-// The query-blocked backward in f32 (q_blocked_dq_tf32_kernel, then
-// q_blocked_dkv_tf32_kernel) runs its products on the tensor cores in
-// split TF32 (tensor_core_tf32.cuh: each f32 operand split into two TF32
-// parts, hi.lo + lo.hi + hi.hi by mma.sync.m16n8k8, about 2^-21 relative a
+// The f32 backwards run their products on the tensor cores in split TF32
+// (tensor_core_tf32.cuh: each f32 operand split into two TF32 parts,
+// hi.lo + lo.hi + hi.hi by mma.sync.m16n8k8, about 2^-21 relative a
 // product), Hopper's counterpart of the HIGHEST precision the reference
-// asks for on f32 (itself several bf16 passes on the TPU's MXU). Blocks
-// of 4 warps own 64 rows, 16 a warp; the other side streams through a
-// two-stage cp.async ring of 64-row chunks in dynamic shared memory (104
-// KB a block at head_dim 64, 56 KB at 32):
-//   dQ pass, a block per 64-query tile: a first sweep over the key chunks
-//     forms Q K^T and dO V^T and keeps each lane's running max,
-//     denominator and sum of e dP (rescaled as the max grows, merged over
-//     the row's four lanes), which gives the row's max, denominator and
-//     delta = sum(dP P) (saved for the dK/dV pass); a second sweep forms
-//     them again, dS = P (dP - delta) scale, and dQ += dS K, each chunk's
-//     partial added to the total with a compensation term (add_compensated).
+// asks for on f32 (itself several bf16 passes on the TPU's MXU): two
+// launches of one pair of templates, dq_tf32_kernel then dkv_tf32_kernel,
+// with LSE false for the query-blocked backward and true for the KV-blocked
+// passes. Blocks of 4 warps own 64 rows, 16 a warp; the other side streams
+// through a two-stage cp.async ring of 64-row chunks in dynamic shared
+// memory (104 KB a block at head_dim 64, 56 KB at 32):
+//   dQ pass, a block per 64-query tile. Query-blocked: a first sweep over
+//     the key chunks forms Q K^T and dO V^T and keeps each lane's running
+//     max, denominator and sum of e dP (rescaled as the max grows, merged
+//     over the row's four lanes), which gives the row's max, denominator
+//     and delta = sum(dP P) (saved for the dK/dV pass). KV-blocked: P =
+//     exp(s - lse) from the forward's lse, delta = dO . O from its o tile
+//     (staged through a ring stage before the sweep), no first sweep. Then
+//     a sweep forms Q K^T and dO V^T, dS = P (dP - delta) scale, and dQ +=
+//     dS K.
 //   dK/dV pass, a block per 64-key tile: a loop over the query chunks
-//     forms K Q^T and V dO^T (rows keys), rebuilds P and dS with the dQ
-//     pass's expressions from its stats and delta, and accumulates dV +=
-//     P^T dO and dK += dS^T Q, each chunk's partial added in f32 with no
-//     compensation term (the gates at S = 4352 and on a fully masked row
-//     hold without it; with it the sums would not fit the registers at
-//     head_dim 64).
-// It computes nine [S, S] products (QK^T and dO V^T three times, dS K,
-// P^T dO and dS^T Q) against the bound's five: the sweeps keep the
-// reference's expressions, delta = rowsum(dP P) and P normalised before
-// use. What else still holds it back: the split of every operand at each
-// fragment load (three conversions per element, in every warp that reads
-// it), mma.sync rather than wgmma (wgmma takes TF32 only K-major), and
-// two blocks an SM at head_dim 64.
+//     forms K Q^T and V dO^T (rows keys, so P^T and dS^T come out as A
+//     operands), rebuilds P and dS with the dQ pass's expressions from its
+//     statistics and delta, and accumulates dV += P^T dO and dK += dS^T Q.
+// The query-blocked backward computes nine [S, S] products (QK^T and dO V^T
+// three times, dS K, P^T dO and dS^T Q) against the bound's five: the
+// sweeps keep the reference's expressions, delta = rowsum(dP P) and P
+// normalised before use. The KV-blocked passes compute the bound's three
+// and four. What else still holds them back: the split of every operand at
+// each fragment load (three conversions per element, in every warp that
+// reads it), mma.sync rather than wgmma (wgmma takes TF32 only K-major),
+// and two blocks an SM at head_dim 64.
 //
-// The bf16 query-blocked backward and both KV-blocked passes (both dtypes)
-// run on the CUDA cores, products in f32 (a bf16 x bf16 product is exact
-// in f32; the f32 KV-blocked passes keep the reference's HIGHEST precision
-// with no TF32): two launches, each a loop inside the block over 64-key
-// chunks or 32-query tiles that stream through shared memory, no S limit:
+// The bf16 backwards run on the CUDA cores, products in f32 (a bf16 x bf16
+// product is exact in f32): two launches, each a loop inside the block
+// over 64-key chunks or 32-query tiles that stream through shared memory,
+// no S limit:
 //   dQ pass, one block per (32-query tile, head, batch row), thread t
 //     owning query row t / 8 (its q and dO rows in registers, 2 x head_dim
 //     floats) and keys t % 8 + 8 i of each chunk. Query-blocked: a first
@@ -85,16 +86,30 @@
 //     sums): a loop over every 32-query tile rebuilds P with the dQ pass's
 //     expression (the same bits, for the query-blocked backward) and dS,
 //     and accumulates dV += cast(P)^T dO and dK += cast(scale dS)^T Q in
-//     f32 registers; the bf16 path casts P and scale dS where the
-//     reference casts them.
+//     f32 registers, casting P and scale dS where the reference casts them.
+//
 // The long sums over S (dQ over the keys, dK and dV over the queries) add
-// one partial per chunk or tile to the total with a compensation term: in
-// the KV-blocked backward a fully masked row's P is 1, so its gradients
+// one partial per chunk, tile or half chunk to the total in f32 on the
+// CUDA cores, with a compensation term (Kahan) where the KV-blocked
+// backward needs one: there a fully masked row's P is 1, so its gradients
 // are sums of S = 8192 terms of size 1, where a plain running sum would
-// drift by ~1e-4.
+// drift by ~1e-4. The query-blocked dQ passes compensate each chunk's
+// partial; the query-blocked split-TF32 dK/dV pass adds each half chunk's
+// plainly (its P is at most 1 / S on a fully masked row, and the f32 gates
+// hold without it). The split-TF32 KV-blocked passes compensate a partial
+// every 32 rows (half a chunk) and, at head_dim 64, form dP with its small
+// terms apart (kDpSmallApart): a tensor core rounds the f32 sum of each
+// mma.sync in its own way, and on a fully masked row, where P is exactly 1,
+// partials carried over 64 rows put dK farther from an f64 evaluation than
+// the plain version is (the gates refuse it at head_dim 64), and dP's
+// rounding over the head width leaves it within a few percent of the
+// plain version's. PERF.md has the readings on an H100, from
+// dial_rag_tpu_torch/scripts/kv_blocked_bwd_variants.py, which builds this
+// source with each of these choices undone.
 #include <cfloat>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "attention_long.cuh"
 #include "tensor_core_tf32.cuh"
@@ -348,7 +363,9 @@ __global__ void __launch_bounds__(kThreads)
   store_row<DH>(dv + b * vw.dv.b + head * vw.dv.h, vw.dv.r, k0, s, dv_sum);
 }
 
-// ---- _attention_bwd_q_blocked_kernel in f32 (split-TF32 tensor-core products) ----
+// ---- the f32 blocked backwards (split-TF32 tensor-core products) ---------
+// _attention_bwd_q_blocked_kernel (LSE false) and the KV-blocked passes
+// _bwd_dq_kv_blocked_kernel, _bwd_dkv_kv_blocked_kernel (LSE true) in f32.
 // Both passes are blocks of tf32::kThreads threads owning a 64-row tile
 // (queries, then keys), 16 rows a warp, the other side streaming through
 // tf32::Layout's two-stage ring in 64-row chunks. A chunk is taken in two
@@ -358,18 +375,64 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kHalf = 32;
 constexpr int kHalfTiles = kHalf / 8;
 
-// pass 1: dQ, each row's max and denominator (stats [B, h, S, 2]) and
-// delta = sum(dP P) ([B, h, S]), for query rows q0 .. q0 + 63
-template <int DH>
+// Whether a pass forms dP with its small terms apart (product_rows'
+// kSmallApart): the KV-blocked passes at head_dim 64, where dP's rounding
+// over the head width made most of a fully masked row's error (the
+// header's last paragraph). At head_dim 32 the gates hold with a wide
+// margin without it, and its extra accumulator's registers cost the dK/dV
+// pass a block an SM and time on an H100 (PERF.md).
+template <int DH, bool LSE>
+constexpr bool kDpSmallApart = LSE && DH == 64;
+
+// sum += part, element by element, then part = 0. With kCompensated each
+// add takes a compensation term (add_compensated) kept as bf16, two to a
+// register (comp[j][h]: elements 2h and 2h + 1 of sum[j]): a term only
+// has to carry a rounding error to a few bits, and as f32 the terms made
+// the KV-blocked dK/dV pass at head_dim 64 spill more registers
+// (PERF.md).
+template <bool kCompensated, int DH>
+__device__ __forceinline__ void add_partial(float (&sum)[DH / 8][4], uint32_t (&comp)[DH / 8][2],
+                                            float (&part)[DH / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (kCompensated) {
+        float c0 = __uint_as_float(comp[j][h] << 16), c1 = __uint_as_float(comp[j][h] & 0xffff0000u);
+        add_compensated(sum[j][2 * h], c0, part[j][2 * h]);
+        add_compensated(sum[j][2 * h + 1], c1, part[j][2 * h + 1]);
+        comp[j][h] = tc::pack_bf16(c0, c1);
+      } else {
+        sum[j][2 * h] = __fadd_rn(sum[j][2 * h], part[j][2 * h]);
+        sum[j][2 * h + 1] = __fadd_rn(sum[j][2 * h + 1], part[j][2 * h + 1]);
+      }
+      part[j][2 * h] = part[j][2 * h + 1] = 0.f;
+    }
+}
+
+// pass 1: dQ of query rows q0 .. q0 + 63 and each row's delta ([B, h, S])
+// for the dK/dV pass.
+//   LSE false: a first sweep over the key chunks gives each row's max and
+//     denominator (written to stats [B, h, S, 2]) and delta = sum(dP P);
+//     P = exp(s - max) / denominator. Each chunk's dQ partial is added to
+//     the total with a compensation term.
+//   LSE true: P = exp(s - lse) from the forward's lse and delta = dO . O
+//     from its o (staged through ring stage 1 before the sweep): no first
+//     sweep. A fully masked row's P is 1 for every key, so its dQ is a sum
+//     of S terms of size 1: each half chunk's partial is added with a
+//     compensation term, and at head_dim 64 dP's product keeps its small
+//     terms apart (kDpSmallApart).
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(tf32::kThreads)
-    q_blocked_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                             const float* __restrict__ d_o, const float* __restrict__ bias, float* __restrict__ dq,
-                             float* __restrict__ stats, float* __restrict__ delta_out, BwdViews vw, int s,
-                             float scale) {
+    dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ o, const float* __restrict__ d_o, const float* __restrict__ bias,
+                   const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ stats,
+                   float* __restrict__ delta_out, BwdViews vw, int s, float scale) {
   extern __shared__ __align__(16) float tf32_smem[];
   const tf32::Layout<DH> sm{tf32_smem};  // fixed: q, dO; a stage: K, V, the chunk's bias
   const int q0 = blockIdx.x * tf32::kTileRows, head = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, c = threadIdx.x % 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = lane % 4;
+  const long long rows0 = (static_cast<long long>(b) * gridDim.y + head) * s;
   const float* k_head = k + b * vw.k.b + head * vw.k.h;
   const float* v_head = v + b * vw.v.b + head * vw.v.h;
   const float* bias_row = bias + static_cast<long long>(b) * s;
@@ -385,7 +448,8 @@ __global__ void __launch_bounds__(tf32::kThreads)
   // the scores (q . k * scale + bias) and dP (dO . v) of half `hf` of the chunk in stage st
   auto products = [&](int st, int hf, float (&x)[kHalfTiles][4], float (&dp)[kHalfTiles][4]) {
     tf32::product_rows<kHalfTiles, DH>(x, q_warp, sm.tile(st, 0) + kHalf * hf * tf32::kLd<DH>);
-    tf32::product_rows<kHalfTiles, DH>(dp, do_warp, sm.tile(st, 1) + kHalf * hf * tf32::kLd<DH>);
+    tf32::product_rows<kHalfTiles, DH, kDpSmallApart<DH, LSE>>(dp, do_warp,
+                                                               sm.tile(st, 1) + kHalf * hf * tf32::kLd<DH>);
     const float* key_bias_s = sm.extra(st) + kHalf * hf + 2 * c;
 #pragma unroll
     for (int n = 0; n < kHalfTiles; ++n)
@@ -398,59 +462,82 @@ __global__ void __launch_bounds__(tf32::kThreads)
   tf32::copy_rows_async<DH>(sm.fixed(1), d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r,
                             q0, tf32::kTileRows, s, tf32::kThreads);
 
-  // sweep 1: per lane, over its keys, the running max m, sum(exp(s - m))
-  // and sum(exp(s - m) dP) of its two rows, rescaled whenever m grows; m
-  // starts at f32.min, not -inf, so a lane none of whose keys is real yet
-  // rescales by exp(0) instead of exp(-inf - -inf)
-  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, ed[2] = {0.f, 0.f};
-  issue(0);
-  tc::cp_async_commit();
-  for (int t = 0; t < n_chunks; ++t) {
-    const int st = tf32::ring_step(t, n_chunks, issue);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float x[kHalfTiles][4], dp[kHalfTiles][4];
-      products(st, hf, x, dp);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float cm = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < kHalfTiles; ++n) cm = fmaxf(cm, fmaxf(x[n][2 * h], x[n][2 * h + 1]));
-        const float m_new = fmaxf(m[h], cm);
-        const float corr = expf(__fsub_rn(m[h], m_new));
-        float add_l = 0.f, add_ed = 0.f;
-#pragma unroll
-        for (int n = 0; n < kHalfTiles; ++n)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float e = expf(__fsub_rn(x[n][2 * h + j], m_new));
-            add_l += e;
-            add_ed = fmaf(e, dp[n][2 * h + j], add_ed);
-          }
-        l[h] = l[h] * corr + add_l;
-        ed[h] = ed[h] * corr + add_ed;
-        m[h] = m_new;
-      }
-    }
+  // per row of this lane (q0 + 16 warp + lane / 4 + 8 h): P = exp(s -
+  // m_row) / l_row (r_row = 1 / l_row), or exp(s - m_row) with an lse
+  float m_row[2], l_row[2] = {1.f, 1.f}, r_row[2] = {1.f, 1.f}, delta[2];
+  if constexpr (LSE) {
+    const float* o_warp = sm.tile(1, 0) + 16 * warp * tf32::kLd<DH>;
+    tf32::copy_rows_async<DH>(sm.tile(1, 0), o + b * vw.o.b + head * vw.o.h, vw.o.r,
+                              q0, tf32::kTileRows, s, tf32::kThreads);
+    issue(0);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
     __syncthreads();
-  }
-  // merged over the row's four lanes: the row max, the denominator and
-  // delta = sum(dP exp(s - max)) / denominator = sum(dP P)
-  float m_row[2], l_row[2], r_row[2], delta[2];
+    // delta = dO . O: lane c of a row takes head columns c, c + 4, ...
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m_row[h] = tf32::quad_max(m[h]);
-    const float f = expf(__fsub_rn(m[h], m_row[h]));
-    l_row[h] = tf32::quad_sum(l[h] * f);
-    r_row[h] = __frcp_rn(l_row[h]);
-    delta[h] = __fdiv_rn(tf32::quad_sum(ed[h] * f), l_row[h]);
+    for (int h = 0; h < 2; ++h) {
+      const int rr = lane / 4 + 8 * h;
+      float d = 0.f;
+#pragma unroll
+      for (int j = c; j < DH; j += 4) d = fmaf(do_warp[rr * tf32::kLd<DH> + j], o_warp[rr * tf32::kLd<DH> + j], d);
+      delta[h] = tf32::quad_sum(d);
+      m_row[h] = q0 + 16 * warp + rr < s ? lse[rows0 + q0 + 16 * warp + rr] : 0.f;
+    }
+    __syncthreads();  // stage 1 takes chunk 1 next
+  } else {
+    // sweep 1: per lane, over its keys, the running max m, sum(exp(s -
+    // m)) and sum(exp(s - m) dP) of its two rows, rescaled whenever m
+    // grows; m starts at f32.min, not -inf, so a lane none of whose keys
+    // is real yet rescales by exp(0) instead of exp(-inf - -inf)
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, ed[2] = {0.f, 0.f};
+    issue(0);
+    tc::cp_async_commit();
+    for (int t = 0; t < n_chunks; ++t) {
+      const int st = tf32::ring_step(t, n_chunks, issue);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x[kHalfTiles][4], dp[kHalfTiles][4];
+        products(st, hf, x, dp);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < kHalfTiles; ++n) cm = fmaxf(cm, fmaxf(x[n][2 * h], x[n][2 * h + 1]));
+          const float m_new = fmaxf(m[h], cm);
+          const float corr = expf(__fsub_rn(m[h], m_new));
+          float add_l = 0.f, add_ed = 0.f;
+#pragma unroll
+          for (int n = 0; n < kHalfTiles; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float e = expf(__fsub_rn(x[n][2 * h + j], m_new));
+              add_l += e;
+              add_ed = fmaf(e, dp[n][2 * h + j], add_ed);
+            }
+          l[h] = l[h] * corr + add_l;
+          ed[h] = ed[h] * corr + add_ed;
+          m[h] = m_new;
+        }
+      }
+      __syncthreads();
+    }
+    // merged over the row's four lanes: the row max, the denominator and
+    // delta = sum(dP exp(s - max)) / denominator = sum(dP P)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_row[h] = tf32::quad_max(m[h]);
+      const float f = expf(__fsub_rn(m[h], m_row[h]));
+      l_row[h] = tf32::quad_sum(l[h] * f);
+      r_row[h] = __frcp_rn(l_row[h]);
+      delta[h] = __fdiv_rn(tf32::quad_sum(ed[h] * f), l_row[h]);
+    }
+    issue(0);
+    tc::cp_async_commit();
   }
 
-  // sweep 2: dS = P (dP - delta) scale, dQ += dS K, each chunk's partial
-  // added to the total with a compensation term
-  float acc[DH / 8][4] = {}, comp[DH / 8][4] = {};
-  issue(0);
-  tc::cp_async_commit();
+  // sweep 2: dS = P (dP - delta) scale, dQ += dS K
+  float acc[DH / 8][4] = {};
+  uint32_t comp[DH / 8][2] = {};
   for (int t = 0; t < n_chunks; ++t) {
     const int st = tf32::ring_step(t, n_chunks, issue);
     float part[DH / 8][4] = {};
@@ -462,45 +549,48 @@ __global__ void __launch_bounds__(tf32::kThreads)
       for (int n = 0; n < kHalfTiles; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = tc::div_by(expf(__fsub_rn(x[n][e], m_row[e / 2])), l_row[e / 2], r_row[e / 2]);
+          const float ex = expf(__fsub_rn(x[n][e], m_row[e / 2]));
+          const float p = LSE ? ex : tc::div_by(ex, l_row[e / 2], r_row[e / 2]);
           x[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[e / 2])), scale);
         }
       tf32::accumulate_pairs<kHalfTiles, DH>(part, x, sm.tile(st, 0) + kHalf * hf * tf32::kLd<DH>);
+      if (LSE || hf == 1) add_partial<true, DH>(acc, comp, part);
     }
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) add_compensated(acc[j][e], comp[j][e], part[j][e]);
     __syncthreads();
   }
   tf32::store_rows<DH>(dq + b * vw.dq.b + head * vw.dq.h, vw.dq.r, q0 + 16 * warp, s, acc);
   if (c == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = q0 + 16 * warp + threadIdx.x % 32 / 4 + 8 * h;
+      const int r = q0 + 16 * warp + lane / 4 + 8 * h;
       if (r >= s) continue;
-      const long long row = (static_cast<long long>(b) * gridDim.y + head) * s + r;
-      stats[2 * row] = m_row[h];
-      stats[2 * row + 1] = l_row[h];
-      delta_out[row] = delta[h];
+      if (!LSE) {
+        stats[2 * (rows0 + r)] = m_row[h];
+        stats[2 * (rows0 + r) + 1] = l_row[h];
+      }
+      delta_out[rows0 + r] = delta[h];
     }
   }
 }
 
 // pass 2: dK and dV of keys k0 .. k0 + 63 over every query chunk, P
-// rebuilt with the dQ pass's expression from its stats and delta.
-// Queries past S get P = dS = 0; keys past S score -inf. Each chunk's
-// partials are added to the sums in f32 without compensation: at S = 4352
-// and on a fully masked row the f32 gates hold without it, and the
-// compensation terms would not fit the registers at head_dim 64.
-template <int DH>
+// rebuilt with the dQ pass's expression from stats (LSE: the forward's lse
+// [B, h, S]; else each row's max and denominator [B, h, S, 2]) and delta.
+// Queries past S get P = dS = 0; keys past S score -inf. Each half
+// chunk's partials (32 queries) are added to the sums in f32:
+//   LSE false: without compensation: at S = 4352 and on a fully masked row
+//     (P = 1 / S) the f32 gates hold without it.
+//   LSE true: with a compensation term: a fully masked row's P is 1, so
+//     its dK and dV are sums of S terms of size 1.
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(tf32::kThreads)
-    q_blocked_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                              const float* __restrict__ d_o, const float* __restrict__ bias,
-                              const float* __restrict__ stats, const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv, BwdViews vw, int s, float scale) {
+    dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ d_o, const float* __restrict__ bias, const float* __restrict__ stats,
+                    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, BwdViews vw,
+                    int s, float scale) {
   extern __shared__ __align__(16) float tf32_smem[];
-  // fixed: k, v; a stage: Q, dO, (max, denominator, 1 / denominator, delta) per query
+  // fixed: k, v; a stage: Q, dO, (max, denominator, 1 / denominator,
+  // delta) or (lse, -, -, delta) per query
   const tf32::Layout<DH> sm{tf32_smem};
   const int k0 = blockIdx.x * tf32::kTileRows, head = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = lane % 4;
@@ -517,9 +607,13 @@ __global__ void __launch_bounds__(tf32::kThreads)
     if (threadIdx.x < tf32::kTileRows && c0 + threadIdx.x < s) {
       const long long row = rows0 + c0 + threadIdx.x;
       float* r = sm.extra(st) + 4 * threadIdx.x;
-      r[0] = stats[2 * row];
-      r[1] = stats[2 * row + 1];
-      r[2] = __frcp_rn(r[1]);
+      if (LSE) {
+        r[0] = stats[row];
+      } else {
+        r[0] = stats[2 * row];
+        r[1] = stats[2 * row + 1];
+        r[2] = __frcp_rn(r[1]);
+      }
       r[3] = delta[row];
     }
   };
@@ -534,43 +628,55 @@ __global__ void __launch_bounds__(tf32::kThreads)
                             k0, tf32::kTileRows, s, tf32::kThreads);
 
   float dk_sum[DH / 8][4] = {}, dv_sum[DH / 8][4] = {};
+  uint32_t dk_comp[DH / 8][2] = {}, dv_comp[DH / 8][2] = {};  // used with LSE
   issue(0);
   tc::cp_async_commit();
   for (int t = 0; t < n_chunks; ++t) {
     const int st = tf32::ring_step(t, n_chunks, issue);
-    float dk_part[DH / 8][4] = {}, dv_part[DH / 8][4] = {};
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const float* q_rows = sm.tile(st, 0) + kHalf * hf * tf32::kLd<DH>;
       const float* do_rows = sm.tile(st, 1) + kHalf * hf * tf32::kLd<DH>;
-      // scores^T (k . q) and dP^T (v . dO): rows keys, columns queries
+      // scores^T (k . q), then dP^T (v . dO): rows keys, columns queries;
+      // each half's partials are added to the sums before the next product
+      // (with the partials of a whole chunk live, or P, dP^T and a partial
+      // together, the pass spilled registers at head_dim 64)
       float p[kHalfTiles][4], ds[kHalfTiles][4];
       tf32::product_rows<kHalfTiles, DH>(p, k_warp, q_rows);
-      tf32::product_rows<kHalfTiles, DH>(ds, v_warp, do_rows);
 #pragma unroll
       for (int n = 0; n < kHalfTiles; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = kHalf * hf + 8 * n + 2 * c + e % 2;
-          float pe = 0.f, dse = 0.f;
+          float pe = 0.f;
           if (t * tf32::kTileRows + qi < s) {
             const float* r = sm.extra(st) + 4 * qi;
-            pe = tc::div_by(expf(__fsub_rn(scaled_score(p[n][e], scale, kb[e / 2]), r[0])), r[1], r[2]);
-            dse = __fmul_rn(__fmul_rn(pe, __fsub_rn(ds[n][e], r[3])), scale);
+            pe = expf(__fsub_rn(scaled_score(p[n][e], scale, kb[e / 2]), r[0]));
+            if (!LSE) pe = tc::div_by(pe, r[1], r[2]);
           }
           p[n][e] = pe;
-          ds[n][e] = dse;
         }
-      tf32::accumulate_pairs<kHalfTiles, DH>(dv_part, p, do_rows);
-      tf32::accumulate_pairs<kHalfTiles, DH>(dk_part, ds, q_rows);
-    }
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk_sum[j][e] = __fadd_rn(dk_sum[j][e], dk_part[j][e]);
-        dv_sum[j][e] = __fadd_rn(dv_sum[j][e], dv_part[j][e]);
+      {
+        float part[DH / 8][4] = {};
+        tf32::accumulate_pairs<kHalfTiles, DH>(part, p, do_rows);
+        add_partial<LSE, DH>(dv_sum, dv_comp, part);
       }
+      tf32::product_rows<kHalfTiles, DH, kDpSmallApart<DH, LSE>>(ds, v_warp, do_rows);
+#pragma unroll
+      for (int n = 0; n < kHalfTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = kHalf * hf + 8 * n + 2 * c + e % 2;
+          ds[n][e] = t * tf32::kTileRows + qi < s
+                         ? __fmul_rn(__fmul_rn(p[n][e], __fsub_rn(ds[n][e], sm.extra(st)[4 * qi + 3])), scale)
+                         : 0.f;
+        }
+      {
+        float part[DH / 8][4] = {};
+        tf32::accumulate_pairs<kHalfTiles, DH>(part, ds, q_rows);
+        add_partial<LSE, DH>(dk_sum, dk_comp, part);
+      }
+    }
     __syncthreads();
   }
   tf32::store_rows<DH>(dk + b * vw.dk.b + head * vw.dk.h, vw.dk.r, k0 + 16 * warp, s, dk_sum);
@@ -592,55 +698,53 @@ BwdViews read_views(const void* strides, std::initializer_list<View BwdViews::*>
 
 dim3 grid_of(int batch, int heads, int seq) { return dim3((seq + kRows - 1) / kRows, heads, batch); }
 
+// The split-TF32 passes' grid of 64-row tiles, and their opt-in to
+// tf32::Layout's dynamic shared memory (0 on success).
+dim3 tf32_grid_of(int batch, int heads, int seq) {
+  return dim3((seq + tf32::kTileRows - 1) / tf32::kTileRows, heads, batch);
+}
+
+template <int DH>
+cudaError_t opt_in_tf32(const void* kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(tf32::Layout<DH>::kBytes));
+}
+
+// Each launcher runs f32 on the split-TF32 kernels, bf16 on the CUDA cores.
 template <typename T, int DH>
 int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_o, const void* bias, void* dq,
                      void* dk, void* dv, void* stats, void* delta, const void* strides, int batch, int heads,
                      int seq, float scale, void* stream) {
   const BwdViews vw = read_views(strides, {&BwdViews::q, &BwdViews::k, &BwdViews::v, &BwdViews::d_o,
                                            &BwdViews::dq, &BwdViews::dk, &BwdViews::dv});
-  const dim3 grid = grid_of(batch, heads, seq);
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k), *tv = static_cast<const T*>(v),
           *tdo = static_cast<const T*>(d_o);
   const float* fbias = static_cast<const float*>(bias);
-  q_blocked_dq_kernel<T, DH><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<T*>(dq),
-                                                         static_cast<float*>(stats), static_cast<float*>(delta), vw,
-                                                         seq, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<T, DH, false><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<const float*>(stats),
-                                                       static_cast<const float*>(delta), static_cast<T*>(dk),
-                                                       static_cast<T*>(dv), vw, seq, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The two passes of the f32 query-blocked backward, on the tensor cores.
-template <int DH>
-int launch_q_blocked_tf32(const void* q, const void* k, const void* v, const void* d_o, const void* bias, void* dq,
-                          void* dk, void* dv, void* stats, void* delta, const void* strides, int batch, int heads,
-                          int seq, float scale, void* stream) {
-  const BwdViews vw = read_views(strides, {&BwdViews::q, &BwdViews::k, &BwdViews::v, &BwdViews::d_o,
-                                           &BwdViews::dq, &BwdViews::dk, &BwdViews::dv});
-  constexpr size_t kSmem = tf32::Layout<DH>::kBytes;
-  for (const void* kernel : {reinterpret_cast<const void*>(q_blocked_dq_tf32_kernel<DH>),
-                             reinterpret_cast<const void*>(q_blocked_dkv_tf32_kernel<DH>)}) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  float *fstats = static_cast<float*>(stats), *fdelta = static_cast<float*>(delta);
+  if constexpr (std::is_same_v<T, float>) {
+    for (const void* kernel : {reinterpret_cast<const void*>(dq_tf32_kernel<DH, false>),
+                               reinterpret_cast<const void*>(dkv_tf32_kernel<DH, false>)}) {
+      const cudaError_t err = opt_in_tf32<DH>(kernel);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid = tf32_grid_of(batch, heads, seq);
+    constexpr size_t kSmem = tf32::Layout<DH>::kBytes;
+    dq_tf32_kernel<DH, false><<<grid, tf32::kThreads, kSmem, stm>>>(
+        tq, tk, tv, nullptr, tdo, fbias, nullptr, static_cast<float*>(dq), fstats, fdelta, vw, seq, scale);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    dkv_tf32_kernel<DH, false><<<grid, tf32::kThreads, kSmem, stm>>>(
+        tq, tk, tv, tdo, fbias, fstats, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
+  } else {
+    const dim3 grid = grid_of(batch, heads, seq);
+    q_blocked_dq_kernel<T, DH><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<T*>(dq), fstats,
+                                                           fdelta, vw, seq, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkv_kernel<T, DH, false><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, fstats, fdelta,
+                                                         static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
   }
-  const dim3 grid((seq + tf32::kTileRows - 1) / tf32::kTileRows, heads, batch);
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
-              *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(d_o),
-              *fbias = static_cast<const float*>(bias);
-  q_blocked_dq_tf32_kernel<DH><<<grid, tf32::kThreads, kSmem, stm>>>(
-      fq, fk, fv, fdo, fbias, static_cast<float*>(dq), static_cast<float*>(stats), static_cast<float*>(delta), vw,
-      seq, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  q_blocked_dkv_tf32_kernel<DH><<<grid, tf32::kThreads, kSmem, stm>>>(
-      fq, fk, fv, fdo, fbias, static_cast<const float*>(stats), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -650,10 +754,20 @@ int launch_dq_kv_blocked(const void* q, const void* k, const void* v, const void
                          int heads, int seq, float scale, void* stream) {
   const BwdViews vw = read_views(strides, {&BwdViews::q, &BwdViews::k, &BwdViews::v, &BwdViews::o,
                                            &BwdViews::d_o, &BwdViews::dq});
-  kv_blocked_dq_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(d_o), static_cast<const float*>(bias), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), vw, seq, scale);
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k), *tv = static_cast<const T*>(v),
+          *to = static_cast<const T*>(o), *tdo = static_cast<const T*>(d_o);
+  const float *fbias = static_cast<const float*>(bias), *flse = static_cast<const float*>(lse);
+  if constexpr (std::is_same_v<T, float>) {
+    const cudaError_t err = opt_in_tf32<DH>(reinterpret_cast<const void*>(dq_tf32_kernel<DH, true>));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_tf32_kernel<DH, true><<<tf32_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
+        tq, tk, tv, to, tdo, fbias, flse, static_cast<float*>(dq), nullptr, static_cast<float*>(delta), vw, seq,
+        scale);
+  } else {
+    kv_blocked_dq_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
+        tq, tk, tv, to, tdo, fbias, flse, static_cast<T*>(dq), static_cast<float*>(delta), vw, seq, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,10 +777,20 @@ int launch_dkv_kv_blocked(const void* q, const void* k, const void* v, const voi
                           int heads, int seq, float scale, void* stream) {
   const BwdViews vw = read_views(strides, {&BwdViews::q, &BwdViews::k, &BwdViews::v, &BwdViews::d_o,
                                            &BwdViews::dk, &BwdViews::dv});
-  dkv_kernel<T, DH, true><<<grid_of(batch, heads, seq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(d_o),
-      static_cast<const float*>(bias), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k), *tv = static_cast<const T*>(v),
+          *tdo = static_cast<const T*>(d_o);
+  const float *fbias = static_cast<const float*>(bias), *flse = static_cast<const float*>(lse),
+              *fdelta = static_cast<const float*>(delta);
+  if constexpr (std::is_same_v<T, float>) {
+    const cudaError_t err = opt_in_tf32<DH>(reinterpret_cast<const void*>(dkv_tf32_kernel<DH, true>));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkv_tf32_kernel<DH, true><<<tf32_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
+        tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
+  } else {
+    dkv_kernel<T, DH, true><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
+        tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -695,13 +819,8 @@ extern "C" int dial_attention_bwd_q_blocked_f32(const void* q, const void* k, co
                                                 const void* bias, void* dq, void* dk, void* dv, void* stats,
                                                 void* delta, const void* strides, int batch, int heads, int seq,
                                                 int head_dim, float scale, void* stream) {
-  if (head_dim == 32)
-    return dial::attn::launch_q_blocked_tf32<32>(q, k, v, d_o, bias, dq, dk, dv, stats, delta, strides, batch,
-                                                 heads, seq, scale, stream);
-  if (head_dim == 64)
-    return dial::attn::launch_q_blocked_tf32<64>(q, k, v, d_o, bias, dq, dk, dv, stats, delta, strides, batch,
-                                                 heads, seq, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return DIAL_BY_HEAD_DIM(launch_q_blocked, float, q, k, v, d_o, bias, dq, dk, dv, stats, delta, strides, batch,
+                          heads, seq, scale, stream);
 }
 
 extern "C" int dial_attention_bwd_q_blocked_bf16(const void* q, const void* k, const void* v, const void* d_o,

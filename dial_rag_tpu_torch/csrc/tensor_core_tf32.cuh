@@ -1,9 +1,9 @@
 // Split-TF32 (3xTF32) building blocks for the f32 attention kernels on
 // Hopper's tensor cores (sm_90a): flash_attention_long.cu's query-blocked
-// forward and flash_attention_long_bwd.cu's query-blocked backward (TPU
-// kernels 6 and 9 in f32), flash_attention_fwd.cu's single-tile forward
-// and flash_attention_bwd.cu's single-tile backward (TPU kernels 4, 5 and
-// 8 in f32).
+// forward and flash_attention_long_bwd.cu's query-blocked and KV-blocked
+// backwards (TPU kernels 6, 9, 10 and 11 in f32), flash_attention_fwd.cu's
+// single-tile forward and flash_attention_bwd.cu's single-tile backward
+// (TPU kernels 4, 5 and 8 in f32).
 //
 // The method. An f32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), each rounded to nearest with ties away (cvt.rna.tf32.f32,
@@ -193,12 +193,17 @@ __device__ __forceinline__ int ring_step(int t, int n, const Issue& issue) {
 // head width stays rolled: unrolled, the backward passes at head_dim 64
 // and the forward at head_dim 32 spilled registers (-Xptxas -v on sm_90a);
 // rolled, none spills, and the kernels ran about as fast on an H100.
-template <int NT, int DH>
+// With kSmallApart the small terms (hi.lo, lo.hi) of every step go to an
+// accumulator of their own, added to the hi.hi sum in f32 at the end:
+// added to the running sum, they lose their low bits to the tensor core's
+// rounding of that sum at each step.
+template <int NT, int DH, bool kSmallApart = false>
 __device__ __forceinline__ void product_rows(float (&acc)[NT][4], const float* a, const float* b) {
+  float small[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.f;
 #pragma unroll 1
   for (int ks = 0; ks < DH / 8; ++ks) {
     FragA fa;
@@ -207,9 +212,20 @@ __device__ __forceinline__ void product_rows(float (&acc)[NT][4], const float* a
     for (int n = 0; n < NT; ++n) {
       FragB fb;
       load_b_rows(fb, b + 8 * n * kLd<DH> + 8 * ks, kLd<DH>);
-      mma3(acc[n], fa, fb);
+      if (kSmallApart) {
+        mma(small[n], fa.hi, fb.lo);
+        mma(small[n], fa.lo, fb.hi);
+        mma(acc[n], fa.hi, fb.hi);
+      } else {
+        mma3(acc[n], fa, fb);
+      }
     }
   }
+  if (kSmallApart)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], small[n][e]);
 }
 
 // acc[n] = A B^T as product_rows computes it (the same order), with A the

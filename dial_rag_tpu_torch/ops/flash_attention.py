@@ -35,9 +35,10 @@ Hopper kernels or raise; they never fall back:
 - backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``; in
   f32 one launch of split-TF32 products per (head, batch row), in bf16 two
   CUDA-core passes) up to its dtype's limit, the query-blocked backward's
-  code past it and on the query-blocked route (in f32 split-TF32 products
-  on the tensor cores), the KV-blocked passes after the KV-blocked forward
-  (``csrc/flash_attention_long_bwd.cu``), in both dtypes.
+  code past it and on the query-blocked route, the KV-blocked passes after
+  the KV-blocked forward (``csrc/flash_attention_long_bwd.cu``; both
+  blocked backwards in f32 on split-TF32 products on the tensor cores, in
+  bf16 on the CUDA cores).
 
 Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
 On a CPU tensor, or with ``plain=True``, they run the plain PyTorch
@@ -497,10 +498,13 @@ def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
 
 
 def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
-    """Launches the dQ pass of the KV-blocked backward (TPU kernel 10):
-    writes dq and returns delta = rowsum(dO O), f32 [B, h, S], for the
-    dK/dV pass."""
+    """Launches the dQ pass of the KV-blocked backward (TPU kernel 10; in
+    f32 split-TF32 products on the tensor cores, q, k, v, o and do 16-byte
+    aligned rows; in bf16 the CUDA cores): writes dq and returns delta =
+    rowsum(dO O), f32 [B, h, S], for the dK/dV pass."""
     _check_attention_inputs(q=q, k=k, v=v, o=o, do=do, dq=dq)
+    if q.dtype == torch.float32:
+        _check_16_byte_rows("KV-blocked f32 dQ backward", q=q, k=k, v=v, o=o, do=do)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     bias = _kernel_bias(attention_mask, b, s, q.device)
@@ -512,9 +516,13 @@ def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
 
 
 def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
-    """Launches the dK/dV pass of the KV-blocked backward (TPU kernel 11)
-    with the forward's lse and the dQ pass's delta."""
+    """Launches the dK/dV pass of the KV-blocked backward (TPU kernel 11;
+    in f32 split-TF32 products on the tensor cores, q, k, v and do 16-byte
+    aligned rows; in bf16 the CUDA cores) with the forward's lse and the dQ
+    pass's delta."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dk=dk, dv=dv)
+    if q.dtype == torch.float32:
+        _check_16_byte_rows("KV-blocked f32 dK/dV backward", q=q, k=k, v=v, do=do)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     _check_rows("delta", delta, (b, h, s))

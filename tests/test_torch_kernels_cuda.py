@@ -277,8 +277,9 @@ def test_f32_split_tf32_single_tile_kernels_on_card(cuda_device, limit, offset, 
 
 @pytest.mark.cuda
 def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
-    """The f32 single-tile kernels copy rows 16 bytes at a time: a view
-    whose rows are not 16-byte aligned raises (no fallback)."""
+    """The f32 single-tile kernels and the f32 KV-blocked backward passes
+    copy rows 16 bytes at a time: a view whose rows are not 16-byte aligned
+    raises (no fallback)."""
     x = torch.randn(2, 2, 64, 36, device=cuda_device)
     q = x[..., 1:33]  # unit head-dim stride, rows 4 bytes past 16-byte alignment
     mask = torch.ones(2, 64, dtype=torch.int32, device=cuda_device)
@@ -288,6 +289,11 @@ def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
     grads = [torch.empty(2, 2, 64, 32, device=cuda_device) for _ in range(3)]
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._backward_kernel(q, q, q, q, *grads, mask)
+    rows = torch.zeros(2, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dq_kv_blocked_kernel(o, o, o, q, rows, o, grads[0], mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dkv_kv_blocked_kernel(o, o, o, q, rows, rows, *grads[1:], mask)
 
 
 @pytest.mark.cuda
@@ -664,15 +670,21 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64])
-def test_long_backward_is_reproducible(cuda_device, dh):
+@pytest.mark.parametrize("route,s", [("q_blocked", 1024), ("kv_blocked", 8192)])
+def test_long_backward_is_reproducible(cuda_device, route, s, dh):
     """No atomics: two blocked backward calls give the same bits, in f32
-    at head_dim 32 and 64 (the split-TF32 kernel 9; head_dim 64 holds the
-    most registers)."""
-    qkv, mask, cot = _attention_inputs(cuda_device, 2, 1024, dh=dh)
+    at head_dim 32 and 64: the split-TF32 kernel 9 (S = 1024) and the
+    split-TF32 KV-blocked passes, kernels 10 and 11 (S = 8192); head_dim
+    64 holds the most registers."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh)
     q, k, v = tfa._split_heads(qkv, 12)
-    cot = cot.view(2, 1024, 12, -1).transpose(1, 2)
+    cot = cot.view(2, s, 12, -1).transpose(1, 2)
+    assert tfa.attention_route(s) == route
+    tfa.reset_launches()
     a = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
     b = _long_grads(lambda *x: tfa.flash_attention(*x, mask), q, k, v, cot)
+    names = ["attention_bwd_q_blocked"] if route == "q_blocked" else ["bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"]
+    assert all(tfa.LAUNCHES[n] == 2 for n in names), tfa.LAUNCHES
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -1,11 +1,13 @@
 """The split-TF32 (3xTF32) arithmetic of the port's f32 attention
 kernels on Hopper's tensor cores (``dial_rag_tpu_torch/csrc/
 tensor_core_tf32.cuh``): the query-blocked forward and backward (TPU
-kernels 6 and 9) and the single-tile forward and backward (TPU kernels 4,
-5 and 8), modelled in plain PyTorch on the CPU and held against the JAX
-package: its query-blocked route at S = 1024, its single-tile route
-(``_forward``, ``_backward`` and ``fused_qkv_attention`` with its VJP, in
-interpret mode) at S <= 520.
+kernels 6 and 9), the single-tile forward and backward (TPU kernels 4,
+5 and 8) and the KV-blocked backward passes (TPU kernels 10 and 11),
+modelled in plain PyTorch on the CPU and held against the JAX package:
+its query-blocked route at S = 1024, its single-tile route (``_forward``,
+``_backward`` and ``fused_qkv_attention`` with its VJP, in interpret
+mode) at S <= 520, its KV-blocked backward (``_backward_kv_blocked``
+after its KV-blocked forward, the threshold lowered to 512) at S = 1024.
 
 The model. ``split_tf32`` rounds an f32 value to 10 mantissa bits, to
 nearest with ties away from zero, by integer bit operations, as
@@ -18,7 +20,11 @@ bias, the exact row softmax, P . V and the gradients' long sums taken as
 partials per 64-row chunk added in f32. The single-tile kernels compute
 the same expressions in the same chunks (Q K^T once in the forward; in
 the backward dP twice, delta = rowsum(dP P) as the reference forms it),
-so one model serves both.
+so one model serves both. The KV-blocked passes take P = exp(s - lse)
+with the forward's lse and delta = rowsum(dO O) with its o, and add a
+partial every 32 rows (half a chunk) with a compensation term (Kahan,
+each step rounded in f32, as ``add_compensated`` does it, the term kept
+as bf16).
 
 Two kinds of value behave otherwise under ``rna`` and are not tested here:
 values within a TF32 ulp of f32's largest round to inf, and subnormals
@@ -40,9 +46,11 @@ import pytest
 import torch
 
 from dial_rag_tpu.ops import flash_attention as jfa
+from dial_rag_tpu_torch.ops import flash_attention as tfa
 from dial_rag_tpu_torch.ops.fused_encoder import mask_bias
 
 CHUNK = 64  # rows of a ring chunk: the kernels add one partial per chunk
+HALF = 32  # rows of half a chunk: the KV-blocked passes add one partial per half
 
 
 def _rna(x: torch.Tensor) -> torch.Tensor:
@@ -102,6 +110,38 @@ def backward_model(q, k, v, do, mask):
     dq = _chunked(lambda c: mm3(ds[..., c], k[:, :, c]), n)
     dk = _chunked(lambda c: mm3(ds[:, :, c].transpose(-1, -2), q[:, :, c]), n)
     dv = _chunked(lambda c: mm3(p[:, :, c].transpose(-1, -2), do[:, :, c]), n)
+    return dq, dk, dv
+
+
+def _compensated(fn, n: int) -> torch.Tensor:
+    """sum over 32-row pieces c of fn(slice c), each added in order with a
+    compensation term, every step rounded in f32 and the term kept as bf16
+    (rounded to nearest even), as the kernels keep it."""
+    total = comp = None
+    for r0 in range(0, n, HALF):
+        part = fn(slice(r0, r0 + HALF))
+        if total is None:
+            total, comp = torch.zeros_like(part), torch.zeros_like(part)
+        y = part - comp
+        t = total + y
+        comp = ((t - total) - y).to(torch.bfloat16).float()
+        total = t
+    return total
+
+
+def kv_backward_model(q, k, v, o, lse, do, mask):
+    """The f32 KV-blocked dQ and dK/dV passes: P = exp(s - lse), delta =
+    rowsum(dO O), dS = P (dP - delta) scale; dQ over the keys, dK and dV
+    over the queries, one compensated partial per 32 rows."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = mm3(q, k.transpose(-1, -2)) * scale + mask_bias(mask)[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (mm3(do, v.transpose(-1, -2)) - delta) * scale
+    n = q.shape[2]
+    dq = _compensated(lambda c: mm3(ds[..., c], k[:, :, c]), n)
+    dk = _compensated(lambda c: mm3(ds[:, :, c].transpose(-1, -2), q[:, :, c]), n)
+    dv = _compensated(lambda c: mm3(p[:, :, c].transpose(-1, -2), do[:, :, c]), n)
     return dq, dk, dv
 
 
@@ -217,3 +257,64 @@ def test_packed_model_matches_jax(s, dh):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
     assert torch.isfinite(dqkv).all()
     np.testing.assert_allclose(dqkv.numpy(), np.asarray(ref_dqkv), atol=5e-5, rtol=1e-4)
+
+
+@pytest.fixture
+def kv_blocked(monkeypatch):
+    """Lowers the KV-blocked threshold to 512 in both packages."""
+    monkeypatch.setattr(jfa, "_Q_BLOCKED_MAX_S", 512)
+    monkeypatch.setattr(tfa, "_Q_BLOCKED_MAX_S", 512)
+
+
+def _excess(a, w) -> float:
+    """The largest |a - w| over rtol 1e-4 of |w|, in f64."""
+    return ((a.double() - w).abs() - 1e-4 * w.abs()).max().item()
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_kv_blocked_backward_model_matches_jax(dh, kv_blocked):
+    """Kernels 10 and 11's split-TF32 arithmetic at S = 1024 (two 512-key
+    blocks, four 256-query blocks) against the JAX package's
+    ``_backward_kv_blocked`` (both Pallas passes in interpret mode), each
+    fed the o and lse of the JAX package's KV-blocked forward, with a
+    ragged row and a fully masked one, within the f32 gradient gates atol
+    5e-5, rtol 1e-4. On the fully masked row P is 1 for every key, so each
+    gradient is a sum of S terms of size 1 (up to ~160 here), and the JAX
+    package's own f32 sums lie up to ~6e-5 past rtol from the same
+    expressions evaluated in f64 (3 of 8 seeds over 5e-5 at head_dim 64):
+    there the model's excess over that f64 evaluation may not exceed
+    max(5e-5, the JAX package's), the card's gate on that row."""
+    s = 1024
+    assert tfa.attention_route(s) == "kv_blocked"
+    q, k, v, do, mask = _inputs(3, 2, s, dh, seed=dh + 3)
+    jq, jk, jv, jdo, jmask = (jnp.asarray(a) for a in (q, k, v, do, mask))
+    o, lse = jfa._forward(jq, jk, jv, jmask)
+    assert lse is not None
+    tq, tk, tv, to, tlse, tdo = (torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do))
+    got = kv_backward_model(tq, tk, tv, to, tlse, tdo, torch.from_numpy(mask))
+    want = [torch.from_numpy(np.array(w)) for w in jfa._backward_kv_blocked(jmask, jq, jk, jv, o, lse, jdo)]
+    exact = tfa.attention_bwd_kv_blocked_plain(*(t.double() for t in (tq, tk, tv, to)), tlse, tdo.double(),
+                                               torch.from_numpy(mask))
+    for name, a, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+        assert torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a[:-1].numpy(), w[:-1].numpy(), atol=5e-5, rtol=1e-4, err_msg=name)
+        assert _excess(a[-1], e[-1]) <= max(5e-5, _excess(w[-1], e[-1])), name
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_kv_blocked_backward_model_meets_the_card_gates(dh):
+    """The card's gates on kernels 10 and 11 (chip_smoke.py's
+    ``long_backward_rows``), met by the model at S = 1024 with the port's
+    plain forward's o and lse: the rows not fully masked within atol 5e-5
+    after rtol 1e-4 of the plain version; on the fully masked row, where
+    every gradient is a sum of S terms of size 1, an excess over the plain
+    version evaluated in f64 no larger than max(5e-5, the plain f32
+    version's)."""
+    q, k, v, do, mask = (torch.from_numpy(a) for a in _inputs(3, 2, 1024, dh, seed=dh + 4))
+    o, lse = tfa.attention_kv_blocked_plain(q, k, v, mask)
+    got = kv_backward_model(q, k, v, o, lse, do, mask)
+    want = tfa.attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, mask)
+    exact = tfa.attention_bwd_kv_blocked_plain(*(t.double() for t in (q, k, v, o)), lse, do.double(), mask)
+    for name, a, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+        assert _excess(a[:-1], w[:-1].double()) <= 5e-5, name
+        assert _excess(a[-1], e[-1]) <= max(5e-5, _excess(w[-1], e[-1])), name
