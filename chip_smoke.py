@@ -89,9 +89,10 @@ Phases, each announced by a ``[phase]`` line:
    long-sequence forwards (query-blocked and KV-blocked, f32 and bf16)
    against theirs at [4, 12, 1024], [2, 12, 2048], [1, 12, 4096] and
    [1, 12, 8192] (log-sum-exp too) and at that phase's encode batches,
-   each timed; the f32 query-blocked kernel (split-TF32 products on the
-   tensor cores) and its plain version are also read against the plain
-   version evaluated in f64 at each gated shape;
+   each timed; the f32 query-blocked and KV-blocked kernels (split-TF32
+   products on the tensor cores) and their plain versions are also read
+   against the function evaluated in f64 at each gated shape (o, and the
+   KV-blocked lse);
 10. long-context backward kernels: the query-blocked backward (TPU kernel
    9) and the KV-blocked dQ and dK/dV passes (kernels 10 and 11) against
    their plain versions at [4, 12, S, 32] for S = 1024, 4096, 8192 (the
@@ -104,7 +105,9 @@ Phases, each announced by a ``[phase]`` line:
    against the f64 evaluation on every row; each timed at the training
    phase's shape beside its bound (the f32 kernels' at the 3xTF32 rate,
    their CUDA-core f32 bound beside it), the plain version, SDPA forward +
-   backward and SDPA's backward alone;
+   backward and SDPA's backward alone, and run twice there, which must
+   give the same bits (the bf16 query-blocked backward on the bf16 tensor
+   cores, the bf16 KV-blocked passes on the CUDA cores);
 11. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
@@ -209,10 +212,14 @@ KV_TC_SHAPES = ((1, 4608), (3, 8192))
 GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
 # the status, in the kernels JSON line, of the f32 rows redesigned on
 # split-TF32 products: the query-blocked kernels 6 and 9, the single-tile
-# kernels 4 (with 5) and 8, the KV-blocked backward passes 10 and 11
+# kernels 4 (with 5) and 8, the KV-blocked backward passes 10 and 11, the
+# KV-blocked forward 7; and of the bf16 query-blocked backward (kernel 9)
+# redesigned on the bf16 tensor cores
 REDESIGNED = "redesigned (3xTF32, query-blocked)"
 REDESIGNED_SINGLE_TILE = "redesigned (3xTF32, single tile)"
 REDESIGNED_KV_BLOCKED = "redesigned (3xTF32, KV-blocked)"
+REDESIGNED_KV_FORWARD = "redesigned (3xTF32, KV-blocked forward)"
+REDESIGNED_TC_BACKWARD = "redesigned (TC, mma.sync, query-blocked)"
 
 
 def tf32_smem(dh: int) -> int:
@@ -240,7 +247,8 @@ def library_smem(build, stem: str, entry: str, dh: int, s: int) -> int:
 # runs an encoder at that width
 LARGE_WIDTHS = {"hidden_size": 1024, "num_layers": 1, "num_heads": 16, "intermediate_size": 4096}
 # blocked backward kernels vs plain versions in bf16: of the plain
-# gradient's largest magnitude (gradients are not O(1))
+# gradient's largest magnitude in each (batch row, head) (gradients are not
+# O(1))
 BF16_GRAD_REL = 3e-2
 # kernels 1-3 in bf16 at H 768 vs plain versions: of each row's largest
 # plain value, the limit the bf16 gradients use (``block_tolerance``)
@@ -282,8 +290,9 @@ def phase(name: str | None) -> None:
 
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
-    of the bf16 KV-blocked forward, the products, the LayerNorm pass and
-    the split-TF32 kernels 4 (with 5), 6, 8, 9, 10 and 11 in f32 takes, from
+    of the bf16 KV-blocked forward, the bf16 query-blocked backward's two
+    passes, the products, the LayerNorm pass and the split-TF32 kernels 4
+    (with 5), 6, 7, 8, 9, 10 and 11 in f32 takes, from
     ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
     products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
     split-TF32 kernels': ``tf32_smem``; the single-tile ones' at the main
@@ -312,6 +321,12 @@ def kernel_resources(build) -> None:
         kernels += (
             ("flash_attention_long", ("q_blocked_tf32_kernelILi" + str(dh),), tf32_smem(dh),
              lambda line: f"query-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long", ("kv_blocked_tf32_kernelILi" + str(dh),), tf32_smem(dh),
+             lambda line: f"KV-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dq_tc_kernelILi{dh}E",), 0,
+             lambda line: f"query-blocked bf16 backward dQ pass (TC), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dkv_tc_kernelILi{dh}E",), 0,
+             lambda line: f"query-blocked bf16 backward dK/dV pass (TC), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long_bwd", (f"dq_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
              lambda line: f"query-blocked f32 backward dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long_bwd", (f"dkv_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
@@ -882,10 +897,11 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
     0), there once with the batch's own lengths and once with a full row,
     ragged rows and a fully masked one; at B = 1 the one row is ragged.
     Each kernel is timed in both dtypes beside its bound, the plain version
-    and SDPA with the additive mask, one row per dtype. The query-blocked
-    kernel in f32 (split-TF32 products) and its plain version are also
-    read against the plain version evaluated in f64 at each gated shape (a
-    reading, not a gate)."""
+    and SDPA with the additive mask, one row per dtype. The f32 kernels
+    (split-TF32 products; the KV-blocked one rescales at every 64-key
+    chunk, the plain version at every 512 keys) and their plain versions
+    are also read against the function evaluated in f64 at each gated
+    shape, o and the KV-blocked lse (a reading, not a gate)."""
     import torch.nn.functional as F
 
     from dial_rag_tpu_torch.ops import flash_attention as fa
@@ -902,6 +918,14 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
         mask = (torch.arange(s)[None, :] < torch.as_tensor(lengths)[:, None]).to(torch.int32)
         return (*fa._split_heads(qkv, heads), mask.to(dev))
 
+    def lse_f64(q, k, mask):
+        """Each query row's log-sum-exp of scores * scale + bias in f64,
+        256 queries at a time."""
+        bias = fa.mask_bias(mask).double()[:, None, None, :]
+        kd = k.double().transpose(-1, -2)
+        return torch.cat([torch.logsumexp(q[:, :, q0 : q0 + 256].double() @ kd / math.sqrt(dh) + bias, dim=-1)
+                          for q0 in range(0, q.shape[2], 256)], dim=2)
+
     def gate(name, b, s, lengths, what):
         for dtype, tol in ((torch.float32, F32_FWD_TOL), (torch.bfloat16, TOLERANCE)):
             q, k, v, mask = inputs(b, s, dtype, seed=b * s, lengths=lengths)
@@ -915,11 +939,16 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
             over = head_over(o, ref) if dtype == torch.bfloat16 else 0.0
             lse_err = None if lse is None else (lse - ref_lse).abs().max().item()
             f64 = ""
-            if dtype == torch.float32 and lse is None:
+            if dtype == torch.float32:
+                # the exact softmax in f64: the function both routes compute
                 with torch.no_grad():
                     exact = fa.attention_q_blocked_plain(q.double(), k.double(), v.double(), mask)
-                f64 = (f"; against f64: kernel {(o.double() - exact).abs().max().item():.3g}, plain "
-                       f"{(ref.double() - exact).abs().max().item():.3g}")
+                    f64 = (f"; against f64: kernel {(o.double() - exact).abs().max().item():.3g}, plain "
+                           f"{(ref.double() - exact).abs().max().item():.3g}")
+                    if lse is not None:
+                        exact = lse_f64(q, k, mask)
+                        f64 += (f", lse kernel {(lse.double() - exact).abs().max().item():.3g}, plain "
+                                f"{(ref_lse.double() - exact).abs().max().item():.3g}")
                 del exact
             print(f"{name} at [{b}, {heads}, {s}, {dh}] {str(dtype)[6:]}, {what} (row lengths "
                   f"{mask.sum(1).tolist()}): max abs err {err:.3g} (tolerance {tol}"
@@ -947,10 +976,9 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
             gate(name, b, s, lengths, "the long-document batch's own rows")
         b, s = timed
         for dtype in (torch.float32, torch.bfloat16):
-            # f32 kernel 6 forms its products in split TF32: bound at the
-            # 3xTF32 rate, the CUDA-core f32 one beside it; f32 kernel 7 on
-            # the CUDA cores
-            tf32 = dtype == torch.float32 and route == "q_blocked"
+            # the f32 kernels 6 and 7 form their products in split TF32:
+            # bound at the 3xTF32 rate, the CUDA-core f32 one beside it
+            tf32 = dtype == torch.float32
             peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS if tf32 else PEAK_F32_FLOPS)
             q, k, v, mask = inputs(b, s, dtype, seed=7)
             size = q.element_size()
@@ -983,7 +1011,8 @@ def long_attention_rows(torch, dev, card, heads: int, dh: int, path) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             }
             if tf32:
-                rows[key].update(status=REDESIGNED, bound_f32_ms=f32_bound)
+                rows[key].update(status=REDESIGNED if route == "q_blocked" else REDESIGNED_KV_FORWARD,
+                                 bound_f32_ms=f32_bound)
     return rows
 
 
@@ -1544,8 +1573,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
     timed at ``timed[name]`` (B, S) in both dtypes beside its bound, the
     plain version, SDPA forward + backward with the additive mask and
     SDPA's backward alone (``library_bwd_ms``: after one forward,
-    ``torch.autograd.grad`` with the graph retained), one row per dtype.
-    The f32 kernels (split-TF32 products) and their plain versions are also
+    ``torch.autograd.grad`` with the graph retained), one row per dtype,
+    and run twice on the same inputs, which must give the same bits. The
+    f32 kernels (split-TF32 products) and their plain versions are also
     read against the plain version evaluated in f64 at each gated S, every
     row (a reading, not a gate)."""
     import torch.nn.functional as F
@@ -1592,9 +1622,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
         fully masked row of the KV-blocked backward, where P = 1 makes every
         gradient a sum of S terms of size 1 whose f32 rounding alone exceeds
         atol, the kernel's excess against the f64 evaluation may not exceed
-        the plain version's (or atol). bf16: per batch row, max |kernel -
-        plain| over max |plain|. ``which``: the gradients (0 dq, 1 dk, 2 dv)
-        to read."""
+        the plain version's (or atol). bf16: per (batch row, head), max
+        |kernel - plain| over max |plain|. ``which``: the gradients (0 dq, 1
+        dk, 2 dv) to read."""
         torch.cuda.synchronize()
         masked = mask.sum(dim=1) == 0
         readings = []
@@ -1612,8 +1642,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                     ok = ok and k_ex <= max(GRAD_ATOL, p_ex)
                     reading += f" (fully masked rows against f64: kernel {k_ex:.3g}, plain {p_ex:.3g})"
             else:
-                err = max(((a[r] - w[r]).abs().max() / w[r].abs().max().clamp_min(1e-30)).item()
-                          for r in range(a.shape[0]))
+                # gradients [B, h, S, Dh]: one ratio per (batch row, head)
+                per_head = (a - w).abs().amax(dim=(2, 3)) / w.abs().amax(dim=(2, 3)).clamp_min(1e-30)
+                err = per_head.max().item()
                 ok, reading = err <= BF16_GRAD_REL, f"{g} {err:.3g}"
             if not ok:
                 raise RuntimeError(f"{name}: {g} off its plain version: {reading}")
@@ -1639,7 +1670,8 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                     for g, a, w, e in zip(("dq", "dk", "dv"), got, want, exact))
             del want, exact, got
             what = (f"excess of |kernel - plain| over atol after rtol (atol {GRAD_ATOL}, rtol {GRAD_RTOL})"
-                    if dtype == torch.float32 else f"max abs err / max |plain| per row (limit {BF16_GRAD_REL})")
+                    if dtype == torch.float32 else
+                    f"max abs err / max |plain| per (batch row, head) (limit {BF16_GRAD_REL})")
             print(f"{names[route]} at [{batch}, {heads}, {s}, {dh}] {str(dtype)[6:]} (row lengths "
                   f"{mask.sum(1).tolist()}): {what}: {reading}", flush=True)
             del q, k, v, do
@@ -1684,6 +1716,14 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             check(name, (dq, dk, dv), want, exact, mask, dtype, outputs[name])
             err = max((grad.float() - want[i].float()).abs().max().item()
                       for i, grad in enumerate((dq, dk, dv)) if i in outputs[name])
+            # no atomics: a second run on the same inputs gives the same
+            # bits (in the gradients it writes: the others stay unwritten)
+            first = [(dq, dk, dv)[i].clone() for i in outputs[name]]
+            kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, (dq, dk, dv)[i]) for a, i in zip(first, outputs[name])):
+                raise RuntimeError(f"{name}: two runs on the same inputs differ at B={b} S={s} {dtype}")
+            del first
             ms = cuda_ms(torch, kernel, iters=5, warmup=1)
             plain_ms = cuda_ms(torch, plain, iters=2, warmup=1)
             del want, exact
@@ -1712,10 +1752,12 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                   f"by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s{' 3xTF32' if tf32 else ''}, "
                   f"{nbytes / 1e6:.2f} MB)"
                   + (f", CUDA-core f32 bound {f32_bound:.4f} ms (at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32
-                     else "") + f" {card}", flush=True)
+                     else "") + f"; two runs give the same bits {card}", flush=True)
             key = instantiation(name, dtype, f"head_dim {dh}")
+            tc_bwd = dtype == torch.bfloat16 and name == "attention_bwd_q_blocked"
             rows[key] = {
-                "name": key, "route": "cuda", "source": "dial_rag_tpu_torch/csrc/flash_attention_long_bwd.cu",
+                "name": key, "route": "cuda",
+                "source": f"dial_rag_tpu_torch/csrc/{'attention_bwd_tc.cuh' if tc_bwd else 'flash_attention_long_bwd.cu'}",
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                 "library_bwd_ms": library_bwd_ms,
@@ -1723,6 +1765,8 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             if tf32:
                 status = REDESIGNED if name == "attention_bwd_q_blocked" else REDESIGNED_KV_BLOCKED
                 rows[key].update(status=status, bound_f32_ms=f32_bound)
+            elif tc_bwd:
+                rows[key].update(status=REDESIGNED_TC_BACKWARD)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return rows

@@ -1,10 +1,12 @@
 // Pieces shared by the long-sequence attention forwards and backwards
-// (flash_attention_long.cu, flash_attention_long_bwd.cu). They are
-// templates on the element type T (f32 or bf16: the loads, casts and
-// stores; every product and sum runs in f32) and on the head width DH (32
-// or 64). S may be any length: rows past S load as zeros and keys past S
-// get a -inf bias, so a ragged last key chunk or query tile is masked
-// inside the kernel and a padded key's weight is exactly 0.
+// (flash_attention_long.cu, flash_attention_long_bwd.cu, attention_bwd_tc.cuh):
+// the key bias and the CUDA-core tiles of the bf16 KV-blocked backward
+// passes. They are templates on the element type T (f32 or bf16: the
+// loads, casts and stores; every product and sum runs in f32) and on the
+// head width DH (32 or 64). S may be any length: rows past S load as
+// zeros and keys past S get a -inf bias, so a ragged last key chunk or
+// query tile is masked inside the kernel and a padded key's weight is
+// exactly 0.
 #pragma once
 
 #include "attention_f32.cuh"
@@ -64,19 +66,6 @@ __device__ __forceinline__ void store_row(T* head, long long row_stride, int r0,
   T* row = head + (r0 + r) * row_stride;
 #pragma unroll
   for (int t = 0; t < DH / kPhases; ++t) row[j + kPhases * t] = from_f32<T>(vals[t]);
-}
-
-// The max and the sum over the 8 neighbouring lanes that share a row.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = kPhases / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kPhases / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace attn

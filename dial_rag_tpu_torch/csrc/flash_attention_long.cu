@@ -49,14 +49,24 @@
 // rather than wgmma (wgmma takes TF32 only K-major, so V would have to be
 // transposed in shared memory), and two blocks an SM at head_dim 64.
 //
-// The KV-blocked forward (kv_blocked_kernel) runs on the CUDA cores in
-// full f32: one block per (32-query tile, head, batch row), 256 threads,
-// thread t owning query row t / 8 (in registers) and every 8th key of a
-// 64-key chunk that K and V stream through in shared memory (42 KB at
-// head_dim 64, static); m, l and the accumulator live in registers and
-// are rescaled at every 64-key chunk. The TPU kernel rescales at every 512
-// keys, so the two round differently by about one ulp per rescale. At
-// [1, 12, 8192, 32] its 103 GFLOP take 1.5 ms at 67 TFLOP/s.
+// The KV-blocked forward (kv_blocked_tf32_kernel) runs on the same
+// blocks, ring and split-TF32 pieces in one sweep: each 64-key chunk
+// forms Q K^T once (each head-width step's products a partial added in
+// f32: tensor_core_tf32.cuh's kStepPartials, which keeps the lse as close
+// to an f64 evaluation as the plain version is), takes the chunk's row max
+// (merged over the row's four lanes, so they share m), corr = exp(m - m_next) and e = exp(s - m_next),
+// rescales the lane's share of l and the accumulator by corr, and forms
+// e . V into a per-chunk partial added to acc corr in f32 on the CUDA
+// cores; at the end o = acc / l and lse = m + log(l), l merged over the
+// quad. Two [S, S] products, the bound's count (kernel 6 forms Q K^T
+// twice). The reference rescales at every 512 keys; this kernel rescales
+// at every 64-key chunk, the same function rounded otherwise (about an
+// ulp a rescale): keeping the 512-key max would need Q K^T twice a block
+// or a [64, 512] score tile in shared memory, a third product. At [1, 12,
+// 8192, 64] its 206 GFLOP take 1.25 ms at 165 TFLOP/s of 3xTF32 (3.08 ms
+// at 67 TFLOP/s on the CUDA cores); 0.62 and 1.54 ms at head_dim 32;
+// q, k, v, o and lse (101 MB at head_dim 64) take 0.03 ms: bound by
+// operations.
 #include <cfloat>
 #include <cstdint>
 
@@ -71,79 +81,15 @@ struct LongViews {
   View q, k, v, o;
 };
 
-template <int DH>
-struct BlockSmem {
-  float k[kChunk * (DH + 1)];  // K chunk; the q tile at first
-  float v[kChunk * (DH + 1)];  // V chunk
-  float p[kRows * kPLd];       // P (or e) of the chunk, cast through T
-  float bias[kChunk];
-};
-static_assert(sizeof(BlockSmem<64>) <= kStaticSmemLimit && kStaticSmemLimit <= kSmemLimit,
-              "the forward block's shared memory must fit statically");
-
-// Loads key chunk c0 (K, V, the bias) and leaves this thread's
-// kKeysPerThread scores (keys j + 8 i of the chunk) in `sc`; keys past S
-// score -inf.
-template <int DH, typename T>
-__device__ __forceinline__ void chunk_scores(BlockSmem<DH>& sm, float* sc, const float* q_row, const T* k_head,
-                                             const T* v_head, const float* bias_row, const LongViews& vw, int c0,
-                                             int s, float scale) {
-  load_tile_rows<kChunk, DH>(sm.k, k_head, vw.k.r, c0, s);
-  load_tile_rows<kChunk, DH>(sm.v, v_head, vw.v.r, c0, s);
-  if (threadIdx.x < kChunk) sm.bias[threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
-  __syncthreads();
-  const int j = threadIdx.x % kPhases;
-#pragma unroll
-  for (int i = 0; i < kKeysPerThread; ++i) {
-    const int c = j + kPhases * i;
-    sc[i] = scaled_score(dot_dh<DH>(q_row, sm.k + c * (DH + 1)), scale, sm.bias[c]);
-  }
-}
-
-// acc[t] += sum over the chunk's keys c of P[r, c] v[c, j + 8t]
-template <int DH>
-__device__ __forceinline__ void accumulate_pv(const BlockSmem<DH>& sm, float* acc) {
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-  for (int c = 0; c < kChunk; ++c) {
-    const float p = sm.p[r * kPLd + c];
-#pragma unroll
-    for (int t = 0; t < DH / kPhases; ++t) acc[t] = fmaf(p, sm.v[c * (DH + 1) + j + kPhases * t], acc[t]);
-  }
-}
-
-// A block's (query tile, head, batch row) bases; this thread's q row goes
-// to registers.
-template <typename T>
-struct BlockSetup {
-  const T* k_head;
-  const T* v_head;
-  T* o_head;
-  const float* bias_row;
-  int q0;
-};
-
-template <int DH, typename T>
-__device__ __forceinline__ BlockSetup<T> setup(BlockSmem<DH>& sm, float* q_row, const T* q, const T* k, const T* v,
-                                               const float* bias, T* o, const LongViews& vw, int s) {
-  BlockSetup<T> bs;
-  bs.q0 = blockIdx.x * kRows;
-  const int head = blockIdx.y, b = blockIdx.z;
-  bs.k_head = k + b * vw.k.b + head * vw.k.h;
-  bs.v_head = v + b * vw.v.b + head * vw.v.h;
-  bs.o_head = o + b * vw.o.b + head * vw.o.h;
-  bs.bias_row = bias + static_cast<long long>(b) * s;
-  row_to_registers<DH>(sm.k, q_row, q + b * vw.q.b + head * vw.q.h, vw.q.r, bs.q0, s);
-  return bs;
-}
-
 // ---- _attention_q_blocked_kernel (f32, split-TF32 tensor-core products) ----
 // The warp's 16 query rows against a 64-key chunk in stage `st`: x[n][e]
 // is row g + 8 (e / 2) and key 8 n + 2c + e % 2, as q . k * scale + bias
-// rounded as the reference rounds it.
-template <int DH>
+// rounded as the reference rounds it; q . k summed as product_rows'
+// kStepPartials says.
+template <int DH, bool kStepPartials = false>
 __device__ __forceinline__ void tf32_scores(float (&x)[8][4], const float* q_warp, const tf32::Layout<DH>& sm,
                                             int st, float scale) {
-  tf32::product_rows<8, DH>(x, q_warp, sm.tile(st, 0));
+  tf32::product_rows<8, DH, false, kStepPartials>(x, q_warp, sm.tile(st, 0));
   const float* bias = sm.extra(st) + 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -235,50 +181,91 @@ __global__ void __launch_bounds__(tf32::kThreads)
   tf32::store_rows<DH>(o + b * vw.o.b + head * vw.o.h, vw.o.r, q0 + 16 * warp, s, acc);
 }
 
-// ---- _attention_kv_blocked_fwd_kernel --------------------------------------
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    kv_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse, LongViews vw,
-                      int s, float scale) {
-  __shared__ BlockSmem<DH> sm;
-  float q_row[DH];
-  const BlockSetup<T> bs = setup<DH>(sm, q_row, q, k, v, bias, o, vw, s);
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-  float sc[kKeysPerThread];
+// ---- _attention_kv_blocked_fwd_kernel (f32, split-TF32 tensor-core products) ----
+template <int DH>
+__global__ void __launch_bounds__(tf32::kThreads)
+    kv_blocked_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                           const float* __restrict__ bias, float* __restrict__ o, float* __restrict__ lse,
+                           LongViews vw, int s, float scale) {
+  extern __shared__ __align__(16) float tf32_smem[];
+  const tf32::Layout<DH> sm{tf32_smem};
+  const int q0 = blockIdx.x * tf32::kTileRows, head = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* k_head = k + b * vw.k.b + head * vw.k.h;
+  const float* v_head = v + b * vw.v.b + head * vw.v.h;
+  const float* bias_row = bias + static_cast<long long>(b) * s;
+  const float* q_warp = sm.fixed(0) + 16 * warp * tf32::kLd<DH>;
+  const int n_chunks = (s + tf32::kTileRows - 1) / tf32::kTileRows;
+  // key chunk c, K and V, and its bias (-inf past S) into stage c % 2
+  auto issue = [&](int c) {
+    const int c0 = c * tf32::kTileRows, st = c % 2;
+    tf32::copy_rows_async<DH>(sm.tile(st, 0), k_head, vw.k.r, c0, tf32::kTileRows, s, tf32::kThreads);
+    tf32::copy_rows_async<DH>(sm.tile(st, 1), v_head, vw.v.r, c0, tf32::kTileRows, s, tf32::kThreads);
+    if (threadIdx.x < tf32::kTileRows) sm.extra(st)[threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
+  };
 
-  // the row's running max (from f32.min, as the TPU kernel starts it),
-  // denominator and accumulator, the same in the row's 8 threads
-  float m = -FLT_MAX, l = 0.f;
-  float acc[DH / kPhases] = {};
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    chunk_scores(sm, sc, q_row, bs.k_head, bs.v_head, bs.bias_row, vw, c0, s, scale);
-    float cm = sc[0];
+  // the block's 64 query rows, copied with the first key chunk
+  tf32::copy_rows_async<DH>(sm.fixed(0), q + b * vw.q.b + head * vw.q.h, vw.q.r,
+                            q0, tf32::kTileRows, s, tf32::kThreads);
+
+  // per row of this lane (g and g + 8): the running max, from f32.min as
+  // the reference starts it and the same in the row's four lanes; this
+  // lane's share of the denominator (its keys' e); the accumulator o
+  // before the division, rescaled with them
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+  float acc[DH / 8][4] = {};
+  issue(0);
+  tc::cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = tf32::ring_step(c, n_chunks, issue);
+    float x[8][4];
+    tf32_scores<DH, true>(x, q_warp, sm, st, scale);
+    // m_next = max(m, the chunk's row max), corr = exp(m - m_next), e =
+    // exp(s - m_next) in place of the scores, l = l corr + sum(e)
+    float corr[2];
 #pragma unroll
-    for (int i = 1; i < kKeysPerThread; ++i) cm = fmaxf(cm, sc[i]);
-    const float m_next = fmaxf(m, row_max(cm));
-    const float corr = expf(__fsub_rn(m, m_next));
-    float part = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      float cm = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const float e = expf(__fsub_rn(sc[i], m_next));
-      part += e;
-      sm.p[r * kPLd + j + kPhases * i] = through<T>(e);
+      for (int n = 0; n < 8; ++n) cm = fmaxf(cm, fmaxf(x[n][2 * h], x[n][2 * h + 1]));
+      const float m_next = fmaxf(m[h], tf32::quad_max(cm));
+      corr[h] = expf(__fsub_rn(m[h], m_next));
+      float add = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          x[n][2 * h + j] = expf(__fsub_rn(x[n][2 * h + j], m_next));
+          add += x[n][2 * h + j];
+        }
+      l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), add);
+      m[h] = m_next;
     }
-    l = __fadd_rn(__fmul_rn(l, corr), row_sum(part));
-    m = m_next;
-    __syncthreads();
-    float pv[DH / kPhases] = {};
-    accumulate_pv(sm, pv);
+    // acc = acc corr + e . V, the chunk's e . V a partial of its own
+    float part[DH / 8][4] = {};
+    tf32::accumulate_pairs<8, DH>(part, x, sm.tile(st, 1));
 #pragma unroll
-    for (int t = 0; t < DH / kPhases; ++t) acc[t] = __fadd_rn(__fmul_rn(acc[t], corr), pv[t]);
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], corr[e / 2]), part[j][e]);
     __syncthreads();
   }
+  // o = acc / l and lse = m + log(l), f32 [B, h, S], l merged over the
+  // row's four lanes
+  float l_row[2];
 #pragma unroll
-  for (int t = 0; t < DH / kPhases; ++t) acc[t] = __fdiv_rn(acc[t], l);
-  store_row<DH>(bs.o_head, vw.o.r, bs.q0, s, acc);
-  if (j == 0 && bs.q0 + r < s)
-    lse[(static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * s + bs.q0 + r] = m + logf(l);
+  for (int h = 0; h < 2; ++h) l_row[h] = tf32::quad_sum(l[h]);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fdiv_rn(acc[j][e], l_row[e / 2]);
+  tf32::store_rows<DH>(o + b * vw.o.b + head * vw.o.h, vw.o.r, q0 + 16 * warp, s, acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * h;
+    if (lane % 4 == 0 && row < s)
+      lse[(static_cast<long long>(b) * gridDim.y + head) * s + row] = m[h] + logf(l_row[h]);
+  }
 }
 
 LongViews read_views(const void* strides) {
@@ -289,38 +276,33 @@ LongViews read_views(const void* strides) {
   return vw;
 }
 
-dim3 grid_of(int batch, int heads, int seq) { return dim3((seq + kRows - 1) / kRows, heads, batch); }
+// Opts kernel in to tf32::Layout's dynamic shared memory and launches it
+// on a grid of 64-query tiles; returns cudaGetLastError() (0 on success).
+template <int DH, typename Kernel, typename... Args>
+int launch_tf32(Kernel kernel, int batch, int heads, int seq, void* stream, Args... args) {
+  constexpr size_t kSmem = tf32::Layout<DH>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((seq + tf32::kTileRows - 1) / tf32::kTileRows, heads, batch), tf32::kThreads, kSmem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int DH>
-int launch_q_blocked_tf32(const void* q, const void* k, const void* v, const void* bias, void* o, const void* strides,
-                          int batch, int heads, int seq, float scale, void* stream) {
-  constexpr size_t kSmem = tf32::Layout<DH>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(q_blocked_tf32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  q_blocked_tf32_kernel<DH>
-      <<<dim3((seq + tf32::kTileRows - 1) / tf32::kTileRows, heads, batch), tf32::kThreads, kSmem,
-         static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                              static_cast<const float*>(v), static_cast<const float*>(bias),
-                                              static_cast<float*>(o), read_views(strides), seq, scale);
-  return static_cast<int>(cudaGetLastError());
+int launch_q_blocked(const void* q, const void* k, const void* v, const void* bias, void* o, const void* strides,
+                     int batch, int heads, int seq, float scale, void* stream) {
+  return launch_tf32<DH>(q_blocked_tf32_kernel<DH>, batch, heads, seq, stream, static_cast<const float*>(q),
+                         static_cast<const float*>(k), static_cast<const float*>(v), static_cast<const float*>(bias),
+                         static_cast<float*>(o), read_views(strides), seq, scale);
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_kv_blocked(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
                       const void* strides, int batch, int heads, int seq, float scale, void* stream) {
-  kv_blocked_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), static_cast<float*>(lse), read_views(strides), seq, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int kv_blocked(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
-               const void* strides, int batch, int heads, int seq, int head_dim, float scale, void* stream) {
-  if (head_dim == 32) return launch_kv_blocked<T, 32>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale, stream);
-  if (head_dim == 64) return launch_kv_blocked<T, 64>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tf32<DH>(kv_blocked_tf32_kernel<DH>, batch, heads, seq, stream, static_cast<const float*>(q),
+                         static_cast<const float*>(k), static_cast<const float*>(v), static_cast<const float*>(bias),
+                         static_cast<float*>(o), static_cast<float*>(lse), read_views(strides), seq, scale);
 }
 
 }  // namespace
@@ -329,20 +311,26 @@ int kv_blocked(const void* q, const void* k, const void* v, const void* bias, vo
 
 // C entry points. q, k, v, o: device pointers to f32 [B, h, S, head_dim]
 // views whose (batch, head, row) element strides are `strides[0..11]` (a
-// host array: q, k, v, o in turn); bias: f32 [B, S]; lse: f32 [B, h, S]. Any S >= 1; head_dim 32 or 64 (else
+// host array: q, k, v, o in turn), q, k and v 16-byte aligned with
+// strides that are multiples of 4 elements (cp.async copies); bias: f32
+// [B, S]; lse: f32 [B, h, S]. Any S >= 1; head_dim 32 or 64 (else
 // cudaErrorInvalidValue). Launch on `stream` and return cudaGetLastError()
 // (0 on success).
 extern "C" int dial_attention_q_blocked_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
                                             const void* strides, int batch, int heads, int seq, int head_dim,
                                             float scale, void* stream) {
   using namespace dial::attn;
-  if (head_dim == 32) return launch_q_blocked_tf32<32>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
-  if (head_dim == 64) return launch_q_blocked_tf32<64>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
+  if (head_dim == 32) return launch_q_blocked<32>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
+  if (head_dim == 64) return launch_q_blocked<64>(q, k, v, bias, o, strides, batch, heads, seq, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The KV-blocked forward (TPU kernel 7); writes lse too.
 extern "C" int dial_attention_kv_blocked_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
                                              void* lse, const void* strides, int batch, int heads, int seq,
                                              int head_dim, float scale, void* stream) {
-  return dial::attn::kv_blocked<float>(q, k, v, bias, o, lse, strides, batch, heads, seq, head_dim, scale, stream);
+  using namespace dial::attn;
+  if (head_dim == 32) return launch_kv_blocked<32>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale, stream);
+  if (head_dim == 64) return launch_kv_blocked<64>(q, k, v, bias, o, lse, strides, batch, heads, seq, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -70,33 +70,37 @@
 // reads it), mma.sync rather than wgmma (wgmma takes TF32 only K-major),
 // and two blocks an SM at head_dim 64.
 //
-// The bf16 backwards run on the CUDA cores, products in f32 (a bf16 x bf16
-// product is exact in f32): two launches, each a loop inside the block
-// over 64-key chunks or 32-query tiles that stream through shared memory,
-// no S limit:
+// The bf16 query-blocked backward runs on the bf16 tensor cores
+// (mma.sync.m16n8k16): dq_tc_kernel then dkv_tc_kernel
+// (attention_bwd_tc.cuh), the f32 pair's structure, expressions and
+// statistics on bf16 products, nine [S, S] products as in f32.
+//
+// The bf16 KV-blocked passes run on the CUDA cores, products in f32 (a
+// bf16 x bf16 product is exact in f32): two launches, each a loop inside
+// the block over 64-key chunks or 32-query tiles that stream through
+// shared memory, no S limit:
 //   dQ pass, one block per (32-query tile, head, batch row), thread t
 //     owning query row t / 8 (its q and dO rows in registers, 2 x head_dim
-//     floats) and keys t % 8 + 8 i of each chunk. Query-blocked: a first
-//     sweep as above, per thread and merged over the row's 8 threads.
-//     KV-blocked: delta = dO . O from the forward's o row, P from lse, no
-//     first sweep. Then one sweep forms cast(scale dS) for a chunk in
-//     shared memory and accumulates dQ.
+//     floats) and keys t % 8 + 8 i of each chunk: delta = dO . O from the
+//     forward's o row, P from lse; one sweep forms cast(scale dS) for a
+//     chunk in shared memory and accumulates dQ.
 //   dK/dV pass, one block per (32-key tile, head, batch row), thread t
 //     owning key t / 8 (its k and v rows in registers beside its dK and dV
-//     sums): a loop over every 32-query tile rebuilds P with the dQ pass's
-//     expression (the same bits, for the query-blocked backward) and dS,
-//     and accumulates dV += cast(P)^T dO and dK += cast(scale dS)^T Q in
-//     f32 registers, casting P and scale dS where the reference casts them.
+//     sums): a loop over every 32-query tile rebuilds P and dS with the dQ
+//     pass's expressions and accumulates dV += cast(P)^T dO and dK +=
+//     cast(scale dS)^T Q in f32 registers, casting P and scale dS where the
+//     reference casts them.
 //
 // The long sums over S (dQ over the keys, dK and dV over the queries) add
 // one partial per chunk, tile or half chunk to the total in f32 on the
 // CUDA cores, with a compensation term (Kahan) where the KV-blocked
 // backward needs one: there a fully masked row's P is 1, so its gradients
 // are sums of S = 8192 terms of size 1, where a plain running sum would
-// drift by ~1e-4. The query-blocked dQ passes compensate each chunk's
-// partial; the query-blocked split-TF32 dK/dV pass adds each half chunk's
-// plainly (its P is at most 1 / S on a fully masked row, and the f32 gates
-// hold without it). The split-TF32 KV-blocked passes compensate a partial
+// drift by ~1e-4. The query-blocked split-TF32 dQ pass compensates each
+// chunk's partial and its dK/dV pass adds each half chunk's plainly (its P
+// is at most 1 / S on a fully masked row, and the f32 gates hold without
+// it); the bf16 tensor-core passes add their partials plainly (the bf16
+// gates are 3e-2 of the largest gradient). The split-TF32 KV-blocked passes compensate a partial
 // every 32 rows (half a chunk) and, at head_dim 64, form dP with its small
 // terms apart (kDpSmallApart): a tensor core rounds the f32 sum of each
 // mma.sync in its own way, and on a fully masked row, where P is exactly 1,
@@ -111,16 +115,13 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "attention_bwd_tc.cuh"
 #include "attention_long.cuh"
 #include "tensor_core_tf32.cuh"
 
 namespace dial {
 namespace attn {
 namespace {
-
-struct BwdViews {
-  View q, k, v, o, d_o, dq, dk, dv;
-};
 
 // row stride of the [32 keys, 32 queries] P and dS tiles of the dK/dV
 // pass: the 4 keys and 8 query phases a warp writes land on 32 banks
@@ -155,12 +156,11 @@ __device__ __forceinline__ void load_chunk(DqSmem<DH>& sm, const T* k_head, cons
 }
 
 // dq[t] (head column j + 8 t of this thread's row) = sum over keys c of
-// cast(scale P (dP - delta))[r, c] k[c, j + 8 t], P = exp(s - a) (a = lse)
-// when LSE, else exp(s - a) / b (a, b = the row's max and denominator).
-// A key past S scores -inf: its P, and so its dS, is 0.
-template <typename T, int DH, bool LSE>
-__device__ __forceinline__ void dq_sweep(DqSmem<DH>& sm, float* dq, const float* q_row, const float* do_row, float a,
-                                         float b, float delta, const T* k_head, const T* v_head,
+// cast(scale P (dP - delta))[r, c] k[c, j + 8 t], P = exp(s - lse). A key
+// past S scores -inf: its P, and so its dS, is 0.
+template <typename T, int DH>
+__device__ __forceinline__ void dq_sweep(DqSmem<DH>& sm, float* dq, const float* q_row, const float* do_row,
+                                         float lse, float delta, const T* k_head, const T* v_head,
                                          const float* bias_row, const BwdViews& vw, int s, float scale) {
   constexpr int kPerThread = DH / kPhases;
   const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
@@ -173,7 +173,7 @@ __device__ __forceinline__ void dq_sweep(DqSmem<DH>& sm, float* dq, const float*
     for (int i = 0; i < kKeysPerThread; ++i) {
       const int c = j + kPhases * i;
       const float sc = scaled_score(dot_dh<DH>(q_row, sm.k + c * (DH + 1)), scale, sm.bias[c]);
-      const float p = LSE ? expf(__fsub_rn(sc, a)) : prob(sc, a, b);
+      const float p = expf(__fsub_rn(sc, lse));
       const float dp = dot_dh<DH>(do_row, sm.v + c * (DH + 1));
       sm.ds[r * kPLd + c] = through<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale));
     }
@@ -187,71 +187,6 @@ __device__ __forceinline__ void dq_sweep(DqSmem<DH>& sm, float* dq, const float*
 #pragma unroll
     for (int t = 0; t < kPerThread; ++t) add_compensated(dq[t], comp[t], part[t]);
     __syncthreads();
-  }
-}
-
-// _attention_bwd_q_blocked_kernel, pass 1: dQ, and each row's max and
-// denominator (stats [B, h, S, 2]) and delta ([B, h, S]).
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    q_blocked_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ d_o, const float* __restrict__ bias, T* __restrict__ dq,
-                        float* __restrict__ stats, float* __restrict__ delta_out, BwdViews vw, int s, float scale) {
-  __shared__ DqSmem<DH> sm;
-  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-  const T* k_head = k + b * vw.k.b + head * vw.k.h;
-  const T* v_head = v + b * vw.v.b + head * vw.v.h;
-  const float* bias_row = bias + static_cast<long long>(b) * s;
-  float q_row[DH], do_row[DH];
-  row_to_registers<DH>(sm.k, q_row, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
-  row_to_registers<DH>(sm.k, do_row, d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, q0, s);
-
-  // sweep 1: per thread, over its keys, the running max m, sum(exp(s - m))
-  // and sum(exp(s - m) dP), rescaled whenever m grows; m starts at
-  // f32.min, not -inf, so a thread none of whose keys is real yet
-  // rescales by exp(0) instead of exp(-inf - -inf)
-  float m = -FLT_MAX, l = 0.f, ed = 0.f;
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    load_chunk(sm, k_head, v_head, bias_row, vw, c0, s);
-    float sc[kKeysPerThread], dp[kKeysPerThread];
-    float cm = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const int c = j + kPhases * i;
-      sc[i] = scaled_score(dot_dh<DH>(q_row, sm.k + c * (DH + 1)), scale, sm.bias[c]);
-      dp[i] = dot_dh<DH>(do_row, sm.v + c * (DH + 1));
-      cm = fmaxf(cm, sc[i]);
-    }
-    const float m_new = fmaxf(m, cm);
-    const float corr = expf(m - m_new);
-    float add_l = 0.f, add_ed = 0.f;
-#pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const float e = expf(__fsub_rn(sc[i], m_new));
-      add_l += e;
-      add_ed = fmaf(e, dp[i], add_ed);
-    }
-    l = l * corr + add_l;
-    ed = ed * corr + add_ed;
-    m = m_new;
-    __syncthreads();
-  }
-  // merged over the row's 8 threads: the row max, the denominator and
-  // delta = sum(dP exp(s - max)) / denominator = sum(dP P)
-  const float m_row = row_max(m);
-  const float f = expf(m - m_row);
-  const float l_row = row_sum(l * f);
-  const float delta = __fdiv_rn(row_sum(ed * f), l_row);
-
-  float acc[DH / kPhases];
-  dq_sweep<T, DH, false>(sm, acc, q_row, do_row, m_row, l_row, delta, k_head, v_head, bias_row, vw, s, scale);
-  store_row<DH>(dq + b * vw.dq.b + head * vw.dq.h, vw.dq.r, q0, s, acc);
-  if (j == 0 && q0 + r < s) {
-    const long long row = (static_cast<long long>(b) * gridDim.y + head) * s + q0 + r;
-    stats[2 * row] = m_row;
-    stats[2 * row + 1] = l_row;
-    delta_out[row] = delta;
   }
 }
 
@@ -276,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   row_to_registers<DH>(sm.k, q_row, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
   float acc[DH / kPhases];
-  dq_sweep<T, DH, true>(sm, acc, q_row, do_row, q0 + r < s ? lse[row] : 0.f, 0.f, delta,
+  dq_sweep<T, DH>(sm, acc, q_row, do_row, q0 + r < s ? lse[row] : 0.f, delta,
                         k + b * vw.k.b + head * vw.k.h, v + b * vw.v.b + head * vw.v.h,
                         bias + static_cast<long long>(b) * s, vw, s, scale);
   store_row<DH>(dq + b * vw.dq.b + head * vw.dq.h, vw.dq.r, q0, s, acc);
@@ -290,19 +225,19 @@ struct DkvSmem {
   float d_o[kRows * (DH + 1)];  // dO rows of the query tile
   float p[kRows * kTLd];        // cast(P)[key, query] of the tile pair
   float ds[kRows * kTLd];       // cast(scale dS)[key, query]
-  float row[3 * kRows];         // (max, denominator, delta) or (lse, -, delta) per query
+  float row[2 * kRows];         // (lse, delta) per query
   float bias[kRows];
 };
 static_assert(sizeof(DkvSmem<64>) <= kStaticSmemLimit && kStaticSmemLimit <= kSmemLimit,
               "the dK/dV pass's shared memory must fit statically");
 
-// dK and dV of one 32-key tile; P = exp(s - lse) when LSE (stats [B, h, S]),
-// else exp(s - max) / denominator (stats [B, h, S, 2]). Keys past S score
-// -inf and queries past S get P = dS = 0, so neither adds to a sum.
-template <typename T, int DH, bool LSE>
+// _bwd_dkv_kv_blocked_kernel: dK and dV of one 32-key tile, P = exp(s -
+// lse) from the forward's lse [B, h, S]. Keys past S score -inf and
+// queries past S get P = dS = 0, so neither adds to a sum.
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ d_o, const float* __restrict__ bias, const float* __restrict__ stats,
+               const T* __restrict__ d_o, const float* __restrict__ bias, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, BwdViews vw, int s,
                float scale) {
   constexpr int kPadH = DH + 1, kPerThread = DH / kPhases;
@@ -323,21 +258,20 @@ __global__ void __launch_bounds__(kThreads)
     load_tile_rows<kRows, DH>(sm.d_o, do_head, vw.d_o.r, q0, s);
     if (threadIdx.x < kRows && q0 + threadIdx.x < s) {
       const long long row = rows0 + q0 + threadIdx.x;
-      sm.row[3 * threadIdx.x] = LSE ? stats[row] : stats[2 * row];
-      sm.row[3 * threadIdx.x + 1] = LSE ? 0.f : stats[2 * row + 1];
-      sm.row[3 * threadIdx.x + 2] = delta[row];
+      sm.row[2 * threadIdx.x] = lse[row];
+      sm.row[2 * threadIdx.x + 1] = delta[row];
     }
     __syncthreads();
 #pragma unroll
     for (int t = 0; t < kRows / kPhases; ++t) {
       const int qi = j + kPhases * t;
-      const float* st = sm.row + 3 * qi;
+      const float* st = sm.row + 2 * qi;
       float p = 0.f, ds = 0.f;
       if (q0 + qi < s) {
         const float sc = scaled_score(dot_dh<DH>(sm.q + qi * kPadH, k_row), scale, sm.bias[c]);
-        p = LSE ? expf(__fsub_rn(sc, st[0])) : prob(sc, st[0], st[1]);
+        p = expf(__fsub_rn(sc, st[0]));
         const float dp = dot_dh<DH>(sm.d_o + qi * kPadH, v_row);
-        ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, st[2])), scale);
+        ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, st[1])), scale);
       }
       sm.p[c * kTLd + qi] = through<T>(p);
       sm.ds[c * kTLd + qi] = through<T>(ds);
@@ -369,11 +303,9 @@ __global__ void __launch_bounds__(kThreads)
 // Both passes are blocks of tf32::kThreads threads owning a 64-row tile
 // (queries, then keys), 16 rows a warp, the other side streaming through
 // tf32::Layout's two-stage ring in 64-row chunks. A chunk is taken in two
-// halves of 32 (kHalf), which keeps two [16, 32] D tiles (scores and dP)
-// live beside the gradient sums. In a D tile x[n][e] the warp's row is
-// g + 8 (e / 2) and the column (key or query) 8 n + 2c + e % 2 of the half.
-constexpr int kHalf = 32;
-constexpr int kHalfTiles = kHalf / 8;
+// halves of 32 (kHalf, attention_bwd_tc.cuh). In a D tile x[n][e] the
+// warp's row is g + 8 (e / 2) and the column (key or query) 8 n + 2c +
+// e % 2 of the half.
 
 // Whether a pass forms dP with its small terms apart (product_rows'
 // kSmallApart): the KV-blocked passes at head_dim 64, where dP's rounding
@@ -485,10 +417,8 @@ __global__ void __launch_bounds__(tf32::kThreads)
     }
     __syncthreads();  // stage 1 takes chunk 1 next
   } else {
-    // sweep 1: per lane, over its keys, the running max m, sum(exp(s -
-    // m)) and sum(exp(s - m) dP) of its two rows, rescaled whenever m
-    // grows; m starts at f32.min, not -inf, so a lane none of whose keys
-    // is real yet rescales by exp(0) instead of exp(-inf - -inf)
+    // sweep 1: each row's max, denominator and delta = sum(dP P)
+    // (row_stats_add, row_stats_merge: attention_bwd_tc.cuh)
     float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, ed[2] = {0.f, 0.f};
     issue(0);
     tc::cp_async_commit();
@@ -498,39 +428,11 @@ __global__ void __launch_bounds__(tf32::kThreads)
       for (int hf = 0; hf < 2; ++hf) {
         float x[kHalfTiles][4], dp[kHalfTiles][4];
         products(st, hf, x, dp);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int n = 0; n < kHalfTiles; ++n) cm = fmaxf(cm, fmaxf(x[n][2 * h], x[n][2 * h + 1]));
-          const float m_new = fmaxf(m[h], cm);
-          const float corr = expf(__fsub_rn(m[h], m_new));
-          float add_l = 0.f, add_ed = 0.f;
-#pragma unroll
-          for (int n = 0; n < kHalfTiles; ++n)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const float e = expf(__fsub_rn(x[n][2 * h + j], m_new));
-              add_l += e;
-              add_ed = fmaf(e, dp[n][2 * h + j], add_ed);
-            }
-          l[h] = l[h] * corr + add_l;
-          ed[h] = ed[h] * corr + add_ed;
-          m[h] = m_new;
-        }
+        row_stats_add(x, dp, m, l, ed);
       }
       __syncthreads();
     }
-    // merged over the row's four lanes: the row max, the denominator and
-    // delta = sum(dP exp(s - max)) / denominator = sum(dP P)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_row[h] = tf32::quad_max(m[h]);
-      const float f = expf(__fsub_rn(m[h], m_row[h]));
-      l_row[h] = tf32::quad_sum(l[h] * f);
-      r_row[h] = __frcp_rn(l_row[h]);
-      delta[h] = __fdiv_rn(tf32::quad_sum(ed[h] * f), l_row[h]);
-    }
+    row_stats_merge(m, l, ed, m_row, l_row, r_row, delta);
     issue(0);
     tc::cp_async_commit();
   }
@@ -698,9 +600,9 @@ BwdViews read_views(const void* strides, std::initializer_list<View BwdViews::*>
 
 dim3 grid_of(int batch, int heads, int seq) { return dim3((seq + kRows - 1) / kRows, heads, batch); }
 
-// The split-TF32 passes' grid of 64-row tiles, and their opt-in to
-// tf32::Layout's dynamic shared memory (0 on success).
-dim3 tf32_grid_of(int batch, int heads, int seq) {
+// The tensor-core passes' grid of 64-row tiles, and the split-TF32
+// passes' opt-in to tf32::Layout's dynamic shared memory (0 on success).
+dim3 tile_grid_of(int batch, int heads, int seq) {
   return dim3((seq + tf32::kTileRows - 1) / tf32::kTileRows, heads, batch);
 }
 
@@ -710,7 +612,9 @@ cudaError_t opt_in_tf32(const void* kernel) {
                               static_cast<int>(tf32::Layout<DH>::kBytes));
 }
 
-// Each launcher runs f32 on the split-TF32 kernels, bf16 on the CUDA cores.
+// Each launcher runs f32 on the split-TF32 kernels; bf16 on the bf16
+// tensor-core kernels (the query-blocked backward) or the CUDA cores (the
+// KV-blocked passes).
 template <typename T, int DH>
 int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_o, const void* bias, void* dq,
                      void* dk, void* dv, void* stats, void* delta, const void* strides, int batch, int heads,
@@ -728,7 +632,7 @@ int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_
       const cudaError_t err = opt_in_tf32<DH>(kernel);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const dim3 grid = tf32_grid_of(batch, heads, seq);
+    const dim3 grid = tile_grid_of(batch, heads, seq);
     constexpr size_t kSmem = tf32::Layout<DH>::kBytes;
     dq_tf32_kernel<DH, false><<<grid, tf32::kThreads, kSmem, stm>>>(
         tq, tk, tv, nullptr, tdo, fbias, nullptr, static_cast<float*>(dq), fstats, fdelta, vw, seq, scale);
@@ -737,13 +641,13 @@ int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_
     dkv_tf32_kernel<DH, false><<<grid, tf32::kThreads, kSmem, stm>>>(
         tq, tk, tv, tdo, fbias, fstats, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
   } else {
-    const dim3 grid = grid_of(batch, heads, seq);
-    q_blocked_dq_kernel<T, DH><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<T*>(dq), fstats,
-                                                           fdelta, vw, seq, scale);
+    const dim3 grid = tile_grid_of(batch, heads, seq);
+    dq_tc_kernel<DH><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<T*>(dq), fstats, fdelta, vw,
+                                                     seq, scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkv_kernel<T, DH, false><<<grid, kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, fstats, fdelta,
-                                                         static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
+    dkv_tc_kernel<DH><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, fstats, fdelta, static_cast<T*>(dk),
+                                                      static_cast<T*>(dv), vw, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -761,7 +665,7 @@ int launch_dq_kv_blocked(const void* q, const void* k, const void* v, const void
   if constexpr (std::is_same_v<T, float>) {
     const cudaError_t err = opt_in_tf32<DH>(reinterpret_cast<const void*>(dq_tf32_kernel<DH, true>));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dq_tf32_kernel<DH, true><<<tf32_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
+    dq_tf32_kernel<DH, true><<<tile_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
         tq, tk, tv, to, tdo, fbias, flse, static_cast<float*>(dq), nullptr, static_cast<float*>(delta), vw, seq,
         scale);
   } else {
@@ -785,10 +689,10 @@ int launch_dkv_kv_blocked(const void* q, const void* k, const void* v, const voi
   if constexpr (std::is_same_v<T, float>) {
     const cudaError_t err = opt_in_tf32<DH>(reinterpret_cast<const void*>(dkv_tf32_kernel<DH, true>));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkv_tf32_kernel<DH, true><<<tf32_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
+    dkv_tf32_kernel<DH, true><<<tile_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
         tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
   } else {
-    dkv_kernel<T, DH, true><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
+    dkv_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
         tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());

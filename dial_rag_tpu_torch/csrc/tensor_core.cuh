@@ -1,10 +1,11 @@
 // Tensor-core building blocks shared by the bf16 kernels (sm_90a): the
-// attention forwards of attention_tc.cuh and attention_tc.cu (mma.sync)
-// and the encoder blocks' products of gemm_tc.cuh (wgmma). 16-byte
-// cp.async copies into shared memory (zero-filled where a row is past the
-// data), ldmatrix fragment loads from rows padded by 8 bf16, the
-// m16n8k16 bf16 product with f32
-// accumulators and two conversions of its results; and Hopper's
+// attention forwards of attention_tc.cuh and attention_tc.cu and the
+// query-blocked backward of attention_bwd_tc.cuh (mma.sync), and the
+// encoder blocks' products of gemm_tc.cuh (wgmma). 16-byte cp.async
+// copies into shared memory (zero-filled where a row is past the data)
+// and the two-stage ring step the f32 split-TF32 kernels share, ldmatrix
+// fragment loads from rows padded by 8 bf16, the m16n8k16 bf16 product
+// with f32 accumulators and two conversions of its results; and Hopper's
 // warpgroup product, wgmma m64n128k16, on operands in 128-byte-swizzled
 // shared memory.
 //
@@ -48,6 +49,24 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Ring step t of n of a two-stage cp.async ring: starts step t + 1's
+// copies (issue(t + 1)) into the other stage, waits for step t's (issued
+// by the previous call, or before the loop for t = 0) and returns its
+// stage. The caller ends each step with __syncthreads(), before the stage
+// is written again.
+template <class Issue>
+__device__ __forceinline__ int ring_step(int t, int n, const Issue& issue) {
+  if (t + 1 < n) {
+    issue(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return t % 2;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {

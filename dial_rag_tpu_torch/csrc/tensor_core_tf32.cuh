@@ -171,22 +171,9 @@ struct Layout {
   __device__ float* extra(int stage) const { return tile(stage, 2); }
 };
 
-// Ring step t of n: starts step t + 1's copies (issue(t + 1)) into the
-// other stage, waits for step t's (issued by the previous call, or before
-// the loop for t = 0) and returns its stage. The caller ends each step
-// with __syncthreads(), before the stage is written again.
-template <class Issue>
-__device__ __forceinline__ int ring_step(int t, int n, const Issue& issue) {
-  if (t + 1 < n) {
-    issue(t + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-  } else {
-    tc::cp_async_wait<0>();
-  }
-  __syncthreads();
-  return t % 2;
-}
+// the two-stage cp.async ring's step (tensor_core.cuh), shared with the
+// bf16 tensor-core kernels
+using tc::ring_step;
 
 // acc[n] = A B^T for the warp's 16 rows `a` against rows 8 n .. 8 n + 7 of
 // `b` (both [*, kLd] tiles), over the head width DH. The loop over the
@@ -196,8 +183,16 @@ __device__ __forceinline__ int ring_step(int t, int n, const Issue& issue) {
 // With kSmallApart the small terms (hi.lo, lo.hi) of every step go to an
 // accumulator of their own, added to the hi.hi sum in f32 at the end:
 // added to the running sum, they lose their low bits to the tensor core's
-// rounding of that sum at each step.
-template <int NT, int DH, bool kSmallApart = false>
+// rounding of that sum at each step. With kStepPartials each step's three
+// products go to a zeroed accumulator, added to the sum in f32 (rounded to
+// nearest): the tensor core rounds the running sum toward zero at each
+// product, about an ulp of the sum each time, which a score with one large
+// term (|q . k| ~ 100) carries whole into the KV-blocked forward's lse =
+// m + log(l) (on an H100 80GB HBM3 at 700 W, 1.1-1.3e-5 from an f64
+// evaluation where |q . k| reaches 120, against the lse gate of 1e-5;
+// 1.9-2.6e-6 with it, as close as the plain version:
+// scripts/kv_blocked_fwd_variants.py).
+template <int NT, int DH, bool kSmallApart = false, bool kStepPartials = false>
 __device__ __forceinline__ void product_rows(float (&acc)[NT][4], const float* a, const float* b) {
   float small[NT][4];
 #pragma unroll
@@ -216,6 +211,11 @@ __device__ __forceinline__ void product_rows(float (&acc)[NT][4], const float* a
         mma(small[n], fa.hi, fb.lo);
         mma(small[n], fa.lo, fb.hi);
         mma(acc[n], fa.hi, fb.hi);
+      } else if (kStepPartials) {
+        float step[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(step, fa, fb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], step[e]);
       } else {
         mma3(acc[n], fa, fb);
       }

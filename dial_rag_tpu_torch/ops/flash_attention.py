@@ -30,15 +30,17 @@ Hopper kernels or raise; they never fall back:
   kernel's code (``csrc/flash_attention_long.cu``, also split TF32) past
   it and on the query-blocked route: both compute the same function, as
   the reference's kernels do;
-- the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``, CUDA
-  cores);
+- the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``,
+  split-TF32 products, one sweep);
 - backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``; in
   f32 one launch of split-TF32 products per (head, batch row), in bf16 two
   CUDA-core passes) up to its dtype's limit, the query-blocked backward's
   code past it and on the query-blocked route, the KV-blocked passes after
   the KV-blocked forward (``csrc/flash_attention_long_bwd.cu``; both
-  blocked backwards in f32 on split-TF32 products on the tensor cores, in
-  bf16 on the CUDA cores).
+  blocked backwards in f32 on split-TF32 products on the tensor cores; in
+  bf16 the query-blocked backward on the bf16 tensor cores,
+  ``csrc/attention_bwd_tc.cuh``, the KV-blocked passes on the CUDA
+  cores).
 
 Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
 On a CPU tensor, or with ``plain=True``, they run the plain PyTorch
@@ -417,14 +419,16 @@ def _q_blocked_kernel(q, k, v, o, attention_mask):
 
 
 def _kv_blocked_kernel(q, k, v, o, attention_mask):
-    """Launches the KV-blocked forward (TPU kernel 7; f32 on the CUDA
-    cores, bf16 on the tensor cores) on [B, h, S, Dh] views q, k, v -> o;
-    returns its lse, f32 [B, h, S]."""
+    """Launches the KV-blocked forward (TPU kernel 7; f32 on split-TF32
+    products, bf16 on the bf16 tensor cores; q, k and v 16-byte aligned
+    rows, cp.async copies) on [B, h, S, Dh] views q, k, v -> o; returns its
+    lse, f32 [B, h, S]."""
     if q.dtype == torch.bfloat16:
         _check_tc_inputs(q, k, v, o)
         stem = "attention_tc"
     else:
         _check_attention_inputs(q=q, k=k, v=v, o=o)
+        _check_16_byte_rows("KV-blocked f32 forward", q=q, k=k, v=v)
         stem = "flash_attention_long"
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
@@ -481,11 +485,10 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
 def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     """Launches the query-blocked backward (TPU kernel 9, two passes, any
     S) on [B, h, S, Dh] views, writing dq, dk and dv: in f32 split-TF32
-    products on the tensor cores (q, k, v and do 16-byte aligned rows), in
-    bf16 the CUDA cores."""
+    products on the tensor cores, in bf16 the bf16 tensor cores; q, k, v
+    and do 16-byte aligned rows (cp.async copies)."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
-    if q.dtype == torch.float32:
-        _check_16_byte_rows("query-blocked f32 backward", q=q, k=k, v=v, do=do)
+    _check_16_byte_rows(f"query-blocked {KERNEL_DTYPES[q.dtype]} backward", q=q, k=k, v=v, do=do)
     b, h, s, _ = q.shape
     bias = _kernel_bias(attention_mask, b, s, q.device)
     # per (b, head, query row): softmax max and denominator, and delta

@@ -7,10 +7,13 @@ library. So every ``extern "C"`` declaration of ``csrc/*.cu`` is parsed
 and held against its signature, parameter by parameter: a pointer is
 ``c_void_p``, an ``int`` ``c_int``, a ``float`` ``c_float``. Every entry
 point needs a signature under its source's stem and every signature an
-entry point.
+entry point. The scripts that build variants of a source by text
+substitution (``dial_rag_tpu_torch/scripts/*_variants.py``) must still
+find every text they replace.
 """
 
 import ctypes
+import importlib.util
 import re
 from pathlib import Path
 
@@ -48,3 +51,18 @@ def test_entry_point_signature_matches_its_declaration(stem, name):
     assert (stem, name) in DECLARED, f"SIGNATURES names {stem}.{name}, which csrc/{stem}.cu does not declare"
     assert (stem, name) in SIGNED, f"csrc/{stem}.cu declares {name}, which SIGNATURES lacks"
     assert SIGNED[(stem, name)] == DECLARED[(stem, name)]
+
+
+SCRIPTS = CSRC.parent / "scripts"
+
+
+@pytest.mark.parametrize("script", ["kv_blocked_bwd_variants", "kv_blocked_fwd_variants"])
+def test_variant_script_finds_its_targets(script):
+    """Each variant's substitutions match the source as many times as the
+    script expects (``_swap`` raises otherwise), and change it."""
+    spec = importlib.util.spec_from_file_location(script, SCRIPTS / f"{script}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    source = (CSRC / module.SOURCE).read_text()
+    texts = module.variants(source)
+    assert texts and all(text != source for text in texts.values())

@@ -277,9 +277,10 @@ def test_f32_split_tf32_single_tile_kernels_on_card(cuda_device, limit, offset, 
 
 @pytest.mark.cuda
 def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
-    """The f32 single-tile kernels and the f32 KV-blocked backward passes
-    copy rows 16 bytes at a time: a view whose rows are not 16-byte aligned
-    raises (no fallback)."""
+    """The f32 single-tile kernels, the f32 KV-blocked forward and backward
+    passes and the bf16 query-blocked backward copy rows 16 bytes at a
+    time: a view whose rows are not 16-byte aligned raises (no
+    fallback)."""
     x = torch.randn(2, 2, 64, 36, device=cuda_device)
     q = x[..., 1:33]  # unit head-dim stride, rows 4 bytes past 16-byte alignment
     mask = torch.ones(2, 64, dtype=torch.int32, device=cuda_device)
@@ -294,6 +295,14 @@ def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
         tfa._bwd_dq_kv_blocked_kernel(o, o, o, q, rows, o, grads[0], mask)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._bwd_dkv_kv_blocked_kernel(o, o, o, q, rows, rows, *grads[1:], mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._kv_blocked_kernel(q, o, o, o, mask)
+    xb = torch.randn(2, 2, 64, 40, device=cuda_device).to(torch.bfloat16)
+    qb = xb[..., 4:36]  # bf16 rows 8 bytes past 16-byte alignment
+    ob = torch.empty(2, 2, 64, 32, device=cuda_device, dtype=torch.bfloat16)
+    grads_b = [torch.empty_like(ob) for _ in range(3)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_q_blocked_kernel(ob, ob, qb, ob, *grads_b, mask)
 
 
 @pytest.mark.cuda
@@ -538,10 +547,11 @@ def test_tensor_core_forward_matches_plain_on_card(cuda_device, b, s, dh):
 )
 def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, route, b, s, dh):
     """Kernels 6 (query-blocked; in bf16 the tensor-core forward) and 7
-    (KV-blocked, with its log-sum-exp) against their plain versions at
-    head_dim 32 and 64, q, k and v read as strided views of a packed qkv,
-    a ragged mask and a fully masked row; bf16 also within 3e-2 of each
-    (batch row, head)'s largest plain value."""
+    (KV-blocked, with its log-sum-exp; in f32 split-TF32 products, one
+    rescale per 64-key chunk) against their plain versions at head_dim 32
+    and 64, q, k and v read as strided views of a packed qkv, a ragged
+    mask and a fully masked row, lse within 1e-5; bf16 also within 3e-2 of
+    each (batch row, head)'s largest plain value."""
     qkv, mask, _ = _attention_inputs(cuda_device, b + 1, s, dh=dh)
     q, k, v = tfa._split_heads(qkv.to(dtype), 12)
     assert tfa.attention_route(s) == route
@@ -565,30 +575,36 @@ def test_long_attention_kernels_match_plain_on_card(cuda_device, dtype, atol, ro
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s", [(1, 4608), (3, 8192)])
-def test_kv_blocked_tensor_core_forward_on_card(cuda_device, b, s, dh):
-    """Kernel 7 in bf16 (the tensor-core kernel) against its plain version
-    with a score offset that grows every 512-key block (q[..., 0] = 1,
-    k[..., 0] = 8 j in block j), so the row max rises from block to block
-    and corr < 1 rescales l and the accumulator: o within 3e-2 and within
-    3e-2 of each (batch row, head)'s largest plain value, lse within 1e-5;
-    a ragged row and, at B = 3, a full and a fully masked one."""
+def test_kv_blocked_tensor_core_forward_on_card(cuda_device, b, s, dtype, dh):
+    """Kernel 7 on the tensor cores (bf16 products; in f32 split-TF32
+    ones) against its plain version with a score offset that grows every
+    512-key block (q[..., 0] = 1, k[..., 0] = 8 j in block j), so the row
+    max rises from block to block and corr < 1 rescales l and the
+    accumulator (in f32 at the first chunk of each block): bf16 o within
+    3e-2 and within 3e-2 of each (batch row, head)'s largest plain value,
+    f32 o within 2e-5; lse within 1e-5; a ragged row and, at B = 3, a full
+    and a fully masked one."""
     qkv, _, _ = _attention_inputs(cuda_device, b, s, dh=dh, dtype=torch.float32)
     lengths = torch.tensor([s - 300] if b == 1 else [s, s - 300, 0])
     mask = (torch.arange(s)[None, :] < lengths[:, None]).to(cuda_device, torch.int32)
     q, k, v = (t.clone() for t in tfa._split_heads(qkv, 12))
     q[..., 0] = 1.0
     k[..., 0] = 8.0 * (torch.arange(s, device=cuda_device) // tfa._KV_BLOCK)
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     assert tfa.attention_route(s) == "kv_blocked"
     tfa.reset_launches()
     out, lse = tfa._forward(q, k, v, mask)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES == {**dict.fromkeys(tfa.LAUNCHES, 0), "attention_kv_blocked_fwd": 1}, tfa.LAUNCHES
     ref, ref_lse = tfa._forward(q, k, v, mask, plain=True)
-    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
-    _assert_close(out, ref, 3e-2)
-    _assert_head_close(out, ref)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    if dtype == torch.bfloat16:
+        _assert_close(out, ref, 3e-2)
+        _assert_head_close(out, ref)
+    else:
+        _assert_close(out, ref, 2e-5)
     assert (lse - ref_lse).abs().max().item() <= 1e-5
 
 
@@ -670,13 +686,15 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("route,s", [("q_blocked", 1024), ("kv_blocked", 8192)])
-def test_long_backward_is_reproducible(cuda_device, route, s, dh):
-    """No atomics: two blocked backward calls give the same bits, in f32
-    at head_dim 32 and 64: the split-TF32 kernel 9 (S = 1024) and the
-    split-TF32 KV-blocked passes, kernels 10 and 11 (S = 8192); head_dim
-    64 holds the most registers."""
-    qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh)
+@pytest.mark.parametrize("route,s,dtype", [("q_blocked", 1024, torch.float32), ("kv_blocked", 8192, torch.float32),
+                                           ("q_blocked", 1024, torch.bfloat16)])
+def test_long_backward_is_reproducible(cuda_device, route, s, dtype, dh):
+    """No atomics: two blocked backward calls give the same bits at
+    head_dim 32 and 64: in f32 the split-TF32 kernel 9 (S = 1024) and the
+    split-TF32 KV-blocked passes, kernels 10 and 11 (S = 8192); in bf16
+    the tensor-core kernel 9 (S = 1024); head_dim 64 holds the most
+    registers."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh, dtype=dtype)
     q, k, v = tfa._split_heads(qkv, 12)
     cot = cot.view(2, s, 12, -1).transpose(1, 2)
     assert tfa.attention_route(s) == route

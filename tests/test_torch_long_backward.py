@@ -11,6 +11,9 @@ dtype takes); then the gradients of a pooled ``bert_forward`` on the
 "pallas" route and one ``contrastive_loss`` with its passages at a blocked
 S. On a CPU tensor the port's backward runs the plain versions that the
 CUDA kernels are held to on the card (tests/test_torch_kernels_cuda.py).
+Kernel 9's bf16 tensor-core arithmetic (``csrc/attention_bwd_tc.cuh``:
+its order of sums and its casts) is modelled here and held against the
+JAX package's query-blocked backward at S = 1024.
 
 Tolerances: f32 gradients atol 1e-4, rtol 1e-3, the reference's own
 blocked-gradient tolerance (tests/test_flash_attention.py:185, 242); bf16
@@ -23,6 +26,8 @@ tests/test_torch_training.py holds the S <= 512 loss. Kernels 10 and 11
 run at S = 1024 with ``_Q_BLOCKED_MAX_S`` lowered to 512 in both packages,
 as the reference's own test lowers it.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +43,7 @@ from dial_rag_tpu.ops import flash_attention as jfa
 from dial_rag_tpu.training import contrastive as jc
 from dial_rag_tpu_torch.models.bert import bert_forward
 from dial_rag_tpu_torch.ops import flash_attention as tfa
+from dial_rag_tpu_torch.ops.fused_encoder import mask_bias
 from dial_rag_tpu_torch.training import contrastive as tc
 from dial_rag_tpu_torch.weights import param_leaves, params_from_jax_numpy
 
@@ -138,6 +144,68 @@ def test_single_tile_past_the_kernel_limit_matches_jax(dtype, dh, masked):
                                atol=2e-5 if dtype == "f32" else BF16_REL)
     port, ref_grads = _grads(q, k, v, cot, mask, t_dtype)
     _assert_grads_close(port, ref_grads, dtype)
+
+
+CHUNK, HALF = 64, 32  # rows of a ring chunk of the bf16 tensor-core passes, and of half of one
+
+
+def _partials(fn, n: int, rows: int) -> torch.Tensor:
+    """sum over pieces c of ``rows`` rows of fn(slice c), each piece's f32
+    partial added to the total in f32, in order."""
+    total = None
+    for r0 in range(0, n, rows):
+        part = fn(slice(r0, r0 + rows))
+        total = part if total is None else total + part
+    return total
+
+
+def q_blocked_bf16_model(q, k, v, do, mask):
+    """Kernel 9 in bf16 on the bf16 tensor cores, on f32 tensors that hold
+    bf16 values: every product of two bf16 operands is exact in f32 and
+    summed in f32 (here in f64, then rounded: the model leaves out the
+    tensor core's own rounding of a product's sum); P exact per row,
+    normalised in f32; delta = rowsum(dP P); dS = P (dP - delta) scale; P
+    and dS rounded to bf16 before their products; dQ a sum of per-64-key
+    partials in f32, dK and dV of per-32-query partials; the gradients
+    rounded to bf16 once."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def mm(a, b):
+        return (a.double() @ b.double()).float()
+
+    s = mm(q, k.transpose(-1, -2)) * scale + mask_bias(mask)[:, None, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = mm(do, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    n = q.shape[2]
+    dq = _partials(lambda c: mm(ds[..., c], k[:, :, c]), n, CHUNK)
+    dk = _partials(lambda c: mm(ds[:, :, c].transpose(-1, -2), q[:, :, c]), n, HALF)
+    dv = _partials(lambda c: mm(pb[:, :, c].transpose(-1, -2), do[:, :, c]), n, HALF)
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_q_blocked_bf16_model_matches_jax(dh):
+    """Kernel 9's bf16 tensor-core arithmetic at S = 1024 against the JAX
+    package's ``_backward`` on the query-blocked route (the Pallas kernel
+    in interpret mode, bf16 inputs), a full row, a row padded across a
+    512-key block and a fully masked one: each gradient within 3e-2 of
+    each (batch row, head)'s largest reference magnitude."""
+    s = 1024
+    assert tfa.attention_route(s) == "q_blocked"
+    q, k, v, do, mask = _inputs(3, 2, s, seed=dh + 31, np_dtype=ml_dtypes.bfloat16, dh=dh)
+    got = q_blocked_bf16_model(*(torch.from_numpy(np.asarray(a, np.float32)) for a in (q, k, v, do)),
+                               torch.from_numpy(mask))
+    want = jfa._backward(jnp.asarray(mask), *(jnp.asarray(a) for a in (q, k, v, do)))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float().numpy(), np.asarray(w, np.float32)
+        assert np.isfinite(a).all(), name
+        for r in range(a.shape[0]):
+            for h in range(a.shape[1]):
+                np.testing.assert_allclose(a[r, h], w[r, h], atol=BF16_REL * np.abs(w[r, h]).max(), rtol=0,
+                                           err_msg=f"{name} row {r} head {h}")
 
 
 def _recording_kernels(monkeypatch, calls, limits=(1600, 1472)):

@@ -2,12 +2,14 @@
 kernels on Hopper's tensor cores (``dial_rag_tpu_torch/csrc/
 tensor_core_tf32.cuh``): the query-blocked forward and backward (TPU
 kernels 6 and 9), the single-tile forward and backward (TPU kernels 4,
-5 and 8) and the KV-blocked backward passes (TPU kernels 10 and 11),
-modelled in plain PyTorch on the CPU and held against the JAX package:
-its query-blocked route at S = 1024, its single-tile route (``_forward``,
-``_backward`` and ``fused_qkv_attention`` with its VJP, in interpret
-mode) at S <= 520, its KV-blocked backward (``_backward_kv_blocked``
-after its KV-blocked forward, the threshold lowered to 512) at S = 1024.
+5 and 8), the KV-blocked forward (TPU kernel 7) and the KV-blocked
+backward passes (TPU kernels 10 and 11), modelled in plain PyTorch on
+the CPU and held against the JAX package: its query-blocked route at S =
+1024, its single-tile route (``_forward``, ``_backward`` and
+``fused_qkv_attention`` with its VJP, in interpret mode) at S <= 520,
+its KV-blocked forward (``_forward``, the threshold lowered to 512) at S
+= 1024 and 1536, its KV-blocked backward (``_backward_kv_blocked`` after
+its KV-blocked forward) at S = 1024.
 
 The model. ``split_tf32`` rounds an f32 value to 10 mantissa bits, to
 nearest with ties away from zero, by integer bit operations, as
@@ -20,7 +22,13 @@ bias, the exact row softmax, P . V and the gradients' long sums taken as
 partials per 64-row chunk added in f32. The single-tile kernels compute
 the same expressions in the same chunks (Q K^T once in the forward; in
 the backward dP twice, delta = rowsum(dP P) as the reference forms it),
-so one model serves both. The KV-blocked passes take P = exp(s - lse)
+so one model serves both. The KV-blocked forward takes the online
+softmax one 64-key chunk at a time (the reference's 512-key blocks
+rescale less often: the same function, rounded otherwise): m_next =
+max(m, the chunk's row max), corr = exp(m - m_next), e = exp(s - m_next),
+l = l corr + sum(e), acc = acc corr + e . V (the chunk's product a
+partial of its own), then o = acc / l and lse = m + log(l). The
+KV-blocked passes take P = exp(s - lse)
 with the forward's lse and delta = rowsum(dO O) with its o, and add a
 partial every 32 rows (half a chunk) with a compensation term (Kahan,
 each step rounded in f32, as ``add_compensated`` does it, the term kept
@@ -111,6 +119,26 @@ def backward_model(q, k, v, do, mask):
     dk = _chunked(lambda c: mm3(ds[:, :, c].transpose(-1, -2), q[:, :, c]), n)
     dv = _chunked(lambda c: mm3(p[:, :, c].transpose(-1, -2), do[:, :, c]), n)
     return dq, dk, dv
+
+
+def kv_forward_model(q, k, v, mask):
+    """The f32 KV-blocked forward: the online softmax over 64-key chunks
+    from m = f32.min, e . V per chunk added to acc corr in f32; returns (o,
+    lse)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = mm3(q, k.transpose(-1, -2)) * scale + mask_bias(mask)[:, None, None, :]
+    m = torch.full(q.shape[:3] + (1,), torch.finfo(torch.float32).min)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(q.shape)
+    for c0 in range(0, q.shape[2], CHUNK):
+        sc = s[..., c0 : c0 + CHUNK]
+        m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_next)
+        e = torch.exp(sc - m_next)
+        l = l * corr + e.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm3(e, v[:, :, c0 : c0 + CHUNK])
+        m = m_next
+    return acc / l, (m + torch.log(l)).squeeze(-1)
 
 
 def _compensated(fn, n: int) -> torch.Tensor:
@@ -264,6 +292,25 @@ def kv_blocked(monkeypatch):
     """Lowers the KV-blocked threshold to 512 in both packages."""
     monkeypatch.setattr(jfa, "_Q_BLOCKED_MAX_S", 512)
     monkeypatch.setattr(tfa, "_Q_BLOCKED_MAX_S", 512)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", [1024, 1536])
+def test_kv_forward_model_matches_jax(s, dh, kv_blocked):
+    """Kernel 7's split-TF32 arithmetic (one rescale per 64-key chunk)
+    against the JAX package's ``_forward`` on the KV-blocked route (the
+    Pallas kernel in interpret mode, one rescale per 512-key block) at S =
+    1024 and 1536, with a row padded across a 512-key block and a fully
+    masked row (lse = f32.min + log(S) there): o within the f32 forward
+    gate 2e-5, lse within 1e-5."""
+    assert tfa.attention_route(s) == "kv_blocked"
+    q, k, v, _, mask = _inputs(3, 2, s, dh, seed=dh + s + 5)
+    o, lse = kv_forward_model(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
+    ref, ref_lse = jfa._forward(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
+    assert ref_lse is not None
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=1e-5, rtol=0)
 
 
 def _excess(a, w) -> float:
