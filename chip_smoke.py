@@ -106,9 +106,16 @@ Phases, each announced by a ``[phase]`` line:
    phase's shape beside its bound (the f32 kernels' at the 3xTF32 rate,
    their CUDA-core f32 bound beside it), the plain version, SDPA forward +
    backward and SDPA's backward alone, and run twice there, which must
-   give the same bits (the bf16 query-blocked backward on the bf16 tensor
-   cores, the bf16 KV-blocked passes on the CUDA cores);
-11. long-context training: ``train()`` trains that seeded encoder in f32 on
+   give the same bits (the bf16 backwards on the bf16 tensor cores);
+11. bf16 long-context gradient: one bf16 ``contrastive_loss`` backward on
+   the long-context training's S = 8192 batch (B = 4) through "auto"
+   (kernel 7 forward, kernels 10 and 11 backward, all in bf16), the
+   "pallas_plain" route in bf16 and the "pallas" route in f32: the kernel
+   route's distance to the f32 gradient (1 - cos) at most 1.1 times the
+   plain route's, and the counters of the three kernels 12 layers x 2
+   encodes; prints the losses, each tensor's cosine to the plain route
+   and a device profile of the "auto" backward;
+12. long-context training: ``train()`` trains that seeded encoder in f32 on
    12 Alps (question, passage) pairs, each passage its fact and a long
    text, in three batches of 4 at S = 1024, 4096 and 8192, the stream
    repeating them 4 times. Each batch's loss and gradients through the
@@ -118,12 +125,12 @@ Phases, each announced by a ``[phase]`` line:
    12 layers x 2 encodes x the steps at each route for kernels 6, 7, 9, 10
    and 11. Prints the median step per S, a profile of one step per S
    (each kernel's device time and share of the step) and the peak memory;
-12. phases 9-11 again with a seeded encoder at BAAI/bge-base-en-v1.5's
+13. phases 9-12 again with a seeded encoder at BAAI/bge-base-en-v1.5's
    widths (12 layers, H=768, 12 heads of 64, FFN 3072) and 8192
    positions: the long-document serve in bf16 and f32, the blocked
-   backward kernels at [4, 12, S, 64], and the long-context training in
-   f32 with each batch seen twice (kernels 6, 7, 9, 10, 11 at head_dim
-   64).
+   backward kernels at [4, 12, S, 64], the bf16 long-context gradient and
+   the long-context training in f32 with each batch seen twice (kernels 6,
+   7, 9, 10, 11 at head_dim 64).
 
 Each phase prints its seconds. The second-to-last line is a JSON object with the kernels' numbers, the
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -166,6 +173,15 @@ F32_FWD_TOL = 2e-5
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
 LSE_TOL = 1e-5  # the reference's long-context lse tolerance (tests/test_flash_attention.py)
 GRAD_COS = 0.9999  # bf16 gradients, kernel route vs plain route (the whole gradient)
+# the bf16 S = 8192 gradient: its kernel route's distance to the f32
+# gradient (1 - cos) over the bf16 plain route's may reach this. At S =
+# 8192 bf16 rounding moves the gradient far more than GRAD_COS allows: two
+# plain routes that differ only in the f32 order of the forward's sums lay
+# 0.986 / 0.995 apart at head_dim 32 / 64 and every bf16 route 0.976 /
+# 0.993 from the f32 gradient, their distances to it within 3.0% / 2.6% of
+# each other (scripts/bf16_long_gradient_routes.py on an H100 80GB HBM3 at
+# 700 W)
+BF16_NOISE_RATIO = 1.1
 # per tensor, the kernel route's cosine to the "fused_plain" route may fall
 # at most this below the "xla" route's: on an H100 80GB HBM3 (700 W) it
 # lay 2.3e-5 or more above it for every tensor of the first 6 batches
@@ -220,6 +236,7 @@ REDESIGNED_SINGLE_TILE = "redesigned (3xTF32, single tile)"
 REDESIGNED_KV_BLOCKED = "redesigned (3xTF32, KV-blocked)"
 REDESIGNED_KV_FORWARD = "redesigned (3xTF32, KV-blocked forward)"
 REDESIGNED_TC_BACKWARD = "redesigned (TC, mma.sync, query-blocked)"
+REDESIGNED_TC_KV_BLOCKED = "redesigned (TC, mma.sync, KV-blocked)"
 
 
 def tf32_smem(dh: int) -> int:
@@ -290,9 +307,9 @@ def phase(name: str | None) -> None:
 
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
-    of the bf16 KV-blocked forward, the bf16 query-blocked backward's two
-    passes, the products, the LayerNorm pass and the split-TF32 kernels 4
-    (with 5), 6, 7, 8, 9, 10 and 11 in f32 takes, from
+    of the bf16 KV-blocked forward, the bf16 blocked backwards' passes
+    (query-blocked and KV-blocked), the products, the LayerNorm pass and
+    the split-TF32 kernels 4 (with 5), 6, 7, 8, 9, 10 and 11 in f32 takes, from
     ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
     products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
     split-TF32 kernels': ``tf32_smem``; the single-tile ones' at the main
@@ -323,10 +340,14 @@ def kernel_resources(build) -> None:
              lambda line: f"query-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long", ("kv_blocked_tf32_kernelILi" + str(dh),), tf32_smem(dh),
              lambda line: f"KV-blocked f32 forward (3xTF32), head_dim {width(line)}, 128 threads"),
-            ("flash_attention_long_bwd", (f"dq_tc_kernelILi{dh}E",), 0,
+            ("flash_attention_long_bwd", (f"dq_tc_kernelILi{dh}ELb0E",), 0,
              lambda line: f"query-blocked bf16 backward dQ pass (TC), head_dim {width(line)}, 128 threads"),
-            ("flash_attention_long_bwd", (f"dkv_tc_kernelILi{dh}E",), 0,
+            ("flash_attention_long_bwd", (f"dkv_tc_kernelILi{dh}ELb0E",), 0,
              lambda line: f"query-blocked bf16 backward dK/dV pass (TC), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dq_tc_kernelILi{dh}ELb1E",), 0,
+             lambda line: f"KV-blocked bf16 dQ pass (TC), head_dim {width(line)}, 128 threads"),
+            ("flash_attention_long_bwd", (f"dkv_tc_kernelILi{dh}ELb1E",), 0,
+             lambda line: f"KV-blocked bf16 dK/dV pass (TC), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long_bwd", (f"dq_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
              lambda line: f"query-blocked f32 backward dQ pass (3xTF32), head_dim {width(line)}, 128 threads"),
             ("flash_attention_long_bwd", (f"dkv_tf32_kernelILi{dh}ELb0E",), tf32_smem(dh),
@@ -1623,8 +1644,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
         gradient a sum of S terms of size 1 whose f32 rounding alone exceeds
         atol, the kernel's excess against the f64 evaluation may not exceed
         the plain version's (or atol). bf16: per (batch row, head), max
-        |kernel - plain| over max |plain|. ``which``: the gradients (0 dq, 1
-        dk, 2 dv) to read."""
+        |kernel - plain| over max |plain|, printed also as each batch row's
+        largest (the last row is fully masked). ``which``: the gradients (0
+        dq, 1 dk, 2 dv) to read."""
         torch.cuda.synchronize()
         masked = mask.sum(dim=1) == 0
         readings = []
@@ -1645,7 +1667,8 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                 # gradients [B, h, S, Dh]: one ratio per (batch row, head)
                 per_head = (a - w).abs().amax(dim=(2, 3)) / w.abs().amax(dim=(2, 3)).clamp_min(1e-30)
                 err = per_head.max().item()
-                ok, reading = err <= BF16_GRAD_REL, f"{g} {err:.3g}"
+                rows = ", ".join(f"{r:.3g}" for r in per_head.amax(dim=1).tolist())
+                ok, reading = err <= BF16_GRAD_REL, f"{g} {err:.3g} (by batch row {rows})"
             if not ok:
                 raise RuntimeError(f"{name}: {g} off its plain version: {reading}")
             readings.append(reading)
@@ -1754,10 +1777,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
                   + (f", CUDA-core f32 bound {f32_bound:.4f} ms (at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)" if tf32
                      else "") + f"; two runs give the same bits {card}", flush=True)
             key = instantiation(name, dtype, f"head_dim {dh}")
-            tc_bwd = dtype == torch.bfloat16 and name == "attention_bwd_q_blocked"
             rows[key] = {
                 "name": key, "route": "cuda",
-                "source": f"dial_rag_tpu_torch/csrc/{'attention_bwd_tc.cuh' if tc_bwd else 'flash_attention_long_bwd.cu'}",
+                "source": f"dial_rag_tpu_torch/csrc/{'flash_attention_long_bwd.cu' if tf32 else 'attention_bwd_tc.cuh'}",
                 "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                 "library_bwd_ms": library_bwd_ms,
@@ -1765,8 +1787,9 @@ def long_backward_rows(torch, dev, card, heads: int, dh: int, batch: int, seqs, 
             if tf32:
                 status = REDESIGNED if name == "attention_bwd_q_blocked" else REDESIGNED_KV_BLOCKED
                 rows[key].update(status=status, bound_f32_ms=f32_bound)
-            elif tc_bwd:
-                rows[key].update(status=REDESIGNED_TC_BACKWARD)
+            else:
+                rows[key].update(status=REDESIGNED_TC_BACKWARD if name == "attention_bwd_q_blocked"
+                                 else REDESIGNED_TC_KV_BLOCKED)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return rows
@@ -1782,6 +1805,85 @@ def long_training_pairs(tokenizer, cycles: int) -> list[tuple[str, str]]:
     texts = long_texts(tokenizer, flat)
     pairs = [(questions[i], f"{facts[i]} {texts[i]}") for i in range(len(flat))]
     return pairs * cycles
+
+
+def bf16_long_gradient_phase(torch, card, dev, config, params, tokenizer, cfg, stream, what: str) -> dict:
+    """One bf16 ``contrastive_loss`` backward on the long-context training's
+    S = 8192 batch (``stream``'s batch at LONG_TRAIN_SEQS[-1]) through
+    "auto" (on the card: kernel 7 forward, kernels 10 and 11 backward, all
+    in bf16), the "pallas_plain" route in bf16 (their plain versions) and
+    the "pallas" route in f32 (the split-TF32 kernels, held to f32 gates),
+    the f32 gradient g32. Gates: the counters of the three bf16 kernels
+    read the layers x 2 encodes, and the bf16 kernel route's distance to
+    g32, 1 - cos, is at most BF16_NOISE_RATIO times the bf16 plain route's.
+    Prints the losses, the cosine of the kernel route to the plain one
+    (whole, beside GRAD_COS, and per tensor; tensors the plain route
+    leaves all zero skipped) and a device profile of one "auto" backward.
+    Returns the "auto" run's counters. No "xla" witness: at S = 8192 it
+    would hold [B, h, S, S] f32 scores in every layer."""
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss
+    from dial_rag_tpu_torch.training.loop import pairs_to_batches, trainable_params
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    s = LONG_TRAIN_SEQS[-1]
+    batch = next(b for b in pairs_to_batches(tokenizer, stream, cfg) if b["p_ids"].shape[1] == s)
+    if batch["q_ids"].shape[1] != s or fa.attention_route(s) != "kv_blocked":
+        raise RuntimeError(f"the bf16 long-context batch at S = {batch['q_ids'].shape[1]} / {s} takes no "
+                           f"KV-blocked kernel")
+
+    def loss_of(impl, dtype=torch.bfloat16):
+        p = trainable_params(params, dev)
+        loss = contrastive_loss(p, batch, num_heads=config.num_heads, temperature=cfg.temperature,
+                                compute_dtype=dtype, attention_impl=impl)
+        return loss, p
+
+    def grads_of(impl, dtype=torch.bfloat16):
+        loss, p = loss_of(impl, dtype)
+        loss.backward()
+        return loss.item(), [t.grad for t in param_leaves(p)]
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    fa.reset_launches()
+    loss_k, grads_k = grads_of("auto")
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    loss_p, grads_p = grads_of("pallas_plain")
+    loss_f, grads_f = grads_of("pallas", torch.float32)
+    if not all(torch.isfinite(g).all() for g in grads_k):
+        raise RuntimeError(f"a bf16 long-context gradient through the kernels ({what}) is not finite")
+    names = leaf_names(params)
+    kept = [i for i, r in enumerate(grads_p) if r.abs().max() > 0]
+
+    def whole(grads, ref):
+        return cos(torch.cat([grads[i].flatten() for i in kept]), torch.cat([ref[i].flatten() for i in kept]))
+
+    plain_cos = whole(grads_k, grads_p)
+    dist_k, dist_p = 1 - whole(grads_k, grads_f), 1 - whole(grads_p, grads_f)
+    per = {names[i]: cos(grads_k[i], grads_p[i]) for i in kept}
+    expected = {name: config.num_layers * 2
+                for name in ("attention_kv_blocked_fwd", "bwd_dq_kv_blocked", "bwd_dkv_kv_blocked")}
+    print(f"bf16 long-context gradient ({what}, B={batch['p_ids'].shape[0]}, S={s}, passage lengths "
+          f"{batch['p_mask'].sum(1).tolist()}): losses \"auto\" {loss_k:.8f}, \"pallas_plain\" {loss_p:.8f}, f32 "
+          f"{loss_f:.8f}; distance 1 - cos to the f32 gradient: kernels {dist_k:.6g}, plain {dist_p:.6g} (ratio "
+          f"{dist_k / dist_p:.4f}, limit {BF16_NOISE_RATIO}); cosine of kernels to plain whole {plain_cos:.8f} "
+          f"(GRAD_COS {GRAD_COS}: a reading), per tensor min {min(per.values()):.8f} over {len(per)} tensors; "
+          f"launches { {n: c for n, c in launches.items() if c} }, expected {expected} {card}", flush=True)
+    print("  per tensor, kernels to plain: " + ", ".join(f"{n} {c:.6f}" for n, c in per.items()), flush=True)
+    del grads_p, grads_k, grads_f
+    if any(launches[name] != n for name, n in expected.items()):
+        raise RuntimeError(f"the bf16 long-context gradient ({what}) bypassed the KV-blocked kernels")
+    if not dist_k <= BF16_NOISE_RATIO * dist_p:
+        raise RuntimeError(f"bf16 long-context gradients through the kernels ({what}) are farther from the f32 "
+                           f"gradient than the plain route's: 1 - cos {dist_k} against {dist_p}")
+    loss, p = loss_of("auto")
+    device_profile(torch, loss.backward, f"one bf16 long-context backward ({what}, B={batch['p_ids'].shape[0]}, "
+                   f"S={s}, \"auto\")", card)
+    del loss, p
+    torch.cuda.empty_cache()
+    return launches
 
 
 def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream, cycles: int, what: str) -> dict:
@@ -2566,11 +2668,18 @@ def main() -> int:
         rows.update(long_backward_rows(torch, dev, card, heads, dh, LONG_TRAIN_BATCH, train_seqs, timed))
         torch.cuda.empty_cache()
 
-        phase("long-context training" if dh == 32 else f"{what} long-context training")
         long_train_cfg = TrainConfig(batch_size=LONG_TRAIN_BATCH, seq_len=LONG_BUCKETS[-1],
                                      learning_rate=lr, warmup_steps=2,
                                      total_steps=len(LONG_TRAIN_SEQS) * cycles)
         long_stream = long_training_pairs(long_tokenizer, cycles)
+
+        phase("bf16 long-context gradient" if dh == 32 else f"{what} bf16 long-context gradient")
+        bf16_long = bf16_long_gradient_phase(torch, card, dev, long_cfg, long_params, long_tokenizer, long_train_cfg,
+                                             long_stream, what)
+        for name in ("attention_kv_blocked_fwd", "bwd_dq_kv_blocked", "bwd_dkv_kv_blocked"):
+            count(name, torch.bfloat16, dh, bf16_long[name])
+
+        phase("long-context training" if dh == 32 else f"{what} long-context training")
         long_train_launches = long_training_phase(torch, card, dev, long_cfg, long_params, long_tokenizer,
                                                   long_train_cfg, long_stream, cycles, what)
         for name in ("attention_q_blocked", "attention_kv_blocked_fwd", "attention_bwd_q_blocked",
@@ -2585,13 +2694,10 @@ def main() -> int:
         raise RuntimeError(f"launches counted for kernels no phase measured: {sorted(unmeasured)}")
     for name, row in rows.items():
         row["launches"] = launched[name]
-    # the bf16 KV-blocked backward passes: no phase trains in bf16 past
-    # S = 4096; kernels 1-3 at H 1024: no phase runs an encoder that wide.
-    # So they are gated and timed but off the main path
-    off_path = {instantiation(name, torch.bfloat16, f"head_dim {dh}")
-                for name in ("bwd_dq_kv_blocked", "bwd_dkv_kv_blocked") for dh in (32, 64)}
-    off_path |= {instantiation(name, torch.bfloat16, "H 1024")
-                 for name in ("fused_attention_block", "fused_ffn_block", "fused_layer_block")}
+    # kernels 1-3 at H 1024: no phase runs an encoder that wide. So they
+    # are gated and timed but off the main path
+    off_path = {instantiation(name, torch.bfloat16, "H 1024")
+                for name in ("fused_attention_block", "fused_ffn_block", "fused_layer_block")}
     idle = [name for name, row in rows.items() if row["launches"] == 0 and name not in off_path]
     if idle:
         raise RuntimeError(f"the main path never launched {idle}")

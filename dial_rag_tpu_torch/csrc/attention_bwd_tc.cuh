@@ -1,17 +1,21 @@
-// The bf16 query-blocked attention backward on Hopper's tensor cores,
-// head_dim 32 and 64 (sm_90a): TPU kernel 9 in bf16
-// (_attention_bwd_q_blocked_kernel, dial_rag_tpu/ops/flash_attention.py:360),
-// two launches from flash_attention_long_bwd.cu, which the bf16 KV-blocked
-// passes (kernels 10 and 11) may take up next.
+// The bf16 blocked attention backwards on Hopper's tensor cores, head_dim
+// 32 and 64 (sm_90a): TPU kernel 9 in bf16 (_attention_bwd_q_blocked_kernel,
+// dial_rag_tpu/ops/flash_attention.py:360) and kernels 10 and 11 in bf16
+// (_bwd_dq_kv_blocked_kernel and _bwd_dkv_kv_blocked_kernel, :417 and
+// :461), launched from flash_attention_long_bwd.cu: one pair of templates,
+// dq_tc_kernel then dkv_tc_kernel, with LSE false for kernel 9 and true for
+// kernels 10 and 11.
 //
-// The function, as the reference computes it in bf16 (products of bf16
-// operands with f32 sums): per query row the exact softmax P over every
-// key, normalised in f32; dV += bf16(P)^T dO; dP = dO V^T; dS = P (dP -
-// rowsum(dP P)); dQ = bf16(scale dS) K; dK += bf16(scale dS)^T Q; dK and
-// dV summed in f32 and cast to bf16 at the end.
+// The functions, as the reference computes them in bf16 (products of bf16
+// operands with f32 sums): kernel 9 takes per query row the exact softmax
+// P over every key, normalised in f32, and delta = rowsum(dP P); kernels 10
+// and 11 take P = exp(s - lse) from the KV-blocked forward's log-sum-exp
+// and delta = rowsum(dO O) from its o. Then dP = dO V^T; dS = bf16(P (dP -
+// delta) scale); dQ = dS K; dV += bf16(P)^T dO; dK += dS^T Q; each
+// gradient summed in f32 and cast to bf16 at the end.
 //
-// The design: the structure, expressions and statistics of the f32 pair
-// (dq_tf32_kernel and dkv_tf32_kernel with LSE false, whose notes in
+// The design: the structure and expressions of the f32 pair
+// (dq_tf32_kernel and dkv_tf32_kernel, whose notes in
 // flash_attention_long_bwd.cu this follows), with each product one
 // mma.sync.m16n8k16 bf16 product (tensor_core.cuh): a bf16 x bf16 product
 // is exact in f32, so nothing is split. Blocks of 4 warps own 64 rows, 16
@@ -21,28 +25,37 @@
 // into registers as A fragments before the ring starts, so shared memory
 // is static (38 KB at head_dim 64, 22 KB at 32). A chunk is taken in two
 // halves of 32 rows, as in f32, to hold registers.
-//   dQ pass (dq_tc_kernel), a block per 64-query tile. A first sweep forms
-//     Q K^T and dO V^T and keeps each lane's running max, denominator and
-//     sum of e dP, rescaled as the max grows and merged over the row's
-//     four lanes: the row's max and denominator (stats [B, h, S, 2]) and
-//     delta = sum(dP P) ([B, h, S]), written for the dK/dV pass. A second
-//     sweep forms both again, P = exp(s - max) / l (div_by), dS = P (dP -
-//     delta) scale, rounds it to bf16 straight into the A fragments of dS
-//     K (two adjacent score n-tiles are one k16 A fragment), K read by
-//     ldmatrix.trans; each 64-key chunk's partial is added to dQ in f32 on
-//     the CUDA cores.
+//   dQ pass (dq_tc_kernel), a block per 64-query tile. LSE false: a first
+//     sweep forms Q K^T and dO V^T and keeps each lane's running max,
+//     denominator and sum of e dP, rescaled as the max grows and merged
+//     over the row's four lanes: the row's max and denominator (stats [B,
+//     h, S, 2]) and delta = sum(dP P). LSE true: the o tile through ring
+//     stage 0 before the sweep, delta = dO . O in f32 (a quad sum a row),
+//     the row's lse in place of the max and no first sweep. Then a sweep
+//     forms both products again, P = exp(s - max) / l (div_by; with LSE
+//     exp(s - lse)), dS = P (dP - delta) scale, rounds it to bf16 straight
+//     into the A fragments of dS K (two adjacent score n-tiles are one k16
+//     A fragment), K read by ldmatrix.trans; each 64-key chunk's partial is
+//     added to dQ in f32 on the CUDA cores. delta ([B, h, S]) is written
+//     for the dK/dV pass.
 //   dK/dV pass (dkv_tc_kernel), a block per 64-key tile, a loop over the
-//     query chunks: K Q^T and V dO^T (rows keys, so P^T and dS^T come out
+//     query chunks, each ring stage carrying its queries' statistics (or
+//     lse) and delta: K Q^T and V dO^T (rows keys, so P^T and dS^T come out
 //     in the A fragments' layout), P and dS rebuilt with the dQ pass's
-//     expressions from its statistics, dV += bf16(P)^T dO and dK +=
-//     bf16(scale dS)^T Q with dO and Q read by ldmatrix.trans, each half
-//     chunk's partial added in f32.
+//     expressions, dV += bf16(P)^T dO and dK += bf16(scale dS)^T Q with dO
+//     and Q read by ldmatrix.trans, each half chunk's partial added in f32.
 // Two launches, no atomics: a bf16 training run is reproducible bit for
-// bit. Nine [S, S] products (Q K^T and dO V^T three times, dS K, P^T dO,
-// dS^T Q) against the bound's five: the sweeps keep the reference's
-// delta = rowsum(dP P) and the P normalised before its cast. Bound on an
-// H100 SXM: 10 B h S^2 Dh FLOPs at 989 TFLOP/s; at [4, 12, 4096, 64] 515
-// GFLOP, 0.52 ms, against 176 MB of operands and gradients (0.05 ms):
+// bit. The partials are added plainly: a fully masked row's P is 1 for
+// every key in kernels 10 and 11, so its gradients are sums of S terms of
+// size 1, but 128 f32 partials at S = 8192 drift far less than the bf16
+// gates' 3e-2 of the largest gradient (PERF.md has the reading).
+// Kernel 9 forms nine [S, S] products (Q K^T and dO V^T three times, dS K,
+// P^T dO, dS^T Q) against the bound's five: the sweeps keep the
+// reference's delta = rowsum(dP P) and the P normalised before its cast.
+// Kernels 10 and 11 form the bound's three and four. Bound on an H100 SXM:
+// 2 B h S^2 Dh FLOPs a product at 989 TFLOP/s; at [4, 12, 8192, 64] the
+// dQ pass's 1237 GFLOP take 1.25 ms and the dK/dV pass's 1649 GFLOP 1.67
+// ms, against about 300 MB of operands and gradients a pass (0.09 ms):
 // bound by operations.
 #pragma once
 
@@ -211,13 +224,21 @@ __device__ __forceinline__ void row_stats_merge(const float (&m)[2], const float
   }
 }
 
-// pass 1: dQ of query rows q0 .. q0 + 63, each row's max and denominator
-// (stats [B, h, S, 2]) and delta = sum(dP P) ([B, h, S]).
-template <int DH>
+// pass 1: dQ of query rows q0 .. q0 + 63 and each row's delta ([B, h,
+// S]) for the dK/dV pass.
+//   LSE false (kernel 9): a first sweep gives each row's max and
+//     denominator (written to stats [B, h, S, 2]) and delta = sum(dP P);
+//     P = exp(s - max) / denominator.
+//   LSE true (kernel 10): P = exp(s - lse) from the forward's lse [B, h,
+//     S] and delta = dO . O from its o (staged through ring stage 0 before
+//     the sweep): no first sweep, no division.
+// Each 64-key chunk's dQ partial is added to the total in f32.
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(tc::kThreads)
     dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const bf16* __restrict__ d_o, const float* __restrict__ bias, bf16* __restrict__ dq,
-                 float* __restrict__ stats, float* __restrict__ delta_out, BwdViews vw, int s, float scale) {
+                 const bf16* __restrict__ o, const bf16* __restrict__ d_o, const float* __restrict__ bias,
+                 const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ stats,
+                 float* __restrict__ delta_out, BwdViews vw, int s, float scale) {
   constexpr int kLd = tc::kRowLd<DH>;
   __shared__ __align__(16) BwdTcSmem<DH> sm;
   const int q0 = blockIdx.x * tc::kRows, head = blockIdx.y, b = blockIdx.z;
@@ -235,18 +256,20 @@ __global__ void __launch_bounds__(tc::kThreads)
     if (threadIdx.x < tc::kKeys) sm.extra[st][threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
   };
 
-  // the block's q and dO rows through ring stage 1 into registers, with
-  // the first key chunk into stage 0
+  // the block's q and dO rows through ring stage 1 into registers; with
+  // LSE the o rows through stage 0 first, else the first key chunk
   tc::load_rows_async<tc::kRows, DH>(sm.rows[1][0], q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
   tc::load_rows_async<tc::kRows, DH>(sm.rows[1][1], d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, q0, s);
-  issue(0);
+  if (LSE)
+    tc::load_rows_async<tc::kRows, DH>(sm.rows[0][0], o + b * vw.o.b + head * vw.o.h, vw.o.r, q0, s);
+  else
+    issue(0);
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();
   uint32_t qa[DH / 16][4], doa[DH / 16][4];
   tc::a_fragments<DH>(qa, sm.rows[1][0]);
   tc::a_fragments<DH>(doa, sm.rows[1][1]);
-  __syncthreads();  // stage 1 takes chunk 1 next
 
   // the scores (q . k * scale + bias) and dP (dO . v) of half `hf` of the chunk in stage st
   auto products = [&](int st, int hf, float (&x)[kHalfTiles][4], float (&dp)[kHalfTiles][4]) {
@@ -259,23 +282,43 @@ __global__ void __launch_bounds__(tc::kThreads)
       for (int e = 0; e < 4; ++e) x[n][e] = scaled_score(x[n][e], scale, key_bias_s[8 * n + e % 2]);
   };
 
-  // sweep 1: each row's max, denominator and delta = sum(dP P)
-  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, ed[2] = {0.f, 0.f};
-  for (int t = 0; t < n_chunks; ++t) {
-    const int st = tc::ring_step(t, n_chunks, issue);
+  // per row of this lane (q0 + 16 warp + lane / 4 + 8 h): P = exp(s -
+  // m_row) / l_row (r_row = 1 / l_row), or exp(s - m_row) with an lse
+  float m_row[2], l_row[2] = {1.f, 1.f}, r_row[2] = {1.f, 1.f}, delta[2];
+  if constexpr (LSE) {
+    // delta = dO . O in f32 (bf16 products are exact): lane c of a row
+    // takes head columns c, c + 4, ...
+    const bf16* do_warp = sm.rows[1][1] + 16 * warp * kLd;
+    const bf16* o_warp = sm.rows[0][0] + 16 * warp * kLd;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float x[kHalfTiles][4], dp[kHalfTiles][4];
-      products(st, hf, x, dp);
-      row_stats_add(x, dp, m, l, ed);
+    for (int h = 0; h < 2; ++h) {
+      const int rr = lane / 4 + 8 * h, row = q0 + 16 * warp + rr;
+      float d = 0.f;
+#pragma unroll
+      for (int j = c; j < DH; j += 4) d = fmaf(to_f32(do_warp[rr * kLd + j]), to_f32(o_warp[rr * kLd + j]), d);
+      delta[h] = tc::quad_sum(d);
+      m_row[h] = row < s ? lse[rows0 + row] : 0.f;
     }
-    __syncthreads();
+    __syncthreads();  // stage 0 takes chunk 0 next
+  } else {
+    __syncthreads();  // stage 1 takes chunk 1 next
+    // sweep 1: each row's max, denominator and delta = sum(dP P)
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, ed[2] = {0.f, 0.f};
+    for (int t = 0; t < n_chunks; ++t) {
+      const int st = tc::ring_step(t, n_chunks, issue);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float x[kHalfTiles][4], dp[kHalfTiles][4];
+        products(st, hf, x, dp);
+        row_stats_add(x, dp, m, l, ed);
+      }
+      __syncthreads();
+    }
+    row_stats_merge(m, l, ed, m_row, l_row, r_row, delta);
   }
-  float m_row[2], l_row[2], r_row[2], delta[2];
-  row_stats_merge(m, l, ed, m_row, l_row, r_row, delta);
 
-  // sweep 2: P = exp(s - max) / l, dS = P (dP - delta) scale, dQ +=
-  // bf16(dS) K, each chunk's partial added in f32
+  // the sweep: P, dS = P (dP - delta) scale, dQ += bf16(dS) K, each
+  // chunk's partial added in f32
   float acc[DH / 8][4] = {};
   issue(0);
   tc::cp_async_commit();
@@ -290,7 +333,8 @@ __global__ void __launch_bounds__(tc::kThreads)
       for (int n = 0; n < kHalfTiles; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = tc::div_by(expf(__fsub_rn(x[n][e], m_row[e / 2])), l_row[e / 2], r_row[e / 2]);
+          const float ex = expf(__fsub_rn(x[n][e], m_row[e / 2]));
+          const float p = LSE ? ex : tc::div_by(ex, l_row[e / 2], r_row[e / 2]);
           x[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[e / 2])), scale);
         }
       tc::accumulate_pairs<kHalfTiles, DH>(part, x, sm.rows[st][0] + kHalf * hf * kLd);
@@ -307,18 +351,21 @@ __global__ void __launch_bounds__(tc::kThreads)
     for (int h = 0; h < 2; ++h) {
       const int r = q0 + 16 * warp + lane / 4 + 8 * h;
       if (r >= s) continue;
-      stats[2 * (rows0 + r)] = m_row[h];
-      stats[2 * (rows0 + r) + 1] = l_row[h];
+      if (!LSE) {
+        stats[2 * (rows0 + r)] = m_row[h];
+        stats[2 * (rows0 + r) + 1] = l_row[h];
+      }
       delta_out[rows0 + r] = delta[h];
     }
   }
 }
 
 // pass 2: dK and dV of keys k0 .. k0 + 63 over every query chunk, P
-// rebuilt with the dQ pass's expression from each row's max and
-// denominator (stats [B, h, S, 2]) and delta. Queries past S get P = dS =
-// 0; keys past S score -inf.
-template <int DH>
+// rebuilt with the dQ pass's expression from stats (LSE: the forward's lse
+// [B, h, S]; else each row's max and denominator [B, h, S, 2]) and delta.
+// Queries past S get P = dS = 0; keys past S score -inf. Each half
+// chunk's partials (32 queries) are added to the sums in f32.
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(tc::kThreads)
     dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                   const bf16* __restrict__ d_o, const float* __restrict__ bias, const float* __restrict__ stats,
@@ -333,7 +380,7 @@ __global__ void __launch_bounds__(tc::kThreads)
   const long long rows0 = (static_cast<long long>(b) * gridDim.y + head) * s;
   const int n_chunks = (s + tc::kRows - 1) / tc::kRows;
   // query chunk `chunk`, Q and dO, and each query's (max, denominator,
-  // 1 / denominator, delta) into its stage
+  // 1 / denominator, delta) or (lse, -, -, delta) into its stage
   auto issue = [&](int chunk) {
     const int c0 = chunk * tc::kRows, st = chunk % 2;
     tc::load_rows_async<tc::kRows, DH>(sm.rows[st][0], q_head, vw.q.r, c0, s);
@@ -341,9 +388,13 @@ __global__ void __launch_bounds__(tc::kThreads)
     if (threadIdx.x < tc::kRows && c0 + threadIdx.x < s) {
       const long long row = rows0 + c0 + threadIdx.x;
       float* r = sm.extra[st] + 4 * threadIdx.x;
-      r[0] = stats[2 * row];
-      r[1] = stats[2 * row + 1];
-      r[2] = __frcp_rn(r[1]);
+      if (LSE) {
+        r[0] = stats[row];
+      } else {
+        r[0] = stats[2 * row];
+        r[1] = stats[2 * row + 1];
+        r[2] = __frcp_rn(r[1]);
+      }
       r[3] = delta[row];
     }
   };
@@ -384,7 +435,8 @@ __global__ void __launch_bounds__(tc::kThreads)
           float pe = 0.f;
           if (t * tc::kRows + qi < s) {
             const float* r = sm.extra[st] + 4 * qi;
-            pe = tc::div_by(expf(__fsub_rn(scaled_score(p[n][e], scale, kb[e / 2]), r[0])), r[1], r[2]);
+            pe = expf(__fsub_rn(scaled_score(p[n][e], scale, kb[e / 2]), r[0]));
+            if (!LSE) pe = tc::div_by(pe, r[1], r[2]);
           }
           p[n][e] = pe;
         }

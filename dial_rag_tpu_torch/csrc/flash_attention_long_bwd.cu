@@ -70,37 +70,21 @@
 // reads it), mma.sync rather than wgmma (wgmma takes TF32 only K-major),
 // and two blocks an SM at head_dim 64.
 //
-// The bf16 query-blocked backward runs on the bf16 tensor cores
-// (mma.sync.m16n8k16): dq_tc_kernel then dkv_tc_kernel
-// (attention_bwd_tc.cuh), the f32 pair's structure, expressions and
-// statistics on bf16 products, nine [S, S] products as in f32.
-//
-// The bf16 KV-blocked passes run on the CUDA cores, products in f32 (a
-// bf16 x bf16 product is exact in f32): two launches, each a loop inside
-// the block over 64-key chunks or 32-query tiles that stream through
-// shared memory, no S limit:
-//   dQ pass, one block per (32-query tile, head, batch row), thread t
-//     owning query row t / 8 (its q and dO rows in registers, 2 x head_dim
-//     floats) and keys t % 8 + 8 i of each chunk: delta = dO . O from the
-//     forward's o row, P from lse; one sweep forms cast(scale dS) for a
-//     chunk in shared memory and accumulates dQ.
-//   dK/dV pass, one block per (32-key tile, head, batch row), thread t
-//     owning key t / 8 (its k and v rows in registers beside its dK and dV
-//     sums): a loop over every 32-query tile rebuilds P and dS with the dQ
-//     pass's expressions and accumulates dV += cast(P)^T dO and dK +=
-//     cast(scale dS)^T Q in f32 registers, casting P and scale dS where the
-//     reference casts them.
+// The bf16 backwards run on the bf16 tensor cores (mma.sync.m16n8k16):
+// dq_tc_kernel then dkv_tc_kernel (attention_bwd_tc.cuh), the f32 pair's
+// structure and expressions on bf16 products, with LSE false for the
+// query-blocked backward (nine [S, S] products, as in f32) and true for the
+// KV-blocked passes (three and four).
 //
 // The long sums over S (dQ over the keys, dK and dV over the queries) add
-// one partial per chunk, tile or half chunk to the total in f32 on the
-// CUDA cores, with a compensation term (Kahan) where the KV-blocked
-// backward needs one: there a fully masked row's P is 1, so its gradients
-// are sums of S = 8192 terms of size 1, where a plain running sum would
-// drift by ~1e-4. The query-blocked split-TF32 dQ pass compensates each
-// chunk's partial and its dK/dV pass adds each half chunk's plainly (its P
-// is at most 1 / S on a fully masked row, and the f32 gates hold without
-// it); the bf16 tensor-core passes add their partials plainly (the bf16
-// gates are 3e-2 of the largest gradient). The split-TF32 KV-blocked passes compensate a partial
+// one partial per chunk or half chunk to the total in f32 on the CUDA
+// cores. The query-blocked split-TF32 dQ pass compensates each chunk's
+// partial and its dK/dV pass adds each half chunk's plainly (its P is at
+// most 1 / S on a fully masked row, and the f32 gates hold without it);
+// the bf16 tensor-core passes add their partials plainly (the bf16 gates
+// are 3e-2 of the largest gradient). In the KV-blocked backward a fully
+// masked row's P is 1, so its gradients are sums of S = 8192 terms of size
+// 1. The split-TF32 KV-blocked passes compensate a partial
 // every 32 rows (half a chunk) and, at head_dim 64, form dP with its small
 // terms apart (kDpSmallApart): a tensor core rounds the f32 sum of each
 // mma.sync in its own way, and on a fully masked row, where P is exactly 1,
@@ -123,178 +107,12 @@ namespace dial {
 namespace attn {
 namespace {
 
-// row stride of the [32 keys, 32 queries] P and dS tiles of the dK/dV
-// pass: the 4 keys and 8 query phases a warp writes land on 32 banks
-constexpr int kTLd = kRows + 8;
-
 // sum += x with a compensation term (Kahan), rounded as written
 __device__ __forceinline__ void add_compensated(float& sum, float& comp, float x) {
   const float y = __fsub_rn(x, comp);
   const float t = __fadd_rn(sum, y);
   comp = __fsub_rn(__fsub_rn(t, sum), y);
   sum = t;
-}
-
-// ---- dQ passes -----------------------------------------------------------
-template <int DH>
-struct DqSmem {
-  float k[kChunk * (DH + 1)];  // K chunk; a staging tile at first
-  float v[kChunk * (DH + 1)];  // V chunk
-  float ds[kRows * kPLd];      // cast(scale dS) of the chunk
-  float bias[kChunk];
-};
-static_assert(sizeof(DqSmem<64>) <= kStaticSmemLimit && kStaticSmemLimit <= kSmemLimit,
-              "the dQ pass's shared memory must fit statically");
-
-template <int DH, typename T>
-__device__ __forceinline__ void load_chunk(DqSmem<DH>& sm, const T* k_head, const T* v_head, const float* bias_row,
-                                           const BwdViews& vw, int c0, int s) {
-  load_tile_rows<kChunk, DH>(sm.k, k_head, vw.k.r, c0, s);
-  load_tile_rows<kChunk, DH>(sm.v, v_head, vw.v.r, c0, s);
-  if (threadIdx.x < kChunk) sm.bias[threadIdx.x] = key_bias(bias_row, c0 + threadIdx.x, s);
-  __syncthreads();
-}
-
-// dq[t] (head column j + 8 t of this thread's row) = sum over keys c of
-// cast(scale P (dP - delta))[r, c] k[c, j + 8 t], P = exp(s - lse). A key
-// past S scores -inf: its P, and so its dS, is 0.
-template <typename T, int DH>
-__device__ __forceinline__ void dq_sweep(DqSmem<DH>& sm, float* dq, const float* q_row, const float* do_row,
-                                         float lse, float delta, const T* k_head, const T* v_head,
-                                         const float* bias_row, const BwdViews& vw, int s, float scale) {
-  constexpr int kPerThread = DH / kPhases;
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-  float comp[kPerThread] = {};
-#pragma unroll
-  for (int t = 0; t < kPerThread; ++t) dq[t] = 0.f;
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    load_chunk(sm, k_head, v_head, bias_row, vw, c0, s);
-#pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const int c = j + kPhases * i;
-      const float sc = scaled_score(dot_dh<DH>(q_row, sm.k + c * (DH + 1)), scale, sm.bias[c]);
-      const float p = expf(__fsub_rn(sc, lse));
-      const float dp = dot_dh<DH>(do_row, sm.v + c * (DH + 1));
-      sm.ds[r * kPLd + c] = through<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale));
-    }
-    __syncthreads();
-    float part[kPerThread] = {};
-    for (int c = 0; c < kChunk; ++c) {
-      const float ds = sm.ds[r * kPLd + c];
-#pragma unroll
-      for (int t = 0; t < kPerThread; ++t) part[t] = fmaf(ds, sm.k[c * (DH + 1) + j + kPhases * t], part[t]);
-    }
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) add_compensated(dq[t], comp[t], part[t]);
-    __syncthreads();
-  }
-}
-
-// _bwd_dq_kv_blocked_kernel: dQ from the forward's lse; writes delta =
-// rowsum(dO O) ([B, h, S]) for the dK/dV pass.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    kv_blocked_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ o, const T* __restrict__ d_o, const float* __restrict__ bias,
-                         const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta_out,
-                         BwdViews vw, int s, float scale) {
-  __shared__ DqSmem<DH> sm;
-  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-  const long long row = (static_cast<long long>(b) * gridDim.y + head) * s + q0 + r;
-  float q_row[DH], do_row[DH];
-  row_to_registers<DH>(sm.k, do_row, d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, q0, s);
-  // delta = dO . O, the o row read from shared memory (no third register row)
-  load_tile_rows<kRows, DH>(sm.k, o + b * vw.o.b + head * vw.o.h, vw.o.r, q0, s);
-  __syncthreads();
-  const float delta = dot_dh<DH>(do_row, sm.k + r * (DH + 1));
-  __syncthreads();
-  row_to_registers<DH>(sm.k, q_row, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
-  float acc[DH / kPhases];
-  dq_sweep<T, DH>(sm, acc, q_row, do_row, q0 + r < s ? lse[row] : 0.f, delta,
-                        k + b * vw.k.b + head * vw.k.h, v + b * vw.v.b + head * vw.v.h,
-                        bias + static_cast<long long>(b) * s, vw, s, scale);
-  store_row<DH>(dq + b * vw.dq.b + head * vw.dq.h, vw.dq.r, q0, s, acc);
-  if (j == 0 && q0 + r < s) delta_out[row] = delta;
-}
-
-// ---- dK/dV passes ----------------------------------------------------------
-template <int DH>
-struct DkvSmem {
-  float q[kRows * (DH + 1)];    // q rows of the query tile; a staging tile at first
-  float d_o[kRows * (DH + 1)];  // dO rows of the query tile
-  float p[kRows * kTLd];        // cast(P)[key, query] of the tile pair
-  float ds[kRows * kTLd];       // cast(scale dS)[key, query]
-  float row[2 * kRows];         // (lse, delta) per query
-  float bias[kRows];
-};
-static_assert(sizeof(DkvSmem<64>) <= kStaticSmemLimit && kStaticSmemLimit <= kSmemLimit,
-              "the dK/dV pass's shared memory must fit statically");
-
-// _bwd_dkv_kv_blocked_kernel: dK and dV of one 32-key tile, P = exp(s -
-// lse) from the forward's lse [B, h, S]. Keys past S score -inf and
-// queries past S get P = dS = 0, so neither adds to a sum.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ d_o, const float* __restrict__ bias, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, BwdViews vw, int s,
-               float scale) {
-  constexpr int kPadH = DH + 1, kPerThread = DH / kPhases;
-  __shared__ DkvSmem<DH> sm;
-  const int k0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
-  const int c = threadIdx.x / kPhases, j = threadIdx.x % kPhases;  // key c of the tile
-  const T* q_head = q + b * vw.q.b + head * vw.q.h;
-  const T* do_head = d_o + b * vw.d_o.b + head * vw.d_o.h;
-  const long long rows0 = (static_cast<long long>(b) * gridDim.y + head) * s;
-  float k_row[DH], v_row[DH];
-  row_to_registers<DH>(sm.q, k_row, k + b * vw.k.b + head * vw.k.h, vw.k.r, k0, s);
-  row_to_registers<DH>(sm.q, v_row, v + b * vw.v.b + head * vw.v.h, vw.v.r, k0, s);
-  if (threadIdx.x < kRows) sm.bias[threadIdx.x] = key_bias(bias + static_cast<long long>(b) * s, k0 + threadIdx.x, s);
-
-  float dk_sum[kPerThread] = {}, dv_sum[kPerThread] = {}, dk_comp[kPerThread] = {}, dv_comp[kPerThread] = {};
-  for (int q0 = 0; q0 < s; q0 += kRows) {
-    load_tile_rows<kRows, DH>(sm.q, q_head, vw.q.r, q0, s);
-    load_tile_rows<kRows, DH>(sm.d_o, do_head, vw.d_o.r, q0, s);
-    if (threadIdx.x < kRows && q0 + threadIdx.x < s) {
-      const long long row = rows0 + q0 + threadIdx.x;
-      sm.row[2 * threadIdx.x] = lse[row];
-      sm.row[2 * threadIdx.x + 1] = delta[row];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kRows / kPhases; ++t) {
-      const int qi = j + kPhases * t;
-      const float* st = sm.row + 2 * qi;
-      float p = 0.f, ds = 0.f;
-      if (q0 + qi < s) {
-        const float sc = scaled_score(dot_dh<DH>(sm.q + qi * kPadH, k_row), scale, sm.bias[c]);
-        p = expf(__fsub_rn(sc, st[0]));
-        const float dp = dot_dh<DH>(sm.d_o + qi * kPadH, v_row);
-        ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, st[1])), scale);
-      }
-      sm.p[c * kTLd + qi] = through<T>(p);
-      sm.ds[c * kTLd + qi] = through<T>(ds);
-    }
-    __syncthreads();
-    float pk[kPerThread] = {}, pv[kPerThread] = {};
-    for (int qi = 0; qi < kRows; ++qi) {
-      const float p = sm.p[c * kTLd + qi], ds = sm.ds[c * kTLd + qi];
-#pragma unroll
-      for (int t = 0; t < kPerThread; ++t) {
-        pv[t] = fmaf(p, sm.d_o[qi * kPadH + j + kPhases * t], pv[t]);
-        pk[t] = fmaf(ds, sm.q[qi * kPadH + j + kPhases * t], pk[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      add_compensated(dv_sum[t], dv_comp[t], pv[t]);
-      add_compensated(dk_sum[t], dk_comp[t], pk[t]);
-    }
-    __syncthreads();
-  }
-  store_row<DH>(dk + b * vw.dk.b + head * vw.dk.h, vw.dk.r, k0, s, dk_sum);
-  store_row<DH>(dv + b * vw.dv.b + head * vw.dv.h, vw.dv.r, k0, s, dv_sum);
 }
 
 // ---- the f32 blocked backwards (split-TF32 tensor-core products) ---------
@@ -598,8 +416,6 @@ BwdViews read_views(const void* strides, std::initializer_list<View BwdViews::*>
   return vw;
 }
 
-dim3 grid_of(int batch, int heads, int seq) { return dim3((seq + kRows - 1) / kRows, heads, batch); }
-
 // The tensor-core passes' grid of 64-row tiles, and the split-TF32
 // passes' opt-in to tf32::Layout's dynamic shared memory (0 on success).
 dim3 tile_grid_of(int batch, int heads, int seq) {
@@ -612,9 +428,8 @@ cudaError_t opt_in_tf32(const void* kernel) {
                               static_cast<int>(tf32::Layout<DH>::kBytes));
 }
 
-// Each launcher runs f32 on the split-TF32 kernels; bf16 on the bf16
-// tensor-core kernels (the query-blocked backward) or the CUDA cores (the
-// KV-blocked passes).
+// Each launcher runs f32 on the split-TF32 kernels and bf16 on the bf16
+// tensor-core kernels.
 template <typename T, int DH>
 int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_o, const void* bias, void* dq,
                      void* dk, void* dv, void* stats, void* delta, const void* strides, int batch, int heads,
@@ -642,12 +457,12 @@ int launch_q_blocked(const void* q, const void* k, const void* v, const void* d_
         tq, tk, tv, tdo, fbias, fstats, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
   } else {
     const dim3 grid = tile_grid_of(batch, heads, seq);
-    dq_tc_kernel<DH><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, static_cast<T*>(dq), fstats, fdelta, vw,
-                                                     seq, scale);
+    dq_tc_kernel<DH, false><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, nullptr, tdo, fbias, nullptr,
+                                                            static_cast<T*>(dq), fstats, fdelta, vw, seq, scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkv_tc_kernel<DH><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, fstats, fdelta, static_cast<T*>(dk),
-                                                      static_cast<T*>(dv), vw, seq, scale);
+    dkv_tc_kernel<DH, false><<<grid, tc::kThreads, 0, stm>>>(tq, tk, tv, tdo, fbias, fstats, fdelta,
+                                                             static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -669,8 +484,8 @@ int launch_dq_kv_blocked(const void* q, const void* k, const void* v, const void
         tq, tk, tv, to, tdo, fbias, flse, static_cast<float*>(dq), nullptr, static_cast<float*>(delta), vw, seq,
         scale);
   } else {
-    kv_blocked_dq_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
-        tq, tk, tv, to, tdo, fbias, flse, static_cast<T*>(dq), static_cast<float*>(delta), vw, seq, scale);
+    dq_tc_kernel<DH, true><<<tile_grid_of(batch, heads, seq), tc::kThreads, 0, stm>>>(
+        tq, tk, tv, to, tdo, fbias, flse, static_cast<T*>(dq), nullptr, static_cast<float*>(delta), vw, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -692,7 +507,7 @@ int launch_dkv_kv_blocked(const void* q, const void* k, const void* v, const voi
     dkv_tf32_kernel<DH, true><<<tile_grid_of(batch, heads, seq), tf32::kThreads, tf32::Layout<DH>::kBytes, stm>>>(
         tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<float*>(dk), static_cast<float*>(dv), vw, seq, scale);
   } else {
-    dkv_kernel<T, DH><<<grid_of(batch, heads, seq), kThreads, 0, stm>>>(
+    dkv_tc_kernel<DH, true><<<tile_grid_of(batch, heads, seq), tc::kThreads, 0, stm>>>(
         tq, tk, tv, tdo, fbias, flse, fdelta, static_cast<T*>(dk), static_cast<T*>(dv), vw, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());

@@ -37,10 +37,8 @@ Hopper kernels or raise; they never fall back:
   CUDA-core passes) up to its dtype's limit, the query-blocked backward's
   code past it and on the query-blocked route, the KV-blocked passes after
   the KV-blocked forward (``csrc/flash_attention_long_bwd.cu``; both
-  blocked backwards in f32 on split-TF32 products on the tensor cores; in
-  bf16 the query-blocked backward on the bf16 tensor cores,
-  ``csrc/attention_bwd_tc.cuh``, the KV-blocked passes on the CUDA
-  cores).
+  blocked backwards in f32 on split-TF32 products on the tensor cores, in
+  bf16 on the bf16 tensor cores, ``csrc/attention_bwd_tc.cuh``).
 
 Every kernel takes head_dim 32 and 64 (``fused_encoder.kernel_supports``).
 On a CPU tensor, or with ``plain=True``, they run the plain PyTorch
@@ -211,7 +209,12 @@ def attention_bwd_q_blocked_plain(q, k, v, do, attention_mask):
 def _sum_over_query_blocks(a, b):
     """a^T b for a [B, h, S, K], b [B, h, S, D], as the reference's dK/dV
     pass forms it: one product per block of ``_Q_BLOCK`` queries, the
-    blocks summed in f32."""
+    blocks summed in f32. A ragged last block (an S the reference never
+    gives it, which the card tests hand the kernels) is padded with zero
+    rows, which add nothing."""
+    pad = -a.shape[2] % _Q_BLOCK
+    if pad:
+        a, b = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (a, b))
     bb, h, s, kk = a.shape
     g = s // _Q_BLOCK
     a = a.reshape(bb, h, g, _Q_BLOCK, kk).transpose(-1, -2)
@@ -502,12 +505,12 @@ def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
 
 def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
     """Launches the dQ pass of the KV-blocked backward (TPU kernel 10; in
-    f32 split-TF32 products on the tensor cores, q, k, v, o and do 16-byte
-    aligned rows; in bf16 the CUDA cores): writes dq and returns delta =
-    rowsum(dO O), f32 [B, h, S], for the dK/dV pass."""
+    f32 split-TF32 products on the tensor cores, in bf16 the bf16 tensor
+    cores; q, k, v, o and do 16-byte aligned rows, cp.async copies): writes
+    dq and returns delta = rowsum(dO O), f32 [B, h, S], for the dK/dV
+    pass."""
     _check_attention_inputs(q=q, k=k, v=v, o=o, do=do, dq=dq)
-    if q.dtype == torch.float32:
-        _check_16_byte_rows("KV-blocked f32 dQ backward", q=q, k=k, v=v, o=o, do=do)
+    _check_16_byte_rows(f"KV-blocked {KERNEL_DTYPES[q.dtype]} dQ backward", q=q, k=k, v=v, o=o, do=do)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     bias = _kernel_bias(attention_mask, b, s, q.device)
@@ -520,12 +523,11 @@ def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
 
 def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
     """Launches the dK/dV pass of the KV-blocked backward (TPU kernel 11;
-    in f32 split-TF32 products on the tensor cores, q, k, v and do 16-byte
-    aligned rows; in bf16 the CUDA cores) with the forward's lse and the dQ
-    pass's delta."""
+    in f32 split-TF32 products on the tensor cores, in bf16 the bf16 tensor
+    cores; q, k, v and do 16-byte aligned rows) with the forward's lse and
+    the dQ pass's delta."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dk=dk, dv=dv)
-    if q.dtype == torch.float32:
-        _check_16_byte_rows("KV-blocked f32 dK/dV backward", q=q, k=k, v=v, do=do)
+    _check_16_byte_rows(f"KV-blocked {KERNEL_DTYPES[q.dtype]} dK/dV backward", q=q, k=k, v=v, do=do)
     b, h, s, _ = q.shape
     _check_rows("lse", lse, (b, h, s))
     _check_rows("delta", delta, (b, h, s))

@@ -278,9 +278,9 @@ def test_f32_split_tf32_single_tile_kernels_on_card(cuda_device, limit, offset, 
 @pytest.mark.cuda
 def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
     """The f32 single-tile kernels, the f32 KV-blocked forward and backward
-    passes and the bf16 query-blocked backward copy rows 16 bytes at a
-    time: a view whose rows are not 16-byte aligned raises (no
-    fallback)."""
+    passes and the bf16 blocked backwards (query-blocked and KV-blocked, o
+    too) copy rows 16 bytes at a time: a view whose rows are not 16-byte
+    aligned raises (no fallback)."""
     x = torch.randn(2, 2, 64, 36, device=cuda_device)
     q = x[..., 1:33]  # unit head-dim stride, rows 4 bytes past 16-byte alignment
     mask = torch.ones(2, 64, dtype=torch.int32, device=cuda_device)
@@ -303,6 +303,10 @@ def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
     grads_b = [torch.empty_like(ob) for _ in range(3)]
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._bwd_q_blocked_kernel(ob, ob, qb, ob, *grads_b, mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dq_kv_blocked_kernel(ob, ob, ob, qb, rows, ob, grads_b[0], mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._bwd_dkv_kv_blocked_kernel(ob, ob, qb, ob, rows, rows, *grads_b[1:], mask)
 
 
 @pytest.mark.cuda
@@ -686,14 +690,41 @@ def test_long_backward_kernels_match_plain_on_card(cuda_device, dtype, route, b,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("b,s", [(3, 1000), (3, 4200)])
+def test_bf16_kv_blocked_passes_match_plain_on_card(cuda_device, b, s, dh):
+    """Kernels 10 and 11 in bf16 (the tensor-core passes) called straight
+    at an S that is not a multiple of 64 (a ragged last key chunk and query
+    tile), fed the plain forward's o and lse: a full row, a ragged row and
+    a fully masked one (P = 1 for every key). delta within 5e-5 of
+    rowsum(dO O) (chip_smoke.py's gate); each gradient within 3e-2 of each
+    (batch row, head)'s largest plain magnitude."""
+    qkv, mask, cot = _attention_inputs(cuda_device, b, s, dh=dh, dtype=torch.bfloat16)
+    q, k, v = tfa._split_heads(qkv, 12)
+    do = cot.view(b, s, 12, -1).transpose(1, 2).to(torch.bfloat16)
+    o, lse = tfa.attention_kv_blocked_plain(q, k, v, mask)
+    grads = [torch.empty(t.shape, dtype=torch.bfloat16, device=cuda_device) for t in (q, k, v)]
+    tfa.reset_launches()
+    delta = tfa._bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, grads[0], mask)
+    tfa._bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, *grads[1:], mask)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["bwd_dq_kv_blocked"] == 1 and tfa.LAUNCHES["bwd_dkv_kv_blocked"] == 1
+    torch.testing.assert_close(delta, (do.float() * o.float()).sum(dim=-1), atol=5e-5, rtol=0)
+    want = tfa.attention_bwd_kv_blocked_plain(q, k, v, o, lse, do, mask)
+    for a, w in zip(grads, want):
+        assert torch.isfinite(a.float()).all()
+        _assert_head_close(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("route,s,dtype", [("q_blocked", 1024, torch.float32), ("kv_blocked", 8192, torch.float32),
-                                           ("q_blocked", 1024, torch.bfloat16)])
+                                           ("q_blocked", 1024, torch.bfloat16), ("kv_blocked", 8192, torch.bfloat16)])
 def test_long_backward_is_reproducible(cuda_device, route, s, dtype, dh):
     """No atomics: two blocked backward calls give the same bits at
     head_dim 32 and 64: in f32 the split-TF32 kernel 9 (S = 1024) and the
     split-TF32 KV-blocked passes, kernels 10 and 11 (S = 8192); in bf16
-    the tensor-core kernel 9 (S = 1024); head_dim 64 holds the most
-    registers."""
+    the tensor-core kernel 9 (S = 1024) and kernels 10 and 11 (S = 8192);
+    head_dim 64 holds the most registers."""
     qkv, mask, cot = _attention_inputs(cuda_device, 2, s, dh=dh, dtype=dtype)
     q, k, v = tfa._split_heads(qkv, 12)
     cot = cot.view(2, s, 12, -1).transpose(1, 2)

@@ -9,11 +9,13 @@ forward and backward at S = 1700, past the single-tile CUDA kernels'
 shared-memory limit; the dispatch on the card (which code each S and
 dtype takes); then the gradients of a pooled ``bert_forward`` on the
 "pallas" route and one ``contrastive_loss`` with its passages at a blocked
-S. On a CPU tensor the port's backward runs the plain versions that the
-CUDA kernels are held to on the card (tests/test_torch_kernels_cuda.py).
-Kernel 9's bf16 tensor-core arithmetic (``csrc/attention_bwd_tc.cuh``:
-its order of sums and its casts) is modelled here and held against the
-JAX package's query-blocked backward at S = 1024.
+S, in f32 (query-blocked) and in bf16 (KV-blocked). On a CPU tensor the
+port's backward runs the plain versions that the CUDA kernels are held
+to on the card (tests/test_torch_kernels_cuda.py). The bf16 tensor-core
+arithmetic of kernel 9 and of kernels 10 and 11
+(``csrc/attention_bwd_tc.cuh``: its order of sums and its casts) is
+modelled here and held against the JAX package's query-blocked and
+KV-blocked backwards at S = 1024.
 
 Tolerances: f32 gradients atol 1e-4, rtol 1e-3, the reference's own
 blocked-gradient tolerance (tests/test_flash_attention.py:185, 242); bf16
@@ -199,6 +201,38 @@ def test_q_blocked_bf16_model_matches_jax(dh):
     got = q_blocked_bf16_model(*(torch.from_numpy(np.asarray(a, np.float32)) for a in (q, k, v, do)),
                                torch.from_numpy(mask))
     want = jfa._backward(jnp.asarray(mask), *(jnp.asarray(a) for a in (q, k, v, do)))
+    _assert_per_head_close(got, want)
+
+
+def kv_blocked_bf16_model(q, k, v, o, lse, do, mask):
+    """Kernels 10 and 11 in bf16 on the bf16 tensor cores, on f32 tensors
+    that hold bf16 values, with the forward's lse [B, h, S]: products and
+    sums as in ``q_blocked_bf16_model``; P = exp(s - lse), no division;
+    delta = rowsum(dO O) in f32; dS = P (dP - delta) scale; P and dS
+    rounded to bf16 before their products; dQ a sum of per-64-key partials
+    in f32, dK and dV of per-32-query partials; the gradients rounded to
+    bf16 once."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def mm(a, b):
+        return (a.double() @ b.double()).float()
+
+    s = mm(q, k.transpose(-1, -2)) * scale + mask_bias(mask)[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    delta = (do.double() * o.double()).sum(dim=-1, keepdim=True).float()
+    dp = mm(do, v.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    n = q.shape[2]
+    dq = _partials(lambda c: mm(ds[..., c], k[:, :, c]), n, CHUNK)
+    dk = _partials(lambda c: mm(ds[:, :, c].transpose(-1, -2), q[:, :, c]), n, HALF)
+    dv = _partials(lambda c: mm(pb[:, :, c].transpose(-1, -2), do[:, :, c]), n, HALF)
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+def _assert_per_head_close(got, want):
+    """Each gradient within 3e-2 of each (batch row, head)'s largest
+    reference magnitude."""
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         a, w = a.float().numpy(), np.asarray(w, np.float32)
         assert np.isfinite(a).all(), name
@@ -206,6 +240,26 @@ def test_q_blocked_bf16_model_matches_jax(dh):
             for h in range(a.shape[1]):
                 np.testing.assert_allclose(a[r, h], w[r, h], atol=BF16_REL * np.abs(w[r, h]).max(), rtol=0,
                                            err_msg=f"{name} row {r} head {h}")
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_kv_blocked_bf16_model_matches_jax(dh, kv_blocked):
+    """Kernels 10 and 11's bf16 tensor-core arithmetic at S = 1024 against
+    the JAX package's ``_backward_kv_blocked`` (the Pallas kernels in
+    interpret mode, bf16 inputs), both fed the JAX KV-blocked forward's o
+    and lse: a full row, a row padded across a 512-key block and a fully
+    masked one (P = 1 for every key); each gradient within 3e-2 of each
+    (batch row, head)'s largest reference magnitude."""
+    s = 1024
+    assert tfa.attention_route(s) == "kv_blocked"
+    q, k, v, do, mask = _inputs(3, 2, s, seed=dh + 41, np_dtype=ml_dtypes.bfloat16, dh=dh)
+    j_mask, (jq, jk, jv, jdo) = jnp.asarray(mask), (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = jfa._forward(jq, jk, jv, j_mask)
+    assert lse is not None
+    want = jfa._backward_kv_blocked(j_mask, jq, jk, jv, o, lse, jdo)
+    got = kv_blocked_bf16_model(*(torch.from_numpy(np.array(a, np.float32)) for a in (q, k, v, o, lse, do)),
+                                torch.from_numpy(mask))
+    _assert_per_head_close(got, want)
 
 
 def _recording_kernels(monkeypatch, calls, limits=(1600, 1472)):
@@ -392,3 +446,42 @@ def test_contrastive_loss_long_passages_matches_jax():
     np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
     for t, g in zip(param_leaves(params), jax.tree.leaves(j_grads)):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-5, rtol=1e-4)
+
+
+def test_contrastive_loss_bf16_kv_blocked_matches_jax(kv_blocked):
+    """One bf16 ``contrastive_loss`` value and gradient with q and p padded
+    to S = 1024 on the KV-blocked route (kernel 7 forward, kernels 10 and 11
+    backward: the port's "pallas" route, on the CPU their plain versions)
+    against the JAX package's bf16 loss, which takes no ``attention_impl``
+    and runs its "xla" route on the CPU. bf16 tolerances: the loss rel 1e-3
+    (the f32 loss lies 3.5e-3 away), the whole gradient's cosine above
+    0.9999 (chip_smoke.py's GRAD_COS) and each tensor within 3e-2 of its
+    largest reference magnitude (the port's bf16 tolerance)."""
+    config = _long_config()
+    jparams = jax_init_params(jax.random.PRNGKey(6), config)
+    rng = np.random.default_rng(7)
+    b, s = 4, 1024
+    lengths = {"q": [12, 20, 9, 16], "p": [s, 700, 300, 900]}
+    batch = {}
+    for side, lens in lengths.items():
+        batch[f"{side}_ids"] = rng.integers(5, config.vocab_size, size=(b, s)).astype(np.int32)
+        batch[f"{side}_mask"] = (np.arange(s)[None, :] < np.array(lens)[:, None]).astype(np.int32)
+    j_loss, j_grads = jax.value_and_grad(
+        lambda p: jc.contrastive_loss(p, batch, num_heads=config.num_heads, temperature=0.05,
+                                      compute_dtype=jnp.bfloat16)
+    )(jparams)
+    params = params_from_jax_numpy(jax.tree.map(np.asarray, jparams))
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    assert tfa.attention_route(s) == "kv_blocked"
+    loss = tc.contrastive_loss(params, batch, num_heads=config.num_heads, temperature=0.05,
+                               compute_dtype=torch.bfloat16, attention_impl="pallas")
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-3)
+    got = [t.grad.double().flatten() for t in param_leaves(params)]
+    want = [torch.from_numpy(np.asarray(g, np.float64)).flatten() for g in jax.tree.leaves(j_grads)]
+    assert len(got) == len(want)
+    assert torch.nn.functional.cosine_similarity(torch.cat(got), torch.cat(want), dim=0).item() > 0.9999
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= BF16_REL * w.abs().max().item()
