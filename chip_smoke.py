@@ -14,7 +14,10 @@ Phases, each announced by a ``[phase]`` line:
    its plain PyTorch version at B=128, S=256, and timed (CUDA events)
    beside its bound and a PyTorch composition, the whole layer also
    bit-equal to kernels 1 then 2, and kernel 1 in bf16 profiled by stage
-   (QKV projection, attention, output projection, LayerNorm); the bf16
+   (QKV projection, attention, output projection, LayerNorm); in f32
+   (split-TF32 products) each block also read against the block
+   evaluated in f64 (at most 1.5 times the plain version's distance) and
+   kernels 1 and 2 profiled by stage; the bf16
    kernels 1-3 also at bge-large's H=1024 (16 heads of 64) on a seeded
    layer;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
@@ -51,6 +54,14 @@ Phases, each announced by a ``[phase]`` line:
    128 on kernel 9's code), and at S = 1700, past the
    single-tile kernels' shared memory, through the query-blocked codes,
    each against the plain route;
+   f32 tanh-GELU encode: one encode batch of the main path's chunks
+   (B=128, S=256, 12 layers) and its 64 queries in f32 with tanh GELU,
+   at bge-small widths (the checkpoint) and bge-base widths (the seeded
+   encoder), through "auto" (kernels 1 and 2), "fused_layer" (kernel 3)
+   and "fused_plain": 12 launches of each kernel an encode, the hidden
+   states within 1e-4 of the plain route's ("fused_layer" equal to "auto"
+   bit for bit), the embeddings' cosine above 1 - 1e-6, the same top-1,
+   and each route's device time an encode with its kernels' shares;
    bf16 gradient: one bf16 ``contrastive_loss`` backward through "auto"
    (the fused block kernels, recompute backward) against the
    "fused_plain" route: the whole gradient's cosine > 0.9999, and each
@@ -226,6 +237,9 @@ KV_TC_SHAPES = ((1, 4608), (3, 8192))
 # dynamic shared memory of csrc/gemm_tc.cuh's products (kSmemBytes): a
 # 4-stage ring of [256, 64] and [64, 128] bf16 tiles, + 1024 B to align it
 GEMM_TC_SMEM = 4 * (256 * 64 + 64 * 128) * 2 + 1024
+# and of csrc/gemm_tf32.cuh's (kSmemBytes): a 4-stage ring of a [128, 40]
+# f32 A tile and a 32-deep slice of a 128-column panel's hi and lo planes
+GEMM_TF32_SMEM = 4 * (128 * 40 + 32 * 128 * 2) * 4
 # the status, in the kernels JSON line, of the f32 rows redesigned on
 # split-TF32 products: the query-blocked kernels 6 and 9, the single-tile
 # kernels 4 (with 5) and 8, the KV-blocked backward passes 10 and 11, the
@@ -237,6 +251,17 @@ REDESIGNED_KV_BLOCKED = "redesigned (3xTF32, KV-blocked)"
 REDESIGNED_KV_FORWARD = "redesigned (3xTF32, KV-blocked forward)"
 REDESIGNED_TC_BACKWARD = "redesigned (TC, mma.sync, query-blocked)"
 REDESIGNED_TC_KV_BLOCKED = "redesigned (TC, mma.sync, KV-blocked)"
+# the status of the f32 rows of kernels 1-3, launch sequences of split-TF32
+# products (csrc/gemm_tf32.cuh) and kernel 4's f32 attention
+REDESIGNED_BLOCKS = "redesigned (3xTF32 products)"
+# kernels 1-3 in f32: each block's largest distance from the block
+# evaluated in f64 may reach this many times the plain version's
+F64_RATIO = 1.5
+# the f32 tanh-GELU encode (12 layers): last hidden states of the kernel
+# routes vs the plain route, 12 layers of the blocks' 2e-5; the pooled,
+# L2-normalised embeddings' cosine to the plain route's
+F32_ENCODE_TOL = 1e-4
+F32_ENCODE_COS = 1 - 1e-6
 
 
 def tf32_smem(dh: int) -> int:
@@ -308,7 +333,8 @@ def phase(name: str | None) -> None:
 def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
     of the bf16 KV-blocked forward, the bf16 blocked backwards' passes
-    (query-blocked and KV-blocked), the products, the LayerNorm pass and
+    (query-blocked and KV-blocked), the bf16 and the f32 split-TF32
+    products of kernels 1-3 (and the split of W), the LayerNorm pass and
     the split-TF32 kernels 4 (with 5), 6, 7, 8, 9, 10 and 11 in f32 takes, from
     ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
     products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
@@ -326,6 +352,13 @@ def kernel_resources(build) -> None:
         epilogue = re.search(r"EpilogueE(\d)E", line).group(1)
         return f"{products[epilogue]}, 512 threads"
 
+    tf32_products = {"0": "FFN up product (GELU epilogue)", "1": "product (FFN down, output projection)",
+                     "2": "QKV projection (bias epilogue)"}
+
+    def tf32_product(line: str) -> str:  # gemm_tf32_kernel's Epilogue argument
+        epilogue = re.search(r"EpilogueE(\d)E", line).group(1)
+        return f"f32 {tf32_products[epilogue]} (3xTF32), 256 threads"
+
     # (source stem, substrings of the kernel's mangled name, dynamic shared memory, label)
     kernels = (
         ("attention_tc", ("kv_blocked_tc_kernel",), 0,
@@ -333,6 +366,8 @@ def kernel_resources(build) -> None:
         ("ffn_tc", ("gemm_kernel",), GEMM_TC_SMEM, product),
         ("ffn_tc", ("layernorm_kernel",), 0, lambda line: f"LayerNorm, H {width(line)}, 256 threads"),
         ("fused_attention", ("gemm_kernel", "EpilogueE2E"), GEMM_TC_SMEM, product),
+        ("fused_ffn", ("gemm_tf32_kernel",), GEMM_TF32_SMEM, tf32_product),  # all three epilogues
+        ("fused_ffn", ("split_kernel",), 0, lambda line: "split of W into TF32 planes, 256 threads"),
     )
     for dh in (32, 64):
         kernels += (
@@ -1995,6 +2030,36 @@ def long_training_phase(torch, card, dev, config, params, tokenizer, cfg, stream
     return launches
 
 
+def f64_attention_block(x, mask, wqkv, bqkv, wout, bout, g, beta, heads):
+    """Kernel 1's function evaluated in f64 (no cast to the compute type)."""
+    import torch
+
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+
+    b, s, hid = x.shape
+    dh = hid // heads
+    x = x.double()
+    qkv = (x @ wqkv.double() + bqkv.double()).view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    scores = qkv[0] @ qkv[1].transpose(-1, -2) / math.sqrt(dh) + fe.mask_bias(mask).double()[:, None, None, :]
+    ctx = (torch.softmax(scores, dim=-1) @ qkv[2]).transpose(1, 2).reshape(b, s, hid)
+    return f64_layernorm(x + (ctx @ wout.double() + bout.double()), g, beta)
+
+
+def f64_ffn_block(x, w1, b1, w2, b2, g, beta):
+    """Kernel 2's function evaluated in f64."""
+    import torch
+
+    x = x.double()
+    h = torch.nn.functional.gelu(x @ w1.double() + b1.double(), approximate="tanh")
+    return f64_layernorm(x + (h @ w2.double() + b2.double()), g, beta)
+
+
+def f64_layernorm(r, g, beta):
+    mean = r.mean(dim=-1, keepdim=True)
+    var = ((r - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (r - mean) / (var + 1e-12).sqrt() * g.double() + beta.double()
+
+
 def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
     """Kernels 1-3 in x's dtype at x's width (kernel 2 on the plain
     attention block's output) against their plain versions on one layer's
@@ -2002,15 +2067,18 @@ def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
     each timed (CUDA events) beside its bound, the plain version and a
     PyTorch composition of the same block (cuBLAS products, SDPA with a
     boolean mask, ``layer_norm``): a yardstick used nowhere in the port.
-    Kernel 3 must equal kernels 1 then 2 bit for bit; kernel 1 in bf16 is
-    profiled by stage (its four launches)."""
+    Kernel 3 must equal kernels 1 then 2 bit for bit. In f32 (products in
+    split TF32: bound at the 3xTF32 rate, the CUDA-core f32 bound beside
+    it) each block's largest distance from the block evaluated in f64 may
+    be at most F64_RATIO times the plain version's. Kernel 1 in bf16, and
+    kernels 1 and 2 in f32, are profiled by stage (their launches)."""
     from dial_rag_tpu_torch.ops import fused_encoder as fe
 
     dtype = x.dtype
     b, s, hid = x.shape
     inter = layer["ffn_in"]["kernel"].shape[1]
     tol, per_row = block_tolerance(dtype, hid)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS
     attn_args = (
         x, mask, layer["qkv"]["kernel"], layer["qkv"]["bias"], layer["attn_out"]["kernel"],
         layer["attn_out"]["bias"], layer["attn_ln"]["scale"], layer["attn_ln"]["bias"], heads,
@@ -2050,23 +2118,25 @@ def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
         ).to(dtype)
 
     layer_args = (x, mask, tuple(attn_args[2:8]) + tuple(ffn_args[1:]), heads)
-    # x in, out, the mask, every weight once (a stays on chip)
+    # x in, out, the mask, every weight once (a counted on chip, as the TPU
+    # kernel keeps it)
     layer_bytes = attn_bytes + ffn_bytes - 2 * m * hid * e
 
     bf16 = dtype == torch.bfloat16
     rows = {}
-    for name, kernel, plain, args, library, flops, nbytes, source, replaces in (
+    for name, kernel, plain, args, library, exact, flops, nbytes, source, replaces in (
         ("fused_attention_block", fe.fused_attention_block, fe.fused_attention_block_plain, attn_args,
-         attn_library, attn_flops, attn_bytes,
-         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'fused_attention.cu'}",
+         attn_library, lambda: f64_attention_block(*attn_args), attn_flops, attn_bytes,
+         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'encoder_tf32.cuh'}",
          "dial_rag_tpu/ops/fused_encoder.py:177"),
         ("fused_ffn_block", fe.fused_ffn_block, fe.fused_ffn_block_plain, ffn_args,
-         ffn_library, ffn_flops, ffn_bytes,
+         ffn_library, lambda: f64_ffn_block(*ffn_args), ffn_flops, ffn_bytes,
          f"dial_rag_tpu_torch/csrc/{'ffn_tc' if bf16 else 'fused_ffn'}.cu",
          "dial_rag_tpu/ops/fused_encoder.py:76"),
         ("fused_layer_block", fe.fused_layer_block, fe.fused_layer_block_plain, layer_args,
-         lambda: ffn_library(attn_library()), attn_flops + ffn_flops, layer_bytes,
-         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'fused_layer.cu'}",
+         lambda: ffn_library(attn_library()), lambda: f64_ffn_block(f64_attention_block(*attn_args), *ffn_args[1:]),
+         attn_flops + ffn_flops, layer_bytes,
+         f"dial_rag_tpu_torch/csrc/{'encoder_tc.cuh' if bf16 else 'encoder_tf32.cuh'}",
          "dial_rag_tpu/ops/fused_encoder.py:365"),
     ):
         out = kernel(*args)
@@ -2076,16 +2146,29 @@ def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
             raise RuntimeError(f"{name}: kernel output is not finite {dtype}")
         err = (out.float() - ref.float()).abs().max().item()
         lib_err = (library().float().view_as(ref) - ref.float()).abs().max().item()
+        key = instantiation(name, dtype, f"H {hid}")
+        if not bf16:
+            with torch.no_grad():
+                want = exact()
+            dist, plain_dist = ((t.double() - want).abs().max().item() for t in (out, ref))
+            del want
+            print(f"{key} vs the block in f64: max abs {dist:.4g}, the plain version's {plain_dist:.4g}: "
+                  f"{dist / plain_dist:.3f} of it (limit {F64_RATIO})", flush=True)
+            if not dist <= F64_RATIO * plain_dist:
+                raise RuntimeError(f"{key}: {dist} from the f64 block, over {F64_RATIO} x the plain version's "
+                                   f"{plain_dist}")
         ms = cuda_ms(torch, lambda: kernel(*args), iters=20)
         plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
         library_ms = cuda_ms(torch, library, iters=20)
         bound_ms, bound_by = bound(flops, nbytes, peak)
-        key = instantiation(name, dtype, f"H {hid}")
+        f32_bound = None if bf16 else bound(flops, nbytes, PEAK_F32_FLOPS)
         print(f"{key}: max_abs_err {err:.6g} (tolerance {tolerance_text(tol, per_row)}"
               f": {over_limit(out, ref, tol, per_row):.3g} of it); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, composition {library_ms:.4f} ms (its err {lib_err:.3g}), "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
-              f"{nbytes / 1e6:.2f} MB), B={b} S={s} H={hid} {str(dtype)[6:]} {card}", flush=True)
+              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s"
+              f"{'' if bf16 else ' 3xTF32'}, {nbytes / 1e6:.2f} MB)"
+              + (f", CUDA-core f32 bound {f32_bound[0]:.4f} ms by {f32_bound[1]}" if f32_bound else "")
+              + f", B={b} S={s} H={hid} {str(dtype)[6:]} {card}", flush=True)
         if not over_limit(out, ref, tol, per_row) <= 1:
             raise RuntimeError(f"{key}: kernel disagrees with its plain version by {err}")
         if name == "fused_layer_block":
@@ -2094,13 +2177,15 @@ def block_rows(torch, card, layer, x, mask, heads: int) -> dict:
                   f"(bit-equal required)")
             if not torch.equal(out, two):
                 raise RuntimeError(f"{key} differs from kernels 1 then 2")
-        if name == "fused_attention_block" and bf16:
+        elif name == "fused_attention_block" or not bf16:
             device_profile(torch, lambda: kernel(*args), f"{key}'s stages at B={b} S={s}", card)
         rows[key] = {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
+        if f32_bound:
+            rows[key].update(status=REDESIGNED_BLOCKS, bound_f32_ms=f32_bound[0])
     return rows
 
 
@@ -2203,6 +2288,80 @@ def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
                 width = f"H {hid}" if k.startswith("fused_") else f"head_dim {hid // 12}"
                 key = instantiation(row, dtype, width)
                 launched[key] = launched.get(key, 0) + counts[k]
+    return launched
+
+
+def f32_encode_phase(torch, card, dev, encoders, tokenizer, instruction: str, docs, queries) -> dict:
+    """One encode batch of the main path's chunks (``docs``: B=128, S=256)
+    and its queries in f32 with tanh GELU through "auto" (resolving to
+    "fused": kernels 1 and 2), "fused_layer" (kernel 3) and "fused_plain"
+    (the plain route, the reference), for each of ``encoders`` (name,
+    f32 params, BertConfig, pooling). Each kernel must launch once a layer
+    and encode; each last hidden state lie within F32_ENCODE_TOL of the
+    plain route's, "fused_layer" equal to "auto" bit for bit; the pooled,
+    L2-normalised embeddings' cosine to the plain route's exceed
+    F32_ENCODE_COS; the queries' top-1 among the batch's chunks equal the
+    plain route's. Prints each route's device time per encode and its
+    kernels' shares. Returns the launches by kernels JSON row."""
+    from dial_rag_tpu_torch.models.bert import bert_forward, pool
+    from dial_rag_tpu_torch.models.bert import resolve_attention_impl
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+
+    batches = [tuple(torch.from_numpy(t).to(dev) for t in tokenizer.encode_batch(texts))
+               for texts in (docs, [instruction + q for q in queries])]
+    routes = {"fused_plain": {}, "auto": {"fused_attention_block": 1, "fused_ffn_block": 1},
+              "fused_layer": {"fused_layer_block": 1}}
+    launched = collections.Counter()
+    for what, params, cfg, pooling in encoders:
+        hid, layers = cfg.hidden_size, cfg.num_layers
+
+        def encode(route, ids, mask):
+            with torch.no_grad():
+                return bert_forward(params, ids.long(), mask, num_heads=cfg.num_heads, compute_dtype=torch.float32,
+                                    gelu="tanh", attention_impl=route)
+
+        if resolve_attention_impl("auto", batches[0][0], "tanh") != "fused":
+            raise RuntimeError("\"auto\" in f32 with tanh GELU does not resolve to \"fused\"")
+        out = {}
+        for route, per_layer in routes.items():
+            fe.reset_launches()
+            hidden = [encode(route, ids, mask) for ids, mask in batches]
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in fe.LAUNCHES.items() if n}
+            want = {k: n * layers * len(batches) for k, n in per_layer.items()}
+            if counts != want:
+                raise RuntimeError(f"f32 encode ({what}, \"{route}\"): launches {counts}, expected {want}")
+            for k, n in counts.items():
+                launched[instantiation(k, torch.float32, f"H {hid}")] += n
+            emb = [pool(h, ids, mask, pooling, params.get("pooling_idf")) for h, (ids, mask) in zip(hidden, batches)]
+            if not all(torch.isfinite(t).all() for t in hidden):
+                raise RuntimeError(f"f32 encode ({what}, \"{route}\"): hidden states are not finite")
+            ms = device_profile(torch, lambda: encode(route, *batches[0]),
+                                f"one f32 tanh-GELU encode ({what}, \"{route}\", B={batches[0][0].shape[0]}, "
+                                f"S={batches[0][0].shape[1]}, {layers} layers)", card)
+            out[route] = (hidden, emb, ms)
+            print(f"f32 encode ({what}, \"{route}\"): launches {counts}; device time {ms:.3f} ms an encode "
+                  f"{card}", flush=True)
+        (ref_hidden, ref_emb, ref_ms) = out["fused_plain"]
+        ref_doc, ref_q = (t.cpu().numpy() for t in ref_emb)
+        for route in ("auto", "fused_layer"):
+            hidden, emb, ms = out[route]
+            err = max((h - r).abs().max().item() for h, r in zip(hidden, ref_hidden))
+            cos = min((e * r).sum(dim=1).min().item() for e, r in zip(emb, ref_emb))
+            doc, q = (t.cpu().numpy() for t in emb)
+            ties = top1_agree(nearest(q, doc), nearest(ref_q, ref_doc), doc, q, f"f32 encode ({what}, {route})")
+            print(f"f32 encode ({what}, \"{route}\") vs \"fused_plain\": hidden states max abs err {err:.4g} "
+                  f"(limit {F32_ENCODE_TOL}); embeddings cosine min {cos:.9f} (limit {F32_ENCODE_COS}); top-1 "
+                  f"of {len(queries)} queries equal ({ties} near-ties); device time {ms:.3f} ms, plain route "
+                  f"{ref_ms:.3f} ms", flush=True)
+            if not (err <= F32_ENCODE_TOL and cos > F32_ENCODE_COS):
+                raise RuntimeError(f"f32 encode ({what}, \"{route}\") disagrees with the plain route")
+        same = all(torch.equal(a, b) for a, b in zip(out["fused_layer"][0], out["auto"][0]))
+        print(f"f32 encode ({what}): \"fused_layer\" = \"auto\" bit for bit: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"f32 encode ({what}): kernel 3 differs from kernels 1 then 2")
+        del out
+        torch.cuda.empty_cache()
     return launched
 
 
@@ -2598,6 +2757,13 @@ def main() -> int:
 
     phase("auto repair")
     launched.update(auto_repair_phase(torch, dev, cfg.vocab_size))
+
+    phase("f32 tanh-GELU encode")
+    launched.update(f32_encode_phase(
+        torch, card, dev,
+        [("bge-small", base.params, cfg, base.encoder.pooling),
+         ("bge-base", prepare_params(base_params, dev, torch.float32), base_cfg, "cls")],
+        base.tokenizer, base.query_instruction, texts[len(oracle) : len(oracle) + b], queries))
 
     phase("bf16 gradient")
     bf16_gradient_phase(torch, base, train_cfg, stream)

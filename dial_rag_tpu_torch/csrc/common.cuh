@@ -1,8 +1,9 @@
 // Helpers shared by the encoder-block and attention kernels (sm_90a): the
-// element-type casts, warp reductions, the tanh GELU, a 16-byte tile copy
-// and the residual + LayerNorm epilogue. The kernels are templates on the
-// element type (float or bf16) and on the widths (H, head_dim); the
-// Python wrappers check that an instantiation exists before launching.
+// element-type casts, warp reductions, the tanh GELU, the residual +
+// LayerNorm epilogue and the encoder blocks' LayerNorm pass. The kernels
+// are templates on the element type (float or bf16) and on the widths (H,
+// head_dim); the Python wrappers check that an instantiation exists before
+// launching.
 #pragma once
 
 #include <cfloat>
@@ -59,24 +60,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));
 }
 
-// Copies a [rows, cols] tile of T (row stride `ld` elements in global
-// memory) into shared memory with row stride `cols`, 16 bytes a thread
-// and a step. Rows at or past `rows_valid` are zero-filled. `cols`, `ld`
-// and the column offset of `src` must be multiples of 16 bytes.
-template <int ROWS, int COLS, int THREADS, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld, int rows_valid) {
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(COLS % kVec == 0, "rows must be whole 16-byte vectors");
-  constexpr int kVecPerRow = COLS / kVec;
-  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += THREADS) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) v = *reinterpret_cast<const uint4*>(src + r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * COLS + c) = v;
-  }
-}
-
 // out[r, :] = T(LN(resid[r, :] + (acc[r, :] + bias))) for the block's
 // rows of width H, one row per warp at a time: the residual sum and the
 // two-pass mean/variance run in f32, as the TPU kernels' _layernorm_f32
@@ -109,5 +92,31 @@ __device__ __forceinline__ void residual_layernorm_rows(
     }
   }
 }
+
+// out = T(LN(x + (y + b))) for rows blockIdx.x * 8 .. + 7 of width H, one
+// warp a row: the encoder blocks' last launch, after their products into
+// y (f32), in bf16 (encoder_tc.cuh) and f32 (encoder_tf32.cuh).
+constexpr int kLnRows = 8;
+
+namespace {
+
+template <int H, typename T>
+__global__ void __launch_bounds__(32 * kLnRows)
+    layernorm_kernel(const float* __restrict__ y, const T* __restrict__ x, const float* __restrict__ b,
+                     const float* __restrict__ gamma, const float* __restrict__ beta, T* __restrict__ out, int m) {
+  const int r0 = blockIdx.x * kLnRows;
+  const size_t at = static_cast<size_t>(r0) * H;
+  residual_layernorm_rows<kLnRows, kLnRows, H>(y + at, x + at, H, b, gamma, beta, out + at, m - r0);
+}
+
+// Launches layernorm_kernel<H, T> over m rows on `st`; returns cudaGetLastError().
+template <int H, typename T>
+cudaError_t launch_layernorm(const float* y, const T* x, const float* b, const float* gamma, const float* beta,
+                             T* out, int m, cudaStream_t st) {
+  layernorm_kernel<H, T><<<(m + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, st>>>(y, x, b, gamma, beta, out, m);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace dial

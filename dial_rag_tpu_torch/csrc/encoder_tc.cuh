@@ -36,7 +36,7 @@ cudaError_t attention_block(const bf16* x, const int32_t* mask, const bf16* wqkv
       qkv, qkv + H, qkv + 2 * H, mask, ctx, tc::Views{packed, packed, packed, rows}, seq, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = gemm::launch_gemm<gemm::kF32>(ctx, wout, nullptr, y, m, H, H, st)) != cudaSuccess) return err;
-  return gemm::launch_layernorm<H>(y, x, bout, gamma, beta, out, m, st);
+  return launch_layernorm<H>(y, x, bout, gamma, beta, out, m, st);
 }
 
 // Kernel 2, out = bf16(LN(x + (f32(h . W2) + b2))) with h = bf16(gelu_tanh(
@@ -49,7 +49,7 @@ cudaError_t ffn_block(const bf16* x, const bf16* w1, const float* b1, const bf16
   cudaError_t err = gemm::launch_gemm<gemm::kGeluBf16>(x, w1, b1, h, rows, inter, H, st);
   if (err != cudaSuccess) return err;
   if ((err = gemm::launch_gemm<gemm::kF32>(h, w2, nullptr, y, rows, H, inter, st)) != cudaSuccess) return err;
-  return gemm::launch_layernorm<H>(y, x, b2, gamma, beta, out, rows, st);
+  return launch_layernorm<H>(y, x, b2, gamma, beta, out, rows, st);
 }
 
 // Kernel 3: a = kernel 1's output (bf16, what the reference rounds a to,

@@ -52,8 +52,8 @@
 // tiles in VMEM (5 MB at S = 512); an H100 block has 227 KB. So two
 // launches:
 //   (i)  dq pass, one block per (32-query tile, head, batch row): rebuild
-//        the tile's P rows exactly as the CUDA-core forward does (same
-//        code, attention_f32.cuh), delta = rowsum(dP * P) over 64-key
+//        the tile's P rows in the reference's order (attention_f32.cuh's
+//        probabilities), delta = rowsum(dP * P) over 64-key
 //        chunks, then a second sweep that recomputes dP, forms cast(scale
 //        * dS) and accumulates dQ. Writes dQ and each row's max,
 //        denominator and delta to an f32 scratch [B, h, S, 3].

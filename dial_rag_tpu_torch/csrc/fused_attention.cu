@@ -18,7 +18,9 @@
 //   H=768, bf16: 116.0 + 12.9 + 12.9 + 38.7 = 180.4 GFLOP -> 0.182 ms;
 //   H=1024, bf16: 206.2 + 17.2 + 17.2 + 68.7 = 309.2 GFLOP -> 0.313 ms;
 //     x in and out 134 MB -> 0.040 ms;
-//   H=384, f32: 51.5 GFLOP -> 0.769 ms at 67 TFLOP/s (CUDA cores).
+//   f32 (split TF32): H=384 51.5 GFLOP -> 0.312 ms at 165 TFLOP/s of
+//     3xTF32, 0.769 ms at 67 TFLOP/s on the CUDA cores; H=768 180.4
+//     GFLOP -> 1.093 / 2.692 ms.
 // So the block is bound by operations.
 //
 // Design. The TPU kernel keeps a batch row's qkv [S, 3H] and each head's
@@ -48,52 +50,17 @@
 // slices, two of them the ring's prologue), the output projection's few
 // column tiles (N = H: 384 blocks at H 384), and the attention's two
 // passes (Q K^T twice).
-// f32 keeps the CUDA-core code of fused_blocks.cuh: (a) and (b) as
-// launch_qkv_attention, then proj_residual_layernorm_kernel for (c) and
-// (d) in one launch, one row per warp.
+// f32 runs the same four stages (encoder_tf32.cuh's attention_block),
+// each product in split TF32 on the tensor cores after a launch that
+// splits its W into hi and lo planes (gemm_tf32.cuh: 128 x 128 tiles on
+// mma.sync m16n8k8, a 4-stage cp.async ring of 32-deep K slices, each
+// slice's products a partial added in f32), and (b) TPU kernel 4's f32
+// kernel (attention_fwd_tf32.cuh) on the packed qkv with the int32 mask:
+// six launches. qkv, ctx and y go through device memory in f32, which
+// rounds nothing (H 768: 2 x 302, 2 x 101 and 2 x 101 MB, 0.30 ms at
+// 3.35 TB/s).
 #include "encoder_tc.cuh"
-#include "fused_blocks.cuh"
-
-namespace dial {
-namespace {
-
-// ---- f32 (c) + (d): out = LN(x + ctx . W_out + b_out) ----------------------
-template <typename T, int H>
-__global__ void __launch_bounds__(kBlockThreads)
-    proj_residual_layernorm_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                                   const float* __restrict__ bias, const T* __restrict__ resid,
-                                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                                   T* __restrict__ out, int m) {
-  constexpr int kRows = Tiles<T, H>::kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int m0 = blockIdx.x * kRows;
-  const float* s_c = proj_tile<T, H>(smem, a, w, m0, m);
-  residual_layernorm_rows<kRows, kBlockThreads / 32, H>(s_c, resid + static_cast<size_t>(m0) * H, H, bias, gamma,
-                                                        beta, out + static_cast<size_t>(m0) * H, m - m0);
-}
-
-template <int H, int DH>
-cudaError_t attention_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
-                                const void* wout, const void* bout, const void* gamma, const void* beta, void* qkv,
-                                void* ctx, void* out, int batch, int seq, int num_heads, float scale,
-                                cudaStream_t st) {
-  constexpr int kRows = Tiles<float, H>::kRows;
-  const int m = batch * seq;
-  cudaError_t err = launch_qkv_attention<H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
-  if (err != cudaSuccess) return err;
-  constexpr size_t smem = proj_bytes<float, H>();
-  err = cudaFuncSetAttribute(proj_residual_layernorm_kernel<float, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  proj_residual_layernorm_kernel<float, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
-      static_cast<const float*>(ctx), static_cast<const float*>(wout), static_cast<const float*>(bout),
-      static_cast<const float*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(out), m);
-  return cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace dial
+#include "encoder_tf32.cuh"
 
 // C entry points, one per dtype. All pointers are device pointers.
 //
@@ -103,8 +70,10 @@ cudaError_t attention_block_f32(const void* x, const void* mask, const void* wqk
 // are f32. (H = num_heads * head_dim, head_dim) is (384, 32), (768, 64)
 // or (1024, 64). Launches the four kernels on `stream`.
 //
-// f32: x, wqkv, wout, qkv, ctx and out are f32, mask int32 [B, S]; (H,
-// head_dim) is (384, 32) or (768, 64). Launches the three kernels.
+// f32: x, wqkv, wout, qkv (scratch [B, S, 3H]), ctx, y (scratch [B, S,
+// H]), planes (scratch, 6 H^2 floats) and out are f32, x 16-byte aligned;
+// mask is int32 [B, S]; bqkv, bout, gamma and beta are f32. (H, head_dim)
+// is (384, 32) or (768, 64). Launches the six kernels on `stream`.
 //
 // Another width is cudaErrorInvalidValue. Each returns the first CUDA
 // error (0 on success).
@@ -125,15 +94,14 @@ extern "C" int dial_attention_block_bf16(const void* x, const void* mask, const 
 
 extern "C" int dial_attention_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                                         const void* wout, const void* bout, const void* gamma, const void* beta,
-                                        void* qkv, void* ctx, void* out, int batch, int seq, int num_heads,
-                                        int head_dim, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hidden = num_heads * head_dim;
-  if (hidden == 384 && head_dim == 32)
-    return static_cast<int>(dial::attention_block_f32<384, 32>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv,
-                                                               ctx, out, batch, seq, num_heads, scale, st));
-  if (hidden == 768 && head_dim == 64)
-    return static_cast<int>(dial::attention_block_f32<768, 64>(x, mask, wqkv, bqkv, wout, bout, gamma, beta, qkv,
-                                                               ctx, out, batch, seq, num_heads, scale, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+                                        void* qkv, void* ctx, void* y, void* planes, void* out, int batch, int seq,
+                                        int num_heads, int head_dim, float scale, void* stream) {
+  return static_cast<int>(dial::enc32::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+    return dial::enc32::attention_block<decltype(hid)::value, decltype(dh)::value>(
+        static_cast<const float*>(x), static_cast<const int32_t*>(mask), static_cast<const float*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const float*>(wout), static_cast<const float*>(bout),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<float*>(qkv),
+        static_cast<float*>(ctx), static_cast<float*>(y), static_cast<float*>(planes), static_cast<float*>(out),
+        batch, seq, scale, static_cast<cudaStream_t>(stream));
+  }));
 }

@@ -14,7 +14,9 @@
 // work plus the FFN's, 128.8 GFLOP at H=384 (0.130 ms at 989 TFLOP/s
 // bf16), 489.6 GFLOP at H=768 (0.495 ms) and 859.0 GFLOP at H=1024 (0.869
 // ms); x in and out only, 0.015 ms at 3.35 TB/s at H=384 bf16: bound by
-// operations.
+// operations. f32, products in split TF32: 0.781 / 2.967 ms at H 384 /
+// 768 at 165 TFLOP/s of 3xTF32 (1.923 / 7.308 at 67 TFLOP/s on the CUDA
+// cores).
 //
 // Design, bf16: the seven launches of kernel 1 then kernel 2
 // (encoder_tc.cuh's layer_block: attention_block, then ffn_block on its
@@ -33,72 +35,14 @@
 // persistent schedule; the attention's two passes; qkv, ctx, y and h
 // through device memory).
 //
-// Design, f32 (CUDA cores): three launches, (a) and (b) of
-// fused_blocks.cuh's launch_qkv_attention, then layer_tail_kernel, one
-// block of 8 warps per tile of rows (Tiles<float, H>): ctx . W_out +
-// b_out, the residual with x and the LayerNorm give a, kept in shared
-// memory; then the FFN tile of fused_blocks.cuh over that tile (W1 + b1,
-// tanh GELU, W2 + b2), the residual with a and the second LayerNorm, and
-// only out is stored. Shared memory: a plus the larger of the
-// out-projection's staging and accumulator image and the FFN's panels:
-// 148 and 145 KB at H 384 and 768 (layer_smem). It runs the device code
-// of kernels 1 and 2 in f32 (fused_attention.cu, fused_ffn.cu).
+// Design, f32: the same composition of encoder_tf32.cuh's sequences
+// (layer_block: kernel 1's six launches into an f32 scratch a, then
+// kernel 2's five on it), every product split TF32 on the tensor cores
+// (gemm_tf32.cuh), the attention TPU kernel 4's f32 kernel; so it too
+// equals kernels 1 then 2 bit for bit. In f32 a's round trip rounds
+// nothing and costs 2 x 101 MB at H 768, B=128, S=256: 0.06 ms.
 #include "encoder_tc.cuh"
-#include "fused_blocks.cuh"
-
-namespace dial {
-namespace {
-
-template <typename T, int H>
-__global__ void __launch_bounds__(kBlockThreads)
-    layer_tail_kernel(const T* __restrict__ ctx, const T* __restrict__ wout, const float* __restrict__ bout,
-                      const T* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ beta1,
-                      const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2,
-                      const float* __restrict__ b2, const float* __restrict__ g2, const float* __restrict__ beta2,
-                      T* __restrict__ out, int m, int inter) {
-  constexpr int kRows = Tiles<T, H>::kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* s_a = reinterpret_cast<T*>(smem);  // a: never leaves the block
-  unsigned char* work = smem + x_bytes<T, H>();
-  const int m0 = blockIdx.x * kRows;
-  const int rows = min(kRows, m - m0);
-
-  const float* s_c = proj_tile<T, H>(work, ctx, wout, m0, m);
-  residual_layernorm_rows<kRows, kBlockThreads / 32, H>(s_c, x + static_cast<size_t>(m0) * H, H, bout, g1, beta1,
-                                                        s_a, rows);
-  // rows past B*S are zero, so the FFN reads no uninitialised memory
-  for (int i = rows * H + threadIdx.x; i < kRows * H; i += kBlockThreads) s_a[i] = from_f32<T>(0.f);
-  __syncthreads();  // a complete, and the image in `work` read, before the FFN reuses it
-
-  s_c = ffn_tile<T, H>(s_a, work, w1, b1, w2, inter);
-  residual_layernorm_rows<kRows, kBlockThreads / 32, H>(s_c, s_a, H, b2, g2, beta2,
-                                                        out + static_cast<size_t>(m0) * H, rows);
-}
-
-template <int H, int DH>
-cudaError_t layer_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv, const void* wout,
-                            const void* bout, const void* g1, const void* beta1, const void* w1, const void* b1,
-                            const void* w2, const void* b2, const void* g2, const void* beta2, void* qkv, void* ctx,
-                            void* out, int batch, int seq, int num_heads, int inter, float scale, cudaStream_t st) {
-  constexpr int kRows = Tiles<float, H>::kRows;
-  const int m = batch * seq;
-  cudaError_t err = launch_qkv_attention<H, DH>(x, mask, wqkv, bqkv, qkv, ctx, batch, seq, num_heads, scale, st);
-  if (err != cudaSuccess) return err;
-  constexpr size_t smem = layer_smem<float, H>();
-  err = cudaFuncSetAttribute(layer_tail_kernel<float, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  layer_tail_kernel<float, H><<<(m + kRows - 1) / kRows, kBlockThreads, smem, st>>>(
-      static_cast<const float*>(ctx), static_cast<const float*>(wout), static_cast<const float*>(bout),
-      static_cast<const float*>(x), static_cast<const float*>(g1), static_cast<const float*>(beta1),
-      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(g2), static_cast<const float*>(beta2),
-      static_cast<float*>(out), m, inter);
-  return cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace dial
+#include "encoder_tf32.cuh"
 
 // C entry points, one per dtype. All pointers are device pointers; wqkv
 // is [H, 3H], wout [H, H], w1 [H, I], w2 [I, H]; bqkv, bout, g1, beta1,
@@ -110,9 +54,11 @@ cudaError_t layer_block_f32(const void* x, const void* mask, const void* wqkv, c
 // num_heads * head_dim, head_dim) is (384, 32), (768, 64) or (1024, 64)
 // and I a multiple of 128. Launches the seven kernels on `stream`.
 //
-// f32: x, the matrices, qkv, ctx and out are f32, mask int32 [B, S]; (H,
-// head_dim) is (384, 32) or (768, 64) and I a multiple of 64. Launches
-// the three kernels.
+// f32: x, the matrices, qkv, ctx, y, a, h (the bf16 entry's scratch
+// shapes), planes (scratch, 2 H max(3H, I) floats) and out are f32, x
+// 16-byte aligned; mask is int32 [B, S]. (H, head_dim) is (384, 32) or
+// (768, 64) and I a multiple of 128. Launches the eleven kernels on
+// `stream`.
 //
 // Anything else is cudaErrorInvalidValue. Each returns the first CUDA
 // error (0 on success).
@@ -139,18 +85,19 @@ extern "C" int dial_layer_block_bf16(const void* x, const void* mask, const void
 extern "C" int dial_layer_block_f32(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                                     const void* wout, const void* bout, const void* g1, const void* beta1,
                                     const void* w1, const void* b1, const void* w2, const void* b2, const void* g2,
-                                    const void* beta2, void* qkv, void* ctx, void* out, int batch, int seq,
-                                    int num_heads, int head_dim, int inter, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hidden = num_heads * head_dim;
-  if (inter % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (hidden == 384 && head_dim == 32)
-    return static_cast<int>(dial::layer_block_f32<384, 32>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2,
-                                                           b2, g2, beta2, qkv, ctx, out, batch, seq, num_heads,
-                                                           inter, scale, st));
-  if (hidden == 768 && head_dim == 64)
-    return static_cast<int>(dial::layer_block_f32<768, 64>(x, mask, wqkv, bqkv, wout, bout, g1, beta1, w1, b1, w2,
-                                                           b2, g2, beta2, qkv, ctx, out, batch, seq, num_heads,
-                                                           inter, scale, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+                                    const void* beta2, void* qkv, void* ctx, void* y, void* a, void* h, void* planes,
+                                    void* out, int batch, int seq, int num_heads, int head_dim, int inter,
+                                    float scale, void* stream) {
+  if (inter % dial::gemm32::kBN) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dial::enc32::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+    return dial::enc32::layer_block<decltype(hid)::value, decltype(dh)::value>(
+        static_cast<const float*>(x), static_cast<const int32_t*>(mask), static_cast<const float*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const float*>(wout), static_cast<const float*>(bout),
+        static_cast<const float*>(g1), static_cast<const float*>(beta1), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2), static_cast<const float*>(b2),
+        static_cast<const float*>(g2), static_cast<const float*>(beta2), static_cast<float*>(qkv),
+        static_cast<float*>(ctx), static_cast<float*>(y), static_cast<float*>(a), static_cast<float*>(h),
+        static_cast<float*>(planes), static_cast<float*>(out), batch, seq, inter, scale,
+        static_cast<cudaStream_t>(stream));
+  }));
 }

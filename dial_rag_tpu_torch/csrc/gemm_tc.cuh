@@ -1,6 +1,6 @@
 // The bf16 products of the encoder blocks on Hopper's tensor cores
-// (sm_90a), and the residual + LayerNorm pass that follows them; shared by
-// ffn_tc.cu, fused_attention.cu and fused_layer.cu through encoder_tc.cuh.
+// (sm_90a); shared by ffn_tc.cu, fused_attention.cu and fused_layer.cu
+// through encoder_tc.cuh.
 //
 // gemm_kernel<E>: out [m, n] = a [m, k] . w [k, n] with f32 accumulation,
 // then one epilogue:
@@ -8,8 +8,8 @@
 //   kGeluBf16  bf16(gelu_tanh(. + bias))   the FFN's up product (kernel 2);
 //   kF32       the f32 product itself      kernel 1's output projection
 //                                          and the FFN's down product.
-// layernorm_kernel<H>: out = bf16(LN(x + (y + b))) over rows of width H,
-// one warp a row (residual_layernorm_rows, eps 1e-12, f32).
+// The residual + LayerNorm pass that follows them is common.cuh's
+// layernorm_kernel (one warp a row, eps 1e-12, f32).
 //
 // Each product: 256 x 128 output tiles, a block of 4 warpgroups each
 // owning 64 rows of it, on wgmma m64n128k16 (bf16 in, f32 accumulators in
@@ -54,7 +54,6 @@ constexpr int kStageElems = kTileA + kTileB;
 // the ring, plus up to 1023 bytes to align it to a 1024-byte swizzle atom
 constexpr int kSmemBytes = kStages * kStageElems * static_cast<int>(sizeof(bf16)) + 1024;
 constexpr int kOutLd = kBN + 8;  // the staged bf16 output tile's padded row: 272 bytes
-constexpr int kLnRows = 8;       // layernorm_kernel: one warp a row
 static_assert(kSmemBytes <= 232448, "the ring must fit a block's shared memory");
 static_assert(kBM * kOutLd <= kStages * kStageElems, "the output tile is staged in the ring");
 
@@ -186,18 +185,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// out = bf16(LN(x + (y + b))) for rows blockIdx.x * 8 .. + 7, one warp a
-// row, in the fused blocks' epilogue arithmetic.
-template <int H>
-__global__ void __launch_bounds__(32 * kLnRows)
-    layernorm_kernel(const float* __restrict__ y, const bf16* __restrict__ x, const float* __restrict__ b,
-                     const float* __restrict__ gamma, const float* __restrict__ beta, bf16* __restrict__ out,
-                     int m) {
-  const int r0 = blockIdx.x * kLnRows;
-  const size_t at = static_cast<size_t>(r0) * H;
-  residual_layernorm_rows<kLnRows, kLnRows, H>(y + at, x + at, H, b, gamma, beta, out + at, m - r0);
-}
-
 // Launches gemm_kernel<E> over out [m, n] on `st`; returns the first CUDA error.
 template <Epilogue E>
 cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias, void* out, int m, int n, int k,
@@ -206,14 +193,6 @@ cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias, void* o
       cudaFuncSetAttribute(gemm_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   gemm_kernel<E><<<dim3(n / kBN, (m + kBM - 1) / kBM), kThreads, kSmemBytes, st>>>(a, w, bias, out, m, n, k);
-  return cudaGetLastError();
-}
-
-// Launches layernorm_kernel<H> over m rows on `st`; returns cudaGetLastError().
-template <int H>
-cudaError_t launch_layernorm(const float* y, const bf16* x, const float* b, const float* gamma, const float* beta,
-                             bf16* out, int m, cudaStream_t st) {
-  layernorm_kernel<H><<<(m + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, st>>>(y, x, b, gamma, beta, out, m);
   return cudaGetLastError();
 }
 

@@ -35,13 +35,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fused_attention": {
         "dial_attention_block_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
-        "dial_attention_block_f32": [_P] * 11 + [_I] * 4 + [_F, _P],
+        "dial_attention_block_f32": [_P] * 13 + [_I] * 4 + [_F, _P],
     },
-    "fused_ffn": {"dial_ffn_block_f32": [_P] * 8 + [_I, _I, _I, _P]},
+    "fused_ffn": {
+        "dial_ffn_block_f32": [_P] * 11 + [_I, _I, _I, _P],
+        "dial_gemm_tf32": [_P] * 5 + [_I] * 4 + [_P],
+    },
     "ffn_tc": {"dial_ffn_block_bf16": [_P] * 10 + [_I, _I, _I, _P]},
     "fused_layer": {
         "dial_layer_block_bf16": [_P] * 20 + [_I] * 5 + [_F, _P],
-        "dial_layer_block_f32": [_P] * 17 + [_I] * 5 + [_F, _P],
+        "dial_layer_block_f32": [_P] * 21 + [_I] * 5 + [_F, _P],
     },
     "flash_attention_fwd": {
         "dial_attention_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _P],

@@ -5,15 +5,16 @@
 - ``fused_ffn_block``: ``LN(x + W2.T(gelu_tanh(W1.x + b1)) + b2)``,
   T the compute type (x's dtype);
 - ``fused_layer_block``: the two in one layer, ``a`` (the post-attention
-  state) cast to the compute type between them (kept on chip in f32; in
-  bf16 kernels 1 then 2 in one call).
+  state) cast to the compute type between them (kernels 1 then 2 in one
+  call).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/fused_attention.cu``, ``csrc/fused_ffn.cu`` in f32 and
 ``csrc/ffn_tc.cu`` in bf16, ``csrc/fused_layer.cu``) or raises; it never
-falls back. In bf16 the three run on the tensor cores as launch sequences
-of ``wgmma`` products, the tensor-core attention and a LayerNorm pass
-(``csrc/encoder_tc.cuh``); in f32 on the CUDA cores. The kernels are
+falls back. The three run on the tensor cores as launch sequences of
+products, the single-tile attention and a LayerNorm pass: in bf16 the
+products on ``wgmma`` (``csrc/encoder_tc.cuh``), in f32 in split TF32 on
+``mma.sync`` (``csrc/encoder_tf32.cuh``). The kernels are
 instantiated for ``KERNEL_INSTANTIATIONS``: f32 at (H 384, head_dim 32)
 and (H 768, head_dim 64) (bge-small and bge-base widths), bf16 also at
 (H 1024, head_dim 64) (bge-large's); ``kernel_supports`` is the predicate
@@ -42,8 +43,7 @@ import torch
 LAYERNORM_EPS = 1e-12
 # (hidden, head_dim) the CUDA kernels are instantiated for, per dtype: the
 # bge-small and bge-base widths (12 heads of 32 and of 64) in both, and in
-# bf16 bge-large's (16 heads of 64); the FFN width is any multiple of 64
-# (of 128 in bf16)
+# bf16 bge-large's (16 heads of 64); the FFN width is any multiple of 128
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL_WIDTHS = {
     torch.float32: ((384, 32), (768, 64)),
@@ -186,20 +186,31 @@ def _check_aligned(what, **tensors):
             raise ValueError(f"{what} reads {name} by 16-byte copies, got it at {t.data_ptr()}")
 
 
+def _planes(x, k: int, n: int) -> list:
+    """The f32 products' scratch for W's split TF32 planes (hi and lo of
+    each weight of the largest [k, n] product); none in bf16."""
+    if x.dtype == torch.bfloat16:
+        return []
+    return [torch.empty(2 * k * n, dtype=torch.float32, device=x.device)]
+
+
 def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, num_heads):
-    """f32: the three CUDA-core launches of ``csrc/fused_attention.cu``.
-    bf16: its four tensor-core launches (the QKV product into qkv [B*S,
-    3H] bf16, the attention into ctx [B*S, H] bf16, the output product
-    into y [B*S, H] f32, the residual + LayerNorm), which read x, W_qkv
-    and W_out by 16-byte copies. Counted once either way."""
+    """The tensor-core launches of ``csrc/fused_attention.cu``: the QKV
+    product into qkv [B*S, 3H], the attention into ctx [B*S, H] (both in
+    x's dtype), the output product into y [B*S, H] f32, the residual +
+    LayerNorm; in f32 each product after a launch that splits its W into
+    the planes. They read x (and in bf16 W_qkv and W_out) by 16-byte
+    copies. Counted once."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
     mask, dh = _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout, g, beta)
-    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x)]
     if x.dtype == torch.bfloat16:
         _check_aligned("the bf16 attention block", x=x, wqkv=wqkv, wout=wout)
-        scratch.append(torch.empty((b, s, hid), dtype=torch.float32, device=x.device))
+    else:
+        _check_aligned("the f32 attention block", x=x)
+    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x),
+               torch.empty((b, s, hid), dtype=torch.float32, device=x.device), *_planes(x, hid, 3 * hid)]
     out = torch.empty_like(x)
     lib = build_kernels().libs["fused_attention"]
     with torch.cuda.device(x.device):
@@ -234,9 +245,8 @@ def _check_attention_inputs(x, attention_mask, num_heads, wqkv, bqkv, wout, bout
 
 def _check_ffn_weights(x, w1, b1, w2, b2, g, beta):
     hid, inter = x.shape[2], w1.shape[1]
-    step = 128 if x.dtype == torch.bfloat16 else 64
-    if inter % step:
-        raise ValueError(f"the FFN kernel takes an intermediate width % {step} == 0 in {x.dtype}, got {inter}")
+    if inter % 128:
+        raise ValueError(f"the FFN kernel takes an intermediate width % 128 == 0, got {inter}")
     _check_cuda("w1", w1, x.dtype, (hid, inter))
     _check_cuda("w2", w2, x.dtype, (inter, hid))
     _check_cuda("b1", b1, torch.float32, (inter,))
@@ -246,28 +256,28 @@ def _check_ffn_weights(x, w1, b1, w2, b2, g, beta):
 
 
 def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
-    """f32: one launch of ``csrc/fused_ffn.cu``. bf16: the three launches
-    of ``csrc/ffn_tc.cu`` (the up product into h [B*S, I] bf16, the down
-    product into y [B*S, H] f32, the residual + LayerNorm), which read x,
-    W1 and W2 by 16-byte copies. Counted once either way."""
+    """The tensor-core launches of ``csrc/ffn_tc.cu`` (bf16) or
+    ``csrc/fused_ffn.cu`` (f32): the up product into h [B*S, I] in x's
+    dtype, the down product into y [B*S, H] f32, the residual +
+    LayerNorm; in f32 each product after a launch that splits its W into
+    the planes. They read x (and in bf16 W1 and W2) by 16-byte copies.
+    Counted once."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     _check_kernel_x(x)
     b, s, hid = x.shape
     inter = _check_ffn_weights(x, w1, b1, w2, b2, g, beta)
-    out = torch.empty_like(x)
-    vectors = (b2.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr())
     if x.dtype == torch.bfloat16:
         _check_aligned("the bf16 FFN kernel", x=x, w1=w1, w2=w2)
-        h = torch.empty((b * s, inter), dtype=x.dtype, device=x.device)
-        y = torch.empty((b * s, hid), dtype=torch.float32, device=x.device)
         entry = build_kernels().libs["ffn_tc"].dial_ffn_block_bf16
-        scratch = (h.data_ptr(), y.data_ptr())
     else:
+        _check_aligned("the f32 FFN kernel", x=x)
         entry = build_kernels().libs["fused_ffn"].dial_ffn_block_f32
-        scratch = ()
+    out = torch.empty_like(x)
+    scratch = [torch.empty((b * s, inter), dtype=x.dtype, device=x.device),
+               torch.empty((b * s, hid), dtype=torch.float32, device=x.device), *_planes(x, hid, inter)]
     with torch.cuda.device(x.device):
-        err = entry(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), *vectors, *scratch,
+        err = entry(*(t.data_ptr() for t in (x, w1, b1, w2, b2, g, beta, out, *scratch)),
                     b * s, hid, inter, _stream(x))
     _raise_on(err, "fused_ffn_block")
     LAUNCHES["fused_ffn_block"] += 1
@@ -275,21 +285,22 @@ def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
 
 
 def _layer_block_kernel(x, attention_mask, weights, num_heads):
-    """f32: the three CUDA-core launches of ``csrc/fused_layer.cu``. bf16:
-    kernel 1's four launches into a [B*S, H] bf16 scratch, then kernel 2's
-    three on it (scratch qkv, ctx, y, a and h as in those wrappers). Counted
-    once either way."""
+    """The launches of ``csrc/fused_layer.cu``: kernel 1's into a [B*S, H]
+    scratch a in x's dtype, then kernel 2's on it (scratch qkv, ctx, y, h
+    and, in f32, the planes as in those wrappers). Counted once."""
     from dial_rag_tpu_torch.ops._build import build_kernels
 
     b, s, hid = x.shape
     mask, dh = _check_attention_inputs(x, attention_mask, num_heads, *weights[:6])
     inter = _check_ffn_weights(x, *weights[6:])
-    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x)]
     if x.dtype == torch.bfloat16:
         wqkv, _, wout, _, _, _, w1, _, w2, _, _, _ = weights
         _check_aligned("the bf16 layer", x=x, wqkv=wqkv, wout=wout, w1=w1, w2=w2)
-        scratch += [torch.empty((b, s, hid), dtype=torch.float32, device=x.device), torch.empty_like(x),
-                    torch.empty((b, s, inter), dtype=x.dtype, device=x.device)]
+    else:
+        _check_aligned("the f32 layer", x=x)
+    scratch = [torch.empty((b, s, 3 * hid), dtype=x.dtype, device=x.device), torch.empty_like(x),
+               torch.empty((b, s, hid), dtype=torch.float32, device=x.device), torch.empty_like(x),
+               torch.empty((b, s, inter), dtype=x.dtype, device=x.device), *_planes(x, hid, max(3 * hid, inter))]
     out = torch.empty_like(x)
     lib = build_kernels().libs["fused_layer"]
     with torch.cuda.device(x.device):

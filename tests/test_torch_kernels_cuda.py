@@ -791,3 +791,61 @@ def test_fused_block_gradients_on_card(cuda_device):
         assert torch.isfinite(a).all()
         cos = torch.nn.functional.cosine_similarity(a.flatten().double(), w.flatten().double(), dim=0)
         assert cos.item() > 0.9999
+
+
+def _tf32_product(a, w, bias, epilogue, rows):
+    """The split-TF32 product of the f32 blocks on its own (``csrc/
+    fused_ffn.cu``'s ``dial_gemm_tf32``): rows 0 .. rows - 1 of a . w
+    through ``epilogue`` (0 GELU of + bias, 1 the product, 2 + bias) into
+    an output whose other rows stay NaN."""
+    from dial_rag_tpu_torch.ops._build import build_kernels
+
+    k, n = w.shape
+    out = torch.full((a.shape[0], n), float("nan"), device=a.device)
+    planes = torch.empty(2 * k * n, device=a.device)
+    err = build_kernels().libs["fused_ffn"].dial_gemm_tf32(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), planes.data_ptr(), rows, n, k, epilogue,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(384, 1152), (1536, 384), (3072, 768)])
+def test_f32_product_against_f64_on_card(cuda_device, k, n):
+    """The f32 blocks' split-TF32 product at the QKV (K = 384), the FFN's
+    down product at bge-small (1536) and bge-base (3072) widths, on m =
+    1000 rows (not a multiple of its 128-row tile; the rows past m are
+    never written): no farther from the product in f64 than 1.5 times the
+    f32 product of cuBLAS (TF32 off) is, its bias and GELU epilogues too."""
+    g = torch.Generator().manual_seed(k)
+    m = 1000
+    a = torch.randn(m + 24, k, generator=g)
+    if k > 768:  # the FFN's h: GELU outputs
+        a = torch.nn.functional.gelu(a, approximate="tanh")
+    a, w = a.to(cuda_device), (torch.randn(k, n, generator=g) * 0.02).to(cuda_device)
+    bias = (torch.randn(n, generator=g) * 0.02).to(cuda_device)
+    def epilogues(product, b):
+        return {1: product, 2: product + b, 0: torch.nn.functional.gelu(product + b, approximate="tanh")}
+
+    exact = epilogues(a[:m].double() @ w.double(), bias.double())
+    plain = epilogues(a[:m] @ w, bias)
+    for epilogue, want in exact.items():
+        out = _tf32_product(a, w, bias, epilogue, m)
+        assert torch.isnan(out[m:]).all() and torch.isfinite(out[:m]).all()
+        err = (out[:m].double() - want).abs().max().item()
+        plain_err = (plain[epilogue].double() - want).abs().max().item()
+        assert err <= 1.5 * plain_err, (epilogue, err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,inter", [(384, 12, 1536), (768, 12, 3072)])
+def test_f32_blocks_are_reproducible(cuda_device, hid, heads, inter):
+    """f32 kernels 1, 2 and 3 give the same bits twice (no atomics: every
+    product sums K in one order), at a serving bucket, B=16 S=256."""
+    x, mask, weights = _block_inputs(cuda_device, 16, 256, torch.float32, hid, inter, seed=8)
+    for run in (lambda: tfe.fused_attention_block(x, mask, *weights[:6], heads),
+                lambda: tfe.fused_ffn_block(x, *weights[6:]),
+                lambda: tfe.fused_layer_block(x, mask, weights, heads)):
+        assert torch.equal(run(), run())
