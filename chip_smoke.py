@@ -17,9 +17,8 @@ Phases, each announced by a ``[phase]`` line:
    (QKV projection, attention, output projection, LayerNorm); in f32
    (split-TF32 products) each block also read against the block
    evaluated in f64 (at most 1.5 times the plain version's distance) and
-   kernels 1 and 2 profiled by stage; the bf16
-   kernels 1-3 also at bge-large's H=1024 (16 heads of 64) on a seeded
-   layer;
+   kernels 1 and 2 profiled by stage; kernels 1-3 in bf16 and f32 also at
+   bge-large's H=1024 (16 heads of 64) on a seeded layer;
 4. main path: ``BgeEmbedder`` (bf16, ``checkpoints/alps-semantic``) embeds
    2048 chunks into a ``SemanticRetriever`` and answers queries; a seeded
    1M x 384 f32 ``DenseIndex`` answers ``find_batch``. The kernels' launch
@@ -33,16 +32,18 @@ Phases, each announced by a ``[phase]`` line:
    "fused_layer_plain" routes and its top-1 with the plain route;
 5. attention kernels: the single-tile attention forward (packed qkv
    and head-major: in f32 one strided split-TF32 tensor-core kernel, in
-   bf16 the tensor-core forward) and its recompute-P backward (in f32
-   one split-TF32 launch a (head, batch row) up to S = 128, in bf16 two
-   CUDA-core passes) against their plain versions in each instantiation
-   (f32 and bf16, 12 heads of 32 and of 64), ragged S and a fully masked
-   row, at fixed shapes, at S = 520, at the longest S their shared memory
-   takes, past it (S = 1700, and every f32 S past 128 for the backward:
-   the query-blocked kernels' code, as the launch counters must show) and
-   at every (B, S) the training and f32 serve phases give them; the f32
-   single-tile backward also timed against the query-blocked backward's
-   code at [32, 12, 128 and 64, Dh]; the bf16 tensor-core forward at S = 64 to 4096
+   bf16 the tensor-core forward) and its recompute-P backward (one launch
+   a (head, batch row) up to S = 128: in f32 of split-TF32 products, in
+   bf16 of bf16 tensor-core products) against their plain versions in each
+   instantiation (f32 and bf16, 12 heads of 32 and of 64), ragged S and a
+   fully masked row, at fixed shapes, at S = 520, at the longest S their
+   shared memory takes, past it (S = 1700, and every S past 128 for the
+   backward: the query-blocked kernels' code, as the launch counters must
+   show) and at every (B, S) the training and f32 serve phases give them;
+   the single-tile backward in each dtype also timed against the
+   query-blocked backward's code at [32, 12, 128 and 64, Dh]
+   (``backward_designs``, both gated and run twice for the same bits);
+   the bf16 tensor-core forward at S = 64 to 4096
    and the bf16 KV-blocked tensor-core forward (kernel 7) at S = 4608 and
    8192 (log-sum-exp too), at both head widths. Each timed beside its
    bound, the plain version
@@ -50,8 +51,8 @@ Phases, each announced by a ``[phase]`` line:
    auto repair: "auto" on a seeded 1-layer encoder at H=384 and 768
    where the port once raised, (f32, tanh GELU) through kernels 1-2 (and
    "fused_layer", kernel 3), (bf16, exact) through kernels 4 and 8, bf16
-   and f32 at S = 520 through kernels 5 and 8 (the f32 backward past S =
-   128 on kernel 9's code), and at S = 1700, past the
+   and f32 at S = 520 through kernel 5 and kernel 8's route (past S = 128
+   kernel 9's code), and at S = 1700, past the
    single-tile kernels' shared memory, through the query-blocked codes,
    each against the plain route;
    f32 tanh-GELU encode: one encode batch of the main path's chunks
@@ -66,6 +67,15 @@ Phases, each announced by a ``[phase]`` line:
    (the fused block kernels, recompute backward) against the
    "fused_plain" route: the whole gradient's cosine > 0.9999, and each
    tensor at least as close as the plain "xla" route is;
+   bf16 short-context gradient: one bf16 ``contrastive_loss`` backward of
+   the training phase's first batch (B = 32, S = 64) at bge-small widths
+   (the checkpoint) and at bge-base widths (the seeded encoder) through
+   "pallas" (kernel 4 forward, kernel 8 backward, both in bf16), the
+   "pallas_plain" route in bf16 and the "pallas" route in f32: the two
+   counters layers x 2 encodes and no blocked backward, the kernel route's
+   1 - cos to the f32 gradient at most BF16_NOISE_RATIO times the plain
+   route's; prints the losses, the kernel route's cosine to the plain one
+   and a device profile of one backward with kernel 8's share;
 6. training: ``train()`` fine-tunes ``checkpoints/alps-semantic`` in f32
    at full width and depth for 20 steps of 32 (question, fact) pairs from
    ``eval/data/alps_handmade_questions.json``, no batch holding one fact
@@ -334,13 +344,14 @@ def kernel_resources(build) -> None:
     """Prints the registers, spill and static shared memory a thread block
     of the bf16 KV-blocked forward, the bf16 blocked backwards' passes
     (query-blocked and KV-blocked), the bf16 and the f32 split-TF32
-    products of kernels 1-3 (and the split of W), the LayerNorm pass and
-    the split-TF32 kernels 4 (with 5), 6, 7, 8, 9, 10 and 11 in f32 takes, from
+    products of kernels 1-3 (and the split of W), the LayerNorm pass,
+    the split-TF32 kernels 4 (with 5), 6, 7, 8, 9, 10 and 11 in f32 and
+    the bf16 single-tile backward (kernel 8) takes, from
     ``-Xptxas -v``, and the dynamic shared memory it is launched with (the
     products': gemm_tc.cuh's kSmemBytes, GEMM_TC_SMEM; the blocked
     split-TF32 kernels': ``tf32_smem``; the single-tile ones' at the main
     path's S, as their libraries report it: the forward's at 256, the
-    backward's at 64 and 128)."""
+    backwards' at 64 and 128)."""
 
     def width(line: str) -> str:  # the int template argument of a mangled name
         return re.search(r"ILi(\d+)E", line).group(1)
@@ -400,6 +411,13 @@ def kernel_resources(build) -> None:
              f"{library_smem(build, 'flash_attention_bwd', 'dial_attention_bwd_smem_bytes_f32', dh, 128)}",
              lambda line: f"single-tile f32 backward (3xTF32), head_dim {width(line)}, 256 threads at S = 128"),
         )
+        for keys in (64, 128):  # the bf16 single-tile backward's two instantiations (padded S)
+            kernels += (
+                ("flash_attention_bwd", (f"single_tile_bwd_tc_kernelILi{dh}ELi{keys // 8}E",),
+                 library_smem(build, "flash_attention_bwd", "dial_attention_bwd_smem_bytes_bf16", dh, keys),
+                 lambda line, keys=keys: f"single-tile bf16 backward (TC), head_dim {width(line)}, "
+                                         f"{2 * keys} threads, S <= {keys}"),
+            )
     for stem, names, dynamic, label in kernels:
         lines = build.ptxas[stem]
         for i, line in enumerate(lines):
@@ -435,12 +453,18 @@ def device_events(torch, fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
 
 
-def device_profile(torch, fn, what: str, card: str, top: int = 8) -> float:
+def device_profile(torch, fn, what: str, card: str, top: int = 8, share_of: str | None = None) -> float:
     """Runs ``fn`` once under ``torch.profiler`` and prints its device
-    time and the ``top`` kernels by device time; returns the total in ms."""
+    time (with ``share_of``, also that of the kernels named like it and
+    their share) and the ``top`` kernels by device time; returns the total
+    in ms."""
     events = device_events(torch, fn)
     total_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profile of {what}: device time {total_ms:.3f} ms {card}")
+    share = ""
+    if share_of is not None:
+        ms = sum(e.self_device_time_total for e in events if share_of in e.key) / 1e3
+        share = f", {share_of}* kernels {ms:.3f} ms, {100 * ms / total_ms if total_ms > 0 else 0.0:.1f}%"
+    print(f"profile of {what}: device time {total_ms:.3f} ms{share} {card}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         # the port's kernels by their own names: gemm_kernel<(Epilogue)2> is
         # the QKV product, 0 the FFN's up product, 1 the products into f32
@@ -772,39 +796,53 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
         10 * b * heads * s * s * dh, 7 * head_bytes + b * s * 4,
         "dial_rag_tpu/ops/flash_attention.py:313", "dial_rag_tpu_torch/csrc/flash_attention_bwd.cu",
         f"q, k, v, dO [{b},{heads},{s},{dh}]",
-        device_kernel="attention_bwd_d" if bf16 else "single_tile_bwd_tf32")
-    if not bf16:
-        backward_designs(torch, dev, card, heads, dh)
+        device_kernel="single_tile_bwd_tc" if bf16 else "single_tile_bwd_tf32")
+    backward_designs(torch, dev, card, heads, dh, dtype)
     return rows
 
 
-def backward_designs(torch, dev, card, heads: int, dh: int) -> None:
-    """The two split-TF32 designs for the f32 single-tile backward, timed
-    by device time at [32, heads, S, dh] for S = 128 (kernel 8's row) and
-    64 (the training phases'): (a) the one-launch kernel (a whole [S, S]
-    tile a block, what the wrapper takes up to S = 128) and (b) two passes
-    by query and key tiles, the query-blocked backward's split-TF32 code
-    (what it takes past that). Both are gated against the plain version."""
+def backward_designs(torch, dev, card, heads: int, dh: int, dtype) -> None:
+    """The two designs for the single-tile backward in ``dtype``, timed by
+    device time at [32, heads, S, dh] for S = 128 (kernel 8's row) and 64
+    (the training phases'): (a) the one-launch kernel (a whole [S, S] tile
+    a block, what the wrapper takes up to S = 128) and (b) two passes by
+    query and key tiles, the query-blocked backward's code (what it takes
+    past that): in f32 both on split-TF32 products, in bf16 both on the
+    bf16 tensor cores. Both are gated against the plain version (f32:
+    GRAD_ATOL and GRAD_RTOL; bf16: BF16_GRAD_REL of each batch row's
+    largest plain gradient) and must give the same bits twice."""
     from dial_rag_tpu_torch.ops import flash_attention as fa
 
+    kind = str(dtype)[6:]
     for s in (128, 64):
-        qkv, mask, cot = attention_inputs(torch, dev, 32, s, heads, dh, seed=3 + s)
+        qkv, mask, cot = attention_inputs(torch, dev, 32, s, heads, dh, seed=3 + s, dtype=dtype)
         q, k, v = (t.contiguous() for t in fa._split_heads(qkv, heads))
-        do = cot.view(32, s, heads, dh).transpose(1, 2).contiguous()
+        do = cot.view(32, s, heads, dh).transpose(1, 2).contiguous().to(dtype)
         want = fa.attention_backward_plain(q, k, v, do, mask)
         times = {}
-        for design, kernel, match in (("(a) one launch", fa._backward_kernel, "single_tile_bwd_tf32"),
-                                      ("(b) two passes", fa._bwd_q_blocked_kernel, "_tf32_kernel")):
+        for design, kernel, match in (
+            ("(a) one launch", fa._backward_kernel, "single_tile_bwd_t"),
+            ("(b) two passes", fa._bwd_q_blocked_kernel, "_tc_kernel" if dtype == torch.bfloat16 else "_tf32_kernel"),
+        ):
             got = [torch.empty_like(t) for t in (q, k, v)]
             kernel(q, k, v, do, *got, mask)
+            again = [torch.empty_like(t) for t in (q, k, v)]
+            kernel(q, k, v, do, *again, mask)
             torch.cuda.synchronize()
-            for a, w in zip(got, want):
-                excess = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
-                if not excess <= GRAD_ATOL:
-                    raise RuntimeError(f"f32 backward {design} at S={s}, head_dim {dh}: off the plain version by "
-                                       f"{excess} past rtol")
+            for a, w, a2 in zip(got, want, again):
+                a, w = a.float(), w.float()
+                if dtype == torch.bfloat16:
+                    worst = max(((a[r] - w[r]).abs().max() / w[r].abs().max().clamp_min(1e-30)).item()
+                                for r in range(a.shape[0]))
+                    ok = worst <= BF16_GRAD_REL
+                else:
+                    worst = ((a - w).abs() - GRAD_RTOL * w.abs()).max().item()
+                    ok = worst <= GRAD_ATOL
+                if not (ok and torch.equal(a, a2.float())):
+                    raise RuntimeError(f"{kind} backward {design} at S={s}, head_dim {dh}: off the plain version "
+                                       f"by {worst}, or two calls differ")
             times[design] = kernel_device_ms(torch, lambda: kernel(q, k, v, do, *got, mask), match)
-        print(f"f32 single-tile backward designs at [32, {heads}, {s}, {dh}] (device time): "
+        print(f"{kind} single-tile backward designs at [32, {heads}, {s}, {dh}] (device time): "
               + ", ".join(f"{d} {t:.4f} ms" for d, t in times.items()) + f" {card}", flush=True)
 
 
@@ -1842,6 +1880,83 @@ def long_training_pairs(tokenizer, cycles: int) -> list[tuple[str, str]]:
     return pairs * cycles
 
 
+def bf16_short_gradient_phase(torch, card, dev, config, params, batch, temperature: float, what: str) -> dict:
+    """One bf16 ``contrastive_loss`` backward of ``batch`` (a training
+    batch of the main path, S <= 128) through "pallas" (on the card: the
+    layout-native kernel 4 forward, the bf16 tensor-core forward, and
+    kernel 8's backward, both in bf16), the "pallas_plain" route in bf16
+    (their plain versions) and the "pallas" route in f32 (the split-TF32
+    kernels), the f32 gradient g32. Gates: kernel 4's counter (in bf16
+    ``attention_tc``) and kernel 8's read the layers x 2 encodes and no
+    blocked backward runs; the bf16 kernel route's distance to g32, 1 -
+    cos, is at most BF16_NOISE_RATIO times the bf16 plain route's. Prints
+    the losses, the cosine of the kernel route to the plain one (beside
+    GRAD_COS, a reading) and a device profile of one "pallas" backward
+    with kernel 8's share. Returns the "pallas" run's counters."""
+    from dial_rag_tpu_torch.ops import flash_attention as fa
+    from dial_rag_tpu_torch.training.contrastive import contrastive_loss
+    from dial_rag_tpu_torch.training.loop import trainable_params
+    from dial_rag_tpu_torch.weights import param_leaves
+
+    s = batch["p_ids"].shape[1]
+    dh = config.hidden_size // config.num_heads
+    limit = fa.single_tile_max_s("bwd", dh, dtype=torch.bfloat16)
+    if max(s, batch["q_ids"].shape[1]) > limit or not fa.supports_fused_qkv(s):
+        raise RuntimeError(f"the bf16 short-context batch at S = {s} is past kernel 8's bf16 limit {limit}")
+    init = {"embeddings": params["embeddings"], "layers": params["layers"]}
+
+    def loss_of(impl, dtype=torch.bfloat16):
+        p = trainable_params(init, dev)
+        loss = contrastive_loss(p, batch, num_heads=config.num_heads, temperature=temperature,
+                                compute_dtype=dtype, attention_impl=impl)
+        return loss, p
+
+    def grads_of(impl, dtype=torch.bfloat16):
+        loss, p = loss_of(impl, dtype)
+        loss.backward()
+        return loss.item(), [t.grad for t in param_leaves(p)]
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    loss_k, grads_k = grads_of("pallas")
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    loss_p, grads_p = grads_of("pallas_plain")
+    loss_f, grads_f = grads_of("pallas", torch.float32)
+    if not all(torch.isfinite(g).all() for g in grads_k):
+        raise RuntimeError(f"a bf16 short-context gradient through the kernels ({what}) is not finite")
+    kept = [i for i, r in enumerate(grads_p) if r.abs().max() > 0]
+
+    def whole(grads, ref):
+        return cos(torch.cat([grads[i].flatten() for i in kept]), torch.cat([ref[i].flatten() for i in kept]))
+
+    plain_cos = whole(grads_k, grads_p)
+    dist_k, dist_p = 1 - whole(grads_k, grads_f), 1 - whole(grads_p, grads_f)
+    per_min = min(cos(grads_k[i], grads_p[i]) for i in kept)
+    expected = {"attention_tc": config.num_layers * 2, "flash_attention_bwd": config.num_layers * 2}
+    print(f"bf16 short-context gradient ({what}, B={batch['p_ids'].shape[0]}, S={s}): losses \"pallas\" "
+          f"{loss_k:.8f}, \"pallas_plain\" {loss_p:.8f}, f32 {loss_f:.8f}; distance 1 - cos to the f32 gradient: "
+          f"kernels {dist_k:.6g}, plain {dist_p:.6g} (ratio {dist_k / dist_p:.4f}, limit {BF16_NOISE_RATIO}); cosine "
+          f"of kernels to plain whole {plain_cos:.8f} (GRAD_COS {GRAD_COS}: a reading), per tensor min "
+          f"{per_min:.8f} over {len(kept)} tensors; launches { {n: c for n, c in launches.items() if c} }, expected "
+          f"{expected}; three gradients in {time.perf_counter() - t0:.2f} s {card}", flush=True)
+    del grads_p, grads_k, grads_f
+    if {n: c for n, c in launches.items() if c} != expected:
+        raise RuntimeError(f"the bf16 short-context gradient ({what}) did not run kernels 4 and 8 alone: {launches}")
+    if not dist_k <= BF16_NOISE_RATIO * dist_p:
+        raise RuntimeError(f"bf16 short-context gradients through the kernels ({what}) are farther from the f32 "
+                           f"gradient than the plain route's: 1 - cos {dist_k} against {dist_p}")
+    loss, p = loss_of("pallas")
+    device_profile(torch, loss.backward, f"one bf16 short-context backward ({what}, S={s}, \"pallas\")", card,
+                   top=6, share_of="single_tile_bwd_tc")
+    del loss, p
+    return launches
+
+
 def bf16_long_gradient_phase(torch, card, dev, config, params, tokenizer, cfg, stream, what: str) -> dict:
     """One bf16 ``contrastive_loss`` backward on the long-context training's
     S = 8192 batch (``stream``'s batch at LONG_TRAIN_SEQS[-1]) through
@@ -2196,7 +2311,7 @@ def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
     and the same through "fused_layer" (kernel 3); (bf16, exact, S = 64)
     through kernel 4 (the tensor-core forward) and its backward (kernel
     8); bf16 and f32 at S = 520 through kernel 5 (in bf16 the tensor-core
-    forward) and kernel 8 (in f32, past its S = 128, kernel 9's code);
+    forward) and kernel 8's route past its S = 128 (kernel 9's code);
     bf16 and f32 at S = PAST_LIMIT_S, past the
     single-tile kernels' shared memory, through the tensor-core forward
     (bf16) or kernel 6's code (f32) and kernel 9's code. Each hidden state
@@ -2218,7 +2333,7 @@ def auto_repair_phase(torch, dev, vocab_size: int) -> dict:
         (bf16, "exact", 64, "auto", "pallas_plain",
          {"attention_tc": "qkv_native_attention", "flash_attention_bwd": "flash_attention_bwd"}),
         (bf16, "exact", 520, "auto", "pallas_plain",
-         {"attention_tc": "flash_attention_fwd", "flash_attention_bwd": "flash_attention_bwd"}),
+         {"attention_tc": "flash_attention_fwd", "attention_bwd_q_blocked": "attention_bwd_q_blocked"}),
         (f32, "exact", 520, "auto", "pallas_plain",
          {"flash_attention_fwd": "flash_attention_fwd", "attention_bwd_q_blocked": "attention_bwd_q_blocked"}),
         (bf16, "exact", PAST_LIMIT_S, "auto", "pallas_plain",
@@ -2596,13 +2711,17 @@ def main() -> int:
             x = embed_tokens(params, ids_t, dtype)
             rows.update(block_rows(torch, card, layer, x, mask_t, heads))
             del layer, x
-    # kernels 1-3 in bf16 at bge-large's width, on a seeded layer's weights
+    # kernels 1-3 in bf16 and f32 at bge-large's width, on a seeded layer's weights
     large_cfg = BertConfig(vocab_size=cfg.vocab_size, type_vocab_size=cfg.type_vocab_size,
                            max_position_embeddings=cfg.max_position_embeddings, **LARGE_WIDTHS)
-    large = prepare_params(init_params(large_cfg, torch.Generator().manual_seed(0)), dev, torch.bfloat16)
-    rows.update(block_rows(torch, card, large["layers"][0], embed_tokens(large, ids_t, torch.bfloat16), mask_t,
-                           large_cfg.num_heads))
-    del large
+    large_raw = init_params(large_cfg, torch.Generator().manual_seed(0))
+    for dtype in (torch.bfloat16, torch.float32):
+        large = prepare_params(large_raw, dev, dtype)
+        rows.update(block_rows(torch, card, large["layers"][0], embed_tokens(large, ids_t, dtype), mask_t,
+                               large_cfg.num_heads))
+        del large
+        torch.cuda.empty_cache()
+    del large_raw
 
     phase("main path")
     # host tokenization of the same texts, timed apart: the build's host share
@@ -2768,6 +2887,18 @@ def main() -> int:
     phase("bf16 gradient")
     bf16_gradient_phase(torch, base, train_cfg, stream)
 
+    phase("bf16 short-context gradient")
+    # the first batch of the training phase's stream, which the bge-base
+    # fine-tune takes first too, through both widths' encoders
+    first = next(pairs_to_batches(base.tokenizer, stream, train_cfg))
+    for what, model, params in (("bge-small", cfg, base.params), ("bge-base", base_cfg, base_params)):
+        short = bf16_short_gradient_phase(torch, card, dev, model, params, first, train_cfg.temperature, what)
+        dh = model.hidden_size // model.num_heads
+        count("qkv_native_attention", torch.bfloat16, dh, short["attention_tc"])
+        count("flash_attention_bwd", torch.bfloat16, dh, short["flash_attention_bwd"])
+    del first
+    torch.cuda.empty_cache()
+
     phase("training")
     trained, train_launches = training_phase(torch, card, base, cfg.num_layers, train_cfg, stream)
     for name in ("qkv_native_attention", "flash_attention_fwd", "flash_attention_bwd"):
@@ -2862,7 +2993,7 @@ def main() -> int:
         row["launches"] = launched[name]
     # kernels 1-3 at H 1024: no phase runs an encoder that wide. So they
     # are gated and timed but off the main path
-    off_path = {instantiation(name, torch.bfloat16, "H 1024")
+    off_path = {instantiation(name, dtype, "H 1024") for dtype in (torch.bfloat16, torch.float32)
                 for name in ("fused_attention_block", "fused_ffn_block", "fused_layer_block")}
     idle = [name for name, row in rows.items() if row["launches"] == 0 and name not in off_path]
     if idle:

@@ -1,15 +1,16 @@
 // Helpers shared by the encoder-block and attention kernels (sm_90a): the
-// element-type casts, warp reductions, the tanh GELU, the residual +
-// LayerNorm epilogue and the encoder blocks' LayerNorm pass. The kernels
-// are templates on the element type (float or bf16) and on the widths (H,
-// head_dim); the Python wrappers check that an instantiation exists before
-// launching.
+// element-type casts, warp reductions, the encoder blocks' widths
+// (at_width), the tanh GELU, the residual + LayerNorm epilogue and the
+// encoder blocks' LayerNorm pass. The kernels are templates on the element
+// type (float or bf16) and on the widths (H, head_dim); the Python
+// wrappers check that an instantiation exists before launching.
 #pragma once
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace dial {
 
@@ -31,12 +32,6 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// x after a round trip through T: the reference's casts of P, e and dS
-template <typename T>
-__device__ __forceinline__ float through(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // The additive mask bias of one key: given as f32 (1 - mask) * f32.min by
 // the attention wrappers, or formed in the kernel from the int32 mask the
 // fused blocks take, with the same value.
@@ -53,6 +48,23 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// Calls launch(std::integral_constant<int, H>{}, std::integral_constant<int,
+// DH>{}) at an instantiated width of the encoder blocks, in either dtype (H
+// = num_heads * head_dim, head_dim: (384, 32), (768, 64) or (1024, 64), as
+// ops/fused_encoder.py::KERNEL_WIDTHS lists them); returns its error,
+// cudaErrorInvalidValue at any other width.
+template <class Launch>
+cudaError_t at_width(int num_heads, int head_dim, const Launch& launch) {
+  const int hidden = num_heads * head_dim;
+  if (hidden == 384 && head_dim == 32)
+    return launch(std::integral_constant<int, 384>{}, std::integral_constant<int, 32>{});
+  if (hidden == 768 && head_dim == 64)
+    return launch(std::integral_constant<int, 768>{}, std::integral_constant<int, 64>{});
+  if (hidden == 1024 && head_dim == 64)
+    return launch(std::integral_constant<int, 1024>{}, std::integral_constant<int, 64>{});
+  return cudaErrorInvalidValue;
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {

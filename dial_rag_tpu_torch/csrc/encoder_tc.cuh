@@ -66,21 +66,6 @@ cudaError_t layer_block(const bf16* x, const int32_t* mask, const bf16* wqkv, co
   return ffn_block<H>(a, w1, b1, w2, b2, g2, beta2, out, h, y, batch * seq, inter, st);
 }
 
-// Calls launch(std::integral_constant<int, H>{}, std::integral_constant<int,
-// DH>{}) at an instantiated (H = num_heads * head_dim, head_dim); returns
-// its error, cudaErrorInvalidValue at any other width.
-template <class Launch>
-cudaError_t at_width(int num_heads, int head_dim, const Launch& launch) {
-  const int hidden = num_heads * head_dim;
-  if (hidden == 384 && head_dim == 32)
-    return launch(std::integral_constant<int, 384>{}, std::integral_constant<int, 32>{});
-  if (hidden == 768 && head_dim == 64)
-    return launch(std::integral_constant<int, 768>{}, std::integral_constant<int, 64>{});
-  if (hidden == 1024 && head_dim == 64)
-    return launch(std::integral_constant<int, 1024>{}, std::integral_constant<int, 64>{});
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 }  // namespace enc
 }  // namespace dial

@@ -9,11 +9,11 @@
 // kernel, the LayerNorm common.cuh's pass. In f32 every cast of the
 // reference to the compute type is the identity: P is normalised before
 // P . V, and the output products are never rounded before the bias, the
-// residual and the LayerNorm. The instantiations are (H, head_dim) = (384,
-// 32) and (768, 64).
+// residual and the LayerNorm. The instantiations are common.cuh's
+// at_width: (H, head_dim) = (384, 32), (768, 64) and (1024, 64) (bge-large:
+// 16 heads of 64, FFN 4096; at B=128, S=256 its scratch is qkv 403 MB, h
+// 537 MB and the planes 34 MB).
 #pragma once
-
-#include <type_traits>
 
 #include "attention_fwd_tf32.cuh"
 #include "gemm_tf32.cuh"
@@ -77,19 +77,6 @@ cudaError_t layer_block(const float* x, const int32_t* mask, const float* wqkv, 
                                                  batch, seq, scale, st);
   if (err != cudaSuccess) return err;
   return ffn_block<H>(a, w1, b1, w2, b2, g2, beta2, out, h, y, planes, batch * seq, inter, st);
-}
-
-// Calls launch(std::integral_constant<int, H>{}, std::integral_constant<int,
-// DH>{}) at an f32 instantiation (H = num_heads * head_dim, head_dim);
-// returns its error, cudaErrorInvalidValue at any other width.
-template <class Launch>
-cudaError_t at_width(int num_heads, int head_dim, const Launch& launch) {
-  const int hidden = num_heads * head_dim;
-  if (hidden == 384 && head_dim == 32)
-    return launch(std::integral_constant<int, 384>{}, std::integral_constant<int, 32>{});
-  if (hidden == 768 && head_dim == 64)
-    return launch(std::integral_constant<int, 768>{}, std::integral_constant<int, 64>{});
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

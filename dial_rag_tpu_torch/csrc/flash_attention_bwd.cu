@@ -1,6 +1,6 @@
 // Single-tile attention backward (recompute P), head_dim 32 and 64, for
-// Hopper (sm_90a): f32 on the tensor cores in split TF32, bf16 on the CUDA
-// cores.
+// Hopper (sm_90a): f32 on the tensor cores in split TF32, bf16 on the bf16
+// tensor cores.
 //
 // Replaces: dial_rag_tpu/ops/flash_attention.py::_attention_bwd_kernel
 // (pallas_call in _backward, S <= 512 or S % 256 != 0), the backward of both
@@ -16,22 +16,25 @@
 // atomics: two calls give the same bits.
 //
 // Bound on an H100 SXM: 10 * B * h * S^2 * Dh FLOPs (each [S, S] product
-// once); at B=32, S=128, 12 heads of 64 that is 4.03 GFLOP, 0.060 ms at 67
-// TFLOP/s in f32 on the CUDA cores, 0.024 ms at 165 TFLOP/s of 3xTF32
-// (495 / 3), against 50 MB of q, k, v, dO read and dq, dk, dv written,
-// 0.015 ms at 3.35 TB/s: bound by operations (12 heads of 32: 2.01 GFLOP,
-// 0.030 / 0.012 ms; 25 MB, 0.0075 ms).
+// once) against q, k, v, dO read and dq, dk, dv written. At B=32, S=128,
+// 12 heads of 64: 4.03 GFLOP and, in f32, 50 MB: 0.060 ms at 67 TFLOP/s
+// on the CUDA cores, 0.024 ms at 165 TFLOP/s of 3xTF32 (495 / 3), 0.015
+// ms at 3.35 TB/s: bound by operations (12 heads of 32: 2.01 GFLOP,
+// 0.030 / 0.012 ms; 25 MB, 0.0075 ms). In bf16 44 MB, 0.013 ms, against
+// 0.004 ms at 989 TFLOP/s: bound by bytes (12 heads of 32: 22 MB, 0.0066
+// ms).
 //
-// f32 (single_tile_bwd_tf32_kernel): one block per (head, batch row), one
-// warp per 16 rows of the padded S (at most 8 warps, looping past 128
-// rows). q, k, v and dO live in shared memory as f32 rows of DH + 4
-// floats, copied 16 bytes at a time (the wrapper raises on views that are
-// not 16-byte aligned), beside one [S, S + 4] f32 tile T; q and k are
-// copied first and v and dO land while the scores are formed. Products in
-// split TF32 (tensor_core_tf32.cuh: hi.lo + lo.hi + hi.hi by
-// mma.sync.m16n8k8, about 2^-21 relative a product), every sum over S one
-// partial per 64 rows added in f32 on the CUDA cores. One launch, nothing
-// written to device memory between its steps:
+// Both dtypes: one block per (head, batch row), one warp per 16 rows of
+// the padded S. q, k, v and dO live in shared memory, copied 16 bytes at
+// a time (the wrappers raise on views that are not 16-byte aligned); q
+// and k are copied first and v and dO land while the scores are formed.
+//
+// f32 (single_tile_bwd_tf32_kernel): at most 8 warps, looping past 128
+// rows. q, k, v and dO as f32 rows of DH + 4 floats beside one [S, S + 4]
+// f32 tile T. Products in split TF32 (tensor_core_tf32.cuh: hi.lo + lo.hi
+// + hi.hi by mma.sync.m16n8k8, about 2^-21 relative a product), every sum
+// over S one partial per 64 rows added in f32 on the CUDA cores. One
+// launch, nothing written to device memory between its steps:
 //   1. by query tiles: Q K^T, the exact row softmax (max, exp, sum,
 //      division) in place: T = P;
 //   2. by key tiles: dV = P^T dO, P^T read from T's columns;
@@ -40,269 +43,269 @@
 //      registers;
 //   4. by key tiles: dK = dS^T Q.
 // Six [S, S]-by-Dh products against the bound's five: dP is formed twice,
-// once for delta and once for dS, since a second [S, S] tile does not
+// once for delta and once for dS, since a second [S, S] f32 tile does not
 // fit. T and the four tiles bound S: dial_attention_bwd_max_seq_f32 works
 // the limit out per head width (128 at both on an H100's 227 KB: 207 KB
-// at head_dim 64); past it the wrapper takes the query-blocked backward's
-// split-TF32 code (flash_attention_long_bwd.cu), two passes that compute
-// the same gradient at any S.
+// at head_dim 64).
 //
-// bf16 (attention_bwd_dq_kernel, then attention_bwd_dkv_kernel), products
-// on the CUDA cores in f32. The TPU kernel keeps about five [S, S] f32
-// tiles in VMEM (5 MB at S = 512); an H100 block has 227 KB. So two
-// launches:
-//   (i)  dq pass, one block per (32-query tile, head, batch row): rebuild
-//        the tile's P rows in the reference's order (attention_f32.cuh's
-//        probabilities), delta = rowsum(dP * P) over 64-key
-//        chunks, then a second sweep that recomputes dP, forms cast(scale
-//        * dS) and accumulates dQ. Writes dQ and each row's max,
-//        denominator and delta to an f32 scratch [B, h, S, 3].
-//   (ii) dk/dv pass, one block per (32-key tile, head, batch row): the
-//        tile's k and v rows in registers (2 x head_dim floats), a loop
-//        over every 32-query tile that rebuilds P from the saved max and
-//        denominator with the same expression, and dV += cast(P)^T dO,
-//        dK += cast(scale dS)^T Q kept in registers.
-// The dq pass's [32, S] score tile bounds S (dial_attention_bwd_max_seq_bf16
-// works the limit out per head width: 1472 at head_dim 32 on an H100's
-// 227 KB; the wrapper takes the query-blocked backward past it).
+// bf16 (single_tile_bwd_tc_kernel): products on mma.sync.m16n8k16 bf16
+// with f32 accumulators (tensor_core.cuh; a bf16 x bf16 product is exact
+// in f32), from ldmatrix fragments. q, k, v and dO as bf16 rows of DH + 8
+// (attention_bwd_tc.cuh's layout: ldmatrix's eight row addresses on
+// distinct banks) beside two bf16 [S, S + 8] tiles, bf16(P) and bf16(scale
+// dS), rows queries. One launch:
+//   1. by query tiles, a warp's 16 rows over every key in registers: Q K^T,
+//      the exact row softmax (max, exp, sum, division) in f32; bf16(P)
+//      into its tile; dP = dO V^T, delta = rowsum(dP P), dS = P (dP -
+//      delta) scale in f32, bf16(dS) into its tile, and dQ = bf16(dS) K
+//      from the registers (two adjacent score n-tiles are one k16 A
+//      fragment);
+//   2. by key tiles: dV = bf16(P)^T dO and dK = bf16(dS)^T Q, both tiles
+//      read transposed by ldmatrix.trans as the A operand, dO and q by
+//      ldmatrix.trans as the B operand;
+//   3. dQ, dK and dV rounded to bf16 into staging tiles in place of q, k
+//      and v, then written out 16 bytes a store (the wrapper raises on
+//      gradient views that are not 16-byte aligned).
+// Five [S, S]-by-Dh products, the bound's count: a second [S, S] tile fits
+// in bf16 (two take 68 KB at S = 128). A warp holds its rows' scores and
+// dP over the whole padded S in registers (2 x 64 floats a lane at S =
+// 128), which caps the kernel at S = 128 (kTcMaxKeys);
+// dial_attention_bwd_max_seq_bf16 gives the smaller of that and the longest
+// S whose shared memory fits (on an H100: 192 at head_dim 32, 128 at 64,
+// where a block takes 143872 B). At 180-182 registers a thread, one block
+// of 8 warps runs on an SM at S = 128. The staging of step 3 replaced
+// two-byte stores of each gradient value from its fragment, which made
+// the kernel 1.4-2.9x slower (dial_rag_tpu_torch/scripts/
+// bwd_single_tile_variants.py builds that variant; PERF.md has the
+// reading).
+//
+// Past either dtype's limit the wrapper takes the query-blocked backward's
+// code (flash_attention_long_bwd.cu: split TF32 in f32, attention_bwd_tc.cuh
+// in bf16), two passes that compute the same gradient at any S.
 #include <cfloat>
 
-#include "attention_f32.cuh"
+#include "attention_bwd_tc.cuh"
 #include "tensor_core_tf32.cuh"
 
 namespace dial {
 namespace attn {
 namespace {
 
-struct BwdViews {
-  View q, k, v, d_o, dq, dk, dv;
-};
-
 // The views from a host array of (batch, head, row) element strides, in
-// the order q, k, v, d_o, dq, dk, dv.
+// the order q, k, v, d_o, dq, dk, dv (attention_bwd_tc.cuh's BwdViews; o
+// is not read).
 BwdViews read_views(const void* strides) {
   const long long* st = static_cast<const long long*>(strides);
-  BwdViews vw;
+  BwdViews vw{};
   View* views[] = {&vw.q, &vw.k, &vw.v, &vw.d_o, &vw.dq, &vw.dk, &vw.dv};
   for (int i = 0; i < 7; ++i) *views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   return vw;
 }
 
-constexpr int kDsLd = kChunk + 1;
-constexpr int kTileLd = kRows + 1;  // [32 queries, 32 keys] tiles of the dk/dv pass
+// ---- bf16: the tensor-core single-tile backward ------------------------------
+constexpr int kTcMaxKeys = 128;  // the longest padded S whose scores and dP a warp holds in registers
+
+// Dynamic shared memory at sequence length s (padded to 64): q, k, v and
+// dO as [padded, DH + 8] bf16 tiles, bf16(P) and bf16(scale dS) as
+// [padded, padded + 8] (rows queries; a row stride of 16 bytes modulo 128
+// puts ldmatrix's eight rows on distinct banks) and the bias row.
+template <int DH>
+size_t tile_bwd_tc_bytes(int s) {
+  const size_t padded = padded_seq(s);
+  return sizeof(bf16) * (4 * padded * tc::kRowLd<DH> + 2 * padded * (padded + 8)) + sizeof(float) * padded;
+}
+
+// Rows [0, padded) of one head of a bf16 view into a [padded, DH + 8]
+// tile by 16-byte cp.async copies (every thread of the block takes part),
+// zero-filled past s.
+template <int DH>
+__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* head, long long row_stride, int padded,
+                                               int s) {
+  constexpr int kVecs = DH / 8;
+  for (int i = threadIdx.x; i < padded * kVecs; i += blockDim.x) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    const bool valid = r < s;
+    tc::cp_async16(dst + r * tc::kRowLd<DH> + c, valid ? head + r * row_stride + c : head, valid);
+  }
+}
+
+// acc += T[:rows, 16 keys at t_cols]^T R over the first `rows` queries (a
+// multiple of 16): T a bf16 tile with row stride ld (rows queries: bf16(P)
+// or bf16(scale dS)) and R a [*, DH + 8] bf16 tile (dO or q), both read
+// transposed by ldmatrix.trans, T as the A operand (matrix j = lane / 8 of
+// a fragment: queries 8 (j / 2) .., keys 8 (j % 2) ..), R as the B operand.
+template <int DH>
+__device__ __forceinline__ void transposed_product_tc(float (&acc)[DH / 8][4], const bf16* t_cols, int ld,
+                                                      const bf16* r_rows, int rows) {
+  const int lane = threadIdx.x % 32;
+  for (int q0 = 0; q0 < rows; q0 += 16) {
+    uint32_t a[4];
+    tc::ldmatrix_x4_trans(a, t_cols + (q0 + 8 * (lane / 16) + lane % 8) * ld + 8 * ((lane / 8) % 2));
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t b[4];
+      tc::ldmatrix_x4_trans(b, r_rows + (q0 + ((lane / 8) % 2) * 8 + lane % 8) * tc::kRowLd<DH> + 16 * dp +
+                                   (lane / 16) * 8);
+      tc::mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      tc::mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Rows [0, s) of a [*, DH + 8] bf16 staging tile into one head of a bf16
+// view, 16 bytes a store (every thread of the block takes part).
+template <int DH>
+__device__ __forceinline__ void store_staged(bf16* head, long long row_stride, const bf16* tile, int s) {
+  constexpr int kVecs = DH / 8;
+  for (int i = threadIdx.x; i < s * kVecs; i += blockDim.x) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    *reinterpret_cast<uint4*>(head + r * row_stride + c) =
+        *reinterpret_cast<const uint4*>(tile + r * tc::kRowLd<DH> + c);
+  }
+}
+
+// A warp's D-layout [16, 8 N] tile (x[n]: columns 8 n .. 8 n + 7) into
+// rows 16 warp .. + 15 of a bf16 tile with row stride ld, rounded to bf16,
+// a pair of values a store; rows at or past s are written as 0.
+template <int N>
+__device__ __forceinline__ void store_tile_bf16(bf16* tile, int ld, const float (&x)[N][4], int s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + lane / 4 + 8 * h;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(tile + row * ld + 2 * (lane % 4));
+#pragma unroll
+    for (int n = 0; n < N; ++n) dst[4 * n] = row < s ? tc::pack_bf16(x[n][2 * h], x[n][2 * h + 1]) : 0u;
+  }
+}
+
+// NT = padded S / 8 (8 or 16): the warps' score tiles are [16, 8 NT] over
+// every key; a block has padded S / 16 warps.
+template <int DH, int NT>
+__global__ void __launch_bounds__(2 * kTcMaxKeys)
+    single_tile_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                              const bf16* __restrict__ d_o, const float* __restrict__ bias, bf16* __restrict__ dq,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, BwdViews vw, int s, float scale) {
+  constexpr int kPadded = 8 * NT, kLd = tc::kRowLd<DH>, kTileLd = kPadded + 8;
+  extern __shared__ __align__(16) unsigned char bwd_tc_smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(bwd_tc_smem);
+  bf16* s_k = s_q + kPadded * kLd;
+  bf16* s_v = s_k + kPadded * kLd;
+  bf16* s_do = s_v + kPadded * kLd;
+  bf16* s_p = s_do + kPadded * kLd;
+  bf16* s_ds = s_p + kPadded * kTileLd;
+  float* s_bias = reinterpret_cast<float*>(s_ds + kPadded * kTileLd);
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = lane % 4;
+
+  // q and k in the first copy group, v and dO in the second
+  copy_rows_bf16<DH>(s_q, q + b * vw.q.b + head * vw.q.h, vw.q.r, kPadded, s);
+  copy_rows_bf16<DH>(s_k, k + b * vw.k.b + head * vw.k.h, vw.k.r, kPadded, s);
+  tc::cp_async_commit();
+  copy_rows_bf16<DH>(s_v, v + b * vw.v.b + head * vw.v.h, vw.v.r, kPadded, s);
+  copy_rows_bf16<DH>(s_do, d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, kPadded, s);
+  tc::cp_async_commit();
+  for (int i = threadIdx.x; i < kPadded; i += blockDim.x)
+    s_bias[i] = i < s ? bias[static_cast<long long>(b) * s + i] : -INFINITY;
+  tc::cp_async_wait<1>();
+  __syncthreads();
+
+  // 1. the warp's 16 queries, rows g and g + 8 of its D tiles: x[n][e] is
+  // key 8 n + 2c + e % 2 of row g + 8 (e / 2). P = softmax(q k^T scale +
+  // bias) in place of the scores (key 0 is real, so the max is finite)
+  float x[NT][4];
+  {
+    uint32_t qa[DH / 16][4];
+    tc::a_fragments<DH>(qa, s_q);
+    tc::product_rows<NT, DH>(x, qa, s_k);
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, r[2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[n][e] = scaled_score(x[n][e], scale, s_bias[8 * n + 2 * c + e % 2]);
+      m[e / 2] = fmaxf(m[e / 2], x[n][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = tc::quad_max(m[h]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[n][e] = expf(__fsub_rn(x[n][e], m[e / 2]));
+      l[e / 2] += x[n][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = tc::quad_sum(l[h]);
+    r[h] = __frcp_rn(l[h]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = tc::div_by(x[n][e], l[e / 2], r[e / 2]);
+  store_tile_bf16(s_p, kTileLd, x, s);
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  // dP = dO v^T, delta = rowsum(dP P), dS = P (dP - delta) scale in place
+  // of dP; bf16(dS) into its tile and dQ = bf16(dS) k
+  float dp[NT][4];
+  {
+    uint32_t doa[DH / 16][4];
+    tc::a_fragments<DH>(doa, s_do);
+    tc::product_rows<NT, DH>(dp, doa, s_v);
+  }
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) delta[e / 2] = fmaf(dp[n][e], x[n][e], delta[e / 2]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) delta[h] = tc::quad_sum(delta[h]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[n][e] = __fmul_rn(__fmul_rn(x[n][e], __fsub_rn(dp[n][e], delta[e / 2])), scale);
+  store_tile_bf16(s_ds, kTileLd, dp, s);
+  float dq_acc[DH / 8][4] = {};
+  tc::accumulate_pairs<NT, DH>(dq_acc, dp, s_k);
+  __syncthreads();
+
+  // 2. the warp's 16 keys: dV = bf16(P)^T dO, dK = bf16(dS)^T q over the
+  // queries below S rounded up to 16 (the tiles' rows past S are 0)
+  const int rows = (s + 15) / 16 * 16;
+  float dv_acc[DH / 8][4] = {}, dk_acc[DH / 8][4] = {};
+  transposed_product_tc<DH>(dv_acc, s_p + 16 * warp, kTileLd, s_do, rows);
+  transposed_product_tc<DH>(dk_acc, s_ds + 16 * warp, kTileLd, s_q, rows);
+  __syncthreads();
+
+  // the three gradients through staging tiles in place of q, k and v, out
+  // in 16-byte stores
+  store_tile_bf16(s_q, kLd, dq_acc, s);
+  store_tile_bf16(s_k, kLd, dk_acc, s);
+  store_tile_bf16(s_v, kLd, dv_acc, s);
+  __syncthreads();
+  store_staged<DH>(dq + b * vw.dq.b + head * vw.dq.h, vw.dq.r, s_q, s);
+  store_staged<DH>(dk + b * vw.dk.b + head * vw.dk.h, vw.dk.r, s_k, s);
+  store_staged<DH>(dv + b * vw.dv.b + head * vw.dv.h, vw.dv.r, s_v, s);
+}
 
 template <int DH>
-size_t dq_smem_bytes(int s) {
-  return sizeof(float) * (static_cast<size_t>(kRows) * score_ld(s) + (2 * kChunk + kRows) * (DH + 1) +
-                          kRows * kDsLd + padded_seq(s) + 2 * kRows);
+int launch_single_tile_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* d_o, const float* bias,
+                          bf16* dq, bf16* dk, bf16* dv, const BwdViews& vw, int batch, int heads, int seq,
+                          float scale, cudaStream_t stm) {
+  const int padded = padded_seq(seq);
+  if (seq < 1 || padded > kTcMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = padded == 64 ? single_tile_bwd_tc_kernel<DH, 8> : single_tile_bwd_tc_kernel<DH, 16>;
+  const size_t smem = tile_bwd_tc_bytes<DH>(seq);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(heads, batch), 32 * (padded / 16), smem, stm>>>(q, k, v, d_o, bias, dq, dk, dv, vw, seq, scale);
+  return static_cast<int>(cudaGetLastError());
 }
-
-// ---- (i) dQ, and each row's max, denominator and delta --------------------
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                            const T* __restrict__ d_o, const float* __restrict__ bias, T* __restrict__ dq,
-                            float* __restrict__ rows, BwdViews vw, int s, float scale) {
-  constexpr int kPadH = DH + 1, kPerThread = DH / kPhases;
-  extern __shared__ __align__(16) float attn_smem[];
-  const int ld = score_ld(s);
-  float* s_p = attn_smem;                 // [kRows, ld] probabilities
-  float* s_k = s_p + kRows * ld;          // [kChunk, kPadH]
-  float* s_v = s_k + kChunk * kPadH;      // [kChunk, kPadH]
-  float* s_x = s_v + kChunk * kPadH;      // [kRows, kPadH] q tile, then dO tile
-  float* s_ds = s_x + kRows * kPadH;      // [kRows, kDsLd] cast(scale * dS) of one chunk
-  float* s_bias = s_ds + kRows * kDsLd;   // [padded S]
-  float* s_m = s_bias + padded_seq(s);
-  float* s_l = s_m + kRows;
-
-  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const T* k_head = k + b * vw.k.b + head * vw.k.h;
-  const T* v_head = v + b * vw.v.b + head * vw.v.h;
-  const int r = threadIdx.x / kPhases, j = threadIdx.x % kPhases;
-
-  load_rows<kRows, DH>(s_x, q + b * vw.q.b + head * vw.q.h, vw.q.r, q0, s);
-  for (int i = threadIdx.x; i < s; i += kThreads) s_bias[i] = bias[static_cast<long long>(b) * s + i];
-  __syncthreads();
-  float x_row[DH];  // this thread's q row, then its dO row
-#pragma unroll
-  for (int d = 0; d < DH; ++d) x_row[d] = s_x[r * kPadH + d];
-
-  probabilities<DH>(s_p, s_k, s_bias, s_m, s_l, x_row, k_head, vw.k.r, s, scale);
-
-  load_rows<kRows, DH>(s_x, d_o + b * vw.d_o.b + head * vw.d_o.h, vw.d_o.r, q0, s);
-  __syncthreads();
-#pragma unroll
-  for (int d = 0; d < DH; ++d) x_row[d] = s_x[r * kPadH + d];
-
-  // delta[r] = sum_c dP[r, c] P[r, c], dP[r, c] = dO[r] . v[c]
-  float part = 0.f;
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    load_rows<kChunk, DH>(s_v, v_head, vw.v.r, c0, s);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kChunk / kPhases; ++i) {
-      const int c = j + kPhases * i;
-      if (c0 + c < s) part = fmaf(dot_dh<DH>(x_row, s_v + c * kPadH), s_p[r * ld + c0 + c], part);
-    }
-    __syncthreads();
-  }
-  // the kPhases threads of row r are neighbouring lanes of one warp
-#pragma unroll
-  for (int off = kPhases / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-  const float delta = part;
-
-  // dQ[r, j + 8t] = sum_c cast(scale * dS[r, c]) k[c, j + 8t]
-  float acc[kPerThread] = {};
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    load_rows<kChunk, DH>(s_k, k_head, vw.k.r, c0, s);
-    load_rows<kChunk, DH>(s_v, v_head, vw.v.r, c0, s);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kChunk / kPhases; ++i) {
-      const int c = j + kPhases * i;
-      float ds = 0.f;
-      if (c0 + c < s) {
-        const float p = s_p[r * ld + c0 + c];
-        ds = through<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(dot_dh<DH>(x_row, s_v + c * kPadH), delta)), scale));
-      }
-      s_ds[r * kDsLd + c] = ds;
-    }
-    __syncthreads();
-    const int n = min(kChunk, s - c0);
-    for (int c = 0; c < n; ++c) {
-      const float ds = s_ds[r * kDsLd + c];
-#pragma unroll
-      for (int t = 0; t < kPerThread; ++t) acc[t] = fmaf(ds, s_k[c * kPadH + j + kPhases * t], acc[t]);
-    }
-    __syncthreads();
-  }
-  if (q0 + r < s) {
-    T* dq_row = dq + b * vw.dq.b + head * vw.dq.h + (q0 + r) * vw.dq.r;
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) dq_row[j + kPhases * t] = from_f32<T>(acc[t]);
-    if (j == 0) {
-      float* saved = rows + ((static_cast<long long>(b) * heads + head) * s + q0 + r) * 3;
-      saved[0] = s_m[r];
-      saved[1] = s_l[r];
-      saved[2] = delta;
-    }
-  }
-}
-
-// ---- (ii) dK and dV -------------------------------------------------------
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                             const T* __restrict__ d_o, const float* __restrict__ bias,
-                             const float* __restrict__ rows, T* __restrict__ dk, T* __restrict__ dv,
-                             BwdViews vw, int s, float scale) {
-  constexpr int kPadH = DH + 1, kPerThread = DH / kPhases;
-  __shared__ float s_q[kRows * kPadH];      // q rows of the current query tile; k tile at first
-  __shared__ float s_do[kRows * kPadH];     // dO rows of the current query tile; v tile at first
-  __shared__ float s_pt[kRows * kTileLd];   // cast(P)[query, key] of the tile pair
-  __shared__ float s_dst[kRows * kTileLd];  // cast(scale * dS)[query, key]
-  __shared__ float s_row[3 * kRows];        // max, denominator, delta of the query tile
-  __shared__ float s_bias[kRows];
-
-  const int k0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const T* q_head = q + b * vw.q.b + head * vw.q.h;
-  const T* do_head = d_o + b * vw.d_o.b + head * vw.d_o.h;
-  const float* rows_head = rows + (static_cast<long long>(b) * heads + head) * s * 3;
-  const int c = threadIdx.x / kPhases, j = threadIdx.x % kPhases;  // key c of the tile
-
-  load_rows<kRows, DH>(s_q, k + b * vw.k.b + head * vw.k.h, vw.k.r, k0, s);
-  load_rows<kRows, DH>(s_do, v + b * vw.v.b + head * vw.v.h, vw.v.r, k0, s);
-  if (threadIdx.x < kRows) s_bias[threadIdx.x] = k0 + threadIdx.x < s ? bias[static_cast<long long>(b) * s + k0 + threadIdx.x] : 0.f;
-  __syncthreads();
-  float k_row[DH], v_row[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    k_row[d] = s_q[c * kPadH + d];
-    v_row[d] = s_do[c * kPadH + d];
-  }
-  __syncthreads();
-  const bool key_ok = k0 + c < s;
-
-  float dk_acc[kPerThread] = {}, dv_acc[kPerThread] = {};
-  for (int q0 = 0; q0 < s; q0 += kRows) {
-    load_rows<kRows, DH>(s_q, q_head, vw.q.r, q0, s);
-    load_rows<kRows, DH>(s_do, do_head, vw.d_o.r, q0, s);
-    for (int i = threadIdx.x; i < 3 * kRows; i += kThreads)
-      s_row[i] = q0 + i / 3 < s ? rows_head[(static_cast<long long>(q0) + i / 3) * 3 + i % 3] : 1.f;
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kRows / kPhases; ++t) {
-      const int qi = j + kPhases * t;
-      float p = 0.f, ds = 0.f;
-      if (key_ok && q0 + qi < s) {
-        const float m = s_row[3 * qi], l = s_row[3 * qi + 1], delta = s_row[3 * qi + 2];
-        p = prob(scaled_score(dot_dh<DH>(s_q + qi * kPadH, k_row), scale, s_bias[c]), m, l);
-        ds = through<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(dot_dh<DH>(s_do + qi * kPadH, v_row), delta)), scale));
-      }
-      s_pt[qi * kTileLd + c] = through<T>(p);
-      s_dst[qi * kTileLd + c] = ds;
-    }
-    __syncthreads();
-    const int n = min(kRows, s - q0);
-    for (int qi = 0; qi < n; ++qi) {
-      const float p = s_pt[qi * kTileLd + c], ds = s_dst[qi * kTileLd + c];
-#pragma unroll
-      for (int t = 0; t < kPerThread; ++t) {
-        dv_acc[t] = fmaf(p, s_do[qi * kPadH + j + kPhases * t], dv_acc[t]);
-        dk_acc[t] = fmaf(ds, s_q[qi * kPadH + j + kPhases * t], dk_acc[t]);
-      }
-    }
-    __syncthreads();
-  }
-  if (key_ok) {
-    T* dk_row = dk + b * vw.dk.b + head * vw.dk.h + (k0 + c) * vw.dk.r;
-    T* dv_row = dv + b * vw.dv.b + head * vw.dv.h + (k0 + c) * vw.dv.r;
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      dk_row[j + kPhases * t] = from_f32<T>(dk_acc[t]);
-      dv_row[j + kPhases * t] = from_f32<T>(dv_acc[t]);
-    }
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch_attention_bwd(const T* q, const T* k, const T* v, const T* d_o, const float* bias, T* dq, T* dk,
-                                 T* dv, float* rows, const BwdViews& vw, int batch, int heads, int seq, float scale,
-                                 cudaStream_t stm) {
-  const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
-  const size_t smem = dq_smem_bytes<DH>(seq);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  attention_bwd_dq_kernel<T, DH><<<grid, kThreads, smem, stm>>>(q, k, v, d_o, bias, dq, rows, vw, seq, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkv_kernel<T, DH><<<grid, kThreads, 0, stm>>>(q, k, v, d_o, bias, rows, dk, dv, vw, seq, scale);
-  return cudaGetLastError();
-}
-
-// q, k, v, d_o (inputs) and dq, dk, dv (outputs): device pointers to
-// [B, h, S, head_dim] views of T whose (batch, head, row) element strides
-// are `strides[0..20]` (a host array, in that order); bias: f32 [B, S];
-// rows: f32 scratch [B, h, S, 3].
-template <typename T>
-int attention_bwd(const void* q, const void* k, const void* v, const void* d_o, const void* bias, void* dq, void* dk,
-                  void* dv, void* rows, const void* strides, int batch, int heads, int seq, int head_dim, float scale,
-                  void* stream) {
-  const BwdViews vw = read_views(strides);
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k), *tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(d_o);
-  T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
-  const float* fb = static_cast<const float*>(bias);
-  float* fr = static_cast<float*>(rows);
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  if (head_dim == 32)
-    return launch_attention_bwd<T, 32>(tq, tk, tv, tdo, fb, tdq, tdk, tdv, fr, vw, batch, heads, seq, scale, stm);
-  if (head_dim == 64)
-    return launch_attention_bwd<T, 64>(tq, tk, tv, tdo, fb, tdq, tdk, tdv, fr, vw, batch, heads, seq, scale, stm);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 
 // ---- f32: the split-TF32 single-tile backward -------------------------------
 constexpr int kTileWarps = 8;   // warps a block has at most: one 16-row tile each at S = 128
@@ -510,15 +513,15 @@ int launch_single_tile_tf32(const float* q, const float* k, const float* v, cons
 }  // namespace attn
 }  // namespace dial
 
-// C entry points. Tensor arguments are device pointers: q, k, v, d_o
-// (inputs) and dq, dk, dv (outputs) to [B, h, S, head_dim] views whose
-// (batch, head, row) element strides are `strides[0..20]` (a host array,
-// in that order); bias: f32 [B, S]. Each launches on `stream` and returns
-// cudaGetLastError() (0 on success); an unsupported head_dim returns
-// cudaErrorInvalidValue.
-//
-// f32: one launch; q, k, v and d_o 16-byte aligned with strides in whole
-// 16 bytes; S within dial_attention_bwd_max_seq_f32.
+// C entry points, one per dtype. Tensor arguments are device pointers: q,
+// k, v, d_o (inputs) and dq, dk, dv (outputs) to [B, h, S, head_dim] views
+// of the entry's dtype whose (batch, head, row) element strides are
+// `strides[0..20]` (a host array, in that order), q, k, v and d_o 16-byte
+// aligned with strides in whole 16 bytes (in bf16 dq, dk and dv too);
+// bias: f32 [B, S]; S within the
+// dtype's dial_attention_bwd_max_seq_*. Each makes one launch on `stream`
+// and returns cudaGetLastError() (0 on success); an unsupported head_dim
+// or S returns cudaErrorInvalidValue.
 extern "C" int dial_attention_bwd_f32(const void* q, const void* k, const void* v, const void* d_o, const void* bias,
                                       void* dq, void* dk, void* dv, const void* strides, int batch, int heads,
                                       int seq, int head_dim, float scale, void* stream) {
@@ -536,19 +539,29 @@ extern "C" int dial_attention_bwd_f32(const void* q, const void* k, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16: the dq pass, then the dk/dv pass; rows: f32 scratch [B, h, S, 3];
-// S within dial_attention_bwd_max_seq_bf16.
 extern "C" int dial_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* d_o, const void* bias,
-                                       void* dq, void* dk, void* dv, void* rows, const void* strides, int batch,
-                                       int heads, int seq, int head_dim, float scale, void* stream) {
-  return dial::attn::attention_bwd<dial::bf16>(q, k, v, d_o, bias, dq, dk, dv, rows, strides, batch, heads, seq,
-                                               head_dim, scale, stream);
+                                       void* dq, void* dk, void* dv, const void* strides, int batch, int heads,
+                                       int seq, int head_dim, float scale, void* stream) {
+  using namespace dial::attn;
+  using dial::bf16;
+  const BwdViews vw = read_views(strides);
+  const bf16 *tq = static_cast<const bf16*>(q), *tk = static_cast<const bf16*>(k), *tv = static_cast<const bf16*>(v),
+             *tdo = static_cast<const bf16*>(d_o);
+  const float* fb = static_cast<const float*>(bias);
+  bf16 *tdq = static_cast<bf16*>(dq), *tdk = static_cast<bf16*>(dk), *tdv = static_cast<bf16*>(dv);
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return launch_single_tile_tc<32>(tq, tk, tv, tdo, fb, tdq, tdk, tdv, vw, batch, heads, seq, scale, stm);
+  if (head_dim == 64)
+    return launch_single_tile_tc<64>(tq, tk, tv, tdo, fb, tdq, tdk, tdv, vw, batch, heads, seq, scale, stm);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // C entry points. Write to *max_seq (an int) the longest S, a multiple of
-// 64, whose dynamic shared memory (f32: tile_bwd_bytes; bf16: the dq
-// pass's dq_smem_bytes) fits the opt-in per-block limit of the current
-// device at `head_dim`; return the CUDA error of the query.
+// 64, whose dynamic shared memory (f32: tile_bwd_bytes; bf16:
+// tile_bwd_tc_bytes) fits the opt-in per-block limit of the current device
+// at `head_dim`, in bf16 at most kTcMaxKeys; return the CUDA error of the
+// query.
 extern "C" int dial_attention_bwd_max_seq_f32(int head_dim, void* max_seq) {
   using namespace dial::attn;
   int* out = static_cast<int*>(max_seq);
@@ -557,10 +570,20 @@ extern "C" int dial_attention_bwd_max_seq_f32(int head_dim, void* max_seq) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// C entry point. Writes to *bytes (an int) the dynamic shared memory
-// (tile_bwd_bytes) a block of dial_attention_bwd_f32 is launched with at S =
-// `seq` and `head_dim`; an unsupported head_dim returns
-// cudaErrorInvalidValue.
+extern "C" int dial_attention_bwd_max_seq_bf16(int head_dim, void* max_seq) {
+  using namespace dial::attn;
+  int* out = static_cast<int*>(max_seq);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (head_dim == 32) err = max_seq_for(tile_bwd_tc_bytes<32>, out);
+  if (head_dim == 64) err = max_seq_for(tile_bwd_tc_bytes<64>, out);
+  if (err == cudaSuccess && *out > kTcMaxKeys) *out = kTcMaxKeys;
+  return static_cast<int>(err);
+}
+
+// C entry points. Write to *bytes (an int) the dynamic shared memory
+// (f32: tile_bwd_bytes; bf16: tile_bwd_tc_bytes) a block of the dtype's
+// backward is launched with at S = `seq` and `head_dim`; an unsupported
+// head_dim returns cudaErrorInvalidValue.
 extern "C" int dial_attention_bwd_smem_bytes_f32(int head_dim, int seq, void* bytes) {
   using namespace dial::attn;
   int* out = static_cast<int*>(bytes);
@@ -570,10 +593,11 @@ extern "C" int dial_attention_bwd_smem_bytes_f32(int head_dim, int seq, void* by
   return 0;
 }
 
-extern "C" int dial_attention_bwd_max_seq_bf16(int head_dim, void* max_seq) {
+extern "C" int dial_attention_bwd_smem_bytes_bf16(int head_dim, int seq, void* bytes) {
   using namespace dial::attn;
-  int* out = static_cast<int*>(max_seq);
-  if (head_dim == 32) return static_cast<int>(max_seq_for(dq_smem_bytes<32>, out));
-  if (head_dim == 64) return static_cast<int>(max_seq_for(dq_smem_bytes<64>, out));
-  return static_cast<int>(cudaErrorInvalidValue);
+  int* out = static_cast<int*>(bytes);
+  if (head_dim == 32) *out = static_cast<int>(tile_bwd_tc_bytes<32>(seq));
+  else if (head_dim == 64) *out = static_cast<int>(tile_bwd_tc_bytes<64>(seq));
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }

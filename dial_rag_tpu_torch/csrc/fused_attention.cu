@@ -7,9 +7,8 @@
 // with f32 accumulation, f32 softmax over scores*scale + (1-mask)*f32.min,
 // probabilities cast to T after the division, before P.V, ctx cast to T
 // once, the output projection never rounded before the bias, residual and
-// LayerNorm (eps 1e-12), T out. bf16 at (H 384, 12 heads of 32), (H 768,
-// 12 heads of 64) and bge-large's (H 1024, 16 heads of 64); f32 at the
-// first two.
+// LayerNorm (eps 1e-12), T out. At (H 384, 12 heads of 32), (H 768, 12
+// heads of 64) and bge-large's (H 1024, 16 heads of 64), in bf16 and f32.
 //
 // Bound on an H100 SXM at B=128, S=256 (m = 32768 rows), QKV + QK^T + PV
 // + output projection:
@@ -20,7 +19,7 @@
 //     x in and out 134 MB -> 0.040 ms;
 //   f32 (split TF32): H=384 51.5 GFLOP -> 0.312 ms at 165 TFLOP/s of
 //     3xTF32, 0.769 ms at 67 TFLOP/s on the CUDA cores; H=768 180.4
-//     GFLOP -> 1.093 / 2.692 ms.
+//     GFLOP -> 1.093 / 2.692 ms; H=1024 309.2 GFLOP -> 1.874 / 4.615 ms.
 // So the block is bound by operations.
 //
 // Design. The TPU kernel keeps a batch row's qkv [S, 3H] and each head's
@@ -73,7 +72,8 @@
 // f32: x, wqkv, wout, qkv (scratch [B, S, 3H]), ctx, y (scratch [B, S,
 // H]), planes (scratch, 6 H^2 floats) and out are f32, x 16-byte aligned;
 // mask is int32 [B, S]; bqkv, bout, gamma and beta are f32. (H, head_dim)
-// is (384, 32) or (768, 64). Launches the six kernels on `stream`.
+// is (384, 32), (768, 64) or (1024, 64). Launches the six kernels on
+// `stream`.
 //
 // Another width is cudaErrorInvalidValue. Each returns the first CUDA
 // error (0 on success).
@@ -82,7 +82,7 @@ extern "C" int dial_attention_block_bf16(const void* x, const void* mask, const 
                                          void* qkv, void* ctx, void* y, void* out, int batch, int seq, int num_heads,
                                          int head_dim, float scale, void* stream) {
   using dial::bf16;
-  return static_cast<int>(dial::enc::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+  return static_cast<int>(dial::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
     return dial::enc::attention_block<decltype(hid)::value, decltype(dh)::value>(
         static_cast<const bf16*>(x), static_cast<const int32_t*>(mask), static_cast<const bf16*>(wqkv),
         static_cast<const float*>(bqkv), static_cast<const bf16*>(wout), static_cast<const float*>(bout),
@@ -96,7 +96,7 @@ extern "C" int dial_attention_block_f32(const void* x, const void* mask, const v
                                         const void* wout, const void* bout, const void* gamma, const void* beta,
                                         void* qkv, void* ctx, void* y, void* planes, void* out, int batch, int seq,
                                         int num_heads, int head_dim, float scale, void* stream) {
-  return static_cast<int>(dial::enc32::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+  return static_cast<int>(dial::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
     return dial::enc32::attention_block<decltype(hid)::value, decltype(dh)::value>(
         static_cast<const float*>(x), static_cast<const int32_t*>(mask), static_cast<const float*>(wqkv),
         static_cast<const float*>(bqkv), static_cast<const float*>(wout), static_cast<const float*>(bout),

@@ -1,5 +1,5 @@
 // FFN block of a BERT encoder layer in f32 on Hopper's tensor cores in
-// split TF32 (sm_90a), at H 384 and 768.
+// split TF32 (sm_90a), at H 384, 768 and 1024.
 //
 // Replaces, in f32: dial_rag_tpu/ops/fused_encoder.py::_ffn_kernel
 // (pallas_call in _ffn_forward, wrapper fused_ffn_block; in bf16
@@ -10,10 +10,11 @@
 //   out = LN(x + (y + b2))           LayerNorm in f32, eps 1e-12.
 //
 // Bound on an H100 SXM at B=128, S=256 (M = 32768), I = 4H: 4 M H I FLOPs,
-// H 384 77.3 GFLOP, H 768 309.2 GFLOP: 0.468 / 1.874 ms at 165 TFLOP/s of
-// 3xTF32 (the products' rate), 1.154 / 4.615 ms at 67 TFLOP/s of f32 on
-// the CUDA cores; x in, out and both weights once (H 768: 220 MB, 0.066
-// ms at 3.35 TB/s): bound by operations.
+// H 384 77.3 GFLOP, H 768 309.2 GFLOP, H 1024 549.8 GFLOP: 0.468 / 1.874
+// / 3.332 ms at 165 TFLOP/s of 3xTF32 (the products' rate), 1.154 / 4.615
+// / 8.206 ms at 67 TFLOP/s of f32 on the CUDA cores; x in, out and both
+// weights once (H 768: 220 MB, 0.066 ms at 3.35 TB/s): bound by
+// operations.
 //
 // Design. LayerNorm needs whole rows, and the TPU kernel's one fused pass
 // keeps a row block's [rows, H] f32 accumulator on chip while it walks I.
@@ -36,7 +37,7 @@
 // out [rows, hidden], h (scratch [rows, inter]), y (scratch [rows,
 // hidden]) and planes (scratch, 2 hidden inter floats): device pointers
 // of f32, x and h 16-byte aligned; b1 [inter], b2, gamma, beta [hidden]:
-// f32. hidden 384 or 768 and inter a multiple of 128 (else
+// f32. hidden 384, 768 or 1024 and inter a multiple of 128 (else
 // cudaErrorInvalidValue). Launches the five kernels on `stream` and
 // returns the first CUDA error (0 on success).
 extern "C" int dial_ffn_block_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
@@ -52,6 +53,7 @@ extern "C" int dial_ffn_block_f32(const void* x, const void* w1, const void* b1,
   };
   if (hidden == 384) return static_cast<int>(launch(std::integral_constant<int, 384>{}));
   if (hidden == 768) return static_cast<int>(launch(std::integral_constant<int, 768>{}));
+  if (hidden == 1024) return static_cast<int>(launch(std::integral_constant<int, 1024>{}));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,17 +6,16 @@
 //   out = T(LN(a + W2 . T(gelu_tanh(W1 . a + b1)) + b2))
 // with the TPU kernel's cast points: qkv, P (after the division), ctx, a
 // and the GELU output are cast to T (bf16 or f32); products accumulate in
-// f32; both LayerNorms (eps 1e-12) run in f32. bf16 at H 384 (12 heads of
-// 32), 768 (12 heads of 64) and 1024 (16 heads of 64); f32 at the first
-// two.
+// f32; both LayerNorms (eps 1e-12) run in f32. At H 384 (12 heads of
+// 32), 768 (12 heads of 64) and 1024 (16 heads of 64), in bf16 and f32.
 //
 // Bound on an H100 SXM at B=128, S=256, I = 4H: the attention block's
 // work plus the FFN's, 128.8 GFLOP at H=384 (0.130 ms at 989 TFLOP/s
 // bf16), 489.6 GFLOP at H=768 (0.495 ms) and 859.0 GFLOP at H=1024 (0.869
 // ms); x in and out only, 0.015 ms at 3.35 TB/s at H=384 bf16: bound by
-// operations. f32, products in split TF32: 0.781 / 2.967 ms at H 384 /
-// 768 at 165 TFLOP/s of 3xTF32 (1.923 / 7.308 at 67 TFLOP/s on the CUDA
-// cores).
+// operations. f32, products in split TF32: 0.781 / 2.967 / 5.206 ms at H
+// 384 / 768 / 1024 at 165 TFLOP/s of 3xTF32 (1.923 / 7.308 / 12.821 at 67
+// TFLOP/s on the CUDA cores).
 //
 // Design, bf16: the seven launches of kernel 1 then kernel 2
 // (encoder_tc.cuh's layer_block: attention_block, then ffn_block on its
@@ -56,8 +55,8 @@
 //
 // f32: x, the matrices, qkv, ctx, y, a, h (the bf16 entry's scratch
 // shapes), planes (scratch, 2 H max(3H, I) floats) and out are f32, x
-// 16-byte aligned; mask is int32 [B, S]. (H, head_dim) is (384, 32) or
-// (768, 64) and I a multiple of 128. Launches the eleven kernels on
+// 16-byte aligned; mask is int32 [B, S]. (H, head_dim) is (384, 32),
+// (768, 64) or (1024, 64) and I a multiple of 128. Launches the eleven kernels on
 // `stream`.
 //
 // Anything else is cudaErrorInvalidValue. Each returns the first CUDA
@@ -70,7 +69,7 @@ extern "C" int dial_layer_block_bf16(const void* x, const void* mask, const void
                                      void* stream) {
   using dial::bf16;
   if (inter % dial::gemm::kBN) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dial::enc::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+  return static_cast<int>(dial::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
     return dial::enc::layer_block<decltype(hid)::value, decltype(dh)::value>(
         static_cast<const bf16*>(x), static_cast<const int32_t*>(mask), static_cast<const bf16*>(wqkv),
         static_cast<const float*>(bqkv), static_cast<const bf16*>(wout), static_cast<const float*>(bout),
@@ -89,7 +88,7 @@ extern "C" int dial_layer_block_f32(const void* x, const void* mask, const void*
                                     void* out, int batch, int seq, int num_heads, int head_dim, int inter,
                                     float scale, void* stream) {
   if (inter % dial::gemm32::kBN) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dial::enc32::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
+  return static_cast<int>(dial::at_width(num_heads, head_dim, [&](auto hid, auto dh) {
     return dial::enc32::layer_block<decltype(hid)::value, decltype(dh)::value>(
         static_cast<const float*>(x), static_cast<const int32_t*>(mask), static_cast<const float*>(wqkv),
         static_cast<const float*>(bqkv), static_cast<const float*>(wout), static_cast<const float*>(bout),

@@ -32,10 +32,9 @@ Attention routes (``attention_impl``):
   ``"pallas"`` (exact GELU at S <= 512: kernels 4 and 8; every S > 512,
   bf16 included: kernel 5 at a single-tile S, the blocked kernels and
   their backward past it). The kernels take the widths of
-  ``ops.fused_encoder.KERNEL_INSTANTIATIONS`` (bge-small and bge-base:
-  H 384 with 12 heads of 32, H 768 with 12 heads of 64; in bf16 also
-  bge-large's H 1024 with 16 heads of 64, so bf16 "auto" runs kernels 1-2
-  there, while f32 "fused" at H 1024 raises). Where the port lacks a
+  ``ops.fused_encoder.KERNEL_INSTANTIATIONS`` (bge-small, bge-base and
+  bge-large: H 384 with 12 heads of 32, H 768 with 12 heads of 64, H 1024
+  with 16 heads of 64, in f32 and bf16). Where the port lacks a
   route's kernel (another width) the route raises and names it; it never
   falls back to plain PyTorch on the card.
   ``"xla"`` is the route on the CPU.

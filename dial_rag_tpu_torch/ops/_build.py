@@ -52,10 +52,9 @@ SIGNATURES = {
         "dial_attention_fwd_smem_bytes": [_I, _I, _P],
     },
     "flash_attention_bwd": {
-        "dial_attention_bwd_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
-        "dial_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_F, _P],
+        **{f"dial_attention_bwd_{t}": [_P] * 9 + [_I] * 4 + [_F, _P] for t in ("f32", "bf16")},
         **{f"dial_attention_bwd_max_seq_{t}": [_I, _P] for t in ("f32", "bf16")},
-        "dial_attention_bwd_smem_bytes_f32": [_I, _I, _P],
+        **{f"dial_attention_bwd_smem_bytes_{t}": [_I, _I, _P] for t in ("f32", "bf16")},
     },
     "attention_tc": {
         "dial_attention_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _P],

@@ -32,9 +32,9 @@ Hopper kernels or raise; they never fall back:
   the reference's kernels do;
 - the KV-blocked forward in f32 (``csrc/flash_attention_long.cu``,
   split-TF32 products, one sweep);
-- backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``; in
-  f32 one launch of split-TF32 products per (head, batch row), in bf16 two
-  CUDA-core passes) up to its dtype's limit, the query-blocked backward's
+- backward: the single-tile kernel (``csrc/flash_attention_bwd.cu``: one
+  launch per (head, batch row), in f32 of split-TF32 products, in bf16 of
+  bf16 tensor-core products) up to its dtype's limit, the query-blocked backward's
   code past it and on the query-blocked route, the KV-blocked passes after
   the KV-blocked forward (``csrc/flash_attention_long_bwd.cu``; both
   blocked backwards in f32 on split-TF32 products on the tensor cores, in
@@ -311,8 +311,8 @@ def single_tile_max_s(direction: str, head_dim: int, device=None, dtype=torch.fl
     ``head_dim``: its score tiles and operand tiles must fit in the shared
     memory one block may opt in to. The kernel's library works it out from
     its own layout (on an H100's 227 KB: forward 768 at head_dim 32, 704
-    at 64; f32 backward 128, a whole [S, S] tile a block; bf16 backward
-    1472 at head_dim 32). Past it the wrappers take the query-blocked
+    at 64; the backward 128 in both dtypes, a whole [S, S] tile a block,
+    in bf16 also the registers' limit). Past it the wrappers take the query-blocked
     kernels' code, which has no S limit. The bf16 forward (the tensor-core
     kernel) has no limit, so ``"fwd"`` raises on any other dtype than f32."""
     if direction == "fwd" and dtype != torch.float32:
@@ -465,23 +465,20 @@ def _check_rows(name, t, shape):
 def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     """Launches the single-tile recompute-P backward (TPU kernel 8) on [B,
     h, S, Dh] views; S within ``single_tile_max_s("bwd", Dh, dtype=...)``:
-    in f32 one launch of split-TF32 products on the tensor cores (q, k, v
-    and do 16-byte aligned rows), in bf16 two passes on the CUDA cores."""
+    one launch per (head, batch row), in f32 of split-TF32 products, in
+    bf16 of bf16 products, on the tensor cores (q, k, v and do 16-byte
+    aligned rows, cp.async copies; in bf16 dq, dk and dv too, written 16
+    bytes at a time)."""
     _check_attention_inputs(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
     b, h, s, dh = q.shape
     if s > single_tile_max_s("bwd", dh, q.device, q.dtype):
         raise ValueError(f"S={s} is past the single-tile backward's shared-memory limit at head_dim {dh} in "
                          f"{q.dtype}")
+    outs = {"dq": dq, "dk": dk, "dv": dv} if q.dtype == torch.bfloat16 else {}
+    _check_16_byte_rows(f"single-tile {KERNEL_DTYPES[q.dtype]} backward", q=q, k=k, v=v, do=do, **outs)
     bias = _kernel_bias(attention_mask, b, s, q.device)
-    if q.dtype == torch.float32:
-        _check_16_byte_rows("single-tile f32 backward", q=q, k=k, v=v, do=do)
-        pointers = (q, k, v, do, bias, dq, dk, dv)
-    else:
-        # per (b, head, query row): softmax max, denominator and rowsum(dP * P)
-        rows = torch.empty((b, h, s, 3), dtype=torch.float32, device=q.device)
-        pointers = (q, k, v, do, bias, dq, dk, dv, rows)
     _launch("flash_attention_bwd", f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}", "attention backward", q,
-            pointers, (q, k, v, do, dq, dk, dv))
+            (q, k, v, do, bias, dq, dk, dv), (q, k, v, do, dq, dk, dv))
     LAUNCHES["flash_attention_bwd"] += 1
 
 

@@ -15,9 +15,9 @@ falls back. The three run on the tensor cores as launch sequences of
 products, the single-tile attention and a LayerNorm pass: in bf16 the
 products on ``wgmma`` (``csrc/encoder_tc.cuh``), in f32 in split TF32 on
 ``mma.sync`` (``csrc/encoder_tf32.cuh``). The kernels are
-instantiated for ``KERNEL_INSTANTIATIONS``: f32 at (H 384, head_dim 32)
-and (H 768, head_dim 64) (bge-small and bge-base widths), bf16 also at
-(H 1024, head_dim 64) (bge-large's); ``kernel_supports`` is the predicate
+instantiated for ``KERNEL_INSTANTIATIONS``: f32 and bf16 at (H 384,
+head_dim 32), (H 768, head_dim 64) and (H 1024, head_dim 64) (bge-small,
+bge-base and bge-large widths); ``kernel_supports`` is the predicate
 the wrappers check (the FFN's without a head width). On a CPU tensor
 each wrapper runs the plain PyTorch version beside it, which follows
 the TPU kernel's own order of casts (``_attn_block_kernel``,
@@ -41,16 +41,13 @@ import math
 import torch
 
 LAYERNORM_EPS = 1e-12
-# (hidden, head_dim) the CUDA kernels are instantiated for, per dtype: the
-# bge-small and bge-base widths (12 heads of 32 and of 64) in both, and in
-# bf16 bge-large's (16 heads of 64); the FFN width is any multiple of 128
+# (hidden, head_dim) the CUDA kernels are instantiated for, in each dtype:
+# the bge-small, bge-base and bge-large widths (12 heads of 32, 12 of 64,
+# 16 of 64); the FFN width is any multiple of 128
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-KERNEL_WIDTHS = {
-    torch.float32: ((384, 32), (768, 64)),
-    torch.bfloat16: ((384, 32), (768, 64), (1024, 64)),
-}
+KERNEL_WIDTHS = ((384, 32), (768, 64), (1024, 64))
 KERNEL_INSTANTIATIONS = tuple(
-    (dtype, hidden, head_dim) for dtype, widths in KERNEL_WIDTHS.items() for hidden, head_dim in widths
+    (dtype, hidden, head_dim) for dtype in KERNEL_DTYPES for hidden, head_dim in KERNEL_WIDTHS
 )
 
 LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}

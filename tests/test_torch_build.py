@@ -56,7 +56,9 @@ def test_entry_point_signature_matches_its_declaration(stem, name):
 SCRIPTS = CSRC.parent / "scripts"
 
 
-@pytest.mark.parametrize("script", ["kv_blocked_bwd_variants", "kv_blocked_fwd_variants", "gemm_tf32_variants"])
+@pytest.mark.parametrize(
+    "script", ["kv_blocked_bwd_variants", "kv_blocked_fwd_variants", "gemm_tf32_variants", "bwd_single_tile_variants"]
+)
 def test_variant_script_finds_its_targets(script):
     """Each variant's substitutions match the source as many times as the
     script expects (``_swap`` raises otherwise), and change it."""

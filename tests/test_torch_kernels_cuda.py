@@ -14,8 +14,8 @@ reference's long-context lse tolerance; the blocked backward kernels
 (9-11) f32 atol 5e-5, rtol 1e-4 and bf16 3e-2 of the plain gradient's
 largest magnitude. Every kernel runs at every instantiation of
 ``fused_encoder.KERNEL_INSTANTIATIONS``: f32 and bf16 at bge-small widths
-(H 384, 12 heads of 32) and bge-base widths (H 768, 12 heads of 64), bf16
-also at bge-large's (H 1024, 16 heads of 64), the
+(H 384, 12 heads of 32), bge-base widths (H 768, 12 heads of 64) and
+bge-large's (H 1024, 16 heads of 64), the
 blocked kernels at head_dim 32 and 64, the bf16 attention forward
 (kernels 4, 5, 6) on the tensor-core kernel; the single-tile shapes past
 the single-tile kernels' shared-memory limit on the query-blocked
@@ -52,6 +52,7 @@ WIDTHS = [
     (torch.bfloat16, 768, 12, 3072, 3e-2, True),
     (torch.float32, 768, 12, 3072, 2e-5, False),
     (torch.bfloat16, 1024, 16, 4096, 3e-2, True),
+    (torch.float32, 1024, 16, 4096, 2e-5, False),
 ]
 
 
@@ -121,13 +122,13 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, dtype, hid, heads, inter
 def test_wrappers_raise_on_cuda_input_they_do_not_take(cuda_device):
     """A CUDA tensor goes to the kernel or raises; it never falls back:
     a dtype or a width with no instantiation raises, naming the set (H
-    1024 in bf16 only)."""
-    for dtype, hid in ((torch.float16, 384), (torch.float32, 512), (torch.float32, 1024)):
+    1024 in both dtypes)."""
+    for dtype, hid in ((torch.float16, 384), (torch.float32, 512), (torch.float32, 640)):
         x = torch.zeros(2, 8, hid, device=cuda_device, dtype=dtype)
         w = torch.zeros(hid, 1536, device=cuda_device, dtype=dtype)
         v = torch.zeros(1536, device=cuda_device)
         h = torch.zeros(hid, device=cuda_device)
-        with pytest.raises(ValueError, match="bfloat16, H 1024"):
+        with pytest.raises(ValueError, match=r"bfloat16, H 1024.*float32, H 1024|float32, H 1024.*bfloat16, H 1024"):
             tfe.fused_ffn_block(x, w, v, w.T.contiguous(), h, h, h)
 
 
@@ -218,16 +219,51 @@ def test_attention_kernels_match_plain_on_card(cuda_device, b, s, dtype, dh, ato
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [32, 64])
-def test_attention_kernel_backward_is_reproducible(cuda_device, dh):
-    """No atomics: two backward calls (the f32 split-TF32 kernel 8) give
-    the same bits."""
-    qkv, mask, cot = _attention_inputs(cuda_device, 2, 128, dh=dh)
+def test_attention_kernel_backward_is_reproducible(cuda_device, dh, dtype):
+    """No atomics: two backward calls (kernel 8: the f32 split-TF32 kernel,
+    the bf16 tensor-core kernel) give the same bits."""
+    qkv, mask, cot = _attention_inputs(cuda_device, 2, 128, dh=dh, dtype=dtype)
     tfa.reset_launches()
     a = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
     b = _grads(lambda x: tfa.fused_qkv_attention(x, mask, 12), [qkv], cot)[0]
     assert tfa.LAUNCHES["flash_attention_bwd"] == 2
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", [64, 100, 128, "limit", "limit + 1"])
+def test_bf16_tensor_core_backward_on_card(cuda_device, s, dh):
+    """Kernel 8 in bf16, the one-launch tensor-core backward, called
+    directly on head-major views against ``attention_backward_plain`` with a
+    half-masked and a fully masked row: at S = 64, 100 (ragged), 128 and at
+    its limit, one launch each; at the limit + 1 the backward's route takes
+    the query-blocked backward's two passes (kernel 9's bf16 code), as the
+    launch counters show. Per batch row within 3e-2 of the largest plain
+    gradient; the same bits twice."""
+    limit = tfa.single_tile_max_s("bwd", head_dim=dh, dtype=torch.bfloat16)
+    assert limit == 128
+    s = {"limit": limit, "limit + 1": limit + 1}.get(s, s)
+    qkv, mask, cot = _attention_inputs(cuda_device, 3, s, dh=dh, dtype=torch.bfloat16)
+    q, k, v = (t.contiguous() for t in tfa._split_heads(qkv, 12))
+    do = cot.view(3, s, 12, dh).transpose(1, 2).contiguous().to(torch.bfloat16)
+    want = tfa.attention_backward_plain(q, k, v, do, mask)
+    runs = []
+    for _ in range(2):
+        got = [torch.empty_like(t) for t in (q, k, v)]
+        tfa.reset_launches()
+        tfa._backward_into(q, k, v, do, *got, mask, single_tile=True)
+        torch.cuda.synchronize()
+        key = "flash_attention_bwd" if s <= limit else "attention_bwd_q_blocked"
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {key: 1}, tfa.LAUNCHES
+        _assert_grads_close(got, want, torch.bfloat16)
+        runs.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    if s > limit:
+        with pytest.raises(ValueError, match="shared-memory limit"):
+            tfa._backward_kernel(q, k, v, do, *runs[0], mask)
 
 
 @pytest.mark.cuda
@@ -277,9 +313,10 @@ def test_f32_split_tf32_single_tile_kernels_on_card(cuda_device, limit, offset, 
 
 @pytest.mark.cuda
 def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
-    """The f32 single-tile kernels, the f32 KV-blocked forward and backward
-    passes and the bf16 blocked backwards (query-blocked and KV-blocked, o
-    too) copy rows 16 bytes at a time: a view whose rows are not 16-byte
+    """The f32 single-tile kernels, the bf16 single-tile backward, the f32
+    KV-blocked forward and backward passes and the bf16 blocked backwards
+    (query-blocked and KV-blocked, o too) copy rows 16 bytes at a time: a
+    view whose rows are not 16-byte
     aligned raises (no fallback)."""
     x = torch.randn(2, 2, 64, 36, device=cuda_device)
     q = x[..., 1:33]  # unit head-dim stride, rows 4 bytes past 16-byte alignment
@@ -290,6 +327,9 @@ def test_f32_split_tf32_kernels_raise_on_unaligned_views(cuda_device):
     grads = [torch.empty(2, 2, 64, 32, device=cuda_device) for _ in range(3)]
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._backward_kernel(q, q, q, q, *grads, mask)
+    qh = torch.randn(2, 2, 64, 40, device=cuda_device).to(torch.bfloat16)[..., 4:36]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._backward_kernel(qh, qh, qh, qh, *(g.to(torch.bfloat16) for g in grads), mask)
     rows = torch.zeros(2, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._bwd_dq_kv_blocked_kernel(o, o, o, q, rows, o, grads[0], mask)
@@ -410,14 +450,15 @@ def test_auto_route_raises_where_kernels_are_missing(cuda_device):
     [
         (torch.float32, "tanh", 64, ("fused_attention_block", "fused_ffn_block"), "fused_plain", 2e-5),
         (torch.bfloat16, "exact", 64, ("attention_tc", "flash_attention_bwd"), "pallas_plain", 3e-2),
-        (torch.bfloat16, "exact", 520, ("attention_tc", "flash_attention_bwd"), "pallas_plain", 3e-2),
+        (torch.bfloat16, "exact", 520, ("attention_tc", "attention_bwd_q_blocked"), "pallas_plain", 3e-2),
     ],
 )
 def test_auto_route_runs_the_kernels(cuda_device, hid, dtype, gelu, s, launched, plain_route, atol):
     """The routes the port once refused: (f32, tanh) through kernels 1-2,
     (bf16, exact) through kernel 4 (the tensor-core forward) and its
     backward (kernel 8), bf16 at S = 520 through kernel 5 (the same
-    tensor-core forward) and kernel 8; each hidden state within the
+    tensor-core forward) and kernel 8's route past its S = 128 limit
+    (kernel 9's code); each hidden state within the
     dtype's tolerance of the plain route, each launch counted."""
     from dial_rag_tpu_torch.models.bert import bert_forward
 
@@ -453,11 +494,10 @@ def test_auto_route_runs_the_kernels(cuda_device, hid, dtype, gelu, s, launched,
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [64, 512])
 def test_auto_route_at_bge_large_width_runs_kernels_1_and_2(cuda_device, s):
-    """bf16 "auto" (tanh GELU) at bge-large's width, H 1024 with 16 heads
-    of 64, S <= 512: kernels 1 and 2, once each for the one layer and no
-    attention kernel, within 3e-2 of each row's largest value of the
-    "fused_plain" route; f32 "fused" at that width still raises, naming
-    the instantiations."""
+    """"auto" (tanh GELU) at bge-large's width, H 1024 with 16 heads of 64,
+    S <= 512, in bf16 and f32: kernels 1 and 2, once each for the one layer
+    and no attention kernel, within 3e-2 of each row's largest value of the
+    "fused_plain" route in bf16, within 2e-5 of it in f32."""
     from dial_rag_tpu_torch.models.bert import bert_forward
 
     params = _one_layer(cuda_device, torch.bfloat16, 1024, 512, heads=16)
@@ -479,8 +519,12 @@ def test_auto_route_at_bge_large_width_runs_kernels_1_and_2(cuda_device, s):
     assert not any(tfa.LAUNCHES.values()), tfa.LAUNCHES
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     _assert_close(out, run("fused_plain"), 3e-2, per_row=True)
-    with pytest.raises(ValueError, match=r"\(bfloat16, H 1024, head_dim 64\)"):
-        run("auto", _one_layer(cuda_device, torch.float32, 1024, 512, heads=16), torch.float32)
+    f32 = _one_layer(cuda_device, torch.float32, 1024, 512, heads=16)
+    tfe.reset_launches()
+    out = run("auto", f32, torch.float32)
+    assert tfe.LAUNCHES == {"fused_attention_block": 1, "fused_ffn_block": 1, "fused_layer_block": 0}
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    _assert_close(out, run("fused_plain", f32, torch.float32), 2e-5)
 
 
 @pytest.mark.cuda
@@ -492,7 +536,7 @@ def test_single_tile_kernels_at_their_limit(cuda_device, dtype, dh, atol):
     kernel, has no limit: it runs at the f32 forward's)."""
     fwd_s = tfa.single_tile_max_s("fwd", head_dim=dh)
     bwd_s = tfa.single_tile_max_s("bwd", head_dim=dh, dtype=dtype)
-    assert fwd_s > 512 and bwd_s >= (128 if dtype == torch.float32 else 1024)
+    assert fwd_s > 512 and bwd_s == 128
     qkv, mask, cot = _attention_inputs(cuda_device, 1, fwd_s, dh=dh, dtype=dtype)
     out = tfa.fused_qkv_attention(qkv, mask, 12)
     ref = tfa.fused_qkv_attention(qkv, mask, 12, plain=True)
@@ -616,11 +660,11 @@ def test_kv_blocked_tensor_core_forward_on_card(cuda_device, b, s, dtype, dh):
 @pytest.mark.parametrize("b,s", [(3, 100), (2, 512), (1, 64)])
 def test_ffn_kernel_at_h1024_on_card(cuda_device, b, s):
     """Kernel 2 in bf16 at bge-large's width (H 1024, FFN 4096), which
-    kernels 1 and 3 take too (in bf16 only): against its plain version
-    within 3e-2 of each row's largest plain value, one launch; a ragged
-    row count."""
+    kernels 1 and 3 take too (in f32 as well, ``WIDTHS``): against its
+    plain version within 3e-2 of each row's largest plain value, one
+    launch; a ragged row count."""
     x, _, weights = _block_inputs(cuda_device, b, s, torch.bfloat16, 1024, 4096, seed=7)
-    assert tfe.kernel_supports(torch.bfloat16, 1024) and not tfe.kernel_supports(torch.float32, 1024)
+    assert tfe.kernel_supports(torch.bfloat16, 1024) and tfe.kernel_supports(torch.float32, 1024)
     tfe.reset_launches()
     out = tfe.fused_ffn_block(x, *weights[6:])
     torch.cuda.synchronize()
@@ -840,7 +884,7 @@ def test_f32_product_against_f64_on_card(cuda_device, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid,heads,inter", [(384, 12, 1536), (768, 12, 3072)])
+@pytest.mark.parametrize("hid,heads,inter", [(384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)])
 def test_f32_blocks_are_reproducible(cuda_device, hid, heads, inter):
     """f32 kernels 1, 2 and 3 give the same bits twice (no atomics: every
     product sums K in one order), at a serving bucket, B=16 S=256."""

@@ -265,7 +265,8 @@ def test_kv_blocked_bf16_model_matches_jax(dh, kv_blocked):
 def _recording_kernels(monkeypatch, calls, limits=(1600, 1472)):
     """Every CUDA wrapper replaced by its plain version, recording its
     name, the single-tile kernels' shared-memory limits set to ``limits``
-    (forward, backward; an H100's at head_dim 32 by default), and the
+    (forward, backward; by default two limits past S = 512, so that the
+    single-tile kernels serve every single-tile S of the tests), and the
     dispatch made to believe the tensors lie on the card: the control flow
     of a CUDA forward and backward, run on the CPU."""
     monkeypatch.setattr(tfa, "_use_kernel", lambda t, plain: not plain)

@@ -105,7 +105,7 @@ def test_fused_blocks_at_head_dim_64_match_jax(block, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_ffn_block_at_bge_large_width_matches_jax(dtype):
     """The FFN block at bge-large's width (H 1024, FFN 4096), which the bf16
-    FFN kernel takes, as kernels 1 and 3 do: the port's plain version
+    and f32 FFN kernels take, as kernels 1 and 3 do: the port's plain version
     (the kernel's yardstick on the card) against the reference's Pallas
     kernel in interpret mode on 48 rows; f32 2e-5, bf16 3e-2."""
     np_dtype, t_dtype, _, atol = DTYPES[dtype]
@@ -162,14 +162,14 @@ def _large_block_matches_jax(block, dtype, seed):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_attention_block_at_bge_large_width_matches_jax(dtype):
     """Kernel 1's function at H 1024 (16 heads of 64), the width its bf16
-    kernel takes: f32 2e-5, bf16 3e-2, a ragged mask."""
+    and f32 kernels take: f32 2e-5, bf16 3e-2, a ragged mask."""
     _large_block_matches_jax("attention", dtype, seed=13)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_layer_block_at_bge_large_width_matches_jax(dtype):
     """Kernel 3's function at H 1024 (16 heads of 64, FFN 4096), the width
-    its bf16 kernel takes: f32 2e-5, bf16 3e-2, a ragged mask."""
+    its bf16 and f32 kernels take: f32 2e-5, bf16 3e-2, a ragged mask."""
     _large_block_matches_jax("layer", dtype, seed=14)
 
 
@@ -315,18 +315,18 @@ def test_from_hf_checkpoint_at_base_proportions(tmp_path):
     np.testing.assert_allclose(port.embed_documents(texts), jax_emb.embed_documents(texts), atol=1e-4)
 
 
-SUPPORTED = [(torch.float32, 384, 32), (torch.float32, 768, 64), (torch.bfloat16, 384, 32),
-             (torch.bfloat16, 768, 64), (torch.bfloat16, 1024, 64)]
+SUPPORTED = [(torch.float32, 384, 32), (torch.float32, 768, 64), (torch.float32, 1024, 64),
+             (torch.bfloat16, 384, 32), (torch.bfloat16, 768, 64), (torch.bfloat16, 1024, 64)]
 UNSUPPORTED = [(torch.float16, 384, 32), (torch.float32, 512, 64), (torch.bfloat16, 768, 32),
-               (torch.float32, 1024, 64), (torch.bfloat16, 512, 64)]
+               (torch.float32, 1024, 32), (torch.bfloat16, 512, 64)]
 # the FFN kernel's (dtype, H): the same widths without a head width
 FFN_SUPPORTED = [(d, h) for d, h, _ in SUPPORTED]
 
 
 @pytest.mark.parametrize("dtype,hidden,head_dim", SUPPORTED + UNSUPPORTED)
 def test_kernel_support_predicate(dtype, hidden, head_dim):
-    """The kernels take f32 at (H 384, head_dim 32) and (H 768, head_dim
-    64) and bf16 at those and (H 1024, head_dim 64); anything else raises a
+    """The kernels take f32 and bf16 at (H 384, head_dim 32), (H 768,
+    head_dim 64) and (H 1024, head_dim 64); anything else raises a
     ValueError naming that set. The FFN kernel, which has no head width,
     takes the (dtype, H) pairs of that set."""
     assert tfe.kernel_supports(dtype, hidden, head_dim) == ((dtype, hidden, head_dim) in SUPPORTED)
