@@ -7,7 +7,9 @@ Phases, each announced by a ``[phase]`` line:
 
 1. device: the card's name, CUDA version and ``nvidia-smi`` name/power limit;
 2. build: ``nvcc`` builds the kernels in ``dial_rag_tpu_torch/csrc`` and
-   prints the registers, spill and shared memory of the newer ones;
+   prints the registers, spill and shared memory of the newer ones; g++
+   builds the C++ host cores in ``dial_rag_tpu_torch/native`` meanwhile
+   (a failed build of either stops the run);
 3. kernels: each block kernel (attention, FFN, whole layer) in each
    instantiation (bf16 and f32; H=384 with the shipped checkpoint's
    layer-0 weights, H=768 with a seeded bge-base-width encoder's) against
@@ -25,6 +27,24 @@ Phases, each announced by a ``[phase]`` line:
    counts must equal 12 x the encode batches; top-1 hits must agree with
    the same path through the plain versions; embeddings must agree with
    the f32 path on a few chunks.
+
+   hybrid retrieval: the same 2048 chunks' keyword preprocessing (the C++
+   core ``native/keywords.cpp`` for ASCII text, the Python path for the
+   rest, which stems with ``porter_lite`` where ``nltk`` is missing), a
+   ``Bm25Retriever`` over them (the dense [N, V] layout), its 64 queries
+   in a batch and 5 singly, then ``EnsembleRetriever`` (semantic k=7 +
+   BM25 k=7, RRF) through ``aretrieve_batch`` and 5 ``aretrieve`` calls:
+   kernels 1-2 must launch 12 x the encode batches; BM25 scores within
+   rtol 1e-5 / atol 1e-6 of the same port code on the CPU, top-7 equal
+   apart from near-ties, and the fused lists equal to the fusion of the
+   CPU arms' lists wherever both arms agree;
+
+   BM25 1M: 1M items of 48 unique Zipf(1.1) terms over 262,144 (seed 0)
+   through ``Bm25Index.from_term_weight_arrays`` (a 128-column band and a
+   CSC tail), 64 queries of 8 terms in a batch and 5 singly; scores and
+   top-7 against a host scipy scoring on 4 queries, the same bits when
+   scored twice, and a planted group of 16 identical items ranked latest
+   first.
 
    whole-layer serve: 256 of those chunks and 16 queries through the
    "fused_layer" route (the whole-layer kernel); its launches must equal
@@ -160,6 +180,7 @@ build directory.
 """
 
 import collections
+import concurrent.futures
 import copy
 import json
 import math
@@ -180,6 +201,13 @@ N_QUERIES = 64
 N_TOP1 = 16
 TOLERANCE = 3e-2  # bf16 kernel vs plain version: tests/test_fused_encoder.py's bf16 atol
 TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this close
+# BM25 on the card vs the same port code on the CPU: tests/test_bm25.py's tolerance
+BM25_RTOL, BM25_ATOL = 1e-5, 1e-6
+HYBRID_K = 7  # each ensemble arm's depth, the reference's serving k
+# the BM25 1M phase: items, postings an item, Zipf law of the term ids over
+# the vocabulary, query terms, and the planted group of identical items
+BM25_1M_ITEMS, BM25_1M_POSTINGS, BM25_1M_VOCAB, BM25_1M_ZIPF = 1_000_000, 48, 262_144, 1.1
+BM25_1M_QUERY_TERMS, BM25_1M_GROUP = 8, 16
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
 # f32-grade products as three TF32 tensor-core passes (495 TFLOP/s dense
@@ -2636,6 +2664,282 @@ def base_training_phase(torch, card, dev, model, params, tokenizer, stream) -> d
     return launches
 
 
+def list_near_ties(card_lists, ref_lists, gap_ok, what) -> int:
+    """Ranked id lists of the card equal to the reference's, apart from
+    near-ties: at each position where they differ, ``gap_ok(query, card
+    id, reference id)`` must hold. Returns the lists that differ."""
+    ties = 0
+    for qi, (got, ref) in enumerate(zip(card_lists, ref_lists)):
+        got, ref = [int(i) for i in got], [int(i) for i in ref]
+        if got == ref:
+            continue
+        if len(got) != len(ref):
+            raise RuntimeError(f"{what}: query {qi} returned {len(got)} ids, the reference {len(ref)}")
+        for x, y in zip(got, ref):
+            if x != y and not gap_ok(qi, x, y):
+                raise RuntimeError(f"{what}: query {qi} ranks {got}, the reference {ref}, apart by more than a near-tie")
+        print(f"near-tie, {what} query {qi}: card {got} vs reference {ref}")
+        ties += 1
+    return ties
+
+
+def bm25_gap_ok(scores):
+    """Two items' reference scores within the BM25 tolerance of each other."""
+
+    def ok(qi, x, y) -> bool:
+        sx, sy = float(scores[qi][x]), float(scores[qi][y])
+        return abs(sx - sy) <= BM25_ATOL + BM25_RTOL * max(abs(sx), abs(sy))
+
+    return ok
+
+
+def bm25_scores_within(card_scores, ref_scores, what) -> float:
+    """Every card score within BM25_RTOL / BM25_ATOL of the reference's;
+    returns the largest |difference|."""
+    import numpy as np
+
+    diff = np.abs(card_scores.astype(np.float64) - ref_scores)
+    over = diff - (BM25_ATOL + BM25_RTOL * np.abs(ref_scores))
+    if not np.isfinite(card_scores).all() or over.max() > 0:
+        raise RuntimeError(f"{what}: scores off the reference by up to {diff.max():.3g} "
+                           f"(rtol {BM25_RTOL}, atol {BM25_ATOL})")
+    return float(diff.max())
+
+
+def hybrid_retrieval_phase(torch, card, embedder, embeddings_index, chunks, queries) -> dict:
+    """The main path's chunks and queries through BM25 (keyword
+    preprocessing, the index build, batched and single queries) and the
+    RRF ensemble of the semantic and BM25 arms, each held to the same port
+    code on the CPU. Returns kernels 1-2's launches in the ensemble's run."""
+    import asyncio
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import DocumentRecord, IndexSettings
+    from dial_rag_tpu_torch.index.bm25 import Bm25Index
+    from dial_rag_tpu_torch.index.dense_index import DenseIndex, DocEmbeddings
+    from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval import Bm25Retriever, EnsembleRetriever, SemanticRetriever
+    from dial_rag_tpu_torch.retrieval.ensemble import weighted_reciprocal_rank
+    from dial_rag_tpu_torch.text import keywords as kw
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw.reset_paths()
+    t0 = time.perf_counter()
+    text_index = Bm25Retriever.build_index(chunks)
+    t_kw = time.perf_counter() - t0
+    print(f"keyword preprocessing: {len(chunks)} texts in {t_kw:.3f} s; C++ core {kw.PATHS['native']} texts, "
+          f"Python path {kw.PATHS['python']} (nltk imported: {kw.nltk_available()}; without it the Python "
+          f"path splits words by regex and stems with porter_lite) {card}")
+    record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks,
+                            text_index=text_index, embeddings_index=embeddings_index,
+                            multimodal_embeddings_index=None, description_embeddings_index=None,
+                            mime_type="text/plain", document_bytes=b"")
+    t0 = time.perf_counter()
+    bm25 = Bm25Retriever.from_doc_records([record], k=HYBRID_K)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    index = bm25._index
+    if index.layout != "dense":
+        raise RuntimeError(f"the main path's BM25 index took the {index.layout} layout, not the dense [N, V] one")
+    print(f"BM25 build: {index.n_items} items, {len(index.vocab)} terms, layout dense "
+          f"{tuple(index._weights.shape)} f32, {index.nbytes / 2**20:.1f} MiB, in {t_build:.3f} s {card}")
+
+    bm25.retrieve_batch(queries)  # warm-up at the query shapes
+    t0 = time.perf_counter()
+    bm25_hits = bm25.retrieve_batch(queries)
+    t_batch = time.perf_counter() - t0
+    single_ms = []
+    for q in queries[:5]:
+        t0 = time.perf_counter()
+        bm25.retrieve(q)
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"BM25 query (keyword preprocessing included): {len(queries)} queries in one batch "
+          f"{t_batch * 1e3:.2f} ms; single query median {sorted(single_ms)[2]:.2f} ms {card}")
+    device_profile(torch, lambda: bm25.retrieve(queries[0]), "one single BM25 query", card, top=4)
+
+    # gates: the same port code on the CPU, which the CPU tests hold to the JAX package
+    toks = [kw.keywords_preprocess(q) for q in queries]
+    cpu_index = Bm25Index.build(text_index, device="cpu")
+    cpu_scores = cpu_index.get_scores_batch(toks)
+    err = bm25_scores_within(index.get_scores_batch(toks), cpu_scores, "BM25 main path")
+    cpu_bm25 = cpu_index.top_n_batch_with_scores(toks, HYBRID_K)
+    ties = list_near_ties([[h.chunk_id for h in hits] for hits in bm25_hits], [idx for idx, _ in cpu_bm25],
+                          bm25_gap_ok(cpu_scores), "BM25 main path top-7")
+    print(f"BM25 scores of {len(queries)} queries, card vs CPU: max abs diff {err:.3g} (rtol {BM25_RTOL}, "
+          f"atol {BM25_ATOL}); top-{HYBRID_K} equal apart from {ties} near-ties")
+
+    semantic = SemanticRetriever.from_doc_records(embedder, [record], k=HYBRID_K)
+    ensemble = EnsembleRetriever([semantic, bm25])
+    asyncio.run(ensemble.aretrieve_batch(queries))  # warm-up
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    fused = asyncio.run(ensemble.aretrieve_batch(queries))
+    t_ens = time.perf_counter() - t0
+    ens_ms = []
+    for q in queries[:5]:
+        t0 = time.perf_counter()
+        asyncio.run(ensemble.aretrieve(q))
+        ens_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+    n_batches = -(-len(queries) // embedder.batch_size) + 5
+    arms_ms = []  # the two arms one after the other in this thread, for comparison
+    for q in queries[:5]:
+        t0 = time.perf_counter()
+        semantic.retrieve(q)
+        bm25.retrieve(q)
+        arms_ms.append((time.perf_counter() - t0) * 1e3)
+    layers = embedder.encoder.config.num_layers
+    for name, n in launches.items():
+        if n != layers * n_batches:
+            raise RuntimeError(f"{name} launched {n} times in the ensemble's run, expected {layers * n_batches}")
+    print(f"RRF ensemble (semantic k={HYBRID_K} + BM25 k={HYBRID_K}): {len(queries)} queries through "
+          f"aretrieve_batch {t_ens * 1e3:.2f} ms; single aretrieve median {sorted(ens_ms)[2]:.2f} ms (the two "
+          f"arms' retrieve one after the other in one thread {sorted(arms_ms)[2]:.2f} ms); launches {launches} "
+          f"({layers} layers x {n_batches} encode batches) {card}")
+
+    def keys(hits):
+        return [h.key for h in hits]
+
+    # the fused lists against the fusion of the CPU arms' lists, wherever each arm agrees
+    q_emb = embedder.embed_queries(queries)
+    doc_emb = np.concatenate(embeddings_index)
+    card_sem = semantic.retrieve_batch(queries)
+    cpu_sem = DenseIndex(RetrievalType.TEXT, [DocEmbeddings(np.arange(len(doc_emb)), doc_emb)],
+                         limit=HYBRID_K, device="cpu").find_batch(q_emb)
+
+    def dist_ok(qi, x, y) -> bool:
+        d = ((doc_emb[[x, y]].astype(np.float64) - q_emb[qi]) ** 2).sum(axis=1)
+        return abs(float(d[0] - d[1])) < TIE_GAP
+
+    sem_ties = list_near_ties([[h.chunk_id for h in hits] for hits in card_sem],
+                              [[h.chunk_id for h in hits] for hits in cpu_sem], dist_ok, "semantic arm top-7")
+    agree = 0
+    for qi, hits in enumerate(fused):
+        if keys(hits) != keys(weighted_reciprocal_rank([card_sem[qi], bm25_hits[qi]], [1.0, 1.0])):
+            raise RuntimeError(f"ensemble query {qi}: the fused list is not the fusion of the card's arms")
+        cpu_arm = [SearchHit(0, int(i), RetrievalType.TEXT, float(v)) for i, v in zip(*cpu_bm25[qi])]
+        if keys(card_sem[qi]) != keys(cpu_sem[qi]) or keys(bm25_hits[qi]) != keys(cpu_arm):
+            continue
+        if keys(hits) != keys(weighted_reciprocal_rank([cpu_sem[qi], cpu_arm], [1.0, 1.0])):
+            raise RuntimeError(f"ensemble query {qi}: the fused list differs from the fusion of the CPU arms")
+        agree += 1
+    print(f"RRF ensemble: fused list = fusion of the CPU arms' lists on {agree} of {len(queries)} queries, "
+          f"the rest with an arm at a near-tie (semantic {sem_ties}, BM25 {ties})")
+    print(f"peak memory (hybrid retrieval): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
+    return launches
+
+
+def zipf_terms(rng, shape, vocab: int, s: float):
+    """Term ids in [0, vocab) drawn from a Zipf law of exponent ``s``
+    truncated to the vocabulary (id 0 the most frequent)."""
+    import numpy as np
+
+    cdf = np.cumsum(np.arange(1, vocab + 1, dtype=np.float64) ** -s)
+    cdf /= cdf[-1]
+    return np.minimum(np.searchsorted(cdf, rng.random(shape), side="right"), vocab - 1)
+
+
+def bm25_1m_phase(torch, card) -> None:
+    """A seeded BM25 index at the dense 1M x 384 index's scale: 1M items of
+    48 unique Zipf(1.1) terms over 262,144, built through
+    ``from_term_weight_arrays`` (the band + CSC layout), queried in a batch
+    of 64 and singly, and held to a host scoring of the same weights."""
+    import numpy as np
+    import scipy.sparse
+
+    from dial_rag_tpu_torch.index.bm25 import Bm25Index
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    n, v, p = BM25_1M_ITEMS, BM25_1M_VOCAB, BM25_1M_POSTINGS
+    t0 = time.perf_counter()
+    terms = zipf_terms(rng, (n, p), v, BM25_1M_ZIPF).astype(np.int64)
+    todo = np.arange(n)
+    while todo.size:  # draw again the repeats within an item until its terms are unique
+        sub = np.sort(terms[todo], axis=1)
+        dup = np.zeros(sub.shape, dtype=bool)
+        dup[:, 1:] = sub[:, 1:] == sub[:, :-1]
+        has = dup.any(axis=1)
+        todo, sub, dup = todo[has], sub[has], dup[has]
+        sub[dup] = zipf_terms(rng, int(dup.sum()), v, BM25_1M_ZIPF)
+        terms[todo] = sub
+    weights = rng.uniform(0.5, 1.5, size=(n, p)).astype(np.float32)
+    # a planted group of identical items, spread over the index: ranked
+    # first for their own terms, latest first
+    group = n // 81 + (n // BM25_1M_GROUP) * np.arange(BM25_1M_GROUP)
+    terms[group] = terms[group[0]]
+    weights[group] = 4.0
+    vocab = {f"t{i}": i for i in range(v)}
+    item_ids = np.repeat(np.arange(n), p)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = Bm25Index.from_term_weight_arrays(vocab, np.ones(v), item_ids, terms.ravel(), weights.ravel(), n)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if index.layout != "band+csc":
+        raise RuntimeError(f"the 1M index took the {index.layout} layout")
+    nnz = index._postings[1].numel()
+    print(f"BM25 1M: {n} items x {p} postings, Zipf({BM25_1M_ZIPF}) terms over {v}; layout band+csc: band "
+          f"{tuple(index._band.shape)} ({index._band.numel() * 4 / 2**20:.0f} MiB), CSC tail {nnz} postings "
+          f"({nnz * 8 / 1e9:.3f} GB), nbytes {index.nbytes / 1e9:.3f} GB; data {t_data:.1f} s, build {t_build:.1f} s "
+          f"{card}", flush=True)
+
+    qterms = zipf_terms(rng, (N_QUERIES, BM25_1M_QUERY_TERMS), v, BM25_1M_ZIPF)
+    queries = [[f"t{int(t)}" for t in row] for row in qterms]
+    index.top_n_batch_with_scores(queries, HYBRID_K)  # warm-up
+    t0 = time.perf_counter()
+    batch = index.top_n_batch_with_scores(queries, HYBRID_K)
+    t_batch = time.perf_counter() - t0
+    single_ms = []
+    for q in queries[:5]:
+        t0 = time.perf_counter()
+        index.top_n_with_scores(q, HYBRID_K)
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    tail = [sum(int(index._postings[0][t + 1] - index._postings[0][t]) for t in set(row.tolist())
+                if t not in index._band_cols) for row in qterms]
+    print(f"BM25 1M query: {N_QUERIES} queries of {BM25_1M_QUERY_TERMS} terms through top_n_batch_with_scores "
+          f"{t_batch * 1e3:.2f} ms; single top_n_with_scores median {sorted(single_ms)[2]:.2f} ms; CSC postings "
+          f"a query median {int(np.median(tail))}, max {max(tail)} {card}")
+    device_profile(torch, lambda: index.top_n_with_scores(queries[0], HYBRID_K), "one single BM25 1M query",
+                   card, top=6)
+
+    # gates: a host scoring of the same weights on 4 queries
+    host = scipy.sparse.csr_matrix((weights.ravel().astype(np.float64), (item_ids, terms.ravel())), shape=(n, v))
+    qmat = np.zeros((v, 4))
+    for j, row in enumerate(qterms[:4]):
+        np.add.at(qmat[:, j], row, 1.0)
+    host_scores = (host @ qmat).T
+    err = bm25_scores_within(index.get_scores_batch(queries[:4]), host_scores, "BM25 1M")
+    host_top = [np.argsort(row, kind="stable")[::-1][:HYBRID_K] for row in host_scores]
+    ties = list_near_ties([idx for idx, _ in batch[:4]], host_top, bm25_gap_ok(host_scores), "BM25 1M top-7")
+    del host
+    first = index.get_scores_batch(queries)
+    again = index.get_scores_batch(queries)
+    if not np.array_equal(first.view(np.int32), again.view(np.int32)):
+        raise RuntimeError("BM25 1M: the same queries scored twice gave other bits")
+    if any(not np.array_equal(a[0], b[0]) or not np.array_equal(a[1], b[1])
+           for a, b in zip(batch, index.top_n_batch_with_scores(queries, HYBRID_K))):
+        raise RuntimeError("BM25 1M: the same queries ranked twice gave other results")
+    planted = [f"t{int(t)}" for t in terms[group[0]]]
+    idx, vals = index.top_n_with_scores(planted, BM25_1M_GROUP)
+    in_batch = index.top_n_batch_with_scores([planted] + queries[:3], BM25_1M_GROUP)[0]
+    if (idx.tolist() != group[::-1].tolist() or len(set(vals.tolist())) != 1
+            or not np.array_equal(in_batch[0], idx)):
+        raise RuntimeError(f"BM25 1M: the planted group ranks {idx.tolist()}, scores {vals.tolist()}; "
+                           f"expected {group[::-1].tolist()}, one score")
+    print(f"BM25 1M gates: scores of 4 queries vs a host scipy scoring max abs diff {err:.3g} (rtol {BM25_RTOL}, "
+          f"atol {BM25_ATOL}), top-{HYBRID_K} equal apart from {ties} near-ties; {N_QUERIES} queries scored twice "
+          f"give the same bits; the planted {BM25_1M_GROUP} identical items rank latest first (score {vals[0]})")
+    print(f"peak memory (BM25 1M): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
+    del index, first, again
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -2651,8 +2955,10 @@ def main() -> int:
 
     from dial_rag_tpu_torch.index.dense_index import DenseIndex
     from dial_rag_tpu_torch.index.records import RetrievalType
+    from dial_rag_tpu_torch.models import tokenizer as wordpiece
     from dial_rag_tpu_torch.models.bert import BertEncoder, embed_tokens
     from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.native.build import load_native
     from dial_rag_tpu_torch.ops._build import build_kernels
     from dial_rag_tpu_torch.training.loop import pairs_to_batches
     from dial_rag_tpu_torch.documents.model import build_chunks_list
@@ -2671,7 +2977,17 @@ def main() -> int:
     dev = torch.device("cuda")
 
     phase("build")
-    build = build_kernels()
+    def build_cores() -> float:
+        t0 = time.perf_counter()
+        for name in ("keywords", "wordpiece"):
+            load_native(name)
+        return time.perf_counter() - t0
+
+    # the C++ host cores (g++) build while nvcc builds the kernels; a failed build raises
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cores = pool.submit(build_cores)
+        build = build_kernels()
+        print(f"build: C++ host cores native/keywords.cpp and native/wordpiece.cpp (g++) {cores.result():.2f} s")
     print(f"build: {build.seconds:.2f} s (nvcc, all sources in parallel)"
           if build.seconds else "build: found built for these sources in dial_rag_tpu_torch/_build")
     for stem, lines in build.ptxas.items():
@@ -2740,6 +3056,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fe.reset_launches()
+    wordpiece.reset_paths()
     t0 = time.perf_counter()
     record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(embedder, chunks)})()
     retriever = SemanticRetriever.from_doc_records(embedder, [record], k=1)
@@ -2776,6 +3093,8 @@ def main() -> int:
           f"the same texts alone {t_tok:.3f} s {card}")
     print(f"query: {N_QUERIES} queries in one batch {t_batch * 1e3:.2f} ms; single query median "
           f"{sorted(single_ms)[2]:.2f} ms {card}")
+    print(f"WordPiece texts of the index build and queries: C++ core {wordpiece.PATHS['native']}, "
+          f"Python path {wordpiece.PATHS['python']}")
     # against the host clock above: how far the host paces a single query
     device_profile(torch, lambda: retriever.retrieve(queries[0]), "one single query", card, top=4)
     print(f"peak memory (index build + queries): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}",
@@ -2845,6 +3164,13 @@ def main() -> int:
     print(f"peak memory (bf16 main path and 1M index): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"{card}")
     del big, mat, d64, qd
+
+    phase("hybrid retrieval")
+    for name, n in hybrid_retrieval_phase(torch, card, embedder, record.embeddings_index, chunks, queries).items():
+        launched[name] += n
+
+    phase("BM25 1M")
+    bm25_1m_phase(torch, card)
 
     phase("whole-layer serve")
     launched["fused_layer_block"] += whole_layer_phase(torch, card, embedder, texts, queries)

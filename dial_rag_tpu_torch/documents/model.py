@@ -1,11 +1,12 @@
-"""The parts of ``dial_rag_tpu/documents/model.py`` the semantic retriever
-uses: chunks and the per-chunk embedding lists of a document record.
+"""The parts of ``dial_rag_tpu/documents/model.py`` the retrievers use:
+chunks, the document record with its indexes, and the per-chunk embedding
+lists of a record.
 
 ``MultiEmbeddings`` is a list with one ``[m, D]`` float32 array per chunk
 (a chunk may carry several embedding rows).
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -18,6 +19,43 @@ MultiEmbeddings = list  # list[np.ndarray [m, D] f32]
 class Chunk:
     text: str
     metadata: dict
+
+    @property
+    def page_number(self) -> int | None:
+        return self.metadata.get("page_number")
+
+
+@dataclass
+class IndexSettings:
+    """Settings that took part in building a record's indexes; records
+    built under other settings are stale."""
+
+    indexes: dict = field(default_factory=dict)
+
+    def __eq__(self, other):
+        return isinstance(other, IndexSettings) and self.indexes == other.indexes
+
+
+@dataclass
+class DocumentRecord:
+    """A parsed document and its indexes, one entry per chunk (pages for
+    the page-level indexes). The port builds and queries ``text_index``
+    (BM25) and ``embeddings_index`` (semantic); the other indexes are
+    carried as they come."""
+
+    format_version: int | None
+    index_settings: IndexSettings
+    chunks: list[Chunk]
+    text_index: list[list[str]] | None  # keyword tokens per chunk (BM25)
+    embeddings_index: MultiEmbeddings | None  # semantic, per chunk
+    multimodal_embeddings_index: MultiEmbeddings | None  # per page
+    description_embeddings_index: MultiEmbeddings | None  # per page
+    mime_type: str
+    document_bytes: bytes
+    late_interaction_index: MultiEmbeddings | None = None  # [t_i, D] per chunk
+    chargram_index: list[list[str]] | None = None  # surface words per chunk
+    # content identity (url, hash of the serialized bytes); not serialized
+    cache_token: tuple | None = field(default=None, compare=False)
 
 
 def build_chunks_list(chunk_docs: list[tuple[str, dict]]) -> list[Chunk]:

@@ -4,13 +4,23 @@ of ``dial_rag_tpu/models/tokenizer.py``, which it copies).
 BERT "basic" pretokenization (cleanup, lowercase + accent stripping,
 punctuation and CJK splitting) followed by greedy longest-match WordPiece,
 producing ``[CLS] ... [SEP]`` rows padded to bucketed lengths. The ids are
-those of the reference; its native C++ core is not ported yet.
+those of the reference.
+
+``encode_batch`` runs ASCII texts through the C++ core
+``native/wordpiece.cpp`` where it applies (a lowercasing tokenizer whose
+ids are exactly 0..N-1, the core numbering tokens by vocab line); the core
+rejects non-ASCII texts, which take the Python path. ``PATHS`` counts the
+texts each path served.
 """
 
+import ctypes
 import unicodedata
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from dial_rag_tpu_torch.native.build import load_native
 
 # Sequence-length buckets: every batch is padded up to one of these (the
 # reference's widths, so both encode the same shapes). 96/160/192/224 sit
@@ -20,6 +30,14 @@ DEFAULT_BUCKETS = (64, 96, 128, 160, 192, 224, 256, 512)
 
 _SPECIAL = {"pad": "[PAD]", "unk": "[UNK]", "cls": "[CLS]", "sep": "[SEP]"}
 _MAX_WORD_CHARS = 100
+
+# texts encode_batch served through the C++ core and through the Python path
+PATHS = {"native": 0, "python": 0}
+
+
+def reset_paths() -> None:
+    for name in PATHS:
+        PATHS[name] = 0
 
 
 def _is_control(ch: str) -> bool:
@@ -107,9 +125,32 @@ class WordPieceTokenizer:
     # word -> its WordPiece ids; a pure function of the word and the vocab
     _word_ids: dict[str, list[int]] = field(init=False, repr=False)
 
+    # the C++ core's tokenizer handle, made at first use; None where the
+    # core does not apply to this vocab
+    _native: tuple | None = field(init=False, repr=False, compare=False)
+    _native_tried: bool = field(init=False, repr=False, compare=False)
+
     def __post_init__(self):
         self._ids = {k: self.vocab[v] for k, v in _SPECIAL.items()}
         self._word_ids = {}
+        self._native = None
+        self._native_tried = False
+
+    def _get_native(self) -> tuple | None:
+        """(library, handle) of the C++ core, or None where it does not
+        apply: it lowercases, and numbers tokens by vocab line, so the ids
+        must be exactly 0..N-1. Raises if the core fails to build."""
+        if self._native_tried:
+            return self._native
+        self._native_tried = True
+        if not self.lowercase or sorted(self.vocab.values()) != list(range(len(self.vocab))):
+            return None
+        lib = load_native("wordpiece")
+        blob = "\n".join(sorted(self.vocab, key=self.vocab.get)).encode("utf-8")
+        handle = lib.wp_create(blob, len(blob), self._ids["unk"])
+        weakref.finalize(self, lib.wp_free, handle)
+        self._native = (lib, handle)
+        return self._native
 
     @classmethod
     def from_vocab_file(cls, path: str, **kw) -> "WordPieceTokenizer":
@@ -173,10 +214,51 @@ class WordPieceTokenizer:
                 return b
         return self.buckets[-1]
 
+    def _encode_batch_native(self, native: tuple, texts: list[str], max_len: int):
+        """One call of the C++ core writes CLS/SEP-framed, pad-filled int32
+        rows; rows it rejects (non-ASCII, length -1) are encoded again by
+        the Python path."""
+        lib, handle = native
+        n = len(texts)
+        raws = [t.encode("utf-8") for t in texts]
+        offsets = np.zeros(n + 1, dtype=np.int32)
+        np.cumsum([len(r) for r in raws], out=offsets[1:])
+        ids = np.empty((n, max_len), dtype=np.int32)
+        lens = np.empty(n, dtype=np.int32)
+        int_p = ctypes.POINTER(ctypes.c_int)
+        lib.wp_encode_batch(
+            handle, b"".join(raws), offsets.ctypes.data_as(int_p), n,
+            ids.ctypes.data_as(int_p), max_len, self._ids["cls"], self._ids["sep"],
+            self.pad_id, lens.ctypes.data_as(int_p),
+        )
+        rejected = np.nonzero(lens < 0)[0]
+        for i in rejected:
+            e = self.encode(texts[i], max_len)
+            ids[i, : len(e)] = e  # the row is pad-filled past len(e)
+            lens[i] = len(e)
+        PATHS["native"] += n - len(rejected)
+        PATHS["python"] += len(rejected)
+        s = self._bucket(min(int(lens.max()), max_len))
+        if s > max_len:
+            # max_len below the smallest bucket: rows stay cut at max_len
+            # ids and the arrays pad out to the bucket, as on the Python path
+            out_ids = np.concatenate(
+                [ids, np.full((n, s - max_len), self.pad_id, dtype=np.int32)], axis=1
+            )
+        else:
+            out_ids = np.ascontiguousarray(ids[:, :s])
+        mask = (np.arange(s, dtype=np.int32)[None, :] < lens[:, None]).astype(np.int32)
+        return out_ids, mask
+
     def encode_batch(self, texts: list[str], max_len: int = 512):
         """Returns (input_ids [B, S], attention_mask [B, S]) int32 numpy
         arrays, padded to the smallest bucket >= the longest sequence."""
         max_len = min(max_len, self.buckets[-1])
+        if texts and max_len >= 8:
+            native = self._get_native()
+            if native is not None:
+                return self._encode_batch_native(native, texts, max_len)
+        PATHS["python"] += len(texts)
         encoded = [self.encode(t, max_len) for t in texts]
         longest = max((len(e) for e in encoded), default=2)
         s = self._bucket(min(longest, max_len))

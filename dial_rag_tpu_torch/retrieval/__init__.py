@@ -1,0 +1,5 @@
+from dial_rag_tpu_torch.retrieval.bm25_retriever import Bm25Retriever
+from dial_rag_tpu_torch.retrieval.ensemble import EnsembleRetriever
+from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
+
+__all__ = ["Bm25Retriever", "EnsembleRetriever", "SemanticRetriever"]

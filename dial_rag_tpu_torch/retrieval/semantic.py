@@ -6,6 +6,8 @@ Query: embed the query (with the instruction prefix) and scan the index.
 The metric defaults to sqeuclidean, as in the reference.
 """
 
+import asyncio
+
 import numpy as np
 
 from dial_rag_tpu_torch.documents.model import (
@@ -60,6 +62,10 @@ class SemanticRetriever:
         if not queries:
             return []
         return self.index.find_batch(self.embedder.embed_queries(queries))
+
+    async def aretrieve(self, query: str) -> list[SearchHit]:
+        """``retrieve`` in the loop's executor."""
+        return await asyncio.get_running_loop().run_in_executor(None, self.retrieve, query)
 
     @staticmethod
     def build_index(embedder: BgeEmbedder, chunks: list[Chunk]) -> MultiEmbeddings:

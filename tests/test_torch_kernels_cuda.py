@@ -30,6 +30,7 @@ different orders, can round such a value to neighbouring bf16 values.
 
 import collections
 
+import numpy as np
 import pytest
 import torch
 
@@ -893,3 +894,43 @@ def test_f32_blocks_are_reproducible(cuda_device, hid, heads, inter):
                 lambda: tfe.fused_ffn_block(x, *weights[6:]),
                 lambda: tfe.fused_layer_block(x, mask, weights, heads)):
         assert torch.equal(run(), run())
+
+
+def _bm25_corpus():
+    """tests/test_bm25.py's banded corpus: duplicated items (exact ties),
+    a ubiquitous term (the band), rare tail terms."""
+    rng = np.random.default_rng(23)
+    base = [[f"w{int(x)}" for x in rng.integers(0, 120, size=8)] for _ in range(300)]
+    items = base + base[:40] + [["common", "w1"]] * 25
+    items = [(["common"] if i % 3 else []) + it for i, it in enumerate(items)]
+    queries = [["common", "w1", "w1", "w2"], ["common"], ["w1", "w2", "w3", "w4", "w5"],
+               ["w117", "w118", "zzz-oov"], ["zzz-oov"]]
+    return items, queries + [[f"w{int(x)}" for x in rng.integers(0, 120, size=6)] for _ in range(40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [{}, {"max_dense_bytes": 0}, {"max_dense_bytes": 0, "max_band_bytes": 0}])
+def test_bm25_same_bits_and_latest_first_on_card(cuda_device, layout):
+    """BM25 on the card (dense, band + CSC, CSC): the same queries give
+    the same bits twice (the CSC tail adds in one fixed order, no racing
+    atomics), a query the same bits alone and in a batch, scores within
+    tests/test_bm25.py's rtol 1e-5 / atol 1e-6 of the CPU's, the same
+    top-n, and identical items ranked latest first."""
+    from dial_rag_tpu_torch.index.bm25 import Bm25Index
+
+    items, queries = _bm25_corpus()
+    card = Bm25Index.build(items, device=cuda_device, **layout)
+    cpu = Bm25Index.build(items, device="cpu", **layout)
+    first, again = card.get_scores_batch(queries), card.get_scores_batch(queries)
+    assert np.array_equal(first.view(np.int32), again.view(np.int32))
+    np.testing.assert_allclose(first, cpu.get_scores_batch(queries), rtol=1e-5, atol=1e-6)
+    for k in (5, 12):
+        for q, (idx, vals) in zip(queries, card.top_n_batch_with_scores(queries, k)):
+            single_idx, single_vals = card.top_n_with_scores(q, k)
+            np.testing.assert_array_equal(idx, single_idx)
+            np.testing.assert_array_equal(vals, single_vals)
+            np.testing.assert_array_equal(idx, cpu.top_n(q, k))
+    ties = [["a", "b"], ["x"], ["a", "b"], ["y"], ["a", "b"], ["z"], ["a", "b"]]
+    index = Bm25Index.build(ties, device=cuda_device, **layout)
+    np.testing.assert_array_equal(index.top_n(["a"], 4), [6, 4, 2, 0])
+    np.testing.assert_array_equal(index.top_n(["nothing"], 3), [6, 5, 4])
