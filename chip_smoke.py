@@ -46,6 +46,44 @@ Phases, each announced by a ``[phase]`` line:
    scored twice, and a planted group of 16 identical items ranked latest
    first.
 
+   dense layouts: the seeded 1M x 384 matrix again, with 300 identical
+   rows and 300 within 1e-7 of them planted, as float32, bfloat16,
+   two_pass and int8 ``DenseIndex``es built from the host rows, each
+   answering ``find_batch`` of the 64 queries and ``find`` of 5 (timed,
+   beside its bound, with the scan's memory beyond the index): the bf16
+   scan may hold at most a tenth of the index beyond it; a lone query
+   (float32 and bfloat16), whose scores are ranked whole, must give the
+   hits of the same query ranked a block at a time, on every query (but
+   near-ties), distances within 2e-6, and its device time is printed;
+   two_pass must give float32's hits on
+   every query, alone and batched, distances within 2e-6, and fall back
+   on the planted rows (the fallbacks of the 64 queries printed); int8
+   distances within rtol 1e-6 of the same code on the CPU on 4 queries,
+   top-7 equal apart from near-ties, and overlapping float32's top-7 by
+   at least 0.85.
+
+   late interaction: ``checkpoints/alps-maxsim`` in bf16 token-encodes the
+   2048 chunks (256 tokens a chunk; kernels 1-2 must launch 12 x the
+   encode batches) into float32, bfloat16 and int8
+   ``LateInteractionIndex``es, which answer the 64 queries through
+   ``retrieve_batch`` and 5 through ``retrieve`` and ``aretrieve``; each
+   MaxSim scan timed beside its bound; scores of 4 queries over the first
+   256 chunks within 1e-5 of the same code on the CPU, top-7 equal apart
+   from near-ties, a batch scored twice the same bits, batch equal to
+   single, each query's scores over every chunk from its lone encode
+   within 1e-5 of its batch encode's, ``retrieve_batch``'s hits those of
+   ``retrieve`` on all 64 queries (swaps only within twice that drift),
+   ``embed_query_tokens_device``'s rows the host rows bit for bit.
+
+   local arms ensemble: the chargram arm (the C++ core
+   ``native/chargram.cpp``) and the word vectors of BM25's query
+   expansion built over the same chunks and timed, then the RRF ensemble
+   of the semantic, late-interaction, expanded BM25 and chargram arms
+   (k = 7 each) through ``aretrieve_batch`` and 5 ``aretrieve`` calls:
+   kernels 1-2 12 x the encode batches, chargram scores within rtol 1e-5 /
+   atol 1e-6 of the CPU's, the fused lists the fusion of the CPU arms'
+   lists wherever every arm agrees.
+
    whole-layer serve: 256 of those chunks and 16 queries through the
    "fused_layer" route (the whole-layer kernel); its launches must equal
    12 x the encode batches, its embeddings agree with the "fused" and
@@ -208,8 +246,28 @@ HYBRID_K = 7  # each ensemble arm's depth, the reference's serving k
 # the vocabulary, query terms, and the planted group of identical items
 BM25_1M_ITEMS, BM25_1M_POSTINGS, BM25_1M_VOCAB, BM25_1M_ZIPF = 1_000_000, 48, 262_144, 1.1
 BM25_1M_QUERY_TERMS, BM25_1M_GROUP = 8, 16
+# the dense layouts phase: the main path's seeded 1M x 384 matrix; a planted
+# group of identical rows and as many within 1e-7 of them (the adversarial
+# corpus of tests/test_dense_index.py); distances of one query by two
+# routes of the f32 scan (two_pass against float32, a lone query's scores
+# ranked whole against a block at a time: products of other shapes); int8 top-7 overlap with f32 (tests/test_dense_index.py); the
+# share of the index a bf16 scan may hold beyond it
+DENSE_ROWS, PLANTED = 1_000_000, 300
+DENSE_ATOL = 2e-6
+INT8_OVERLAP = 0.85
+SCAN_SHARE = 0.1
+# late interaction: the MaxSim checkpoint, the index's tokens a chunk, the
+# chunks whose scores the card holds to the CPU, the score tolerance (also
+# between a query's scores from its lone and its batch encode, bf16 token
+# rows at other sequence buckets: 0 read over 64 queries x 2048 chunks in
+# every layout on an H100)
+LI_CHECKPOINT = ROOT / "checkpoints" / "alps-maxsim"
+LI_MAX_TOKENS = 256
+LI_GATE_CHUNKS = 256
+MAXSIM_ATOL = 1e-5
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 # f32-grade products as three TF32 tensor-core passes (495 TFLOP/s dense
 # TF32 / 3): the rate of the split-TF32 kernels' bound (kernels 4-6 and
 # 8-11 in f32), their CUDA-core f32 bound kept beside it
@@ -2940,6 +2998,481 @@ def bm25_1m_phase(torch, card) -> None:
     del index, first, again
 
 
+def device_ms(torch, fn) -> float:
+    """The device time of one call of ``fn`` (the profiler's kernels), ms."""
+    fn()
+    return sum(e.self_device_time_total for e in device_events(torch, fn)) / 1e3
+
+
+def scan_bound(queries: int, rows: int, dim: int, nbytes: float, peak_ops: float) -> tuple[float, str]:
+    """The least time of ``queries`` dot products against ``rows`` stored
+    rows of ``dim`` (the matrix of ``nbytes`` read once)."""
+    return bound(2.0 * queries * rows * dim, nbytes, peak_ops)
+
+
+def dense_layouts_phase(torch, card, dev, qs, n_rows: int = DENSE_ROWS) -> None:
+    """The main path's seeded 1M x 384 matrix, with a planted group of tied
+    rows, as float32, bfloat16, two_pass and int8 ``DenseIndex``es built
+    from the host rows: each answers ``find_batch`` of the 64 queries and
+    ``find`` of 5, timed, with its scan's transient memory; a lone query
+    (float32 and bfloat16) ranked whole against a block at a time; two_pass
+    against float32 with its fallbacks counted; int8 against the same code
+    on the CPU and against float32."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.index import dense_index as di
+    from dial_rag_tpu_torch.index.dense_index import _TP_BLK, _TP_CBLK, DenseIndex, DocEmbeddings
+    from dial_rag_tpu_torch.index.records import RetrievalType
+
+    hid = qs.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mat = torch.randn((n_rows, hid), generator=gen, device=dev)
+    mat /= mat.norm(dim=1, keepdim=True)
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal(hid).astype(np.float32)
+    base /= np.linalg.norm(base)
+    planted = np.sort(rng.choice(n_rows, 2 * PLANTED, replace=False))
+    mat[torch.from_numpy(planted[:PLANTED]).to(dev)] = torch.from_numpy(base).to(dev)
+    near = base + 1e-7 * rng.standard_normal((PLANTED, hid)).astype(np.float32)
+    mat[torch.from_numpy(planted[PLANTED:]).to(dev)] = torch.from_numpy(near).to(dev)
+    host = mat.cpu().numpy()
+    del mat
+    docs = [DocEmbeddings(np.arange(n_rows), host)]
+    indexes, build_s = {}, {}
+    for storage in ("float32", "bfloat16", "two_pass", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        indexes[storage] = DenseIndex(RetrievalType.TEXT, docs, limit=HYBRID_K, storage_dtype=storage, device=dev)
+        torch.cuda.synchronize()
+        build_s[storage] = time.perf_counter() - t0
+    n_pad = indexes["float32"]._emb.shape[0]
+
+    hits = {}
+    for storage, index in indexes.items():
+        index.find_batch(qs)  # warm-up at the query shapes
+        index.find(qs[0])
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hits[storage] = index.find_batch(qs)
+        t_batch = time.perf_counter() - t0
+        batch_peak = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        single_ms = []
+        for q in qs[:5]:
+            t0 = time.perf_counter()
+            index.find(q)
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+        single_peak = torch.cuda.max_memory_allocated() - before
+        peak_ops = PEAK_INT8_OPS if storage == "int8" else PEAK_F32_FLOPS
+        scanned, window = index.nbytes, 0
+        if storage == "two_pass":  # pass 1 reads the bf16 copy, pass 2 each query's window of f32 rows
+            scanned, window = index._emb.numel() * 2, _TP_CBLK * _TP_BLK * hid * 4
+        b_ms, b_by = scan_bound(len(qs), n_pad, hid, scanned + len(qs) * window, peak_ops)
+        b1_ms, b1_by = scan_bound(1, n_pad, hid, scanned + window, peak_ops)
+        print(f"dense {n_rows} x {hid} {storage}: {index.nbytes / 1e9:.3f} GB ({n_pad} rows) built in {build_s[storage]:.2f} s; "
+              f"find_batch of {len(qs)} {t_batch * 1e3:.2f} ms (bound {b_ms:.3f} ms, {b_by}); find median "
+              f"{sorted(single_ms)[2]:.2f} ms (bound {b1_ms:.3f} ms, {b1_by}); scan transient find_batch "
+              f"{batch_peak / 2**20:.1f} MiB ({batch_peak / index.nbytes:.1%} of the index), find "
+              f"{single_peak / 2**20:.1f} MiB ({single_peak / index.nbytes:.1%}) {card}", flush=True)
+        if storage == "bfloat16" and max(batch_peak, single_peak) > SCAN_SHARE * index.nbytes:
+            raise RuntimeError(f"the bf16 scan held {max(batch_peak, single_peak)} bytes beyond a "
+                               f"{index.nbytes}-byte index, more than {SCAN_SHARE:.0%} of it")
+
+    def ids(hs):
+        return [h.chunk_id for h in hs]
+
+    # a lone query ranks its whole scores once; the same query ranked a
+    # block at a time and merged (a 16 MiB scan budget; its products have
+    # other shapes, so f32 rounding may differ) gives the same hits
+    for storage in ("float32", "bfloat16"):
+        index = indexes[storage]
+        whole = [index.find_with_distances(q) for q in qs]
+        budget = di._SCAN_BYTES
+        di._SCAN_BYTES = (16 << 20, 16 << 20)
+        try:
+            if index._per_row_bytes(1, False) * n_pad <= index._scan_budget():
+                raise RuntimeError("a 16 MiB scan budget still ranks a lone query's scores whole")
+            blocked = [index.find_with_distances(q) for q in qs]
+        finally:
+            di._SCAN_BYTES = budget
+        dist = [dict(zip(ids(h), d)) | dict(zip(ids(bh), bd)) for (h, d), (bh, bd) in zip(whole, blocked)]
+        worst = max(abs(dx - dict(zip(ids(bh), bd)).get(x, dx)) for (h, d), (bh, bd) in zip(whole, blocked)
+                    for x, dx in zip(ids(h), d))
+        if worst > DENSE_ATOL:
+            raise RuntimeError(f"{storage}: a lone query's distances ranked whole and a block at a time differ by {worst}")
+        ties = list_near_ties([ids(bh) for bh, _ in blocked], [ids(h) for h, _ in whole],
+                              lambda qi, x, y: abs(dist[qi][x] - dist[qi][y]) <= DENSE_ATOL,
+                              f"dense {storage} lone query ranked a block at a time vs whole")
+        one_ms = device_ms(torch, lambda: index.find(qs[0]))
+        print(f"dense {n_rows} {storage} single query, device time {one_ms:.3f} ms; ranked whole = ranked a "
+              f"block at a time on all {len(qs)} queries apart from {ties} near-ties, distances within "
+              f"{worst:.3g} (limit {DENSE_ATOL}) {card}")
+
+    # two_pass: the f32 index's hits and distances, its fallbacks counted
+    tp, f32 = indexes["two_pass"], indexes["float32"]
+    qt, q_sq = tp._prepare(qs)
+    ok, _ = tp._two_pass_window(qt, q_sq, HYBRID_K)
+    fallbacks = int((~ok).sum())
+    worst = 0.0
+    for qi, q in enumerate(qs):
+        h, d = tp.find_with_distances(q)
+        fh, fd = f32.find_with_distances(q)
+        worst = max(worst, float(np.max(np.abs(np.asarray(d) - np.asarray(fd)))))
+        if ids(h) != ids(fh) or ids(hits["two_pass"][qi]) != ids(hits["float32"][qi]) or worst > DENSE_ATOL:
+            raise RuntimeError(f"two_pass query {qi}: {ids(h)} / batch {ids(hits['two_pass'][qi])}, float32 "
+                               f"{ids(fh)} / batch {ids(hits['float32'][qi])}, distances apart by {worst}")
+    tied = np.stack([base, base + np.float32(1e-8)])
+    qt, q_sq = tp._prepare(torch.from_numpy(tied))
+    tied_ok, _ = tp._two_pass_window(qt, q_sq, HYBRID_K)
+    for q in tied:
+        h, fh = tp.find(q), f32.find(q)
+        if ids(h) != ids(fh) or not set(ids(h)) <= set(planted.tolist()):
+            raise RuntimeError(f"two_pass on the planted rows ranks {ids(h)}, float32 {ids(fh)}")
+    if bool(tied_ok.any()):
+        raise RuntimeError("the planted tied rows did not force the two_pass fallback")
+    print(f"two_pass gates: float32's hits on all {len(qs)} queries, alone and in the batch, distances within "
+          f"{worst:.3g} (limit {DENSE_ATOL}); {fallbacks} of {len(qs)} queries fell back to the f32 scan; the "
+          f"{2 * PLANTED} planted rows force the fallback and rank as float32 does {card}")
+
+    # int8: the same code on the CPU, and float32's top-7
+    i8 = indexes["int8"]
+    cpu8 = DenseIndex(RetrievalType.TEXT, docs, limit=3 * HYBRID_K, storage_dtype="int8", device="cpu")
+    worst, ties = 0.0, 0
+    for qi in range(4):
+        h, d = i8.find_with_distances(qs[qi])
+        ch, cd = cpu8.find_with_distances(qs[qi])
+        cpu_d = dict(zip(ids(ch), cd))
+        for x, dx in zip(ids(h), d):
+            if x not in cpu_d or abs(dx - cpu_d[x]) > 1e-6 * abs(cpu_d[x]):
+                raise RuntimeError(f"int8 query {qi}: row {x} at {dx} on the card, {cpu_d.get(x)} on the CPU")
+            worst = max(worst, abs(dx - cpu_d[x]) / abs(cpu_d[x]))
+
+        def gap_ok(_, x, y):
+            return abs(cpu_d[x] - cpu_d[y]) <= 1e-6 * abs(cpu_d[y])
+
+        ties += list_near_ties([ids(h)], [ids(ch)[:HYBRID_K]], gap_ok, f"int8 query {qi} top-7")
+    overlap = float(np.mean([len(set(ids(a)) & set(ids(b))) / HYBRID_K
+                             for a, b in zip(hits["int8"], hits["float32"])]))
+    if overlap < INT8_OVERLAP:
+        raise RuntimeError(f"int8 top-{HYBRID_K} overlaps float32's by {overlap}, below {INT8_OVERLAP}")
+    print(f"int8 gates: 4 queries' distances within rtol {worst:.3g} of the CPU's (limit 1e-6), top-{HYBRID_K} "
+          f"equal apart from {ties} near-ties; top-{HYBRID_K} overlap with float32 {overlap:.3f} over "
+          f"{len(qs)} queries (at least {INT8_OVERLAP}) {card}")
+    print(f"peak memory (dense layouts): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
+
+
+def late_interaction_phase(torch, card, li_emb, texts, chunks, queries) -> tuple[dict, list]:
+    """``checkpoints/alps-maxsim`` in bf16 token-encodes the main path's
+    chunks; float32, bfloat16 and int8 ``LateInteractionIndex``es answer the
+    64 queries through ``retrieve_batch`` and 5 through ``retrieve`` and
+    ``aretrieve``, timed; each MaxSim scan timed beside its bound; the card
+    held to the same code on the CPU. Returns kernels 1-2's launches and the
+    chunks' token embeddings."""
+    import asyncio
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import DocumentRecord, IndexSettings
+    from dial_rag_tpu_torch.index import late_interaction as li
+    from dial_rag_tpu_torch.index.late_interaction import LateInteractionIndex
+    from dial_rag_tpu_torch.index.records import RetrievalType
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval import LateInteractionRetriever
+
+    # warm-up: first use of each op at the encode shapes
+    li_emb.embed_documents_tokens(texts[: li_emb.batch_size], LI_MAX_TOKENS)
+    li_emb.embed_documents_tokens(queries, max_tokens=64)
+    li_emb.embed_query_tokens_device(queries[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    tokens = LateInteractionRetriever.build_index(li_emb, chunks, LI_MAX_TOKENS)
+    t_encode = time.perf_counter() - t0
+    n_tokens = sum(t.shape[0] for t in tokens)
+    record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
+                            embeddings_index=None, multimodal_embeddings_index=None,
+                            description_embeddings_index=None, mime_type="text/plain", document_bytes=b"",
+                            late_interaction_index=tokens)
+    print(f"late-interaction token encode (alps-maxsim, bf16): {len(chunks)} chunks, {n_tokens} tokens in "
+          f"{t_encode:.3f} s ({len(chunks) / t_encode:.1f} chunks/s) {card}", flush=True)
+    retrievers, results = {}, {}
+    for storage in ("float32", "bfloat16", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = LateInteractionRetriever.from_doc_records(li_emb, [record], k=HYBRID_K, max_chunk_tokens=LI_MAX_TOKENS,
+                                                      storage_dtype=storage)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        r.retrieve_batch(queries)  # warm-up at the query shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = r.retrieve_batch(queries)
+        t_batch = time.perf_counter() - t0
+        single, single_ms, async_hits, async_ms = [], [], [], []
+        for q in queries[:5]:
+            t0 = time.perf_counter()
+            single.append(r.retrieve(q))
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            async_hits.append(asyncio.run(r.aretrieve(q)))
+            async_ms.append((time.perf_counter() - t0) * 1e3)
+        retrievers[storage], results[storage] = r, (batch, single, async_hits)
+        print(f"late interaction {storage}: index {r.index.nbytes / 1e9:.3f} GB {tuple(r.index._x.shape)} built in "
+              f"{t_build:.3f} s; {len(queries)} queries through retrieve_batch {t_batch * 1e3:.2f} ms; retrieve "
+              f"median {sorted(single_ms)[2]:.2f} ms, aretrieve median {sorted(async_ms)[2]:.2f} ms {card}",
+              flush=True)
+    torch.cuda.synchronize()
+    launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+    n_batches = -(-len(chunks) // li_emb.batch_size) + 3 * (2 + 5 + 5)
+    layers = li_emb.encoder.config.num_layers
+    for name, n in launches.items():
+        if n != layers * n_batches:
+            raise RuntimeError(f"{name} launched {n} times in the late-interaction run, expected "
+                               f"{layers * n_batches}: the token encode bypassed it")
+    print(f"late-interaction launches {launches} ({layers} layers x {n_batches} encode batches)")
+    device_profile(torch, lambda: retrievers["float32"].retrieve(queries[0]), "one late-interaction query (f32)",
+                   card, top=5)
+
+    # each MaxSim scan on the card: one query, and one group of the batch
+    q_tokens = li_emb.embed_documents_tokens(queries, max_tokens=64)
+    q_tok, q_counts = li.pack_query_batch(q_tokens, li_emb.dim)
+    lone_tok, lone_counts = li.pack_query_batch([li_emb.embed_query_tokens(q) for q in queries], li_emb.dim)
+    if lone_tok.shape != q_tok.shape or not np.array_equal(lone_counts, q_counts):
+        raise RuntimeError("a query's lone token encode has other tokens than its batch encode")
+    g = max(1, li._MAX_Q_LANES // q_tok.shape[1])
+    for storage, r in retrievers.items():
+        idx = r.index
+        peak = PEAK_INT8_OPS if storage == "int8" else PEAK_F32_FLOPS
+        for what, n_q in (("one query", 1), (f"a group of {g} queries", g)):
+            qt = torch.from_numpy(q_tok[:n_q]).to(li_emb.device)
+            qc = torch.from_numpy(q_counts[:n_q]).to(li_emb.device)
+            ms = cuda_ms(torch, lambda: li._maxsim_scores(idx._x, idx._counts, qt, qc, idx._x_scales), iters=5)
+            b_ms, b_by = bound(2.0 * idx._x.shape[0] * idx.t * idx.dim * n_q * q_tok.shape[1], idx.nbytes, peak)
+            print(f"MaxSim scan {storage}, {what} ({n_q * q_tok.shape[1]} lanes): {ms:.3f} ms (bound {b_ms:.3f} ms, "
+                  f"{b_by}) {card}")
+        device_profile(torch, lambda: li._maxsim_scores(idx._x, idx._counts, qt, qc, idx._x_scales),
+                       f"one MaxSim scan ({storage}, {what})", card, top=4)
+
+    # gates: the same code on the CPU over the first chunks, 4 queries
+    sub = [tokens[:LI_GATE_CHUNKS]]
+    qt = torch.from_numpy(q_tok[:4])
+    qc = torch.from_numpy(q_counts[:4])
+    for storage in retrievers:
+        cpu = LateInteractionIndex(RetrievalType.TEXT, sub, LI_MAX_TOKENS, HYBRID_K, storage, device="cpu")
+        gpu = LateInteractionIndex(RetrievalType.TEXT, sub, LI_MAX_TOKENS, HYBRID_K, storage, device=li_emb.device)
+        want = li._maxsim_scores(cpu._x, cpu._counts, qt, qc, cpu._x_scales).numpy()
+        got = li._maxsim_scores(gpu._x, gpu._counts, qt.to(li_emb.device), qc.to(li_emb.device),
+                                gpu._x_scales).cpu().numpy()
+        finite = np.isfinite(want)
+        err = float(np.max(np.abs(got[finite] - want[finite])))
+        if not np.array_equal(finite, np.isfinite(got)) or err > MAXSIM_ATOL:
+            raise RuntimeError(f"MaxSim {storage}: the card's scores are off the CPU's by {err} (atol {MAXSIM_ATOL})")
+
+        def gap_ok(qi, x, y):
+            return abs(float(want[x, qi]) - float(want[y, qi])) <= MAXSIM_ATOL
+
+        ties = list_near_ties([[h.chunk_id for h in hs] for hs in gpu.find_batch(q_tokens[:4])],
+                              [[h.chunk_id for h in hs] for hs in cpu.find_batch(q_tokens[:4])], gap_ok,
+                              f"MaxSim {storage} top-7")
+        # batch and single on the same token rows, and the same bits twice
+        batch_hits = retrievers[storage].index.find_batch(q_tokens)
+        again = retrievers[storage].index.find_batch(q_tokens)
+        if [[h.score for h in hs] for hs in again] != [[h.score for h in hs] for hs in batch_hits]:
+            raise RuntimeError(f"MaxSim {storage}: a batch scored twice gave other bits")
+        alone = [retrievers[storage].index.find_with_scores(q) for q in q_tokens[:5]]
+        scores = [{h.chunk_id: h.score for h in hs} for hs in batch_hits[:5]]
+        for (h, s), sc in zip(alone, scores):
+            sc.update({x.chunk_id: v for x, v in zip(h, s)})
+        lone_ties = list_near_ties([[h.chunk_id for h in hs] for hs in batch_hits[:5]],
+                                   [[x.chunk_id for x in h] for h, _ in alone],
+                                   lambda qi, x, y: abs(scores[qi][x] - scores[qi][y]) <= MAXSIM_ATOL,
+                                   f"MaxSim {storage} batch vs single")
+        batch, single, async_hits = results[storage]
+        for qi in range(5):
+            if [h.key for h in async_hits[qi]] != [h.key for h in single[qi]]:
+                raise RuntimeError(f"late interaction {storage} query {qi}: aretrieve is not retrieve")
+        # retrieve_batch against retrieve on every query: swaps only where the
+        # scores of the lone and the batch encode, over every chunk, drift
+        idx, drift = retrievers[storage].index, 0.0
+        for g0 in range(0, len(queries), g):
+            scored = [li._maxsim_scores(idx._x, idx._counts, torch.from_numpy(t[g0 : g0 + g]).to(li_emb.device),
+                                        torch.from_numpy(c[g0 : g0 + g]).to(li_emb.device), idx._x_scales).cpu()
+                      for t, c in ((q_tok, q_counts), (lone_tok, lone_counts))]
+            finite = torch.isfinite(scored[0])
+            if not torch.equal(finite, torch.isfinite(scored[1])):
+                raise RuntimeError(f"MaxSim {storage}: the lone and batch encodes score other chunks")
+            drift = max(drift, float((scored[0] - scored[1])[finite].abs().max()))
+        if drift > MAXSIM_ATOL:
+            raise RuntimeError(f"MaxSim {storage}: lone and batch encodes' scores drift {drift}, above {MAXSIM_ATOL}")
+        lone_hits = [retrievers[storage].retrieve(q) for q in queries]
+        sc = [{h.chunk_id: h.score for h in hs + b} for hs, b in zip(lone_hits, batch)]
+        retr_ties = list_near_ties([[h.chunk_id for h in hs] for hs in batch],
+                                   [[h.chunk_id for h in hs] for hs in lone_hits],
+                                   lambda qi, x, y: abs(sc[qi][x] - sc[qi][y]) <= 2 * drift,
+                                   f"late interaction {storage} retrieve_batch vs retrieve")
+        print(f"MaxSim {storage} gates: scores of 4 queries over {LI_GATE_CHUNKS} chunks within {err:.3g} of the "
+              f"CPU's (atol {MAXSIM_ATOL}), top-{HYBRID_K} equal apart from {ties} near-ties; a batch scored twice "
+              f"gives the same bits; index batch = single apart from {lone_ties} near-ties; lone vs batch encode "
+              f"score drift over {len(queries)} queries x {idx.n_rows} chunks {drift:.3g} (limit {MAXSIM_ATOL}); "
+              f"retrieve_batch = retrieve on {len(queries)} queries apart from {retr_ties} near-ties within "
+              f"{2 * drift:.3g}; aretrieve = retrieve")
+    for q in queries[:5]:
+        dev_rows = li_emb.embed_query_tokens_device(q).cpu().numpy()
+        host = li_emb.embed_query_tokens(q)
+        if not np.array_equal(dev_rows[: host.shape[0]], host) or dev_rows[host.shape[0] :].any():
+            raise RuntimeError(f"embed_query_tokens_device rows of {q!r} are not the host rows")
+    print(f"embed_query_tokens_device: 5 queries' rows equal the host rows bit for bit, padding exactly zero")
+    print(f"peak memory (late interaction): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
+    return launches, tokens
+
+
+def local_arms_phase(torch, card, embedder, li_emb, embeddings_index, tokens, chunks, queries) -> dict:
+    """The chargram arm (the C++ core) and the word-vector expansion of
+    BM25 over the main path's chunks, built and timed, then the RRF
+    ensemble of the four local arms (semantic, late_interaction, bm25 with
+    expansion, chargram; k = 7 each) through ``aretrieve_batch`` and 5
+    ``aretrieve`` calls, each arm held to the same code on the CPU.
+    Returns kernels 1-2's launches in the ensemble's run."""
+    import asyncio
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import DocumentRecord, IndexSettings
+    from dial_rag_tpu_torch.index import chargram as cgi
+    from dial_rag_tpu_torch.index.dense_index import DenseIndex, DocEmbeddings
+    from dial_rag_tpu_torch.index.late_interaction import LateInteractionIndex
+    from dial_rag_tpu_torch.index.records import RetrievalType
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval import (
+        Bm25Retriever,
+        ChargramRetriever,
+        EnsembleRetriever,
+        LateInteractionRetriever,
+        SemanticRetriever,
+    )
+    from dial_rag_tpu_torch.retrieval.ensemble import weighted_reciprocal_rank
+    from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig, build_word_vectors
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text_index = Bm25Retriever.build_index(chunks)
+    cgi.reset_paths()
+    t0 = time.perf_counter()
+    words = ChargramRetriever.build_index(chunks)
+    t_words = time.perf_counter() - t0
+    record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=text_index,
+                            embeddings_index=embeddings_index, multimodal_embeddings_index=None,
+                            description_embeddings_index=None, mime_type="text/plain", document_bytes=b"",
+                            late_interaction_index=tokens, chargram_index=words)
+    t0 = time.perf_counter()
+    chargram = ChargramRetriever.from_doc_records([record], k=HYBRID_K)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    inner = chargram._index.inner
+    print(f"chargram build: words of {len(chunks)} chunks {t_words:.3f} s; index {inner.n_items} items, "
+          f"{len(inner.vocab)} grams, layout {inner.layout}, {inner.nbytes / 2**20:.1f} MiB, in {t_cg:.3f} s; "
+          f"triples: C++ core {cgi.PATHS['native']} texts, numpy path {cgi.PATHS['numpy']} {card}")
+    cfg = QueryExpansionConfig()
+    t0 = time.perf_counter()
+    wv = build_word_vectors([c.text for c in chunks], window=cfg.window, dim=cfg.dim, min_count=cfg.min_count,
+                            max_vocab=cfg.max_vocab)
+    t_wv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bm25 = Bm25Retriever.from_doc_records([record], k=HYBRID_K, expansion_config=cfg)
+    torch.cuda.synchronize()
+    t_bm25 = time.perf_counter() - t0
+    print(f"word vectors (host numpy): {wv.vecs.shape[0]} words x {wv.vecs.shape[1]} in {t_wv:.3f} s; BM25 "
+          f"with query expansion built in {t_bm25:.3f} s {card}")
+    for name, arm in (("BM25 expanded", bm25), ("chargram", chargram)):
+        arm.retrieve_batch(queries)  # warm-up
+        t0 = time.perf_counter()
+        arm.retrieve_batch(queries)
+        t_batch = time.perf_counter() - t0
+        single_ms = []
+        for q in queries[:5]:
+            t0 = time.perf_counter()
+            arm.retrieve(q)
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"{name} query: {len(queries)} queries in one batch {t_batch * 1e3:.2f} ms; single query median "
+              f"{sorted(single_ms)[2]:.2f} ms {card}")
+
+    semantic = SemanticRetriever.from_doc_records(embedder, [record], k=HYBRID_K)
+    late = LateInteractionRetriever.from_doc_records(li_emb, [record], k=HYBRID_K, max_chunk_tokens=LI_MAX_TOKENS)
+    arms = [semantic, late, bm25, chargram]
+    ensemble = EnsembleRetriever(arms)
+    asyncio.run(ensemble.aretrieve_batch(queries))  # warm-up
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    fused = asyncio.run(ensemble.aretrieve_batch(queries))
+    t_ens = time.perf_counter() - t0
+    ens_ms = []
+    for q in queries[:5]:
+        t0 = time.perf_counter()
+        asyncio.run(ensemble.aretrieve(q))
+        ens_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+    n_batches = 2 * (1 + 5)  # the semantic and the late-interaction arm's encodes
+    layers = embedder.encoder.config.num_layers
+    for name, n in launches.items():
+        if n != layers * n_batches:
+            raise RuntimeError(f"{name} launched {n} times in the four-arm ensemble's run, expected "
+                               f"{layers * n_batches}")
+    print(f"RRF ensemble of four local arms (semantic, late_interaction, BM25 expanded, chargram; k={HYBRID_K} "
+          f"each): {len(queries)} queries through aretrieve_batch {t_ens * 1e3:.2f} ms; single aretrieve median "
+          f"{sorted(ens_ms)[2]:.2f} ms; launches {launches} ({layers} layers x {n_batches} encode batches) {card}",
+          flush=True)
+
+    # gates: chargram scores on the card against the CPU's
+    cpu_cg = cgi.ChargramIndex.build(words, device="cpu")
+    weights = [cpu_cg.query_weights(q) for q in queries]
+    cpu_scores = cpu_cg.inner.get_scores_batch(weights)
+    err = bm25_scores_within(inner.get_scores_batch(weights), cpu_scores, "chargram")
+    print(f"chargram scores of {len(queries)} queries, card vs CPU: max abs diff {err:.3g} (rtol {BM25_RTOL}, "
+          f"atol {BM25_ATOL})")
+
+    # the fused lists against the fusion of the CPU arms' lists, wherever every arm agrees
+    def keys(hits):
+        return [h.key for h in hits]
+
+    q_emb = embedder.embed_queries(queries)
+    doc_emb = np.concatenate(embeddings_index)
+    q_tokens = li_emb.embed_documents_tokens(queries, max_tokens=64)
+    cpu_lists = [
+        DenseIndex(RetrievalType.TEXT, [DocEmbeddings(np.arange(len(doc_emb)), doc_emb)], limit=HYBRID_K,
+                   device="cpu").find_batch(q_emb),
+        LateInteractionIndex(RetrievalType.TEXT, [tokens], LI_MAX_TOKENS, HYBRID_K, device="cpu").find_batch(q_tokens),
+        Bm25Retriever.from_doc_records([record], k=HYBRID_K, device="cpu", expansion_config=cfg).retrieve_batch(queries),
+        ChargramRetriever.from_doc_records([record], k=HYBRID_K, device="cpu").retrieve_batch(queries),
+    ]
+    card_lists = [arm.retrieve_batch(queries) for arm in arms]
+    agree, differ = 0, collections.Counter()
+    for qi, hits in enumerate(fused):
+        card_arms = [lists[qi] for lists in card_lists]
+        if keys(hits) != keys(weighted_reciprocal_rank(card_arms, [1.0] * len(arms))):
+            raise RuntimeError(f"four-arm query {qi}: the fused list is not the fusion of the card's arms")
+        cpu_arms = [lists[qi] for lists in cpu_lists]
+        off = [name for name, a, b in zip(("semantic", "late_interaction", "bm25", "chargram"), card_arms, cpu_arms)
+               if keys(a) != keys(b)]
+        if off:
+            differ.update(off)
+            continue
+        if keys(hits) != keys(weighted_reciprocal_rank(cpu_arms, [1.0] * len(arms))):
+            raise RuntimeError(f"four-arm query {qi}: the fused list differs from the fusion of the CPU arms")
+        agree += 1
+    print(f"four-arm RRF: fused list = fusion of the CPU arms' lists on {agree} of {len(queries)} queries; the "
+          f"rest have an arm whose list differs from the CPU's (arms: {dict(differ)}) {card}")
+    if not agree:
+        raise RuntimeError("no query has every arm's list equal to the CPU's: the fusion gate held nothing")
+    print(f"peak memory (local arms ensemble): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -2979,7 +3512,7 @@ def main() -> int:
     phase("build")
     def build_cores() -> float:
         t0 = time.perf_counter()
-        for name in ("keywords", "wordpiece"):
+        for name in ("keywords", "wordpiece", "chargram"):
             load_native(name)
         return time.perf_counter() - t0
 
@@ -2987,7 +3520,8 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         cores = pool.submit(build_cores)
         build = build_kernels()
-        print(f"build: C++ host cores native/keywords.cpp and native/wordpiece.cpp (g++) {cores.result():.2f} s")
+        print(f"build: C++ host cores native/keywords.cpp, native/wordpiece.cpp and native/chargram.cpp (g++) "
+              f"{cores.result():.2f} s")
     print(f"build: {build.seconds:.2f} s (nvcc, all sources in parallel)"
           if build.seconds else "build: found built for these sources in dial_rag_tpu_torch/_build")
     for stem, lines in build.ptxas.items():
@@ -3171,6 +3705,22 @@ def main() -> int:
 
     phase("BM25 1M")
     bm25_1m_phase(torch, card)
+
+    phase("dense layouts")
+    dense_layouts_phase(torch, card, dev, qs)
+
+    phase("late interaction")
+    li_emb = BgeEmbedder.from_hf_checkpoint(str(LI_CHECKPOINT), compute_dtype=torch.bfloat16, device="cuda")
+    li_launches, li_tokens = late_interaction_phase(torch, card, li_emb, texts, chunks, queries)
+    for name, n in li_launches.items():
+        launched[name] += n
+
+    phase("local arms ensemble")
+    for name, n in local_arms_phase(torch, card, embedder, li_emb, record.embeddings_index, li_tokens, chunks,
+                                    queries).items():
+        launched[name] += n
+    del li_emb, li_tokens
+    torch.cuda.empty_cache()
 
     phase("whole-layer serve")
     launched["fused_layer_block"] += whole_layer_phase(torch, card, embedder, texts, queries)

@@ -3,7 +3,8 @@
 
 Documents are embedded as they are; queries get the BGE instruction
 prefix (dropped under idf pooling, as in the reference); outputs are
-L2-normalised poolings. Batches of ``batch_size`` texts run one after the
+L2-normalised poolings; the late-interaction index takes the final hidden
+states per token instead (``embed_documents_tokens``). Batches of ``batch_size`` texts run one after the
 other; each is padded to its own sequence bucket, and its rows to a power
 of two (one batch) or to ``batch_size`` (a bulk encode), as the reference
 pads them. PyTorch launches asynchronously, so the host tokenizes the next
@@ -28,6 +29,7 @@ from dial_rag_tpu_torch.device import resolve_device
 from dial_rag_tpu_torch.models.bert import (
     BertConfig,
     BertEncoder,
+    bert_forward,
     load_hf_weights,
     prepare_params,
 )
@@ -211,3 +213,61 @@ class BgeEmbedder:
     def embed_query(self, text: str) -> np.ndarray:
         """[D] float32 with the query instruction prefix."""
         return self.embed_queries([text])[0]
+
+    def _token_hidden(self, texts: list[str], max_tokens: int):
+        """One encode of ``texts`` (rows padded as a lone batch) -> (the
+        [rows, S, D] f32 final hidden states L2-normalised per token on the
+        device, the [rows, S] mask on the device, the mask on the host)."""
+        ids, mask = self.tokenizer.encode_batch(texts, max_len=min(self.max_len, max_tokens))
+        rows = _bucket_rows(len(texts), self.batch_size)
+        if rows > len(texts):
+            ids = np.pad(ids, ((0, rows - len(texts)), (0, 0)))
+            mask = np.pad(mask, ((0, rows - len(texts)), (0, 0)))
+        mask_t = torch.from_numpy(mask).to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            hidden = bert_forward(
+                self.params,
+                torch.from_numpy(ids).to(self.device, dtype=torch.long, non_blocking=True),
+                mask_t,
+                num_heads=self.encoder.config.num_heads,
+                compute_dtype=self.encoder.compute_dtype,
+                attention_impl=self.encoder.attention_impl,
+                gelu=self.encoder.gelu,
+            ).float()
+            norm = torch.sqrt(torch.sum(hidden * hidden, dim=-1, keepdim=True))
+            hidden = hidden / torch.clamp(norm, min=1e-12)
+        return hidden, mask_t, mask
+
+    def embed_documents_tokens(self, texts: list[str], max_tokens: int = 256) -> list[np.ndarray]:
+        """Per-token embeddings for the late-interaction (MaxSim) index: one
+        ``[t_i, D]`` f32 array per text, the encoder's final hidden states
+        L2-normalised per token, real tokens only (CLS and SEP included),
+        truncated to ``max_tokens``. One encode a batch of ``batch_size``."""
+        out: list[np.ndarray] = []
+        for i in range(0, len(texts), self.batch_size):
+            batch = texts[i : i + self.batch_size]
+            hidden, _, mask = self._token_hidden(batch, max_tokens)
+            hidden = hidden.cpu().numpy()
+            out.extend(hidden[row, : int(mask[row].sum())] for row in range(len(batch)))
+        return out
+
+    def embed_query_tokens(self, text: str, max_tokens: int = 64) -> np.ndarray:
+        """[t, D] per-token query embeddings for MaxSim; no instruction
+        prefix (it tunes the CLS pooling, not token-level matching)."""
+        return self.embed_documents_tokens([text], max_tokens=max_tokens)[0]
+
+    def embed_query_tokens_device(self, text: str, max_tokens: int = 64) -> torch.Tensor:
+        """[q_pad, D] per-token query embeddings left on the device, padded
+        positions exactly zero, at the power-of-two lane bucket the host
+        path pads to, so ``LateInteractionIndex.find`` scores them as it
+        scores ``embed_query_tokens``. The mask and slice are a step of
+        their own after the encode, exact operations on its output, so the
+        real rows are the host path's bits."""
+        from dial_rag_tpu_torch.index.late_interaction import _MAX_Q_LANES, _bucket_q
+
+        hidden, mask_t, mask = self._token_hidden([text], max_tokens)
+        q_pad = _bucket_q(max(1, min(int(mask[0].sum()), _MAX_Q_LANES)))
+        rows = (hidden * mask_t[..., None].to(hidden.dtype))[0]
+        if q_pad <= rows.shape[0]:
+            return rows[:q_pad]
+        return torch.nn.functional.pad(rows, (0, 0, 0, q_pad - rows.shape[0]))

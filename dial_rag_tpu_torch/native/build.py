@@ -27,6 +27,16 @@ _P = ctypes.c_void_p
 _INT_P = ctypes.POINTER(ctypes.c_int)
 # (argtypes, restype) of the entry points, by source stem
 SIGNATURES = {
+    "chargram": {
+        # (words, word_lens [n_words], n_words, chunk_word_counts [n_chunks],
+        #  n_chunks, n_lo, n_hi, out_chunk, out_key, out_cnt, out_cap, n_threads)
+        "chargram_triples": (
+            [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_longlong, ctypes.POINTER(ctypes.c_int32),
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+             ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int32), ctypes.c_longlong, ctypes.c_int],
+            ctypes.c_longlong,
+        ),
+    },
     "keywords": {
         "kw_set_stopwords": ([ctypes.c_char_p, ctypes.c_int32], None),
         "kw_preprocess": (

@@ -8,9 +8,13 @@ such order, so two exact forms are used instead:
   minimum of an order-preserving int32 key (NaN -> +inf first). A taken
   entry gets a key above that of +inf, so real +inf distances still rank;
 - ``stable_topk_sort``: ``torch.sort(stable=True)``, for k above
-  ``ARGMIN_MAX_K``.
+  ``ARGMIN_MAX_K``;
+- ``stable_topk_rows``: ``torch.topk`` over int64 keys ``(value key <<
+  32) | row id``, which are distinct, so the order among equal values is
+  the row ids'. The blocked index scans use it to rank each block and to
+  merge the blocks' winners.
 
-Both work on the last axis of a [..., N] tensor and return
+All work on the last axis of a [..., N] tensor and return
 ``(values, indices)`` with NaN reported as +inf.
 """
 
@@ -58,6 +62,28 @@ def stable_topk_sort(values: torch.Tensor, k: int):
     k = min(k, vals.shape[-1])
     sorted_vals, sorted_idx = torch.sort(vals, dim=-1, stable=True)
     return sorted_vals[..., :k], sorted_idx[..., :k]
+
+
+def stable_topk_rows(values: torch.Tensor, rows: torch.Tensor, k: int):
+    """The k smallest of ``values`` [..., M] with their ``rows`` (int64 ids
+    in [0, 2**31), [M] or the shape of ``values``), the smaller row id
+    first on ties -> (values, rows), each [..., min(k, M)].
+
+    Each (value, row) is one int64 key, ``value key << 32 | row``, so the
+    keys are distinct and their order is the stable order; one
+    ``torch.topk`` of the keys. -0.0 ties with +0.0, as in
+    ``stable_topk_sort``."""
+    v = torch.nan_to_num(values.float(), nan=torch.inf, posinf=torch.inf, neginf=-torch.inf).add_(0.0)
+    key = v.contiguous().view(torch.int32).to(torch.int64)
+    key ^= (key >> 31) & 0x7FFFFFFF  # _sortable_key, sign-extended
+    key <<= 32
+    key |= rows
+    key, _ = torch.topk(key, min(k, key.shape[-1]), dim=-1, largest=False, sorted=True)
+    # the value key is its own inverse: flipping the 31 low bits of a
+    # negative key again gives the float's bits back
+    bits = (key >> 32).to(torch.int32)
+    vals = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    return vals, key & 0xFFFFFFFF
 
 
 def stable_topk(values: torch.Tensor, k: int):

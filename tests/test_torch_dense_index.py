@@ -89,5 +89,5 @@ def test_from_device_matrix_and_empty_index():
     assert empty.find(q) == [] and empty.find_batch(np.zeros((2, 16), np.float32)) == [[], []]
     few = DenseIndex(RetrievalType.TEXT, [DocEmbeddings([0, 1], emb.numpy()[:2])], limit=5, device="cpu")
     assert len(few.find(q)) == 2
-    with pytest.raises(ValueError):
-        DenseIndex(RetrievalType.TEXT, [], storage_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="storage_dtype"):
+        DenseIndex(RetrievalType.TEXT, [], storage_dtype="float16", device="cpu")

@@ -934,3 +934,99 @@ def test_bm25_same_bits_and_latest_first_on_card(cuda_device, layout):
     index = Bm25Index.build(ties, device=cuda_device, **layout)
     np.testing.assert_array_equal(index.top_n(["a"], 4), [6, 4, 2, 0])
     np.testing.assert_array_equal(index.top_n(["nothing"], 3), [6, 5, 4])
+
+
+# --- the dense layouts and MaxSim on the card (torch products, no kernel of
+# the port's own: tests/test_torch_dense_layouts.py and
+# tests/test_torch_late_interaction.py hold the same code to the JAX
+# package on the CPU)
+
+
+def _normal_rows(n, d, seed):
+    rows = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 1000, 4096])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_int8_dense_on_card_matches_cpu(cuda_device, n, q):
+    """``torch._int_mm``'s shape limits (M > 16, K and N multiples of 8) at
+    Q = 1, 8, 64 and N = 17, 1000, 4096: the s32 product is exact, so the
+    card's distances are the CPU's within rtol 1e-6, the hits equal, batch
+    equal to single."""
+    from dial_rag_tpu_torch.index.dense_index import DenseIndex, DocEmbeddings
+    from dial_rag_tpu_torch.index.records import RetrievalType
+
+    rows = _normal_rows(n, 384, 0)
+    queries = rows[np.arange(q) % n] + np.random.default_rng(1).standard_normal((q, 384)).astype(np.float32) * 0.05
+    docs = [DocEmbeddings(np.arange(n), rows)]
+    card = DenseIndex(RetrievalType.TEXT, docs, limit=7, storage_dtype="int8", device=cuda_device)
+    cpu = DenseIndex(RetrievalType.TEXT, docs, limit=7, storage_dtype="int8", device="cpu")
+    batch = card.find_batch(queries)
+    for qv, hits in zip(queries, batch):
+        h, d = card.find_with_distances(qv)
+        ch, cd = cpu.find_with_distances(qv)
+        assert [x.chunk_id for x in h] == [x.chunk_id for x in ch] == [x.chunk_id for x in hits]
+        np.testing.assert_allclose(d, cd, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bfloat16", "two_pass"])
+def test_dense_scan_memory_on_card(cuda_device, storage):
+    """At 1M x 384 a 64-query scan and a single query hold at most a tenth
+    of the index beyond it (no f32 copy of the bf16 matrix, no [Q, N]
+    scores), and two_pass returns the float32 index's hits."""
+    from dial_rag_tpu_torch.index.dense_index import DenseIndex
+    from dial_rag_tpu_torch.index.records import RetrievalType
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mat = torch.randn((1_000_000, 384), generator=gen, device=cuda_device)
+    mat /= mat.norm(dim=1, keepdim=True)
+    queries = (mat[:64] + 0.05 * torch.randn((64, 384), generator=gen, device=cuda_device)).cpu()
+    f32 = DenseIndex.from_device_matrix(RetrievalType.TEXT, mat, limit=7)
+    if storage == "bfloat16":
+        index = DenseIndex.from_device_matrix(RetrievalType.TEXT, mat.bfloat16(), limit=7)
+    else:
+        from dial_rag_tpu_torch.index.dense_index import DocEmbeddings
+
+        index = DenseIndex(RetrievalType.TEXT, [DocEmbeddings(np.arange(1_000_000), mat.cpu().numpy())], limit=7,
+                           storage_dtype="two_pass", device=cuda_device)
+    index.find_batch(queries)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hits = index.find_batch(queries)
+    index.find(queries[0])
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= 0.1 * index.nbytes
+    if storage == "two_pass":
+        for h, ref in zip(hits, f32.find_batch(queries)):
+            assert [x.chunk_id for x in h] == [x.chunk_id for x in ref]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_maxsim_on_card_matches_cpu_and_repeats(cuda_device, storage):
+    """MaxSim on the card: scores within 1e-5 of the same code on the CPU
+    (int8: rtol 1e-6), the same hits, batch equal to single, and the same
+    bits when a batch is scored twice."""
+    from dial_rag_tpu_torch.index.late_interaction import LateInteractionIndex
+    from dial_rag_tpu_torch.index.records import RetrievalType
+
+    rng = np.random.default_rng(3)
+    chunks = [rng.standard_normal((int(rng.integers(0, 40)), 64)).astype(np.float32) for _ in range(700)]
+    chunks = [c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-12) for c in chunks]
+    queries = [rng.standard_normal((int(rng.integers(3, 20)), 64)).astype(np.float32) for _ in range(12)]
+    card = LateInteractionIndex(RetrievalType.TEXT, [chunks], max_chunk_tokens=32, limit=7, storage_dtype=storage,
+                                device=cuda_device)
+    cpu = LateInteractionIndex(RetrievalType.TEXT, [chunks], max_chunk_tokens=32, limit=7, storage_dtype=storage,
+                               device="cpu")
+    batch = card.find_batch(queries)
+    for q, hits in zip(queries, batch):
+        h, s = card.find_with_scores(q)
+        ch, cs = cpu.find_with_scores(q)
+        assert [x.chunk_id for x in h] == [x.chunk_id for x in ch] == [x.chunk_id for x in hits]
+        np.testing.assert_allclose(s, cs, rtol=1e-6 if storage == "int8" else 0, atol=0 if storage == "int8" else 1e-5)
+    again = card.find_batch(queries)
+    assert [[x.score for x in h] for h in again] == [[x.score for x in h] for h in batch]

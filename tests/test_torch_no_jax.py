@@ -5,8 +5,9 @@ machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax).
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
 main path end to end, one f32 "pallas" encode, the long-document
-"pallas" route and the whole-layer route, an encode at head_dim 64, and
-one training step. An
+"pallas" route and the whole-layer route, an encode at head_dim 64, one
+training step, the bfloat16, two_pass and int8 dense layouts, and an RRF
+ensemble of the late-interaction, expanded BM25 and chargram arms. An
 AST scan checks the sources as well.
 """
 
@@ -97,6 +98,30 @@ tiny = dataclasses.replace(BertConfig.tiny(), vocab_size=enc.config.vocab_size)
 _, losses = train(tiny, cfg, [("alps", "the alps"), ("rhine", "the rhine")], emb.tokenizer,
                   device="cpu")
 assert len(losses) == 1 and losses[0] == losses[0], losses
+# the dense layouts, late interaction, chargram and word-vector expansion
+import asyncio
+import numpy as np
+from dial_rag_tpu_torch.documents.model import DocumentRecord, IndexSettings
+from dial_rag_tpu_torch.index.dense_index import DenseIndex, DocEmbeddings
+from dial_rag_tpu_torch.index.records import RetrievalType
+from dial_rag_tpu_torch.retrieval import (
+    Bm25Retriever, ChargramRetriever, EnsembleRetriever, LateInteractionRetriever,
+)
+from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig
+rows = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
+for storage in ("bfloat16", "two_pass", "int8"):
+    dense = DenseIndex(RetrievalType.TEXT, [DocEmbeddings(np.arange(600), rows)], limit=3,
+                       storage_dtype=storage, device="cpu")
+    assert dense.find(rows[5])[0].chunk_id == 5, storage
+rec = DocumentRecord(None, IndexSettings(), chunks, Bm25Retriever.build_index(chunks), record.embeddings_index,
+                     None, None, "text/plain", b"",
+                     late_interaction_index=LateInteractionRetriever.build_index(emb, chunks, 32),
+                     chargram_index=ChargramRetriever.build_index(chunks))
+arms = [LateInteractionRetriever.from_doc_records(emb, [rec], k=2),
+        Bm25Retriever.from_doc_records([rec], k=2, device="cpu", expansion_config=QueryExpansionConfig(min_count=1)),
+        ChargramRetriever.from_doc_records([rec], k=2, device="cpu")]
+fused = asyncio.run(EnsembleRetriever(arms).aretrieve_batch(["glaciers carve valleys", "rivers of the alps"]))
+assert fused[0][0].chunk_id == 1 and all(fused), fused
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("OK", hits[0][0].chunk_id, hits[1][0].chunk_id)

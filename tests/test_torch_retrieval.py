@@ -168,11 +168,33 @@ def test_bm25_has_index_and_empty_records(pair):
         Bm25Retriever.from_doc_records([empty, port_record([], [[]], None)], device="cpu")
 
 
-@pytest.mark.parametrize("option", ["mesh", "device_cache", "expansion_config"])
+@pytest.mark.parametrize("option", ["mesh", "device_cache"])
 def test_unported_bm25_options_raise(pair, option):
     _, _, records, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Bm25Retriever.from_doc_records(records, device="cpu", **{option: object()})
+
+
+def test_bm25_with_expansion_config_matches_jax(pair):
+    """``expansion_config`` builds word vectors over the records' chunks and
+    scores each query as a stem -> weight mapping, as the JAX retriever
+    does with the service's QueryExpansionConfig."""
+    from dial_rag_tpu.service.config import QueryExpansionConfig as JaxQueryExpansionConfig
+    from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig
+
+    jax_records, _, records, _ = pair
+    cfg = QueryExpansionConfig(min_count=1, sim_min=-1.0)
+    assert QueryExpansionConfig() == QueryExpansionConfig(**JaxQueryExpansionConfig().model_dump())
+    port = Bm25Retriever.from_doc_records(records, k=4, device="cpu", expansion_config=cfg)
+    ref = JaxBm25Retriever.from_doc_records(
+        jax_records, k=4, expansion_config=JaxQueryExpansionConfig(min_count=1, sim_min=-1.0))
+    assert port._expander is not None
+    for q in QUERIES:
+        weights = port._preprocess(q)
+        assert isinstance(weights, dict) and weights == pytest.approx(ref._preprocess(q), rel=1e-6)
+        hits, ref_hits = port.retrieve(q), ref.retrieve(q)
+        assert keys(hits) == keys(ref_hits), q
+        np.testing.assert_allclose([h.score for h in hits], [h.score for h in ref_hits], rtol=1e-5)
 
 
 def test_semantic_aretrieve_matches_jax(pair):
