@@ -84,6 +84,25 @@ Phases, each announced by a ``[phase]`` line:
    atol 1e-6 of the CPU's, the fused lists the fusion of the CPU arms'
    lists wherever every arm agrees.
 
+   concurrent serving: the four arms (semantic, late interaction in
+   bfloat16, expanded BM25, chargram; k = 7) over the same chunks, each
+   record stamped with a cache token, rebuilt per request through one
+   ``DeviceIndexCache`` (1 GiB); 64 requests on one event loop through
+   ``asyncio.gather`` (each under ``asyncio.wait_for``) awaiting
+   ``EnsembleRetriever.aretrieve``, after a warm-up wave and
+   ``wait_warm``, then the same 64 one at a time. Gates: every request's
+   fused hits equal to its lone run's but for arm near-ties (the hybrid
+   phase's gap rules), the dense query rows of the coalesced and the lone
+   encodes within 1e-5; at most 8 query-encode waves and kernels 1-2
+   launching 12 x (encode waves + MaxSim token encodes) exactly; one
+   cache miss per cached object, hits for the rest, the cache within its
+   capacity and no warm-up thread alive after ``wait_warm``; a second
+   cache below the late-interaction index's bytes keeping it alone, the
+   next request rebuilding every arm (each a counted miss) with the same
+   hits. Prints requests/s and p50 / p99 latency, concurrent and serial,
+   the items per wave of each batcher and the device time of one
+   coalesced wave beside its wall time.
+
    whole-layer serve: 256 of those chunks and 16 queries through the
    "fused_layer" route (the whole-layer kernel); its launches must equal
    12 x the encode batches, its embeddings agree with the "fused" and
@@ -146,7 +165,11 @@ Phases, each announced by a ``[phase]`` line:
 7. f32 serve: the trained params in an f32 ``BgeEmbedder`` embed the 155
    facts into a ``SemanticRetriever`` and answer the 155 questions; the
    forward counter must equal 12 x the encode batches and top-1 must
-   agree with the plain route;
+   agree with the plain route; ``export_hf_state`` and ``save_file``
+   write the trained encoder (with the checkpoint's config, vocabulary and
+   idf table) into a temporary directory, and ``from_hf_checkpoint`` must
+   read back an encoder whose embeddings equal the trained one's bit for
+   bit;
 8. bge-base serve: a seeded encoder at BAAI/bge-base-en-v1.5's widths
    (12 layers, H=768, 12 heads of 64, FFN 3072, 512 positions, CLS
    pooling, the alps-semantic vocabulary) embeds the main path's 2048
@@ -242,6 +265,8 @@ TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this cl
 # BM25 on the card vs the same port code on the CPU: tests/test_bm25.py's tolerance
 BM25_RTOL, BM25_ATOL = 1e-5, 1e-6
 HYBRID_K = 7  # each ensemble arm's depth, the reference's serving k
+REQUEST_TIMEOUT = 120.0  # seconds a served request may take
+MAX_QUERY_WAVES = 8  # the 64 concurrent requests' query encodes in at most this many waves
 # the BM25 1M phase: items, postings an item, Zipf law of the term ids over
 # the vocabulary, query terms, and the planted group of identical items
 BM25_1M_ITEMS, BM25_1M_POSTINGS, BM25_1M_VOCAB, BM25_1M_ZIPF = 1_000_000, 48, 262_144, 1.1
@@ -526,12 +551,14 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(torch, fn) -> list:
+def device_events(torch, fn, cpu: bool = True) -> list:
     """Runs ``fn`` once under ``torch.profiler`` and returns the device
     kernels' averaged events. User-annotation ranges (an optimizer step's)
-    span kernels that are already counted, so they are left out."""
+    span kernels that are already counted, so they are left out. With
+    ``cpu`` false only the device is traced (far less overhead on
+    host-paced code; the device times are the same)."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CPU] * cpu + [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -539,12 +566,13 @@ def device_events(torch, fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
 
 
-def device_profile(torch, fn, what: str, card: str, top: int = 8, share_of: str | None = None) -> float:
+def device_profile(torch, fn, what: str, card: str, top: int = 8, share_of: str | None = None,
+                   cpu: bool = True) -> float:
     """Runs ``fn`` once under ``torch.profiler`` and prints its device
     time (with ``share_of``, also that of the kernels named like it and
     their share) and the ``top`` kernels by device time; returns the total
-    in ms."""
-    events = device_events(torch, fn)
+    in ms. ``cpu``: as ``device_events``."""
+    events = device_events(torch, fn, cpu)
     total_ms = sum(e.self_device_time_total for e in events) / 1e3
     share = ""
     if share_of is not None:
@@ -1385,12 +1413,14 @@ def recall_at_1(embedder, facts, questions) -> float:
 
 
 def f32_serve_phase(torch, card, base, trained) -> int:
-    """The trained params served in f32: returns the forward counter."""
+    """The trained params served in f32, then exported as an HF checkpoint
+    and served from it: returns the forward counter."""
     import numpy as np
 
     from dial_rag_tpu_torch.documents.model import build_chunks_list
     from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
-    from dial_rag_tpu_torch.models.bert import BertEncoder
+    from dial_rag_tpu_torch.models.bert import BertEncoder, export_hf_state
+    from dial_rag_tpu_torch.models.safetensors_io import save_file
     from dial_rag_tpu_torch.ops import flash_attention as fa
     from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
 
@@ -1439,6 +1469,22 @@ def f32_serve_phase(torch, card, base, trained) -> int:
     print(f"f32 serve top-1 of {len(queries)} questions: kernel route = plain route ({ties} near-ties "
           f"below {TIE_GAP}); recall@1 before training {recall_at_1(base, facts, queries):.4f}, after "
           f"{recall:.4f} (not gated)", flush=True)
+
+    # the trained encoder exported as an HF checkpoint and served from it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        t0 = time.perf_counter()
+        save_file(export_hf_state(trained, cfg), str(Path(tmp) / "model.safetensors"))
+        for name in ("config.json", "vocab.txt", "idf_pooling.npz"):
+            shutil.copy(CHECKPOINT / name, Path(tmp) / name)
+        t_export = time.perf_counter() - t0
+        back = BgeEmbedder.from_hf_checkpoint(tmp, compute_dtype=torch.float32, device=base.device)
+        same_docs = np.array_equal(back.embed_documents(facts), serve.embed_documents(facts))
+        same_queries = np.array_equal(back.embed_queries(queries), q_kernel)
+    print(f"export: export_hf_state + save_file of the trained f32 encoder in {t_export:.3f} s; read back by "
+          f"from_hf_checkpoint: {len(facts)} fact and {len(queries)} question embeddings equal bit for bit: "
+          f"{same_docs and same_queries}", flush=True)
+    if not (same_docs and same_queries):
+        raise RuntimeError("the exported checkpoint serves other embeddings than the trained encoder")
     return launches
 
 
@@ -3470,6 +3516,254 @@ def local_arms_phase(torch, card, embedder, li_emb, embeddings_index, tokens, ch
         raise RuntimeError("no query has every arm's list equal to the CPU's: the fusion gate held nothing")
     print(f"peak memory (local arms ensemble): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}",
           flush=True)
+    return launches, record
+
+
+def concurrent_serving_phase(torch, card, embedder, li_emb, record, queries) -> dict:
+    """``record``'s four arms (semantic, expanded BM25, chargram, late
+    interaction in bfloat16; k = 7) rebuilt per request through one
+    ``DeviceIndexCache``, 64 requests on one event loop against the same
+    64 one at a time; the cache's eviction rule on a second cache. Returns
+    kernels 1-2's launches in the timed concurrent wave."""
+    import asyncio
+    import dataclasses
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval import (
+        Bm25Retriever,
+        ChargramRetriever,
+        EnsembleRetriever,
+        LateInteractionRetriever,
+        SemanticRetriever,
+    )
+    from dial_rag_tpu_torch.runtime import micro_batcher as mb
+    from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig
+
+    t_phase = time.perf_counter()
+    record = dataclasses.replace(record, cache_token=("chip_smoke/main-path", "seed-0"))
+    expansion = QueryExpansionConfig()
+    # the late-interaction arm last: it is built last, so a cache below its
+    # bytes keeps it alone (gate 4)
+    names = ("semantic", "bm25", "chargram", "late_interaction")
+    arm_hits: dict = {}  # (arm, query) -> the arm's hits in the last request of the query
+
+    class Arm:
+        """An arm whose hits the gates read after the fusion."""
+
+        def __init__(self, name, inner):
+            self.name, self.inner = name, inner
+
+        async def aretrieve(self, query):
+            hits = await self.inner.aretrieve(query)
+            arm_hits[(self.name, query)] = hits
+            return hits
+
+    def arms(cache):
+        return [Arm(name, inner) for name, inner in zip(names, (
+            SemanticRetriever.from_doc_records(embedder, [record], k=HYBRID_K, device_cache=cache),
+            Bm25Retriever.from_doc_records([record], k=HYBRID_K, device_cache=cache, expansion_config=expansion),
+            ChargramRetriever.from_doc_records([record], k=HYBRID_K, device_cache=cache),
+            LateInteractionRetriever.from_doc_records(li_emb, [record], k=HYBRID_K, max_chunk_tokens=LI_MAX_TOKENS,
+                                                      storage_dtype="bfloat16", device_cache=cache),
+        ))]
+
+    async def request(query, cache):
+        t0 = time.perf_counter()
+        hits = await EnsembleRetriever(arms(cache)).aretrieve(query)
+        return hits, time.perf_counter() - t0
+
+    async def concurrent(cache):
+        return await asyncio.gather(*(asyncio.wait_for(request(q, cache), REQUEST_TIMEOUT) for q in queries))
+
+    async def serial(cache, some=queries):
+        return [await asyncio.wait_for(request(q, cache), REQUEST_TIMEOUT) for q in some]
+
+    def served(run, cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = asyncio.run(run(cache))
+        torch.cuda.synchronize()
+        return [hits for hits, _ in out], [dt for _, dt in out], time.perf_counter() - t0
+
+    def held(c):  # the cached objects by their config key's name
+        return {key[1][0]: idx for key, idx in c._entries.items()}
+
+    cache = DeviceIndexCache()
+    t0 = time.perf_counter()
+    served(concurrent, cache)  # warm-up wave: builds the cache
+    t_warm = time.perf_counter() - t0
+    if not cache.wait_warm(REQUEST_TIMEOUT):
+        raise RuntimeError("a warm-up thread is still running after wait_warm")
+    sizes = {name: f"{idx.nbytes / 2**20:.1f} MiB" for name, idx in held(cache).items()}
+    print(f"concurrent serving: cache built in the warm-up wave ({t_warm:.2f} s): {len(cache)} objects, "
+          f"{cache.size_bytes / 2**20:.1f} MiB of {cache.capacity_bytes / 2**20:.0f} MiB: {sizes} {card}", flush=True)
+
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    mb.reset_counts()
+    fused, lat, wall = served(concurrent, cache)
+    launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+    waves, items = dict(mb.WAVES), dict(mb.ITEMS)
+    coalesced = dict(arm_hits)
+    lone, lone_lat, lone_wall = served(serial, cache)
+    if not cache.wait_warm(REQUEST_TIMEOUT):
+        raise RuntimeError("a warm-up thread is still running after wait_warm")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs) * 1e3, p))
+
+    n = len(queries)
+    print(f"concurrent serving, {n} requests (four-arm RRF, k={HYBRID_K}): concurrent {n / wall:.1f} requests/s "
+          f"({wall * 1e3:.2f} ms), latency p50 {pct(lat, 50):.2f} ms, p99 {pct(lat, 99):.2f} ms; serial "
+          f"{n / lone_wall:.1f} requests/s ({lone_wall * 1e3:.2f} ms), latency p50 {pct(lone_lat, 50):.2f} ms, "
+          f"p99 {pct(lone_lat, 99):.2f} ms {card}")
+    per_wave = ", ".join(f"{name} {waves[name]} waves, {items[name] / waves[name]:.2f} items a wave"
+                         for name in sorted(waves))
+    print(f"concurrent serving waves: {per_wave} {card}", flush=True)
+
+    # gate 2: coalesced encodes, and every encode through kernels 1-2
+    encodes = waves["query_encode"] * embedder.encoder.config.num_layers + n * li_emb.encoder.config.num_layers
+    if waves["query_encode"] > MAX_QUERY_WAVES or items["query_encode"] != n:
+        raise RuntimeError(f"{n} requests took {waves['query_encode']} query-encode waves (at most "
+                           f"{MAX_QUERY_WAVES}) for {items['query_encode']} items")
+    for name, got in launches.items():
+        if got != encodes:
+            raise RuntimeError(f"{name} launched {got} times in the concurrent wave, expected {encodes} "
+                               f"(layers x ({waves['query_encode']} encode waves + {n} MaxSim token encodes))")
+
+    # gate 1: each request's fused hits are its lone run's. BM25 and chargram
+    # score a query with the same bits batched and alone, so their lists must
+    # be equal. The semantic and MaxSim arms may swap two hits only within
+    # twice the largest change of a hit's score, coalesced against lone, that
+    # this run reads: a swap moves each of the two scores by half the gap.
+    lone_arms = dict(arm_hits)
+    score_drift = {}
+    for name in ("semantic", "late_interaction"):
+        score_drift[name] = 0.0
+        for q in queries:
+            lone_score = {h.key: h.score for h in lone_arms[(name, q)]}
+            for h in coalesced[(name, q)]:
+                if h.key in lone_score:
+                    score_drift[name] = max(score_drift[name], abs(float(h.score) - float(lone_score[h.key])))
+    excused, tied = collections.Counter(), 0
+    for qi, q in enumerate(queries):
+        differ = []
+        for name in names:
+            a, b = coalesced[(name, q)], lone_arms[(name, q)]
+            if [h.key for h in a] == [h.key for h in b]:
+                continue
+            if name not in score_drift:
+                raise RuntimeError(f"concurrent request {qi}: the {name} arm's hits differ coalesced and alone")
+            score = {h.chunk_id: float(h.score) for h in a + b}
+
+            def gap_ok(_, x, y, limit=2 * score_drift[name], score=score):
+                return abs(score[x] - score[y]) <= limit
+
+            list_near_ties([[h.chunk_id for h in a]], [[h.chunk_id for h in b]], gap_ok,
+                           f"concurrent serving {name} arm, query {qi}")
+            differ.append(name)
+        excused.update(differ)
+        if [h.key for h in fused[qi]] != [h.key for h in lone[qi]]:
+            tied += 1
+            if not differ:
+                raise RuntimeError(f"concurrent request {qi}: its fused list differs from its lone run's, "
+                                   "every arm equal")
+    wave_out, n_real = embedder._embed_queries_wave(queries)
+    rows = wave_out[:n_real].cpu().numpy()
+    lone_rows = np.stack([embedder._embed_queries_wave([q])[0][0].cpu().numpy() for q in queries])
+    drift = float(np.abs(rows - lone_rows).max())
+    if drift > MAXSIM_ATOL:
+        raise RuntimeError(f"the coalesced and the lone dense query rows differ by {drift} (limit {MAXSIM_ATOL})")
+    drifts = ", ".join(f"{name} {d:.3g}" for name, d in score_drift.items())
+    print(f"concurrent serving gates: fused hits = lone hits on {n - tied} of {n} requests; arm lists that "
+          f"differ within twice their score drift (swaps excused): {dict(excused) or 0}; score drift coalesced vs "
+          f"lone: {drifts}; BM25 and chargram lists equal on all {n}; dense query rows coalesced vs lone within "
+          f"{drift:.3g} (limit {MAXSIM_ATOL}); {waves['query_encode']} query-encode waves (limit "
+          f"{MAX_QUERY_WAVES}); launches {launches} = {encodes}", flush=True)
+
+    # gate 3: one miss per cached object
+    objects = len(names) + 1  # the four arms' indexes and the word vectors
+    lookups = 3 * n * objects  # warm-up, concurrent and serial waves
+    if (cache.misses, cache.hits, len(cache)) != (objects, lookups - objects, objects):
+        raise RuntimeError(f"cache: {cache.misses} misses, {cache.hits} hits, {len(cache)} entries; expected "
+                           f"{objects} misses of {lookups} lookups")
+    if cache.size_bytes > cache.capacity_bytes:
+        raise RuntimeError(f"cache holds {cache.size_bytes} bytes over its capacity {cache.capacity_bytes}")
+    print(f"concurrent serving cache: {cache.misses} misses, {cache.hits} hits of {lookups} lookups, "
+          f"{cache.size_bytes / 2**20:.1f} MiB held; no warm-up thread alive {card}")
+
+    # a wave of one encode output's rows: scanned in place against stacked
+    # copies of the same rows (the dense arm's two wave paths)
+    from dial_rag_tpu_torch.runtime.micro_batcher import wave_rows
+
+    tagged = wave_rows(wave_out, n_real)
+    copies = [row.clone() for row in tagged]
+    dense = held(cache)["semantic"]
+    if dense._scan_wave(tagged) != dense._scan_wave(copies):
+        raise RuntimeError("a dense wave scanned in place and the same rows stacked give different hits")
+    scan_ms = {"in place": [], "stacked": []}
+    for _ in range(15):
+        for how, wave in (("in place", tagged), ("stacked", copies)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dense._scan_wave(wave)
+            torch.cuda.synchronize()
+            scan_ms[how].append((time.perf_counter() - t0) * 1e3)
+    medians = ", ".join(f"{how} {float(np.median(v)):.3f} ms" for how, v in scan_ms.items())
+    print(f"dense wave of {n_real} rows, wall per _scan_wave (median of 15, alternated): {medians} {card}",
+          flush=True)
+
+    # the scan batchers' window: a wall-clock 2 ms against the default, one
+    # loop iteration (SCAN_WINDOW_S); a concurrent wave and 16 lone requests each
+    default_window = mb.SCAN_WINDOW_S
+
+    async def serial16(c):
+        return await serial(c, queries[:16])
+
+    for window in (0.002, default_window):
+        mb.SCAN_WINDOW_S = window
+        try:
+            mb.reset_counts()
+            _, w_lat, w_wall = served(concurrent, cache)
+            w_waves = ", ".join(f"{k} {v}" for k, v in sorted(mb.WAVES.items()))
+            _, s_lat, _ = served(serial16, cache)
+        finally:
+            mb.SCAN_WINDOW_S = default_window
+        print(f"scan window {window * 1e3:g} ms: concurrent {n / w_wall:.1f} requests/s, p50 {pct(w_lat, 50):.2f} "
+              f"ms, waves {w_waves}; lone requests p50 {pct(s_lat, 50):.2f} ms, p99 {pct(s_lat, 99):.2f} ms "
+              f"{card}", flush=True)
+
+    # where one coalesced wave spends the card's time, beside its wall time
+    t0 = time.perf_counter()
+    dev_ms = device_profile(torch, lambda: asyncio.run(concurrent(cache)), f"one coalesced wave of {n} requests",
+                            card, top=10, cpu=False)
+    if not dev_ms > 0:
+        raise RuntimeError("the profile of a coalesced wave shows no device time")
+    print(f"one coalesced wave of {n} requests: device {dev_ms:.3f} ms against the timed wave's wall "
+          f"{wall * 1e3:.2f} ms: the card idles {100 * (1 - dev_ms / (wall * 1e3)):.1f}% of it (under the "
+          f"profiler, device only, wall {(time.perf_counter() - t0) * 1e3:.2f} ms) {card}", flush=True)
+
+    # gate 4: a cache below the late-interaction index's bytes keeps it alone
+    small = DeviceIndexCache(capacity_bytes=held(cache)["late_interaction"].nbytes - 1)
+    asyncio.run(asyncio.wait_for(request(queries[0], small), REQUEST_TIMEOUT))
+    kept = list(held(small))
+    if kept != ["late_interaction"] or small.misses != objects:
+        raise RuntimeError(f"a cache of {small.capacity_bytes} bytes kept {kept} after {small.misses} misses")
+    again, _ = asyncio.run(asyncio.wait_for(request(queries[0], small), REQUEST_TIMEOUT))
+    if (small.misses, small.hits) != (2 * objects, 0) or [h.key for h in again] != [h.key for h in lone[0]]:
+        raise RuntimeError(f"the evicting cache: {small.misses} misses, {small.hits} hits; the rebuilt request's "
+                           f"hits equal the lone run's: {[h.key for h in again] == [h.key for h in lone[0]]}")
+    if not small.wait_warm(REQUEST_TIMEOUT):
+        raise RuntimeError("a warm-up thread of the evicting cache is still running after wait_warm")
+    print(f"concurrent serving eviction: a {small.capacity_bytes / 2**20:.1f} MiB cache kept {kept} alone; the next "
+          f"request rebuilt all {objects} objects ({small.misses} misses, {small.hits} hits) and its hits are the "
+          f"lone run's")
+    del small
+    torch.cuda.empty_cache()
+    print(f"concurrent serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3716,10 +4010,15 @@ def main() -> int:
         launched[name] += n
 
     phase("local arms ensemble")
-    for name, n in local_arms_phase(torch, card, embedder, li_emb, record.embeddings_index, li_tokens, chunks,
-                                    queries).items():
+    local_launches, local_record = local_arms_phase(torch, card, embedder, li_emb, record.embeddings_index, li_tokens,
+                                                    chunks, queries)
+    for name, n in local_launches.items():
         launched[name] += n
-    del li_emb, li_tokens
+
+    phase("concurrent serving")
+    for name, n in concurrent_serving_phase(torch, card, embedder, li_emb, local_record, queries).items():
+        launched[name] += n
+    del li_emb, li_tokens, local_record
     torch.cuda.empty_cache()
 
     phase("whole-layer serve")

@@ -15,6 +15,13 @@ On the card the encoder's "auto" route takes the fused bf16 blocks under
 bf16 and the f32 attention kernels ("pallas") under f32. An embedder
 built from trained params (``training.loop.train``) serves them as they
 are.
+
+Serving (the ``a*`` methods): query encodes run in the query dispatch
+pool and bulk encodes in the indexing dispatch pool
+(``runtime/host_pools.py``). Concurrent ``aembed_query`` calls coalesce
+into one encode a wave (``runtime/micro_batcher.py``); each caller gets
+its row of the wave's output as a view on the device, so a dense scan of
+the wave reads that output in place.
 """
 
 import hashlib
@@ -30,11 +37,14 @@ from dial_rag_tpu_torch.models.bert import (
     BertConfig,
     BertEncoder,
     bert_forward,
+    init_params,
     load_hf_weights,
     prepare_params,
 )
 from dial_rag_tpu_torch.models.safetensors_io import load_file
-from dial_rag_tpu_torch.models.tokenizer import WordPieceTokenizer
+from dial_rag_tpu_torch.models.tokenizer import WordPieceTokenizer, build_test_vocab
+from dial_rag_tpu_torch.runtime.host_pools import run_in_indexing_dispatch_pool, run_in_query_dispatch_pool
+from dial_rag_tpu_torch.runtime.micro_batcher import MicroBatcher, PerLoopBatcher, wave_rows
 
 # langchain_community's DEFAULT_QUERY_BGE_INSTRUCTION_EN, which the
 # reference inherits via HuggingFaceBgeEmbeddings defaults.
@@ -67,6 +77,36 @@ class BgeEmbedder:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.params = prepare_params(self.params, self.device, self.encoder.compute_dtype)
+
+    @classmethod
+    def from_random(
+        cls,
+        config: BertConfig | None = None,
+        vocab: dict | None = None,
+        seed: int = 0,
+        compute_dtype=torch.float32,
+        device="cuda",
+        **kw,
+    ) -> "BgeEmbedder":
+        """Seeded random-weight embedder (tests, benchmarks); deployments
+        load a checkpoint with ``from_hf_checkpoint``. Its ``model_id``
+        names the seed, the widths and the vocabulary, in the reference's
+        format, so indexes built by one tokenization are never served by
+        another."""
+        config = config or BertConfig.tiny()
+        if vocab is None:
+            vocab = build_test_vocab([chr(c) for c in range(97, 123)])
+        vocab_tag = hashlib.sha256("\x00".join(sorted(vocab)).encode("utf-8")).hexdigest()[:8]
+        kw.setdefault(
+            "model_id", f"random-{seed}-{config.hidden_size}x{config.num_layers}v{config.vocab_size}-{vocab_tag}"
+        )
+        return cls(
+            tokenizer=WordPieceTokenizer(vocab=vocab),
+            encoder=BertEncoder(config, compute_dtype=compute_dtype),
+            params=init_params(config, torch.Generator().manual_seed(seed)),
+            device=device,
+            **kw,
+        )
 
     @classmethod
     def from_hf_checkpoint(
@@ -173,19 +213,22 @@ class BgeEmbedder:
     def dim(self) -> int:
         return self.encoder.config.hidden_size
 
-    def _encode_rows(self, texts: list[str], rows: int) -> torch.Tensor:
-        """One encode of ``texts`` padded to ``rows`` rows -> [len, D] on
-        the device."""
+    def _encode_padded(self, texts: list[str], rows: int) -> torch.Tensor:
+        """One encode of ``texts`` padded to ``rows`` rows -> [rows, D] on
+        the device; the rows past ``len(texts)`` encode padding."""
         ids, mask = self.tokenizer.encode_batch(texts, max_len=self.max_len)
         if rows > len(texts):
             ids = np.pad(ids, ((0, rows - len(texts)), (0, 0)))
             mask = np.pad(mask, ((0, rows - len(texts)), (0, 0)))
-        out = self.encoder.encode(
+        return self.encoder.encode(
             self.params,
             torch.from_numpy(ids).to(self.device, dtype=torch.long, non_blocking=True),
             torch.from_numpy(mask).to(self.device, non_blocking=True),
         )
-        return out[: len(texts)]
+
+    def _encode_rows(self, texts: list[str], rows: int) -> torch.Tensor:
+        """``_encode_padded``'s real rows, [len, D]."""
+        return self._encode_padded(texts, rows)[: len(texts)]
 
     def embed_documents_device(self, texts: list[str]) -> torch.Tensor:
         """[n, D] f32 embeddings left on the device."""
@@ -205,10 +248,47 @@ class BgeEmbedder:
 
     def embed_queries(self, texts: list[str]) -> np.ndarray:
         """[n, D] query embeddings (instruction-prefixed), one encode."""
+        return self.embed_queries_device(texts).cpu().numpy()
+
+    def embed_queries_device(self, texts: list[str]) -> torch.Tensor:
+        """[n, D] query embeddings left on the device, one encode (a view of
+        its output)."""
         if not texts:
-            return np.zeros((0, self.dim), dtype=np.float32)
+            return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
+        return self._embed_queries_wave(texts)[0][: len(texts)]
+
+    def _embed_queries_wave(self, texts: list[str]) -> tuple[torch.Tensor, int]:
+        """(the [Qb, D] output of one encode of the instruction-prefixed
+        ``texts``, n): rows past n encode padding and are ignored. Qb is
+        the rows of a lone batch, a power of two."""
         prefixed = [self.query_instruction + t for t in texts]
-        return self._encode_rows(prefixed, _bucket_rows(len(texts), self.batch_size)).cpu().numpy()
+        return self._encode_padded(prefixed, _bucket_rows(len(texts), self.batch_size)), len(texts)
+
+    async def aembed_query(self, text: str) -> torch.Tensor:
+        """The query's [D] embedding on the device: a row (a view) of the
+        output of the encode that concurrent queries share
+        (``_query_batcher``). Query encodes take their own lane, so they
+        never queue behind a bulk indexing stream. ``DenseIndex.afind``
+        scans a wave of such rows in place."""
+        return await self._query_batcher.submit(text)
+
+    @property
+    def _query_batcher(self) -> PerLoopBatcher:
+        batcher = self.__dict__.get("_query_batcher_cached")
+        if batcher is None:
+
+            async def encode_all(texts: list[str]) -> list[torch.Tensor]:
+                out, n = await run_in_query_dispatch_pool(self._embed_queries_wave, texts)
+                return wave_rows(out, n)
+
+            batcher = PerLoopBatcher(lambda: MicroBatcher(encode_all, name="query_encode"))
+            self.__dict__["_query_batcher_cached"] = batcher
+        return batcher
+
+    async def aembed_documents(self, texts: list[str]) -> np.ndarray:
+        """``embed_documents`` in the indexing dispatch pool: concurrent
+        indexing streams interleave at batch granularity."""
+        return await run_in_indexing_dispatch_pool(self.embed_documents, texts)
 
     def embed_query(self, text: str) -> np.ndarray:
         """[D] float32 with the query instruction prefix."""
@@ -255,6 +335,15 @@ class BgeEmbedder:
         """[t, D] per-token query embeddings for MaxSim; no instruction
         prefix (it tunes the CLS pooling, not token-level matching)."""
         return self.embed_documents_tokens([text], max_tokens=max_tokens)[0]
+
+    async def aembed_query_tokens(self, text: str) -> np.ndarray:
+        return await run_in_query_dispatch_pool(self.embed_query_tokens, text)
+
+    async def aembed_query_tokens_device(self, text: str) -> torch.Tensor:
+        return await run_in_query_dispatch_pool(self.embed_query_tokens_device, text)
+
+    async def aembed_documents_tokens(self, texts: list[str], max_tokens: int = 256) -> list[np.ndarray]:
+        return await run_in_indexing_dispatch_pool(self.embed_documents_tokens, texts, max_tokens)
 
     def embed_query_tokens_device(self, text: str, max_tokens: int = 64) -> torch.Tensor:
         """[q_pad, D] per-token query embeddings left on the device, padded

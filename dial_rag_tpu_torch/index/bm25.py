@@ -34,7 +34,12 @@ race and every score is summed in the same order on every run.
 Top-n keeps the reference's tie-break, ``np.argsort(scores,
 kind="stable")[::-1][:n]``: descending scores, the *later* item first on
 ties. The scores are negated and flipped, the stable ascending top-k
-(earliest first) taken, and the indices mapped back.
+(earliest first) taken, and the indices mapped back. A larger n's top
+list is a smaller n's with more after it, so queries of several n share
+one ranking.
+
+Serving: concurrent ``atop_n_with_scores`` calls coalesce into one
+``top_n_batch_with_scores`` a wave (``runtime/micro_batcher.py``).
 """
 
 import numpy as np
@@ -42,6 +47,8 @@ import torch
 
 from dial_rag_tpu_torch.device import resolve_device
 from dial_rag_tpu_torch.ops.stable_topk import stable_topk
+from dial_rag_tpu_torch.runtime import micro_batcher
+from dial_rag_tpu_torch.runtime.micro_batcher import PerLoopBatcher, per_loop_batcher
 
 K1 = 1.5
 B = 0.75
@@ -333,3 +340,36 @@ class Bm25Index:
 
     def top_n(self, query, n: int) -> np.ndarray:
         return self.top_n_with_scores(query, n)[0]
+
+    def warm_query_buckets(self, k: int) -> None:
+        """One lone query and one batch at every wave size 2, 4, .. up to
+        ``micro_batcher.MAX_WAVE``, at the serving top-``k``. PyTorch compiles nothing ahead;
+        these calls make the caching allocator's first blocks and each
+        shape's first launches happen off the request path."""
+        if self.n_items == 0:
+            return
+        probe = [next(iter(self.vocab))] if self.vocab else []
+        self.top_n_with_scores(probe, k)
+        q = 2
+        while q <= micro_batcher.MAX_WAVE:
+            self.top_n_batch_with_scores([probe] * q, k)
+            q *= 2
+
+    async def atop_n_with_scores(self, query, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """``top_n_with_scores`` with cross-request coalescing: concurrent
+        callers' queries share one batched scoring and one copy to the host
+        a wave. The same ranking as alone: a query gets the same bits in a
+        batch, and a larger n's top list trims to a smaller n's."""
+        return await self._scan_batcher.submit((query, n))
+
+    @property
+    def _scan_batcher(self) -> PerLoopBatcher:
+        return per_loop_batcher(self, "bm25_scan", self._scan_wave)
+
+    def _scan_wave(self, items: list) -> list:
+        if len(items) == 1:
+            query, n = items[0]
+            return [self.top_n_with_scores(query, n)]
+        n_max = max(n for _, n in items)
+        outs = self.top_n_batch_with_scores([query for query, _ in items], n_max)
+        return [(idx[:n], vals[:n]) for (idx, vals), (_, n) in zip(outs, items)]

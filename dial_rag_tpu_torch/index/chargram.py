@@ -446,6 +446,16 @@ class ChargramIndex:
     def top_n_with_scores(self, query_text: str, n: int):
         return self.inner.top_n_with_scores(self.query_weights(query_text), n)
 
+    def warm_query_buckets(self, k: int) -> None:
+        """Weighted queries ride the inner BM25 index's scans, so warming it
+        covers every wave bucket of this arm."""
+        self.inner.warm_query_buckets(k)
+
+    async def atop_n_with_scores(self, query_text: str, n: int):
+        """``top_n_with_scores`` coalesced with concurrent callers' queries
+        through the inner index's ``atop_n_with_scores``."""
+        return await self.inner.atop_n_with_scores(self.query_weights(query_text), n)
+
     def top_n_batch_with_scores(self, query_texts: list[str], n: int):
         return self.inner.top_n_batch_with_scores(
             [self.query_weights(q) for q in query_texts], n

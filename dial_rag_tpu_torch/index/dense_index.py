@@ -27,6 +27,12 @@ window is the JAX package's. The JAX package answers one float32 or
 bfloat16 query through block-select (block minima, a certified window, a
 fallback to the full scan); its hits are the full scan's by construction,
 so the port takes the full scan.
+
+Serving: concurrent ``afind`` calls coalesce into one ``find_batch`` a
+wave (``runtime/micro_batcher.py``). A wave whose queries are the rows, in
+order, of one encode's output, as ``BgeEmbedder.aembed_query`` tags them
+(``micro_batcher.wave_rows``), scans that output's first wave-bucket rows
+in place; any other wave is stacked once, padded to the wave bucket.
 """
 
 from dataclasses import dataclass
@@ -38,6 +44,8 @@ from dial_rag_tpu_torch.device import resolve_device
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.ops.metrics import Metric, block_distances, distances_from_dot, int8_matmul, row_norm2
 from dial_rag_tpu_torch.ops.stable_topk import stable_topk_rows
+from dial_rag_tpu_torch.runtime import micro_batcher
+from dial_rag_tpu_torch.runtime.micro_batcher import PerLoopBatcher, per_loop_batcher, wave_parent
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "two_pass": None, "int8": torch.int8}
 
@@ -53,6 +61,12 @@ _TP_CBLK = 64
 _SCAN_SHARE = 1 / 16
 _SCAN_BYTES = (48 << 20, 512 << 20)
 _ROW_QUANTUM = 512  # scan blocks are whole multiples of it (and of _TP_BLK)
+
+
+def _wave_bucket(q: int) -> int:
+    """The JAX package's wave bucket of ``q`` queries: a power of two, at
+    least 8."""
+    return 1 << max(3, (q - 1).bit_length())
 
 
 def _bucket_rows(n: int) -> int:
@@ -397,12 +411,13 @@ class DenseIndex:
         err_a, err_b, norm_max = self._err
         return _select(tops, _two_pass_bound(q_sq, err_a, err_b, norm_max, self.dim, sel), k)
 
-    def _two_pass(self, queries, q_sq, k):
-        """The window's f32 rows rescored, in groups of queries. If any
-        query's check fails, all take the full f32 scan."""
+    def _two_pass(self, queries, q_sq, k, n_real: int):
+        """The window's f32 rows rescored, in groups of queries. If the
+        check of any of the first ``n_real`` queries fails, all take the
+        full f32 scan (the rest are padding, whose answers are dropped)."""
         q = queries.shape[0]
         ok, blk = self._two_pass_window(queries, q_sq, k)
-        if not bool(ok.all()):
+        if not bool(ok[:n_real].all()):
             return self._full_scan(queries, q_sq, k, self._emb_f32, self._rn2_f32)
         n_cand = blk.shape[1] * _TP_BLK
         rows = (blk[:, :, None] * _TP_BLK + torch.arange(_TP_BLK, device=blk.device)).reshape(q, n_cand)
@@ -420,15 +435,17 @@ class DenseIndex:
             idx.append(i)
         return torch.cat(vals), torch.cat(idx)
 
-    def _topk(self, queries: torch.Tensor):
-        """[q, D] -> (values, indices) [q, k] on the host."""
+    def _topk(self, queries: torch.Tensor, n_real: int | None = None):
+        """[q, D] -> (values, indices) [n_real, k] on the host, of the first
+        ``n_real`` (default all) queries; the rest are scanned too."""
         queries, q_sq = self._prepare(queries)
+        n_real = queries.shape[0] if n_real is None else n_real
         k = min(self.limit, self.n_rows)
         if self.storage_dtype == "two_pass":
-            vals, idx = self._two_pass(queries, q_sq, k)
+            vals, idx = self._two_pass(queries, q_sq, k, n_real)
         else:
             vals, idx = self._full_scan(queries, q_sq, k, self._emb if self._scales is None else None, self._rn2)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        return vals[:n_real].cpu().numpy(), idx[:n_real].cpu().numpy()
 
     def _as_tensor(self, queries) -> torch.Tensor:
         if isinstance(queries, torch.Tensor):
@@ -446,16 +463,56 @@ class DenseIndex:
     def find(self, query) -> list[SearchHit]:
         return self.find_with_distances(query)[0]
 
-    def find_batch(self, queries) -> list[list[SearchHit]]:
+    def find_batch(self, queries, n_real: int | None = None) -> list[list[SearchHit]]:
         """Per-query hits for ``queries`` [Q, D] in one scan of the matrix;
-        the same hits as Q ``find`` calls."""
+        the same hits as Q ``find`` calls. ``n_real`` marks how many leading
+        rows are queries when the rest are padding (a wave's encode
+        output): every row is scanned, and the padding's hits dropped."""
         queries = self._as_tensor(queries)
-        if queries.shape[0] == 0 or self._emb is None:
-            return [[] for _ in range(queries.shape[0])]
-        vals, idx = self._topk(queries)
+        n = queries.shape[0] if n_real is None else n_real
+        if n == 0 or self._emb is None:
+            return [[] for _ in range(n)]
+        vals, idx = self._topk(queries, n)
         return [
             hits_from_topk(
                 vals[q], idx[q], self.n_rows, self._doc_ids, self._chunk_ids, self.retrieval_type
             )[0]
             for q in range(len(vals))
         ]
+
+    def warm_query_buckets(self) -> None:
+        """One lone query and one batch at every wave bucket up to
+        ``micro_batcher.MAX_WAVE``, on zero queries. PyTorch
+        compiles nothing ahead; these calls make the caching allocator's
+        first blocks and each shape's first launches happen off the request
+        path (the device cache runs this on a thread after a build)."""
+        if self._emb is None:
+            return
+        self.find(torch.zeros(self.dim, device=self.device))
+        q = 8  # the smallest wave bucket
+        while q <= micro_batcher.MAX_WAVE:
+            self.find_batch(torch.zeros((q, self.dim), device=self.device))
+            q *= 2
+
+    async def afind(self, query) -> list[SearchHit]:
+        """``find`` with cross-request coalescing: concurrent callers' single
+        queries share one ``find_batch`` scan and one copy to the host a
+        wave. The same hits as ``find``, but for near-ties (a lone query's
+        [1, D] product rounds apart from a batch's)."""
+        return await self._scan_batcher.submit(query)
+
+    @property
+    def _scan_batcher(self) -> PerLoopBatcher:
+        return per_loop_batcher(self, "dense_scan", self._scan_wave)
+
+    def _scan_wave(self, queries: list) -> list[list[SearchHit]]:
+        if len(queries) == 1:
+            return [self.find(queries[0])]  # a lone query keeps the one-row scan
+        q, q_pad = len(queries), _wave_bucket(len(queries))
+        parent = wave_parent(queries)
+        if parent is not None and parent.shape[0] >= q_pad:
+            # the rows of one encode wave, in order: scan its output in place
+            return self.find_batch(parent[:q_pad], n_real=q)
+        rows = [self._as_tensor(x).to(self.device, torch.float32).reshape(-1) for x in queries]
+        rows.extend([rows[0]] * (q_pad - q))
+        return self.find_batch(torch.stack(rows), n_real=q)

@@ -21,6 +21,11 @@ earliest row, and rows with no token score -inf and never surface.
 token absmax-quantized, the query-token columns quantized per column, one
 s8 x s8 -> s32 product per block dequantized as ``(prod * token scale) *
 query scale`` before the masked max).
+
+Serving: concurrent ``afind`` calls coalesce (``runtime/micro_batcher.py``).
+Device queries at one lane bucket (``BgeEmbedder.embed_query_tokens_device``'s
+rows) share one scan a group of at most _MAX_Q_LANES lanes, with the scores
+``find`` gives each alone; any other query keeps ``find``.
 """
 
 import numpy as np
@@ -31,6 +36,8 @@ from dial_rag_tpu_torch.index.dense_index import hits_from_topk
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.ops.metrics import int8_matmul
 from dial_rag_tpu_torch.ops.stable_topk import stable_topk_rows
+from dial_rag_tpu_torch.runtime import micro_batcher
+from dial_rag_tpu_torch.runtime.micro_batcher import PerLoopBatcher, per_loop_batcher
 
 # chunk rows scored per step: bounds the [block, T, lanes] transient
 # (512 x 256 x 128 f32 = 64 MiB at the lane cap) whatever the corpus size
@@ -293,3 +300,69 @@ class LateInteractionIndex:
         q_tokens = torch.nn.functional.pad(q_tokens, (0, 0, 0, _bucket_q(q) - q))
         vals, idx = self._find(q_tokens[None], torch.tensor([q], dtype=torch.int32), min(self.limit, self.n_rows))
         return finite_maxsim_hits(self, vals[0], idx[0])
+
+    def warm_query_buckets(self) -> None:
+        """The lone query at lane buckets 8, 16 and 32 (a 3-30 token query's)
+        and batches of 4, 8, .. queries at 16 lanes, up to the most one scan
+        takes there (``_MAX_Q_LANES // 16``, within
+        ``micro_batcher.MAX_WAVE``), on zero queries on the device. PyTorch
+        compiles nothing ahead; these calls make the caching allocator's
+        first blocks and each shape's first launches happen off the request
+        path."""
+        if self._x is None:
+            return
+        for lanes in (8, 16, 32):
+            self.find(torch.zeros((lanes, self.dim), device=self.device))
+        probe = torch.zeros((16, self.dim), device=self.device)
+        q = 4
+        while q <= min(micro_batcher.MAX_WAVE, _MAX_Q_LANES // 16):
+            self._scan_wave([probe] * q)
+            q *= 2
+
+    async def afind(self, query_tokens) -> list[SearchHit]:
+        """``find`` with cross-request coalescing: device queries that arrive
+        at the same power-of-two lane bucket share one MaxSim scan, with the
+        same scores as ``find`` (a query's lanes sum alone whatever the
+        group); host arrays and other widths keep ``find``."""
+        return await self._scan_batcher.submit(query_tokens)
+
+    @property
+    def _scan_batcher(self) -> PerLoopBatcher:
+        return per_loop_batcher(self, "maxsim_scan", self._scan_wave)
+
+    def _scan_wave(self, queries: list) -> list[list[SearchHit]]:
+        if self._x is None:
+            return [[] for _ in queries]
+        out: list = [None] * len(queries)
+        groups: dict[int, list[int]] = {}
+        for i, q in enumerate(queries):
+            if (
+                isinstance(q, torch.Tensor)
+                and q.ndim == 2
+                and 0 < q.shape[0] <= _MAX_Q_LANES
+                and q.shape[1] == self.dim
+                and _bucket_q(q.shape[0]) == q.shape[0]
+            ):
+                groups.setdefault(q.shape[0], []).append(i)
+            else:
+                out[i] = self.find(q)
+        k = min(self.limit, self.n_rows)
+        for qp, idxs in groups.items():
+            g = max(1, _MAX_Q_LANES // qp)
+            g = 1 << (g.bit_length() - 1)
+            for s in range(0, len(idxs), g):
+                part = idxs[s : s + g]
+                if len(part) == 1:
+                    out[part[0]] = self.find(queries[part[0]])
+                    continue
+                # padded to a power of two with row 0 again, counted 0 lanes:
+                # padding queries score nothing and are dropped
+                nq_pad = 1 << max(2, (len(part) - 1).bit_length())
+                rows = [queries[i].to(self.device, torch.float32) for i in part]
+                rows.extend([rows[0]] * (nq_pad - len(part)))
+                counts = torch.zeros(nq_pad, dtype=torch.int32)
+                counts[: len(part)] = qp
+                vals, idx = self._find(torch.stack(rows), counts, k)
+                for row, i in enumerate(part):
+                    out[i] = finite_maxsim_hits(self, vals[row], idx[row])[0]
+        return out

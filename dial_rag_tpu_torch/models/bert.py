@@ -168,6 +168,44 @@ def load_hf_weights(state_dict: dict, config: BertConfig) -> dict:
     }
 
 
+def export_hf_state(params: dict, config: BertConfig) -> dict:
+    """The inverse of ``load_hf_weights``: the parameter dict -> an HF
+    ``BertModel`` state dict of f32 numpy arrays (Linear weights [out, in],
+    the packed QKV split into query, key and value), so a trained encoder is
+    served through ``from_hf_checkpoint`` like any checkpoint;
+    ``safetensors_io.save_file`` picks the type on disk."""
+
+    def arr(x):
+        return x.detach().to("cpu", torch.float32).numpy()
+
+    def dense(prefix, p):
+        return {prefix + ".weight": arr(p["kernel"]).T, prefix + ".bias": arr(p["bias"])}
+
+    def lnorm(prefix, p):
+        return {prefix + ".weight": arr(p["scale"]), prefix + ".bias": arr(p["bias"])}
+
+    emb = params["embeddings"]
+    state = {
+        "embeddings.word_embeddings.weight": arr(emb["word"]),
+        "embeddings.position_embeddings.weight": arr(emb["position"]),
+        "embeddings.token_type_embeddings.weight": arr(emb["token_type"]),
+        **lnorm("embeddings.LayerNorm", emb["layernorm"]),
+    }
+    h = config.hidden_size
+    for i, layer in enumerate(params["layers"]):
+        p = f"encoder.layer.{i}."
+        qkv_k, qkv_b = arr(layer["qkv"]["kernel"]), arr(layer["qkv"]["bias"])  # [in, 3h], [3h]
+        for j, name in enumerate(("query", "key", "value")):
+            state[p + f"attention.self.{name}.weight"] = qkv_k[:, j * h : (j + 1) * h].T
+            state[p + f"attention.self.{name}.bias"] = qkv_b[j * h : (j + 1) * h]
+        state.update(dense(p + "attention.output.dense", layer["attn_out"]))
+        state.update(lnorm(p + "attention.output.LayerNorm", layer["attn_ln"]))
+        state.update(dense(p + "intermediate.dense", layer["ffn_in"]))
+        state.update(dense(p + "output.dense", layer["ffn_out"]))
+        state.update(lnorm(p + "output.LayerNorm", layer["ffn_ln"]))
+    return state
+
+
 _MATRICES = ("qkv", "attn_out", "ffn_in", "ffn_out")
 
 

@@ -1,10 +1,11 @@
-"""A reader for the safetensors format, with numpy only.
+"""A reader and a writer for the safetensors format, with numpy only.
 
 Layout: an 8-byte little-endian header length, a JSON header that maps
 each tensor name to ``{"dtype", "shape", "data_offsets": [begin, end]}``
 (offsets relative to the end of the header), then the raw little-endian
-buffers. ``__metadata__`` is skipped. BF16, which numpy has no type for,
-is widened to float32 exactly.
+buffers. ``__metadata__`` is skipped on reading. BF16, which numpy has no
+type for, is widened to float32 exactly on reading and rounded to nearest
+even from float32 on writing.
 """
 
 import json
@@ -57,3 +58,44 @@ def load_file(path: str) -> dict[str, np.ndarray]:
             raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {dtype}")
         out[name] = arr
     return out
+
+
+def _f32_to_bf16(arr: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 bits (uint16), rounded to nearest even; a NaN stays a
+    quiet NaN."""
+    bits = np.ascontiguousarray(arr, dtype="<f4").view("<u4")
+    out = ((bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) >> 16).astype("<u2")
+    nan = np.isnan(arr)
+    out[nan] = ((bits[nan] >> 16) | np.uint32(0x40)).astype("<u2")
+    return out
+
+
+def save_file(tensors: dict[str, np.ndarray], path: str, dtype: str = "F32") -> None:
+    """Writes ``tensors`` (numpy arrays) as one ``.safetensors`` file: each
+    floating array as ``dtype`` ("F32" or "BF16"), every other array in its
+    own type."""
+    if dtype not in ("F32", "BF16"):
+        raise ValueError(f"unsupported dtype {dtype}; use F32 or BF16")
+    codes = {v: k for k, v in _DTYPES.items()}
+    header: dict = {}
+    buffers, offset = [], 0
+    for name, arr in tensors.items():
+        arr = np.asarray(arr)
+        if np.issubdtype(arr.dtype, np.floating):
+            code = dtype
+            raw = (_f32_to_bf16(arr) if dtype == "BF16" else np.ascontiguousarray(arr, dtype="<f4")).tobytes()
+        else:
+            arr = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<"))
+            if arr.dtype not in codes:
+                raise ValueError(f"tensor {name!r} has unsupported dtype {arr.dtype}")
+            code, raw = codes[arr.dtype], arr.tobytes()
+        header[name] = {"dtype": code, "shape": list(arr.shape), "data_offsets": [offset, offset + len(raw)]}
+        buffers.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)  # the buffers start 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for raw in buffers:
+            f.write(raw)

@@ -53,7 +53,8 @@ builds a [B, h, S, S] tensor at a blocked S.
 which code ran: the single-tile forward by layout
 (``qkv_native_attention``, ``flash_attention_fwd``), the tensor-core
 forward (``attention_tc``, any layout), and one key per other kernel; a
-backward call counts once however many launches it makes.
+backward call counts once however many launches it makes; the counters
+share ``fused_encoder``'s lock.
 """
 
 import ctypes
@@ -62,7 +63,14 @@ import math
 
 import torch
 
-from dial_rag_tpu_torch.ops.fused_encoder import KERNEL_DTYPES, _raise_on, check_kernel_supports, mask_bias
+from dial_rag_tpu_torch.ops.fused_encoder import (
+    KERNEL_DTYPES,
+    _raise_on,
+    check_kernel_supports,
+    count_launch,
+    mask_bias,
+    zero_launches,
+)
 
 # the reference's dispatch thresholds, under its names (a test patches
 # both packages alike): sequences up to _FULL_TILE_MAX_S, or not a
@@ -88,8 +96,7 @@ LAUNCHES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    zero_launches(LAUNCHES)
 
 
 def supports_fused_qkv(s: int) -> bool:
@@ -368,7 +375,7 @@ def _forward_kernel(q, k, v, o, attention_mask, counter="flash_attention_fwd"):
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("flash_attention_fwd", "dial_attention_fwd_f32", "attention forward", q, (q, k, v, bias, o),
             (q, k, v, o))
-    LAUNCHES[counter] += 1
+    count_launch(LAUNCHES, counter)
 
 
 def _check_16_byte_rows(what, **tensors):
@@ -402,7 +409,7 @@ def _tc_kernel(q, k, v, o, attention_mask):
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("attention_tc", "dial_attention_tc_bf16", "attention tensor-core forward", q, (q, k, v, bias, o),
             (q, k, v, o))
-    LAUNCHES["attention_tc"] += 1
+    count_launch(LAUNCHES, "attention_tc")
 
 
 def _q_blocked_kernel(q, k, v, o, attention_mask):
@@ -418,7 +425,7 @@ def _q_blocked_kernel(q, k, v, o, attention_mask):
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("flash_attention_long", "dial_attention_q_blocked_f32", "attention q_blocked forward", q,
             (q, k, v, bias, o), (q, k, v, o))
-    LAUNCHES["attention_q_blocked"] += 1
+    count_launch(LAUNCHES, "attention_q_blocked")
 
 
 def _kv_blocked_kernel(q, k, v, o, attention_mask):
@@ -438,7 +445,7 @@ def _kv_blocked_kernel(q, k, v, o, attention_mask):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch(stem, f"dial_attention_kv_blocked_{KERNEL_DTYPES[q.dtype]}", "attention kv_blocked forward", q,
             (q, k, v, bias, o, lse), (q, k, v, o))
-    LAUNCHES["attention_kv_blocked_fwd"] += 1
+    count_launch(LAUNCHES, "attention_kv_blocked_fwd")
     return lse
 
 
@@ -479,7 +486,7 @@ def _backward_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     bias = _kernel_bias(attention_mask, b, s, q.device)
     _launch("flash_attention_bwd", f"dial_attention_bwd_{KERNEL_DTYPES[q.dtype]}", "attention backward", q,
             (q, k, v, do, bias, dq, dk, dv), (q, k, v, do, dq, dk, dv))
-    LAUNCHES["flash_attention_bwd"] += 1
+    count_launch(LAUNCHES, "flash_attention_bwd")
 
 
 def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
@@ -497,7 +504,7 @@ def _bwd_q_blocked_kernel(q, k, v, do, dq, dk, dv, attention_mask):
     _launch("flash_attention_long_bwd", f"dial_attention_bwd_q_blocked_{KERNEL_DTYPES[q.dtype]}",
             "attention q_blocked backward", q, (q, k, v, do, bias, dq, dk, dv, stats, delta),
             (q, k, v, do, dq, dk, dv))
-    LAUNCHES["attention_bwd_q_blocked"] += 1
+    count_launch(LAUNCHES, "attention_bwd_q_blocked")
 
 
 def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
@@ -514,7 +521,7 @@ def _bwd_dq_kv_blocked_kernel(q, k, v, o, lse, do, dq, attention_mask):
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch("flash_attention_long_bwd", f"dial_attention_bwd_dq_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
             "attention kv_blocked dQ backward", q, (q, k, v, o, do, bias, lse, dq, delta), (q, k, v, o, do, dq))
-    LAUNCHES["bwd_dq_kv_blocked"] += 1
+    count_launch(LAUNCHES, "bwd_dq_kv_blocked")
     return delta
 
 
@@ -532,7 +539,7 @@ def _bwd_dkv_kv_blocked_kernel(q, k, v, do, lse, delta, dk, dv, attention_mask):
     _launch("flash_attention_long_bwd", f"dial_attention_bwd_dkv_kv_blocked_{KERNEL_DTYPES[q.dtype]}",
             "attention kv_blocked dK/dV backward", q, (q, k, v, do, bias, lse, delta, dk, dv),
             (q, k, v, do, dk, dv))
-    LAUNCHES["bwd_dkv_kv_blocked"] += 1
+    count_launch(LAUNCHES, "bwd_dkv_kv_blocked")
 
 
 def _backward_into(q, k, v, do, dq, dk, dv, attention_mask, single_tile):

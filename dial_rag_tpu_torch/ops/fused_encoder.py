@@ -33,10 +33,12 @@ are cast to the compute type and vectors to f32 before the function, so
 f32 parameters train through a bf16 block.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
-its path went through the kernels.
+its path went through the kernels; ``count_launch`` takes a lock, as
+serving threads launch too.
 """
 
 import math
+import threading
 
 import torch
 
@@ -53,9 +55,26 @@ KERNEL_INSTANTIATIONS = tuple(
 LAUNCHES = {"fused_attention_block": 0, "fused_ffn_block": 0, "fused_layer_block": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    zero_launches(LAUNCHES)
+
+
+def zero_launches(launches: dict) -> None:
+    """Sets every count of ``launches`` (this module's or
+    ``flash_attention``'s ``LAUNCHES``) to 0 under the counters' lock."""
+    with _LAUNCH_LOCK:
+        for name in launches:
+            launches[name] = 0
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Adds one launch of ``name`` to ``launches`` under the counters'
+    lock."""
+    with _LAUNCH_LOCK:
+        launches[name] += 1
 
 
 def kernel_supports(dtype, hidden=None, head_dim=None) -> bool:
@@ -216,7 +235,7 @@ def _attention_block_kernel(x, attention_mask, wqkv, bqkv, wout, bout, g, beta, 
             b, s, num_heads, dh, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_attention_block")
-    LAUNCHES["fused_attention_block"] += 1
+    count_launch(LAUNCHES, "fused_attention_block")
     return out
 
 
@@ -277,7 +296,7 @@ def _ffn_block_kernel(x, w1, b1, w2, b2, g, beta):
         err = entry(*(t.data_ptr() for t in (x, w1, b1, w2, b2, g, beta, out, *scratch)),
                     b * s, hid, inter, _stream(x))
     _raise_on(err, "fused_ffn_block")
-    LAUNCHES["fused_ffn_block"] += 1
+    count_launch(LAUNCHES, "fused_ffn_block")
     return out
 
 
@@ -306,7 +325,7 @@ def _layer_block_kernel(x, attention_mask, weights, num_heads):
             b, s, num_heads, dh, inter, 1.0 / math.sqrt(dh), _stream(x),
         )
     _raise_on(err, "fused_layer_block")
-    LAUNCHES["fused_layer_block"] += 1
+    count_launch(LAUNCHES, "fused_layer_block")
     return out
 
 

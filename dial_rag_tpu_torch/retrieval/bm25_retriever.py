@@ -6,16 +6,17 @@ structure is built at construction from every record's items, flattened
 in document order. Query preprocessing and the top-n tie-break (later item
 first) are the reference's; scoring runs on the device
 (``index/bm25.py``). Word-vector query expansion (``expansion_config``)
-scores each query as a stem -> weight mapping instead.
+scores each query as a stem -> weight mapping instead. ``aretrieve``
+coalesces with concurrent requests' scoring (``Bm25Index.atop_n_with_scores``).
 """
-
-import asyncio
 
 import numpy as np
 import torch
 
+from dial_rag_tpu_torch.device import resolve_device
 from dial_rag_tpu_torch.documents.model import Chunk, DocumentRecord
 from dial_rag_tpu_torch.index.bm25 import Bm25Index
+from dial_rag_tpu_torch.index.device_cache import cached_build
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.text.keywords import keywords_preprocess
 from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig, build_word_vectors, expand_query
@@ -75,28 +76,39 @@ class Bm25Retriever:
         ``expansion_config`` turns on word-vector query expansion: word
         vectors are built from the records' chunk texts here, and each
         query scores as a stem -> weight mapping through the weighted-query
-        path. Scores of unexpanded terms are unchanged."""
-        for name, value, item in (
-            ("mesh", mesh, "Queue 1 item 10, the sharded indexes"),
-            ("device_cache", device_cache, "Queue 1 item 7, the device-index cache"),
-        ):
-            if value is not None:
-                raise NotImplementedError(f"Bm25Retriever {name} is not ported yet (ROADMAP {item})")
+        path. Scores of unexpanded terms are unchanged. With
+        ``device_cache`` the index and the word vectors are reused across
+        requests over the same records."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "Bm25Retriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
+            )
         doc_ids, counts = [], []
         for i, doc in enumerate(doc_records):
             if doc.text_index is not None:
                 doc_ids.append(i)
                 counts.append(len(doc.text_index))
         offsets = np.concatenate([[0], np.cumsum(np.asarray(counts, dtype=np.int64))])
-        tokenized = [tokens for _, _, tokens in cls._iter_items(doc_records)]
-        index = Bm25Index.build(tokenized, device=device)
+
+        def build():
+            # the flat token list is made only here, on a cache miss
+            return Bm25Index.build([tokens for _, _, tokens in cls._iter_items(doc_records)], device=device)
+
+        index = cached_build(device_cache, doc_records, ("bm25", k, False, str(resolve_device(device))), build,
+                             warm=lambda idx: idx.warm_query_buckets(k))
         expander = None
         if expansion_config is not None:
             ec = expansion_config
-            wv = build_word_vectors(
-                [c.text for doc in doc_records if doc.text_index is not None for c in doc.chunks],
-                window=ec.window, dim=ec.dim, min_count=ec.min_count, max_vocab=ec.max_vocab,
-            )
+
+            def build_wv():
+                return build_word_vectors(
+                    [c.text for doc in doc_records if doc.text_index is not None for c in doc.chunks],
+                    window=ec.window, dim=ec.dim, min_count=ec.min_count, max_vocab=ec.max_vocab,
+                )
+
+            # host arrays, the same for every device
+            wv = cached_build(device_cache, doc_records,
+                              ("word_vectors", ec.window, ec.dim, ec.min_count, ec.max_vocab), build_wv)
 
             def expander(query: str):
                 return expand_query(query, wv, m=ec.neighbors, alpha=ec.alpha, sim_min=ec.sim_min)
@@ -116,7 +128,8 @@ class Bm25Retriever:
         return [[self._hit(i, s) for i, s in zip(top, scores)] for top, scores in tops]
 
     async def aretrieve(self, query: str) -> list[SearchHit]:
-        return await asyncio.get_running_loop().run_in_executor(None, self.retrieve, query)
+        top, scores = await self._index.atop_n_with_scores(self._preprocess(query), self.k)
+        return [self._hit(i, s) for i, s in zip(top, scores)]
 
     @staticmethod
     def build_index(chunks: list[Chunk]) -> list[list[str]]:

@@ -5,16 +5,17 @@ The same structure as ``Bm25Retriever``: a record persists each chunk's
 surface words (``chargram_index``); the scoring structure is built at
 construction from every record's items flattened in document order, on
 the device (``index/chargram.py``, a weighted-query ``Bm25Index``). Ties
-go to the later item, as BM25's do.
+go to the later item, as BM25's do. ``aretrieve`` coalesces with
+concurrent requests' scoring.
 """
-
-import asyncio
 
 import numpy as np
 import torch
 
+from dial_rag_tpu_torch.device import resolve_device
 from dial_rag_tpu_torch.documents.model import Chunk, DocumentRecord
 from dial_rag_tpu_torch.index.chargram import _WORD_RE, DEFAULT_N_HI, DEFAULT_N_LO, ChargramIndex, chargram_words
+from dial_rag_tpu_torch.index.device_cache import cached_build
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 
 
@@ -64,26 +65,27 @@ class ChargramRetriever:
         device_cache=None,
         mesh=None,
     ) -> "ChargramRetriever":
-        """The index over every record's chargram words, on ``device``."""
-        for name, value, item in (
-            ("mesh", mesh, "Queue 1 item 10, the sharded indexes"),
-            ("device_cache", device_cache, "Queue 1 item 7, the device-index cache"),
-        ):
-            if value is not None:
-                raise NotImplementedError(f"ChargramRetriever {name} is not ported yet (ROADMAP {item})")
+        """The index over every record's chargram words, on ``device``; with
+        ``device_cache`` reused across requests over the same records."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "ChargramRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
+            )
         doc_ids, counts = [], []
         for i, doc in enumerate(doc_records):
             if doc.chargram_index is not None:
                 doc_ids.append(i)
                 counts.append(len(doc.chargram_index))
         offsets = np.concatenate([[0], np.cumsum(np.asarray(counts, dtype=np.int64))])
-        word_lists = [words for _, _, words in cls._iter_items(doc_records)]
-        return cls(
-            doc_ids=np.asarray(doc_ids, dtype=np.int64),
-            offsets=offsets,
-            index=ChargramIndex.build(word_lists, n_lo=n_lo, n_hi=n_hi, device=device),
-            k=k,
-        )
+
+        def build():
+            word_lists = [words for _, _, words in cls._iter_items(doc_records)]
+            return ChargramIndex.build(word_lists, n_lo=n_lo, n_hi=n_hi, device=device)
+
+        index = cached_build(device_cache, doc_records,
+                             ("chargram", k, n_lo, n_hi, False, str(resolve_device(device))), build,
+                             warm=lambda idx: idx.warm_query_buckets(k))
+        return cls(doc_ids=np.asarray(doc_ids, dtype=np.int64), offsets=offsets, index=index, k=k)
 
     def retrieve(self, query: str) -> list[SearchHit]:
         top, scores = self._index.top_n_with_scores(query, self.k)
@@ -96,7 +98,8 @@ class ChargramRetriever:
         return [[self._hit(i, s) for i, s in zip(top, scores)] for top, scores in tops]
 
     async def aretrieve(self, query: str) -> list[SearchHit]:
-        return await asyncio.get_running_loop().run_in_executor(None, self.retrieve, query)
+        top, scores = await self._index.atop_n_with_scores(query, self.k)
+        return [self._hit(i, s) for i, s in zip(top, scores)]
 
     @staticmethod
     def build_index(chunks: list[Chunk]) -> list[list[str]]:

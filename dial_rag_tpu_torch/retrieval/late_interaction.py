@@ -6,12 +6,11 @@ record (``late_interaction_index``). Query: the query's per-token
 embeddings scored with MaxSim on the device (``index/late_interaction.py``).
 """
 
-import asyncio
-
 import numpy as np
 
 from dial_rag_tpu_torch.documents.model import Chunk, DocumentRecord
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+from dial_rag_tpu_torch.index.device_cache import cached_build
 from dial_rag_tpu_torch.index.late_interaction import LateInteractionIndex
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 
@@ -37,21 +36,27 @@ class LateInteractionRetriever:
         mesh=None,
     ) -> "LateInteractionRetriever":
         """The index over every record's per-token embeddings, on the
-        embedder's device."""
-        for name, value, item in (
-            ("mesh", mesh, "Queue 1 item 10, the sharded indexes"),
-            ("device_cache", device_cache, "Queue 1 item 7, the device-index cache"),
-        ):
-            if value is not None:
-                raise NotImplementedError(f"LateInteractionRetriever {name} is not ported yet (ROADMAP {item})")
-        index = LateInteractionIndex(
-            RetrievalType.TEXT,
-            [doc.late_interaction_index or [] for doc in document_records],
-            max_chunk_tokens=max_chunk_tokens,
-            limit=k,
-            storage_dtype=storage_dtype,
-            device=embedder.device,
-        )
+        embedder's device; with ``device_cache`` reused across requests
+        over the same records."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "LateInteractionRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
+            )
+
+        def build():
+            return LateInteractionIndex(
+                RetrievalType.TEXT,
+                [doc.late_interaction_index or [] for doc in document_records],
+                max_chunk_tokens=max_chunk_tokens,
+                limit=k,
+                storage_dtype=storage_dtype,
+                device=embedder.device,
+            )
+
+        index = cached_build(device_cache, document_records,
+                             ("late_interaction", k, max_chunk_tokens, storage_dtype, False, str(embedder.device)),
+                             build,
+                             warm=lambda idx: idx.warm_query_buckets())
         return cls(embedder=embedder, index=index)
 
     def retrieve(self, query: str) -> list[SearchHit]:
@@ -64,13 +69,10 @@ class LateInteractionRetriever:
         return self.index.find_batch(self.embedder.embed_documents_tokens(queries, max_tokens=64))
 
     async def aretrieve(self, query: str) -> list[SearchHit]:
-        """The query's rows left on the device (``embed_query_tokens_device``)
-        scored in the loop's executor; the same hits as ``retrieve``."""
-
-        def run():
-            return self.index.find(self.embedder.embed_query_tokens_device(query))
-
-        return await asyncio.get_running_loop().run_in_executor(None, run)
+        """The query's rows left on the device (``embed_query_tokens_device``,
+        in the query dispatch pool), scored in a MaxSim scan coalesced with
+        concurrent requests'; the same hits as ``retrieve``."""
+        return await self.index.afind(await self.embedder.aembed_query_tokens_device(query))
 
     @staticmethod
     def build_index(embedder: BgeEmbedder, chunks: list[Chunk], max_chunk_tokens: int = 256) -> list[np.ndarray]:

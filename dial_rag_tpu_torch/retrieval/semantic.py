@@ -3,10 +3,11 @@ of ``dial_rag_tpu/retrieval/semantic.py``).
 
 Build: embed every chunk text and append the rows to a dense index.
 Query: embed the query (with the instruction prefix) and scan the index.
-The metric defaults to sqeuclidean, as in the reference.
+The metric defaults to sqeuclidean, as in the reference. ``aretrieve``
+coalesces with concurrent requests: their query encodes share one encode
+(``BgeEmbedder.aembed_query``) and their scans one scan
+(``DenseIndex.afind``).
 """
-
-import asyncio
 
 import numpy as np
 
@@ -18,6 +19,7 @@ from dial_rag_tpu_torch.documents.model import (
 )
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
 from dial_rag_tpu_torch.index.dense_index import DenseIndex
+from dial_rag_tpu_torch.index.device_cache import cached_build
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.ops.metrics import Metric
 
@@ -35,23 +37,31 @@ class SemanticRetriever:
         k: int = 1,
         metric: Metric = Metric.SQEUCLIDEAN_DIST,
         storage_dtype: str = "float32",
+        device_cache=None,
     ) -> "SemanticRetriever":
         """``document_records``: records carrying ``embeddings_index``
         (MultiEmbeddings or None), one per document, in document order.
-        The index lives on the embedder's device."""
-        doc_embeddings = [
-            create_doc_embeddings_by_chunk(doc.embeddings_index)
-            for doc in document_records
-            if doc.embeddings_index is not None
-        ]
-        index = DenseIndex(
-            RetrievalType.TEXT,
-            doc_embeddings,
-            metric=metric,
-            limit=k,
-            storage_dtype=storage_dtype,
-            device=embedder.device,
-        )
+        The index lives on the embedder's device. With ``device_cache``
+        (``index.device_cache.DeviceIndexCache``) the built index is reused
+        across requests over the same records."""
+
+        def build():
+            doc_embeddings = [
+                create_doc_embeddings_by_chunk(doc.embeddings_index)
+                for doc in document_records
+                if doc.embeddings_index is not None
+            ]
+            return DenseIndex(
+                RetrievalType.TEXT,
+                doc_embeddings,
+                metric=metric,
+                limit=k,
+                storage_dtype=storage_dtype,
+                device=embedder.device,
+            )
+
+        key = ("semantic", str(metric), k, False, storage_dtype, str(embedder.device))
+        index = cached_build(device_cache, document_records, key, build, warm=lambda idx: idx.warm_query_buckets())
         return cls(embedder=embedder, index=index)
 
     def retrieve(self, query: str) -> list[SearchHit]:
@@ -64,8 +74,9 @@ class SemanticRetriever:
         return self.index.find_batch(self.embedder.embed_queries(queries))
 
     async def aretrieve(self, query: str) -> list[SearchHit]:
-        """``retrieve`` in the loop's executor."""
-        return await asyncio.get_running_loop().run_in_executor(None, self.retrieve, query)
+        """The query's row of a coalesced encode, scanned in a coalesced
+        scan: the hits of ``retrieve`` but for near-ties."""
+        return await self.index.afind(await self.embedder.aembed_query(query))
 
     @staticmethod
     def build_index(embedder: BgeEmbedder, chunks: list[Chunk]) -> MultiEmbeddings:

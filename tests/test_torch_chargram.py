@@ -8,7 +8,8 @@ four-arm RRF ensemble, against the JAX package's on the CPU:
   each other and to the JAX package's, input the core rejects routed to
   numpy and counted in ``PATHS``;
 - ``ChargramRetriever`` against the JAX retriever over two documents,
-  ``has_index`` false on records whose words are all invalid;
+  ``has_index`` false on records whose words are all invalid, ``mesh``
+  (still to port) raising, ``device_cache`` hit on a second build;
 - ``build_word_vectors`` equal to the JAX package's bit for bit,
   ``expand_query`` weights equal, and ``Bm25Retriever`` with expansion
   finding the synonym chunk (tests/test_word_vectors.py's corpus);
@@ -131,9 +132,26 @@ def test_chargram_retriever_matches_jax():
     assert not ChargramRetriever.has_index([bad]) and ChargramRetriever.has_index([bad, port_recs[0]])
     assert r.build_index(port_recs[0].chunks) == port_recs[0].chargram_index
     assert ChargramRetriever.from_doc_records([bad, port_recs[0]], k=2, device="cpu").retrieve("alps")[0].doc_id == 1
-    for option in ("mesh", "device_cache"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ChargramRetriever.from_doc_records(port_recs, device="cpu", **{option: object()})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ChargramRetriever.from_doc_records(port_recs, device="cpu", mesh=object())
+
+
+def test_chargram_device_cache_hit_on_second_build():
+    """``device_cache``: the second build over the same content tokens is a
+    hit and serves the same hits."""
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+
+    recs = [record(TEXTS[:3]), record(TEXTS[3:])]
+    for i, r in enumerate(recs):
+        r.cache_token = ("doc", i)
+    cache = DeviceIndexCache()
+    first = ChargramRetriever.from_doc_records(recs, k=4, device="cpu", device_cache=cache)
+    second = ChargramRetriever.from_doc_records(recs, k=4, device="cpu", device_cache=cache)
+    assert second._index is first._index and (cache.misses, cache.hits) == (1, 1)
+    assert cache.wait_warm(30)
+    plain = ChargramRetriever.from_doc_records(recs, k=4, device="cpu")
+    for q in QUERIES:
+        assert [h.key for h in second.retrieve(q)] == [h.key for h in plain.retrieve(q)]
 
 
 # tests/test_word_vectors.py's corpus: "glacier" and "ice" share contexts

@@ -1030,3 +1030,48 @@ def test_maxsim_on_card_matches_cpu_and_repeats(cuda_device, storage):
         np.testing.assert_allclose(s, cs, rtol=1e-6 if storage == "int8" else 0, atol=0 if storage == "int8" else 1e-5)
     again = card.find_batch(queries)
     assert [[x.score for x in h] for h in again] == [[x.score for x in h] for h in batch]
+
+
+@pytest.mark.cuda
+def test_concurrent_semantic_and_bm25_requests_on_card(cuda_device):
+    """16 concurrent RRF requests (semantic arm on ``checkpoints/alps-semantic``
+    in bf16, kernels 1-2; BM25) through one device cache give the hits of
+    the same requests served one at a time, in fewer encode waves than
+    requests. (asyncio.run: the card's runs take no conftest.)"""
+    import asyncio
+    from pathlib import Path
+
+    from dial_rag_tpu_torch.documents.model import DocumentRecord, IndexSettings, build_chunks_list
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+    from dial_rag_tpu_torch.retrieval import Bm25Retriever, EnsembleRetriever, SemanticRetriever
+    from dial_rag_tpu_torch.runtime import micro_batcher
+
+    ckpt = Path(__file__).resolve().parent.parent / "checkpoints" / "alps-semantic"
+    emb = BgeEmbedder.from_hf_checkpoint(str(ckpt), compute_dtype=torch.bfloat16, device=cuda_device)
+    rng = np.random.default_rng(5)
+    words = sorted(w for w in emb.tokenizer.vocab if w.isalpha() and len(w) > 3)[:2000]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(20, 60)))) for _ in range(300)]
+    chunks = build_chunks_list([(t, {}) for t in texts])
+    record = DocumentRecord(None, IndexSettings(), chunks, Bm25Retriever.build_index(chunks),
+                            SemanticRetriever.build_index(emb, chunks), None, None, "text/plain", b"",
+                            cache_token=("card", "0"))
+    queries = [" ".join(texts[i].split()[:8]) for i in rng.choice(len(texts), 16, replace=False)]
+    cache = DeviceIndexCache()
+
+    async def request(q):
+        arms = [SemanticRetriever.from_doc_records(emb, [record], k=7, device_cache=cache),
+                Bm25Retriever.from_doc_records([record], k=7, device=cuda_device, device_cache=cache)]
+        return await EnsembleRetriever(arms).aretrieve(q)
+
+    async def serve(qs):
+        return await asyncio.wait_for(asyncio.gather(*(request(q) for q in qs)), timeout=120)
+
+    asyncio.run(serve(queries))  # warm-up; builds the cache
+    assert cache.wait_warm(120)
+    micro_batcher.reset_counts()
+    together = asyncio.run(serve(queries))
+    waves = micro_batcher.WAVES["query_encode"]
+    alone = [asyncio.run(serve([q]))[0] for q in queries]
+    assert [[h.key for h in hits] for hits in together] == [[h.key for h in hits] for hits in alone]
+    assert waves < len(queries) and (cache.misses, len(cache)) == (2, 2)

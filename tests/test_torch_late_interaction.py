@@ -14,8 +14,8 @@ against the JAX package's on the CPU (numpy-seeded inputs):
   ``embed_documents_tokens`` (2e-5, the reference's f32 gate), and
   ``embed_query_tokens_device``'s rows equal to the host rows bit for bit;
 - ``LateInteractionRetriever`` against the JAX retriever: ``retrieve``,
-  ``retrieve_batch`` and ``aretrieve``, and the options still to port
-  raising.
+  ``retrieve_batch`` and ``aretrieve``, ``mesh`` (still to port) raising,
+  and ``device_cache`` hit on a second build.
 """
 
 import asyncio
@@ -208,6 +208,29 @@ def test_retriever_matches_jax(maxsim_embedders):
         want = ref.retrieve(q)
         assert ids(single) == ids(want) == ids(hits) == ids(asyncio.run(r.aretrieve(q)))
         np.testing.assert_allclose([h.score for h in single], [h.score for h in want], rtol=1e-5)
-    for option in ("mesh", "device_cache"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LateInteractionRetriever.from_doc_records(port, records, **{option: object()})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LateInteractionRetriever.from_doc_records(port, records, mesh=object())
+
+
+def test_retriever_device_cache_hit_on_second_build(maxsim_embedders):
+    """``device_cache``: the second build over the same content tokens is a
+    hit and serves the same hits."""
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+
+    _, port = maxsim_embedders
+    records = []
+    for i, texts in enumerate((TEXTS[:2], TEXTS[2:])):
+        chunks = build_chunks_list([(t, {}) for t in texts])
+        records.append(DocumentRecord(
+            format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
+            embeddings_index=None, multimodal_embeddings_index=None, description_embeddings_index=None,
+            mime_type="text/plain", document_bytes=b"",
+            late_interaction_index=LateInteractionRetriever.build_index(port, chunks, 32), cache_token=("doc", i)))
+    cache = DeviceIndexCache()
+    first = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32, device_cache=cache)
+    second = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32, device_cache=cache)
+    assert second.index is first.index and (cache.misses, cache.hits) == (1, 1)
+    assert cache.wait_warm(60)
+    plain = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32)
+    for q in QUERIES:
+        assert [h.key for h in second.retrieve(q)] == [h.key for h in plain.retrieve(q)]

@@ -6,9 +6,10 @@ A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
 main path end to end, one f32 "pallas" encode, the long-document
 "pallas" route and the whole-layer route, an encode at head_dim 64, one
-training step, the bfloat16, two_pass and int8 dense layouts, and an RRF
-ensemble of the late-interaction, expanded BM25 and chargram arms. An
-AST scan checks the sources as well.
+training step, the bfloat16, two_pass and int8 dense layouts, an RRF
+ensemble of the late-interaction, expanded BM25 and chargram arms, and
+concurrent four-arm RRF requests through one ``DeviceIndexCache``. An
+AST scan checks the sources (new modules included) as well.
 """
 
 import ast
@@ -122,6 +123,28 @@ arms = [LateInteractionRetriever.from_doc_records(emb, [rec], k=2),
         ChargramRetriever.from_doc_records([rec], k=2, device="cpu")]
 fused = asyncio.run(EnsembleRetriever(arms).aretrieve_batch(["glaciers carve valleys", "rivers of the alps"]))
 assert fused[0][0].chunk_id == 1 and all(fused), fused
+# concurrent serving: the four arms rebuilt per request through one device
+# cache, coalesced encodes and scans, the RRF aretrieve
+from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+from dial_rag_tpu_torch.runtime import micro_batcher
+stamped = dataclasses.replace(rec, cache_token=("doc", "0"))
+cache = DeviceIndexCache()
+
+async def request(q):
+    arms4 = [SemanticRetriever.from_doc_records(emb, [stamped], k=2, device_cache=cache),
+             LateInteractionRetriever.from_doc_records(emb, [stamped], k=2, device_cache=cache),
+             Bm25Retriever.from_doc_records([stamped], k=2, device="cpu", device_cache=cache,
+                                            expansion_config=QueryExpansionConfig(min_count=1)),
+             ChargramRetriever.from_doc_records([stamped], k=2, device="cpu", device_cache=cache)]
+    return await EnsembleRetriever(arms4).aretrieve(q)
+
+async def serve(queries):
+    return await asyncio.wait_for(asyncio.gather(*(request(q) for q in queries)), timeout=120)
+
+micro_batcher.reset_counts()
+served = asyncio.run(serve(["glaciers carve valleys", "rivers of the alps", "highest mountains in europe"]))
+assert cache.wait_warm(60) and (cache.misses, len(cache)) == (5, 5), (cache.misses, len(cache))
+assert micro_batcher.WAVES["query_encode"] == 1 and served[0][0].chunk_id == 1, (micro_batcher.WAVES, served)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("OK", hits[0][0].chunk_id, hits[1][0].chunk_id)

@@ -6,7 +6,8 @@ whole (keywords -> BM25, tokenize -> encode -> dense index, RRF).
   each function of the port against the JAX package's on the same hits;
 - retrievers over two small records: the same hits and scores (rtol 1e-6)
   as the JAX retrievers, ``retrieve_batch`` and ``aretrieve`` equal to
-  ``retrieve``, the unported options raising;
+  ``retrieve``, ``mesh`` (still to port) raising, ``device_cache`` hit on
+  a second build;
 - the slice: tests/test_eval_harness.py's seeded corpus, record and
   encoder (carried across with ``params_from_jax_numpy``), the port fed
   the JAX package's parsed chunks and text index. BM25 [0, 4, 3] and
@@ -168,11 +169,33 @@ def test_bm25_has_index_and_empty_records(pair):
         Bm25Retriever.from_doc_records([empty, port_record([], [[]], None)], device="cpu")
 
 
-@pytest.mark.parametrize("option", ["mesh", "device_cache"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_unported_bm25_options_raise(pair, option):
     _, _, records, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Bm25Retriever.from_doc_records(records, device="cpu", **{option: object()})
+
+
+@pytest.mark.parametrize("expand", [False, True])
+def test_bm25_device_cache_hit_on_second_build(pair, expand):
+    """``device_cache``: the second build over records with the same
+    content tokens is a hit (the index, and the word vectors when the
+    retriever expands), and serves the same hits."""
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+    from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig
+
+    _, _, records, _ = pair
+    stamped = [dataclasses.replace(r, cache_token=("doc", i)) for i, r in enumerate(records)]
+    cfg = QueryExpansionConfig(min_count=1, sim_min=-1.0) if expand else None
+    cache = DeviceIndexCache()
+    first = Bm25Retriever.from_doc_records(stamped, k=3, device="cpu", device_cache=cache, expansion_config=cfg)
+    second = Bm25Retriever.from_doc_records(stamped, k=3, device="cpu", device_cache=cache, expansion_config=cfg)
+    n_objects = 2 if expand else 1
+    assert second._index is first._index and (cache.misses, cache.hits, len(cache)) == (n_objects, n_objects, n_objects)
+    assert cache.wait_warm(30)
+    plain = Bm25Retriever.from_doc_records(records, k=3, device="cpu", expansion_config=cfg)
+    for q in QUERIES:
+        assert keys(second.retrieve(q)) == keys(plain.retrieve(q)), q
 
 
 def test_bm25_with_expansion_config_matches_jax(pair):
