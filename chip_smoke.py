@@ -28,6 +28,28 @@ Phases, each announced by a ``[phase]`` line:
    the same path through the plain versions; embeddings must agree with
    the f32 path on a few chunks.
 
+   document indexing: the same 2048 texts laid out as 16 PDF manuals of
+   128 pages (one text a page, wrapped into lines; plain, Flate and
+   xref-stream variants, written by the port's ``documents/pdf/writer.py``)
+   and 4 DOCX, 4 PPTX, 2 XLSX, 2 Markdown, 2 plain-text and 2 CSV
+   documents of further texts, one indexing request: ``detect_mime`` ->
+   ``parse_document`` (in spawned worker processes), the bf16 semantic
+   index (kernels 1-2 must launch 12 x the encode batches) and the BM25
+   text index, ``serialize_record`` -> ``IndexStorage.store`` over
+   ``LocalFileStorage`` in a temporary directory, a fresh
+   ``IndexStorage.load`` of every record, then semantic, BM25 and RRF
+   retrieval of the 64 queries over the loaded records. Gates: each PDF
+   page's chunks hold its text word for word; each loaded record equals
+   the stored one (chunks, text index, every array bit for bit) with the
+   ``cache_token`` (url, sha256 of the stored bytes); the hits over the
+   loaded records equal those over the records before storage in every
+   arm; a second request is a storage memo or byte-LRU hit and a
+   device-cache hit and launches no encoder kernel; the kernel encode of the parsed chunks has
+   the plain version's top-1. Prints documents, pages and chunks by
+   format, parse s and pages/s, encode s and device ms, serialize, store
+   and load s, record bytes raw and gzipped, and the storage and
+   device-cache counters.
+
    hybrid retrieval: the same 2048 chunks' keyword preprocessing (the C++
    core ``native/keywords.cpp`` for ASCII text, the Python path for the
    rest, which stems with ``porter_lite`` where ``nltk`` is missing), a
@@ -85,8 +107,9 @@ Phases, each announced by a ``[phase]`` line:
    lists wherever every arm agrees.
 
    concurrent serving: the four arms (semantic, late interaction in
-   bfloat16, expanded BM25, chargram; k = 7) over the same chunks, each
-   record stamped with a cache token, rebuilt per request through one
+   bfloat16, expanded BM25, chargram; k = 7) over the same chunks, their
+   record stored through ``IndexStorage`` and loaded back (the load
+   stamps its cache token), rebuilt per request through one
    ``DeviceIndexCache`` (1 GiB); 64 requests on one event loop through
    ``asyncio.gather`` (each under ``asyncio.wait_for``) awaiting
    ``EnsembleRetriever.aretrieve``, after a warm-up wave and
@@ -243,13 +266,17 @@ build directory.
 import collections
 import concurrent.futures
 import copy
+import importlib.util
 import json
 import math
+import multiprocessing
+import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 from pathlib import Path
 
@@ -259,6 +286,13 @@ ORACLE_CHUNKS = ROOT / "tests" / "data" / "alps_oracle_chunks.json"
 QUESTIONS = ROOT / "eval" / "data" / "alps_handmade_questions.json"
 N_DOCS = 2048
 N_QUERIES = 64
+# the document indexing phase: the main path's texts as PDF_DOCS manuals,
+# one text a page, and OFFICE_TEXTS further texts in each other document
+PDF_DOCS = 16
+OTHER_DOCS = (("docx", 4), ("pptx", 4), ("xlsx", 2), ("md", 2), ("txt", 2), ("csv", 2))
+OFFICE_TEXTS = 4
+PDF_LINE_CHARS = 95
+OFFICE_BUILDER = ROOT / "tests" / "utils" / "office_builder.py"
 N_TOP1 = 16
 TOLERANCE = 3e-2  # bf16 kernel vs plain version: tests/test_fused_encoder.py's bf16 atol
 TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this close
@@ -3519,9 +3553,317 @@ def local_arms_phase(torch, card, embedder, li_emb, embeddings_index, tokens, ch
     return launches, record
 
 
+def pdf_safe(text: str) -> str:
+    """``text`` as a WinAnsi page written in Latin-1 holds it: printable
+    ASCII and Latin-1 letters stay, any other character becomes a space."""
+    return "".join(c if " " <= c <= "~" or "\xc0" <= c <= "\xff" else " " for c in text)
+
+
+def pdf_page(text: str) -> list[tuple[float, float, float, str]]:
+    """One text as a page of 10 pt lines, wrapped at whole words."""
+    lines = textwrap.wrap(pdf_safe(text), PDF_LINE_CHARS, break_long_words=False, break_on_hyphens=False)
+    return [(72, 750 - 14 * i, 10, line) for i, line in enumerate(lines)]
+
+
+def load_office_builder():
+    """``tests/utils/office_builder.py`` (io and zipfile only), loaded from its file."""
+    spec = importlib.util.spec_from_file_location("office_builder", OFFICE_BUILDER)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def document_corpus(texts, extra, pdf_docs: int = PDF_DOCS,
+                    other_docs=OTHER_DOCS) -> list[tuple[str, bytes, list | None]]:
+    """(name, bytes, each page's source text for a PDF, else None): ``texts``
+    one a page in ``pdf_docs`` PDFs of equal page counts, alternately
+    plain, Flate-compressed and with an xref stream; ``extra`` (OFFICE_TEXTS
+    a document) in the office, Markdown, text and CSV documents."""
+    from dial_rag_tpu_torch.documents.pdf.writer import build_pdf
+
+    office = load_office_builder()
+    variants = ({}, {"compress": True}, {"compress": True, "use_xref_stream": True})
+    docs = []
+    pdf_pages = len(texts) // pdf_docs
+    for d in range(pdf_docs):
+        pages = texts[d * pdf_pages : (d + 1) * pdf_pages]
+        data = build_pdf([pdf_page(t) for t in pages], **variants[d % len(variants)])
+        docs.append((f"manual-{d:02d}.pdf", data, [pdf_safe(t) for t in pages]))
+    parts = iter(extra)
+    for fmt, count in other_docs:
+        for d in range(count):
+            body = [next(parts) for _ in range(OFFICE_TEXTS)]
+            heads = [f"Part {i + 1} " + " ".join(t.split()[:3]).title() for i, t in enumerate(body)]
+            words = [t.split() for t in body]
+            if fmt == "docx":
+                data = office.build_docx([b for h, t in zip(heads, body) for b in ((h, "Heading1"), (t, None))])
+            elif fmt == "pptx":
+                data = office.build_pptx([[(h, True), (t, False)] for h, t in zip(heads, body)])
+            elif fmt == "xlsx":
+                data = office.build_xlsx({h: [[" ".join(w[j : j + 6]) for j in range(i, min(i + 24, len(w)), 6)]
+                                              for i in range(0, len(w), 24)] for h, w in zip(heads, words)})
+            elif fmt == "md":
+                data = "\n\n".join(f"# {h}\n\n{t}" for h, t in zip(heads, body)).encode()
+            elif fmt == "txt":
+                data = "\n\n".join(body).encode()
+            else:
+                data = "\n".join(["term,first,second,third"] + [",".join(w[i : i + 4]) for w in words
+                                                                for i in range(0, len(w), 4)]).encode()
+            docs.append((f"{fmt}-{d}.{fmt}", data, None))
+    return docs
+
+
+def parse_one(name: str, data: bytes):
+    """``detect_mime`` -> ``parse_document`` of one attachment, timed (run
+    in a spawned worker process)."""
+    from dial_rag_tpu_torch.documents.mime import detect_mime
+    from dial_rag_tpu_torch.documents.parser import parse_document
+
+    t0 = time.perf_counter()
+    mime = detect_mime(None, name, data)
+    chunks = parse_document(data, mime, source_link=f"files/chip-smoke/{name}", display_name=name)
+    return mime, chunks, time.perf_counter() - t0
+
+
+def check_pdf_words(name: str, chunks, page_texts: list[str]) -> None:
+    """Each page's chunks, joined, hold the page's text word for word."""
+    by_page = collections.defaultdict(list)
+    for c in chunks:
+        by_page[c.metadata.get("page_number")].append(c.text)
+    if set(by_page) != set(range(1, len(page_texts) + 1)):
+        raise RuntimeError(f"{name}: chunks name pages {sorted(by_page, key=str)[:8]}..., expected 1..{len(page_texts)}")
+    for page, text in enumerate(page_texts, start=1):
+        got = " ".join(by_page[page]).split()
+        if got != text.split():
+            at = next((i for i, (a, b) in enumerate(zip(got, text.split())) if a != b), min(len(got), len(text.split())))
+            raise RuntimeError(f"{name} page {page}: parsed words differ from the page's text at word {at}: "
+                               f"{got[at : at + 4]} vs {text.split()[at : at + 4]}")
+
+
+def record_fields(record) -> dict:
+    """A record's stored fields, each array as (dtype, shape, bytes)."""
+    out = {}
+    for name in ("format_version", "mime_type", "document_bytes", "text_index", "chargram_index"):
+        out[name] = getattr(record, name)
+    out["index_settings"] = record.index_settings.indexes
+    out["chunks"] = [(c.text, c.metadata) for c in record.chunks]
+    for name in ("embeddings_index", "multimodal_embeddings_index", "description_embeddings_index",
+                 "late_interaction_index"):
+        multi = getattr(record, name)
+        out[name] = None if multi is None else [(a.dtype.str, a.shape, a.tobytes()) for a in multi]
+    return out
+
+
+def document_indexing_phase(torch, card, embedder, texts, queries, workers: int | None = None) -> dict:
+    """One indexing request over ``texts`` laid out as documents
+    (``document_corpus``), stored and loaded back, then retrieval of
+    ``queries`` over the loaded records against the records as built, and
+    a second request for the same records. Returns kernels 1-2's launches
+    in the request (the encode and the query encodes)."""
+    import asyncio
+    import gzip
+    import hashlib
+
+    import numpy as np
+
+    from dial_rag_tpu_torch import telemetry
+    from dial_rag_tpu_torch.documents.model import FORMAT_VERSION, DocumentRecord, IndexSettings
+    from dial_rag_tpu_torch.documents.parser import ParserConfig
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.index.dense_index import DenseIndex, DocEmbeddings
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+    from dial_rag_tpu_torch.index.records import RetrievalType
+    from dial_rag_tpu_torch.models.bert import BertEncoder
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval import Bm25Retriever, EnsembleRetriever, SemanticRetriever
+    from dial_rag_tpu_torch.storage import IndexStorageHolder, LocalFileStorage, serialize_record
+    from dial_rag_tpu_torch.storage.storage import link_to_index_url
+
+    t_phase = time.perf_counter()
+    n_extra = OFFICE_TEXTS * sum(n for _, n in OTHER_DOCS)
+    extra = synthetic_texts(embedder.tokenizer.vocab, n_extra, seed=2)
+    t0 = time.perf_counter()
+    docs = document_corpus(texts, extra)
+    t_corpus = time.perf_counter() - t0
+    by_format = collections.defaultdict(lambda: collections.Counter())
+    for name, data, _ in docs:
+        by_format[name.rsplit(".", 1)[1]].update(documents=1, bytes=len(data))
+    print(f"document corpus: {len(docs)} documents, {sum(len(d) for _, d, _ in docs) / 2**20:.2f} MiB, written in "
+          f"{t_corpus:.2f} s (host)", flush=True)
+
+    # parse: every document in spawned worker processes (the parser is pure Python)
+    workers = workers or min(len(docs), os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parsed = list(pool.map(parse_one, [n for n, _, _ in docs], [d for _, d, _ in docs]))
+    t_parse = time.perf_counter() - t0
+    for (name, _, page_texts), (mime, chunks, seconds) in zip(docs, parsed):
+        fmt = name.rsplit(".", 1)[1]
+        pages = {c.metadata.get("page_number") for c in chunks} - {None}
+        by_format[fmt].update(pages=len(pages), chunks=len(chunks), parse_us=int(seconds * 1e6))
+        if page_texts is not None:
+            check_pdf_words(name, chunks, page_texts)
+    n_chunks = sum(len(c) for _, c, _ in parsed)
+    for fmt, c in by_format.items():
+        rate = f"{c['pages'] / (c['parse_us'] / 1e6):.1f} pages/s, " if c["pages"] else ""
+        print(f"  {fmt}: {c['documents']} documents, {c['pages'] or '-'} pages, {c['chunks']} chunks, "
+              f"{c['bytes'] / 2**10:.0f} KiB; parse {c['parse_us'] / 1e6:.3f} s in one worker, {rate}"
+              f"{c['chunks'] / (c['parse_us'] / 1e6):.1f} chunks/s")
+    print(f"parse: {len(docs)} documents, {n_chunks} chunks in {t_parse:.2f} s of wall over {workers} spawned "
+          f"worker processes, their start and imports included; every PDF page's chunks hold its text word for "
+          f"word (host)", flush=True)
+
+    # index: the bf16 semantic index on the card (kernels 1-2), the BM25 text index on the host
+    chunk_lists = [c for _, c, _ in parsed]
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    embeddings = [SemanticRetriever.build_index(embedder, chunks) for chunks in chunk_lists]
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    build_launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+    layers = embedder.encoder.config.num_layers
+    n_batches = sum(-(-len(c) // embedder.batch_size) for c in chunk_lists if c)
+    for name, n in build_launches.items():
+        if n != layers * n_batches:
+            raise RuntimeError(f"{name} launched {n} times in the document encode, expected {layers * n_batches}")
+    t0 = time.perf_counter()
+    text_indexes = [Bm25Retriever.build_index(chunks) for chunks in chunk_lists]
+    t_bm25 = time.perf_counter() - t0
+    settings = IndexSettings(indexes={"parser": ParserConfig().index_settings(),
+                                      "embedder": {"model_id": embedder.model_id}})
+    built = [DocumentRecord(FORMAT_VERSION, settings, chunks, text_index, emb, None, None, mime, data)
+             for (_, data, _), (mime, chunks, _), text_index, emb in zip(docs, parsed, text_indexes, embeddings)]
+
+    # storage: serialize, store through a holder over a local directory, load in a fresh holder
+    t0 = time.perf_counter()
+    blobs = [serialize_record(r) for r in built]
+    t_serialize = time.perf_counter() - t0
+    raw_bytes = sum(len(gzip.decompress(b)) for b in blobs)
+    urls = [link_to_index_url(f"files/chip-smoke/{name}", "chip-smoke") for name, _, _ in docs]
+    telemetry.metrics().reset()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_index_") as root:
+        async def store_all(storage):
+            for url, record in zip(urls, built):
+                await storage.store(url, record)
+
+        async def load_all(storage):
+            return [await storage.load(url, settings) for url in urls]
+
+        t0 = time.perf_counter()
+        asyncio.run(store_all(IndexStorageHolder().get_storage(LocalFileStorage(root))))
+        t_store = time.perf_counter() - t0
+        stored = [(Path(root) / url).read_bytes() for url in urls]
+        holder = IndexStorageHolder()
+        t0 = time.perf_counter()
+        loaded = asyncio.run(load_all(holder.get_storage(LocalFileStorage(root))))
+        t_load = time.perf_counter() - t0
+        for url, data, record, before in zip(urls, stored, loaded, built):
+            if record is None:
+                raise RuntimeError(f"{url}: a fresh load of the stored record missed")
+            if record_fields(record) != record_fields(before):
+                raise RuntimeError(f"{url}: the loaded record differs from the stored one")
+            if record.cache_token != (url, hashlib.sha256(data).hexdigest()) or record.cache_token != before.cache_token:
+                raise RuntimeError(f"{url}: cache_token {record.cache_token} is not (url, sha256 of the stored bytes)")
+        print(f"storage: serialize {t_serialize:.3f} s, store {t_store:.3f} s (serializes again), fresh load "
+              f"{t_load:.3f} s (read, sha256, decode) of {len(built)} records; {raw_bytes / 2**20:.2f} MiB raw, "
+              f"{sum(len(b) for b in blobs) / 2**20:.2f} MiB gzipped ({sum(map(len, stored)) / 2**20:.2f} MiB "
+              f"stored); every loaded record equals the stored one bit for bit, cache_token (url, sha256) (host)",
+              flush=True)
+
+        # retrieval over the loaded records, against the records as built
+        cache = DeviceIndexCache()
+
+        def arms(records, device_cache=None):
+            return [SemanticRetriever.from_doc_records(embedder, records, k=HYBRID_K, device_cache=device_cache),
+                    Bm25Retriever.from_doc_records(records, k=HYBRID_K, device_cache=device_cache)]
+
+        def keys(lists):
+            return [[h.key for h in hits] for hits in lists]
+
+        got, ref = {}, {}
+        for out, records, device_cache in ((ref, built, None), (got, loaded, cache)):
+            semantic, bm25 = arms(records, device_cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["semantic"] = keys(semantic.retrieve_batch(queries))
+            out["bm25"] = keys(bm25.retrieve_batch(queries))
+            out["rrf"] = keys(asyncio.run(EnsembleRetriever([semantic, bm25]).aretrieve_batch(queries)))
+            torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - t0) * 1e3
+        for arm in ("semantic", "bm25", "rrf"):
+            if got[arm] != ref[arm]:
+                qi = next(i for i, (a, b) in enumerate(zip(got[arm], ref[arm])) if a != b)
+                raise RuntimeError(f"{arm}: query {qi}'s hits over the loaded records {got[arm][qi]} differ from "
+                                   f"those over the records as built {ref[arm][qi]}")
+        if not cache.wait_warm(REQUEST_TIMEOUT):
+            raise RuntimeError("a warm-up thread of the device cache is still running after wait_warm")
+        print(f"retrieval of {len(queries)} queries over the {len(loaded)} loaded records (semantic, BM25, RRF; k="
+              f"{HYBRID_K}): {got['ms']:.2f} ms, as built {ref['ms']:.2f} ms; hits id for id equal in every arm {card}",
+              flush=True)
+        launches = {name: fe.LAUNCHES[name] for name in build_launches}
+
+        # a second request for the same records: each load a storage memo hit (the holder's
+        # record memo keeps 4 records) or a byte-LRU hit, the indexes device-cache hits, no encode
+        hits0, misses0 = cache.hits, cache.misses
+        first_counters = {name: telemetry.metrics().total(name) for name in sorted(telemetry.metrics().snapshot())}
+        telemetry.metrics().reset()
+        t0 = time.perf_counter()
+        again = asyncio.run(load_all(holder.get_storage(LocalFileStorage(root))))
+        semantic, bm25 = arms(again, cache)
+        t_again = time.perf_counter() - t0
+        counters = {name: telemetry.metrics().total(name) for name in sorted(telemetry.metrics().snapshot())}
+        memo_hits = counters.get("dial_rag.record_memo.validated_hits", 0)
+        lru_hits = counters.get("dial_rag.index_cache.hits", 0)
+        if memo_hits + lru_hits != len(loaded) or counters.get("dial_rag.index_cache.misses", 0):
+            raise RuntimeError(f"the second request's loads: {counters}; expected a memo or LRU hit each")
+        if any(a.cache_token != b.cache_token for a, b in zip(again, loaded)):
+            raise RuntimeError("the second request's records carry other cache tokens")
+        if (cache.hits - hits0, cache.misses - misses0) != (2, 0):
+            raise RuntimeError(f"the second request's indexes: {cache.hits - hits0} device-cache hits, "
+                               f"{cache.misses - misses0} misses; expected 2 hits")
+        if {name: fe.LAUNCHES[name] for name in launches} != launches:
+            raise RuntimeError("the second request for stored records launched the encoder")
+        print(f"second request for the same {len(again)} records: {t_again * 1e3:.2f} ms, {memo_hits:g} record-memo "
+              f"hits and {lru_hits:g} byte-LRU hits, device cache {cache.hits - hits0} hits, 0 misses, no encoder "
+              f"launch; storage counters of the store and first load {first_counters}, of the second request "
+              f"{counters}; device cache {cache.hits} hits, {cache.misses} misses, {len(cache)} entries, "
+              f"{cache.size_bytes / 2**20:.1f} MiB {card}", flush=True)
+        del cache, semantic, bm25
+
+    # the encode's device time, and its top-1 against the plain version (after the counted run)
+    texts_all = [c.text for chunks in chunk_lists for c in chunks]
+    enc_ms = device_ms(torch, lambda: [embedder.embed_documents([c.text for c in chunks])
+                                       for chunks in chunk_lists if chunks])
+    print(f"document encode: {n_chunks} chunks of {len(docs)} documents in {t_encode:.3f} s of wall, "
+          f"{n_batches} encode batches, device {enc_ms:.3f} ms; BM25 text index {t_bm25:.3f} s (host); "
+          f"launches {build_launches} ({layers} layers x {n_batches}) {card}", flush=True)
+    plain = BgeEmbedder(
+        tokenizer=embedder.tokenizer,
+        encoder=BertEncoder(embedder.encoder.config, compute_dtype=embedder.encoder.compute_dtype,
+                            attention_impl="fused_plain", pooling=embedder.encoder.pooling),
+        params=embedder.params, device=embedder.device, query_instruction=embedder.query_instruction,
+        model_id=embedder.model_id,
+    )
+    doc_emb = np.concatenate([np.concatenate(e) for e in embeddings if e])
+    plain_emb = plain.embed_documents(texts_all)
+    q_kernel = embedder.embed_queries(queries[:N_TOP1])
+    q_plain = plain.embed_queries(queries[:N_TOP1])
+    ids = np.arange(len(doc_emb))
+    tops = [[h[0].chunk_id for h in DenseIndex(RetrievalType.TEXT, [DocEmbeddings(ids, e)], limit=1,
+                                                 device=embedder.device).find_batch(q)]
+            for e, q in ((doc_emb, q_kernel), (plain_emb, q_plain))]
+    ties = top1_agree(tops[0], tops[1], doc_emb, q_kernel, "document indexing")
+    print(f"document embeddings, kernel vs plain path: max abs diff {np.abs(doc_emb - plain_emb).max():.3g}; top-1 "
+          f"of {N_TOP1} queries equal ({ties} near-ties below {TIE_GAP})")
+    print(f"document indexing phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def concurrent_serving_phase(torch, card, embedder, li_emb, record, queries) -> dict:
     """``record``'s four arms (semantic, expanded BM25, chargram, late
-    interaction in bfloat16; k = 7) rebuilt per request through one
+    interaction in bfloat16; k = 7), the record stored through
+    ``IndexStorage`` and loaded back, rebuilt per request through one
     ``DeviceIndexCache``, 64 requests on one event loop against the same
     64 one at a time; the cache's eviction rule on a second cache. Returns
     kernels 1-2's launches in the timed concurrent wave."""
@@ -3540,10 +3882,28 @@ def concurrent_serving_phase(torch, card, embedder, li_emb, record, queries) -> 
         SemanticRetriever,
     )
     from dial_rag_tpu_torch.runtime import micro_batcher as mb
+    from dial_rag_tpu_torch.documents.model import FORMAT_VERSION, IndexSettings
+    from dial_rag_tpu_torch.storage import IndexStorage, LocalFileStorage
+    from dial_rag_tpu_torch.storage.storage import link_to_index_url
     from dial_rag_tpu_torch.text.word_vectors import QueryExpansionConfig
 
     t_phase = time.perf_counter()
-    record = dataclasses.replace(record, cache_token=("chip_smoke/main-path", "seed-0"))
+    # the record through storage: the load stamps its cache token (url, sha256 of the stored bytes)
+    settings = IndexSettings(indexes={"embedder": {"model_id": embedder.model_id}})
+    record = dataclasses.replace(record, format_version=FORMAT_VERSION, index_settings=settings)
+    url = link_to_index_url("files/chip-smoke/main-path", "chip-smoke")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_index_") as root:
+        t0 = time.perf_counter()
+        asyncio.run(IndexStorage(LocalFileStorage(root)).store(url, record))
+        t_store = time.perf_counter() - t0
+        nbytes = (Path(root) / url).stat().st_size
+        t0 = time.perf_counter()
+        record = asyncio.run(IndexStorage(LocalFileStorage(root)).load(url, settings))
+        t_load = time.perf_counter() - t0
+    if record is None or record.cache_token[0] != url:
+        raise RuntimeError(f"the stored four-arm record did not load back with its cache token: {record}")
+    print(f"concurrent serving record through storage: {nbytes / 2**20:.1f} MiB stored in {t_store:.2f} s, loaded "
+          f"in {t_load:.2f} s; cache_token {record.cache_token[1][:16]}... (host)", flush=True)
     expansion = QueryExpansionConfig()
     # the late-interaction arm last: it is built last, so a cache below its
     # bytes keeps it alone (gate 4)
@@ -3992,6 +4352,10 @@ def main() -> int:
     print(f"peak memory (bf16 main path and 1M index): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"{card}")
     del big, mat, d64, qd
+
+    phase("document indexing")
+    for name, n in document_indexing_phase(torch, card, embedder, texts, queries).items():
+        launched[name] += n
 
     phase("hybrid retrieval")
     for name, n in hybrid_retrieval_phase(torch, card, embedder, record.embeddings_index, chunks, queries).items():

@@ -6,7 +6,9 @@ and backward, pooling, the dense index, the semantic retriever, keyword
 preprocessing, BM25 and its retriever, the RRF ensemble (with C++ host
 cores for keywords and WordPiece, ``native``), the late-interaction and
 chargram arms, concurrent serving (coalesced encodes and scans,
-``runtime``; the device-index cache, ``index.device_cache``), and
+``runtime``; the device-index cache, ``index.device_cache``), the
+document pipeline (``documents``: PDF, office, text, Markdown and CSV
+parsing, by-title chunking) and index storage (``storage``), and
 contrastive fine-tuning of the encoder (``training``). Entry points take
 ``device`` and run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -10,7 +10,8 @@ whole (keywords -> BM25, tokenize -> encode -> dense index, RRF).
   a second build;
 - the slice: tests/test_eval_harness.py's seeded corpus, record and
   encoder (carried across with ``params_from_jax_numpy``), the port fed
-  the JAX package's parsed chunks and text index. BM25 [0, 4, 3] and
+  its own parse of the corpus PDF (equal to the JAX package's chunks) and
+  the JAX package's text index. BM25 [0, 4, 3] and
   [1, 4, 3], semantic [3, 2, 1] twice (test_frozen_retrieval_goldens), and
   RRF lists equal to the JAX ``EnsembleRetriever``'s;
 - the reference's Cadibona golden (chunk 31, page 3), which needs the
@@ -39,6 +40,7 @@ from dial_rag_tpu.retrieval import EnsembleRetriever as JaxEnsembleRetriever
 from dial_rag_tpu.retrieval import SemanticRetriever as JaxSemanticRetriever
 from dial_rag_tpu.retrieval import ensemble as jax_ensemble
 from dial_rag_tpu_torch.documents.model import Chunk, DocumentRecord, IndexSettings, build_chunks_list
+from dial_rag_tpu_torch.documents.parser import parse_document
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.models.bert import BertConfig, BertEncoder
@@ -382,12 +384,14 @@ def test_score_fusion_ensemble_output_limit():
 @pytest.fixture(scope="module")
 def harness():
     """tests/test_eval_harness.py's seeded corpus, JAX record and encoder,
-    and the port's record over the same chunks and text index."""
+    and the port's record over the port's own parse of the corpus PDF
+    (chunks equal to the JAX record's) and the JAX record's text index."""
     corpus = build_corpus(n_pages=5, seed=0)
     jax_emb = make_test_embedder(corpus)
     record, _ = asyncio.run(build_record(corpus, jax_emb))
     emb = port_embedder_of(jax_emb, batch_size=jax_emb.batch_size)
-    chunks = [Chunk(text=c.text, metadata=dict(c.metadata)) for c in record.chunks]
+    chunks = parse_document(corpus.pdf_bytes, "application/pdf", source_link="atlas.pdf", display_name="atlas.pdf")
+    assert [(c.text, c.metadata) for c in chunks] == [(c.text, c.metadata) for c in record.chunks]
     port = port_record(chunks, record.text_index, SemanticRetriever.build_index(emb, chunks))
     return corpus, jax_emb, record, emb, port
 
@@ -448,12 +452,9 @@ TESTS_ALPS_PDF = Path(DEFAULT_DATA_DIR).parent.parent / "tests" / "data" / "alps
 def test_cadibona_golden_through_the_port():
     """BM25 'Colle di Cadibona' retrieves chunk 31 on page 3 (the
     reference's golden, tests/test_alps_eval.py) through the port's
-    keywords and BM25, on the JAX package's parsed chunks."""
-    from dial_rag_tpu.documents.parser import parse_document
-
-    parsed = parse_document(TESTS_ALPS_PDF.read_bytes(), "application/pdf", source_link="alps_wiki.pdf",
+    keywords and BM25, on the port's own parse of the PDF."""
+    chunks = parse_document(TESTS_ALPS_PDF.read_bytes(), "application/pdf", source_link="alps_wiki.pdf",
                             display_name="alps_wiki.pdf")
-    chunks = [Chunk(text=c.text, metadata=dict(c.metadata)) for c in parsed]
     record = port_record(chunks, Bm25Retriever.build_index(chunks), None)
     hits = asyncio.run(Bm25Retriever.from_doc_records([record], k=7, device="cpu").aretrieve("Colle di Cadibona"))
     assert hits[0].chunk_id == 31
