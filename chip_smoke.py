@@ -263,6 +263,7 @@ the result is printed. Writes nothing in the checkout but the kernels'
 build directory.
 """
 
+import asyncio
 import collections
 import concurrent.futures
 import copy
@@ -294,6 +295,32 @@ OFFICE_TEXTS = 4
 PDF_LINE_CHARS = 95
 OFFICE_BUILDER = ROOT / "tests" / "utils" / "office_builder.py"
 N_TOP1 = 16
+# the service phase: the port's DIAL app booted through the production loader
+# on the tuned zero-egress preset, answering over HTTP on 127.0.0.1, against
+# a standard-library fake Dial Core; its corpus is the document indexing
+# phase's cut to SERVICE_PDF_TEXTS pages in SERVICE_PDF_DOCS PDFs, with the
+# same 16 office, text and CSV documents
+FAKE_DIAL = ROOT / "tests" / "utils" / "fake_dial_stdlib.py"
+SERVICE_PRESET = "config/zero_egress_tuned.yaml"
+SERVICE_PDF_DOCS, SERVICE_PDF_TEXTS = 2, 64
+SERVICE_RETRIEVALS, SERVICE_GROUPS, SERVICE_GROUP_DOCS = 64, 8, 4
+CHAT_PATH = "openai/deployments/dial-rag/chat/completions"
+# the error cases of tests/test_app_e2e.py: (what, request body, status, the
+# JAX package's error body; a message ending in ": " is a prefix, the one
+# intended difference being the invalid configuration's text after it)
+SERVICE_ERRORS = (
+    ("malformed body", b"{not json", 400, {"error": {"message": "Invalid request body",
+                                                    "type": "invalid_request_error", "code": "400"}}),
+    ("list content", {"messages": [{"role": "user", "content": [{"type": "text", "text": "hi"}]}]}, 400,
+     {"error": {"message": "Message content is not a string", "type": "invalid_request_error", "code": "400"}}),
+    ("bad fusion method", {"messages": [{"role": "user", "content": "q"}],
+                           "custom_fields": {"configuration": {"retrieval": {"fusion_method": "borda"}}}}, 400,
+     {"error": {"message": "Invalid configuration: ", "type": "invalid_request_error", "code": "400"}}),
+    ("assistant last message", {"messages": [{"role": "user", "content": "what is this?"},
+                                             {"role": "assistant", "content": "an answer"}]}, 400,
+     {"error": {"message": "The last message must be a user message", "type": "invalid_request_error",
+                "code": "400"}}),
+)
 TOLERANCE = 3e-2  # bf16 kernel vs plain version: tests/test_fused_encoder.py's bf16 atol
 TIE_GAP = 1e-3  # top-1 may differ from the plain path only between rows this close
 # BM25 on the card vs the same port code on the CPU: tests/test_bm25.py's tolerance
@@ -1477,8 +1504,8 @@ def f32_serve_phase(torch, card, base, trained) -> int:
     torch.cuda.synchronize()
     fa.reset_launches()
     t0 = time.perf_counter()
-    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(
-        serve, build_chunks_list([(f, {}) for f in facts]))})()
+    record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(
+        serve, build_chunks_list([(f, {}) for f in facts])))})()
     retriever = SemanticRetriever.from_doc_records(serve, [record], k=1)
     hits = retriever.retrieve_batch(queries)
     torch.cuda.synchronize()
@@ -1775,8 +1802,8 @@ def long_document_phase(torch, card, dev, config, params, tokenizer, docs, max_l
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
         t0 = time.perf_counter()
-        record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(
-            serve, build_chunks_list([(t, {}) for t in docs]))})()
+        record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(
+            serve, build_chunks_list([(t, {}) for t in docs])))})()
         retriever = SemanticRetriever.from_doc_records(serve, [record], k=1)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
@@ -2673,7 +2700,7 @@ def base_serve_phase(torch, card, base, texts, queries, tokens: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fe.reset_launches()
     t0 = time.perf_counter()
-    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(base, chunks)})()
+    record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(base, chunks))})()
     retriever = SemanticRetriever.from_doc_records(base, [record], k=1)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
@@ -2866,7 +2893,7 @@ def hybrid_retrieval_phase(torch, card, embedder, embeddings_index, chunks, quer
     torch.cuda.reset_peak_memory_stats()
     kw.reset_paths()
     t0 = time.perf_counter()
-    text_index = Bm25Retriever.build_index(chunks)
+    text_index = asyncio.run(Bm25Retriever.build_index(chunks))
     t_kw = time.perf_counter() - t0
     print(f"keyword preprocessing: {len(chunks)} texts in {t_kw:.3f} s; C++ core {kw.PATHS['native']} texts, "
           f"Python path {kw.PATHS['python']} (nltk imported: {kw.nltk_available()}; without it the Python "
@@ -3269,7 +3296,7 @@ def late_interaction_phase(torch, card, li_emb, texts, chunks, queries) -> tuple
     torch.cuda.reset_peak_memory_stats()
     fe.reset_launches()
     t0 = time.perf_counter()
-    tokens = LateInteractionRetriever.build_index(li_emb, chunks, LI_MAX_TOKENS)
+    tokens = asyncio.run(LateInteractionRetriever.build_index(li_emb, chunks, LI_MAX_TOKENS))
     t_encode = time.perf_counter() - t0
     n_tokens = sum(t.shape[0] for t in tokens)
     record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
@@ -3438,10 +3465,10 @@ def local_arms_phase(torch, card, embedder, li_emb, embeddings_index, tokens, ch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    text_index = Bm25Retriever.build_index(chunks)
+    text_index = asyncio.run(Bm25Retriever.build_index(chunks))
     cgi.reset_paths()
     t0 = time.perf_counter()
-    words = ChargramRetriever.build_index(chunks)
+    words = asyncio.run(ChargramRetriever.build_index(chunks))
     t_words = time.perf_counter() - t0
     record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=text_index,
                             embeddings_index=embeddings_index, multimodal_embeddings_index=None,
@@ -3718,7 +3745,7 @@ def document_indexing_phase(torch, card, embedder, texts, queries, workers: int 
     torch.cuda.synchronize()
     fe.reset_launches()
     t0 = time.perf_counter()
-    embeddings = [SemanticRetriever.build_index(embedder, chunks) for chunks in chunk_lists]
+    embeddings = [asyncio.run(SemanticRetriever.build_index(embedder, chunks)) for chunks in chunk_lists]
     torch.cuda.synchronize()
     t_encode = time.perf_counter() - t0
     build_launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
@@ -3728,7 +3755,7 @@ def document_indexing_phase(torch, card, embedder, texts, queries, workers: int 
         if n != layers * n_batches:
             raise RuntimeError(f"{name} launched {n} times in the document encode, expected {layers * n_batches}")
     t0 = time.perf_counter()
-    text_indexes = [Bm25Retriever.build_index(chunks) for chunks in chunk_lists]
+    text_indexes = [asyncio.run(Bm25Retriever.build_index(chunks)) for chunks in chunk_lists]
     t_bm25 = time.perf_counter() - t0
     settings = IndexSettings(indexes={"parser": ParserConfig().index_settings(),
                                       "embedder": {"model_id": embedder.model_id}})
@@ -4127,6 +4154,413 @@ def concurrent_serving_phase(torch, card, embedder, li_emb, record, queries) -> 
     return launches
 
 
+def load_fake_dial():
+    """``tests/utils/fake_dial_stdlib.py`` (standard library and numpy), loaded from its file."""
+    spec = importlib.util.spec_from_file_location("fake_dial_stdlib", FAKE_DIAL)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SERVICE_TYPES = {"pdf": "application/pdf", "md": "text/markdown", "txt": "text/plain", "csv": "text/csv",
+                 "docx": "application/vnd.openxmlformats-officedocument.wordprocessingml.document",
+                 "pptx": "application/vnd.openxmlformats-officedocument.presentationml.presentation",
+                 "xlsx": "application/vnd.openxmlformats-officedocument.spreadsheetml.sheet"}
+
+
+def sse_events(raw: bytes) -> list:
+    """The payloads of an SSE body, each event parsed ("[DONE]" as is); a
+    malformed event raises."""
+    text = raw.decode("utf-8")
+    if not text.endswith("\n\n"):
+        raise RuntimeError(f"the SSE body does not end with a blank line: {text[-80:]!r}")
+    events = []
+    for block in text[:-2].split("\n\n"):
+        if not block.startswith("data: ") or "\n" in block:
+            raise RuntimeError(f"malformed SSE event {block[:120]!r}")
+        payload = block[len("data: "):]
+        events.append(payload if payload == "[DONE]" else json.loads(payload))
+    return events
+
+
+def service_phase(torch, card, texts) -> dict:
+    """The port's DIAL app (``service/app.py`` on ``service/http.py``) booted
+    through ``load_app_config`` on config/zero_egress_tuned.yaml (semantic,
+    expanded BM25, chargram and MaxSim on alps-maxsim, CombMNZ), serving on
+    an ephemeral port of 127.0.0.1 against the standard-library fake Dial
+    Core, driven through the port's own HTTP client: two indexing requests
+    over every attachment, SERVICE_RETRIEVALS retrieval requests of
+    SERVICE_GROUP_DOCS attachments one at a time and all at once, a streamed
+    and a two-turn rag request, the error cases, /health and /configuration.
+    Returns kernels 1-2's launches in the first indexing request."""
+    import asyncio
+
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.index.device_cache import DeviceIndexCache
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.service import app as app_module
+    from dial_rag_tpu_torch.service import documents as documents_module
+    from dial_rag_tpu_torch.service import http
+    from dial_rag_tpu_torch.service.citations import rewrite_citations
+    from dial_rag_tpu_torch.service.config import Configuration, load_app_config, merge_config
+    from dial_rag_tpu_torch.service.retrieval_chain import create_retriever
+    from dial_rag_tpu_torch.storage.storage import IndexStorage
+
+    t_phase = time.perf_counter()
+    if Path.cwd().resolve() != ROOT:
+        raise RuntimeError(f"run chip_smoke.py from the checkout's root ({ROOT}): the preset names its "
+                           "checkpoints relative to it")
+    extra = synthetic_texts(load_vocab(), OFFICE_TEXTS * sum(n for _, n in OTHER_DOCS), seed=2)
+    docs = document_corpus(texts[:SERVICE_PDF_TEXTS], extra, pdf_docs=SERVICE_PDF_DOCS)
+    links = [f"files/chip-smoke/{name}" for name, _, _ in docs]
+    fake_dial = load_fake_dial()
+    fake = fake_dial.FakeDialCore()
+    dial_url = fake.start_sync()
+    for (name, data, _), link in zip(docs, links):
+        fake.add_file(link, data, SERVICE_TYPES[name.rsplit(".", 1)[1]])
+    text_only = {"qa_chain": {"chat_chain": {"num_page_images_to_use": 0}}}
+
+    def message(content, attach=()):
+        return {"role": "user", "content": content,
+                "custom_content": {"attachments": [{"url": link} for link in attach]}}
+
+    def body(messages, kind=None, stream=False):
+        configuration = dict(text_only, **({"request": {"type": kind}} if kind else {}))
+        return {"messages": messages, "stream": stream, "custom_fields": {"configuration": configuration}}
+
+    # the stages of an indexing request: each stage's calls as (start, end) on
+    # the host clock, reported as the wall time during which one ran (the
+    # documents run concurrently, so the stages overlap)
+    spans = collections.defaultdict(list)
+    restore = []
+
+    def timed(owner, attr, key, is_async, static=False):
+        original = getattr(owner, attr)
+
+        if is_async:
+            async def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return await original(*args, **kwargs)
+                finally:
+                    spans[key].append((t0, time.perf_counter()))
+        else:
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return original(*args, **kwargs)
+                finally:
+                    spans[key].append((t0, time.perf_counter()))
+
+        restore.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, staticmethod(wrapper) if static else wrapper)
+
+    loaded_records = {}
+    original_load_documents = app_module.load_documents
+
+    async def capturing_load_documents(request_context, embedder, tasks, *args, **kwargs):
+        results = await original_load_documents(request_context, embedder, tasks, *args, **kwargs)
+        loaded_records[tuple(t.attachment_link.dial_link for t in tasks)] = [
+            getattr(r, "doc_record", None) for r in results]
+        return results
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as root:
+        app_config = load_app_config(environ={"DIAL_RAG__CONFIG_PATH": SERVICE_PRESET, "DIAL_URL": dial_url,
+                                              "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root})
+        t0 = time.perf_counter()
+        app = app_module.create_app(app_config)
+        t_boot = time.perf_counter() - t0
+        application = app["dial_rag"]
+        timed(documents_module, "load_attachment", "download", True)
+        timed(documents_module, "parse_document", "parse", False)
+        timed(BgeEmbedder, "embed_documents", "encode", False)
+        timed(BgeEmbedder, "embed_documents_tokens", "encode", False)
+        timed(IndexStorage, "store", "store", True)
+        app_module.load_documents = capturing_load_documents
+        try:
+            result = asyncio.run(serve_requests(torch, card, http, app, application, fake, links, docs, message,
+                                                body, spans, loaded_records, create_retriever,
+                                                rewrite_citations, merge_config, Configuration, fe,
+                                                DeviceIndexCache))
+        finally:
+            for owner, attr, value in restore:
+                setattr(owner, attr, value)
+            app_module.load_documents = original_load_documents
+            fake.stop_sync()
+    tensors = [t for emb in [application.embedder, *application._li_embedders.values()]
+               for t in torch_leaves(emb.params)]
+    if not tensors or any(t.device.type != "cuda" for t in tensors):
+        raise RuntimeError("a tensor of the app's embedders is not on the card")
+    print(f"service: the app's embedders (alps-semantic and {len(application._li_embedders)} late-interaction "
+          f"checkpoint) hold {len(tensors)} tensors, every one on cuda; app boot {t_boot:.2f} s {card}")
+    print(f"service phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
+
+
+def torch_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in torch_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in torch_leaves(v)]
+    return [tree] if hasattr(tree, "device") else []
+
+
+def load_vocab() -> dict:
+    from dial_rag_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    return WordPieceTokenizer.from_vocab_file(str(CHECKPOINT / "vocab.txt")).vocab
+
+
+def busy_seconds(spans) -> float:
+    """The time during which at least one of ``spans`` (start, end) ran."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+async def serve_requests(torch, card, http, app, application, fake, links, docs, message, body, spans,
+                         loaded_records, create_retriever, rewrite_citations, merge_config,
+                         Configuration, fe, DeviceIndexCache) -> dict:
+    """The service phase's requests and gates, on one event loop (see
+    ``service_phase``)."""
+    import numpy as np
+
+    server = await http.serve(app)
+    base = f"http://127.0.0.1:{server.port}/"
+    headers = {"api-key": "chip-smoke"}
+    try:
+        async with http.ClientSession(base_url=base, timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
+
+            async def post(payload, raw=False):
+                kw = {"data": payload} if raw else {"json": payload}
+                async with s.post(CHAT_PATH, headers=headers, **kw) as r:
+                    return r.status, await r.read()
+
+            def custom_of(status, raw):
+                if status != 200:
+                    raise RuntimeError(f"request failed: {status} {raw[:400]!r}")
+                return json.loads(raw)["choices"][0]["message"]
+
+            # indexing, twice
+            torch.cuda.synchronize()
+            fe.reset_launches()
+            t0 = time.perf_counter()
+            first = custom_of(*await post(body([message("", links)], "indexing")))
+            torch.cuda.synchronize()
+            t_index = time.perf_counter() - t0
+            launches = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+            stages = first["custom_content"]["stages"]
+            result = json.loads(first["custom_content"]["attachments"][-1]["data"])
+            if result != {"indexing_result": {}}:
+                raise RuntimeError(f"the indexing request reported errors: {str(result)[:600]}")
+            index_atts = [a for a in first["custom_content"]["attachments"] if a.get("type", "").startswith(
+                "application/x.aidial-rag.index.")]
+            if sorted(a["reference_url"] for a in index_atts) != sorted(links):
+                raise RuntimeError(f"{len(index_atts)} index attachments for {len(links)} documents")
+            if not all(launches.values()):
+                raise RuntimeError(f"the indexing request launched no encoder kernel: {launches}")
+            failed = [st["name"] for st in stages if st.get("status") == "failed" and "Load indexes" not in st["name"]]
+            if failed:
+                raise RuntimeError(f"indexing stages failed: {failed}")
+            chunks = sum(int(st["content"].rsplit("Chunks: ", 1)[1].split()[0]) for st in stages
+                         if st["name"].startswith("Processing document"))
+            split = {key: busy_seconds(spans[key]) for key in ("download", "parse", "encode", "store")}
+            print(f"service indexing request: {len(links)} attachments ({SERVICE_PDF_DOCS} PDFs of "
+                  f"{SERVICE_PDF_TEXTS // SERVICE_PDF_DOCS} pages, {len(links) - SERVICE_PDF_DOCS} office, Markdown, "
+                  f"text and CSV documents), {chunks} chunks, {t_index:.3f} s of wall; the wall during which each "
+                  f"stage ran (stages overlap across documents): download {split['download']:.3f} s, parse "
+                  f"{split['parse']:.3f} s, encode (semantic + MaxSim tokens) {split['encode']:.3f} s, store "
+                  f"{split['store']:.3f} s; kernels 1-2 launches {launches}; no indexing error {card}", flush=True)
+            fe.reset_launches()
+            t0 = time.perf_counter()
+            again = custom_of(*await post(body([message("", links)], "indexing")))
+            t_again = time.perf_counter() - t0
+            names = [st["name"] for st in again["custom_content"]["stages"]]
+            if any(n.startswith("Processing document") for n in names) or any(fe.LAUNCHES.values()):
+                raise RuntimeError(f"the second indexing request processed documents again: {names[:6]}, "
+                                   f"launches {dict(fe.LAUNCHES)}")
+            print(f"service second indexing request: {t_again:.3f} s, every record from storage or the memo, "
+                  f"no encoder launch {card}", flush=True)
+
+            # retrieval: groups of attachments, each request's chunks against create_retriever's hits
+            pdf_pages = SERVICE_PDF_TEXTS // SERVICE_PDF_DOCS
+            groups, requests = [], []
+            for g in range(SERVICE_GROUPS):
+                others = [SERVICE_PDF_DOCS + (2 * g + j) % (len(links) - SERVICE_PDF_DOCS) for j in (0, 1, 5)]
+                groups.append([g % SERVICE_PDF_DOCS] + others)
+            for i in range(SERVICE_RETRIEVALS):
+                group = groups[i % SERVICE_GROUPS]
+                page = docs[group[0]][2][(7 * i) % pdf_pages].split()
+                j = (13 * i) % max(1, len(page) - 8)
+                requests.append((group, " ".join(page[j : j + 8])))
+            request_config = merge_config(merge_config(
+                Configuration(), application.app_config.request.model_dump(exclude_unset=True)),
+                {**body([])["custom_fields"]["configuration"], "request": {"type": "retrieval"}})
+
+            stage_seconds = []
+
+            async def retrieve(group, query):
+                t0 = time.perf_counter()
+                status, raw = await post(body([message(query, [links[d] for d in group])], "retrieval"))
+                ms = (time.perf_counter() - t0) * 1e3
+                got = custom_of(status, raw)
+                att = [a for a in got["custom_content"]["attachments"]
+                       if a.get("type") == "application/x.aidial-rag.retrieval-response+json"]
+                seconds = collections.Counter()
+                for st in got["custom_content"]["stages"]:
+                    m = re.fullmatch(r"(.*?)(?: '.*')? \[(\d+\.\d+)s\]", st["name"])
+                    if m:
+                        seconds[m.group(1)] += float(m.group(2))
+                stage_seconds.append(seconds)
+                return ms, json.loads(att[0]["data"])["chunks"]
+
+            # the reference retrievers' indexes, built once a group: a cache of their own
+            reference_cache = DeviceIndexCache()
+
+            async def reference(group, query):
+                records = loaded_records[tuple(links[d] for d in group)]
+                retriever = create_retriever(
+                    application.embedder, application.app_config.dial_url, "chip-smoke", records,
+                    request_config.indexing, device_cache=reference_cache,
+                    li_embedder=application._get_li_embedder(request_config),
+                    ensemble_weights=request_config.retrieval.ensemble_weights,
+                    fusion_method=request_config.retrieval.fusion_method,
+                    fusion_norm=request_config.retrieval.fusion_norm,
+                    fusion_depth=request_config.retrieval.fusion_depth,
+                    query_expansion=request_config.retrieval.query_expansion,
+                    index_dtype=application.app_config.parallel.index_dtype,
+                )
+                hits = await retriever.aretrieve(query)
+                return [(links[group[h.doc_id]], records[h.doc_id].chunks[h.chunk_id].text,
+                         records[h.doc_id].chunks[h.chunk_id].metadata.get("page_number")) for h in hits]
+
+            def as_hits(chunks_):
+                return [(c["attachment_url"], c["text"], (c["page"] or {}).get("number")) for c in chunks_]
+
+            await retrieve(*requests[0])  # first use of each group's records: loads and index builds
+            for group in groups[1:]:
+                await retrieve(group, requests[0][1])
+            stage_seconds.clear()
+            serial = [await retrieve(group, query) for group, query in requests]
+            stages_serial = {name: float(np.median([c[name] for c in stage_seconds]))
+                             for name in sorted({n for c in stage_seconds for n in c})}
+            t0 = time.perf_counter()
+            concurrent = await asyncio.gather(*(retrieve(group, query) for group, query in requests))
+            t_concurrent = time.perf_counter() - t0
+            t_serial = sum(ms for ms, _ in serial) / 1e3
+            for i, ((group, query), (_, a), (_, b)) in enumerate(zip(requests, serial, concurrent)):
+                want = await reference(group, query)
+                if not want:
+                    raise RuntimeError(f"retrieval {i}: no hit for {query!r}")
+                for what, got_chunks in (("one at a time", a), ("all at once", b)):
+                    if as_hits(got_chunks) != want:
+                        raise RuntimeError(f"retrieval {i} ({what}): the response's chunks differ from "
+                                           f"create_retriever's hits over the loaded records for {query!r}")
+
+            def pct(values, q):
+                return float(np.percentile(values, q))
+
+            lat_s, lat_c = [ms for ms, _ in serial], [ms for ms, _ in concurrent]
+            print(f"service retrieval: {SERVICE_RETRIEVALS} requests of {SERVICE_GROUP_DOCS} attachments "
+                  f"({SERVICE_GROUPS} groups), one at a time {SERVICE_RETRIEVALS / t_serial:.1f} requests/s, p50 "
+                  f"{pct(lat_s, 50):.2f} ms, p99 {pct(lat_s, 99):.2f} ms; all at once "
+                  f"{SERVICE_RETRIEVALS / t_concurrent:.1f} requests/s, p50 {pct(lat_c, 50):.2f} ms, p99 "
+                  f"{pct(lat_c, 99):.2f} ms; every response's chunks = create_retriever's hits over the loaded "
+                  f"records, in order {card}", flush=True)
+            print("service retrieval one at a time, median s a request by stage (the stages' own timings, "
+                  "summed over a request's documents): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                                      stages_serial.items()) + f" {card}",
+                  flush=True)
+
+            # a streamed rag request whose scripted answer cites [1] and [2]
+            group, query = requests[1]
+            answer = f"The manual answers it <[1]>, and a second part agrees <[2]>. Query: {query[:20]}"
+            fake.script_llm(answer)
+            t0 = time.perf_counter()
+            first_content = None
+            async with s.post(CHAT_PATH, headers=headers,
+                              json=body([message(query, [links[d] for d in group])], stream=True)) as r:
+                if r.status != 200:
+                    raise RuntimeError(f"streamed rag request: {r.status}")
+                raw = bytearray()
+                async for line in r.content:
+                    raw += line
+                    if first_content is None and line.startswith(b"data: {") and b'"content":"' in line:
+                        delta = json.loads(line[len(b"data: "):])["choices"][0]["delta"]
+                        if delta.get("content"):
+                            first_content = time.perf_counter() - t0
+            t_rag = time.perf_counter() - t0
+            events = sse_events(bytes(raw))
+            if events[-1] != "[DONE]" or events[-2]["choices"][0]["finish_reason"] != "stop":
+                raise RuntimeError(f"the stream does not end with a finish chunk and [DONE]: {events[-2:]}")
+            content = "".join(e["choices"][0]["delta"].get("content", "") for e in events[:-1])
+            found = await reference(group, query)
+
+            async def rewritten():
+                async def one():
+                    yield answer
+                out = []
+                async for piece, used in rewrite_citations(one(), len(found)):
+                    if used is None:
+                        out.append(piece)
+                return "".join(out)
+
+            expected = await rewritten()
+            if content != expected or "[1]" not in content or "[2]" not in content:
+                raise RuntimeError(f"streamed content {content!r} is not the rewritten answer {expected!r}")
+            refs = [a for e in events[:-1] for a in e["choices"][0]["delta"].get("custom_content", {}).get(
+                "attachments", []) if a.get("title", "").startswith(("[1] ", "[2] "))]
+            if [a["data"] for a in refs] != [found[0][1] or " ", found[1][1] or " "]:
+                raise RuntimeError(f"the reference attachments are not hits 1 and 2: {[a['title'] for a in refs]}")
+            print(f"service streamed rag request: {len(events)} SSE events, the last [DONE]; first content "
+                  f"chunk {first_content * 1e3:.1f} ms, whole answer {t_rag * 1e3:.1f} ms; content = the scripted "
+                  f"answer with rewritten citations, reference attachments [1] and [2] {card}", flush=True)
+
+            # a two-turn rag request: the standalone question comes from a scripted tool call
+            group, query = requests[2]
+            standalone = requests[3][1]
+            fake.script_llm(standalone, "The answer <[1]>.")
+            turns = [message("first question", [links[d] for d in group]),
+                     {"role": "assistant", "content": "an earlier answer [1]"}, message(query)]
+            two = custom_of(*await post(body(turns)))
+            stage = next(st for st in two["custom_content"]["stages"] if st["name"].startswith("Standalone"))
+            top = (await reference(group, standalone))[0]
+            cited = [a for a in two["custom_content"].get("attachments", []) if a["title"].startswith("[1] ")]
+            if stage.get("content") != standalone or [a["data"] for a in cited] != [top[1]]:
+                raise RuntimeError(f"the two-turn request did not retrieve with the standalone question: "
+                                   f"{stage.get('content')!r}, cited {[a['title'] for a in cited]}")
+            tool_calls = [r for r in fake.llm_requests if r.get("tool_choice")]
+            print(f"service two-turn rag request: standalone question from the scripted tool call "
+                  f"({len(tool_calls)} tool call), cited [1] = create_retriever's top hit for it {card}", flush=True)
+
+            # the error cases, /health and /configuration
+            for what, payload, status, want in SERVICE_ERRORS:
+                got_status, raw = await post(payload, raw=isinstance(payload, bytes))
+                got = json.loads(raw)
+                prefix = want["error"]["message"]
+                ok = got_status == status and {k: v for k, v in got["error"].items() if k != "message"} == {
+                    k: v for k, v in want["error"].items() if k != "message"}
+                ok = ok and (got["error"]["message"].startswith(prefix) if prefix.endswith(": ")
+                             else got == want)
+                if not ok:
+                    raise RuntimeError(f"error case {what}: {got_status} {got}, expected {status} {want}")
+            async with s.get("health") as r:
+                if (r.status, await r.json()) != (200, {"status": "ok"}):
+                    raise RuntimeError("/health did not answer")
+            for method in ("get", "post"):
+                async with getattr(s, method)("openai/deployments/dial-rag/configuration") as r:
+                    if (r.status, await r.json()) != (200, Configuration.model_json_schema()):
+                        raise RuntimeError(f"/configuration ({method}) is not Configuration.model_json_schema()")
+            print(f"service: {len(SERVICE_ERRORS)} error cases with the JAX package's status and body; /health; "
+                  f"/configuration (GET, POST) = Configuration.model_json_schema()", flush=True)
+    finally:
+        await server.close()
+    return launches
+
+
 def main() -> int:
     phase("device")
     import torch
@@ -4246,7 +4680,7 @@ def main() -> int:
     fe.reset_launches()
     wordpiece.reset_paths()
     t0 = time.perf_counter()
-    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(embedder, chunks)})()
+    record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(embedder, chunks))})()
     retriever = SemanticRetriever.from_doc_records(embedder, [record], k=1)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
@@ -4384,6 +4818,10 @@ def main() -> int:
         launched[name] += n
     del li_emb, li_tokens, local_record
     torch.cuda.empty_cache()
+
+    phase("service")
+    for name, n in service_phase(torch, card, texts).items():
+        launched[name] += n
 
     phase("whole-layer serve")
     launched["fused_layer_block"] += whole_layer_phase(torch, card, embedder, texts, queries)

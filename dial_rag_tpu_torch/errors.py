@@ -51,3 +51,11 @@ class DocumentProcessingError(DialRagError):
         super().__init__(
             f"Unable to process document '{display_name}': {message}"
         )
+
+
+class NotPortedError(DialRagError, NotImplementedError):
+    """A part of the service the port does not serve yet; the message
+    names its ROADMAP item. A ``DialRagError``, so a per-document failure
+    carries the message into the indexing result."""
+
+    status_code = 501

@@ -132,7 +132,9 @@ class Bm25Retriever:
         return [self._hit(i, s) for i, s in zip(top, scores)]
 
     @staticmethod
-    def build_index(chunks: list[Chunk]) -> list[list[str]]:
+    async def build_index(chunks: list[Chunk]) -> list[list[str]]:
         """Keyword tokens of each chunk's text, for the record's text index
-        (host work, run in the caller's thread)."""
-        return [keywords_preprocess(c.text) for c in chunks]
+        (host work, routed to the parse pool)."""
+        from dial_rag_tpu_torch.runtime.host_pools import run_in_parse_pool
+
+        return await run_in_parse_pool(lambda: [keywords_preprocess(c.text) for c in chunks])

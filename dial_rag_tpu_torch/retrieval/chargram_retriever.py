@@ -102,7 +102,10 @@ class ChargramRetriever:
         return [self._hit(i, s) for i, s in zip(top, scores)]
 
     @staticmethod
-    def build_index(chunks: list[Chunk]) -> list[list[str]]:
+    async def build_index(chunks: list[Chunk]) -> list[list[str]]:
         """Surface words of each chunk, for the record's ``chargram_index``
-        (grams and the corpus idf derive at construction)."""
-        return [chargram_words(c.text) for c in chunks]
+        (grams and the corpus idf derive at construction), in the parse
+        pool."""
+        from dial_rag_tpu_torch.runtime.host_pools import run_in_parse_pool
+
+        return await run_in_parse_pool(lambda: [chargram_words(c.text) for c in chunks])

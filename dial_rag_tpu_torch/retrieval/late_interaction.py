@@ -75,7 +75,9 @@ class LateInteractionRetriever:
         return await self.index.afind(await self.embedder.aembed_query_tokens_device(query))
 
     @staticmethod
-    def build_index(embedder: BgeEmbedder, chunks: list[Chunk], max_chunk_tokens: int = 256) -> list[np.ndarray]:
+    async def build_index(
+        embedder: BgeEmbedder, chunks: list[Chunk], max_chunk_tokens: int = 256
+    ) -> list[np.ndarray]:
         """Per-token embeddings of every chunk -> ragged [t_i, D] list (the
-        record's ``late_interaction_index``)."""
-        return embedder.embed_documents_tokens([chunk.text for chunk in chunks], max_chunk_tokens)
+        record's ``late_interaction_index``), in the indexing dispatch pool."""
+        return await embedder.aembed_documents_tokens([chunk.text for chunk in chunks], max_chunk_tokens)

@@ -38,12 +38,17 @@ class SemanticRetriever:
         metric: Metric = Metric.SQEUCLIDEAN_DIST,
         storage_dtype: str = "float32",
         device_cache=None,
+        mesh=None,
     ) -> "SemanticRetriever":
         """``document_records``: records carrying ``embeddings_index``
         (MultiEmbeddings or None), one per document, in document order.
         The index lives on the embedder's device. With ``device_cache``
         (``index.device_cache.DeviceIndexCache``) the built index is reused
         across requests over the same records."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "SemanticRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
+            )
 
         def build():
             doc_embeddings = [
@@ -79,7 +84,8 @@ class SemanticRetriever:
         return await self.index.afind(await self.embedder.aembed_query(query))
 
     @staticmethod
-    def build_index(embedder: BgeEmbedder, chunks: list[Chunk]) -> MultiEmbeddings:
-        """Embed all chunk texts -> MultiEmbeddings (one [1, D] per chunk)."""
-        embeddings: np.ndarray = embedder.embed_documents([c.text for c in chunks])
+    async def build_index(embedder: BgeEmbedder, chunks: list[Chunk]) -> MultiEmbeddings:
+        """Embed all chunk texts -> MultiEmbeddings (one [1, D] per chunk),
+        in the indexing dispatch pool (``aembed_documents``)."""
+        embeddings: np.ndarray = await embedder.aembed_documents([c.text for c in chunks])
         return pack_simple_embeddings(embeddings)

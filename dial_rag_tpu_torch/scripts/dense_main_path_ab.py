@@ -21,6 +21,7 @@ Prints a line a turn and the card's name and power limit.
 """
 
 import argparse
+import asyncio
 import importlib.util
 import json
 import statistics
@@ -69,7 +70,7 @@ def turn(tree: Path, one_block: bool) -> dict:
         j = int(rng.integers(0, max(1, len(words) - 8)))
         queries.append(" ".join(words[j : j + 8]))
     embedder.embed_documents(texts[: embedder.batch_size])
-    record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(embedder, chunks)})()
+    record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(embedder, chunks))})()
     retriever = SemanticRetriever.from_doc_records(embedder, [record], k=1)
 
     def host_ms(fn, reps):

@@ -1,15 +1,19 @@
 """The counter half of ``dial_rag_tpu/telemetry.py``: a first-party
-counter registry (``get_counter``, ``metrics``) that storage counts its
-cache hits and misses through.
+counter registry (``get_counter``, ``metrics``) that storage and the
+service count through; and of the tracing half, the disabled path only
+(``span``, ``tracer``, ``provider``, ``set_provider``): every span is
+non-recording, as the JAX package's are when no provider is set or
+``OTEL_SDK_DISABLED=true``.
 
-The tracing half (spans, providers and the OTLP exporters, with the
-registry's OTLP snapshot) needs ``opentelemetry``, which the card's
-machine lacks; it comes with the service layer.
+The recording spans, providers and OTLP exporters (with the registry's
+OTLP snapshot) need ``opentelemetry``, which the card's machine lacks;
+they wait for ROADMAP item 9c.
 """
 
 import threading
 import time
-from typing import Mapping, Optional
+from contextlib import contextmanager
+from typing import Iterator, Mapping, Optional
 
 
 class Counter:
@@ -62,3 +66,64 @@ def get_counter(name: str) -> Counter:
 
 def metrics() -> _MetricsRegistry:
     return _REGISTRY
+
+
+# --------------------------------------------------------------------------
+# tracing: the disabled path
+
+
+class NonRecordingSpan:
+    """A span that records nothing (OpenTelemetry's ``NonRecordingSpan``)."""
+
+    def set_attribute(self, key: str, value) -> None:
+        pass
+
+    def set_status(self, status, description: Optional[str] = None) -> None:
+        pass
+
+    def record_exception(self, exception: BaseException, attributes=None, timestamp=None, escaped=False) -> None:
+        pass
+
+    def end(self, end_time=None) -> None:
+        pass
+
+
+class _DisabledTracer:
+    def start_span(self, name: str, context=None, kind=None, attributes=None, **kw) -> NonRecordingSpan:
+        return NonRecordingSpan()
+
+    @contextmanager
+    def start_as_current_span(self, name: str, context=None, kind=None, attributes=None,
+                              **kw) -> Iterator[NonRecordingSpan]:
+        yield NonRecordingSpan()
+
+
+_PROVIDER = None
+_DISABLED_TRACER = _DisabledTracer()
+
+
+def provider():
+    return _PROVIDER
+
+
+def set_provider(p) -> None:
+    """Test hook of the JAX package: swap the module-level provider. The
+    port has only the disabled path, so ``None`` is the one provider it
+    takes."""
+    global _PROVIDER
+    if p is not None:
+        raise NotImplementedError(
+            "recording spans need the tracing half of telemetry, which waits for ROADMAP item 9c"
+        )
+    _PROVIDER = p
+
+
+def tracer() -> _DisabledTracer:
+    return _DISABLED_TRACER
+
+
+@contextmanager
+def span(name: str, **attributes) -> Iterator[NonRecordingSpan]:
+    """The one-liner the service code uses: a non-recording span."""
+    with tracer().start_as_current_span(name, attributes=attributes) as s:
+        yield s

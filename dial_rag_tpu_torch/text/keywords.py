@@ -23,6 +23,7 @@ which Python path runs here.
 
 import ctypes
 import re
+import threading
 from functools import lru_cache
 
 from dial_rag_tpu_torch.native.build import load_native
@@ -114,14 +115,25 @@ def _stemmer():
         return porter_lite
 
 
-@lru_cache(maxsize=1)
+_native_lib: ctypes.CDLL | None = None
+_native_lock = threading.Lock()
+
+
 def _native() -> ctypes.CDLL:
     """The C++ pipeline, built at first use (raises if the build fails),
-    with the stopword list set."""
-    lib = load_native("keywords")
-    stop = "\n".join(sorted(STOPWORDS)).encode()
-    lib.kw_set_stopwords(stop, len(stop))
-    return lib
+    with the stopword list set once: ``kw_set_stopwords`` rewrites the
+    set that concurrent ``kw_preprocess`` calls read, so the first use is
+    serialized and never repeated (the parse pool's threads call in
+    together)."""
+    global _native_lib
+    if _native_lib is None:
+        with _native_lock:
+            if _native_lib is None:
+                lib = load_native("keywords")
+                stop = "\n".join(sorted(STOPWORDS)).encode()
+                lib.kw_set_stopwords(stop, len(stop))
+                _native_lib = lib
+    return _native_lib
 
 
 def native_preprocess(text: str) -> list[str] | None:

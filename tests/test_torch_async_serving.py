@@ -256,10 +256,10 @@ def harness():
     chunks = [Chunk(text=c.text, metadata=dict(c.metadata)) for c in record.chunks]
     port = DocumentRecord(
         format_version=record.format_version, index_settings=IndexSettings(), chunks=chunks,
-        text_index=record.text_index, embeddings_index=SemanticRetriever.build_index(emb, chunks),
+        text_index=record.text_index, embeddings_index=asyncio.run(SemanticRetriever.build_index(emb, chunks)),
         multimodal_embeddings_index=None, description_embeddings_index=None, mime_type="text/plain",
-        document_bytes=b"", late_interaction_index=LateInteractionRetriever.build_index(emb, chunks),
-        chargram_index=ChargramRetriever.build_index(chunks), cache_token=("atlas.pdf", "seed-0"),
+        document_bytes=b"", late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(emb, chunks)),
+        chargram_index=asyncio.run(ChargramRetriever.build_index(chunks)), cache_token=("atlas.pdf", "seed-0"),
     )
     return corpus, jax_emb, record, emb, port
 

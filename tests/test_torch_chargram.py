@@ -130,7 +130,7 @@ def test_chargram_retriever_matches_jax():
     bad = record(["placeholder"])
     bad.chargram_index = [["Zürich", "КЛИМАТ", "x" * 2000]]
     assert not ChargramRetriever.has_index([bad]) and ChargramRetriever.has_index([bad, port_recs[0]])
-    assert r.build_index(port_recs[0].chunks) == port_recs[0].chargram_index
+    assert asyncio.run(r.build_index(port_recs[0].chunks)) == port_recs[0].chargram_index
     assert ChargramRetriever.from_doc_records([bad, port_recs[0]], k=2, device="cpu").retrieve("alps")[0].doc_id == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ChargramRetriever.from_doc_records(port_recs, device="cpu", mesh=object())
@@ -179,7 +179,7 @@ def test_word_vectors_and_expansion_match_jax():
 def test_bm25_with_expansion_finds_synonym_chunk():
     chunks = build_chunks_list([(t, {"page_number": 1}) for t in CORPUS])
     rec = DocumentRecord(format_version=3, index_settings=IndexSettings(), chunks=chunks,
-                         text_index=Bm25Retriever.build_index(chunks), embeddings_index=None,
+                         text_index=asyncio.run(Bm25Retriever.build_index(chunks)), embeddings_index=None,
                          multimodal_embeddings_index=None, description_embeddings_index=None,
                          mime_type="text/plain", document_bytes=b"")
     plain = Bm25Retriever.from_doc_records([rec], k=3, device="cpu")
@@ -204,10 +204,10 @@ def four_arms():
     chunks = [Chunk(text=c.text, metadata=dict(c.metadata)) for c in ref_rec.chunks]
     rec = DocumentRecord(
         format_version=3, index_settings=IndexSettings(), chunks=chunks, text_index=ref_rec.text_index,
-        embeddings_index=SemanticRetriever.build_index(emb, chunks), multimodal_embeddings_index=None,
+        embeddings_index=asyncio.run(SemanticRetriever.build_index(emb, chunks)), multimodal_embeddings_index=None,
         description_embeddings_index=None, mime_type="text/plain", document_bytes=b"",
-        late_interaction_index=LateInteractionRetriever.build_index(emb, chunks),
-        chargram_index=ChargramRetriever.build_index(chunks))
+        late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(emb, chunks)),
+        chargram_index=asyncio.run(ChargramRetriever.build_index(chunks)))
     for a, b in zip(rec.late_interaction_index, ref_rec.late_interaction_index):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert rec.chargram_index == ref_rec.chargram_index

@@ -73,7 +73,7 @@ def indexed(tmp_path_factory):
     chunks = parse_document(corpus.pdf_bytes, MIME_PDF, source_link="atlas.pdf", display_name="atlas.pdf")
     built = DocumentRecord(
         format_version=FORMAT_VERSION, index_settings=IndexSettings(), chunks=chunks,
-        text_index=Bm25Retriever.build_index(chunks), embeddings_index=SemanticRetriever.build_index(emb, chunks),
+        text_index=asyncio.run(Bm25Retriever.build_index(chunks)), embeddings_index=asyncio.run(SemanticRetriever.build_index(emb, chunks)),
         multimodal_embeddings_index=None, description_embeddings_index=None, mime_type=MIME_PDF,
         document_bytes=corpus.pdf_bytes,
     )

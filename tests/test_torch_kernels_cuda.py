@@ -1053,8 +1053,8 @@ def test_concurrent_semantic_and_bm25_requests_on_card(cuda_device):
     words = sorted(w for w in emb.tokenizer.vocab if w.isalpha() and len(w) > 3)[:2000]
     texts = [" ".join(rng.choice(words, size=int(rng.integers(20, 60)))) for _ in range(300)]
     chunks = build_chunks_list([(t, {}) for t in texts])
-    record = DocumentRecord(None, IndexSettings(), chunks, Bm25Retriever.build_index(chunks),
-                            SemanticRetriever.build_index(emb, chunks), None, None, "text/plain", b"",
+    record = DocumentRecord(None, IndexSettings(), chunks, asyncio.run(Bm25Retriever.build_index(chunks)),
+                            asyncio.run(SemanticRetriever.build_index(emb, chunks)), None, None, "text/plain", b"",
                             cache_token=("card", "0"))
     queries = [" ".join(texts[i].split()[:8]) for i in rng.choice(len(texts), 16, replace=False)]
     cache = DeviceIndexCache()

@@ -197,7 +197,7 @@ def test_retriever_matches_jax(maxsim_embedders):
             format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
             embeddings_index=None, multimodal_embeddings_index=None, description_embeddings_index=None,
             mime_type="text/plain", document_bytes=b"",
-            late_interaction_index=LateInteractionRetriever.build_index(port, chunks, 32)))
+            late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(port, chunks, 32))))
     assert LateInteractionRetriever.has_index(records) and not LateInteractionRetriever.has_index(
         [DocumentRecord(None, IndexSettings(), [], None, None, None, None, "text/plain", b"")])
     r = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32)
@@ -225,7 +225,7 @@ def test_retriever_device_cache_hit_on_second_build(maxsim_embedders):
             format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
             embeddings_index=None, multimodal_embeddings_index=None, description_embeddings_index=None,
             mime_type="text/plain", document_bytes=b"",
-            late_interaction_index=LateInteractionRetriever.build_index(port, chunks, 32), cache_token=("doc", i)))
+            late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(port, chunks, 32)), cache_token=("doc", i)))
     cache = DeviceIndexCache()
     first = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32, device_cache=cache)
     second = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32, device_cache=cache)

@@ -10,9 +10,12 @@ main path end to end, one f32 "pallas" encode, the long-document
 "pallas" route and the whole-layer route, an encode at head_dim 64, one
 training step, the bfloat16, two_pass and int8 dense layouts, an RRF
 ensemble of the late-interaction, expanded BM25 and chargram arms, and
-concurrent four-arm RRF requests through one ``DeviceIndexCache``, and
-parses a PDF, a DOCX and a CSV, stores their records and loads them back.
-An AST scan checks the sources (new modules included) as well.
+concurrent four-arm RRF requests through one ``DeviceIndexCache``,
+parses a PDF, a DOCX and a CSV, stores their records and loads them back,
+and boots the port's DIAL app on the standard-library fake Dial Core,
+which answers one indexing and one retrieval request over HTTP. An AST
+scan checks the sources (new modules included: ``service/``, ``utils/``,
+``runtime/``) as well.
 """
 
 import ast
@@ -34,7 +37,7 @@ FORBIDDEN = (
 LAZY = ("PIL", "bs4", "lxml")
 
 _CHILD = r"""
-import importlib, importlib.abc, pkgutil, sys
+import asyncio, importlib, importlib.abc, json, pkgutil, sys
 
 FORBIDDEN = set(sys.argv[1].split(","))
 
@@ -63,7 +66,7 @@ chunks = build_chunks_list([
     ("Glaciers carve deep valleys into the rock.", {}),
     ("The Rhine and the Rhone rise in the Alps.", {}),
 ])
-record = type("Record", (), {"embeddings_index": SemanticRetriever.build_index(emb, chunks)})()
+record = type("Record", (), {"embeddings_index": asyncio.run(SemanticRetriever.build_index(emb, chunks))})()
 retriever = SemanticRetriever.from_doc_records(emb, [record], k=2)
 hits = retriever.retrieve_batch(["highest mountains in europe", "rivers of the alps"])
 assert [len(h) for h in hits] == [2, 2], hits
@@ -121,10 +124,10 @@ for storage in ("bfloat16", "two_pass", "int8"):
     dense = DenseIndex(RetrievalType.TEXT, [DocEmbeddings(np.arange(600), rows)], limit=3,
                        storage_dtype=storage, device="cpu")
     assert dense.find(rows[5])[0].chunk_id == 5, storage
-rec = DocumentRecord(None, IndexSettings(), chunks, Bm25Retriever.build_index(chunks), record.embeddings_index,
+rec = DocumentRecord(None, IndexSettings(), chunks, asyncio.run(Bm25Retriever.build_index(chunks)), record.embeddings_index,
                      None, None, "text/plain", b"",
-                     late_interaction_index=LateInteractionRetriever.build_index(emb, chunks, 32),
-                     chargram_index=ChargramRetriever.build_index(chunks))
+                     late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(emb, chunks, 32)),
+                     chargram_index=asyncio.run(ChargramRetriever.build_index(chunks)))
 arms = [LateInteractionRetriever.from_doc_records(emb, [rec], k=2),
         Bm25Retriever.from_doc_records([rec], k=2, device="cpu", expansion_config=QueryExpansionConfig(min_count=1)),
         ChargramRetriever.from_doc_records([rec], k=2, device="cpu")]
@@ -170,12 +173,54 @@ with tempfile.TemporaryDirectory() as root:
     for name, data in docs.items():
         mime = detect_mime(None, name, data)
         doc_chunks = parse_document(data, mime, source_link=name)
-        doc_rec = DocumentRecord(FORMAT_VERSION, IndexSettings(), doc_chunks, Bm25Retriever.build_index(doc_chunks),
+        doc_rec = DocumentRecord(FORMAT_VERSION, IndexSettings(), doc_chunks, asyncio.run(Bm25Retriever.build_index(doc_chunks)),
                                  None, None, None, mime, data)
         asyncio.run(storage.store(f"files/{name}/index.bin", doc_rec))
         back = asyncio.run(IndexStorage(LocalFileStorage(root)).load(f"files/{name}/index.bin", IndexSettings()))
         assert back.cache_token == doc_rec.cache_token and back.text_index == doc_rec.text_index, name
         assert Bm25Retriever.from_doc_records([back], k=1, device="cpu").retrieve(doc_chunks[0].text.split()[-1]), name
+# the DIAL service: the port's app booted through the production loader on
+# the standard-library fake Dial Core, one indexing and one retrieval
+# request over HTTP, on the CPU
+import importlib.util
+spec = importlib.util.spec_from_file_location("fake_dial_stdlib", "tests/utils/fake_dial_stdlib.py")
+fake_dial = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fake_dial)
+from dial_rag_tpu_torch.service import http
+from dial_rag_tpu_torch.service.app import create_app
+from dial_rag_tpu_torch.service.config import load_app_config
+
+async def service(root):
+    fake = fake_dial.FakeDialCore()
+    dial_url = await fake.start()
+    fake.add_file("files/bucket/rhine.pdf", docs["a.pdf"], "application/pdf")
+    config = load_app_config(environ={"DIAL_URL": dial_url, "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root})
+    server = await http.serve(create_app(config, embedder=emb, device="cpu"))
+    out = []
+    try:
+        async with http.ClientSession(base_url=f"http://127.0.0.1:{server.port}/") as session:
+            for kind in ("indexing", "retrieval"):
+                body = {"messages": [{"role": "user", "content": "Where does the Rhine rise?",
+                                      "custom_content": {"attachments": [{"url": "files/bucket/rhine.pdf"}]}}],
+                        "custom_fields": {"configuration": {
+                            "request": {"type": kind}, "indexing": {"description_index": None},
+                            "qa_chain": {"chat_chain": {"num_page_images_to_use": 0}}}}}
+                async with session.post("openai/deployments/dial-rag/chat/completions", json=body,
+                                        headers={"api-key": "k"}) as response:
+                    assert response.status == 200, (kind, response.status, await response.text())
+                    out.append(await response.json())
+    finally:
+        await server.close()
+        await fake.stop()
+    return out
+
+with tempfile.TemporaryDirectory() as root:
+    indexed, retrieved = asyncio.run(service(root))
+attachments = indexed["choices"][0]["message"]["custom_content"]["attachments"]
+assert attachments[0]["reference_url"] == "files/bucket/rhine.pdf", attachments
+assert json.loads(attachments[-1]["data"]) == {"indexing_result": {}}, attachments
+chunks = json.loads(retrieved["choices"][0]["message"]["custom_content"]["attachments"][0]["data"])["chunks"]
+assert chunks and "Rhine" in chunks[0]["text"], chunks
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("OK", hits[0][0].chunk_id, hits[1][0].chunk_id)

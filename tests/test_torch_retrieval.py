@@ -120,8 +120,8 @@ def pair():
     records = []
     for texts in (DOC1_TEXTS, DOC2_TEXTS):
         chunks = build_chunks_list([(t, {"source": "s"}) for t in texts])
-        records.append(port_record(chunks, Bm25Retriever.build_index(chunks),
-                                   SemanticRetriever.build_index(emb, chunks)))
+        records.append(port_record(chunks, asyncio.run(Bm25Retriever.build_index(chunks)),
+                                   asyncio.run(SemanticRetriever.build_index(emb, chunks))))
     return asyncio.run(jax_records()), jax_emb, records, emb
 
 
@@ -392,14 +392,14 @@ def harness():
     emb = port_embedder_of(jax_emb, batch_size=jax_emb.batch_size)
     chunks = parse_document(corpus.pdf_bytes, "application/pdf", source_link="atlas.pdf", display_name="atlas.pdf")
     assert [(c.text, c.metadata) for c in chunks] == [(c.text, c.metadata) for c in record.chunks]
-    port = port_record(chunks, record.text_index, SemanticRetriever.build_index(emb, chunks))
+    port = port_record(chunks, record.text_index, asyncio.run(SemanticRetriever.build_index(emb, chunks)))
     return corpus, jax_emb, record, emb, port
 
 
 def test_slice_text_index_and_embeddings_match_jax(harness):
     _, _, record, _, port = harness
     assert len(port.chunks) == 5
-    assert Bm25Retriever.build_index(port.chunks) == record.text_index
+    assert asyncio.run(Bm25Retriever.build_index(port.chunks)) == record.text_index
     for a, b in zip(port.embeddings_index, record.embeddings_index):
         np.testing.assert_allclose(a, b, atol=1e-4)
 
@@ -455,7 +455,7 @@ def test_cadibona_golden_through_the_port():
     keywords and BM25, on the port's own parse of the PDF."""
     chunks = parse_document(TESTS_ALPS_PDF.read_bytes(), "application/pdf", source_link="alps_wiki.pdf",
                             display_name="alps_wiki.pdf")
-    record = port_record(chunks, Bm25Retriever.build_index(chunks), None)
+    record = port_record(chunks, asyncio.run(Bm25Retriever.build_index(chunks)), None)
     hits = asyncio.run(Bm25Retriever.from_doc_records([record], k=7, device="cpu").aretrieve("Colle di Cadibona"))
     assert hits[0].chunk_id == 31
     assert chunks[31].page_number == 3

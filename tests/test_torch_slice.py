@@ -7,6 +7,7 @@ tokenize -> encode -> pool -> dense index -> query.
   embeddings equal (atol 1e-4), the same top-k ids, the same model_id.
 """
 
+import asyncio
 import json
 from pathlib import Path
 
@@ -95,7 +96,7 @@ def test_alps_checkpoint_matches_jax(alps_pair):
         assert [h.chunk_id for h in retriever.retrieve(queries[qi])] == [
             h.chunk_id for h in jax_hits
         ]
-    built = SemanticRetriever.build_index(port, build_chunks_list([(t, {}) for t in texts]))
+    built = asyncio.run(SemanticRetriever.build_index(port, build_chunks_list([(t, {}) for t in texts])))
     np.testing.assert_allclose(np.concatenate(built), doc_port, atol=1e-6)
 
 

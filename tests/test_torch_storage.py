@@ -453,10 +453,10 @@ def test_loaded_record_builds_without_warning_and_hits_the_device_cache(tmp_path
     chunks = build_chunks_list([(t, {"source": "s"}) for t in texts])
     rec = DocumentRecord(
         format_version=FORMAT_VERSION, index_settings=IndexSettings(), chunks=chunks,
-        text_index=Bm25Retriever.build_index(chunks), embeddings_index=SemanticRetriever.build_index(emb, chunks),
+        text_index=asyncio.run(Bm25Retriever.build_index(chunks)), embeddings_index=asyncio.run(SemanticRetriever.build_index(emb, chunks)),
         multimodal_embeddings_index=None, description_embeddings_index=None, mime_type="text/plain",
-        document_bytes=b"", late_interaction_index=LateInteractionRetriever.build_index(emb, chunks, 16),
-        chargram_index=ChargramRetriever.build_index(chunks),
+        document_bytes=b"", late_interaction_index=asyncio.run(LateInteractionRetriever.build_index(emb, chunks, 16)),
+        chargram_index=asyncio.run(ChargramRetriever.build_index(chunks)),
     )
     holder = IndexStorageHolder()
     asyncio.run(IndexStorage(LocalFileStorage(str(tmp_path))).store("files/b/r/index.bin", rec))

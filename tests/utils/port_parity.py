@@ -6,6 +6,9 @@ same place in its package)."""
 import dataclasses
 import importlib
 import math
+import sys
+import types
+from pathlib import Path
 
 JAX, PORT = "dial_rag_tpu", "dial_rag_tpu_torch"
 
@@ -49,3 +52,25 @@ def same(call):
     ref, got = outcome(JAX, call), outcome(PORT, call)
     assert got == ref
     return got
+
+
+def twin_module(name: str, replace: tuple[tuple[str, str], ...] = ()) -> types.ModuleType:
+    """tests/<name>.py with its imports of the JAX package renamed to the
+    port (and ``replace``'s further (old, new) edits, each of which must
+    apply), executed once as a module of its own."""
+    key = f"_port_twin_{name}"
+    if key not in sys.modules:
+        path = Path(__file__).resolve().parent.parent / f"{name}.py"
+        source = path.read_text().replace(f"{JAX}.", f"{PORT}.").replace(f"from {JAX} import", f"from {PORT} import")
+        for old, new in replace:
+            assert old in source, (name, old)
+            source = source.replace(old, new)
+        module = types.ModuleType(key)
+        module.__file__ = str(path)
+        sys.modules[key] = module
+        try:
+            exec(compile(source, module.__file__, "exec"), module.__dict__)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
