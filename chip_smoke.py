@@ -126,6 +126,25 @@ Phases, each announced by a ``[phase]`` line:
    the items per wave of each batcher and the device time of one
    coalesced wave beside its wall time.
 
+   page images (after the service phase): the native JPEG core against
+   PIL's decode of the committed fixtures (tests/data/jpeg, at most 2
+   levels), page render and PNG encode timed; then the DIAL app from
+   config/azure_description.yaml (the description arm: a scripted vision
+   LLM, the pieces encoded by alps-semantic in bf16) and from
+   config/gcp_embedding.yaml (the multimodal arm: the fake's image
+   embeddings a function of the decoded page), each indexing 2 PDFs of
+   32 pages with Flate and DCT images, answering retrievals and a
+   streamed rag request with 4 page images at 1536 px. Gates: each page
+   image decodes to its page's size and layout's line ink and equals
+   render_page's; the arm's hits on the card equal the CPU's over the
+   same records (the description arm's up to swaps of adjacent hits
+   within twice the run's largest card-vs-CPU score change, each swap
+   printed); kernels 1-2 launch. Prints JPEG MB/s, render ms a page at
+   800 and 1536 px, PNG encode ms, the indexing request's seconds by
+   stage, the description encodes' device ms (the profiler, over the
+   request's batches encoded again), the launches and the rag's
+   first-chunk ms;
+
    whole-layer serve: 256 of those chunks and 16 queries through the
    "fused_layer" route (the whole-layer kernel); its launches must equal
    12 x the encode batches, its embeddings agree with the "fused" and
@@ -650,14 +669,18 @@ def device_profile(torch, fn, what: str, card: str, top: int = 8, share_of: str 
     return total_ms
 
 
-def kernel_device_ms(torch, fn, match: str, iters: int = 20, attempts: int = 3) -> float:
+def kernel_device_ms(torch, fn, match: str, iters: int = 20, attempts: int = 3,
+                     library: bool = False) -> float:
     """Device time per call of ``fn`` spent in kernels whose name holds
     ``match`` ("" for every kernel), by ``torch.profiler`` after one
     warm-up call: a kernel's own time where the host paces its launches.
     A profile that shows no such kernel is printed with the kernels it
     does show and taken again, up to ``attempts`` profiles in all (one
     call on an H100 once returned a profile without the kernel that the
-    same code showed in four calls before)."""
+    same code showed in four calls before); then it raises. Only a
+    ``library`` call (SDPA's, printed beside a kernel's time and in no
+    JSON row) whose every profile records no device kernel at all is
+    timed by CUDA events instead, and says so."""
     fn()
 
     def calls():
@@ -671,7 +694,15 @@ def kernel_device_ms(torch, fn, match: str, iters: int = 20, attempts: int = 3) 
             return us / 1e3 / iters
         print(f"the profile of {iters} calls shows no kernel named like {match!r}, only "
               f"{sorted(e.key[:80] for e in events)[:8]}; profiling again", flush=True)
-    raise RuntimeError(f"{attempts} profiles of {iters} calls show no kernel named like {match!r}")
+    if events or not library:
+        raise RuntimeError(f"{attempts} profiles of {iters} calls show no kernel named like {match!r}")
+    # the profiler recorded no device kernel at all (an H100 machine's has done
+    # so for SDPA's calls in the attention phase): CUDA events, which count the
+    # host's gaps between the calls as well
+    ms = cuda_ms(torch, fn, iters)
+    print(f"{attempts} profiles of {iters} calls recorded no device kernel: timed by CUDA events instead, "
+          f"{ms:.4f} ms a call (host gaps included)", flush=True)
+    return ms
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -906,7 +937,7 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
         f32_bound = None if bf16 else bound(flops, nbytes, PEAK_F32_FLOPS)
         device = "" if device_kernel is None else (
             f" (device time of its {device_kernel}* kernels; the call {call_ms:.4f} ms; SDPA's kernels "
-            f"{kernel_device_ms(torch, library, ''):.4f} ms)")
+            f"{kernel_device_ms(torch, library, '', library=True):.4f} ms)")
         print(f"{name} ({kind}): max_abs_err {err:.6g}; kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms, SDPA "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP at "
               f"{peak / 1e12:.0f} TFLOP/s{'' if bf16 else ' 3xTF32'}, {nbytes / 1e6:.2f} MB)"
@@ -917,6 +948,7 @@ def attention_rows(torch, dev, card, heads: int, dh: int, path_shapes, dtype) ->
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "timed_by": "cuda_events" if device_kernel is None else "profiler",
         }
         if f32_bound:
             rows[key].update(status=REDESIGNED_SINGLE_TILE, bound_f32_ms=f32_bound[0])
@@ -4297,6 +4329,420 @@ def service_phase(torch, card, texts) -> dict:
     return result
 
 
+PAGE_PRESETS = ("config/azure_description.yaml", "config/gcp_embedding.yaml")
+PAGE_PDFS, PAGE_PDF_PAGES = 2, 32
+PAGE_QUERIES = 4
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+IMAGE_PDF = ROOT / "tests" / "utils" / "image_pdf.py"
+PAGE_EMBEDDINGS = ROOT / "tests" / "utils" / "page_embeddings.py"
+JPEG_LEVELS = 2  # the native JPEG core against PIL's decode (tests/test_torch_codecs.py)
+LINE_INK_RATIO = 0.10  # a page image's text line against the layout's (tests/test_torch_render.py)
+
+
+def load_test_util(path: Path):
+    """A numpy-only module of ``tests/utils``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def page_image_pdfs(texts, np) -> list[bytes]:
+    """PAGE_PDFS PDFs of PAGE_PDF_PAGES pages, each page a title, text lines
+    from ``texts`` and three images placed apart from the text: a seeded
+    Flate RGB gradient, a committed DCT fixture and a Flate gray or CMYK
+    patch, their places moving from page to page."""
+    from dial_rag_tpu_torch.image_processor.jpeg import read_header
+
+    image_pdf = load_test_util(IMAGE_PDF)
+    jpegs = []
+    for name in sorted(p.stem for p in JPEG_FIXTURES.glob("*.jpg")):
+        data = (JPEG_FIXTURES / f"{name}.jpg").read_bytes()
+        w, h, c = read_header(data)
+        jpegs.append(("dct", data, w, h, c))
+    rng = np.random.default_rng(25)
+    pdfs = []
+    for d in range(PAGE_PDFS):
+        pages = []
+        for p in range(PAGE_PDF_PAGES):
+            k = d * PAGE_PDF_PAGES + p
+            y, x = np.mgrid[0:60, 0:80]
+            flate = np.stack([(x * (3 + k % 5)) % 256, (y * (2 + k % 7)) % 256, (x + y + 9 * k) % 256], -1)
+            patch = rng.integers(0, 256, (24, 32, 4 if k % 2 else 1), dtype=np.uint8)
+            images = [(60 + 7 * (k % 11), 430 + 5 * (k % 13), 180 + 4 * (k % 9), 140, flate.astype(np.uint8)),
+                      (330 - 3 * (k % 7), 420 + 6 * (k % 5), 220, 165, jpegs[k % len(jpegs)]),
+                      (90 + 11 * (k % 17), 620 + 3 * (k % 8), 100, 75, patch)]
+            body = textwrap.wrap(pdf_safe(texts[k % len(texts)]), PDF_LINE_CHARS, break_long_words=False)[:12]
+            lines = [(72, 760, 14, f"Document {d} page {p + 1}")]
+            lines += [(72, 380 - 14 * i, 10, line) for i, line in enumerate(body)]
+            pages.append((lines, images))
+        pdfs.append(image_pdf.build_image_pdf(pages))
+    return pdfs
+
+
+def page_layouts(pdf: bytes, scaled_size: int) -> list[list[tuple]]:
+    """The text lines of each page as render_page draws them at
+    ``scaled_size``: (x, y, size, text)."""
+    from dial_rag_tpu_torch.documents.pdf.document import PdfDocument
+    from dial_rag_tpu_torch.documents.pdf.layout import LayoutParams, group_chars_to_lines
+    from dial_rag_tpu_torch.documents.pdf.text import TextExtractor
+
+    doc = PdfDocument(pdf)
+    out = []
+    for page in doc.pages():
+        mb = [float(doc.resolve(v)) for v in doc.resolve(page.get("MediaBox"))]
+        scale = scaled_size / max(mb[2] - mb[0], mb[3] - mb[1])
+        out.append([((ln.x0 - mb[0]) * scale, (mb[3] - mb[1] - (ln.y1 - mb[1])) * scale,
+                     max(int(ln.height * scale * 0.9), 4), ln.text.strip())
+                    for ln in group_chars_to_lines(TextExtractor(doc, page).extract(), LayoutParams())
+                    if ln.text.strip()])
+    return out
+
+
+def line_alone(np, shape, line):
+    """The ink ([h, w] int64) the font draws for one laid-out line on a
+    blank page of ``shape``, cut to its box, and the box's slices of the
+    page."""
+    from dial_rag_tpu_torch.documents.pdf import _font
+
+    x, y, size, text = line
+    top = max(int(y) - size, 0)  # a strip of the page that holds the line
+    strip = np.full((min(3 * size + 8, shape[0] - top), shape[1], 3), 255, np.uint8)
+    _font.draw_text(strip, (x, y - top), text, size)
+    ink = 255 - strip.min(axis=2).astype(np.int64)
+    ys, xs = np.nonzero(ink)
+    ink = ink[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+    return ink, (slice(top + ys.min(), top + ys.max() + 1), slice(xs.min(), xs.max() + 1))
+
+
+def check_page_image(np, image, pdfs, layouts, scaled_size: int) -> tuple[int, int]:
+    """``image`` (a decoded page image) is one of ``pdfs``' pages at
+    ``scaled_size``: its size is the page's, and each text line of the
+    page's layout (``layouts``) has, in its box, the ink the font draws
+    for it alone (within LINE_INK_RATIO); it equals render_page's image of
+    that page. Returns (pdf, page)."""
+    from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
+
+    want = (scaled_size, int(612 * scaled_size / 792))
+    if image.shape[:2] != want:
+        raise RuntimeError(f"a page image is {image.shape[:2]}, the layout gives {want}")
+    ink = 255 - image.min(axis=2).astype(np.int64)
+    found = None
+    for d, pages in enumerate(layouts):
+        for p, lines in enumerate(pages, 1):
+            alone, box = line_alone(np, image.shape, lines[0])  # the title tells the pages apart
+            if np.array_equal(ink[box], alone):
+                found = (d, p)
+    if found is None:
+        raise RuntimeError("a page image matches no page's title line")
+    d, p = found
+    for line in layouts[d][p - 1]:
+        alone, box = line_alone(np, image.shape, line)
+        got, want_ink = int(ink[box].sum()), int(alone.sum())
+        if abs(got - want_ink) > LINE_INK_RATIO * want_ink:
+            raise RuntimeError(f"page {d}/{p}'s line {line[3][:30]!r}: ink {got} in its box, the layout's {want_ink}")
+    if not np.array_equal(next(render_pdf_pages(pdfs[d], [p], scaled_size)), image):
+        raise RuntimeError(f"page {d}/{p}'s image differs from render_page's on the host")
+    return found
+
+
+def adjacent_swaps(got, ref, ref_score, limit, what) -> list:
+    """``got`` (the card's k ranked keys) must equal the first k of ``ref``
+    (the reference's, one rank longer) after swaps of adjacent reference
+    hits, no two sharing a rank, each between hits whose reference scores
+    lie within ``limit`` of each other; a swap at rank k brings the
+    reference's hit k + 1 in. Returns the swaps."""
+    k, swaps, i = len(got), [], 0
+    while i < k:
+        if i < len(ref) and got[i] == ref[i]:
+            i += 1
+            continue
+        if (i + 1 < len(ref) and got[i] == ref[i + 1] and (i + 1 == k or got[i + 1] == ref[i])
+                and abs(ref_score[ref[i]] - ref_score[ref[i + 1]]) <= limit):
+            swaps.append((i, ref[i], ref[i + 1]))
+            i += 2
+            continue
+        raise RuntimeError(f"{what}: the card ranks {got}, the reference {ref[:k]}: not equal up to swaps of "
+                           f"adjacent hits within {limit:.3g}")
+    return swaps
+
+
+def page_images_phase(torch, card, texts) -> dict:
+    """Page images and the image arms through the DIAL service on the card.
+
+    First the native JPEG core against the committed fixtures' PIL decode
+    (tests/data/jpeg, at most JPEG_LEVELS a channel) and the host codecs
+    timed. Then the app booted from config/azure_description.yaml (the
+    description arm: a scripted vision LLM describes each page, the pieces
+    encoded by alps-semantic in bf16, kernels 1-2) and from
+    config/gcp_embedding.yaml (the multimodal arm: the fake's image
+    embeddings, a continuous function of the decoded page,
+    tests/utils/page_embeddings.py), each on the standard-library fake
+    Dial Core: an indexing request over PAGE_PDFS PDFs of PAGE_PDF_PAGES
+    pages with Flate and DCT images, retrieval requests, and a streamed
+    rag request with 4 page images at 1536 px. Gates: each page image the
+    answer model receives decodes (the port's PNG reader) to its page's
+    size and layout's line ink, and equals render_page's; the arm's hits
+    on the card equal the same retriever's on the CPU over the same
+    records (the description arm's up to swaps of adjacent hits within
+    twice the largest card-vs-CPU score change of a hit that the run
+    reads: its queries are encoded in bf16 on the card, in f32 on the
+    CPU). Returns kernels 1-2's launches in the indexing requests."""
+    import base64
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
+    from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
+    from dial_rag_tpu_torch.image_processor.jpeg import decode_jpeg
+    from dial_rag_tpu_torch.image_processor.png import decode_png, encode_png
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.retrieval.description import PAGE_DESCRIPTION_PROMPT, DescriptionRetriever
+    from dial_rag_tpu_torch.retrieval.multimodal import MultimodalRetriever
+    from dial_rag_tpu_torch.service import app as app_module
+    from dial_rag_tpu_torch.service import http, retrieval_chain
+    from dial_rag_tpu_torch.service.config import load_app_config
+
+    t_phase = time.perf_counter()
+    decoded = np.load(JPEG_FIXTURES / "decoded.npz")
+    worst = 0
+    for name in decoded.files:
+        got = decode_jpeg((JPEG_FIXTURES / f"{name}.jpg").read_bytes()).astype(np.int64)
+        if got.shape != decoded[name].shape:
+            raise RuntimeError(f"JPEG fixture {name}: {got.shape}, PIL's {decoded[name].shape}")
+        worst = max(worst, int(np.abs(got - decoded[name]).max()))
+    if worst > JPEG_LEVELS:
+        raise RuntimeError(f"the native JPEG core is {worst} levels from PIL's decode (limit {JPEG_LEVELS})")
+    big = (JPEG_FIXTURES / "photo_422_q85.jpg").read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        decode_jpeg(big)
+    jpeg_mb_s = 20 * len(big) / (time.perf_counter() - t0) / 1e6
+    pdfs = page_image_pdfs(texts, np)
+    render_ms = {}
+    for size in (800, 1536):
+        t0 = time.perf_counter()
+        pages = list(render_pdf_pages(pdfs[0], list(range(1, min(8, PAGE_PDF_PAGES) + 1)), size))
+        render_ms[size] = (time.perf_counter() - t0) * 1e3 / len(pages)
+    t0 = time.perf_counter()
+    png = encode_png(pages[0])
+    png_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(decode_png(png), pages[0]):
+        raise RuntimeError("a page's PNG does not decode to the page")
+    print(f"page images: native JPEG core within {worst} levels of PIL's decode on {len(decoded.files)} "
+          f"fixtures (limit {JPEG_LEVELS}), {jpeg_mb_s:.2f} MB/s of JPEG ({len(big)} B, 384 x 288, 4:2:2) {card}; "
+          f"render {render_ms[800]:.1f} ms a page at 800 px, {render_ms[1536]:.1f} ms at 1536 px; PNG encode "
+          f"{png_ms:.1f} ms ({len(png)} B, {pages[0].shape[1]} x {pages[0].shape[0]}) {card}", flush=True)
+
+    fake_dial = load_fake_dial()
+    embeddings = load_test_util(PAGE_EMBEDDINGS)
+
+    class PageFake(fake_dial.FakeDialCore):
+        """The fake's image embeddings are a continuous function of the
+        decoded page; its vision LLM describes a page from its pixels."""
+
+        def _embeddings(self, request, m):
+            body = json.loads(request.body)
+            if self.embeddings_status is not None or not body.get("custom_input"):
+                return super()._embeddings(request, m)
+            data = [{"object": "embedding", "index": i, "embedding": embeddings.coarse_embedding(
+                decode_png(base64.b64decode(c["data"])), self.embedding_dim).tolist()}
+                for i, c in enumerate(body["custom_input"])]
+            request.send_json({"object": "list", "data": data})
+
+    def respond(body):
+        parts = body["messages"][0].get("content")
+        if isinstance(parts, list) and parts and parts[0].get("text") == PAGE_DESCRIPTION_PROMPT:
+            page = decode_png(base64.b64decode(parts[1]["image_url"]["url"].split(",", 1)[1]))
+            v = embeddings.coarse_embedding(page, 16)
+            i = int(np.argmax(v)) * 16 + int(np.argmin(v))
+            return json.dumps({"page_summary": pdf_safe(texts[i % len(texts)])[:300],
+                               "keyfact": pdf_safe(texts[(i + 1) % len(texts)])[:120],
+                               "image_quality": {"level": "normal", "explanation": "text page"}})
+        return "The pages answer the question."
+
+    queries = [" ".join(pdf_safe(texts[k]).split()[:8]) for k in range(0, PAGE_QUERIES * 5, 5)]
+    links = [f"files/chip-smoke/pages-{d}.pdf" for d in range(PAGE_PDFS)]
+    launches = collections.Counter()
+    described = []  # the description encodes' batches of one indexing request
+    original_embed = BgeEmbedder.embed_documents
+
+    # the pieces the scripted vision LLM can describe a page with
+    pieces = {pdf_safe(t)[:n].replace("\n", " ").replace("\r", " ") for t in texts for n in (300, 120)}
+
+    def recording_embed(self, texts_):
+        if texts_ and texts_[0] in pieces:
+            described.append(list(texts_))
+        return original_embed(self, texts_)
+
+    loaded = {}
+    original_load = app_module.load_documents
+
+    async def capturing_load(request_context, embedder, tasks, *args, **kwargs):
+        results = await original_load(request_context, embedder, tasks, *args, **kwargs)
+        loaded["records"] = [r.doc_record for r in results]
+        return results
+
+    async def drive(app, fake, preset, boot):
+        server = await http.serve(app)
+        application = app["dial_rag"]
+        base = f"http://127.0.0.1:{server.port}/"
+        headers = {"api-key": "chip-smoke"}
+        message = {"role": "user", "content": "", "custom_content": {"attachments": [{"url": u} for u in links]}}
+        try:
+            async with http.ClientSession(base_url=base, timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
+                async def post(payload):
+                    async with s.post(CHAT_PATH, headers=headers, json=payload) as r:
+                        raw = await r.read()
+                        if r.status != 200:
+                            raise RuntimeError(f"{preset}: request failed: {r.status} {raw[:400]!r}")
+                        return json.loads(raw)["choices"][0]["message"]
+
+                torch.cuda.synchronize()
+                fe.reset_launches()
+                described.clear()
+                t0 = time.perf_counter()
+                indexed = await post({"messages": [message], "custom_fields": {
+                    "configuration": {"request": {"type": "indexing"}}}})
+                t_index = time.perf_counter() - t0
+                launched = {name: fe.LAUNCHES[name] for name in ("fused_attention_block", "fused_ffn_block")}
+                launches.update(launched)
+                # the description encodes' device time: the request's batches
+                # encoded again under the profiler, after the counted run
+                encode_ms = device_ms(torch, lambda: [original_embed(application.embedder, t) for t in described])
+                seconds = {}
+                for st in indexed["custom_content"]["stages"]:
+                    m = re.fullmatch(r"(.*?) \[(\d+\.\d+)s\]", st["name"])
+                    if m:
+                        seconds[m.group(1)] = float(m.group(2))
+                    if st.get("status") == "failed" and "Load indexes" not in st["name"]:
+                        raise RuntimeError(f"{preset}: indexing stage failed: {st['name']}: {st.get('content')}")
+                result = json.loads(indexed["custom_content"]["attachments"][-1]["data"])
+                if result != {"indexing_result": {}}:
+                    raise RuntimeError(f"{preset}: the indexing request reported errors: {str(result)[:600]}")
+                records = loaded["records"]
+                arm = "Page image search" if "description" in preset else "Multimodal search"
+                marks = {"boot": boot, "index": t_index}
+                t0 = time.perf_counter()
+                hits_card = []
+                for q in queries:
+                    got = await post({"messages": [{**message, "content": q}], "custom_fields": {
+                        "configuration": {"request": {"type": "retrieval"}}}})
+                    if not any(arm in st["name"] for st in got["custom_content"]["stages"]):
+                        raise RuntimeError(f"{preset}: no {arm!r} stage in a retrieval")
+                # the streamed rag request: 4 page images at 1536 px to the answer model, rendered
+                # anew (the retrievals above cached theirs)
+                marks["retrievals"] = time.perf_counter() - t0
+                with retrieval_chain._PAGE_RENDER_LOCK:
+                    retrieval_chain._PAGE_RENDER_CACHE.clear()
+                    retrieval_chain._PAGE_RENDER_CACHE_BYTES = 0
+                n_llm = len(fake.llm_requests)
+                t0 = time.perf_counter()
+                first_ms = None
+                async with s.post(CHAT_PATH, headers=headers, json={
+                        "messages": [{**message, "content": queries[0]}], "stream": True}) as r:
+                    if r.status != 200:
+                        raise RuntimeError(f"{preset}: rag request failed: {r.status}")
+                    raw = b""
+                    async for line in r.content:
+                        if first_ms is None and line.startswith(b"data: {"):
+                            delta = json.loads(line[6:])["choices"][0].get("delta", {})
+                            if delta.get("content"):  # the answer's first text, not a stage
+                                first_ms = (time.perf_counter() - t0) * 1e3
+                        raw += line
+                events = sse_events(raw)
+                answer = "".join(e["choices"][0]["delta"].get("content") or "" for e in events
+                                 if e != "[DONE]" and e.get("choices"))
+                if "The pages answer the question." not in answer:
+                    raise RuntimeError(f"{preset}: the rag answer is {answer[-200:]!r}")
+                images = [c["image_url"]["url"] for req in fake.llm_requests[n_llm:] for msg in req["messages"]
+                          if isinstance(msg.get("content"), list) for c in msg["content"]
+                          if c.get("type") == "image_url"]
+                if len(images) != 4:
+                    raise RuntimeError(f"{preset}: the answer model got {len(images)} page images, not 4")
+                marks["rag"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                layouts = [page_layouts(pdf, 1536) for pdf in pdfs]
+                pages_seen = [check_page_image(np, decode_png(base64.b64decode(u.split(",", 1)[1])), pdfs, layouts,
+                                               1536) for u in images]
+                marks["image checks"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                # the arm's hits on the card against the same retriever on the CPU
+                # the CPU arm ranks one hit more, so a swap at the last rank is
+                # read against the hit it brings in
+                if "description" in preset:
+                    cpu_embedder = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), device="cpu")
+                    card_arm = DescriptionRetriever.from_doc_records(application.embedder, records, k=HYBRID_K)
+                    cpu_arm = DescriptionRetriever.from_doc_records(cpu_embedder, records, k=HYBRID_K + 1)
+                else:
+                    config = application.app_config.request.indexing.multimodal_index
+                    card_arm = MultimodalRetriever.from_doc_records(fake_url, "k", config, records, HYBRID_K,
+                                                                    device=application.embedder.device)
+                    cpu_arm = MultimodalRetriever.from_doc_records(fake_url, "k", config, records, HYBRID_K + 1,
+                                                                   device="cpu")
+                runs = []
+                for q in queries:
+                    a = {(h.doc_id, h.chunk_id): float(h.score) for h in await card_arm.aretrieve(q)}
+                    b = {(h.doc_id, h.chunk_id): float(h.score) for h in await cpu_arm.aretrieve(q)}
+                    hits_card.append(list(a))
+                    runs.append((q, a, b))
+                # a swap of two hits moves each one's score by half their gap at least
+                drift = max((abs(a[key] - b[key]) for _, a, b in runs for key in a if key in b), default=0.0)
+                swaps = []
+                for q, a, b in runs:
+                    if len(a) != min(HYBRID_K, len(b)):
+                        raise RuntimeError(f"{preset}: the card returned {len(a)} hits, the CPU {len(b)} for {q!r}")
+                    if "description" not in preset:
+                        if list(a) != list(b)[:len(a)]:
+                            raise RuntimeError(f"{preset}: card hits {list(a)} != CPU hits {list(b)} for {q!r}")
+                        continue
+                    for swap in adjacent_swaps(list(a), list(b), b, 2 * drift, f"{preset}, query {q!r}"):
+                        print(f"swap excused, {preset} query {q!r}: rank {swap[0] + 1} {swap[1]} and rank "
+                              f"{swap[0] + 2} {swap[2]}, CPU scores {b[swap[1]]:.6g} and {b[swap[2]]:.6g} "
+                              f"(limit {2 * drift:.3g})")
+                        swaps.append(swap)
+                marks["hits against the CPU"] = time.perf_counter() - t0
+                print(f"page images {preset}: indexing {PAGE_PDFS} PDFs of {PAGE_PDF_PAGES} pages (Flate and DCT "
+                      f"images) {t_index:.3f} s of wall, stages {json.dumps(seconds)}; bf16 kernels 1-2 launches "
+                      f"{launched}; description encodes {len(described)} calls, device {encode_ms:.3f} ms "
+                      f"(profiler); rag first chunk {first_ms:.1f} ms with 4 page images at 1536 px rendered anew, "
+                      f"pages {pages_seen}, each at its layout's size and line ink; {arm} hits on the card equal "
+                      f"the CPU's for {len(queries)} queries"
+                      + (f" up to {len(swaps)} adjacent swaps within twice the largest card-vs-CPU score change "
+                         f"{drift:.3g}" if "description" in preset else f" (largest score change {drift:.3g})")
+                      + f"; seconds "
+                      f"{json.dumps({k: round(v, 3) for k, v in marks.items()})} {card}",
+                      flush=True)
+        finally:
+            await server.close()
+
+    for preset in PAGE_PRESETS:
+        fake = PageFake()
+        fake_url = fake.start_sync()
+        for link, pdf in zip(links, pdfs):
+            fake.add_file(link, pdf, "application/pdf")
+        fake.script_llm(respond)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as root:
+            app_config = load_app_config(environ={
+                "DIAL_RAG__CONFIG_PATH": preset, "DIAL_URL": fake_url,
+                "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root,
+                "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT)})
+            BgeEmbedder.embed_documents = recording_embed
+            app_module.load_documents = capturing_load
+            try:
+                t0 = time.perf_counter()
+                app = app_module.create_app(app_config)
+                asyncio.run(drive(app, fake, preset, time.perf_counter() - t0))
+            finally:
+                BgeEmbedder.embed_documents = original_embed
+                app_module.load_documents = original_load
+                fake.stop_sync()
+    if not all(launches.values()):
+        raise RuntimeError(f"the description index launched no encoder kernel: {dict(launches)}")
+    print(f"page images phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches)
+
+
 def torch_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in torch_leaves(v)]
@@ -4600,7 +5046,7 @@ def main() -> int:
     phase("build")
     def build_cores() -> float:
         t0 = time.perf_counter()
-        for name in ("keywords", "wordpiece", "chargram"):
+        for name in ("keywords", "wordpiece", "chargram", "jpeg"):
             load_native(name)
         return time.perf_counter() - t0
 
@@ -4823,6 +5269,10 @@ def main() -> int:
     for name, n in service_phase(torch, card, texts).items():
         launched[name] += n
 
+    phase("page images")
+    for name, n in page_images_phase(torch, card, texts).items():
+        launched[name] += n
+
     phase("whole-layer serve")
     launched["fused_layer_block"] += whole_layer_phase(torch, card, embedder, texts, queries)
     embedder_tokenizer = embedder.tokenizer
@@ -4968,6 +5418,10 @@ def main() -> int:
         raise RuntimeError(f"launches counted for kernels no phase measured: {sorted(unmeasured)}")
     for name, row in rows.items():
         row["launches"] = launched[name]
+        # how "ms" was taken: the profiler's device time of the kernel (kernels
+        # 5 and 8, whose calls the host paces) or CUDA events around its
+        # calls; "plain_ms" and "library_ms" are CUDA events in every row
+        row.setdefault("timed_by", "cuda_events")
     # kernels 1-3 at H 1024: no phase runs an encoder that wide. So they
     # are gated and timed but off the main path
     off_path = {instantiation(name, dtype, "H 1024") for dtype in (torch.bfloat16, torch.float32)

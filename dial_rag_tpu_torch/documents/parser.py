@@ -5,7 +5,6 @@ Mirror of the reference's get_document_chunks/parse_document
 chunks for image-only pages, source metadata (with #page= anchors for
 PDFs), the 5 MiB extracted-text cap, and "document is empty" errors."""
 
-import io
 from dataclasses import dataclass
 
 from dial_rag_tpu_torch.documents.elements import (
@@ -47,10 +46,19 @@ def extract_number_of_pages(mime_type: str, data: bytes) -> int:
 
         return PdfDocument(data).num_pages
     if mime_type in IMAGE_MIMES:
-        from PIL import Image
+        # the PNG, JPEG and BMP headers (one frame each) without PIL; other
+        # image formats raise NotPortedError naming ROADMAP item 9d
+        from dial_rag_tpu_torch.image_processor.extract_pages import image_format
 
-        with Image.open(io.BytesIO(data)) as im:
-            return getattr(im, "n_frames", 1)
+        kind = image_format(data)
+        if kind == "png":
+            from dial_rag_tpu_torch.image_processor.png import read_header
+        elif kind == "jpeg":
+            from dial_rag_tpu_torch.image_processor.jpeg import read_header
+        else:
+            from dial_rag_tpu_torch.image_processor.bmp import read_header
+        read_header(data)
+        return 1
     raise InvalidDocumentError(
         f"Page images are not supported for {mime_type}"
     )

@@ -1,16 +1,22 @@
-"""The two mime checks of ``dial_rag_tpu/image_processor`` that the
-service's text path reads, as plain functions (no PIL). Page images,
-image documents and the image-index arms wait for ROADMAP item 9b."""
+"""Page images without PIL: PDF pages rendered by
+``documents/pdf/render.py``, image documents decoded by the port's PNG,
+JPEG and BMP readers, LANCZOS resizing, and base64 PNG encoding. Pages
+are [H, W, 3] uint8 arrays."""
 
-from dial_rag_tpu_torch.documents.mime import IMAGE_MIMES, MIME_PDF, normalize_content_type
+from dial_rag_tpu_torch.image_processor.base64_utils import image_as_base64
+from dial_rag_tpu_torch.image_processor.extract_pages import (
+    are_image_pages_supported,
+    extract_number_of_pages,
+    extract_pages,
+    is_image,
+)
+from dial_rag_tpu_torch.image_processor.resize import resize_image
 
-
-def is_image(content_type: str) -> bool:
-    return normalize_content_type(content_type) in IMAGE_MIMES
-
-
-def are_image_pages_supported(mime_type: str) -> bool:
-    return mime_type == MIME_PDF or mime_type in IMAGE_MIMES
-
-
-__all__ = ["are_image_pages_supported", "is_image"]
+__all__ = [
+    "extract_pages",
+    "extract_number_of_pages",
+    "are_image_pages_supported",
+    "is_image",
+    "image_as_base64",
+    "resize_image",
+]

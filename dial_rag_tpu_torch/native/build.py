@@ -37,6 +37,12 @@ SIGNATURES = {
             ctypes.c_longlong,
         ),
     },
+    "jpeg": {
+        # (data, n, info [width, height, channels]) -> status
+        "dial_jpeg_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),
+        # (data, n, out [height, width, channels], out_len) -> status
+        "dial_jpeg_decode": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong], ctypes.c_int),
+    },
     "keywords": {
         "kw_set_stopwords": ([ctypes.c_char_p, ctypes.c_int32], None),
         "kw_preprocess": (

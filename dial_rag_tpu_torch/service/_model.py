@@ -8,6 +8,7 @@ models, ``X | None``, ``list[...]``, ``dict[str, ...]``, ``Literal``,
 with ``extra`` ("forbid", "allow", "ignore") and ``frozen``;
 ``field_validator`` (after-validators); ``model_fields``;
 ``model_validate`` with pydantic's lax coercions for those types;
+``model_copy(update=...)``;
 ``model_dump`` (``mode``, ``exclude_unset``, ``exclude_none``);
 ``model_dump_json`` with pydantic's bytes (UTF-8 kept, floats written as
 serde_json writes them, non-finite floats as null); and
@@ -629,6 +630,20 @@ class BaseModel(metaclass=_ModelMeta):
     def __deepcopy__(self, memo):
         new = object.__new__(type(self))
         object.__setattr__(new, "__dict__", copy.deepcopy(self.__dict__, memo))
+        return new
+
+    def model_copy(self, *, update: dict | None = None):
+        """A shallow copy with ``update``'s fields set, unvalidated, as
+        pydantic's."""
+        new = copy.copy(self)
+        for name, value in (update or {}).items():
+            if name in type(self).__model_fields__:
+                new.__dict__[name] = value
+                new.__dict__["__pydantic_fields_set__"].add(name)
+            elif new.__dict__.get("__pydantic_extra__") is not None:
+                new.__dict__["__pydantic_extra__"][name] = value
+            else:
+                new.__dict__[name] = value
         return new
 
     # -- serialization -----------------------------------------------------

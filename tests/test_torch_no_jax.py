@@ -1,8 +1,9 @@
 """The port stands alone: ``dial_rag_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``dial_rag_tpu``, nor the packages the card's
 machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax, msgpack,
-PIL, bs4, lxml, opentelemetry; the HTML and image parsers import bs4, lxml
-and PIL inside their functions, never at module level).
+PIL, bs4, lxml, opentelemetry; the HTML parser imports bs4 and lxml inside
+its functions, never at module level; nothing imports PIL: page images
+and image documents go through the port's own codecs).
 
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
@@ -12,8 +13,10 @@ training step, the bfloat16, two_pass and int8 dense layouts, an RRF
 ensemble of the late-interaction, expanded BM25 and chargram arms, and
 concurrent four-arm RRF requests through one ``DeviceIndexCache``,
 parses a PDF, a DOCX and a CSV, stores their records and loads them back,
-and boots the port's DIAL app on the standard-library fake Dial Core,
-which answers one indexing and one retrieval request over HTTP. An AST
+renders a PDF page with an image to PNG and reads it back, and boots the
+port's DIAL app on the standard-library fake Dial Core, which answers one
+indexing and one retrieval request over HTTP in the default configuration
+(the description index and 4 page images). An AST
 scan checks the sources (new modules included: ``service/``, ``utils/``,
 ``runtime/``) as well.
 """
@@ -33,8 +36,8 @@ FORBIDDEN = (
     "msgpack", "PIL", "bs4", "lxml", "opentelemetry",
 )
 # imported only inside the functions that need them: HTML documents (bs4 with
-# lxml) and image documents (PIL) are parsed on the CPU only
-LAZY = ("PIL", "bs4", "lxml")
+# lxml) are parsed on the CPU only
+LAZY = ("bs4", "lxml")
 
 _CHILD = r"""
 import asyncio, importlib, importlib.abc, json, pkgutil, sys
@@ -156,7 +159,7 @@ served = asyncio.run(serve(["glaciers carve valleys", "rivers of the alps", "hig
 assert cache.wait_warm(60) and (cache.misses, len(cache)) == (5, 5), (cache.misses, len(cache))
 assert micro_batcher.WAVES["query_encode"] == 1 and served[0][0].chunk_id == 1, (micro_batcher.WAVES, served)
 # document indexing: PDF, DOCX and CSV bytes -> parse -> BM25 -> storage -> load
-import io, tempfile, zipfile
+import base64, io, tempfile, zipfile
 from dial_rag_tpu_torch.documents.mime import detect_mime
 from dial_rag_tpu_torch.documents.model import FORMAT_VERSION
 from dial_rag_tpu_torch.documents.parser import parse_document
@@ -179,6 +182,16 @@ with tempfile.TemporaryDirectory() as root:
         back = asyncio.run(IndexStorage(LocalFileStorage(root)).load(f"files/{name}/index.bin", IndexSettings()))
         assert back.cache_token == doc_rec.cache_token and back.text_index == doc_rec.text_index, name
         assert Bm25Retriever.from_doc_records([back], k=1, device="cpu").retrieve(doc_chunks[0].text.split()[-1]), name
+# a page image: a PDF page with a Flate image rendered, PNG-encoded and read back
+from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
+from dial_rag_tpu_torch.image_processor.png import decode_png, encode_png
+import importlib.util
+spec = importlib.util.spec_from_file_location("image_pdf", "tests/utils/image_pdf.py")
+image_pdf = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(image_pdf)
+page = next(render_pdf_pages(image_pdf.build_image_pdf([([(72, 700, 12, "Alps")],
+                                                         [(72, 300, 100, 80, np.zeros((8, 10, 3), np.uint8))])]), [1], 400))
+assert page.shape == (400, 309, 3) and (decode_png(encode_png(page)) == page).all() and page.min() == 0
 # the DIAL service: the port's app booted through the production loader on
 # the standard-library fake Dial Core, one indexing and one retrieval
 # request over HTTP, on the CPU
@@ -202,9 +215,7 @@ async def service(root):
             for kind in ("indexing", "retrieval"):
                 body = {"messages": [{"role": "user", "content": "Where does the Rhine rise?",
                                       "custom_content": {"attachments": [{"url": "files/bucket/rhine.pdf"}]}}],
-                        "custom_fields": {"configuration": {
-                            "request": {"type": kind}, "indexing": {"description_index": None},
-                            "qa_chain": {"chat_chain": {"num_page_images_to_use": 0}}}}}
+                        "custom_fields": {"configuration": {"request": {"type": kind}}}}
                 async with session.post("openai/deployments/dial-rag/chat/completions", json=body,
                                         headers={"api-key": "k"}) as response:
                     assert response.status == 200, (kind, response.status, await response.text())
@@ -219,8 +230,9 @@ with tempfile.TemporaryDirectory() as root:
 attachments = indexed["choices"][0]["message"]["custom_content"]["attachments"]
 assert attachments[0]["reference_url"] == "files/bucket/rhine.pdf", attachments
 assert json.loads(attachments[-1]["data"]) == {"indexing_result": {}}, attachments
-chunks = json.loads(retrieved["choices"][0]["message"]["custom_content"]["attachments"][0]["data"])["chunks"]
-assert chunks and "Rhine" in chunks[0]["text"], chunks
+response = json.loads(retrieved["choices"][0]["message"]["custom_content"]["attachments"][0]["data"])
+assert response["chunks"] and "Rhine" in response["chunks"][0]["text"], response["chunks"]
+assert len(response["images"]) == 1 and decode_png(base64.b64decode(response["images"][0]["data"])).shape[0] == 1536
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("OK", hits[0][0].chunk_id, hits[1][0].chunk_id)
