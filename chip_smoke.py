@@ -32,13 +32,20 @@ Phases, each announced by a ``[phase]`` line:
    128 pages (one text a page, wrapped into lines; plain, Flate and
    xref-stream variants, written by the port's ``documents/pdf/writer.py``)
    and 4 DOCX, 4 PPTX, 2 XLSX, 2 Markdown, 2 plain-text and 2 CSV
-   documents of further texts, one indexing request: ``detect_mime`` ->
+   documents of further texts, six HTML pages built from the oracle
+   chunks (tests/utils/html_docs.py) and seven image documents
+   (progressive JPEG, Adam7 PNG, 1-, 4- and 16-bit and RLE BMP, a GIF of
+   6 frames; tests/data/images), one indexing request: ``detect_mime`` ->
    ``parse_document`` (in spawned worker processes), the bf16 semantic
    index (kernels 1-2 must launch 12 x the encode batches) and the BM25
    text index, ``serialize_record`` -> ``IndexStorage.store`` over
    ``LocalFileStorage`` in a temporary directory, a fresh
    ``IndexStorage.load`` of every record, then semantic, BM25 and RRF
-   retrieval of the 64 queries over the loaded records. Gates: each PDF
+   retrieval of the 64 queries over the loaded records. Gates: each HTML
+   page's elements equal the JAX package's (tests/data/html/oracle.json),
+   and the seeded malformed pages' (tests/utils/html_pages.py) have the
+   oracle's digests; each image document has a chunk a page, as many as
+   PIL reads; each PDF
    page's chunks hold its text word for word; each loaded record equals
    the stored one (chunks, text index, every array bit for bit) with the
    ``cache_token`` (url, sha256 of the stored bytes); the hits over the
@@ -128,12 +135,16 @@ Phases, each announced by a ``[phase]`` line:
 
    page images (after the service phase): the native JPEG core against
    PIL's decode of the committed fixtures (tests/data/jpeg, at most 2
-   levels), page render and PNG encode timed; then the DIAL app from
-   config/azure_description.yaml (the description arm: a scripted vision
-   LLM, the pieces encoded by alps-semantic in bf16) and from
+   levels), the fixtures of tests/data/images against PIL's pixels (PNG,
+   BMP and GIF equal, progressive JPEG at most 2 levels), page render,
+   PNG encode, progressive JPEG and GIF decodes timed; then the DIAL app
+   from config/azure_description.yaml (the description arm: a scripted
+   vision LLM, the pieces encoded by alps-semantic in bf16) and from
    config/gcp_embedding.yaml (the multimodal arm: the fake's image
    embeddings a function of the decoded page), each indexing 2 PDFs of
-   32 pages with Flate and DCT images, answering retrievals and a
+   32 pages with Flate and DCT images and a PDF of 4 pages with
+   progressive DCT images (the multimodal arm also a GIF of 6 frames),
+   answering retrievals and a
    streamed rag request with 4 page images at 1536 px. Gates: each page
    image decodes to its page's size and layout's line ink and equals
    render_page's; the arm's hits on the card equal the CPU's over the
@@ -313,12 +324,23 @@ OTHER_DOCS = (("docx", 4), ("pptx", 4), ("xlsx", 2), ("md", 2), ("txt", 2), ("cs
 OFFICE_TEXTS = 4
 PDF_LINE_CHARS = 95
 OFFICE_BUILDER = ROOT / "tests" / "utils" / "office_builder.py"
+# and HTML documents built from the oracle chunks (tests/utils/html_docs.py),
+# each one's elements held against the JAX package's (tests/data/html/
+# oracle.json), and image documents: progressive JPEG, Adam7 PNG, BMPs of
+# 1, 4 and 16 bits and RLE, a GIF of 6 frames (tests/data/images)
+HTML_DOCS = ROOT / "tests" / "utils" / "html_docs.py"
+HTML_PAGES = ROOT / "tests" / "utils" / "html_pages.py"  # seeded malformed pages, their elements' digests in the oracle
+HTML_ORACLE = ROOT / "tests" / "data" / "html" / "oracle.json"
+IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
+IMAGE_DOCS = ("progressive_422_q85.jpg", "adam7_rgb.png", "bmp1_pil.bmp", "bmp4_os2.bmp", "bmp16_565_bitfields.bmp",
+              "bmp_rle4.bmp", "frames.gif")
 N_TOP1 = 16
 # the service phase: the port's DIAL app booted through the production loader
 # on the tuned zero-egress preset, answering over HTTP on 127.0.0.1, against
 # a standard-library fake Dial Core; its corpus is the document indexing
 # phase's cut to SERVICE_PDF_TEXTS pages in SERVICE_PDF_DOCS PDFs, with the
-# same 16 office, text and CSV documents
+# same 16 office, text and CSV documents; then the app in its default
+# configuration answers one rag request with an HTML attachment
 FAKE_DIAL = ROOT / "tests" / "utils" / "fake_dial_stdlib.py"
 SERVICE_PRESET = "config/zero_egress_tuned.yaml"
 SERVICE_PDF_DOCS, SERVICE_PDF_TEXTS = 2, 64
@@ -3672,6 +3694,57 @@ def document_corpus(texts, extra, pdf_docs: int = PDF_DOCS,
     return docs
 
 
+def html_documents() -> list[tuple[str, bytes, None]]:
+    """``tests/utils/html_docs.py``'s documents from the oracle chunks."""
+    texts = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
+    return [(name, data, None) for name, data in load_test_util(HTML_DOCS).build_html_documents(texts)]
+
+
+def check_html_oracle(docs) -> tuple[float, int]:
+    """Each HTML document is the oracle's (its sha256) and its elements
+    (``html_elements``) equal the JAX package's, field for field; the
+    elements of each seeded malformed page (``tests/utils/html_pages.py``)
+    have the oracle's digest. Returns the parse's ms a document and the
+    elements' count."""
+    import dataclasses
+    import hashlib
+
+    from dial_rag_tpu_torch.documents.elements import html_elements
+
+    oracle = json.loads(HTML_ORACLE.read_text())
+    digests = oracle.pop("generated")
+    if sorted(oracle) != sorted(name for name, _, _ in docs):
+        raise RuntimeError(f"HTML documents {sorted(n for n, _, _ in docs)} are not the oracle's {sorted(oracle)}")
+    pages = load_test_util(HTML_PAGES)
+    for seed, digest in enumerate(digests):
+        rows = [dataclasses.asdict(e) for e in html_elements(pages.page(seed))]
+        if hashlib.sha256(json.dumps(rows, sort_keys=True, ensure_ascii=False).encode()).hexdigest() != digest:
+            raise RuntimeError(f"generated HTML page {seed}: its elements are not the JAX package's (digest)")
+    seconds, count = 0.0, 0
+    for name, data, _ in docs:
+        if hashlib.sha256(data).hexdigest() != oracle[name]["sha256"]:
+            raise RuntimeError(f"{name}: the document built here is not the one the oracle was written for")
+        t0 = time.perf_counter()
+        elements = html_elements(data)
+        seconds += time.perf_counter() - t0
+        got, want = [dataclasses.asdict(e) for e in elements], oracle[name]["elements"]
+        if got != want:
+            at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+            raise RuntimeError(f"{name}: element {at} is {got[at:at + 1]}, the JAX package's {want[at:at + 1]} "
+                               f"({len(got)} elements, the JAX package {len(want)})")
+        count += len(got)
+    return seconds * 1e3 / len(docs), count
+
+
+def image_documents() -> list[tuple[str, bytes, None]]:
+    return [(name, (IMAGE_FIXTURES / name).read_bytes(), None) for name in IMAGE_DOCS]
+
+
+def fixture_pages(name: str, decoded) -> int:
+    """How many pages (frames) PIL read in the committed image fixture."""
+    return sum(key.startswith(name + "@") for key in decoded.files)
+
+
 def parse_one(name: str, data: bytes):
     """``detect_mime`` -> ``parse_document`` of one attachment, timed (run
     in a spawned worker process)."""
@@ -3744,12 +3817,21 @@ def document_indexing_phase(torch, card, embedder, texts, queries, workers: int 
     t0 = time.perf_counter()
     docs = document_corpus(texts, extra)
     t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    html_docs = html_documents()
+    html_ms, n_elements = check_html_oracle(html_docs)
+    print(f"HTML: {len(html_docs)} documents built from the oracle chunks (article, lists, tables, text divs, a "
+          f"malformed page, a Latin-1 page); their {n_elements} elements equal the JAX package's (tests/data/html/"
+          f"oracle.json, field for field), and so do those of the oracle's seeded malformed pages (digests); "
+          f"html_elements {html_ms:.3f} ms a document, the check {time.perf_counter() - t0:.2f} s (host)", flush=True)
+    docs += html_docs + image_documents()
     by_format = collections.defaultdict(lambda: collections.Counter())
     for name, data, _ in docs:
         by_format[name.rsplit(".", 1)[1]].update(documents=1, bytes=len(data))
     print(f"document corpus: {len(docs)} documents, {sum(len(d) for _, d, _ in docs) / 2**20:.2f} MiB, written in "
           f"{t_corpus:.2f} s (host)", flush=True)
 
+    image_decoded = np.load(IMAGE_FIXTURES / "decoded.npz")
     # parse: every document in spawned worker processes (the parser is pure Python)
     workers = workers or min(len(docs), os.cpu_count() or 1, 8)
     t0 = time.perf_counter()
@@ -3762,6 +3844,9 @@ def document_indexing_phase(torch, card, embedder, texts, queries, workers: int 
         by_format[fmt].update(pages=len(pages), chunks=len(chunks), parse_us=int(seconds * 1e6))
         if page_texts is not None:
             check_pdf_words(name, chunks, page_texts)
+        if name in IMAGE_DOCS and sorted(pages) != list(range(1, fixture_pages(name, image_decoded) + 1)):
+            raise RuntimeError(f"{name}: chunks name pages {sorted(pages)}, PIL reads "
+                               f"{fixture_pages(name, image_decoded)}")
     n_chunks = sum(len(c) for _, c, _ in parsed)
     for fmt, c in by_format.items():
         rate = f"{c['pages'] / (c['parse_us'] / 1e6):.1f} pages/s, " if c["pages"] else ""
@@ -3770,7 +3855,7 @@ def document_indexing_phase(torch, card, embedder, texts, queries, workers: int 
               f"{c['chunks'] / (c['parse_us'] / 1e6):.1f} chunks/s")
     print(f"parse: {len(docs)} documents, {n_chunks} chunks in {t_parse:.2f} s of wall over {workers} spawned "
           f"worker processes, their start and imports included; every PDF page's chunks hold its text word for "
-          f"word (host)", flush=True)
+          f"word; each image document has a chunk a page, as many pages as PIL reads (host)", flush=True)
 
     # index: the bf16 semantic index on the card (kernels 1-2), the BM25 text index on the host
     chunk_lists = [c for _, c, _ in parsed]
@@ -4325,12 +4410,92 @@ def service_phase(torch, card, texts) -> dict:
         raise RuntimeError("a tensor of the app's embedders is not on the card")
     print(f"service: the app's embedders (alps-semantic and {len(application._li_embedders)} late-interaction "
           f"checkpoint) hold {len(tensors)} tensors, every one on cuda; app boot {t_boot:.2f} s {card}")
+    for name, n in html_service_request(torch, card).items():
+        result[name] = result.get(name, 0) + n
     print(f"service phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return result
 
 
+def html_service_request(torch, card) -> dict:
+    """One rag chat-completion request over HTTP with an HTML attachment
+    (``html_documents()``'s article) to the port's app in its default
+    configuration (the production loader, no preset; alps-semantic as the
+    embedder), on the standard-library fake Dial Core: the page parsed on
+    the card's host, its chunks encoded on the card (kernels 1-2) and
+    retrieved, the scripted answer returned with its citation rewritten.
+    Gates: status 200, the document's chunk count the host parser's, the
+    answer the rewritten script, the cited reference one of the page's
+    chunks. Returns kernels 1-2's launches in the request."""
+    import asyncio
+
+    from dial_rag_tpu_torch.documents.parser import parse_document
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.service import app as app_module
+    from dial_rag_tpu_torch.service import http
+    from dial_rag_tpu_torch.service.config import load_app_config
+
+    t_all = time.perf_counter()
+    name, data, _ = html_documents()[0]
+    link = f"files/chip-smoke/{name}"
+    chunks = parse_document(data, "text/html", source_link=link, display_name=name)
+    query = " ".join(chunks[min(2, len(chunks) - 1)].text.split()[-12:-4])
+    fake = load_fake_dial().FakeDialCore()
+    dial_url = fake.start_sync()
+    fake.add_file(link, data, "text/html")
+    fake.script_llm("The page answers it <[1]>.")
+    body = {"messages": [{"role": "user", "content": query, "custom_content": {"attachments": [{"url": link}]}}]}
+
+    async def post(app):
+        server = await http.serve(app)
+        try:
+            async with http.ClientSession(base_url=f"http://127.0.0.1:{server.port}/",
+                                          timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
+                async with s.post(CHAT_PATH, headers={"api-key": "chip-smoke"}, json=body) as r:
+                    return r.status, await r.read()
+        finally:
+            await server.close()
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_html_") as root:
+            config = load_app_config(environ={"DIAL_URL": dial_url, "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root,
+                                              "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT)})
+            app = app_module.create_app(config)
+            torch.cuda.synchronize()
+            fe.reset_launches()
+            t0 = time.perf_counter()
+            status, raw = asyncio.run(post(app))
+            torch.cuda.synchronize()
+            t_request = time.perf_counter() - t0
+    finally:
+        fake.stop_sync()
+    if status != 200:
+        raise RuntimeError(f"the rag request with an HTML attachment failed: {status} {raw[:400]!r}")
+    launches = {k: fe.LAUNCHES[k] for k in ("fused_attention_block", "fused_ffn_block")}
+    if not all(launches.values()):
+        raise RuntimeError(f"the HTML request launched no encoder kernel: {launches}")
+    message = json.loads(raw)["choices"][0]["message"]
+    stages = message["custom_content"]["stages"]
+    processed = [st for st in stages if st["name"].startswith("Processing document")]
+    got_chunks = [int(st["content"].rsplit("Chunks: ", 1)[1].split()[0]) for st in processed]
+    if got_chunks != [len(chunks)]:
+        raise RuntimeError(f"the HTML attachment was indexed as {got_chunks} chunks, the host parser gives "
+                           f"{len(chunks)}")
+    cited = [a for a in message["custom_content"].get("attachments", []) if a.get("title", "").startswith("[1] ")]
+    if message["content"] != "The page answers it [1]." or len(cited) != 1 or cited[0]["data"] not in {
+            c.text for c in chunks}:
+        raise RuntimeError(f"the HTML request's answer {message['content']!r} or its reference "
+                           f"{[a.get('title') for a in cited]} is not the page's")
+    print(f"service, default configuration: a rag request with an HTML attachment ({name}, {len(data)} B, "
+          f"{len(chunks)} chunks) over HTTP, {t_request:.3f} s of wall (app boot and request "
+          f"{time.perf_counter() - t_all:.3f} s); the answer's [1] is one of the page's chunks; kernels 1-2 "
+          f"launches {launches} {card}", flush=True)
+    return launches
+
+
 PAGE_PRESETS = ("config/azure_description.yaml", "config/gcp_embedding.yaml")
 PAGE_PDFS, PAGE_PDF_PAGES = 2, 32
+PROGRESSIVE_PDF_PAGES = 4
+GIF_DOC = "frames.gif"  # the multi-frame GIF document the multimodal preset indexes
 PAGE_QUERIES = 4
 JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
 IMAGE_PDF = ROOT / "tests" / "utils" / "image_pdf.py"
@@ -4377,6 +4542,20 @@ def page_image_pdfs(texts, np) -> list[bytes]:
             lines += [(72, 380 - 14 * i, 10, line) for i, line in enumerate(body)]
             pages.append((lines, images))
         pdfs.append(image_pdf.build_image_pdf(pages))
+    # and a PDF of PROGRESSIVE_PDF_PAGES pages, each with a committed progressive DCT fixture
+    progressive = []
+    for name in sorted(p.name for p in IMAGE_FIXTURES.glob("progressive_*.jpg")):
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        w, h, c = read_header(data)
+        progressive.append(("dct", data, w, h, c))
+    pages = []
+    for p in range(PROGRESSIVE_PDF_PAGES):
+        k = PAGE_PDFS * PAGE_PDF_PAGES + p
+        body = textwrap.wrap(pdf_safe(texts[k % len(texts)]), PDF_LINE_CHARS, break_long_words=False)[:12]
+        lines = [(72, 760, 14, f"Document {PAGE_PDFS} page {p + 1}")]
+        lines += [(72, 380 - 14 * i, 10, line) for i, line in enumerate(body)]
+        pages.append((lines, [(300 - 20 * p, 430 + 10 * p, 240, 180, progressive[p % len(progressive)])]))
+    pdfs.append(image_pdf.build_image_pdf(pages))
     return pdfs
 
 
@@ -4471,18 +4650,23 @@ def page_images_phase(torch, card, texts) -> dict:
     """Page images and the image arms through the DIAL service on the card.
 
     First the native JPEG core against the committed fixtures' PIL decode
-    (tests/data/jpeg, at most JPEG_LEVELS a channel) and the host codecs
-    timed. Then the app booted from config/azure_description.yaml (the
+    (tests/data/jpeg, at most JPEG_LEVELS a channel), the image fixtures
+    of tests/data/images against PIL's pixels (PNG, BMP and GIF equal,
+    progressive JPEG within JPEG_LEVELS) and the host codecs timed. Then
+    the app booted from config/azure_description.yaml (the
     description arm: a scripted vision LLM describes each page, the pieces
     encoded by alps-semantic in bf16, kernels 1-2) and from
     config/gcp_embedding.yaml (the multimodal arm: the fake's image
     embeddings, a continuous function of the decoded page,
     tests/utils/page_embeddings.py), each on the standard-library fake
     Dial Core: an indexing request over PAGE_PDFS PDFs of PAGE_PDF_PAGES
-    pages with Flate and DCT images, retrieval requests, and a streamed
-    rag request with 4 page images at 1536 px. Gates: each page image the
-    answer model receives decodes (the port's PNG reader) to its page's
-    size and layout's line ink, and equals render_page's; the arm's hits
+    pages with Flate and DCT images and a PDF of PROGRESSIVE_PDF_PAGES
+    pages with progressive DCT images (and for the multimodal arm the
+    frames of the GIF document GIF_DOC), retrieval requests, and a
+    streamed rag request with 4 page images at 1536 px. Gates: each page
+    image the answer model receives decodes (the port's PNG reader) to
+    its page's size and layout's line ink, and equals render_page's (or
+    is one of the GIF's pages); the arm's hits
     on the card equal the same retriever's on the CPU over the same
     records (the description arm's up to swaps of adjacent hits within
     twice the largest card-vs-CPU score change of a hit that the run
@@ -4534,6 +4718,49 @@ def page_images_phase(torch, card, texts) -> dict:
           f"render {render_ms[800]:.1f} ms a page at 800 px, {render_ms[1536]:.1f} ms at 1536 px; PNG encode "
           f"{png_ms:.1f} ms ({len(png)} B, {pages[0].shape[1]} x {pages[0].shape[0]}) {card}", flush=True)
 
+    # the image fixtures (progressive JPEG, Adam7 PNG, BMP, GIF) against PIL's pixels
+    from dial_rag_tpu_torch.documents.mime import sniff_mime
+    from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
+    from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
+
+    t_fixtures = time.perf_counter()
+    fixtures = np.load(IMAGE_FIXTURES / "decoded.npz")
+    names = sorted(p.name for p in IMAGE_FIXTURES.iterdir() if p.suffix != ".npz")
+    progressive_gap, n_pages = 0, 0
+    for name in names:
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        got = _extract_pages_sync(sniff_mime(data), data, None, None)
+        if len(got) != fixture_pages(name, fixtures):
+            raise RuntimeError(f"image fixture {name}: {len(got)} pages, PIL reads {fixture_pages(name, fixtures)}")
+        for i, page in enumerate(got, start=1):
+            want = fixtures[f"{name}@{i}"]
+            if page.shape != want.shape:
+                raise RuntimeError(f"image fixture {name} page {i}: {page.shape}, PIL's {want.shape}")
+            gap = int(np.abs(page.astype(np.int64) - want).max())
+            if name.endswith(".jpg"):
+                progressive_gap = max(progressive_gap, gap)
+            elif gap:
+                raise RuntimeError(f"image fixture {name} page {i} is {gap} levels from PIL's pixels (must be equal)")
+            n_pages += 1
+    if progressive_gap > JPEG_LEVELS:
+        raise RuntimeError(f"progressive JPEG fixtures are {progressive_gap} levels from PIL's (limit {JPEG_LEVELS})")
+    prog = (IMAGE_FIXTURES / "progressive_422_q85.jpg").read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        decode_jpeg(prog)
+    prog_mb_s = 20 * len(prog) / (time.perf_counter() - t0) / 1e6
+    gifs = [(IMAGE_FIXTURES / n).read_bytes() for n in names if n.endswith(".gif")]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        for g in gifs:
+            decode_gif_frames(g)
+    gif_mb_s = 20 * sum(map(len, gifs)) / (time.perf_counter() - t0) / 1e6
+    print(f"image fixtures: {len(names)} files, {n_pages} pages (progressive JPEG, Adam7 PNG, 1-, 4-, 8- and "
+          f"16-bit and RLE BMP, OS/2 headers, GIF frames); PNG, BMP and GIF equal to PIL's pixels, progressive "
+          f"JPEG within {progressive_gap} levels (limit {JPEG_LEVELS}); progressive JPEG {prog_mb_s:.2f} MB/s "
+          f"({len(prog)} B, 384 x 288, 4:2:2), GIF {gif_mb_s:.2f} MB/s of GIF bytes (every frame composited, "
+          f"{sum(map(len, gifs))} B); checks and timings {time.perf_counter() - t_fixtures:.2f} s {card}", flush=True)
+
     fake_dial = load_fake_dial()
     embeddings = load_test_util(PAGE_EMBEDDINGS)
 
@@ -4562,7 +4789,9 @@ def page_images_phase(torch, card, texts) -> dict:
         return "The pages answer the question."
 
     queries = [" ".join(pdf_safe(texts[k]).split()[:8]) for k in range(0, PAGE_QUERIES * 5, 5)]
-    links = [f"files/chip-smoke/pages-{d}.pdf" for d in range(PAGE_PDFS)]
+    links = [f"files/chip-smoke/pages-{d}.pdf" for d in range(len(pdfs))]
+    gif_link, gif = f"files/chip-smoke/{GIF_DOC}", (IMAGE_FIXTURES / GIF_DOC).read_bytes()
+    gif_pages = _extract_pages_sync("image/gif", gif, None, 1536)
     launches = collections.Counter()
     described = []  # the description encodes' batches of one indexing request
     original_embed = BgeEmbedder.embed_documents
@@ -4583,12 +4812,12 @@ def page_images_phase(torch, card, texts) -> dict:
         loaded["records"] = [r.doc_record for r in results]
         return results
 
-    async def drive(app, fake, preset, boot):
+    async def drive(app, fake, preset, boot, attached):
         server = await http.serve(app)
         application = app["dial_rag"]
         base = f"http://127.0.0.1:{server.port}/"
         headers = {"api-key": "chip-smoke"}
-        message = {"role": "user", "content": "", "custom_content": {"attachments": [{"url": u} for u in links]}}
+        message = {"role": "user", "content": "", "custom_content": {"attachments": [{"url": u} for u in attached]}}
         try:
             async with http.ClientSession(base_url=base, timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
                 async def post(payload):
@@ -4663,8 +4892,12 @@ def page_images_phase(torch, card, texts) -> dict:
                 marks["rag"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 layouts = [page_layouts(pdf, 1536) for pdf in pdfs]
-                pages_seen = [check_page_image(np, decode_png(base64.b64decode(u.split(",", 1)[1])), pdfs, layouts,
-                                               1536) for u in images]
+                pages_seen = []
+                for u in images:
+                    image = decode_png(base64.b64decode(u.split(",", 1)[1]))
+                    frame = next((i for i, g in enumerate(gif_pages, 1) if np.array_equal(g, image)), None)
+                    pages_seen.append((GIF_DOC, frame) if frame and gif_link in attached
+                                      else check_page_image(np, image, pdfs, layouts, 1536))
                 marks["image checks"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 # the arm's hits on the card against the same retriever on the CPU
@@ -4703,7 +4936,9 @@ def page_images_phase(torch, card, texts) -> dict:
                         swaps.append(swap)
                 marks["hits against the CPU"] = time.perf_counter() - t0
                 print(f"page images {preset}: indexing {PAGE_PDFS} PDFs of {PAGE_PDF_PAGES} pages (Flate and DCT "
-                      f"images) {t_index:.3f} s of wall, stages {json.dumps(seconds)}; bf16 kernels 1-2 launches "
+                      f"images), a PDF of {PROGRESSIVE_PDF_PAGES} pages with progressive DCT images"
+                      + (f", the {len(gif_pages)}-frame GIF {GIF_DOC}" if gif_link in attached else "")
+                      + f" {t_index:.3f} s of wall, stages {json.dumps(seconds)}; bf16 kernels 1-2 launches "
                       f"{launched}; description encodes {len(described)} calls, device {encode_ms:.3f} ms "
                       f"(profiler); rag first chunk {first_ms:.1f} ms with 4 page images at 1536 px rendered anew, "
                       f"pages {pages_seen}, each at its layout's size and line ink; {arm} hits on the card equal "
@@ -4721,6 +4956,10 @@ def page_images_phase(torch, card, texts) -> dict:
         fake_url = fake.start_sync()
         for link, pdf in zip(links, pdfs):
             fake.add_file(link, pdf, "application/pdf")
+        attached = list(links)
+        if "gcp_embedding" in preset:  # the multimodal arm indexes the GIF's frames too
+            fake.add_file(gif_link, gif, "image/gif")
+            attached.append(gif_link)
         fake.script_llm(respond)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_pages_") as root:
             app_config = load_app_config(environ={
@@ -4732,7 +4971,7 @@ def page_images_phase(torch, card, texts) -> dict:
             try:
                 t0 = time.perf_counter()
                 app = app_module.create_app(app_config)
-                asyncio.run(drive(app, fake, preset, time.perf_counter() - t0))
+                asyncio.run(drive(app, fake, preset, time.perf_counter() - t0, attached))
             finally:
                 BgeEmbedder.embed_documents = original_embed
                 app_module.load_documents = original_load
@@ -5046,7 +5285,7 @@ def main() -> int:
     phase("build")
     def build_cores() -> float:
         t0 = time.perf_counter()
-        for name in ("keywords", "wordpiece", "chargram", "jpeg"):
+        for name in ("keywords", "wordpiece", "chargram", "jpeg", "gif"):
             load_native(name)
         return time.perf_counter() - t0
 
@@ -5054,7 +5293,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         cores = pool.submit(build_cores)
         build = build_kernels()
-        print(f"build: C++ host cores native/keywords.cpp, native/wordpiece.cpp and native/chargram.cpp (g++) "
+        print(f"build: C++ host cores native/keywords.cpp, wordpiece.cpp, chargram.cpp, jpeg.cpp and gif.cpp (g++) "
               f"{cores.result():.2f} s")
     print(f"build: {build.seconds:.2f} s (nvcc, all sources in parallel)"
           if build.seconds else "build: found built for these sources in dial_rag_tpu_torch/_build")

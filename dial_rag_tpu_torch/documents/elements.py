@@ -1,7 +1,8 @@
 """Format-specific parsers producing chunkable Elements.
 
-PDF uses the first-party parser (documents/pdf/); HTML uses bs4/lxml
-(baked-in pure parsing libs); plain text / markdown / CSV are first-party.
+PDF uses the first-party parser (documents/pdf/); HTML the port's own
+parser on the standard library's html.parser (documents/_html.py);
+plain text / markdown / CSV are first-party.
 Each parser returns a flat Element list in reading order with Title
 elements marking section starts for the by-title chunker."""
 
@@ -9,6 +10,7 @@ import csv
 import io
 import re
 
+from dial_rag_tpu_torch.documents._html import parse_html
 from dial_rag_tpu_torch.documents.mime import (
     MIME_CSV,
     MIME_HTML,
@@ -63,9 +65,7 @@ def _div_direct_text(tag) -> str:
 
 
 def html_elements(data: bytes, mime: str = MIME_HTML) -> list[Element]:
-    from bs4 import BeautifulSoup
-
-    soup = BeautifulSoup(data, "lxml")
+    soup = parse_html(data)
     for tag in soup.find_all(_HTML_SKIP_TAGS):
         tag.decompose()
 

@@ -46,11 +46,16 @@ def extract_number_of_pages(mime_type: str, data: bytes) -> int:
 
         return PdfDocument(data).num_pages
     if mime_type in IMAGE_MIMES:
-        # the PNG, JPEG and BMP headers (one frame each) without PIL; other
-        # image formats raise NotPortedError naming ROADMAP item 9d
+        # without PIL: a GIF's frames (Pillow's n_frames), else one frame
+        # once the PNG, JPEG or BMP header reads; other image formats raise
+        # NotPortedError naming ROADMAP item 9d
         from dial_rag_tpu_torch.image_processor.extract_pages import image_format
 
         kind = image_format(data)
+        if kind == "gif":
+            from dial_rag_tpu_torch.image_processor.gif import frame_count
+
+            return frame_count(data)
         if kind == "png":
             from dial_rag_tpu_torch.image_processor.png import read_header
         elif kind == "jpeg":

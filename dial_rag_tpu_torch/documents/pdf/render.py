@@ -1,7 +1,8 @@
 """First-party PDF page rasterizer without PIL (mirror of the JAX
 package's ``documents/pdf/render.py``, its geometry line for line):
 
-- embedded raster images (DCT through the port's baseline JPEG decoder,
+- embedded raster images (DCT through the port's JPEG decoder, sequential
+  and progressive,
   Flate RGB, Gray and CMYK bitmaps through numpy) are resampled with
   LANCZOS into their CTM rectangles and pasted, clipped at the canvas
   edges;
@@ -9,8 +10,9 @@ package's ``documents/pdf/render.py``, its geometry line for line):
   draws it in (``_font.py``: Aileron Regular, the auto-hinter's advances;
   the ink within a few per cent of Pillow's, not equal to it).
 
-Pages are [H, W, 3] uint8 arrays. JPX (JPEG 2000) images and progressive
-JPEGs raise ``NotPortedError`` (ROADMAP item 9d); an image the JAX package
+Pages are [H, W, 3] uint8 arrays. JPX (JPEG 2000) images and the JPEGs
+the decoder does not read (arithmetic-coded, lossless, 12-bit) raise
+``NotPortedError`` (ROADMAP item 9d); an image the JAX package
 would fail to decode (a ``PdfError``, ``zlib.error`` or ``ValueError``, or
 corrupt JPEG data) is skipped, as there."""
 

@@ -1,6 +1,6 @@
 """Page images without PIL: PDF pages rendered by
 ``documents/pdf/render.py``, image documents decoded by the port's PNG,
-JPEG and BMP readers, LANCZOS resizing, and base64 PNG encoding. Pages
+JPEG, BMP and GIF readers, LANCZOS resizing, and base64 PNG encoding. Pages
 are [H, W, 3] uint8 arrays."""
 
 from dial_rag_tpu_torch.image_processor.base64_utils import image_as_base64

@@ -2,11 +2,12 @@
 ``image_processor/extract_pages.py``, without PIL): PDFs render through
 the port's rasterizer (``documents/pdf/render.py``); image documents decode
 through the port's codecs, chosen by the bytes' magic as ``Image.open``
-chooses: PNG (``png.py``), baseline JPEG (``jpeg.py``, the native core)
-and BMP (``bmp.py``). GIF, TIFF and WebP documents, and animated PNGs,
-raise ``NotPortedError`` (ROADMAP item 9d). Rendering runs in a
-single-worker executor, as in the JAX package. Pages are [H, W, 3] uint8
-arrays."""
+chooses: PNG (``png.py``), JPEG (``jpeg.py``, the native core), BMP
+(``bmp.py``) and GIF (``gif.py``, the native LZW core; a GIF is a
+document of one page a frame, as Pillow's ``n_frames`` counts them).
+TIFF and WebP documents, and animated PNGs, raise ``NotPortedError``
+(ROADMAP item 9d). Rendering runs in a single-worker executor, as in the
+JAX package. Pages are [H, W, 3] uint8 arrays."""
 
 import asyncio
 from typing import AsyncIterator
@@ -38,9 +39,9 @@ def are_image_pages_supported(mime_type: str) -> bool:
 
 
 def image_format(data: bytes) -> str:
-    """The image format of ``data`` by its magic: "png", "jpeg" or "bmp";
-    the formats the port does not read raise NotPortedError (item 9d),
-    bytes of no image format InvalidDocumentError."""
+    """The image format of ``data`` by its magic: "png", "jpeg", "bmp" or
+    "gif"; the formats the port does not read raise NotPortedError (item
+    9d), bytes of no image format InvalidDocumentError."""
     kind = sniff_mime(data)
     if kind == "image/png":
         from dial_rag_tpu_torch.image_processor.png import SIGNATURE
@@ -54,15 +55,22 @@ def image_format(data: bytes) -> str:
         return "jpeg"
     if kind == "image/bmp":
         return "bmp"
-    if kind in ("image/gif", "image/tiff", "image/webp"):
+    if kind == "image/gif":
+        return "gif"
+    if kind in ("image/tiff", "image/webp"):
         raise NotPortedError(f"{kind.split('/')[1].upper()} documents are not ported yet (ROADMAP item 9d)")
     raise InvalidDocumentError("Cannot identify the image file")
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """The RGB pixels ([H, W, 3] uint8) of a PNG, JPEG or BMP document,
-    as ``Image.open(...).convert("RGB")`` gives them."""
+    """The RGB pixels ([H, W, 3] uint8) of a PNG, JPEG, BMP or GIF
+    document (a GIF's first frame), as ``Image.open(...).convert("RGB")``
+    gives them."""
     kind = image_format(data)
+    if kind == "gif":
+        from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
+
+        return decode_gif_frames(data, [1])[0]
     if kind == "png":
         from dial_rag_tpu_torch.image_processor.png import decode_png
 
@@ -79,11 +87,16 @@ def decode_image(data: bytes) -> np.ndarray:
 def _image_pages(data: bytes, page_numbers: list[int] | None, scaled_size: int | None):
     from dial_rag_tpu_torch.image_processor.resize import resize_image
 
-    # the formats the port reads hold one frame
-    for number in page_numbers or [1]:
-        if number != 1:
-            raise InvalidDocumentError(f"page {number} out of range 1..1")
-        frame = decode_image(data)
+    if image_format(data) == "gif":  # a page a frame
+        from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
+
+        frames = decode_gif_frames(data, page_numbers)
+    else:  # PNG, JPEG and BMP hold one frame
+        for number in page_numbers or [1]:
+            if number != 1:
+                raise InvalidDocumentError(f"page {number} out of range 1..1")
+        frames = [decode_image(data)] * len(page_numbers or [1])
+    for frame in frames:
         if scaled_size:
             frame = resize_image(frame, scaled_size)
         yield frame

@@ -1,9 +1,11 @@
-"""Baseline JPEG without PIL: the host core ``native/jpeg.cpp`` (built and
-loaded by ``native/build.py``; a failed build raises) decodes, and this
-module gives its samples the RGB that ``Image.open(...).convert("RGB")``
-gives: gray repeated, CMYK (read inverted, as Pillow reads it) through
-Pillow's ``cmyk2rgb``. Progressive and arithmetic-coded JPEGs, and 12-bit
-samples, raise ``NotPortedError`` (ROADMAP item 9d)."""
+"""Huffman JPEG without PIL: the host core ``native/jpeg.cpp`` (built and
+loaded by ``native/build.py``; a failed build raises) decodes sequential
+and progressive JPEGs, and this module gives its samples the RGB that
+``Image.open(...).convert("RGB")`` gives: gray repeated, CMYK (read
+inverted, as Pillow reads it) through Pillow's ``cmyk2rgb``. Lossless,
+hierarchical and arithmetic-coded JPEGs, 12-bit samples, and progressive
+JPEGs that leave low AC coefficients unrefined (which libjpeg smooths),
+raise ``NotPortedError`` (ROADMAP item 9d)."""
 
 import ctypes
 
@@ -18,8 +20,8 @@ _UNSUPPORTED = 2
 def _check(status: int) -> None:
     if status == _UNSUPPORTED:
         raise NotPortedError(
-            "Progressive, lossless, hierarchical, arithmetic-coded and 12-bit JPEG images are not "
-            "ported yet (ROADMAP item 9d)"
+            "Lossless, hierarchical, arithmetic-coded and 12-bit JPEG images, and progressive ones that "
+            "leave low AC coefficients unrefined, are not ported yet (ROADMAP item 9d)"
         )
     if status:
         raise InvalidDocumentError("The JPEG image is corrupt")
@@ -51,7 +53,7 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The RGB pixels ([H, W, 3] uint8) of a baseline JPEG."""
+    """The RGB pixels ([H, W, 3] uint8) of a sequential or progressive JPEG."""
     samples = decode_jpeg_raw(data)
     if samples.shape[2] == 1:
         return np.repeat(samples, 3, axis=2)

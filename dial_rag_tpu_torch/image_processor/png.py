@@ -8,14 +8,14 @@ nothing), deflated at zlib level 6. Per-row choice among the filters, as
 Pillow makes it, costs more than the deflate itself on a page image and
 saves about 5 per cent of the bytes.
 
-``decode_png`` reads every non-interlaced PNG of the specification (gray
+``decode_png`` reads every PNG of the specification (gray
 1/2/4/8/16-bit, gray + alpha, RGB and RGBA 8/16-bit, palette 1/2/4/8-bit,
 all five filters) into ``[H, W, 3]`` uint8 as ``Image.open(...).convert(
 "RGB")`` gives it: 16-bit samples keep their high byte, but 16-bit gray,
 which Pillow opens as ``I;16`` and clips to 255; low bit depths of gray
 are scaled to 0-255; alpha is dropped, not composited; a palette image
-takes its ``PLTE`` colours. Adam7 interlacing raises ``NotPortedError``
-(ROADMAP item 9d).
+takes its ``PLTE`` colours. Adam7-interlaced images read their seven
+passes, each unfiltered on its own, into place.
 """
 
 import struct
@@ -23,7 +23,7 @@ import zlib
 
 import numpy as np
 
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -51,7 +51,7 @@ def encode_png(image: np.ndarray) -> bytes:
 
 def read_header(data: bytes) -> tuple[int, int, int, int, int]:
     """(width, height, bit depth, colour type, interlace) of a PNG."""
-    if not data.startswith(SIGNATURE) or data[12:16] != b"IHDR":
+    if not data.startswith(SIGNATURE) or data[12:16] != b"IHDR" or len(data) < 29:
         raise InvalidDocumentError("Not a PNG image")
     w, h, depth, color, _, _, interlace = struct.unpack_from(">IIBBBBB", data, 16)
     return w, h, depth, color, interlace
@@ -113,14 +113,35 @@ def _unfilter_sequential(kind: int, row: list, prior: list, bpp: int) -> list:
     return x
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw: bytes, h: int, w: int, depth: int, channels: int) -> tuple[np.ndarray, int]:
+    """The [h, w, channels] samples (uint16 at 16 bits) of ``raw``'s first
+    h filtered scanlines, and the bytes those took."""
+    bits = depth * channels
+    stride = (w * bits + 7) // 8
+    rows = _unfilter(raw, h, stride, max(bits // 8, 1))
+    if depth < 8:
+        # unpack the samples, most significant bits first
+        per_byte = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, stride * per_byte)[:, :w]
+        return samples.reshape(h, w, 1), h * (stride + 1)
+    if depth == 16:
+        wide = rows.reshape(h, w, channels, 2).astype(np.uint16)
+        return wide[..., 0] << 8 | wide[..., 1], h * (stride + 1)
+    return rows.reshape(h, w, channels), h * (stride + 1)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """The RGB pixels ([H, W, 3] uint8) of a PNG, as Pillow's
     ``convert("RGB")`` gives them."""
     w, h, depth, color, interlace = read_header(data)
-    if interlace:
-        raise NotPortedError("Interlaced (Adam7) PNG images are not ported yet (ROADMAP item 9d)")
-    if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
+    if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or interlace not in (0, 1):
         raise InvalidDocumentError(f"PNG colour type {color} at bit depth {depth} is not defined")
+    if w * h > 178956970:  # Pillow's decompression-bomb limit
+        raise InvalidDocumentError("PNG image is too large")
     channels = _CHANNELS[color]
     palette = None
     idat = []
@@ -133,34 +154,32 @@ def decode_png(data: bytes) -> np.ndarray:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise InvalidDocumentError(f"PNG image data is corrupt: {e}") from e
-    bits = depth * channels
-    stride = (w * bits + 7) // 8
-    rows = _unfilter(raw, h, stride, max(bits // 8, 1))
-    if depth < 8:
-        # unpack the samples, most significant bits first
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        samples = samples.reshape(h, stride * per_byte)[:, :w]
-        if color == 3:
-            return _palette_rgb(samples, palette)
-        gray = (samples.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    if not interlace:
+        samples, _ = _samples(raw, h, w, depth, channels)
+    else:
+        # Adam7: seven passes, each a reduced image of its own scanlines and filters
+        samples = np.zeros((h, w, channels), dtype=np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
+            if pw and ph:
+                part, used = _samples(raw[at:], ph, pw, depth, channels)
+                samples[y0::dy, x0::dx] = part
+                at += used
+    if color == 3:
+        return _palette_rgb(samples[..., 0], palette)
+    if depth < 8:  # gray at 1, 2 or 4 bits, scaled to 0-255
+        gray = (samples[..., 0].astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
         return np.repeat(gray[:, :, None], 3, axis=2)
     if depth == 16:
-        wide = rows.reshape(h, w, channels, 2)
         if color == 0:
             # Pillow opens 16-bit gray as I;16 and clips it to 8 bits
-            value = wide[..., 0, 0].astype(np.uint16) << 8 | wide[..., 0, 1]
-            gray = np.minimum(value, 255).astype(np.uint8)
+            gray = np.minimum(samples[..., 0], 255).astype(np.uint8)
             return np.repeat(gray[:, :, None], 3, axis=2)
-        pixels = wide[..., 0]
-    else:
-        pixels = rows.reshape(h, w, channels)
-    if color == 3:
-        return _palette_rgb(pixels[..., 0], palette)
+        samples = (samples >> 8).astype(np.uint8)
     if color in (0, 4):
-        return np.repeat(pixels[..., :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
 
 
 def _palette_rgb(indexes: np.ndarray, palette) -> np.ndarray:

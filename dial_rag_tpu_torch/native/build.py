@@ -37,6 +37,11 @@ SIGNATURES = {
             ctypes.c_longlong,
         ),
     },
+    "gif": {
+        # (data, n, min_code_size, out [width * height], out_len) -> indexes written, or -1
+        "dial_gif_lzw": ([ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_longlong],
+                         ctypes.c_longlong),
+    },
     "jpeg": {
         # (data, n, info [width, height, channels]) -> status
         "dial_jpeg_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),

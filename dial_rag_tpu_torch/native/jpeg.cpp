@@ -1,10 +1,16 @@
-// Baseline JPEG decoder, the host core of the port's image path (page
+// Huffman JPEG decoder, the host core of the port's image path (page
 // images are drawn without PIL, which the card's machine lacks).
 //
-// Reads sequential Huffman JPEGs (SOF0 and SOF1) at 8 bits with 1, 3 or 4
-// components, any scan layout (interleaved or one component a scan), any
-// integral sampling factors, and restart intervals, and gives the samples
-// Pillow's JPEG plugin gets from libjpeg-turbo with its defaults:
+// Reads sequential (SOF0 and SOF1) and progressive (SOF2) Huffman JPEGs at
+// 8 bits with 1, 3 or 4 components, any scan layout (interleaved or one
+// component a scan), any integral sampling factors, and restart
+// intervals, and gives the samples Pillow's JPEG plugin gets from
+// libjpeg-turbo with its defaults:
+//   - progressive scans as jdphuff.c reads them: DC first and refinement
+//     scans (interleaved or not), AC first scans with end-of-band runs and
+//     AC refinement scans (successive approximation), into one coefficient
+//     buffer for the whole image, which then takes the sequential path's
+//     stages below;
 //   - the integer "islow" inverse DCT of jidctint.c (13-bit constants, two
 //     passes, the post-IDCT range-limit table with its wrap-around);
 //   - fancy (triangular) upsampling of jdsample.c: h2v1 and h2v2 where the
@@ -17,9 +23,11 @@
 // Adobe conventions). EXIF orientation is not applied: Image.open and
 // convert do not apply it.
 //
-// Progressive (SOF2), lossless, hierarchical and arithmetic-coded JPEGs,
-// and 12-bit samples, return UNSUPPORTED (2); the caller raises
-// for them (ROADMAP item 9d). Nothing is skipped silently.
+// Lossless, hierarchical and arithmetic-coded JPEGs, 12-bit samples, and
+// progressive JPEGs whose scans leave one of the first nine AC
+// coefficients of a component unrefined (where libjpeg smooths the
+// blocks, jdcoefct.c's block smoothing), return UNSUPPORTED (2); the
+// caller raises for them (ROADMAP item 9d). Nothing is skipped silently.
 //
 // C interface (ctypes, native/build.py):
 //   int dial_jpeg_info(data, n, info[3])   -> status; info = width, height, channels
@@ -37,11 +45,17 @@ constexpr int UNSUPPORTED = 2;
 // Pillow's decompression-bomb limit (twice MAX_IMAGE_PIXELS): larger frames are refused
 constexpr int64_t kMaxPixels = 178956970;
 
-constexpr int kZigzag[64] = {
+// zigzag -> natural order, and jpeg_natural_order's 16 guard entries: a
+// progressive run past coefficient 63 lands on 63
+constexpr int kZigzag[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+// libjpeg smooths the blocks of a progressive image while one of its
+// first SAVED_COEFS coefficients (DC and AC 1-9) is not fully refined
+constexpr int kSavedCoefs = 10;
 
 struct Huffman {
   bool defined = false;
@@ -60,6 +74,7 @@ struct Component {
   int dw = 0, dh = 0;         // downsampled width and height (samples)
   int bw = 0, bh = 0;         // block grid, padded to whole MCUs
   int pred = 0;               // DC predictor
+  int coef_bits[64];          // progressive: the Al of the last scan of each coefficient, -1 before any
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
   std::vector<uint8_t> plane; // (bw * 8) x (bh * 8) samples
 };
@@ -74,6 +89,8 @@ struct Decoder {
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   bool frame_seen = false;
+  bool progressive = false;
+  int eobrun = 0;
   uint16_t quant[4][64];
   bool quant_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -218,6 +235,7 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
     frame_seen = true;
     return OK;
@@ -249,6 +267,88 @@ struct Decoder {
     return OK;
   }
 
+  // -- progressive scans (jdphuff.c) ----------------------------------------
+
+  int decode_dc_first(Component& c, int16_t* block, int al) {
+    int s = decode(dc[c.td]);
+    if (s < 0 || s > 11) return CORRUPT;
+    int diff = s ? extend(get_bits(s), s) : 0;
+    c.pred += diff;
+    block[0] = int16_t(unsigned(c.pred) << al);
+    return OK;
+  }
+
+  void decode_dc_refine(int16_t* block, int al) {
+    if (get_bits(1)) block[0] = int16_t(block[0] | (1 << al));
+  }
+
+  int decode_ac_first(Component& c, int16_t* block, int ss, int se, int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return OK;
+    }
+    const Huffman& tac = ac[c.ta];
+    for (int k = ss; k <= se; k++) {
+      int rs = decode(tac);
+      if (rs < 0) return CORRUPT;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        block[kZigzag[k]] = int16_t(unsigned(extend(get_bits(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += get_bits(r);
+        eobrun--;
+        break;
+      }
+    }
+    return OK;
+  }
+
+  int decode_ac_refine(Component& c, int16_t* block, int ss, int se, int al) {
+    const Huffman& tac = ac[c.ta];
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    auto refine = [&](int16_t& coef) {
+      if (get_bits(1) && (coef & p1) == 0) coef = int16_t(coef >= 0 ? coef + p1 : coef + m1);
+    };
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = decode(tac);
+        if (rs < 0) return CORRUPT;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = get_bits(1) ? p1 : m1;  // a newly nonzero coefficient is +-1 at this bit
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += get_bits(r);
+          break;  // the rest of the band goes as an end-of-band run
+        }
+        // pass over nonzero coefficients (each takes a correction bit) and r zeros
+        do {
+          int16_t& coef = block[kZigzag[k]];
+          if (coef != 0) {
+            refine(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) block[kZigzag[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t& coef = block[kZigzag[k]];
+        if (coef != 0) refine(coef);
+      }
+      eobrun--;
+    }
+    return OK;
+  }
+
   void restart(Component** scomp, int ns) {
     bits = 0;
     nbits = 0;
@@ -260,6 +360,7 @@ struct Decoder {
     }
     if (pos + 1 < n && data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) pos += 2;
     for (int i = 0; i < ns; i++) scomp[i]->pred = 0;
+    eobrun = 0;
   }
 
   int read_scan(size_t at, size_t end) {
@@ -276,10 +377,28 @@ struct Decoder {
       if (!found) return CORRUPT;
       found->td = tables >> 4;
       found->ta = tables & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined || !ac[found->ta].defined) return CORRUPT;
+      if (found->td > 3 || found->ta > 3) return CORRUPT;
       found->pred = 0;
       scomp[i] = found;
     }
+    int ss = data[at + 1 + 2 * ns], se = data[at + 2 + 2 * ns];
+    int ah = data[at + 3 + 2 * ns] >> 4, al = data[at + 3 + 2 * ns] & 15;
+    if (progressive) {
+      // jdphuff.c's progression checks
+      if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) return CORRUPT;
+      if (al > 13 || (ah && ah - 1 != al)) return CORRUPT;
+      for (int i = 0; i < ns; i++) {
+        int* bits = scomp[i]->coef_bits;
+        for (int k = ss; k <= se; k++) bits[k] = al;
+      }
+    } else {
+      ss = 0, se = 63, ah = al = 0;
+    }
+    for (int i = 0; i < ns; i++) {
+      bool need_dc = ss == 0 && ah == 0, need_ac = se > 0;
+      if ((need_dc && !dc[scomp[i]->td].defined) || (need_ac && !ac[scomp[i]->ta].defined)) return CORRUPT;
+    }
+    eobrun = 0;
     pos = end;
     bits = 0;
     nbits = 0;
@@ -304,15 +423,26 @@ struct Decoder {
         }
         for (int i = 0; i < ns; i++) {
           Component& c = *scomp[i];
+          auto one = [&](int16_t* block) {
+            if (!progressive) return decode_block(c, block);
+            if (ss == 0) {
+              if (ah) {
+                decode_dc_refine(block, al);
+                return OK;
+              }
+              return decode_dc_first(c, block, al);
+            }
+            return ah ? decode_ac_refine(c, block, ss, se, al) : decode_ac_first(c, block, ss, se, al);
+          };
           if (ns == 1) {
-            int st = decode_block(c, &c.coef[(size_t(my) * c.bw + mx) * 64]);
+            int st = one(&c.coef[(size_t(my) * c.bw + mx) * 64]);
             if (st) return st;
             continue;
           }
           for (int v = 0; v < c.v; v++)
             for (int h = 0; h < c.h; h++) {
               size_t b = size_t(my * c.v + v) * c.bw + size_t(mx * c.h + h);
-              int st = decode_block(c, &c.coef[b * 64]);
+              int st = one(&c.coef[b * 64]);
               if (st) return st;
             }
         }
@@ -346,11 +476,12 @@ struct Decoder {
       size_t at = pos + 4, end = pos + 2 + len;
       if (len < 2 || end > n) return CORRUPT;
       int st = OK;
-      if (marker == 0xC0 || marker == 0xC1) {
+      if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
+        progressive = marker == 0xC2;
         st = read_sof(at, end);
         if (!st && header_only) return OK;
       } else if ((marker >= 0xC2 && marker <= 0xCF) && marker != 0xC4 && marker != 0xC8 && marker != 0xCC) {
-        return UNSUPPORTED;  // progressive, lossless, hierarchical, arithmetic
+        return UNSUPPORTED;  // lossless, hierarchical, arithmetic
       } else if (marker == 0xCC) {
         return UNSUPPORTED;  // arithmetic conditioning
       } else if (marker == 0xC4) {
@@ -376,7 +507,18 @@ struct Decoder {
       if (st) return st;
       pos = end;
     }
-    return frame_seen ? OK : CORRUPT;
+    if (!frame_seen) return CORRUPT;
+    if (progressive && !header_only) {
+      // jdcoefct.c's smoothing_ok: every component's DC known, and some
+      // component's AC 1-9 not fully refined
+      bool dc_known = true, unrefined = false;
+      for (int i = 0; i < ncomp; i++) {
+        dc_known = dc_known && comp[i].coef_bits[0] >= 0;
+        for (int k = 1; k < kSavedCoefs; k++) unrefined = unrefined || comp[i].coef_bits[k] != 0;
+      }
+      if (dc_known && unrefined) return UNSUPPORTED;
+    }
+    return OK;
   }
 
   // -- islow inverse DCT (jidctint.c) ----------------------------------------

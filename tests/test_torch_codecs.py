@@ -3,10 +3,11 @@ the CPU (PIL is the JAX package's path: ``Image.open(...).convert("RGB")``
 and ``Image.resize(..., Image.LANCZOS)``).
 
 Tolerances, stated before any comparison:
-- PNG and BMP decode: equal (lossless formats; PIL's ``convert("RGB")``
-  semantics, alpha dropped, not composited);
-- baseline JPEG decode (``native/jpeg.cpp``): at most JPEG_LEVELS per
-  channel of PIL's libjpeg-turbo decode (islow IDCT, fancy upsampling);
+- PNG (Adam7 too), BMP and GIF decode: equal (lossless formats; PIL's
+  ``convert("RGB")`` semantics, alpha dropped, not composited);
+- sequential and progressive JPEG decode (``native/jpeg.cpp``): at most
+  JPEG_LEVELS per channel of PIL's libjpeg-turbo decode (islow IDCT,
+  fancy upsampling);
 - LANCZOS resampling: at most RESIZE_LEVELS of PIL's;
 - Pillow's CMYK -> RGB: equal.
 Inputs are made from seeds with numpy; PIL writes the files.
@@ -33,6 +34,7 @@ from dial_rag_tpu_torch.image_processor.extract_pages import decode_image, extra
 from dial_rag_tpu_torch.image_processor.jpeg import cmyk_to_rgb, decode_jpeg, decode_jpeg_raw
 from dial_rag_tpu_torch.image_processor.png import decode_png, encode_png
 from dial_rag_tpu_torch.image_processor.resize import resize_lanczos
+from tests.utils import image_encoders
 
 JPEG_LEVELS = 2
 RESIZE_LEVELS = 1
@@ -135,11 +137,15 @@ def test_png_encode_round_trips_through_pil(shape):
 
 
 def test_png_interlaced_raises_item_9d():
+    """Adam7 PNGs, once refused (ROADMAP item 9d), now decode as PIL reads
+    them: RGB with every filter, and 2-bit gray (passes of a few pixels)."""
     data = saved(Image.fromarray(BASE), "PNG")
-    interlaced = bytearray(raw_png(BASE, 8, 2))
-    interlaced[28] = 1  # IHDR's interlace byte
-    with pytest.raises(NotPortedError, match="9d"):
-        decode_png(bytes(interlaced))
+    interlaced = image_encoders.png(BASE, 8, 2)
+    assert interlaced[28] == 1  # IHDR's interlace byte
+    assert np.array_equal(decode_png(interlaced), pil_rgb(interlaced))
+    assert np.array_equal(decode_png(interlaced), BASE)
+    gray2 = image_encoders.png(RAW_MODES["gray2"][0], 2, 0)
+    assert np.array_equal(decode_png(gray2), pil_rgb(gray2))
     assert np.array_equal(decode_png(data), BASE)
 
 
@@ -192,9 +198,16 @@ def test_jpeg_adobe_rgb_and_ycck_match_pil():
 
 
 def test_jpeg_progressive_raises_item_9d():
+    """Progressive JPEGs, once refused (ROADMAP item 9d), now decode as PIL
+    reads them; an arithmetic-coded frame (SOF9) still raises
+    NotPortedError naming item 9d, and bytes that are no JPEG
+    InvalidDocumentError."""
     data = saved(Image.fromarray(photo(40, 40)), "JPEG", quality=80, progressive=True)
+    assert b"\xff\xc2" in data  # SOF2
+    assert np.abs(decode_jpeg(data).astype(int) - pil_rgb(data)).max() <= JPEG_LEVELS
+    arithmetic = saved(Image.fromarray(photo(40, 40)), "JPEG", quality=80).replace(b"\xff\xc0", b"\xff\xc9", 1)
     with pytest.raises(NotPortedError, match="9d"):
-        decode_jpeg(data)
+        decode_jpeg(arithmetic)
     with pytest.raises(InvalidDocumentError):
         decode_jpeg(b"\xff\xd8\xff\xe0 not a jpeg")
 
@@ -239,10 +252,15 @@ def test_bmp_matches_pil(mode):
 
 
 def test_bmp_rle_raises_item_9d():
-    data = bytearray(saved(Image.fromarray(BASE[..., 0]), "BMP"))
-    data[30:34] = struct.pack("<I", 1)  # BI_RLE8
-    with pytest.raises(NotPortedError, match="9d"):
-        decode_bmp(bytes(data))
+    """RLE8 and RLE4 BMPs, once refused (ROADMAP item 9d), now decode as
+    PIL reads them."""
+    rng = np.random.default_rng(26)
+    palette = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    indexes = np.repeat(rng.integers(0, 16, (37, 18)), 3, axis=1)[:, :53]
+    for bits in (8, 4):
+        data = image_encoders.bmp(indexes, bits, palette, rle=True, rng=rng)
+        assert struct.unpack_from("<I", data, 30)[0] == {8: 1, 4: 2}[bits]  # BI_RLE8, BI_RLE4
+        assert np.array_equal(decode_bmp(data), pil_rgb(data))
 
 
 # -- resampling ----------------------------------------------------------------
@@ -285,7 +303,16 @@ def test_image_documents_match_the_jax_package(fmt, mime):
 
 @pytest.mark.parametrize("fmt", ["GIF", "TIFF", "WEBP"])
 def test_other_image_documents_raise_item_9d(fmt):
+    """TIFF and WebP documents still raise NotPortedError naming item 9d;
+    GIF, once among them, now reads: its page count and page as the JAX
+    package gives them."""
     data = saved(Image.fromarray(BASE), fmt)
+    if fmt == "GIF":
+        assert extract_number_of_pages("image/gif", data) == jax_number_of_pages("image/gif", data) == 1
+        assert np.array_equal(decode_image(data), pil_rgb(data))
+        ref = asyncio.run(_pages(jax_extract_pages, "image/gif", data))
+        assert np.array_equal(asyncio.run(_pages(extract_pages, "image/gif", data))[0], ref[0])
+        return
     with pytest.raises(NotPortedError, match="9d"):
         extract_number_of_pages("image/" + fmt.lower(), data)
     with pytest.raises(NotPortedError, match="9d"):

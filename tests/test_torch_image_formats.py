@@ -1,0 +1,333 @@
+"""The image formats of the port's page images held against PIL (the JAX
+package's path) on the CPU: progressive JPEG (``native/jpeg.cpp``),
+Adam7 PNG (``png.py``), the BMPs Pillow reads (``bmp.py``: 1-, 4- and
+16-bit, RLE8 and RLE4, OS/2 headers) and GIF documents (``gif.py`` on
+``native/gif.cpp``: a page a frame, composited as Pillow composites it).
+
+Tolerances, stated before any comparison:
+- PNG, BMP and GIF: equal (bit for bit);
+- progressive JPEG: equal expected, with a ceiling of JPEG_LEVELS per
+  channel (the gate of tests/test_torch_codecs.py); the largest
+  difference read is printed;
+- page counts and pages: equal to the JAX package's
+  ``extract_number_of_pages`` and ``_extract_pages_sync`` (resized pages
+  within RESIZE_LEVELS, the LANCZOS gate);
+- a PDF of progressive DCT images: its page within IMAGE_LEVELS of the
+  JAX package's render (tests/test_torch_render.py's gate).
+Inputs are the committed fixtures (tests/data/images, written by
+``python -m tests.utils.make_image_fixtures``) and seeded sets; PIL
+writes what it can, ``tests/utils/image_encoders.py`` the rest.
+"""
+
+import hashlib
+import io
+import json
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from dial_rag_tpu.documents.pdf import render as jax_render
+from dial_rag_tpu.image_processor.extract_pages import _extract_pages_sync as jax_pages
+from dial_rag_tpu.image_processor.extract_pages import extract_number_of_pages as jax_number_of_pages
+from dial_rag_tpu_torch.documents.mime import sniff_mime
+from dial_rag_tpu_torch.documents.parser import extract_number_of_pages, parse_document
+from dial_rag_tpu_torch.documents.pdf import render
+from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.image_processor.bmp import decode_bmp
+from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
+from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames, frame_count
+from dial_rag_tpu_torch.image_processor.jpeg import decode_jpeg
+from dial_rag_tpu_torch.image_processor.png import decode_png
+from tests.utils import image_encoders as enc
+from tests.utils.image_pdf import build_image_pdf
+from tests.utils.make_image_fixtures import (
+    GENERATED_PAGES,
+    HTML_ORACLE,
+    IMAGES,
+    ORACLE_CHUNKS,
+    elements_digest,
+    html_oracle,
+    image_fixtures,
+)
+from tests.utils.make_jpeg_fixtures import photo
+
+JPEG_LEVELS = 2
+RESIZE_LEVELS = 1
+IMAGE_LEVELS = 3
+FIXTURES = sorted(p.name for p in IMAGES.iterdir() if p.suffix != ".npz")
+
+
+def pil_pages(data: bytes) -> list[np.ndarray]:
+    with Image.open(io.BytesIO(data)) as im:
+        out = []
+        for i in range(getattr(im, "n_frames", 1)):
+            im.seek(i)
+            out.append(np.asarray(im.convert("RGB")))
+        return out
+
+
+def jpeg_gap(got: np.ndarray, ref: np.ndarray) -> int:
+    assert got.shape == ref.shape
+    return int(np.abs(got.astype(np.int64) - ref).max())
+
+
+# -- the committed fixtures ------------------------------------------------------
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_fixture_decodes_to_its_committed_pixels(name):
+    data = (IMAGES / name).read_bytes()
+    decoded = np.load(IMAGES / "decoded.npz")
+    ref = [decoded[f"{name}@{i}"] for i in range(1, 1 + sum(k.startswith(name + "@") for k in decoded.files))]
+    got = _extract_pages_sync(sniff_mime(data), data, None, None)
+    assert len(got) == len(ref) == extract_number_of_pages(sniff_mime(data), data)
+    for page, want in zip(got, ref):
+        if name.endswith(".jpg"):
+            gap = jpeg_gap(page, want)
+            print(f"{name}: largest difference {gap}")
+            assert gap <= JPEG_LEVELS
+        else:
+            assert page.shape == want.shape and np.array_equal(page, want)
+
+
+def test_committed_fixtures_are_what_the_maker_writes():
+    """The fixture files and their pixels are what PIL and the encoders
+    give today (the maker's seeds), so the card holds the port to PIL."""
+    files = image_fixtures()
+    assert sorted(files) == FIXTURES
+    decoded = np.load(IMAGES / "decoded.npz")
+    for name, data in files.items():
+        assert (IMAGES / name).read_bytes() == data, name
+        for i, page in enumerate(pil_pages(data), start=1):
+            assert np.array_equal(decoded[f"{name}@{i}"], page), name
+
+
+def test_committed_html_oracle_is_the_jax_packages():
+    """tests/data/html/oracle.json equals the JAX package's elements of
+    tests/utils/html_docs.py's documents and the digests of its elements
+    of tests/utils/html_pages.py's pages today (no charset guesser)."""
+    from dial_rag_tpu_torch.documents.elements import html_elements
+    from tests.utils.html_docs import build_html_documents
+    from tests.utils.html_pages import page
+
+    oracle = json.loads(HTML_ORACLE.read_text())
+    assert oracle == html_oracle()
+    texts = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
+    assert {n: hashlib.sha256(d).hexdigest() for n, d in build_html_documents(texts)} == {
+        n: v["sha256"] for n, v in oracle.items() if n != "generated"}
+    # the port's elements of the generated pages give the oracle's digests (chip_smoke reads them on the card)
+    assert [elements_digest(html_elements(page(seed))) for seed in range(GENERATED_PAGES)] == oracle["generated"]
+
+
+# -- progressive JPEG --------------------------------------------------------------
+
+PROGRESSIVE = [(mode, sub, opt, restart) for mode in ("RGB", "L", "CMYK") for sub in (0, 1, 2)
+               for opt in (False, True) for restart in (0, 2) if mode == "RGB" or sub == 0]
+
+
+@pytest.mark.parametrize("mode,subsampling,optimize,restart", PROGRESSIVE)
+def test_progressive_jpeg_matches_pil(mode, subsampling, optimize, restart):
+    rng = np.random.default_rng(PROGRESSIVE.index((mode, subsampling, optimize, restart)))
+    worst = 0
+    for shape in [(1, 1), (7, 300), (37, 53), (64, 64), tuple(rng.integers(8, 140, 2))]:
+        kw = {"quality": int(rng.integers(30, 96)), "progressive": True, "optimize": optimize}
+        if mode == "RGB":
+            kw["subsampling"] = subsampling
+        if restart:
+            kw["restart_marker_blocks"] = restart
+        buf = io.BytesIO()
+        Image.fromarray(photo(*shape, seed=int(rng.integers(1 << 30)))).convert(mode).save(buf, "JPEG", **kw)
+        data = buf.getvalue()
+        assert b"\xff\xc2" in data
+        worst = max(worst, jpeg_gap(decode_jpeg(data), pil_pages(data)[0]))
+    print(f"progressive {mode} {subsampling} optimize={optimize} restart={restart}: largest difference {worst}")
+    assert worst <= JPEG_LEVELS
+
+
+def test_progressive_jpeg_that_libjpeg_smooths_raises_item_9d():
+    """A progressive JPEG whose AC coefficients never arrive (its scans
+    stop after the DC scans): libjpeg smooths its blocks, which the port
+    does not, so it raises NotPortedError naming item 9d."""
+    buf = io.BytesIO()
+    Image.fromarray(photo(32, 32, seed=3)).save(buf, "JPEG", quality=80, progressive=True)
+    data = buf.getvalue()
+    scans = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+    cut = data[: scans[1]] + b"\xff\xd9"  # the first (DC) scan only
+    with pytest.raises(NotPortedError, match="9d"):
+        decode_jpeg(cut)
+
+
+# -- PNG ---------------------------------------------------------------------------
+
+PNG_MODES = [(0, d) for d in (1, 2, 4, 8, 16)] + [(2, 8), (2, 16), (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16),
+                                                 (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("color,depth", PNG_MODES)
+def test_adam7_png_matches_pil(color, depth):
+    rng = np.random.default_rng(color * 100 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    for shape in [(1, 1), (1, 9), (9, 1), (5, 3), (8, 8), tuple(rng.integers(2, 40, 2))]:
+        palette = b""
+        if color == 3:
+            n = int(rng.integers(1, (1 << depth) + 1))
+            samples = rng.integers(0, n, (*shape, 1))
+            palette = rng.integers(0, 256, 3 * n).astype(np.uint8).tobytes()
+        else:
+            samples = rng.integers(0, 1 << depth, (*shape, channels))
+        data = enc.png(samples, depth, color, palette, interlace=True)
+        assert np.array_equal(decode_png(data), pil_pages(data)[0])
+
+
+# -- BMP ---------------------------------------------------------------------------
+
+BMP_CASES = [(bits, os2, rle, top) for bits in (1, 4, 8, 16, 24) for os2 in (False, True)
+             for rle in (False, True) for top in (False, True)
+             if not (rle and (bits not in (4, 8) or os2 or top)) and not (os2 and (bits == 16 or top))]
+
+
+@pytest.mark.parametrize("bits,os2,rle,top_down", BMP_CASES)
+def test_bmp_matches_pil(bits, os2, rle, top_down):
+    rng = np.random.default_rng(bits * 8 + os2 * 4 + rle * 2 + top_down)
+    for shape in [(1, 1), (3, 7), (17, 33), tuple(rng.integers(1, 60, 2))]:
+        if bits <= 8:
+            n = int(rng.integers(2, (1 << bits) + 1))
+            palette = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+            pixels = rng.integers(0, n, shape)
+            if rle:
+                pixels = np.repeat(pixels[:, ::3], 3, axis=1)[:, : shape[1]]
+            data = enc.bmp(pixels, bits, palette, rle=rle, os2=os2, top_down=top_down, rng=rng)
+        else:
+            pixels = rng.integers(0, 256, (*shape, 3)).astype(np.uint8)
+            masks = (0xF800, 0x7E0, 0x1F) if rng.random() < 0.5 else (0x7C00, 0x3E0, 0x1F)
+            data = enc.bmp(pixels, bits, masks16=masks, bitfields=masks[0] == 0xF800, os2=os2, top_down=top_down)
+        assert np.array_equal(decode_bmp(data), pil_pages(data)[0])
+
+
+@pytest.mark.parametrize("mode", ["1", "L", "P", "RGB"])
+def test_bmp_pil_writes_decode_as_pil_reads_them(mode):
+    """The bitmaps PIL writes, the mode "1" one (1 bit a pixel) among them,
+    read as PIL reads them."""
+    image = Image.fromarray(photo(31, 45, seed=9)).convert(mode)
+    buf = io.BytesIO()
+    image.save(buf, "BMP")
+    assert np.array_equal(decode_bmp(buf.getvalue()), pil_pages(buf.getvalue())[0])
+
+
+def test_one_bit_bmp_indexes_and_renders_in_the_port():
+    buf = io.BytesIO()
+    Image.fromarray(photo(40, 60, seed=10)[..., 0]).convert("1").save(buf, "BMP")
+    data = buf.getvalue()
+    chunks = parse_document(data, "image/bmp", source_link="files/one-bit.bmp")
+    assert [(c.text, c.metadata["page_number"]) for c in chunks] == [("", 1)]
+    page = _extract_pages_sync("image/bmp", data, [1], 100)[0]
+    ref = np.asarray(jax_pages("image/bmp", data, [1], 100)[0])
+    assert page.shape == ref.shape and int(np.abs(page.astype(int) - ref).max()) <= RESIZE_LEVELS
+
+
+# -- GIF ---------------------------------------------------------------------------
+
+def random_gif(rng, frames: int) -> bytes:
+    w, h = (int(v) for v in rng.integers(1, 40, 2))
+    glob = rng.integers(0, 256, (int(rng.choice([2, 4, 16, 256])), 3)).astype(np.uint8) if rng.random() < 0.8 else None
+    out = []
+    for _ in range(frames):
+        fw, fh = int(rng.integers(1, w + 1)), int(rng.integers(1, h + 1))
+        local = (rng.integers(0, 256, (int(rng.choice([2, 8, 64])), 3)).astype(np.uint8)
+                 if glob is None or rng.random() < 0.3 else None)
+        n = len(local if local is not None else glob)
+        at = [int(rng.integers(0, w - fw + 1)), int(rng.integers(0, h - fh + 1))]
+        if rng.random() < 0.2:  # past the logical screen: Pillow grows the image
+            at = [at[0] + int(rng.integers(1, 8)), at[1] + int(rng.integers(0, 8))]
+        frame = {"indexes": rng.integers(0, n, (fh, fw)), "at": tuple(at), "palette": local,
+                 "disposal": int(rng.integers(0, 4)), "interlace": bool(rng.random() < 0.3)}
+        if rng.random() < 0.5:
+            frame["transparency"] = int(rng.integers(0, n))
+        out.append(frame)
+    return enc.gif((w, h), out, glob, background=int(rng.integers(0, 4)))
+
+
+@pytest.mark.parametrize("frames", range(1, 9))
+def test_gif_frames_match_pil(frames):
+    rng = np.random.default_rng(1000 + frames)
+    for _ in range(12):
+        data = random_gif(rng, frames)
+        ref = pil_pages(data)
+        got = decode_gif_frames(data)
+        assert frame_count(data) == len(ref) == len(got) == frames
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["P", "RGB", "L", "RGBA"])
+def test_gifs_pil_writes_match_pil(mode):
+    rng = np.random.default_rng(ord(mode[0]))
+    images = []
+    for k in range(4):
+        a = photo(30, 40, seed=20 + k)
+        a[:12] = a[0, 0]
+        im = Image.fromarray(a)
+        if mode == "P":
+            im = im.quantize(int(rng.integers(2, 200)))
+        elif mode == "L":
+            im = im.convert("L")
+        elif mode == "RGBA":
+            im = Image.fromarray(np.dstack([a, (rng.random(a.shape[:2]) < 0.3).astype(np.uint8) * 255]), "RGBA")
+        images.append(im)
+    for options in ({}, {"optimize": True, "disposal": [0, 1, 2, 3]}, {"transparency": 0, "disposal": 2}):
+        buf = io.BytesIO()
+        images[0].save(buf, "GIF", save_all=True, append_images=images[1:], **options)
+        data = buf.getvalue()
+        for a, b in zip(decode_gif_frames(data), pil_pages(data), strict=True):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gif_documents_match_the_jax_package(seed):
+    rng = np.random.default_rng(2000 + seed)
+    data = random_gif(rng, int(rng.integers(1, 7)))
+    n = jax_number_of_pages("image/gif", data)
+    assert extract_number_of_pages("image/gif", data) == n
+    for numbers, size in ((None, None), ([n, 1], None), (None, 64)):
+        ref = [np.asarray(p) for p in jax_pages("image/gif", data, numbers, size)]
+        got = _extract_pages_sync("image/gif", data, numbers, size)
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and int(np.abs(a.astype(int) - b).max()) <= (RESIZE_LEVELS if size else 0)
+    with pytest.raises(InvalidDocumentError, match=f"page {n + 1} out of range 1..{n}"):
+        _extract_pages_sync("image/gif", data, [n + 1], None)
+    chunks = parse_document(data, "image/gif", source_link="files/a.gif")
+    assert [c.metadata["page_number"] for c in chunks] == list(range(1, n + 1))
+
+
+# -- a PDF of progressive DCT images -------------------------------------------------
+
+def test_progressive_jpeg_in_a_pdf_renders_as_the_jax_package():
+    images = []
+    for k, (mode, sub) in enumerate((("RGB", 2), ("RGB", 0), ("L", 0), ("CMYK", 0))):
+        a = photo(60 + 7 * k, 80 + 5 * k, seed=30 + k)
+        buf = io.BytesIO()
+        kw = {"subsampling": sub} if mode == "RGB" else {}
+        Image.fromarray(a).convert(mode).save(buf, "JPEG", quality=85, progressive=True, **kw)
+        images.append((72 + 260 * (k % 2), 420 - 200 * (k // 2), 200, 150,
+                       ("dct", buf.getvalue(), a.shape[1], a.shape[0], {"RGB": 3, "L": 1, "CMYK": 4}[mode])))
+    pdf = build_image_pdf([([], images)])
+    for size in (None, 800):
+        ref = np.asarray(next(jax_render.render_pdf_pages(pdf, scaled_size=size)))
+        got = next(render.render_pdf_pages(pdf, scaled_size=size))
+        assert got.shape == ref.shape
+        assert int(np.abs(got.astype(np.int64) - ref).max()) <= IMAGE_LEVELS
+        assert got.min() < 200  # the images were drawn
+
+
+def test_gif_palette_frame_after_a_gray_first_frame_raises_item_9d():
+    """A GIF layout Pillow reads that the port does not composite yet
+    raises NotPortedError naming item 9d: a palette frame after a first
+    frame without a palette. Its page count is Pillow's all the same."""
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (4, 3)).astype(np.uint8)
+    gray_first = enc.gif((8, 6), [{"indexes": rng.integers(0, 4, (6, 8))},
+                                  {"indexes": rng.integers(0, 4, (6, 8)), "palette": palette}])
+    assert frame_count(gray_first) == jax_number_of_pages("image/gif", gray_first) == len(pil_pages(gray_first)) == 2
+    with pytest.raises(NotPortedError, match="9d"):
+        decode_gif_frames(gray_first)

@@ -1,9 +1,9 @@
 """The port stands alone: ``dial_rag_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``dial_rag_tpu``, nor the packages the card's
 machine lacks (safetensors, pydantic, yaml, aiohttp, optax, orbax, msgpack,
-PIL, bs4, lxml, opentelemetry; the HTML parser imports bs4 and lxml inside
-its functions, never at module level; nothing imports PIL: page images
-and image documents go through the port's own codecs).
+PIL, bs4, lxml, charset_normalizer, opentelemetry; HTML goes through the
+port's own parser on the standard library's html.parser, page
+images and image documents through the port's own codecs).
 
 A subprocess installs an import hook that refuses those packages, imports
 every module of the port, loads the shipped checkpoint and runs the CPU
@@ -12,7 +12,8 @@ main path end to end, one f32 "pallas" encode, the long-document
 training step, the bfloat16, two_pass and int8 dense layouts, an RRF
 ensemble of the late-interaction, expanded BM25 and chargram arms, and
 concurrent four-arm RRF requests through one ``DeviceIndexCache``,
-parses a PDF, a DOCX and a CSV, stores their records and loads them back,
+parses a PDF, a DOCX, a CSV and an HTML page, stores their records and
+loads them back, reads a GIF document's frames,
 renders a PDF page with an image to PNG and reads it back, and boots the
 port's DIAL app on the standard-library fake Dial Core, which answers one
 indexing and one retrieval request over HTTP in the default configuration
@@ -33,11 +34,11 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dial_rag_tpu_torch"
 FORBIDDEN = (
     "jax", "jaxlib", "dial_rag_tpu", "safetensors", "pydantic", "yaml", "aiohttp", "optax", "orbax",
-    "msgpack", "PIL", "bs4", "lxml", "opentelemetry",
+    "msgpack", "PIL", "bs4", "lxml", "charset_normalizer", "opentelemetry",
 )
-# imported only inside the functions that need them: HTML documents (bs4 with
-# lxml) are parsed on the CPU only
-LAZY = ("bs4", "lxml")
+# imported only inside the functions that need them (none: the port parses
+# HTML with its own parser)
+LAZY = ()
 
 _CHILD = r"""
 import asyncio, importlib, importlib.abc, json, pkgutil, sys
@@ -170,7 +171,8 @@ with zipfile.ZipFile(docx, "w") as zf:
     zf.writestr("word/document.xml", '<w:document xmlns:w="http://schemas.openxmlformats.org/wordprocessingml/'
                 '2006/main"><w:body><w:p><w:r><w:t>Glaciers carve valleys.</w:t></w:r></w:p></w:body></w:document>')
 docs = {"a.pdf": build_pdf([[(72, 720, 12, "The Rhine rises in the Alps.")]], compress=True),
-        "b.docx": docx.getvalue(), "c.csv": b"peak,height\nMont Blanc,4806"}
+        "b.docx": docx.getvalue(), "c.csv": b"peak,height\nMont Blanc,4806",
+        "d.html": b"<title>Alps</title><h1>Peaks</h1><p>Mont Blanc<p>The Matterhorn &amp; the Eiger<li>one<li>two"}
 with tempfile.TemporaryDirectory() as root:
     storage = IndexStorage(LocalFileStorage(root))
     for name, data in docs.items():
@@ -182,6 +184,13 @@ with tempfile.TemporaryDirectory() as root:
         back = asyncio.run(IndexStorage(LocalFileStorage(root)).load(f"files/{name}/index.bin", IndexSettings()))
         assert back.cache_token == doc_rec.cache_token and back.text_index == doc_rec.text_index, name
         assert Bm25Retriever.from_doc_records([back], k=1, device="cpu").retrieve(doc_chunks[0].text.split()[-1]), name
+# an image document: a GIF of two frames
+from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames, frame_count
+gif = (b"GIF89a\x02\x00\x01\x00\xf0\x00\x00\x00\x00\x00\xff\xff\xff"
+       b"\x2c\x00\x00\x00\x00\x02\x00\x01\x00\x00\x02\x02D\n\x00"
+       b"\x2c\x00\x00\x00\x00\x02\x00\x01\x00\x00\x02\x02\x0c\n\x00\x3b")
+frames = decode_gif_frames(gif)
+assert frame_count(gif) == 2 and [f[0, :, 0].tolist() for f in frames] == [[0, 255], [255, 0]], frames
 # a page image: a PDF page with a Flate image rendered, PNG-encoded and read back
 from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
 from dial_rag_tpu_torch.image_processor.png import decode_png, encode_png
