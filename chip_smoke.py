@@ -33,9 +33,10 @@ Phases, each announced by a ``[phase]`` line:
    xref-stream variants, written by the port's ``documents/pdf/writer.py``)
    and 4 DOCX, 4 PPTX, 2 XLSX, 2 Markdown, 2 plain-text and 2 CSV
    documents of further texts, six HTML pages built from the oracle
-   chunks (tests/utils/html_docs.py) and seven image documents
+   chunks (tests/utils/html_docs.py) and ten image documents
    (progressive JPEG, Adam7 PNG, 1-, 4- and 16-bit and RLE BMP, a GIF of
-   6 frames; tests/data/images), one indexing request: ``detect_mime`` ->
+   6 frames, a TIFF of 3 pages, a lossy WebP with alpha, an animated WebP
+   of 4 frames; tests/data/images), one indexing request: ``detect_mime`` ->
    ``parse_document`` (in spawned worker processes), the bf16 semantic
    index (kernels 1-2 must launch 12 x the encode batches) and the BM25
    text index, ``serialize_record`` -> ``IndexStorage.store`` over
@@ -135,9 +136,11 @@ Phases, each announced by a ``[phase]`` line:
 
    page images (after the service phase): the native JPEG core against
    PIL's decode of the committed fixtures (tests/data/jpeg, at most 2
-   levels), the fixtures of tests/data/images against PIL's pixels (PNG,
-   BMP and GIF equal, progressive JPEG at most 2 levels), page render,
-   PNG encode, progressive JPEG and GIF decodes timed; then the DIAL app
+   levels), the fixtures of tests/data/images against PIL's pixels (PNG
+   and APNG, BMP, GIF, TIFF and WebP equal, progressive JPEG and
+   JPEG-in-TIFF at most 2 levels), page render, PNG encode, progressive
+   JPEG and GIF decodes timed, and the host decoders' MB/s of file bytes
+   (TIFF LZW and G4, WebP lossy and lossless, APNG); then the DIAL app
    from config/azure_description.yaml (the description arm: a scripted
    vision LLM, the pieces encoded by alps-semantic in bf16) and from
    config/gcp_embedding.yaml (the multimodal arm: the fake's image
@@ -327,20 +330,23 @@ OFFICE_BUILDER = ROOT / "tests" / "utils" / "office_builder.py"
 # and HTML documents built from the oracle chunks (tests/utils/html_docs.py),
 # each one's elements held against the JAX package's (tests/data/html/
 # oracle.json), and image documents: progressive JPEG, Adam7 PNG, BMPs of
-# 1, 4 and 16 bits and RLE, a GIF of 6 frames (tests/data/images)
+# 1, 4 and 16 bits and RLE, a GIF of 6 frames, a TIFF of 3 pages (LZW: RGB,
+# gray, bilevel), a lossy WebP with alpha and an animated WebP of 4 frames
+# (tests/data/images)
 HTML_DOCS = ROOT / "tests" / "utils" / "html_docs.py"
 HTML_PAGES = ROOT / "tests" / "utils" / "html_pages.py"  # seeded malformed pages, their elements' digests in the oracle
 HTML_ORACLE = ROOT / "tests" / "data" / "html" / "oracle.json"
 IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
 IMAGE_DOCS = ("progressive_422_q85.jpg", "adam7_rgb.png", "bmp1_pil.bmp", "bmp4_os2.bmp", "bmp16_565_bitfields.bmp",
-              "bmp_rle4.bmp", "frames.gif")
+              "bmp_rle4.bmp", "frames.gif", "tiff_multipage.tif", "webp_lossy_alpha.webp", "webp_animated.webp")
 N_TOP1 = 16
 # the service phase: the port's DIAL app booted through the production loader
 # on the tuned zero-egress preset, answering over HTTP on 127.0.0.1, against
 # a standard-library fake Dial Core; its corpus is the document indexing
 # phase's cut to SERVICE_PDF_TEXTS pages in SERVICE_PDF_DOCS PDFs, with the
 # same 16 office, text and CSV documents; then the app in its default
-# configuration answers one rag request with an HTML attachment
+# configuration answers one rag request with an HTML attachment, and an
+# indexing and a rag request with a 3-page Group 4 TIFF (TIFF_DOC)
 FAKE_DIAL = ROOT / "tests" / "utils" / "fake_dial_stdlib.py"
 SERVICE_PRESET = "config/zero_egress_tuned.yaml"
 SERVICE_PDF_DOCS, SERVICE_PDF_TEXTS = 2, 64
@@ -4412,8 +4418,59 @@ def service_phase(torch, card, texts) -> dict:
           f"checkpoint) hold {len(tensors)} tensors, every one on cuda; app boot {t_boot:.2f} s {card}")
     for name, n in html_service_request(torch, card).items():
         result[name] = result.get(name, 0) + n
+    for name, n in tiff_service_request(torch, card).items():
+        result[name] = result.get(name, 0) + n
     print(f"service phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return result
+
+
+def default_app_requests(torch, fake, dial_url: str, what: str, bodies: list) -> tuple[list, dict, float]:
+    """POSTs ``bodies`` in turn over HTTP to the port's app in its default
+    configuration (the production loader, no preset; alps-semantic as the
+    embedder; a fresh index store) on the started fake Dial Core ``fake``
+    at ``dial_url``, which it stops. Returns [(status, body bytes)],
+    kernels 1-2's launches over the requests (it fails if either launched
+    none) and their seconds of wall."""
+    import asyncio
+
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.service import app as app_module
+    from dial_rag_tpu_torch.service import http
+    from dial_rag_tpu_torch.service.config import load_app_config
+
+    async def post(app):
+        server = await http.serve(app)
+        out = []
+        try:
+            async with http.ClientSession(base_url=f"http://127.0.0.1:{server.port}/",
+                                          timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
+                for body in bodies:
+                    async with s.post(CHAT_PATH, headers={"api-key": "chip-smoke"}, json=body) as r:
+                        out.append((r.status, await r.read()))
+        finally:
+            await server.close()
+        return out
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_requests_") as root:
+            config = load_app_config(environ={"DIAL_URL": dial_url, "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root,
+                                              "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT)})
+            app = app_module.create_app(config)
+            torch.cuda.synchronize()
+            fe.reset_launches()
+            t0 = time.perf_counter()
+            responses = asyncio.run(post(app))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        fake.stop_sync()
+    for k, (status, raw) in enumerate(responses):
+        if status != 200:
+            raise RuntimeError(f"request {k} with the {what} attachment failed: {status} {raw[:400]!r}")
+    launches = {k: fe.LAUNCHES[k] for k in ("fused_attention_block", "fused_ffn_block")}
+    if not all(launches.values()):
+        raise RuntimeError(f"the {what} requests launched no encoder kernel: {launches}")
+    return responses, launches, seconds
 
 
 def html_service_request(torch, card) -> dict:
@@ -4426,13 +4483,7 @@ def html_service_request(torch, card) -> dict:
     Gates: status 200, the document's chunk count the host parser's, the
     answer the rewritten script, the cited reference one of the page's
     chunks. Returns kernels 1-2's launches in the request."""
-    import asyncio
-
     from dial_rag_tpu_torch.documents.parser import parse_document
-    from dial_rag_tpu_torch.ops import fused_encoder as fe
-    from dial_rag_tpu_torch.service import app as app_module
-    from dial_rag_tpu_torch.service import http
-    from dial_rag_tpu_torch.service.config import load_app_config
 
     t_all = time.perf_counter()
     name, data, _ = html_documents()[0]
@@ -4445,34 +4496,7 @@ def html_service_request(torch, card) -> dict:
     fake.script_llm("The page answers it <[1]>.")
     body = {"messages": [{"role": "user", "content": query, "custom_content": {"attachments": [{"url": link}]}}]}
 
-    async def post(app):
-        server = await http.serve(app)
-        try:
-            async with http.ClientSession(base_url=f"http://127.0.0.1:{server.port}/",
-                                          timeout=http.ClientTimeout(total=600, sock_read=300)) as s:
-                async with s.post(CHAT_PATH, headers={"api-key": "chip-smoke"}, json=body) as r:
-                    return r.status, await r.read()
-        finally:
-            await server.close()
-
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_html_") as root:
-            config = load_app_config(environ={"DIAL_URL": dial_url, "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root,
-                                              "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT)})
-            app = app_module.create_app(config)
-            torch.cuda.synchronize()
-            fe.reset_launches()
-            t0 = time.perf_counter()
-            status, raw = asyncio.run(post(app))
-            torch.cuda.synchronize()
-            t_request = time.perf_counter() - t0
-    finally:
-        fake.stop_sync()
-    if status != 200:
-        raise RuntimeError(f"the rag request with an HTML attachment failed: {status} {raw[:400]!r}")
-    launches = {k: fe.LAUNCHES[k] for k in ("fused_attention_block", "fused_ffn_block")}
-    if not all(launches.values()):
-        raise RuntimeError(f"the HTML request launched no encoder kernel: {launches}")
+    [(_, raw)], launches, t_request = default_app_requests(torch, fake, dial_url, "HTML", [body])
     message = json.loads(raw)["choices"][0]["message"]
     stages = message["custom_content"]["stages"]
     processed = [st for st in stages if st["name"].startswith("Processing document")]
@@ -4489,6 +4513,101 @@ def html_service_request(torch, card) -> dict:
           f"{len(chunks)} chunks) over HTTP, {t_request:.3f} s of wall (app boot and request "
           f"{time.perf_counter() - t_all:.3f} s); the answer's [1] is one of the page's chunks; kernels 1-2 "
           f"launches {launches} {card}", flush=True)
+    return launches
+
+
+TIFF_DOC = "tiff_g4_fax.tif"  # the Group 4 fax of 3 pages the default configuration serves
+# the scripted vision LLM's description of each page of the fax, by page
+TIFF_DESCRIPTIONS = ("An invoice from the glacier railway company listing ticket prices for the summit line.",
+                     "A weather report for the high passes warning of snow drifts above two thousand metres.",
+                     "A letter from the mountain hut association about opening dates of the alpine huts.")
+
+
+def tiff_service_request(torch, card) -> dict:
+    """One indexing request, then one rag chat-completion request over HTTP,
+    with the 3-page Group 4 TIFF TIFF_DOC attached, to the port's app in its
+    default configuration (the production loader, no preset; alps-semantic
+    as the embedder; the description index on), on the standard-library
+    fake Dial Core: the fax decoded on the card's host, a page image of each
+    page described by the scripted vision LLM (each page told apart by its
+    pixels against the port's own decode), the descriptions encoded on the
+    card (kernels 1-2); the rag request answered from the document's one
+    chunk (an image attachment's, page 1, as in the JAX package) within the
+    "All documents" limit, with its page image. Gates: status 200 and no
+    failed stage (but the first load of an index none stored), the
+    indexing request's page images those of the TIFF's 3 pages, kernels
+    1-2 launched, the answer the rewritten script, its [1] the TIFF, the
+    answer model's page image the TIFF's first page. Returns kernels 1-2's
+    launches over both requests."""
+    import base64
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.image_processor.extract_pages import decode_pages
+    from dial_rag_tpu_torch.image_processor.png import decode_png
+    from dial_rag_tpu_torch.image_processor.resize import resize_image
+    from dial_rag_tpu_torch.retrieval.description import PAGE_DESCRIPTION_PROMPT
+
+    t_all = time.perf_counter()
+    data = (IMAGE_FIXTURES / TIFF_DOC).read_bytes()
+    link = f"files/chip-smoke/{TIFF_DOC}"
+    pages = decode_pages(data)
+    if len(pages) != len(TIFF_DESCRIPTIONS):
+        raise RuntimeError(f"{TIFF_DOC}: {len(pages)} pages, expected {len(TIFF_DESCRIPTIONS)}")
+    described = []
+
+    def page_of(image) -> int:
+        """The fax page a described page image shows (its pixels against
+        each page scaled to its size)."""
+        gaps = []
+        for page in pages:
+            scaled = resize_image(page, max(image.shape[:2])) if page.shape != image.shape else page
+            gaps.append(np.inf if scaled.shape != image.shape else np.abs(scaled.astype(int) - image).mean())
+        return int(np.argmin(gaps))
+
+    def respond(body):
+        parts = body["messages"][0].get("content")
+        if isinstance(parts, list) and parts and parts[0].get("text") == PAGE_DESCRIPTION_PROMPT:
+            k = page_of(decode_png(base64.b64decode(parts[1]["image_url"]["url"].split(",", 1)[1])))
+            described.append(k + 1)
+            return json.dumps({"page_summary": TIFF_DESCRIPTIONS[k], "keyfact": TIFF_DESCRIPTIONS[k][:40],
+                               "image_quality": {"level": "normal", "explanation": "a fax page"}})
+        return "The fax answers it <[1]>."
+
+    fake = load_fake_dial().FakeDialCore()
+    dial_url = fake.start_sync()
+    fake.add_file(link, data, "image/tiff")
+    fake.script_llm(respond)
+    asked = 1  # an image attachment's one chunk is its page 1
+    query = "what do the faxed pages say about the alpine huts"
+    message = {"role": "user", "content": query, "custom_content": {"attachments": [{"url": link}]}}
+
+    bodies = [{"messages": [message], "custom_fields": {"configuration": {"request": {"type": "indexing"}}}},
+              {"messages": [message]}]
+    [(_, index_raw), (_, raw)], launches, t_requests = default_app_requests(torch, fake, dial_url, "TIFF", bodies)
+    for what, body in (("indexing", index_raw), ("rag", raw)):
+        for st in json.loads(body)["choices"][0]["message"]["custom_content"].get("stages", []):
+            if st.get("status") == "failed" and "Load indexes" not in st["name"]:  # none stored yet: built anew
+                raise RuntimeError(f"the {what} request's stage {st['name']!r} failed: {st.get('content')}")
+    if sorted(set(described)) != [1, 2, 3]:
+        raise RuntimeError(f"the vision LLM was asked to describe pages {described} of {TIFF_DOC}, not 1, 2 and 3")
+    message_out = json.loads(raw)["choices"][0]["message"]
+    cited = [a for a in message_out["custom_content"].get("attachments", []) if a.get("title", "").startswith("[1] ")]
+    refs = [a.get("reference_url") or "" for a in cited]
+    # the answer model's page images: the chunk's page
+    answer_request = fake.llm_requests[-1]
+    shown = [page_of(decode_png(base64.b64decode(c["image_url"]["url"].split(",", 1)[1]))) + 1
+             for msg in answer_request["messages"] if isinstance(msg.get("content"), list)
+             for c in msg["content"] if c.get("type") == "image_url"]
+    if (message_out["content"] != "The fax answers it [1]." or len(cited) != 1 or refs[0] != link
+            or shown != [asked]):
+        raise RuntimeError(f"the TIFF request's answer {message_out['content']!r}, its reference {cited} or the "
+                           f"answer model's pages {shown} are not page {asked} of {TIFF_DOC}")
+    print(f"service, default configuration: an indexing and a rag request with a {len(pages)}-page Group 4 TIFF "
+          f"attachment ({TIFF_DOC}, {len(data)} B) over HTTP, {t_requests:.3f} s of wall (app boot and requests "
+          f"{time.perf_counter() - t_all:.3f} s); pages described {sorted(described)}; the answer's [1] is "
+          f"{refs[0]}, the answer model's page images pages {shown} (the chunk's page {asked}); "
+          f"kernels 1-2 launches {launches} {card}", flush=True)
     return launches
 
 
@@ -4646,6 +4765,45 @@ def adjacent_swaps(got, ref, ref_score, limit, what) -> list:
     return swaps
 
 
+# the host decoders timed on documents at the sizes users attach (tests/data/image_rates, written by
+# tests/utils/make_image_fixtures.py with the sha256 of each of PIL's pages): label -> file
+DECODE_RATES = {"TIFF LZW": "lzw_report.tif", "TIFF G4": "g4_a4_fax.tif", "WebP lossy": "lossy_photo.webp",
+                "WebP lossless": "lossless_screen.webp", "APNG": "apng_screen.png"}
+RATE_FIXTURES = ROOT / "tests" / "data" / "image_rates"
+
+
+def host_decode_rates(card: str) -> dict:
+    """Each DECODE_RATES document's pages (``decode_pages``: every page,
+    composited) held to PIL's (the sha256 of each page's pixels, so equal),
+    then decoded again and again for a quarter second at least: MB/s of
+    file bytes and megapixels/s of pages, on the card machine's host."""
+    import hashlib
+
+    from dial_rag_tpu_torch.image_processor.extract_pages import decode_pages
+
+    digests = json.loads((RATE_FIXTURES / "digests.json").read_text())
+    rates = {}
+    for label, name in DECODE_RATES.items():
+        data = (RATE_FIXTURES / name).read_bytes()
+        pages = decode_pages(data)
+        got = [{"shape": list(p.shape), "sha256": hashlib.sha256(p.tobytes()).hexdigest()} for p in pages]
+        if got != digests[name]:
+            raise RuntimeError(f"{name}: the port's pages {[g['shape'] for g in got]} are not PIL's "
+                               f"{[d['shape'] for d in digests[name]]} bit for bit")
+        pixels = sum(p.shape[0] * p.shape[1] for p in pages)
+        runs, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < 0.25:
+            decode_pages(data)
+            runs += 1
+        seconds = (time.perf_counter() - t0) / runs
+        rates[label] = (len(data) / seconds / 1e6, pixels / seconds / 1e6)
+        print(f"host decode {label} ({name}, {len(data)} B, {len(pages)} pages of "
+              f"{' '.join('x'.join(map(str, p.shape[1::-1])) for p in pages)}, equal to PIL's): "
+              f"{rates[label][0]:.3f} MB/s of file bytes, {rates[label][1]:.2f} Mpixel/s, {seconds * 1e3:.3f} ms a "
+              f"file over {runs} runs {card}")
+    return rates
+
+
 def page_images_phase(torch, card, texts) -> dict:
     """Page images and the image arms through the DIAL service on the card.
 
@@ -4718,8 +4876,8 @@ def page_images_phase(torch, card, texts) -> dict:
           f"render {render_ms[800]:.1f} ms a page at 800 px, {render_ms[1536]:.1f} ms at 1536 px; PNG encode "
           f"{png_ms:.1f} ms ({len(png)} B, {pages[0].shape[1]} x {pages[0].shape[0]}) {card}", flush=True)
 
-    # the image fixtures (progressive JPEG, Adam7 PNG, BMP, GIF) against PIL's pixels
-    from dial_rag_tpu_torch.documents.mime import sniff_mime
+    # the image fixtures (progressive JPEG, Adam7 and animated PNG, BMP, GIF, TIFF, WebP) against PIL's pixels
+    from dial_rag_tpu_torch.documents.mime import detect_mime
     from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
     from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
 
@@ -4729,7 +4887,7 @@ def page_images_phase(torch, card, texts) -> dict:
     progressive_gap, n_pages = 0, 0
     for name in names:
         data = (IMAGE_FIXTURES / name).read_bytes()
-        got = _extract_pages_sync(sniff_mime(data), data, None, None)
+        got = _extract_pages_sync(detect_mime(None, name, data), data, None, None)  # a BigTIFF by its name
         if len(got) != fixture_pages(name, fixtures):
             raise RuntimeError(f"image fixture {name}: {len(got)} pages, PIL reads {fixture_pages(name, fixtures)}")
         for i, page in enumerate(got, start=1):
@@ -4737,13 +4895,14 @@ def page_images_phase(torch, card, texts) -> dict:
             if page.shape != want.shape:
                 raise RuntimeError(f"image fixture {name} page {i}: {page.shape}, PIL's {want.shape}")
             gap = int(np.abs(page.astype(np.int64) - want).max())
-            if name.endswith(".jpg"):
+            if name.endswith(".jpg") or "_jpeg" in name:  # progressive JPEG and JPEG-in-TIFF
                 progressive_gap = max(progressive_gap, gap)
             elif gap:
                 raise RuntimeError(f"image fixture {name} page {i} is {gap} levels from PIL's pixels (must be equal)")
             n_pages += 1
     if progressive_gap > JPEG_LEVELS:
-        raise RuntimeError(f"progressive JPEG fixtures are {progressive_gap} levels from PIL's (limit {JPEG_LEVELS})")
+        raise RuntimeError(f"progressive JPEG and JPEG-in-TIFF fixtures are {progressive_gap} levels from PIL's "
+                           f"(limit {JPEG_LEVELS})")
     prog = (IMAGE_FIXTURES / "progressive_422_q85.jpg").read_bytes()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -4755,11 +4914,13 @@ def page_images_phase(torch, card, texts) -> dict:
         for g in gifs:
             decode_gif_frames(g)
     gif_mb_s = 20 * sum(map(len, gifs)) / (time.perf_counter() - t0) / 1e6
-    print(f"image fixtures: {len(names)} files, {n_pages} pages (progressive JPEG, Adam7 PNG, 1-, 4-, 8- and "
-          f"16-bit and RLE BMP, OS/2 headers, GIF frames); PNG, BMP and GIF equal to PIL's pixels, progressive "
-          f"JPEG within {progressive_gap} levels (limit {JPEG_LEVELS}); progressive JPEG {prog_mb_s:.2f} MB/s "
+    print(f"image fixtures: {len(names)} files, {n_pages} pages (progressive JPEG, Adam7 and animated PNG, 1-, 4-, "
+          f"8- and 16-bit and RLE BMP, OS/2 headers, GIF frames, TIFF pages in every compression and layout, WebP "
+          f"lossy, lossless, alpha and animated); all but JPEG equal to PIL's pixels, progressive JPEG and "
+          f"JPEG-in-TIFF within {progressive_gap} levels (limit {JPEG_LEVELS}); progressive JPEG {prog_mb_s:.2f} MB/s "
           f"({len(prog)} B, 384 x 288, 4:2:2), GIF {gif_mb_s:.2f} MB/s of GIF bytes (every frame composited, "
           f"{sum(map(len, gifs))} B); checks and timings {time.perf_counter() - t_fixtures:.2f} s {card}", flush=True)
+    host_decode_rates(card)
 
     fake_dial = load_fake_dial()
     embeddings = load_test_util(PAGE_EMBEDDINGS)
@@ -5285,7 +5446,7 @@ def main() -> int:
     phase("build")
     def build_cores() -> float:
         t0 = time.perf_counter()
-        for name in ("keywords", "wordpiece", "chargram", "jpeg", "gif"):
+        for name in ("keywords", "wordpiece", "chargram", "jpeg", "gif", "tiff", "webp"):
             load_native(name)
         return time.perf_counter() - t0
 
@@ -5293,8 +5454,8 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         cores = pool.submit(build_cores)
         build = build_kernels()
-        print(f"build: C++ host cores native/keywords.cpp, wordpiece.cpp, chargram.cpp, jpeg.cpp and gif.cpp (g++) "
-              f"{cores.result():.2f} s")
+        print(f"build: C++ host cores native/keywords.cpp, wordpiece.cpp, chargram.cpp, jpeg.cpp, gif.cpp, tiff.cpp "
+              f"and webp.cpp (g++) {cores.result():.2f} s")
     print(f"build: {build.seconds:.2f} s (nvcc, all sources in parallel)"
           if build.seconds else "build: found built for these sources in dial_rag_tpu_torch/_build")
     for stem, lines in build.ptxas.items():

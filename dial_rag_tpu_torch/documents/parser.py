@@ -46,24 +46,14 @@ def extract_number_of_pages(mime_type: str, data: bytes) -> int:
 
         return PdfDocument(data).num_pages
     if mime_type in IMAGE_MIMES:
-        # without PIL: a GIF's frames (Pillow's n_frames), else one frame
-        # once the PNG, JPEG or BMP header reads; other image formats raise
-        # NotPortedError naming ROADMAP item 9d
-        from dial_rag_tpu_torch.image_processor.extract_pages import image_format
+        # without PIL: Pillow's n_frames from the headers and block
+        # structure (a GIF's, WebP's or animated PNG's frames, a TIFF's
+        # directories, else one frame once the header reads); what the
+        # port's codecs leave out raises NotPortedError naming ROADMAP
+        # item 9d
+        from dial_rag_tpu_torch.image_processor.extract_pages import page_count
 
-        kind = image_format(data)
-        if kind == "gif":
-            from dial_rag_tpu_torch.image_processor.gif import frame_count
-
-            return frame_count(data)
-        if kind == "png":
-            from dial_rag_tpu_torch.image_processor.png import read_header
-        elif kind == "jpeg":
-            from dial_rag_tpu_torch.image_processor.jpeg import read_header
-        else:
-            from dial_rag_tpu_torch.image_processor.bmp import read_header
-        read_header(data)
-        return 1
+        return page_count(data)
     raise InvalidDocumentError(
         f"Page images are not supported for {mime_type}"
     )

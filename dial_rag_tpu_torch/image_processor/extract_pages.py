@@ -2,20 +2,25 @@
 ``image_processor/extract_pages.py``, without PIL): PDFs render through
 the port's rasterizer (``documents/pdf/render.py``); image documents decode
 through the port's codecs, chosen by the bytes' magic as ``Image.open``
-chooses: PNG (``png.py``), JPEG (``jpeg.py``, the native core), BMP
-(``bmp.py``) and GIF (``gif.py``, the native LZW core; a GIF is a
-document of one page a frame, as Pillow's ``n_frames`` counts them).
-TIFF and WebP documents, and animated PNGs, raise ``NotPortedError``
-(ROADMAP item 9d). Rendering runs in a single-worker executor, as in the
-JAX package. Pages are [H, W, 3] uint8 arrays."""
+chooses: PNG (``png.py``; an animated PNG a page a frame), JPEG
+(``jpeg.py``, the native core), BMP (``bmp.py``), GIF (``gif.py``, the
+native LZW core), TIFF (``tiff.py``, a page a directory, the native
+``tiff.cpp`` core) and WebP (``webp.py``, a page a frame, the native
+``webp.cpp`` core), each page as Pillow's ``n_frames`` counts them. What
+those codecs leave out (JPEG coding variants; old-style JPEG, LZMA, ZSTD,
+WebP, SGILog and ThunderScan TIFF compressions, YCbCr outside JPEG, CIE
+L*a*b* and 12- or 32-bit TIFF samples) raises ``NotPortedError`` (ROADMAP
+item 9d). Rendering runs in a single-worker executor, as in the JAX
+package. Pages are [H, W, 3] uint8 arrays."""
 
 import asyncio
+import importlib
 from typing import AsyncIterator
 
 import numpy as np
 
 from dial_rag_tpu_torch.documents.mime import IMAGE_MIMES, MIME_PDF, normalize_content_type, sniff_mime
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 
 # one worker, as in the JAX package
 _render_pool = None
@@ -39,64 +44,70 @@ def are_image_pages_supported(mime_type: str) -> bool:
 
 
 def image_format(data: bytes) -> str:
-    """The image format of ``data`` by its magic: "png", "jpeg", "bmp" or
-    "gif"; the formats the port does not read raise NotPortedError (item
-    9d), bytes of no image format InvalidDocumentError."""
-    kind = sniff_mime(data)
-    if kind == "image/png":
-        from dial_rag_tpu_torch.image_processor.png import SIGNATURE
+    """The image format of ``data`` by its magic: "png", "jpeg", "bmp",
+    "gif", "tiff" or "webp"; bytes Pillow does not identify raise
+    InvalidDocumentError."""
+    from dial_rag_tpu_torch.image_processor.tiff import is_tiff
+    from dial_rag_tpu_torch.image_processor.webp import is_webp
 
-        # an animated PNG's frames (acTL before the first IDAT) are pages to Pillow
-        head = data[: data.find(b"IDAT")] if b"IDAT" in data else data
-        if b"acTL" in head[len(SIGNATURE):]:
-            raise NotPortedError("Animated PNG documents are not ported yet (ROADMAP item 9d)")
-        return "png"
-    if kind == "image/jpeg":
-        return "jpeg"
-    if kind == "image/bmp":
-        return "bmp"
-    if kind == "image/gif":
-        return "gif"
-    if kind in ("image/tiff", "image/webp"):
-        raise NotPortedError(f"{kind.split('/')[1].upper()} documents are not ported yet (ROADMAP item 9d)")
+    kind = sniff_mime(data)
+    if kind in ("image/png", "image/jpeg", "image/bmp", "image/gif"):
+        return kind.split("/")[1]
+    if is_tiff(data):
+        return "tiff"
+    if is_webp(data):
+        return "webp"
     raise InvalidDocumentError("Cannot identify the image file")
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """The RGB pixels ([H, W, 3] uint8) of a PNG, JPEG, BMP or GIF
-    document (a GIF's first frame), as ``Image.open(...).convert("RGB")``
-    gives them."""
+# format -> (module, its page count, its pages), each module imported at first use;
+# JPEG and BMP hold one frame, counted by reading the header
+_CODECS = {"png": ("png", "frame_count", "decode_png_frames"), "gif": ("gif", "frame_count", "decode_gif_frames"),
+           "tiff": ("tiff", "page_count", "decode_tiff_pages"), "webp": ("webp", "frame_count", "decode_webp_frames"),
+           "jpeg": ("jpeg", "read_header", "decode_jpeg"), "bmp": ("bmp", "read_header", "decode_bmp")}
+_ONE_FRAME = ("jpeg", "bmp")
+
+
+def _codec(data: bytes) -> tuple[str, object, object]:
     kind = image_format(data)
-    if kind == "gif":
-        from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
+    module, count, decode = _CODECS[kind]
+    codec = importlib.import_module(f"dial_rag_tpu_torch.image_processor.{module}")
+    return kind, getattr(codec, count), getattr(codec, decode)
 
-        return decode_gif_frames(data, [1])[0]
-    if kind == "png":
-        from dial_rag_tpu_torch.image_processor.png import decode_png
 
-        return decode_png(data)
-    if kind == "jpeg":
-        from dial_rag_tpu_torch.image_processor.jpeg import decode_jpeg
+def page_count(data: bytes) -> int:
+    """Pillow's ``n_frames`` of an image document, read from its headers
+    and block structure without decoding pixels."""
+    kind, count, _ = _codec(data)
+    if kind in _ONE_FRAME:
+        count(data)
+        return 1
+    return count(data)
 
-        return decode_jpeg(data)
-    from dial_rag_tpu_torch.image_processor.bmp import decode_bmp
 
-    return decode_bmp(data)
+def decode_pages(data: bytes, numbers: list[int] | None = None) -> list[np.ndarray]:
+    """The RGB pages ([H, W, 3] uint8) ``numbers`` (1-based; every page if
+    None) of an image document, each as ``Image.open(...)``, ``seek(n -
+    1)`` and ``convert("RGB")`` give it."""
+    kind, _, decode = _codec(data)
+    if kind not in _ONE_FRAME:
+        return decode(data, numbers)
+    for number in numbers or [1]:
+        if number != 1:
+            raise InvalidDocumentError(f"page {number} out of range 1..1")
+    return [decode(data)] * len(numbers or [1])
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """The RGB pixels ([H, W, 3] uint8) of an image document's first page,
+    as ``Image.open(...).convert("RGB")`` gives them."""
+    return decode_pages(data, [1])[0]
 
 
 def _image_pages(data: bytes, page_numbers: list[int] | None, scaled_size: int | None):
     from dial_rag_tpu_torch.image_processor.resize import resize_image
 
-    if image_format(data) == "gif":  # a page a frame
-        from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
-
-        frames = decode_gif_frames(data, page_numbers)
-    else:  # PNG, JPEG and BMP hold one frame
-        for number in page_numbers or [1]:
-            if number != 1:
-                raise InvalidDocumentError(f"page {number} out of range 1..1")
-        frames = [decode_image(data)] * len(page_numbers or [1])
-    for frame in frames:
+    for frame in decode_pages(data, page_numbers):
         if scaled_size:
             frame = resize_image(frame, scaled_size)
         yield frame

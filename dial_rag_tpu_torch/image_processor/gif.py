@@ -5,27 +5,32 @@ composites it and ``convert("RGB")`` gives it, ``[H, W, 3]`` uint8.
 The block structure is read here as Pillow's ``GifImagePlugin`` reads it;
 each frame's LZW stream is decoded by the host core ``native/gif.cpp``
 (built and loaded by ``native/build.py``; a failed build raises).
-Compositing follows Pillow's default loading strategy (RGB after the
-first frame):
+Compositing replays Pillow's default loading strategy (RGB after the
+first frame) on a model of its core images (``_Core``: L and P images of
+a byte a pixel, RGB, RGBA and LA of four):
 
-- the first frame is a palette image (or gray, where no palette other
-  than the gray ramp is given): the screen filled with its transparent
-  index (else 0), the frame drawn over it, every pixel;
-- from the second frame on the canvas is RGB: the previous frame's
-  disposal is applied first (2: its extent filled with the transparent
-  colour, else the background colour, each looked up in the frame's
-  palette; 3: its extent restored to what it held before that frame),
-  then the frame is drawn, its transparent pixels leaving the canvas;
-- a disposal method stays in force until a frame names another (Pillow
-  keeps the last nonzero one); a palette index past the palette is black;
-- a first frame without a palette keeps the canvas gray, later frames
-  drawn onto it skipping their transparent index.
+- the first frame is a palette image, or gray where no palette other
+  than the gray ramp is given (gray that takes the global palette, if
+  any, as Pillow realises it on load): the screen filled with its
+  transparent index (else 0), the frame drawn over it, every pixel;
+- from the second frame on a palette image becomes RGB (RGBA where the
+  first frame had a transparent index); each frame is drawn on an image
+  of its own and pasted over the canvas, its transparent pixels leaving
+  it; a frame past the image's edge grows the canvas, with transparent
+  black where the frame has a transparent index, else with its colour 0;
+- a gray canvas stays gray: later frames are drawn onto it, their
+  transparent index skipped; a palette frame there keeps the canvas's
+  bytes (Pillow shows it gray) until the next frame turns it RGB;
+- the previous frame's disposal is applied first (2: its extent filled
+  with the transparent colour, else the background colour, each looked up
+  in the frame's palette; 3: its extent restored to what it held before
+  that frame); a disposal method stays in force until a frame names
+  another (Pillow keeps the last nonzero one); a palette index past the
+  palette is black.
 
-A frame past the image's edge grows it, as Pillow grows it (the new area
-black where the frame has a transparent index, else the frame's colour
-0). Palette frames after a gray first frame, and frames without a
-palette that grow an RGB canvas without transparency, raise
-``NotPortedError``.
+Where Pillow fails (a frame without a palette or transparency that grows
+an RGB canvas, a palette frame after a transparent gray first frame) the
+decoder raises ``InvalidDocumentError``.
 """
 
 import struct
@@ -33,7 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 from dial_rag_tpu_torch.native.build import load_native
 
 _INTERLACE = ((0, 8), (4, 8), (2, 4), (1, 2))
@@ -166,15 +171,6 @@ def _indexes(frame: Frame) -> np.ndarray:
     return rows
 
 
-def _lut(palette) -> np.ndarray:
-    """[256, 3] RGB of a palette (black past its end), or the gray ramp."""
-    if palette is None or palette is False:
-        return np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
-    out = np.zeros((256, 3), dtype=np.uint8)
-    out[: min(len(palette), 256)] = palette[:256]
-    return out
-
-
 def decode_gif_frames(data: bytes, numbers: list[int] | None = None) -> list[np.ndarray]:
     """The RGB pages of a GIF, frame ``numbers`` (1-based; every frame if
     None) in that order, each as one Pillow image gives ``seek(number -
@@ -192,70 +188,225 @@ def decode_gif_frames(data: bytes, numbers: list[int] | None = None) -> list[np.
             state = _Compositor(frames, global_palette, background, (h, w))
         while state.index < number - 1:
             state.next()
-        h, w = state.canvas.shape[:2]
+        h, w = state.size
         pages.append(state.page())
     return pages
 
 
+class _Core:
+    """A Pillow core image: mode "L" or "P" ([h, w] bytes, a P image with
+    an RGBA palette, black past its entries) or "RGB", "RGBA" or "LA"
+    ([h, w, 4] bytes, as Pillow stores them: RGB with a 255 fourth byte, LA
+    as L, L, L, A)."""
+
+    def __init__(self, mode: str, px: np.ndarray, lut: np.ndarray | None = None):
+        self.mode, self.px, self.lut = mode, px, lut
+
+    @staticmethod
+    def fill(mode: str, size: tuple[int, int], colour=0) -> "_Core":
+        if mode in ("L", "P"):
+            return _Core(mode, np.full(size, colour, dtype=np.uint8), _palette_lut(None) if mode == "P" else None)
+        px = np.zeros(size + (4,), dtype=np.uint8)
+        px[...] = colour
+        return _Core(mode, px)
+
+    @property
+    def size(self) -> tuple[int, int]:
+        return self.px.shape[:2]
+
+    def copy(self) -> "_Core":
+        return _Core(self.mode, self.px.copy(), None if self.lut is None else self.lut.copy())
+
+    def putpalette(self, palette) -> None:
+        """Pillow's putpalette: an L or P image becomes P with ``palette``."""
+        self.mode, self.lut = "P", _palette_lut(palette)
+
+    def putpalettealpha(self, index: int) -> None:
+        if self.mode != "P":
+            raise InvalidDocumentError("image has no palette")
+        self.lut[index, 3] = 0
+
+    def convert(self, mode: str) -> "_Core":
+        """convert("RGB") or convert("RGBA")."""
+        if self.mode == "P":
+            px = self.lut[self.px].copy()
+        elif self.mode == "L":
+            px = np.repeat(self.px[:, :, None], 4, axis=2)
+        else:
+            px = self.px.copy()
+            if self.mode == "LA":
+                px[..., 1:3] = px[..., :1]
+        if mode == "RGB" or self.mode in ("L", "RGB"):
+            px[..., 3] = 255
+        return _Core(mode, px)
+
+    def transparent_la(self, index: int) -> "_Core":
+        """An L image's convert_transparent("LA", index)."""
+        px = np.repeat(self.px[:, :, None], 4, axis=2)
+        px[..., 3] = np.where(self.px == index, 0, 255)
+        return _Core("LA", px)
+
+    def crop(self, ext) -> "_Core":
+        return _Core(self.mode, _crop(self.px, ext), self.lut)
+
+    def paste(self, src: "_Core", ext, masked: bool = False) -> None:
+        """Pillow's core paste at ``ext``'s corner: bytes copied (an image
+        of another pixel size raises, as in Pillow), or with ``masked``
+        only where the source's fourth byte (its alpha) is set."""
+        if (src.px.ndim == 3) != (self.px.ndim == 3):
+            raise InvalidDocumentError("images do not match")
+        rows, cols = ext
+        h = min(src.size[0], self.size[0] - rows.start)
+        w = min(src.size[1], self.size[1] - cols.start)
+        target = self.px[rows.start:rows.start + h, cols.start:cols.start + w]
+        part = src.px[:h, :w]
+        if masked:
+            part = np.where(part[..., 3:4] == 255, part, target)
+        target[...] = part
+
+    def rgb(self) -> np.ndarray:
+        """convert("RGB") as [h, w, 3]."""
+        return np.ascontiguousarray(self.convert("RGB").px[..., :3])
+
+
+def _palette_lut(palette) -> np.ndarray:
+    """[256, 4] RGBA palette entries, black past the table."""
+    out = np.zeros((256, 4), dtype=np.uint8)
+    out[:, 3] = 255
+    if palette is not None and palette is not False:
+        out[: min(len(palette), 256), :3] = palette[:256]
+    return out
+
+
 class _Compositor:
-    """One Pillow GIF image seeking forward: the canvas after frame
-    ``index``, and the disposal the next frame applies first."""
+    """One Pillow GIF image seeking forward (GifImagePlugin's ``_seek``,
+    ``load_prepare`` and ``load_end`` under its default loading strategy):
+    the image after frame ``index``, its mode, and the disposal the next
+    frame applies first."""
 
     def __init__(self, frames: list[Frame], global_palette, background: int, size: tuple[int, int]):
         self.frames, self.global_palette, self.background = frames, global_palette, background
-        first = frames[0]
-        self.palette0 = first.palette if first.palette is not None else global_palette
-        self.rgb = self.palette0 is not None and self.palette0 is not False  # Pillow's mode "P" (else "L")
-        # indexes until the second frame
-        self.canvas = np.full(_grown(size, first), first.transparency or 0, dtype=np.uint8)
-        ext = _extent(first)
-        self.dispose = _dispose(first, ext, None, first.transparency, background, self.palette0)
-        self.canvas[ext] = _indexes(first)
-        self.index = 0
+        self.size = size
+        self.index = -1
+        self.im: _Core | None = None
+        self.mode = ""
+        self.transparency_info = None  # info["transparency"]
+        self.dispose = None  # (extent, _Core)
+        self.next()
 
     def page(self) -> np.ndarray:
-        if self.canvas.ndim == 3:
-            return self.canvas.copy()
-        return _lut(self.palette0 if self.rgb else None)[self.canvas]
+        if self.mode == "P" and self.transparency_info is not None and self.image_palette is None:
+            # Pillow's convert needs the image's palette to carry the transparency over, and has none
+            raise InvalidDocumentError("GIF palette frame after a gray first frame with transparency")
+        return self.im.rgb()
 
     def next(self) -> None:
         self.index += 1
-        f = self.frames[self.index]
-        if self.dispose is not None:
-            where, value = self.dispose
-            self.canvas[where] = value
-        if self.rgb and self.canvas.ndim == 2:
-            self.canvas = _lut(self.palette0)[self.canvas]  # Pillow converts the first frame to RGB here
-        palette = f.palette if f.palette is not None else self.global_palette
+        k, f = self.index, self.frames[self.index]
+        self.size = _grown(self.size, f)
         ext = _extent(f)
-        size = _grown(self.canvas.shape[:2], f)
-        if self.rgb:
-            # the first frame's transparency left Pillow's info at the conversion
-            self.dispose = _dispose(f, ext, self.canvas, f.transparency, self.background, palette)
-            idx = _indexes(f)
-            if size != self.canvas.shape[:2]:
-                # Pillow pastes the canvas on black where the frame is transparent, else on index 0
-                if f.transparency is None and (palette is None or palette is False):
-                    raise NotPortedError("GIF frames without a palette that grow an RGB canvas are not ported "
-                                         "yet (ROADMAP item 9d)")
-                fill = (0, 0, 0) if f.transparency is not None else _lut(palette)[0]
-                self.canvas = _paste_on(self.canvas, size, np.asarray(fill, dtype=np.uint8))
-            drawn = _lut(palette)[idx]
-            if f.transparency is not None:
-                drawn = np.where((idx == f.transparency)[:, :, None], self.canvas[ext], drawn)
-            self.canvas[ext] = drawn
-            return
-        if palette is not None and palette is not False:
-            raise NotPortedError("GIF palette frames after a gray first frame are not ported yet (ROADMAP item 9d)")
-        first = self.frames[0].transparency
-        colour = first if first is not None else f.transparency
-        self.dispose = _dispose(f, ext, self.canvas, colour, self.background, None)
+        if self.dispose is not None:
+            self.im.paste(self.dispose[1], self.dispose[0])
+        palette = f.palette if f.palette is not None else self.global_palette
+        has_palette = palette is not None and palette is not False
+        t = f.transparency
+        if k == 0:
+            self.mode = "P" if has_palette else "L"
+            # the image's palette: the first frame's, else the global one
+            self.image_palette = palette if has_palette else self.global_palette
+        elif self.mode == "P":
+            if self.transparency_info is not None:
+                self.im.putpalettealpha(self.transparency_info)
+                self.im, self.mode = self.im.convert("RGBA"), "RGBA"
+                self.transparency_info = None
+            else:
+                self.im, self.mode = self.im.convert("RGB"), "RGB"
+        rgb_mode = self.mode in ("RGB", "RGBA")
+
+        def colour_of(index: int):
+            if has_palette:
+                if index * 3 + 3 > len(palette) * 3:
+                    index = 0
+                return tuple(int(v) for v in palette[index])
+            return (index,) * 3
+
+        dsize = (f.height, f.width)
+        self.dispose = None
+        if f.disposal == 2:
+            colour = self.transparency_info if self.transparency_info is not None else t
+            if colour is not None:
+                fill = _Core.fill("RGBA", dsize, colour_of(colour) + (0,)) if rgb_mode else _Core.fill("P", dsize, colour)
+            else:
+                colour = self.background
+                fill = _Core.fill("RGB", dsize, colour_of(colour) + (255,)) if rgb_mode else _Core.fill("P", dsize,
+                                                                                                        colour)
+            self.dispose = (ext, fill)
+        elif f.disposal == 3:
+            if self.im is not None:
+                self.dispose = (ext, self.im.crop(ext))
+            elif t is not None:
+                self.dispose = (ext, _Core.fill("RGBA", dsize, colour_of(t) + (0,)) if rgb_mode
+                                else _Core.fill("P", dsize, t))
+        skip = -1
+        if t is not None:
+            if k == 0:
+                self.transparency_info = t
+            elif not rgb_mode:
+                skip = t
+        # load_prepare
+        temp = "P" if has_palette else "L"
+        previous = None
+        if k == 0:
+            self.im = _Core.fill(temp, self.size, t or 0)
+            if temp == "P":
+                self.im.putpalette(palette)
+        elif rgb_mode:
+            previous = self.im
+            if has_palette:
+                self.im = _Core.fill("P", self.size, t or 0)
+                self.im.putpalette(palette)
+            else:
+                self.im = _Core.fill("L", self.size)
+        if previous is None and self.im.size != self.size:
+            grown = _Core.fill(self.im.mode, self.size)
+            if has_palette:
+                grown.putpalette(palette)
+            grown.paste(self.im, (slice(0, 1), slice(0, 1)))
+            self.im = grown
+        self.mode = temp
+        # the frame's indexes, its transparent index skipped
         idx = _indexes(f)
-        if size != self.canvas.shape[:2]:
-            self.canvas = _paste_on(self.canvas, size, np.uint8(0))
-        if f.transparency is not None:
-            idx = np.where(idx == f.transparency, self.canvas[ext], idx)
-        self.canvas[ext] = idx
+        target = self.im.px[ext]
+        target[...] = idx if skip < 0 else np.where(idx == skip, target, idx)
+        if k == 0 and not has_palette and self.image_palette is not None:
+            # Pillow realises the image's palette (the global one, the first
+            # frame's being the gray ramp) into the gray image as it loads it
+            self.im.putpalette(self.image_palette)
+        # load_end
+        if previous is None:
+            return
+        if self.size != previous.size:
+            if t is not None:
+                grown = _Core.fill("RGBA", self.size)
+            else:
+                if self.im.mode != "P":
+                    raise InvalidDocumentError("image has no palette")
+                grown = _Core.fill("P", self.size)
+                grown.lut = self.im.lut.copy()
+                grown = grown.convert("RGB")
+            grown.paste(previous, (slice(0, 1), slice(0, 1)))
+            previous = grown
+        if t is not None:
+            if self.mode == "L":
+                frame_im = self.im.transparent_la(t)
+            else:
+                self.im.putpalettealpha(t)
+                frame_im = self.im.convert("RGBA")
+        else:
+            frame_im = self.im.convert("RGB")
+        frame_im = frame_im.crop(ext)
+        self.im, self.mode = previous, previous.mode
+        previous.paste(frame_im, ext, masked=frame_im.mode in ("LA", "RGBA"))
 
 
 def _extent(frame: Frame) -> tuple[slice, slice]:
@@ -271,13 +422,6 @@ def _grown(size: tuple[int, int], frame: Frame) -> tuple[int, int]:
     return h, w
 
 
-def _paste_on(canvas: np.ndarray, size: tuple[int, int], fill) -> np.ndarray:
-    out = np.empty(size + canvas.shape[2:], dtype=np.uint8)
-    out[...] = fill
-    out[: canvas.shape[0], : canvas.shape[1]] = canvas
-    return out
-
-
 def _crop(canvas: np.ndarray, ext) -> np.ndarray:
     """``canvas[ext]``, zeros where the extent lies past the canvas (as
     Pillow crops)."""
@@ -286,23 +430,3 @@ def _crop(canvas: np.ndarray, ext) -> np.ndarray:
     part = canvas[ext]
     out[: part.shape[0], : part.shape[1]] = part
     return out
-
-
-def _dispose(frame: Frame, ext, canvas, colour, background: int, palette):
-    """What the frame's disposal puts in its extent before the next frame
-    is drawn: (the extent, a fill value or the saved pixels), or None. On
-    an index canvas (the first frame's, or a gray one) fills are indexes;
-    on an RGB canvas colours of the frame's ``palette``."""
-    if frame.disposal == 2:
-        if colour is None:
-            colour = background
-        if canvas is None or canvas.ndim == 2:
-            return ext, colour
-        if palette is None or palette is False:
-            return ext, np.array([colour] * 3, dtype=np.uint8)
-        return ext, palette[colour if colour < len(palette) else 0]
-    if frame.disposal == 3:
-        if canvas is None:  # the first frame: Pillow has no image to save yet
-            return (ext, frame.transparency) if frame.transparency is not None else None
-        return ext, _crop(canvas, ext)
-    return None

@@ -20,6 +20,7 @@ passes, each unfiltered on its own, into place.
 
 import struct
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -134,52 +135,213 @@ def _samples(raw: bytes, h: int, w: int, depth: int, channels: int) -> tuple[np.
     return rows.reshape(h, w, channels), h * (stride + 1)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """The RGB pixels ([H, W, 3] uint8) of a PNG, as Pillow's
-    ``convert("RGB")`` gives them."""
-    w, h, depth, color, interlace = read_header(data)
+def _check_header(w: int, h: int, depth: int, color: int, interlace: int) -> None:
     if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or interlace not in (0, 1):
         raise InvalidDocumentError(f"PNG colour type {color} at bit depth {depth} is not defined")
     if w * h > 178956970:  # Pillow's decompression-bomb limit
         raise InvalidDocumentError("PNG image is too large")
-    channels = _CHANNELS[color]
-    palette = None
-    idat = []
-    for tag, payload in _chunks(data):
-        if tag == b"IDAT":
-            idat.append(payload)
-        elif tag == b"PLTE":
-            palette = np.frombuffer(payload, dtype=np.uint8)[: len(payload) // 3 * 3].reshape(-1, 3)
+
+
+def _inflate(parts: list[bytes]) -> bytes:
     try:
-        raw = zlib.decompress(b"".join(idat))
+        return zlib.decompress(b"".join(parts))
     except zlib.error as e:
         raise InvalidDocumentError(f"PNG image data is corrupt: {e}") from e
+
+
+def _image_samples(raw: bytes, w: int, h: int, depth: int, color: int, interlace: int) -> np.ndarray:
+    """The [h, w, channels] samples of one image's inflated data."""
+    channels = _CHANNELS[color]
     if not interlace:
-        samples, _ = _samples(raw, h, w, depth, channels)
-    else:
-        # Adam7: seven passes, each a reduced image of its own scanlines and filters
-        samples = np.zeros((h, w, channels), dtype=np.uint16 if depth == 16 else np.uint8)
-        at = 0
-        for x0, y0, dx, dy in ADAM7:
-            pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
-            if pw and ph:
-                part, used = _samples(raw[at:], ph, pw, depth, channels)
-                samples[y0::dy, x0::dx] = part
-                at += used
+        return _samples(raw, h, w, depth, channels)[0]
+    # Adam7: seven passes, each a reduced image of its own scanlines and filters
+    samples = np.zeros((h, w, channels), dtype=np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
+        if pw and ph:
+            part, used = _samples(raw[at:], ph, pw, depth, channels)
+            samples[y0::dy, x0::dx] = part
+            at += used
+    return samples
+
+
+def _mode_samples(samples: np.ndarray, depth: int, color: int) -> np.ndarray:
+    """Samples as Pillow holds them in the image's mode: gray at 1, 2 and 4
+    bits scaled to 0-255 (modes "1" and "L"), 16-bit gray kept (I;16),
+    other 16-bit samples by their high byte (16-bit gray + alpha as RGBA),
+    palette indexes as they are."""
     if color == 3:
-        return _palette_rgb(samples[..., 0], palette)
-    if depth < 8:  # gray at 1, 2 or 4 bits, scaled to 0-255
-        gray = (samples[..., 0].astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-        return np.repeat(gray[:, :, None], 3, axis=2)
+        return samples[..., :1].astype(np.uint8)
+    if color == 0 and depth < 8:
+        return (samples.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
     if depth == 16:
         if color == 0:
-            # Pillow opens 16-bit gray as I;16 and clips it to 8 bits
-            gray = np.minimum(samples[..., 0], 255).astype(np.uint8)
-            return np.repeat(gray[:, :, None], 3, axis=2)
+            return samples
         samples = (samples >> 8).astype(np.uint8)
-    if color in (0, 4):
-        return np.repeat(samples[..., :1], 3, axis=2)
-    return np.ascontiguousarray(samples[..., :3])
+        if color == 4:
+            return np.concatenate([np.repeat(samples[..., :1], 3, axis=2), samples[..., 1:]], axis=2)
+    return samples
+
+
+def _mode_rgb(image: np.ndarray, depth: int, color: int, palette) -> np.ndarray:
+    """``convert("RGB")`` of an image in its mode: alpha is dropped, not
+    composited; 16-bit gray (I;16) is clipped to 255; a palette image takes
+    its PLTE colours."""
+    if color == 3:
+        return _palette_rgb(image[..., 0], palette)
+    if color == 0 and depth == 16:
+        return np.repeat(np.minimum(image, 255).astype(np.uint8), 3, axis=2)
+    if image.shape[2] <= 2:
+        return np.repeat(image[..., :1], 3, axis=2)
+    return image[..., :3].copy()
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The RGB pixels ([H, W, 3] uint8) of a PNG, as Pillow's
+    ``convert("RGB")`` gives them (an animated PNG's first page)."""
+    return decode_png_frames(data, [1])[0]
+
+
+@dataclass
+class _Frame:
+    x0: int
+    y0: int
+    width: int
+    height: int
+    dispose: int | None  # fcTL dispose op: 0 none, 1 background, 2 previous; None for the default image
+    blend: int | None  # fcTL blend op: 0 source, 1 over
+    parts: list
+
+
+def read_apng(data: bytes) -> tuple[int | None, list[_Frame], bytes | None, bytes | None]:
+    """(acTL's frame count or None, frames, PLTE, tRNS) of a PNG, as Pillow
+    reads them: without a valid acTL before the first IDAT the PNG is one
+    frame; with one, an IDAT that no fcTL precedes is a default image and a
+    frame of its own, and every fcTL with its fdAT chunks a frame."""
+    w, h, _, _, _ = read_header(data)
+    n_frames = None
+    actl_seen = False
+    palette = trns = None
+    frames: list[_Frame] = []
+    control = None
+    in_idat = False
+    for tag, payload in _chunks(data):
+        if tag == b"acTL" and not frames and not in_idat:
+            if len(payload) < 8:
+                raise InvalidDocumentError("APNG contains a truncated acTL chunk")
+            count = struct.unpack_from(">I", payload)[0]
+            n_frames = None if actl_seen or count == 0 or count > 0x80000000 else count
+            actl_seen = True
+        elif tag == b"PLTE" and palette is None:
+            palette = payload
+        elif tag == b"tRNS" and trns is None:
+            trns = payload
+        elif tag == b"fcTL":
+            if len(payload) < 26:
+                raise InvalidDocumentError("APNG contains a truncated fcTL chunk")
+            fw, fh, x0, y0 = struct.unpack_from(">IIII", payload, 4)
+            if x0 + fw > w or y0 + fh > h:
+                raise InvalidDocumentError("APNG contains invalid frames")
+            control = _Frame(x0, y0, fw, fh, payload[24], payload[25], [])
+        elif tag == b"IDAT":
+            if not in_idat:
+                in_idat = True
+                frames.append(control or _Frame(0, 0, w, h, None, None, []))
+                control = None
+            frames[-1].parts.append(payload)
+        elif tag == b"fdAT" and control is not None:
+            frames.append(control)
+            control = None
+            frames[-1].parts.append(payload[4:])
+        elif tag == b"fdAT" and frames:
+            frames[-1].parts.append(payload[4:])
+    if not frames:
+        raise InvalidDocumentError("PNG image has no image data")
+    if n_frames is None:
+        del frames[1:]
+    return n_frames, frames, palette, trns
+
+
+def frame_count(data: bytes) -> int:
+    """Pillow's ``n_frames``: acTL's count, one more where the IDAT image
+    is a default image outside the animation."""
+    n_frames, frames, _, _ = read_apng(data)
+    if n_frames is None:
+        return 1
+    return n_frames + (frames[0].dispose is None)
+
+
+def _mask(region: np.ndarray, color: int, depth: int, trns: bytes | None) -> np.ndarray:
+    """The [h, w, 1] alpha Pillow pastes an OVER frame with (its
+    ``convert("RGBA")``, or the RGB transparent colour, or the palette's
+    tRNS alphas)."""
+    if color in (4, 6):
+        return region[..., -1:]
+    alpha = np.full(region.shape[:2] + (1,), 255, dtype=np.uint8)
+    if color == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]))
+        alpha[(region[..., :3] == key).all(axis=2)] = 0
+    elif color == 3 and trns:
+        table = np.full(256, 255, dtype=np.uint8)
+        table[: len(trns)] = np.frombuffer(trns[:256], dtype=np.uint8)
+        alpha[..., 0] = table[region[..., 0]]
+    return alpha
+
+
+def decode_png_frames(data: bytes, numbers: list[int] | None = None) -> list[np.ndarray]:
+    """The RGB pages of a PNG, frame ``numbers`` (1-based; every frame if
+    None) in that order, composited as Pillow's APNG reader composites them:
+    a frame's pixels replace its region, or with blend op 1 are pasted over
+    the canvas through their alpha (each sample ``DIV255(old * (255 - a) +
+    new * a)``); a frame's dispose op applies before the next frame (1: its
+    region cleared to zeros, 2: restored; 2 on the first frame acts as 1);
+    the first frame after a default image is drawn on that image."""
+    w, h, depth, color, interlace = read_header(data)
+    _check_header(w, h, depth, color, interlace)
+    count = frame_count(data)
+    numbers = numbers or list(range(1, count + 1))
+    for number in numbers:
+        if not 1 <= number <= count:
+            raise InvalidDocumentError(f"page {number} out of range 1..{count}")
+    _, frames, palette_raw, trns = read_apng(data)
+    if max(numbers) > len(frames):
+        raise InvalidDocumentError("No more images in APNG file")
+    palette = None
+    if palette_raw is not None:
+        palette = np.frombuffer(palette_raw, dtype=np.uint8)[: len(palette_raw) // 3 * 3].reshape(-1, 3)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2 if depth == 8 else 4, 6: 4}[color]
+    canvas = np.zeros((h, w, channels), dtype=np.uint16 if (depth, color) == (16, 0) else np.uint8)
+    pages: dict[int, np.ndarray] = {}
+    dispose = None  # (region, pixels) the previous frame leaves behind
+    for k, f in enumerate(frames[: max(numbers)]):
+        rows, cols = slice(f.y0, f.y0 + f.height), slice(f.x0, f.x0 + f.width)
+        previous = None
+        if k > 0:
+            if dispose is not None:
+                canvas[dispose[0]] = dispose[1]
+            previous = canvas.copy()
+        op = f.dispose
+        if previous is None and op == 2:
+            op = 1
+        dispose = None
+        if op == 2:
+            dispose = ((rows, cols), previous[rows, cols].copy())
+        elif op == 1:
+            dispose = ((rows, cols), 0)
+        raw = _inflate(f.parts)
+        drawn = _mode_samples(_image_samples(raw, f.width, f.height, depth, color, interlace), depth, color)
+        canvas[rows, cols] = drawn
+        if previous is not None and f.blend == 1:
+            if (depth, color) == (16, 0):  # Pillow cannot make the I;16 frame's mask
+                raise InvalidDocumentError("APNG frames of 16-bit gray cannot blend over")
+            a = _mask(drawn, color, depth, trns).astype(np.int64)
+            t = previous[rows, cols].astype(np.int64) * (255 - a) + drawn.astype(np.int64) * a + 128
+            canvas = previous
+            canvas[rows, cols] = (((t >> 8) + t) >> 8).astype(canvas.dtype)
+        if k + 1 in numbers:
+            pages[k + 1] = _mode_rgb(canvas, depth, color, palette)
+    return [pages[n] for n in numbers]
 
 
 def _palette_rgb(indexes: np.ndarray, palette) -> np.ndarray:

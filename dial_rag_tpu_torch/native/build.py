@@ -55,6 +55,25 @@ SIGNATURES = {
             ctypes.c_int32,
         ),
     },
+    "tiff": {
+        # (data, n, out, out_len) -> bytes written, or -1
+        "dial_tiff_lzw": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong], ctypes.c_longlong),
+        "dial_tiff_packbits": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong], ctypes.c_longlong),
+        # (data, n, compression, t4_options, width, rows, out [rows, (width + 7) / 8], out_len)
+        #   -> rows decoded, or -1
+        "dial_tiff_ccitt": ([ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, _P, ctypes.c_longlong], ctypes.c_longlong),
+    },
+    "webp": {
+        # (data, n, info) -> status; info = width, height (VP8) or width, height, alpha bit (VP8L)
+        "dial_webp_vp8_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),
+        "dial_webp_vp8l_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),
+        # (data, n, rgba [height, width, 4], width, height) -> status
+        "dial_webp_vp8_decode": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+        "dial_webp_vp8l_decode": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+        # (data, n, width, height, alpha [height, width]) -> status
+        "dial_webp_alpha": ([ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    },
     "wordpiece": {
         "wp_create": ([ctypes.c_char_p, ctypes.c_int, ctypes.c_int], _P),
         "wp_free": ([_P], None),

@@ -303,17 +303,12 @@ def test_image_documents_match_the_jax_package(fmt, mime):
 
 @pytest.mark.parametrize("fmt", ["GIF", "TIFF", "WEBP"])
 def test_other_image_documents_raise_item_9d(fmt):
-    """TIFF and WebP documents still raise NotPortedError naming item 9d;
-    GIF, once among them, now reads: its page count and page as the JAX
-    package gives them."""
+    """GIF, TIFF and WebP documents, once refused (ROADMAP item 9d), now
+    read: their page count and page as the JAX package gives them (WebP
+    lossy at PIL's default quality, decoded as libwebp decodes it)."""
     data = saved(Image.fromarray(BASE), fmt)
-    if fmt == "GIF":
-        assert extract_number_of_pages("image/gif", data) == jax_number_of_pages("image/gif", data) == 1
-        assert np.array_equal(decode_image(data), pil_rgb(data))
-        ref = asyncio.run(_pages(jax_extract_pages, "image/gif", data))
-        assert np.array_equal(asyncio.run(_pages(extract_pages, "image/gif", data))[0], ref[0])
-        return
-    with pytest.raises(NotPortedError, match="9d"):
-        extract_number_of_pages("image/" + fmt.lower(), data)
-    with pytest.raises(NotPortedError, match="9d"):
-        decode_image(data)
+    mime = "image/" + fmt.lower()
+    assert extract_number_of_pages(mime, data) == jax_number_of_pages(mime, data) == 1
+    assert np.array_equal(decode_image(data), pil_rgb(data))
+    ref = asyncio.run(_pages(jax_extract_pages, mime, data))
+    assert np.array_equal(asyncio.run(_pages(extract_pages, mime, data))[0], ref[0])

@@ -1,12 +1,16 @@
 """The image formats of the port's page images held against PIL (the JAX
 package's path) on the CPU: progressive JPEG (``native/jpeg.cpp``),
-Adam7 PNG (``png.py``), the BMPs Pillow reads (``bmp.py``: 1-, 4- and
-16-bit, RLE8 and RLE4, OS/2 headers) and GIF documents (``gif.py`` on
-``native/gif.cpp``: a page a frame, composited as Pillow composites it).
+Adam7 and animated PNG (``png.py``), the BMPs Pillow reads (``bmp.py``:
+1-, 4- and 16-bit, RLE8 and RLE4, OS/2 headers) and GIF documents
+(``gif.py`` on ``native/gif.cpp``: a page a frame, composited as Pillow
+composites it); the committed TIFF and WebP fixtures too (their seeded
+sets are in tests/test_torch_tiff.py and tests/test_torch_webp.py).
 
 Tolerances, stated before any comparison:
-- PNG, BMP and GIF: equal (bit for bit);
-- progressive JPEG: equal expected, with a ceiling of JPEG_LEVELS per
+- PNG (APNG composites too), BMP, GIF, TIFF but JPEG-in-TIFF, WebP:
+  equal (bit for bit);
+- progressive JPEG and JPEG-in-TIFF: equal expected, with a ceiling of
+  JPEG_LEVELS per
   channel (the gate of tests/test_torch_codecs.py); the largest
   difference read is printed;
 - page counts and pages: equal to the JAX package's
@@ -30,7 +34,7 @@ from PIL import Image
 from dial_rag_tpu.documents.pdf import render as jax_render
 from dial_rag_tpu.image_processor.extract_pages import _extract_pages_sync as jax_pages
 from dial_rag_tpu.image_processor.extract_pages import extract_number_of_pages as jax_number_of_pages
-from dial_rag_tpu_torch.documents.mime import sniff_mime
+from dial_rag_tpu_torch.documents.mime import detect_mime
 from dial_rag_tpu_torch.documents.parser import extract_number_of_pages, parse_document
 from dial_rag_tpu_torch.documents.pdf import render
 from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
@@ -38,7 +42,8 @@ from dial_rag_tpu_torch.image_processor.bmp import decode_bmp
 from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
 from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames, frame_count
 from dial_rag_tpu_torch.image_processor.jpeg import decode_jpeg
-from dial_rag_tpu_torch.image_processor.png import decode_png
+from dial_rag_tpu_torch.image_processor.png import decode_png, decode_png_frames
+from dial_rag_tpu_torch.image_processor.png import frame_count as png_frame_count
 from tests.utils import image_encoders as enc
 from tests.utils.image_pdf import build_image_pdf
 from tests.utils.make_image_fixtures import (
@@ -46,9 +51,13 @@ from tests.utils.make_image_fixtures import (
     HTML_ORACLE,
     IMAGES,
     ORACLE_CHUNKS,
+    RATE_DIGESTS,
+    RATES,
     elements_digest,
     html_oracle,
     image_fixtures,
+    page_digests,
+    rate_fixtures,
 )
 from tests.utils.make_jpeg_fixtures import photo
 
@@ -79,10 +88,11 @@ def test_fixture_decodes_to_its_committed_pixels(name):
     data = (IMAGES / name).read_bytes()
     decoded = np.load(IMAGES / "decoded.npz")
     ref = [decoded[f"{name}@{i}"] for i in range(1, 1 + sum(k.startswith(name + "@") for k in decoded.files))]
-    got = _extract_pages_sync(sniff_mime(data), data, None, None)
-    assert len(got) == len(ref) == extract_number_of_pages(sniff_mime(data), data)
+    mime = detect_mime(None, name, data)  # a BigTIFF's magic is no mime's: its name gives it
+    got = _extract_pages_sync(mime, data, None, None)
+    assert len(got) == len(ref) == extract_number_of_pages(mime, data)
     for page, want in zip(got, ref):
-        if name.endswith(".jpg"):
+        if name.endswith(".jpg") or "_jpeg" in name:
             gap = jpeg_gap(page, want)
             print(f"{name}: largest difference {gap}")
             assert gap <= JPEG_LEVELS
@@ -100,6 +110,34 @@ def test_committed_fixtures_are_what_the_maker_writes():
         assert (IMAGES / name).read_bytes() == data, name
         for i, page in enumerate(pil_pages(data), start=1):
             assert np.array_equal(decoded[f"{name}@{i}"], page), name
+
+
+RATE_FILES = sorted(p.name for p in RATES.iterdir() if p != RATE_DIGESTS)
+
+
+def test_committed_rate_documents_are_what_the_maker_writes():
+    """The documents the card times the host decoders on, and the digests
+    of their PIL pages, are what PIL gives today (the maker's seeds)."""
+    files = rate_fixtures()
+    assert sorted(files) == RATE_FILES
+    digests = json.loads(RATE_DIGESTS.read_text())
+    assert sorted(digests) == RATE_FILES
+    for name, data in files.items():
+        assert (RATES / name).read_bytes() == data, name
+        assert page_digests(pil_pages(data)) == digests[name], name
+
+
+@pytest.mark.parametrize("name", RATE_FILES)
+def test_rate_document_decodes_to_pils_pages(name):
+    """Each timed document (an A4 fax page, 1024 x 768 screenshots and
+    photographs, a 640 x 480 APNG) decodes in the port, page count and
+    every page, bit for bit as PIL decodes it (by the digests the card
+    checks)."""
+    data = (RATES / name).read_bytes()
+    mime = detect_mime(None, name, data)
+    want = json.loads(RATE_DIGESTS.read_text())[name]
+    assert extract_number_of_pages(mime, data) == len(want)
+    assert page_digests(_extract_pages_sync(mime, data, None, None)) == want
 
 
 def test_committed_html_oracle_is_the_jax_packages():
@@ -320,14 +358,142 @@ def test_progressive_jpeg_in_a_pdf_renders_as_the_jax_package():
         assert got.min() < 200  # the images were drawn
 
 
-def test_gif_palette_frame_after_a_gray_first_frame_raises_item_9d():
-    """A GIF layout Pillow reads that the port does not composite yet
-    raises NotPortedError naming item 9d: a palette frame after a first
-    frame without a palette. Its page count is Pillow's all the same."""
+def test_gif_palette_frame_after_a_gray_first_frame_matches_pil():
+    """A palette frame after a first frame without a palette: Pillow keeps
+    the gray canvas's bytes (shown gray, the palette unused) and turns the
+    canvas RGB at the next frame; the port's pages and page count are
+    Pillow's."""
     rng = np.random.default_rng(7)
     palette = rng.integers(0, 256, (4, 3)).astype(np.uint8)
     gray_first = enc.gif((8, 6), [{"indexes": rng.integers(0, 4, (6, 8))},
-                                  {"indexes": rng.integers(0, 4, (6, 8)), "palette": palette}])
-    assert frame_count(gray_first) == jax_number_of_pages("image/gif", gray_first) == len(pil_pages(gray_first)) == 2
-    with pytest.raises(NotPortedError, match="9d"):
-        decode_gif_frames(gray_first)
+                                  {"indexes": rng.integers(0, 4, (6, 8)), "palette": palette},
+                                  {"indexes": rng.integers(0, 4, (3, 5)), "at": (2, 2), "transparency": 1}])
+    assert frame_count(gray_first) == jax_number_of_pages("image/gif", gray_first) == len(pil_pages(gray_first)) == 3
+    for got, want in zip(decode_gif_frames(gray_first), pil_pages(gray_first), strict=True):
+        assert np.array_equal(got, want)
+
+
+GIF_LAYOUTS = ["gray_then_palette", "palette_over_gray_global", "gray_frame_grows_rgb", "palette_frame_grows_rgb",
+               "no_palette_grows_rgb", "transparent_gray_then_palette"]
+
+
+def layout_gif(layout: str, rng) -> bytes:
+    palette = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    idx = lambda h, w, n=8: rng.integers(0, n, (h, w))  # noqa: E731
+    if layout == "gray_then_palette":
+        frames = [{"indexes": idx(12, 16)}, {"indexes": idx(6, 8), "at": (3, 2), "palette": palette, "disposal": 2},
+                  {"indexes": idx(5, 9), "at": (1, 6), "transparency": 2}, {"indexes": idx(12, 16), "disposal": 3}]
+        return enc.gif((16, 12), frames)
+    if layout == "palette_over_gray_global":  # the first frame's palette is the gray ramp, the global one is not
+        ramp = np.repeat(np.arange(8, dtype=np.uint8)[:, None], 3, axis=1)
+        frames = [{"indexes": idx(12, 16), "palette": ramp}, {"indexes": idx(6, 8), "at": (3, 2), "palette": palette},
+                  {"indexes": idx(4, 4), "at": (14, 10)}]
+        return enc.gif((16, 12), frames, palette)
+    if layout in ("gray_frame_grows_rgb", "no_palette_grows_rgb"):
+        second = {"indexes": idx(8, 8, 4), "at": (12, 8)}
+        if layout == "gray_frame_grows_rgb":
+            second["transparency"] = 1
+        return enc.gif((16, 12), [{"indexes": idx(12, 16), "palette": palette}, second,
+                                  {"indexes": idx(4, 6), "at": (1, 1), "palette": palette}])
+    if layout == "palette_frame_grows_rgb":
+        return enc.gif((16, 12), [{"indexes": idx(12, 16), "palette": palette},
+                                  {"indexes": idx(8, 8), "at": (12, 8), "palette": palette[::-1].copy()}])
+    # a transparent gray first frame, then a palette frame: Pillow's convert fails on the second page
+    return enc.gif((16, 12), [{"indexes": idx(12, 16), "transparency": 0},
+                              {"indexes": idx(6, 8), "at": (3, 2), "palette": palette}])
+
+
+@pytest.mark.parametrize("layout", GIF_LAYOUTS)
+def test_gif_layouts_match_pil(layout):
+    """The layouts Pillow composites its own way, each as Pillow gives it;
+    where Pillow fails (a frame without a palette or transparency that
+    grows an RGB canvas, a palette frame after a transparent gray frame)
+    the port raises InvalidDocumentError, from the same page on."""
+    data = layout_gif(layout, np.random.default_rng(GIF_LAYOUTS.index(layout)))
+    assert frame_count(data) == jax_number_of_pages("image/gif", data)
+    try:
+        want = pil_pages(data)
+    except (ValueError, AssertionError):
+        want = None
+    if want is None:
+        with pytest.raises(InvalidDocumentError):
+            decode_gif_frames(data)
+        return
+    for got, ref in zip(decode_gif_frames(data), want, strict=True):
+        assert got.shape == ref.shape and np.array_equal(got, ref)
+    reordered = decode_gif_frames(data, [len(want), 1])
+    assert np.array_equal(reordered[0], want[-1])
+
+
+# -- animated PNG ----------------------------------------------------------------------
+
+APNG_MODES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 4), (3, 8), (4, 8), (4, 16),
+              (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("color,depth", APNG_MODES)
+def test_apng_matches_pil(color, depth):
+    """Seeded APNGs of every colour type and depth: frame regions, dispose
+    ops 0-2 and blend ops 0-1, with and without a default image, tRNS on
+    gray, RGB and palette images; Pillow's pages, or its error (a 16-bit
+    gray frame cannot blend over)."""
+    rng = np.random.default_rng(color * 100 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    for _ in range(5):
+        w, h = (int(v) for v in rng.integers(1, 24, 2))
+        top, palette, trns = 1 << depth, b"", b""
+        if color == 3:
+            top = int(rng.integers(1, (1 << depth) + 1))
+            palette = rng.integers(0, 256, 3 * top).astype(np.uint8).tobytes()
+            if rng.random() < 0.6:
+                trns = rng.integers(0, 256, int(rng.integers(1, top + 1))).astype(np.uint8).tobytes()
+        elif color in (0, 2) and rng.random() < 0.5:
+            trns = b"".join(int(v).to_bytes(2, "big") for v in rng.integers(0, min(top, 4), 1 if color == 0 else 3))
+        frames = []
+        for _ in range(int(rng.integers(1, 5))):
+            fw, fh = int(rng.integers(1, w + 1)), int(rng.integers(1, h + 1))
+            samples = rng.integers(0, min(top, 4) if rng.random() < 0.5 else top, (fh, fw, channels))
+            if color in (4, 6):
+                samples[..., -1] = rng.choice([0, (1 << depth) - 1, int(rng.integers(0, 1 << depth))], (fh, fw))
+            frames.append({"samples": samples, "at": (int(rng.integers(0, w - fw + 1)), int(rng.integers(0, h - fh + 1))),
+                           "dispose": int(rng.integers(0, 3)), "blend": int(rng.integers(0, 2))})
+        default = rng.integers(0, top, (h, w, channels)) if rng.random() < 0.5 else None
+        if default is None:
+            frames[0].update(at=(0, 0), samples=rng.integers(0, top, (h, w, channels)))
+        data = enc.apng((w, h), frames, depth, color, palette, trns, default)
+        try:
+            want = pil_pages(data)
+        except ValueError:
+            with pytest.raises(InvalidDocumentError):
+                decode_png_frames(data)
+            continue
+        assert png_frame_count(data) == len(want)
+        for got, ref in zip(decode_png_frames(data), want, strict=True):
+            assert got.shape == ref.shape and np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("default_image", [False, True])
+def test_apng_documents_match_the_jax_package(default_image):
+    """APNGs PIL writes (every disposal and blend): page counts, pages (all,
+    reordered, scaled) and chunks as the JAX package gives them; the first
+    page is the default image where the IDAT is outside the animation."""
+    rng = np.random.default_rng(int(default_image))
+    frames = []
+    for k in range(4):
+        a = photo(30, 40, seed=120 + k)
+        a[:, 10 * k:10 * k + 8] = a[0, 0]
+        frames.append(Image.fromarray(np.dstack([a, (rng.random((30, 40)) < 0.7).astype(np.uint8) * 255]), "RGBA"))
+    buf = io.BytesIO()
+    frames[0].save(buf, "PNG", save_all=True, append_images=frames[1:], default_image=default_image,
+                   disposal=[0, 1, 2, 1], blend=[0, 1, 1, 0], duration=30)
+    data = buf.getvalue()
+    n = jax_number_of_pages("image/png", data)
+    assert extract_number_of_pages("image/png", data) == n == 4
+    for numbers, size in ((None, None), ([n, 1], None), (None, 32)):
+        ref = [np.asarray(p) for p in jax_pages("image/png", data, numbers, size)]
+        got = _extract_pages_sync("image/png", data, numbers, size)
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and int(np.abs(a.astype(int) - b).max()) <= (RESIZE_LEVELS if size else 0)
+    chunks = parse_document(data, "image/png", source_link="files/a.png")
+    assert [c.metadata["page_number"] for c in chunks] == list(range(1, n + 1))

@@ -13,7 +13,8 @@ training step, the bfloat16, two_pass and int8 dense layouts, an RRF
 ensemble of the late-interaction, expanded BM25 and chargram arms, and
 concurrent four-arm RRF requests through one ``DeviceIndexCache``,
 parses a PDF, a DOCX, a CSV and an HTML page, stores their records and
-loads them back, reads a GIF document's frames,
+loads them back, reads a GIF document's frames and the pages of TIFF,
+WebP and animated PNG fixtures,
 renders a PDF page with an image to PNG and reads it back, and boots the
 port's DIAL app on the standard-library fake Dial Core, which answers one
 indexing and one retrieval request over HTTP in the default configuration
@@ -191,6 +192,16 @@ gif = (b"GIF89a\x02\x00\x01\x00\xf0\x00\x00\x00\x00\x00\xff\xff\xff"
        b"\x2c\x00\x00\x00\x00\x02\x00\x01\x00\x00\x02\x02\x0c\n\x00\x3b")
 frames = decode_gif_frames(gif)
 assert frame_count(gif) == 2 and [f[0, :, 0].tolist() for f in frames] == [[0, 255], [255, 0]], frames
+# TIFF, WebP and animated PNG documents: committed fixtures against PIL's committed pixels
+from pathlib import Path
+from dial_rag_tpu_torch.image_processor.extract_pages import decode_pages, page_count
+decoded = np.load("tests/data/images/decoded.npz")
+for name in ("tiff_g4_fax.tif", "tiff_multipage.tif", "webp_lossy_alpha.webp", "webp_animated.webp",
+             "apng_default_image.png"):
+    data = Path("tests/data/images", name).read_bytes()
+    pages = decode_pages(data)
+    assert len(pages) == page_count(data) > 0, name
+    assert all((p == decoded[f"{name}@{i}"]).all() for i, p in enumerate(pages, 1)), name
 # a page image: a PDF page with a Flate image rendered, PNG-encoded and read back
 from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
 from dial_rag_tpu_torch.image_processor.png import decode_png, encode_png

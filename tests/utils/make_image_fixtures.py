@@ -7,6 +7,11 @@ generates (``tests/data/html/oracle.json``), so that a machine without
 PIL, bs4 and lxml (the card's, in chip_smoke.py) can hold the port's
 decoders and HTML parser against them.
 
+It also writes ``tests/data/image_rates/``: documents at the sizes users
+attach (an A4 fax page, 1024 x 768 screenshots and photographs, a 640 x
+480 APNG), on which chip_smoke.py times the host decoders, with the
+sha256 of each of PIL's pages (``digests.json``).
+
 PIL writes the progressive JPEGs, the 1-bit BMP and one animated GIF;
 ``tests/utils/image_encoders.py`` writes what PIL cannot: Adam7 PNGs,
 4- and 16-bit and RLE BMPs (OS/2 headers too) and a GIF with every
@@ -29,6 +34,10 @@ from tests.utils.make_jpeg_fixtures import photo
 
 DATA = Path(__file__).resolve().parents[1] / "data"
 IMAGES = DATA / "images"
+# documents at the sizes users attach, for the host decoders' rates: their
+# PIL pages kept as digests (digests.json), not as pixels
+RATES = DATA / "image_rates"
+RATE_DIGESTS = RATES / "digests.json"
 HTML_ORACLE = DATA / "html" / "oracle.json"
 ORACLE_CHUNKS = DATA / "alps_oracle_chunks.json"
 
@@ -75,7 +84,159 @@ def image_fixtures() -> dict[str, bytes]:
     frames = [Image.fromarray(photo(48, 64, 60 + k)).quantize(64) for k in range(4)]
     out["pil_animated.gif"] = _pil_bytes(frames[0], "GIF", save_all=True, append_images=frames[1:],
                                          disposal=[0, 1, 2, 3], duration=100, optimize=True)
+    out.update(_gif_layouts(rng))
+    out.update(tiff_fixtures(rng))
+    out.update(webp_fixtures(rng))
+    out.update(apng_fixtures(rng))
     return out
+
+
+def fax_page(rng, h: int = 160, w: int = 864) -> np.ndarray:
+    """[h, w] bits (True black) like a scanned text page: lines of word
+    blocks with ragged edges, a rule and a stamp."""
+    bits = np.zeros((h, w), dtype=bool)
+    for top in range(12, h - 16, 18):
+        x = int(rng.integers(20, 60))
+        while x < w - 80:
+            length = int(rng.integers(12, 70))
+            block = rng.random((10, length)) < 0.55
+            bits[top:top + 10, x:x + length] = block
+            x += length + int(rng.integers(6, 14))
+    bits[h - 10:h - 8, 30:w - 30] = True  # a rule of long runs
+    if h < 60 or w < 70:
+        return bits
+    yy, xx = np.mgrid[0:40, 0:40]
+    bits[20:60, w - 70:w - 30] |= ((yy - 20) ** 2 + (xx - 20) ** 2 < 400) & ((yy - 20) ** 2 + (xx - 20) ** 2 > 300)
+    return bits
+
+
+def tiff_fixtures(rng) -> dict[str, bytes]:
+    """TIFFs: PIL (libtiff) writes each compression and a multi-page file;
+    the encoders write tiles, planes, big-endian and BigTIFF headers,
+    FillOrder 2, 2-, 4- and 16-bit samples, the predictor, Group 3 2D and
+    old-style LZW."""
+    out = {}
+    page = photo(48, 64, 70)
+    out["tiff_lzw_rgb.tif"] = _pil_bytes(Image.fromarray(page), "TIFF", compression="tiff_lzw")
+    out["tiff_deflate_gray.tif"] = _pil_bytes(Image.fromarray(page).convert("L"), "TIFF",
+                                              compression="tiff_adobe_deflate")
+    out["tiff_packbits_palette.tif"] = _pil_bytes(Image.fromarray(page).quantize(32), "TIFF", compression="packbits")
+    out["tiff_jpeg_ycbcr.tif"] = _pil_bytes(Image.fromarray(photo(61, 83, 71)).convert("YCbCr"), "TIFF",
+                                            compression="jpeg", quality=85)
+    out["tiff_raw_cmyk.tif"] = _pil_bytes(Image.fromarray(page).convert("CMYK"), "TIFF")
+    alpha = (np.arange(64)[None, :] * 4 % 256).repeat(48, axis=0).astype(np.uint8)
+    out["tiff_rgba_deflate.tif"] = _pil_bytes(Image.fromarray(np.dstack([page, alpha]), "RGBA"), "TIFF",
+                                              compression="tiff_deflate")
+    fax = fax_page(rng)
+    fax_image = Image.fromarray(~fax)  # mode "1": True is white
+    more = [Image.fromarray(~fax_page(rng)) for _ in range(2)]
+    out["tiff_g4_fax.tif"] = _pil_bytes(fax_image, "TIFF", compression="group4", save_all=True, append_images=more)
+    out["tiff_g3_fax.tif"] = _pil_bytes(fax_image, "TIFF", compression="group3")
+    out["tiff_ccitt_rle.tif"] = _pil_bytes(fax_image, "TIFF", compression="tiff_ccitt")
+    pages = [Image.fromarray(photo(40, 56, 72 + k)) for k in range(3)]
+    pages[1] = pages[1].convert("L")
+    pages[2] = Image.fromarray(~fax[:60, :90])
+    out["tiff_multipage.tif"] = _pil_bytes(pages[0], "TIFF", save_all=True, append_images=pages[1:],
+                                           compression="tiff_lzw")
+    small = photo(37, 45, 73)
+    out["tiff_tiled_planar_be.tif"] = enc.tiff([{"samples": small, "bits": 8, "photometric": 2, "compression": 5,
+                                                 "predictor": 2, "planar": 2, "tile": (16, 16)}], order=">")
+    gray16 = (small[..., 0].astype(np.uint16) * 250 + rng.integers(0, 250, small.shape[:2])).astype(np.uint16)
+    out["tiff_bigtiff_gray16.tif"] = enc.tiff([{"samples": gray16 // 200, "bits": 16, "compression": 8,
+                                                "predictor": 2, "rows_per_strip": 8}], big=True)
+    out["tiff_g3_2d_fill2.tif"] = enc.tiff([{"samples": fax[:64, :400, None].astype(np.uint8), "bits": 1,
+                                             "photometric": 0, "compression": 3, "two_d_every": 4, "fill": 2,
+                                             "rows_per_strip": 24}])
+    out["tiff_gray4_packbits.tif"] = enc.tiff([{"samples": small[..., 1:2] >> 4, "bits": 4, "photometric": 0,
+                                                "compression": 32773, "rows_per_strip": 10}])
+    out["tiff_gray2_lzw_old.tif"] = enc.tiff([{"samples": small[..., 2:3] >> 6, "bits": 2, "compression": 5,
+                                               "lzw_old": True}])
+    out["tiff_gray16_be.tif"] = enc.tiff([{"samples": gray16 // 200, "bits": 16}], order=">")
+    out["tiff_palette4_tiled.tif"] = enc.tiff([{"samples": small[..., :1] >> 4, "bits": 4, "photometric": 3,
+                                                "colormap": rng.integers(0, 65536, 48), "tile": (16, 32),
+                                                "compression": 8}])
+    return out
+
+
+def webp_fixtures(rng) -> dict[str, bytes]:
+    """WebPs: PIL writes lossy, lossless, alpha and animated files; libwebp's
+    encoder (``image_encoders.webp_encode``) the simple loop filter, token
+    partitions and sharpness; the encoders an ALPH chunk with the gradient
+    filter and an animation that disposes to background."""
+    out = {}
+    page = photo(72, 96, 80)
+    alpha = np.clip(np.add.outer(np.arange(72) * 3, np.arange(96) * 2), 0, 255).astype(np.uint8)
+    rgba = Image.fromarray(np.dstack([page, alpha]), "RGBA")
+    out["webp_lossy.webp"] = _pil_bytes(Image.fromarray(page), "WEBP", quality=80)
+    out["webp_lossy_alpha.webp"] = _pil_bytes(rgba, "WEBP", quality=70)
+    out["webp_lossless.webp"] = _pil_bytes(Image.fromarray(page), "WEBP", lossless=True)
+    out["webp_lossless_alpha.webp"] = _pil_bytes(rgba, "WEBP", lossless=True, exact=True)
+    out["webp_simple_filter.webp"] = enc.webp_encode(photo(57, 83, 81), quality=60.0, filter_type=0, partitions=3,
+                                                     filter_sharpness=5, filter_strength=70, autofilter=0)
+    lossy = enc.webp_encode(photo(33, 47, 82), quality=75.0)
+    ramp = np.add.outer(np.arange(33) * 5, np.arange(47) * 3).astype(np.uint8)
+    out["webp_alpha_gradient.webp"] = enc.webp_with_alpha(lossy, ramp, 3, True, True)
+    frames = []
+    for k in range(4):
+        a = photo(64, 80, 83 + k)
+        a[20 * k:20 * k + 16] = a[0, 0]
+        frames.append(Image.fromarray(np.dstack([a, np.where(np.arange(80)[None] < 10 * k, 0, 255).astype(np.uint8)
+                                                 .repeat(64, axis=0)]), "RGBA"))
+    out["webp_animated.webp"] = _pil_bytes(frames[0], "WEBP", save_all=True, append_images=frames[1:], duration=80,
+                                           quality=70)
+    stills = []
+    for k, (h, w) in enumerate(((40, 60), (20, 24), (16, 30), (30, 20))):
+        a = np.dstack([photo(h, w, 90 + k), rng.choice([0, 128, 255], (h, w)).astype(np.uint8)])
+        stills.append(enc.webp_encode(a if k else a[..., :3], lossless=k % 2, quality=70.0))
+    out["webp_anim_dispose.webp"] = enc.webp_animation(
+        (60, 40), [{"image": stills[0]}, {"image": stills[1], "at": (4, 6), "dispose": True},
+                   {"image": stills[2], "at": (10, 10), "blend": True}, {"image": stills[3], "at": (30, 8),
+                                                                            "blend": False, "dispose": True}],
+        background=(255, 0, 0, 255))
+    return out
+
+
+def apng_fixtures(rng) -> dict[str, bytes]:
+    """Animated PNGs: PIL writes a default image outside the animation and
+    every disposal and blend; the encoder a palette APNG with tRNS and
+    frame regions."""
+    out = {}
+    frames = []
+    for k in range(4):
+        a = photo(40, 52, 100 + k)
+        a[:, 13 * k:13 * k + 10] = a[0, 0]
+        frames.append(Image.fromarray(np.dstack([a, np.where(np.arange(52)[None] % (k + 2) == 0, 0, 255)
+                                                 .astype(np.uint8).repeat(40, axis=0)]), "RGBA"))
+    out["apng_default_image.png"] = _pil_bytes(frames[0], "PNG", save_all=True, append_images=frames[1:],
+                                               default_image=True, disposal=[0, 1, 2, 0], blend=[0, 1, 1, 1],
+                                               duration=50)
+    rgb = [Image.fromarray(photo(36, 44, 110 + k)) for k in range(3)]
+    out["apng_rgb.png"] = _pil_bytes(rgb[0], "PNG", save_all=True, append_images=rgb[1:], disposal=[2, 0, 1],
+                                     blend=[1, 0, 1], duration=50)
+    palette = rng.integers(0, 256, 3 * 8).astype(np.uint8).tobytes()
+    out["apng_palette_trns.png"] = enc.apng(
+        (30, 20), [{"samples": rng.integers(0, 8, (20, 30))},
+                   {"samples": rng.integers(0, 8, (8, 12)), "at": (4, 3), "dispose": 2, "blend": 1},
+                   {"samples": rng.integers(0, 8, (10, 10)), "at": (15, 8), "dispose": 1, "blend": 1},
+                   {"samples": rng.integers(0, 8, (6, 6)), "at": (2, 12), "blend": 0}],
+        4, 3, palette, bytes([0, 255, 255, 0]))
+    return out
+
+
+def _gif_layouts(rng) -> dict[str, bytes]:
+    """The GIF layouts Pillow composites its own way: a palette frame
+    after a gray first frame (shown gray, then the canvas turns RGB), and a
+    gray frame with transparency that grows an RGB canvas."""
+    palette = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    gray_first = enc.gif((24, 18), [{"indexes": rng.integers(0, 8, (18, 24))},
+                                    {"indexes": rng.integers(0, 8, (10, 12)), "at": (4, 4), "palette": palette},
+                                    {"indexes": rng.integers(0, 8, (6, 20)), "at": (2, 10), "transparency": 3,
+                                     "disposal": 2}])
+    grows = enc.gif((20, 16), [{"indexes": rng.integers(0, 8, (16, 20)), "palette": palette},
+                               {"indexes": rng.integers(0, 4, (12, 10)), "at": (16, 10), "transparency": 1},
+                               {"indexes": rng.integers(0, 8, (8, 8)), "at": (2, 2), "palette": palette,
+                                "disposal": 3}])
+    return {"gif_gray_then_palette.gif": gray_first, "gif_gray_frame_grows_rgb.gif": grows}
 
 
 def _frames_gif(rng) -> bytes:
@@ -96,6 +257,111 @@ def _frames_gif(rng) -> bytes:
             frame["transparency"] = int(rng.integers(0, n))
         frames.append(frame)
     return enc.gif((w, h), frames, glob, background=3)
+
+
+def glyph_bank(rng, n: int = 64, gh: int = 14, gw: int = 9) -> np.ndarray:
+    """[n, gh, gw] bits: n letter-like glyphs, each of 2 to 4 straight
+    strokes 2 pixels thick."""
+    out = np.zeros((n, gh, gw), dtype=bool)
+    for g in range(n):
+        for _ in range(int(rng.integers(2, 5))):
+            y0, y1 = rng.integers(0, gh, 2)
+            x0, x1 = rng.integers(0, gw - 1, 2)
+            for t in np.linspace(0, 1, 2 * max(gh, gw)):
+                y, x = int(round(y0 + (y1 - y0) * t)), int(round(x0 + (x1 - x0) * t))
+                out[g, y, x:x + 2] = True
+    return out
+
+
+def text_page(rng, h: int, w: int) -> np.ndarray:
+    """[h, w] bits (True black) like a typed page scanned for a fax:
+    margins, ragged lines of words of glyph_bank's letters, paragraph
+    gaps and a rule."""
+    bank = glyph_bank(rng)
+    gh, gw = bank.shape[1:]
+    bits = np.zeros((h, w), dtype=bool)
+    top = 120
+    while top < h - 140:
+        x, end = 140, w - 140 - int(rng.integers(0, 200))
+        while x < end:
+            for _ in range(int(rng.integers(2, 10))):
+                if x + gw > end:
+                    break
+                bits[top:top + gh, x:x + gw] = bank[int(rng.integers(len(bank)))]
+                x += gw + 2
+            x += 10
+        top += 30 if rng.random() > 0.1 else 60
+    bits[h - 100:h - 97, 140:w - 140] = True
+    return bits
+
+
+def office_page(rng, h: int, w: int, gradient: bool) -> np.ndarray:
+    """[h, w, 3] uint8 like a screenshot of a report: a title band, a bar
+    chart, lines of text, colour tiles, and with ``gradient`` a smooth
+    band at the bottom."""
+    img = np.full((h, w, 3), 246, dtype=np.uint8)
+    img[:h // 12] = (40, 70, 130)
+    bank = glyph_bank(rng)
+    base = int(h * 0.73)
+    for k in range(w // 85):
+        img[base - int(rng.integers(h // 12, h * 2 // 5)):base, 80 + 70 * k:130 + 70 * k] = rng.integers(40, 220, 3)
+    for top in range(h // 8, base - h // 2, 24):
+        x = 40
+        while x < w - 60:
+            img[top:top + 14, x:x + 9][bank[int(rng.integers(len(bank)))]] = (20, 20, 20)
+            x += 11 + (8 if rng.random() < 0.15 else 0)
+    if gradient:
+        yy, xx = np.mgrid[base + 40:h, 0:w]
+        img[base + 40:] = np.stack([xx % 256, (yy * 2) % 256, np.full_like(xx, 180)], -1)
+    else:
+        for k in range(w // 170):
+            img[base + 60:h - 18, 40 + 160 * k:180 + 160 * k] = rng.integers(60, 230, 3)
+    return img
+
+
+def web_photo(h: int, w: int, seed: int) -> np.ndarray:
+    """[h, w, 3] uint8 like a photograph on a web page: broad colour
+    gradients, overlapping discs, a striped texture and sensor noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(float)
+    img = np.stack([120 + 80 * np.sin(x / 90 + y / 150), 110 + 70 * np.cos(x / 120 - y / 80),
+                    100 + 60 * np.sin((x + y) / 200)], -1)
+    for _ in range(25):
+        cy, cx, r = rng.integers(0, h), rng.integers(0, w), rng.integers(20, 120)
+        disc = (y - cy) ** 2 + (x - cx) ** 2 < r ** 2
+        img[disc] = img[disc] * 0.5 + rng.integers(0, 256, 3) * 0.5
+    img += 10 * (np.sin(x / 3.1 + np.sin(y / 17) * 4) * (np.sin(y / 60) > 0))[..., None]
+    img += rng.normal(0, 5, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def rate_fixtures() -> dict[str, bytes]:
+    """File name -> bytes of the documents the host decoders are timed on,
+    each at a size users attach: an A4 fax page (1728 x 2200, Group 4), a
+    1024 x 768 report screenshot in LZW TIFF and in lossless WebP, a 1024 x
+    768 photograph in lossy WebP, and a 640 x 480 screen recording of 4
+    frames in APNG."""
+    rng = np.random.default_rng(27)
+    out = {"g4_a4_fax.tif": _pil_bytes(Image.fromarray(~text_page(rng, 2200, 1728)), "TIFF", compression="group4"),
+           "lzw_report.tif": _pil_bytes(Image.fromarray(office_page(rng, 768, 1024, False)), "TIFF",
+                                        compression="tiff_lzw"),
+           "lossy_photo.webp": _pil_bytes(Image.fromarray(web_photo(768, 1024, 27)), "WEBP", quality=80),
+           "lossless_screen.webp": _pil_bytes(Image.fromarray(office_page(rng, 768, 1024, True)), "WEBP",
+                                              lossless=True)}
+    screen = office_page(rng, 480, 640, True)
+    frames = []
+    for k in range(4):
+        frame = screen.copy()
+        frame[100 + 40 * k:140 + 40 * k, 100:400] = (200, 40 * k, 60)
+        frames.append(Image.fromarray(frame))
+    out["apng_screen.png"] = _pil_bytes(frames[0], "PNG", save_all=True, append_images=frames[1:], duration=80)
+    return out
+
+
+def page_digests(pages: list[np.ndarray]) -> list[dict]:
+    """Each page's shape and the sha256 of its bytes."""
+    return [{"shape": list(p.shape), "sha256": hashlib.sha256(np.ascontiguousarray(p).tobytes()).hexdigest()}
+            for p in pages]
 
 
 def pil_pages(data: bytes) -> list[np.ndarray]:
@@ -147,6 +413,12 @@ def main() -> None:
         for i, page in enumerate(pil_pages(data), start=1):
             decoded[f"{name}@{i}"] = page
     np.savez_compressed(IMAGES / "decoded.npz", **decoded)
+    RATES.mkdir(parents=True, exist_ok=True)
+    digests = {}
+    for name, data in sorted(rate_fixtures().items()):
+        (RATES / name).write_bytes(data)
+        digests[name] = page_digests(pil_pages(data))
+    RATE_DIGESTS.write_text(json.dumps(digests, indent=1) + "\n")
     HTML_ORACLE.parent.mkdir(parents=True, exist_ok=True)
     HTML_ORACLE.write_text(json.dumps(html_oracle(), indent=1, ensure_ascii=False) + "\n")
 
