@@ -4420,6 +4420,8 @@ def service_phase(torch, card, texts) -> dict:
         result[name] = result.get(name, 0) + n
     for name, n in tiff_service_request(torch, card).items():
         result[name] = result.get(name, 0) + n
+    for name, n in jpx_service_request(torch, card).items():
+        result[name] = result.get(name, 0) + n
     print(f"service phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return result
 
@@ -4611,6 +4613,117 @@ def tiff_service_request(torch, card) -> dict:
     return launches
 
 
+# the 3-page PDF the default configuration serves with the JPEG codings of JPX and arithmetic JPEG: a
+# page for each rate document (tests/data/image_rates), placed over the page as a scan or a photograph
+JPX_PDF_PAGES = (("jpx_photo_97.jp2", "jpx", 3, "A photograph of the Aletsch glacier from the Eggishorn."),
+                 ("jpx_letter_gray.jp2", "jpx", 1, "A scanned letter about the rack railway timetable."),
+                 ("arith_photo.jpg", "dct", 3, "A photograph of the station at Kleine Scheidegg."))
+
+
+def jpx_service_request(torch, card) -> dict:
+    """One indexing request, then one rag chat-completion request over HTTP,
+    with a 3-page PDF attached whose pages hold a JPX photograph (9/7,
+    1240 x 1754), a JPX scan (5/3, gray, 1240 x 1754) and an
+    arithmetic-coded JPEG (1024 x 768), to the port's app in its default
+    configuration (the production loader, no preset; alps-semantic as the
+    embedder; the description index on), on the standard-library fake Dial
+    Core: the images decoded on the card's host (native/jpeg2000.cpp and
+    native/jpeg.cpp), each page's image described by the scripted vision
+    LLM (each page told apart by its pixels against the port's own render),
+    the descriptions and chunks encoded on the card (kernels 1-2). Gates:
+    status 200 and no failed stage (but the first load of an index none
+    stored), the vision LLM asked about pages 1, 2 and 3, kernels 1-2
+    launched, the answer the rewritten script, its [1] the PDF, the answer
+    model's page images pages of it. Returns kernels 1-2's launches over
+    both requests."""
+    import base64
+
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.pdf.render import render_pdf_pages
+    from dial_rag_tpu_torch.image_processor.png import decode_png
+    from dial_rag_tpu_torch.retrieval.description import PAGE_DESCRIPTION_PROMPT
+
+    t_all = time.perf_counter()
+    image_pdf = load_test_util(IMAGE_PDF)
+    pages_spec = []
+    for name, kind, channels, text in JPX_PDF_PAGES:
+        data = (RATE_FIXTURES / name).read_bytes()
+        w, h = jpx_pdf_image_size(data, kind)
+        scale = min(500 / w, 640 / h)
+        pages_spec.append(([(56, 740, 12, text)], [(56, 60, w * scale, h * scale, (kind, data, w, h, channels))]))
+    pdf = image_pdf.build_image_pdf(pages_spec)
+    link = "files/chip-smoke/alpine_scans.pdf"
+    rendered: dict[int, list] = {}
+
+    def page_of(image) -> int:
+        """The PDF page a page image shows (its pixels against each page the
+        port renders at its size)."""
+        size = max(image.shape[:2])
+        if size not in rendered:
+            rendered[size] = list(render_pdf_pages(pdf, None, size))
+        gaps = [np.inf if p.shape != image.shape else np.abs(p.astype(int) - image).mean() for p in rendered[size]]
+        return int(np.argmin(gaps))
+
+    described = []
+
+    def respond(body):
+        parts = body["messages"][0].get("content")
+        if isinstance(parts, list) and parts and parts[0].get("text") == PAGE_DESCRIPTION_PROMPT:
+            k = page_of(decode_png(base64.b64decode(parts[1]["image_url"]["url"].split(",", 1)[1])))
+            described.append(k + 1)
+            text = JPX_PDF_PAGES[k][3]
+            return json.dumps({"page_summary": text, "keyfact": text[:40],
+                               "image_quality": {"level": "normal", "explanation": "a scanned page"}})
+        return "The scans answer it <[1]>."
+
+    fake = load_fake_dial().FakeDialCore()
+    dial_url = fake.start_sync()
+    fake.add_file(link, pdf, "application/pdf")
+    fake.script_llm(respond)
+    message = {"role": "user", "content": "when does the rack railway run to the glacier",
+               "custom_content": {"attachments": [{"url": link}]}}
+    bodies = [{"messages": [message], "custom_fields": {"configuration": {"request": {"type": "indexing"}}}},
+              {"messages": [message]}]
+    [(_, index_raw), (_, raw)], launches, t_requests = default_app_requests(torch, fake, dial_url, "JPX PDF", bodies)
+    for what, body in (("indexing", index_raw), ("rag", raw)):
+        for st in json.loads(body)["choices"][0]["message"]["custom_content"].get("stages", []):
+            if st.get("status") == "failed" and "Load indexes" not in st["name"]:  # none stored yet: built anew
+                raise RuntimeError(f"the {what} request's stage {st['name']!r} failed: {st.get('content')}")
+    if sorted(set(described)) != [1, 2, 3]:
+        raise RuntimeError(f"the vision LLM was asked to describe pages {described} of the JPX PDF, not 1, 2 and 3")
+    message_out = json.loads(raw)["choices"][0]["message"]
+    cited = [a for a in message_out["custom_content"].get("attachments", []) if a.get("title", "").startswith("[1] ")]
+    refs = [a.get("reference_url") or "" for a in cited]
+    answer_request = fake.llm_requests[-1]
+    shown = [page_of(decode_png(base64.b64decode(c["image_url"]["url"].split(",", 1)[1]))) + 1
+             for msg in answer_request["messages"] if isinstance(msg.get("content"), list)
+             for c in msg["content"] if c.get("type") == "image_url"]
+    if (message_out["content"] != "The scans answer it [1]." or len(cited) != 1 or not refs[0].startswith(link)
+            or not shown or not set(shown) <= {1, 2, 3}):
+        raise RuntimeError(f"the JPX PDF request's answer {message_out['content']!r}, its reference {cited} or the "
+                           f"answer model's pages {shown} are not the PDF's")
+    print(f"service, default configuration: an indexing and a rag request with a 3-page PDF attachment ({len(pdf)} B: "
+          f"a 9/7 JPX photograph and a 5/3 gray JPX scan at 1240 x 1754, an arithmetic-coded JPEG at 1024 x 768) "
+          f"over HTTP, {t_requests:.3f} s of wall (app boot and requests {time.perf_counter() - t_all:.3f} s); pages "
+          f"described {sorted(described)}; the answer's [1] is {refs[0]}, the answer model's page images pages "
+          f"{shown}; kernels 1-2 launches {launches} {card}", flush=True)
+    return launches
+
+
+def jpx_pdf_image_size(data: bytes, kind: str) -> tuple[int, int]:
+    """(width, height) of a JPX or JPEG image from its header."""
+    if kind == "jpx":
+        from dial_rag_tpu_torch.image_processor.jpeg2000 import read_header as jpx_header
+
+        w, h, _ = jpx_header(data)
+        return w, h
+    from dial_rag_tpu_torch.image_processor.jpeg import read_header as jpeg_header
+
+    w, h, _ = jpeg_header(data)
+    return w, h
+
+
 PAGE_PRESETS = ("config/azure_description.yaml", "config/gcp_embedding.yaml")
 PAGE_PDFS, PAGE_PDF_PAGES = 2, 32
 PROGRESSIVE_PDF_PAGES = 4
@@ -4620,6 +4733,8 @@ JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
 IMAGE_PDF = ROOT / "tests" / "utils" / "image_pdf.py"
 PAGE_EMBEDDINGS = ROOT / "tests" / "utils" / "page_embeddings.py"
 JPEG_LEVELS = 2  # the native JPEG core against PIL's decode (tests/test_torch_codecs.py)
+J2K_IRREVERSIBLE_LEVELS = 1  # the JPEG 2000 core's 9/7 path against PIL's (tests/test_torch_jpeg2000.py)
+REFUSED_FIXTURES = ROOT / "tests" / "data" / "images_refused"
 LINE_INK_RATIO = 0.10  # a page image's text line against the layout's (tests/test_torch_render.py)
 
 
@@ -4768,7 +4883,9 @@ def adjacent_swaps(got, ref, ref_score, limit, what) -> list:
 # the host decoders timed on documents at the sizes users attach (tests/data/image_rates, written by
 # tests/utils/make_image_fixtures.py with the sha256 of each of PIL's pages): label -> file
 DECODE_RATES = {"TIFF LZW": "lzw_report.tif", "TIFF G4": "g4_a4_fax.tif", "WebP lossy": "lossy_photo.webp",
-                "WebP lossless": "lossless_screen.webp", "APNG": "apng_screen.png"}
+                "WebP lossless": "lossless_screen.webp", "APNG": "apng_screen.png",
+                "JPX 5/3 gray": "jpx_letter_gray.jp2", "JPX 9/7 RGB": "jpx_photo_97.jp2",
+                "JPEG arithmetic": "arith_photo.jpg"}
 RATE_FIXTURES = ROOT / "tests" / "data" / "image_rates"
 
 
@@ -4881,13 +4998,19 @@ def page_images_phase(torch, card, texts) -> dict:
     from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
     from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames
 
+    from dial_rag_tpu_torch.documents.mime import IMAGE_MIMES
+    from dial_rag_tpu_torch.errors import InvalidDocumentError
+    from dial_rag_tpu_torch.image_processor.extract_pages import decode_pages
+
     t_fixtures = time.perf_counter()
     fixtures = np.load(IMAGE_FIXTURES / "decoded.npz")
     names = sorted(p.name for p in IMAGE_FIXTURES.iterdir() if p.suffix != ".npz")
-    progressive_gap, n_pages = 0, 0
+    progressive_gap, n_pages, j2k_gap, j2k_differ = 0, 0, 0, 0
     for name in names:
         data = (IMAGE_FIXTURES / name).read_bytes()
-        got = _extract_pages_sync(detect_mime(None, name, data), data, None, None)  # a BigTIFF by its name
+        mime = detect_mime(None, name, data)  # a BigTIFF by its name
+        # JPEG 2000 has no image mime of the service's (it comes inside PDFs): by its magic
+        got = _extract_pages_sync(mime, data, None, None) if mime in IMAGE_MIMES else decode_pages(data)
         if len(got) != fixture_pages(name, fixtures):
             raise RuntimeError(f"image fixture {name}: {len(got)} pages, PIL reads {fixture_pages(name, fixtures)}")
         for i, page in enumerate(got, start=1):
@@ -4895,14 +5018,31 @@ def page_images_phase(torch, card, texts) -> dict:
             if page.shape != want.shape:
                 raise RuntimeError(f"image fixture {name} page {i}: {page.shape}, PIL's {want.shape}")
             gap = int(np.abs(page.astype(np.int64) - want).max())
-            if name.endswith(".jpg") or "_jpeg" in name:  # progressive JPEG and JPEG-in-TIFF
+            if name.endswith(".jpg") or "_jpeg" in name:  # every JPEG coding, and JPEG-in-TIFF
                 progressive_gap = max(progressive_gap, gap)
+            elif "_97" in name:  # JPEG 2000's float 9/7 path
+                j2k_gap = max(j2k_gap, gap)
+                j2k_differ += int((page != want).sum())
             elif gap:
                 raise RuntimeError(f"image fixture {name} page {i} is {gap} levels from PIL's pixels (must be equal)")
             n_pages += 1
     if progressive_gap > JPEG_LEVELS:
-        raise RuntimeError(f"progressive JPEG and JPEG-in-TIFF fixtures are {progressive_gap} levels from PIL's "
+        raise RuntimeError(f"JPEG and JPEG-in-TIFF fixtures are {progressive_gap} levels from PIL's "
                            f"(limit {JPEG_LEVELS})")
+    if j2k_gap > J2K_IRREVERSIBLE_LEVELS:
+        raise RuntimeError(f"9/7 JPEG 2000 fixtures are {j2k_gap} levels from PIL's, {j2k_differ} samples differ "
+                           f"(limit {J2K_IRREVERSIBLE_LEVELS})")
+    refused = sorted(p.name for p in REFUSED_FIXTURES.iterdir())
+    for name in refused:  # what PIL refuses, the port refuses as a corrupt document
+        try:
+            decode_pages((REFUSED_FIXTURES / name).read_bytes())
+        except InvalidDocumentError:
+            continue
+        raise RuntimeError(f"{name}: PIL refuses it, the port decodes it")
+    print(f"image fixtures: JPEG 2000 ({sum(n.startswith('j2k_') for n in names)} files) equal to PIL's pixels but "
+          f"the 9/7 ones within {j2k_gap} levels ({j2k_differ} samples differ, limit {J2K_IRREVERSIBLE_LEVELS}); "
+          f"arithmetic, lossless and smoothed JPEG ({sum(n.startswith('jpeg_') for n in names)} files) and the "
+          f"others as below; {len(refused)} files PIL refuses raise InvalidDocumentError {card}", flush=True)
     prog = (IMAGE_FIXTURES / "progressive_422_q85.jpg").read_bytes()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -5446,7 +5586,7 @@ def main() -> int:
     phase("build")
     def build_cores() -> float:
         t0 = time.perf_counter()
-        for name in ("keywords", "wordpiece", "chargram", "jpeg", "gif", "tiff", "webp"):
+        for name in ("keywords", "wordpiece", "chargram", "jpeg", "jpeg2000", "gif", "tiff", "webp"):
             load_native(name)
         return time.perf_counter() - t0
 
@@ -5454,8 +5594,8 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         cores = pool.submit(build_cores)
         build = build_kernels()
-        print(f"build: C++ host cores native/keywords.cpp, wordpiece.cpp, chargram.cpp, jpeg.cpp, gif.cpp, tiff.cpp "
-              f"and webp.cpp (g++) {cores.result():.2f} s")
+        print(f"build: C++ host cores native/keywords.cpp, wordpiece.cpp, chargram.cpp, jpeg.cpp, jpeg2000.cpp, "
+              f"gif.cpp, tiff.cpp and webp.cpp (g++) {cores.result():.2f} s")
     print(f"build: {build.seconds:.2f} s (nvcc, all sources in parallel)"
           if build.seconds else "build: found built for these sources in dial_rag_tpu_torch/_build")
     for stem, lines in build.ptxas.items():

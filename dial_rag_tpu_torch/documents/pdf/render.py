@@ -1,20 +1,22 @@
 """First-party PDF page rasterizer without PIL (mirror of the JAX
 package's ``documents/pdf/render.py``, its geometry line for line):
 
-- embedded raster images (DCT through the port's JPEG decoder, sequential
-  and progressive,
-  Flate RGB, Gray and CMYK bitmaps through numpy) are resampled with
-  LANCZOS into their CTM rectangles and pasted, clipped at the canvas
-  edges;
+- embedded raster images (DCT through the port's JPEG decoder, every
+  coding libjpeg-turbo reads; JPX through its JPEG 2000 decoder, the
+  dictionary's /ColorSpace, /Decode and /SMaskInData ignored as PIL
+  ignores them; Flate RGB, Gray and CMYK bitmaps through numpy) are
+  resampled with LANCZOS into their CTM rectangles and pasted, clipped at
+  the canvas edges;
 - text is drawn at its exact page positions and sizes in the font Pillow
   draws it in (``_font.py``: Aileron Regular, the auto-hinter's advances;
   the ink within a few per cent of Pillow's, not equal to it).
 
-Pages are [H, W, 3] uint8 arrays. JPX (JPEG 2000) images and the JPEGs
-the decoder does not read (arithmetic-coded, lossless, 12-bit) raise
-``NotPortedError`` (ROADMAP item 9d); an image the JAX package
-would fail to decode (a ``PdfError``, ``zlib.error`` or ``ValueError``, or
-corrupt JPEG data) is skipped, as there."""
+Pages are [H, W, 3] uint8 arrays. What the decoders leave out (the JPEG
+2000 corners of ``jpeg2000.py``'s docstring) raises ``NotPortedError``
+(ROADMAP item 9d); an image the JAX
+package would fail to decode (a ``PdfError``, ``zlib.error`` or
+``ValueError``, or JPEG or JPEG 2000 data PIL refuses: corrupt, 12-bit,
+hierarchical) is skipped, as there."""
 
 import zlib
 
@@ -26,8 +28,9 @@ from dial_rag_tpu_torch.documents.pdf.filters import decode_stream
 from dial_rag_tpu_torch.documents.pdf.layout import LayoutParams, group_chars_to_lines
 from dial_rag_tpu_torch.documents.pdf.objects import Name, PdfError, Stream
 from dial_rag_tpu_torch.documents.pdf.text import TextExtractor
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 from dial_rag_tpu_torch.image_processor.jpeg import cmyk_to_rgb, decode_jpeg
+from dial_rag_tpu_torch.image_processor.jpeg2000 import decode_jpeg2000
 from dial_rag_tpu_torch.image_processor.resize import resize_lanczos
 
 DEFAULT_SCALE = 2.0  # ~144 dpi
@@ -41,11 +44,11 @@ def _decode_embedded_image(doc: PdfDocument, stream: Stream) -> np.ndarray | Non
         filters = [filters] if filters is not None else []
     filter_names = {f.value for f in filters if isinstance(f, Name)}
 
-    if "JPXDecode" in filter_names:
-        raise NotPortedError("JPEG 2000 (JPXDecode) images are not ported yet (ROADMAP item 9d)")
     try:
         if "DCTDecode" in filter_names:
             return decode_jpeg(stream.raw)
+        if "JPXDecode" in filter_names:
+            return decode_jpeg2000(stream.raw)
         width = int(rv(d.get("Width", 0)))
         height = int(rv(d.get("Height", 0)))
         bpc = int(rv(d.get("BitsPerComponent", 8)))

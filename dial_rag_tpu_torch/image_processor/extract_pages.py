@@ -3,15 +3,18 @@
 the port's rasterizer (``documents/pdf/render.py``); image documents decode
 through the port's codecs, chosen by the bytes' magic as ``Image.open``
 chooses: PNG (``png.py``; an animated PNG a page a frame), JPEG
-(``jpeg.py``, the native core), BMP (``bmp.py``), GIF (``gif.py``, the
-native LZW core), TIFF (``tiff.py``, a page a directory, the native
-``tiff.cpp`` core) and WebP (``webp.py``, a page a frame, the native
-``webp.cpp`` core), each page as Pillow's ``n_frames`` counts them. What
-those codecs leave out (JPEG coding variants; old-style JPEG, LZMA, ZSTD,
+(``jpeg.py``, the native core: Huffman, arithmetic and lossless codings),
+BMP (``bmp.py``), GIF (``gif.py``, the native LZW core), TIFF (``tiff.py``,
+a page a directory, the native ``tiff.cpp`` core), WebP (``webp.py``, a
+page a frame, the native ``webp.cpp`` core) and JPEG 2000 (``jpeg2000.py``,
+the native ``jpeg2000.cpp`` core), each page as Pillow's ``n_frames``
+counts them. What those codecs leave out (the JPEG 2000 corners of its
+module's docstring; old-style JPEG, LZMA, ZSTD,
 WebP, SGILog and ThunderScan TIFF compressions, YCbCr outside JPEG, CIE
 L*a*b* and 12- or 32-bit TIFF samples) raises ``NotPortedError`` (ROADMAP
-item 9d). Rendering runs in a single-worker executor, as in the JAX
-package. Pages are [H, W, 3] uint8 arrays."""
+item 9d); what Pillow refuses (a 12-bit or hierarchical JPEG) raises
+``InvalidDocumentError``. Rendering runs in a single-worker executor, as
+in the JAX package. Pages are [H, W, 3] uint8 arrays."""
 
 import asyncio
 import importlib
@@ -45,8 +48,9 @@ def are_image_pages_supported(mime_type: str) -> bool:
 
 def image_format(data: bytes) -> str:
     """The image format of ``data`` by its magic: "png", "jpeg", "bmp",
-    "gif", "tiff" or "webp"; bytes Pillow does not identify raise
-    InvalidDocumentError."""
+    "gif", "tiff", "webp" or "jpeg2000"; bytes Pillow does not identify
+    raise InvalidDocumentError."""
+    from dial_rag_tpu_torch.image_processor.jpeg2000 import is_jpeg2000
     from dial_rag_tpu_torch.image_processor.tiff import is_tiff
     from dial_rag_tpu_torch.image_processor.webp import is_webp
 
@@ -57,15 +61,18 @@ def image_format(data: bytes) -> str:
         return "tiff"
     if is_webp(data):
         return "webp"
+    if is_jpeg2000(data):
+        return "jpeg2000"
     raise InvalidDocumentError("Cannot identify the image file")
 
 
 # format -> (module, its page count, its pages), each module imported at first use;
-# JPEG and BMP hold one frame, counted by reading the header
+# JPEG, BMP and JPEG 2000 hold one frame, counted by reading the header
 _CODECS = {"png": ("png", "frame_count", "decode_png_frames"), "gif": ("gif", "frame_count", "decode_gif_frames"),
            "tiff": ("tiff", "page_count", "decode_tiff_pages"), "webp": ("webp", "frame_count", "decode_webp_frames"),
-           "jpeg": ("jpeg", "read_header", "decode_jpeg"), "bmp": ("bmp", "read_header", "decode_bmp")}
-_ONE_FRAME = ("jpeg", "bmp")
+           "jpeg": ("jpeg", "read_header", "decode_jpeg"), "bmp": ("bmp", "read_header", "decode_bmp"),
+           "jpeg2000": ("jpeg2000", "read_header", "decode_jpeg2000")}
+_ONE_FRAME = ("jpeg", "bmp", "jpeg2000")
 
 
 def _codec(data: bytes) -> tuple[str, object, object]:

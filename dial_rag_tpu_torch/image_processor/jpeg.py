@@ -1,28 +1,24 @@
-"""Huffman JPEG without PIL: the host core ``native/jpeg.cpp`` (built and
-loaded by ``native/build.py``; a failed build raises) decodes sequential
-and progressive JPEGs, and this module gives its samples the RGB that
-``Image.open(...).convert("RGB")`` gives: gray repeated, CMYK (read
-inverted, as Pillow reads it) through Pillow's ``cmyk2rgb``. Lossless,
-hierarchical and arithmetic-coded JPEGs, 12-bit samples, and progressive
-JPEGs that leave low AC coefficients unrefined (which libjpeg smooths),
-raise ``NotPortedError`` (ROADMAP item 9d)."""
+"""JPEG without PIL: the host core ``native/jpeg.cpp`` (built and loaded by
+``native/build.py``; a failed build raises) decodes every coding
+libjpeg-turbo 3.1 reads at 8 bits (sequential and progressive Huffman and
+arithmetic coding, lossless Huffman, with libjpeg's block smoothing of
+progressive images left partly refined), and this module gives its
+samples the RGB that ``Image.open(...).convert("RGB")`` gives: gray
+repeated, CMYK (read inverted, as Pillow reads it) through Pillow's
+``cmyk2rgb``. What Pillow or libjpeg-turbo refuse (a precision other than
+8, 2 components, the hierarchical processes, lossless arithmetic coding,
+an arithmetic scan past the 64 KiB Pillow hands libjpeg at once) raises
+``InvalidDocumentError``, as the JAX package fails on it."""
 
 import ctypes
 
 import numpy as np
 
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 from dial_rag_tpu_torch.native.build import load_native
-
-_UNSUPPORTED = 2
 
 
 def _check(status: int) -> None:
-    if status == _UNSUPPORTED:
-        raise NotPortedError(
-            "Lossless, hierarchical, arithmetic-coded and 12-bit JPEG images, and progressive ones that "
-            "leave low AC coefficients unrefined, are not ported yet (ROADMAP item 9d)"
-        )
     if status:
         raise InvalidDocumentError("The JPEG image is corrupt")
 
@@ -53,7 +49,7 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The RGB pixels ([H, W, 3] uint8) of a sequential or progressive JPEG."""
+    """The RGB pixels ([H, W, 3] uint8) of a JPEG."""
     samples = decode_jpeg_raw(data)
     if samples.shape[2] == 1:
         return np.repeat(samples, 3, axis=2)

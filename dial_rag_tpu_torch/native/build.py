@@ -1,7 +1,7 @@
 """Builds the port's C++ host cores (``native/*.cpp``) and loads them.
 
 Each core is compiled by ``g++ -O3 -std=c++17 -shared -fPIC -pthread``
-into its own shared library with a plain C interface, loaded with
+(and its own ``CORE_FLAGS``) into its own shared library with a plain C interface, loaded with
 ``ctypes``, at first use. The library goes to
 ``dial_rag_tpu_torch/_build/native/<name>-<hash>.so``, the hash covering
 the source and the flags. g++ writes under a temporary name and the file
@@ -21,6 +21,9 @@ from pathlib import Path
 _SRC_DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _SRC_DIR.parent / "_build" / "native"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# flags of one core on top of GXX_FLAGS: the JPEG 2000 core rounds every
+# float product and sum on its own, as OpenJPEG's SSE code does
+CORE_FLAGS = {"jpeg2000": ("-ffp-contract=off",)}
 _GXX_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
@@ -47,6 +50,12 @@ SIGNATURES = {
         "dial_jpeg_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),
         # (data, n, out [height, width, channels], out_len) -> status
         "dial_jpeg_decode": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong], ctypes.c_int),
+    },
+    "jpeg2000": {
+        # (data, n, info [27]) -> status; info = image, tile grid, then per component precision, sign, dx, dy
+        "dial_j2k_info": ([ctypes.c_char_p, ctypes.c_longlong, _INT_P], ctypes.c_int),
+        # (codestream, n, out [sum of component planes] int32, out_len) -> status
+        "dial_j2k_decode": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong], ctypes.c_int),
     },
     "keywords": {
         "kw_set_stopwords": ([ctypes.c_char_p, ctypes.c_int32], None),
@@ -93,7 +102,8 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 def _library_path(name: str) -> Path:
     src = _SRC_DIR / f"{name}.cpp"
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    flags = GXX_FLAGS + CORE_FLAGS.get(name, ())
+    digest = hashlib.sha256(" ".join(flags).encode())
     digest.update(src.read_bytes())
     target = _BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if target.is_file():
@@ -102,7 +112,7 @@ def _library_path(name: str) -> Path:
     tmp = _BUILD_DIR / f"{target.stem}.{os.getpid()}.tmp.so"
     try:
         proc = subprocess.run(
-            ["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+            ["g++", *flags, str(src), "-o", str(tmp)],
             capture_output=True, text=True, timeout=_GXX_TIMEOUT_S,
         )
     except subprocess.TimeoutExpired as e:

@@ -10,8 +10,10 @@ description hits are the JAX retriever's. The scripted vision LLM is
 tests/utils/fake_dial.py's, answering each page's request in turn.
 """
 
+import base64
 import dataclasses
 import inspect
+import io
 import re
 
 import jax
@@ -41,6 +43,7 @@ from tests.utils.image_pdf import build_image_pdf
 from tests.utils.port_parity import same, twin_module
 
 EMBED_ATOL = 1e-5
+IMAGE_LEVELS = 3  # tests/test_torch_render.py's gate on page images
 
 PARSING = twin_module("test_description_parsing")
 PARSING_CASES = sorted(n for n in dir(PARSING) if n.startswith("test_"))
@@ -103,10 +106,50 @@ async def test_description_index_and_hits_equal_the_jax_package(embedders):
     """build_index through each package against the scripted vision LLM
     (one request a page, each with the prompt and the page's PNG), then
     the description arm's hits for each query."""
-    jax_emb, port_emb = embedders
     pdf = build_image_pdf([([(72, 700, 14, f"Page {i}: the Alps, part {i}")],
                             [(72, 300, 200, 150, np.full((30, 40, 3), 40 * i, np.uint8))]) for i in range(4)])
-    out = {}
+    await _description_index_and_hits(embedders, pdf)
+
+
+async def test_description_index_of_jpx_and_arithmetic_jpeg_pages_equals_the_jax_package(embedders):
+    """The same through both packages for a PDF whose pages hold a JPEG 2000
+    photograph (9/7), a JPEG 2000 gray scan (5/3), an arithmetic-coded
+    JPEG and a lossless JPEG: the page images the vision LLM receives
+    within IMAGE_LEVELS of the JAX package's below the text line, the
+    index and hits equal."""
+    from PIL import Image
+
+    from tests.utils import image_encoders as enc
+    from tests.utils.make_jpeg_fixtures import photo
+
+    a = photo(60, 80, 3)
+
+    def jpx(image, **options):
+        buf = io.BytesIO()
+        image.save(buf, "JPEG2000", **options)
+        return buf.getvalue()
+
+    images = [("jpx", jpx(Image.fromarray(a), irreversible=True, quality_layers=[20]), 80, 60, 3),
+              ("jpx", jpx(Image.fromarray(a[..., 1]), no_jp2=True), 80, 60, 1),
+              ("dct", enc.jpeg_arithmetic(a, progressive=True), 80, 60, 3),
+              ("dct", enc.jpeg_lossless(a[..., 2], predictor=4), 80, 60, 1)]
+    pdf = build_image_pdf([([(72, 700, 14, f"Page {i}: the Alps, part {i}")], [(72, 300, 200, 150, image)])
+                           for i, image in enumerate(images)])
+    pages = await _description_index_and_hits(embedders, pdf)
+    for got, ref in zip(pages["port"], pages["jax"]):
+        below_text = got.shape[0] // 4  # the page's text line is drawn in a font only close to PIL's
+        assert got.shape == ref.shape
+        assert int(np.abs(got.astype(np.int64) - ref)[below_text:].max()) <= IMAGE_LEVELS
+        assert got[below_text:].min() < 200  # the image was drawn
+
+
+async def _description_index_and_hits(embedders, pdf: bytes) -> dict:
+    """Both packages' description index of ``pdf`` and hits, equal; returns
+    each package's page images as the vision LLM received them."""
+    from dial_rag_tpu_torch.image_processor.png import decode_png
+
+    jax_emb, port_emb = embedders
+    out, images = {}, {}
     for pkg, mod, emb, cfg, limited in (
         ("jax", jax_description, jax_emb, JaxDescriptionConfig, _limits(JaxLimited, JaxLimits, JaxTokenStats)),
         ("port", description, port_emb, DescriptionIndexConfig, _limits(DialLimitedResources, UserLimitsForModel,
@@ -123,6 +166,7 @@ async def test_description_index_and_hits_equal_the_jax_package(embedders):
         prompts = [r["messages"][0]["content"] for r in fake.llm_requests]
         assert len(prompts) == 4 and all(p[0]["text"] == mod.PAGE_DESCRIPTION_PROMPT for p in prompts)
         assert all(p[1]["image_url"]["url"].startswith("data:image/png;base64,") for p in prompts)
+        images[pkg] = [decode_png(base64.b64decode(p[1]["image_url"]["url"].split(",", 1)[1])) for p in prompts]
         parse = jax_parse_document if pkg == "jax" else parse_document
         chunks = parse(pdf, "application/pdf", source_link="doc.pdf")
         record = type("Record", (), {"chunks": chunks, "description_embeddings_index": packed})()
@@ -134,6 +178,7 @@ async def test_description_index_and_hits_equal_the_jax_package(embedders):
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, np.asarray(b), atol=EMBED_ATOL, rtol=0)
     assert got_hits == ref_hits and got_has == ref_has is True
+    return images
 
 
 async def test_multimodal_rate_limit_collapses_to_one_error():

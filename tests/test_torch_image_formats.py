@@ -3,13 +3,19 @@ package's path) on the CPU: progressive JPEG (``native/jpeg.cpp``),
 Adam7 and animated PNG (``png.py``), the BMPs Pillow reads (``bmp.py``:
 1-, 4- and 16-bit, RLE8 and RLE4, OS/2 headers) and GIF documents
 (``gif.py`` on ``native/gif.cpp``: a page a frame, composited as Pillow
-composites it); the committed TIFF and WebP fixtures too (their seeded
-sets are in tests/test_torch_tiff.py and tests/test_torch_webp.py).
+composites it); the committed TIFF, WebP, JPEG 2000 and arithmetic,
+lossless and smoothed JPEG fixtures too (their seeded sets are in
+tests/test_torch_tiff.py, tests/test_torch_webp.py,
+tests/test_torch_jpeg2000.py and tests/test_torch_jpeg_codings.py).
 
 Tolerances, stated before any comparison:
 - PNG (APNG composites too), BMP, GIF, TIFF but JPEG-in-TIFF, WebP:
   equal (bit for bit);
-- progressive JPEG and JPEG-in-TIFF: equal expected, with a ceiling of
+- JPEG 2000 irreversible (9/7, ``_97`` in a fixture's name): equal
+  expected, a ceiling of J2K_IRREVERSIBLE_LEVELS with the count of
+  differing samples printed; the other JPEG 2000 fixtures: equal;
+- progressive, arithmetic-coded, lossless and smoothed JPEG and
+  JPEG-in-TIFF: equal expected, with a ceiling of
   JPEG_LEVELS per
   channel (the gate of tests/test_torch_codecs.py); the largest
   difference read is printed;
@@ -37,9 +43,10 @@ from dial_rag_tpu.image_processor.extract_pages import extract_number_of_pages a
 from dial_rag_tpu_torch.documents.mime import detect_mime
 from dial_rag_tpu_torch.documents.parser import extract_number_of_pages, parse_document
 from dial_rag_tpu_torch.documents.pdf import render
-from dial_rag_tpu_torch.errors import InvalidDocumentError, NotPortedError
+from dial_rag_tpu_torch.errors import InvalidDocumentError
 from dial_rag_tpu_torch.image_processor.bmp import decode_bmp
-from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync
+from dial_rag_tpu_torch.documents.mime import IMAGE_MIMES
+from dial_rag_tpu_torch.image_processor.extract_pages import _extract_pages_sync, decode_pages, page_count
 from dial_rag_tpu_torch.image_processor.gif import decode_gif_frames, frame_count
 from dial_rag_tpu_torch.image_processor.jpeg import decode_jpeg
 from dial_rag_tpu_torch.image_processor.png import decode_png, decode_png_frames
@@ -62,6 +69,7 @@ from tests.utils.make_image_fixtures import (
 from tests.utils.make_jpeg_fixtures import photo
 
 JPEG_LEVELS = 2
+J2K_IRREVERSIBLE_LEVELS = 1  # tests/test_torch_jpeg2000.py's gate
 RESIZE_LEVELS = 1
 IMAGE_LEVELS = 3
 FIXTURES = sorted(p.name for p in IMAGES.iterdir() if p.suffix != ".npz")
@@ -76,6 +84,16 @@ def pil_pages(data: bytes) -> list[np.ndarray]:
         return out
 
 
+def port_pages(name: str, data: bytes) -> tuple[list[np.ndarray], int]:
+    """The port's pages and page count of a fixture, as an image document
+    of its mime; a JPEG 2000 file (no image mime the service takes: it
+    reaches the port inside PDFs) by its magic."""
+    mime = detect_mime(None, name, data)  # a BigTIFF's magic is no mime's: its name gives it
+    if mime not in IMAGE_MIMES:
+        return decode_pages(data), page_count(data)
+    return _extract_pages_sync(mime, data, None, None), extract_number_of_pages(mime, data)
+
+
 def jpeg_gap(got: np.ndarray, ref: np.ndarray) -> int:
     assert got.shape == ref.shape
     return int(np.abs(got.astype(np.int64) - ref).max())
@@ -88,14 +106,17 @@ def test_fixture_decodes_to_its_committed_pixels(name):
     data = (IMAGES / name).read_bytes()
     decoded = np.load(IMAGES / "decoded.npz")
     ref = [decoded[f"{name}@{i}"] for i in range(1, 1 + sum(k.startswith(name + "@") for k in decoded.files))]
-    mime = detect_mime(None, name, data)  # a BigTIFF's magic is no mime's: its name gives it
-    got = _extract_pages_sync(mime, data, None, None)
-    assert len(got) == len(ref) == extract_number_of_pages(mime, data)
+    got, count = port_pages(name, data)
+    assert len(got) == len(ref) == count
     for page, want in zip(got, ref):
         if name.endswith(".jpg") or "_jpeg" in name:
             gap = jpeg_gap(page, want)
             print(f"{name}: largest difference {gap}")
             assert gap <= JPEG_LEVELS
+        elif "_97" in name:  # JPEG 2000's float 9/7 path: 0 expected
+            gap = jpeg_gap(page, want)
+            print(f"{name}: largest difference {gap}, {int((page != want).sum())} samples differ")
+            assert gap <= J2K_IRREVERSIBLE_LEVELS
         else:
             assert page.shape == want.shape and np.array_equal(page, want)
 
@@ -134,10 +155,10 @@ def test_rate_document_decodes_to_pils_pages(name):
     every page, bit for bit as PIL decodes it (by the digests the card
     checks)."""
     data = (RATES / name).read_bytes()
-    mime = detect_mime(None, name, data)
     want = json.loads(RATE_DIGESTS.read_text())[name]
-    assert extract_number_of_pages(mime, data) == len(want)
-    assert page_digests(_extract_pages_sync(mime, data, None, None)) == want
+    pages, count = port_pages(name, data)
+    assert count == len(want)
+    assert page_digests(pages) == want
 
 
 def test_committed_html_oracle_is_the_jax_packages():
@@ -184,15 +205,17 @@ def test_progressive_jpeg_matches_pil(mode, subsampling, optimize, restart):
 
 def test_progressive_jpeg_that_libjpeg_smooths_raises_item_9d():
     """A progressive JPEG whose AC coefficients never arrive (its scans
-    stop after the DC scans): libjpeg smooths its blocks, which the port
-    does not, so it raises NotPortedError naming item 9d."""
+    stop after the DC scans), once refused (ROADMAP item 9d): libjpeg
+    smooths its blocks, and so does the port now, to PIL's pixels within
+    JPEG_LEVELS."""
     buf = io.BytesIO()
     Image.fromarray(photo(32, 32, seed=3)).save(buf, "JPEG", quality=80, progressive=True)
     data = buf.getvalue()
     scans = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
     cut = data[: scans[1]] + b"\xff\xd9"  # the first (DC) scan only
-    with pytest.raises(NotPortedError, match="9d"):
-        decode_jpeg(cut)
+    gap = jpeg_gap(decode_jpeg(cut), pil_pages(cut)[0])
+    print(f"smoothed DC-only progressive JPEG: largest difference {gap}")
+    assert gap <= JPEG_LEVELS
 
 
 # -- PNG ---------------------------------------------------------------------------

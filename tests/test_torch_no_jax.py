@@ -192,12 +192,14 @@ gif = (b"GIF89a\x02\x00\x01\x00\xf0\x00\x00\x00\x00\x00\xff\xff\xff"
        b"\x2c\x00\x00\x00\x00\x02\x00\x01\x00\x00\x02\x02\x0c\n\x00\x3b")
 frames = decode_gif_frames(gif)
 assert frame_count(gif) == 2 and [f[0, :, 0].tolist() for f in frames] == [[0, 255], [255, 0]], frames
-# TIFF, WebP and animated PNG documents: committed fixtures against PIL's committed pixels
+# TIFF, WebP, animated PNG, JPEG 2000 and arithmetic, lossless and smoothed JPEG documents: committed
+# fixtures against PIL's committed pixels
 from pathlib import Path
 from dial_rag_tpu_torch.image_processor.extract_pages import decode_pages, page_count
 decoded = np.load("tests/data/images/decoded.npz")
 for name in ("tiff_g4_fax.tif", "tiff_multipage.tif", "webp_lossy_alpha.webp", "webp_animated.webp",
-             "apng_default_image.png"):
+             "apng_default_image.png", "j2k_rgb.jp2", "j2k_rgb_97.j2k", "j2k_palette.jp2", "jpeg_arith_420.jpg",
+             "jpeg_lossless_gray.jpg", "jpeg_smooth_dc_only.jpg"):
     data = Path("tests/data/images", name).read_bytes()
     pages = decode_pages(data)
     assert len(pages) == page_count(data) > 0, name

@@ -12,8 +12,10 @@ Tolerances, stated before any comparison:
 - the font's whole-pixel advances, ascender and pen positions (no
   kerning, as PIL's basic layout): equal to PIL's; a line of missing
   characters' boxes: as a text line.
-The PDFs carry text only, Flate RGB, Gray and CMYK images, and DCT images
-that PIL writes here from seeded arrays (tests/utils/image_pdf.py).
+The PDFs carry text only, Flate RGB, Gray and CMYK images, DCT images
+that PIL writes here from seeded arrays, JPX images (JPEG 2000, PIL's
+save) and the JPEG codings PIL cannot write (tests/utils/image_encoders.py);
+images PIL refuses are skipped by both (tests/utils/image_pdf.py).
 """
 
 import io
@@ -28,7 +30,10 @@ from dial_rag_tpu_torch.documents.pdf import _font, render
 from dial_rag_tpu_torch.documents.pdf.document import PdfDocument
 from dial_rag_tpu_torch.documents.pdf.layout import LayoutParams, group_chars_to_lines
 from dial_rag_tpu_torch.documents.pdf.text import TextExtractor
+from tests.utils import image_encoders as enc
 from tests.utils.image_pdf import build_image_pdf
+from tests.utils.make_image_fixtures import IMAGES as IMAGES_DIR
+from tests.utils.make_image_fixtures import REFUSED as REFUSED_DIR
 
 IMAGE_LEVELS = 3
 INK_BOX_PX = 2
@@ -41,6 +46,13 @@ def photo(h: int, w: int, seed: int) -> np.ndarray:
     img = np.stack([128 + 100 * np.sin(x / 7.0 + y / 13.0), 128 + 90 * np.cos(x / 5.0 - y / 9.0),
                     (x * 3 + y * 2) % 256], -1)
     return np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+
+
+def jpx(image: np.ndarray, mode: str = "RGB", extra: bytes = b"", colour_space: bool = True, **kw) -> tuple:
+    buf = io.BytesIO()
+    Image.fromarray(image).convert(mode).save(buf, format="JPEG2000", **kw)
+    channels = {"RGB": 3, "L": 1}[mode] if colour_space else 0
+    return ("jpx", buf.getvalue(), image.shape[1], image.shape[0], channels, extra)
 
 
 def jpeg(image: np.ndarray, mode: str = "RGB", **kw) -> tuple:
@@ -67,6 +79,24 @@ PDFS = {
          (330, 420, 150, 100, jpeg(photo(61, 93, 5), quality=92, subsampling=0, restart_marker_blocks=2)),
          (72, 620, 120, 90, jpeg(photo(45, 60, 6), "L", quality=60)),
          (330, 620, 120, 90, jpeg(photo(45, 60, 7), "CMYK", quality=85))],
+    )]),
+    # JPX: a 9/7 photograph, a 5/3 gray scan (no /ColorSpace), a raw codestream whose /Decode and
+    # /SMaskInData PIL ignores, and a JP2 whose palette OpenJPEG refuses (skipped, as in the JAX package)
+    "jpx": lambda: build_image_pdf([(
+        [(72, 300, 12, "JPX images: 9/7 and 5/3, a codestream and a refused palette."), (72, 280, 10, TEXT)],
+        [(72, 420, 240, 180, jpx(photo(90, 120, 8), irreversible=True, quality_layers=[30])),
+         (330, 420, 150, 100, jpx(photo(61, 93, 9), "L", colour_space=False)),
+         (72, 620, 120, 90, jpx(photo(45, 60, 10), extra=b"/Decode [1 0 1 0 1 0] /SMaskInData 1 ", no_jp2=True,
+                                tile_size=(32, 32))),
+         (330, 620, 120, 90, ("jpx", (REFUSED_DIR / "j2k_palette_gray_colr.jp2").read_bytes(), 24, 20, 0))],
+    )]),
+    # the JPEG codings beyond Huffman DCT: arithmetic-coded, lossless, smoothed, and a 12-bit frame PIL refuses
+    "jpeg_codings": lambda: build_image_pdf([(
+        [(72, 300, 12, "Arithmetic, lossless and smoothed JPEGs, and a 12-bit one."), (72, 280, 10, TEXT)],
+        [(72, 420, 240, 180, ("dct", enc.jpeg_arithmetic(photo(90, 120, 11), progressive=True), 120, 90, 3)),
+         (330, 420, 150, 100, ("dct", enc.jpeg_lossless(photo(61, 93, 12), predictor=5), 93, 61, 3)),
+         (72, 620, 120, 90, ("dct", (IMAGES_DIR / "jpeg_smooth_low_ac.jpg").read_bytes(), 61, 45, 3)),
+         (330, 620, 120, 90, ("dct", (REFUSED_DIR / "jpeg_12bit.jpg").read_bytes(), 16, 16, 1))],
     )]),
 }
 

@@ -745,3 +745,518 @@ def webp_animation(size: tuple[int, int], frames: list[dict], background: tuple 
         body = b"".join(t + struct.pack("<I", len(p)) + p + b"\x00" * (len(p) & 1) for t, p in parts)
         chunks.append((b"ANMF", head + body))
     return _riff(chunks)
+
+
+# -- JPEG: arithmetic coding (T.81 Annex D, F, G) and lossless (Annex H) -----------
+
+# T.81 Table D.2 (jaricom.c): Qe, next state after an MPS, after an LPS, MPS switch
+_QM = [(0x5a1d, 1, 1, 1), (0x2586, 2, 14, 0), (0x1114, 3, 16, 0), (0x080b, 4, 18, 0), (0x03d8, 5, 20, 0),
+       (0x01da, 6, 23, 0), (0x00e5, 7, 25, 0), (0x006f, 8, 28, 0), (0x0036, 9, 30, 0), (0x001a, 10, 33, 0),
+       (0x000d, 11, 35, 0), (0x0006, 12, 9, 0), (0x0003, 13, 10, 0), (0x0001, 13, 12, 0), (0x5a7f, 15, 15, 1),
+       (0x3f25, 16, 36, 0), (0x2cf2, 17, 38, 0), (0x207c, 18, 39, 0), (0x17b9, 19, 40, 0), (0x1182, 20, 42, 0),
+       (0x0cef, 21, 43, 0), (0x09a1, 22, 45, 0), (0x072f, 23, 46, 0), (0x055c, 24, 48, 0), (0x0406, 25, 49, 0),
+       (0x0303, 26, 51, 0), (0x0240, 27, 52, 0), (0x01b1, 28, 54, 0), (0x0144, 29, 56, 0), (0x00f5, 30, 57, 0),
+       (0x00b7, 31, 59, 0), (0x008a, 32, 60, 0), (0x0068, 33, 62, 0), (0x004e, 34, 63, 0), (0x003b, 35, 32, 0),
+       (0x002c, 9, 33, 0), (0x5ae1, 37, 37, 1), (0x484c, 38, 64, 0), (0x3a0d, 39, 65, 0), (0x2ef1, 40, 67, 0),
+       (0x261f, 41, 68, 0), (0x1f33, 42, 69, 0), (0x19a8, 43, 70, 0), (0x1518, 44, 72, 0), (0x1177, 45, 73, 0),
+       (0x0e74, 46, 74, 0), (0x0bfb, 47, 75, 0), (0x09f8, 48, 77, 0), (0x0861, 49, 78, 0), (0x0706, 50, 79, 0),
+       (0x05cd, 51, 48, 0), (0x04de, 52, 50, 0), (0x040f, 53, 50, 0), (0x0363, 54, 51, 0), (0x02d4, 55, 52, 0),
+       (0x025c, 56, 53, 0), (0x01f8, 57, 54, 0), (0x01a4, 58, 55, 0), (0x0160, 59, 56, 0), (0x0125, 60, 57, 0),
+       (0x00f6, 61, 58, 0), (0x00cb, 62, 59, 0), (0x00ab, 63, 61, 0), (0x008f, 32, 61, 0), (0x5b12, 65, 65, 1),
+       (0x4d04, 66, 80, 0), (0x412c, 67, 81, 0), (0x37d8, 68, 82, 0), (0x2fe8, 69, 83, 0), (0x293c, 70, 84, 0),
+       (0x2379, 71, 86, 0), (0x1edf, 72, 87, 0), (0x1aa9, 73, 87, 0), (0x174e, 74, 72, 0), (0x1424, 75, 72, 0),
+       (0x119c, 76, 74, 0), (0x0f6b, 77, 74, 0), (0x0d51, 78, 75, 0), (0x0bb6, 79, 77, 0), (0x0a40, 48, 77, 0),
+       (0x5832, 81, 80, 1), (0x4d1c, 82, 88, 0), (0x438e, 83, 89, 0), (0x3bdd, 84, 90, 0), (0x34ee, 85, 91, 0),
+       (0x2eae, 86, 92, 0), (0x299a, 87, 93, 0), (0x2516, 71, 86, 0), (0x5570, 89, 88, 1), (0x4ca9, 90, 95, 0),
+       (0x44d9, 91, 96, 0), (0x3e22, 92, 97, 0), (0x3824, 93, 99, 0), (0x32b4, 94, 99, 0), (0x2e17, 86, 93, 0),
+       (0x56a8, 96, 95, 1), (0x4f46, 97, 101, 0), (0x47e5, 98, 102, 0), (0x41cf, 99, 103, 0),
+       (0x3c3d, 100, 104, 0), (0x375e, 93, 99, 0), (0x5231, 102, 105, 0), (0x4c0f, 103, 106, 0),
+       (0x4639, 104, 107, 0), (0x415e, 99, 103, 0), (0x5627, 106, 105, 1), (0x50e7, 107, 108, 0),
+       (0x4b85, 103, 109, 0), (0x5597, 109, 110, 0), (0x504f, 107, 111, 0), (0x5a10, 111, 110, 1),
+       (0x5522, 109, 112, 0), (0x59eb, 111, 112, 1), (0x5a1d, 113, 113, 0)]
+ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
+          21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+          60, 61, 54, 47, 55, 62, 63)
+_LUMA_Q = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22,
+           29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78, 87,
+           103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+_CHROMA_Q = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99, 47, 66,
+             99, 99, 99, 99, 99, 99) + (99,) * 32
+
+
+class _QmEncoder:
+    """The QM coder's encoder as jcarith.c writes it (D.1): arith_encode,
+    its byte output with carry propagation, and finish_pass."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit_pending(self, byte: int, stuff: bool = True):
+        self.out.extend(b"\0" * self.zc)
+        self.zc = 0
+        self.out.append(byte)
+        if stuff and byte == 0xFF:
+            self.out.append(0)
+
+    def encode(self, stats: bytearray, at: int, val: int):
+        sv = stats[at]
+        qe, nmps, nlps, sw = _QM[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[at] = (sv & 0x80) ^ (nlps | sw << 7)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[at] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._emit_pending(self.buffer + 1)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._emit_pending(self.buffer)
+                    if self.sc:
+                        self.out.extend(b"\0" * self.zc)
+                        self.zc = 0
+                        self.out.extend(b"\xff\x00" * self.sc)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._emit_pending(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._emit_pending(self.buffer)
+            if self.sc:
+                self.out.extend(b"\0" * self.zc)
+                self.zc = 0
+                self.out.extend(b"\xff\x00" * self.sc)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._emit_pending((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit_pending((self.c >> 11) & 0xFF)
+        self.reset()
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", 0xFF00 | marker, len(payload) + 2) + payload
+
+
+def _quant_table(base, quality: int) -> np.ndarray:
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((np.array(base) * scale + 50) // 100, 1, 255).astype(np.int64)
+
+
+def _dct_blocks(plane: np.ndarray, rows: int, cols: int, q: np.ndarray) -> np.ndarray:
+    """[rows, cols, 64] quantized DCT coefficients (natural order) of the
+    plane, its edges repeated out to rows x cols blocks."""
+    h, w = plane.shape
+    padded = np.pad(plane.astype(np.float64), ((0, rows * 8 - h), (0, cols * 8 - w)), mode="edge") - 128
+    k = np.arange(8)
+    basis = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * np.where(k == 0, np.sqrt(0.5), 1.0)[:, None] / 2
+    blocks = padded.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ux,rcxy,vy->rcuv", basis, blocks, basis).reshape(rows, cols, 64)
+    return np.round(coef / q).astype(np.int64)
+
+
+def _jpeg_components(pixels: np.ndarray, sampling: list[tuple[int, int]], quality: int, ycbcr: bool):
+    """(id, h, v, quant table index, blocks [rows, cols, 64]) of each
+    component, blocks padded to whole MCUs; pixels [h, w] or [h, w, n]."""
+    planes = pixels[..., None] if pixels.ndim == 2 else pixels
+    planes = planes.astype(np.float64)
+    if ycbcr and planes.shape[2] == 3:
+        r, g, b = planes[..., 0], planes[..., 1], planes[..., 2]
+        planes = np.stack([0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                           0.5 * r - 0.418688 * g - 0.081312 * b + 128], -1)
+    h, w, n = planes.shape
+    hmax = max(s[0] for s in sampling[:n])
+    vmax = max(s[1] for s in sampling[:n])
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    out = []
+    for c in range(n):
+        ch, cv = sampling[c]
+        fx, fy = hmax // ch, vmax // cv
+        plane = np.pad(planes[..., c], ((0, (-h) % fy), (0, (-w) % fx)), mode="edge")
+        plane = plane.reshape(plane.shape[0] // fy, fy, plane.shape[1] // fx, fx).mean(axis=(1, 3))
+        cw, chh = -(-w * ch // hmax), -(-h * cv // vmax)
+        plane = np.clip(np.round(plane[:chh, :cw]), 0, 255)
+        tq = 0 if c == 0 or not ycbcr else 1
+        q = _quant_table(_LUMA_Q if tq == 0 else _CHROMA_Q, quality)
+        out.append((c + 1, ch, cv, tq, _dct_blocks(plane, mcuy * cv, mcux * ch, q), q, (chh, cw)))
+    return out, (mcux, mcuy)
+
+
+class _ArithScan:
+    """One scan's arithmetic coding (jcarith.c's encode_mcu family)."""
+
+    def __init__(self, qm: _QmEncoder, dac: dict):
+        self.qm = qm
+        self.dac = dac
+        self.dc_stats = [bytearray(64) for _ in range(16)]
+        self.ac_stats = [bytearray(256) for _ in range(16)]
+        self.fixed = bytearray([113])
+
+    def dc_value(self, comp: dict, v: int):
+        stats = self.dc_stats[comp["td"]]
+        st = comp["context"]
+        if v == 0:
+            self.qm.encode(stats, st, 0)
+            comp["context"] = 0
+            return
+        self.qm.encode(stats, st, 1)
+        if v > 0:
+            self.qm.encode(stats, st + 1, 0)
+            st += 2
+            comp["context"] = 4
+        else:
+            v = -v
+            self.qm.encode(stats, st + 1, 1)
+            st += 3
+            comp["context"] = 8
+        m = 0
+        v -= 1
+        if v:
+            self.qm.encode(stats, st, 1)
+            m = 1
+            v2 = v
+            st = 20
+            while v2 >> 1:
+                v2 >>= 1
+                self.qm.encode(stats, st, 1)
+                m <<= 1
+                st += 1
+        self.qm.encode(stats, st, 0)
+        low, high = self.dac.get(("dc", comp["td"]), (0, 1))
+        if m < (1 << low) >> 1:
+            comp["context"] = 0
+        elif m > (1 << high) >> 1:
+            comp["context"] += 8
+        st += 14
+        while m >> 1:
+            m >>= 1
+            self.qm.encode(stats, st, 1 if m & v else 0)
+
+    def ac_value(self, comp: dict, st: int, k: int, v: int):
+        stats = self.ac_stats[comp["ta"]]
+        self.qm.encode(self.fixed, 0, 0 if v > 0 else 1)
+        v = abs(v)
+        st += 2
+        m = 0
+        v -= 1
+        if v:
+            self.qm.encode(stats, st, 1)
+            m = 1
+            v2 = v >> 1
+            if v2:
+                self.qm.encode(stats, st, 1)
+                m <<= 1
+                st = 189 if k <= self.dac.get(("ac", comp["ta"]), 5) else 217
+                while v2 >> 1:
+                    v2 >>= 1
+                    self.qm.encode(stats, st, 1)
+                    m <<= 1
+                    st += 1
+        self.qm.encode(stats, st, 0)
+        st += 14
+        while m >> 1:
+            m >>= 1
+            self.qm.encode(stats, st, 1 if m & v else 0)
+
+    def ac_first(self, comp: dict, coefs: list[int], ss: int, se: int):
+        """coefs: the band's values (point transform applied) at ss..se."""
+        stats = self.ac_stats[comp["ta"]]
+        ke = max((k for k in range(ss, se + 1) if coefs[k - ss]), default=ss - 1)
+        k = ss - 1
+        while k < ke:
+            st = 3 * k
+            self.qm.encode(stats, st, 0)
+            while True:
+                k += 1
+                if coefs[k - ss]:
+                    self.qm.encode(stats, st + 1, 1)
+                    break
+                self.qm.encode(stats, st + 1, 0)
+                st += 3
+            self.ac_value(comp, st, k, coefs[k - ss])
+        if k < se:
+            self.qm.encode(stats, 3 * k, 1)
+
+    def ac_refine(self, comp: dict, block: np.ndarray, ss: int, se: int, al: int):
+        stats = self.ac_stats[comp["ta"]]
+        mags = [abs(int(block[ZIGZAG[k]])) >> al for k in range(64)]
+        ke = max((k for k in range(ss, se + 1) if mags[k]), default=ss - 1)
+        kex = max((k for k in range(ss, ke + 1) if mags[k] >> 1), default=0)
+        k = ss - 1
+        while k < ke:
+            st = 3 * k
+            if k >= kex:
+                self.qm.encode(stats, st, 0)
+            while True:
+                k += 1
+                v = mags[k]
+                if v:
+                    if v >> 1:
+                        self.qm.encode(stats, st + 2, v & 1)
+                    else:
+                        self.qm.encode(stats, st + 1, 1)
+                        self.qm.encode(self.fixed, 0, 1 if block[ZIGZAG[k]] < 0 else 0)
+                    break
+                self.qm.encode(stats, st + 1, 0)
+                st += 3
+        if k < se:
+            self.qm.encode(stats, 3 * k, 1)
+
+
+def jpeg_arithmetic(pixels: np.ndarray, quality: int = 80, sampling: list[tuple[int, int]] | None = None,
+                    progressive: bool = False, restart: int = 0, dac: dict | None = None,
+                    script: list[tuple] | None = None, jfif: bool = True) -> bytes:
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with ``progressive``) of
+    ``pixels`` ([h, w] gray or [h, w, 3] RGB, stored as YCbCr). ``dac``
+    maps ("dc", table) to (L, U) and ("ac", table) to Kx (DAC segments);
+    ``restart`` is the interval in MCUs; ``script`` the progressive scans
+    as (component indexes, Ss, Se, Ah, Al)."""
+    n = 1 if pixels.ndim == 2 else pixels.shape[2]
+    sampling = sampling or ([(2, 2), (1, 1), (1, 1)] if n == 3 else [(1, 1)] * n)
+    comps, (mcux, mcuy) = _jpeg_components(pixels, sampling, quality, ycbcr=True)
+    dac = dac or {}
+    h, w = pixels.shape[:2]
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for tq in sorted({c[3] for c in comps}):
+        q = next(c[5] for c in comps if c[3] == tq)
+        out += _segment(0xDB, bytes([tq]) + bytes(int(q[ZIGZAG[k]]) for k in range(64)))
+    sof = struct.pack(">BHHB", 8, h, w, n) + b"".join(bytes([cid, ch << 4 | cv, tq]) for cid, ch, cv, tq, *_ in comps)
+    out += _segment(0xCA if progressive else 0xC9, sof)
+    if dac:
+        body = b""
+        for (kind, table), value in sorted(dac.items()):
+            body += bytes([(0 if kind == "dc" else 16) + table, value[0] | value[1] << 4 if kind == "dc" else value])
+        out += _segment(0xCC, body)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    if not progressive:
+        script = [(tuple(range(n)), 0, 63, 0, 0)]
+    elif script is None:
+        script = [(tuple(range(n)), 0, 0, 0, 1)] + [((c,), 1, 5, 0, 2) for c in range(n)] + \
+                 [((c,), 6, 63, 0, 2) for c in range(n)] + [((c,), 1, 63, 2, 1) for c in range(n)] + \
+                 [(tuple(range(n)), 0, 0, 1, 0)] + [((c,), 1, 63, 1, 0) for c in range(n)]
+    for members, ss, se, ah, al in script:
+        tables = {c: (0 if c == 0 else 1) for c in members}
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(bytes([comps[c][0], tables[c] << 4 | tables[c]])
+                                                                  for c in members) + bytes([ss, se, ah << 4 | al]))
+        out += _arith_scan(comps, members, tables, (mcux, mcuy), progressive, ss, se, ah, al, restart, dac)
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def _arith_scan(comps, members, tables, mcus, progressive, ss, se, ah, al, restart, dac) -> bytes:
+    qm = _QmEncoder()
+    coder = _ArithScan(qm, dac)
+    state = {c: {"td": tables[c], "ta": tables[c], "context": 0, "last": 0} for c in members}
+    if len(members) == 1:
+        _, ch, cv, _, blocks, _, (chh, cw) = comps[members[0]]
+        units = [[(members[0], by, bx)] for by in range(-(-chh // 8)) for bx in range(-(-cw // 8))]
+    else:
+        mcux, mcuy = mcus
+        units = [[(c, my * comps[c][2] + v, mx * comps[c][1] + hh) for c in members for v in range(comps[c][2])
+                  for hh in range(comps[c][1])] for my in range(mcuy) for mx in range(mcux)]
+    out = bytearray()
+    for i, unit in enumerate(units):
+        if restart and i and i % restart == 0:
+            qm.finish()
+            out += qm.out + bytes([0xFF, 0xD0 + (i // restart - 1) % 8])
+            qm.out = bytearray()
+            for c in members:
+                s = state[c]
+                if not progressive or (ss == 0 and ah == 0):
+                    coder.dc_stats[s["td"]][:] = bytes(64)
+                    s["last"], s["context"] = 0, 0
+                if not progressive or se:
+                    coder.ac_stats[s["ta"]][:] = bytes(256)
+        for c, by, bx in unit:
+            block = comps[c][4][by, bx]
+            s = state[c]
+            if ss == 0 and (not progressive or ah == 0):
+                dc = int(block[0]) >> al
+                coder.dc_value(s, dc - s["last"])
+                s["last"] = dc
+            elif ss == 0:
+                qm.encode(coder.fixed, 0, (int(block[0]) >> al) & 1)
+            if progressive and ss == 0:
+                continue
+            lo = max(ss, 1)
+            if ah:
+                coder.ac_refine(s, block, lo, se, al)
+            else:
+                band = [int(np.sign(block[ZIGZAG[k]])) * (abs(int(block[ZIGZAG[k]])) >> al) for k in range(lo, se + 1)]
+                coder.ac_first(s, band, lo, se)
+    qm.finish()
+    return bytes(out + qm.out)
+
+
+# lossless Huffman code lengths of the 17 difference categories (Kraft sum below 1)
+_LOSSLESS_LENGTHS = (3, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+
+
+def _canonical(lengths) -> tuple[bytes, dict]:
+    """A DHT's counts and symbols, and symbol -> (code, length), for
+    symbols 0.. with the given code lengths."""
+    order = sorted(range(len(lengths)), key=lambda s: (lengths[s], s))
+    counts = [0] * 16
+    for s in order:
+        counts[lengths[s] - 1] += 1
+    codes, code, prev = {}, 0, lengths[order[0]]
+    for s in order:
+        code <<= lengths[s] - prev
+        prev = lengths[s]
+        codes[s] = (code, lengths[s])
+        code += 1
+    return bytes(counts) + bytes(order), codes
+
+
+def jpeg_lossless(pixels: np.ndarray, predictor: int = 1, point_transform: int = 0, restart_rows: int = 0,
+                  interleaved: bool = True, ids: tuple[int, ...] | None = None, jfif: bool = False,
+                  sampling: list[tuple[int, int]] | None = None) -> bytes:
+    """A lossless JPEG (SOF3, Huffman) of ``pixels`` ([h, w] or [h, w, n]
+    uint8, stored as they are), predictor 1-7 and point transform Pt;
+    ``restart_rows`` MCU rows a restart interval; one scan, or one scan a
+    component without ``interleaved``; ``sampling`` (h, v) factors a
+    component (a subsampled component keeps every h-th, v-th sample)."""
+    samples = pixels[..., None] if pixels.ndim == 2 else pixels
+    h, w, n = samples.shape
+    ids = ids or tuple(range(1, n + 1))
+    sampling = sampling or [(1, 1)] * n
+    hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    planes = []
+    for c, (ch, cv) in enumerate(sampling):
+        plane = samples[::vmax // cv, ::hmax // ch, c].astype(np.int64) >> point_transform
+        cw, chh = -(-w * ch // hmax), -(-h * cv // vmax)
+        plane = plane[:chh, :cw]
+        if interleaved:  # padded out to whole MCUs, the edge repeated
+            plane = np.pad(plane, ((0, mcuy * cv - chh), (0, mcux * ch - cw)), mode="edge")
+        planes.append(plane)
+    table, codes = _canonical(_LOSSLESS_LENGTHS)
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += _segment(0xC3, struct.pack(">BHHB", 8, h, w, n)
+                    + b"".join(bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], 0]) for c in range(n)))
+    out += _segment(0xC4, b"\x00" + table)
+    groups = [tuple(range(n))] if interleaved else [(c,) for c in range(n)]
+    if restart_rows:
+        out += _segment(0xDD, struct.pack(">H", restart_rows * (mcux if interleaved else planes[0].shape[1])))
+    for members in groups:
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(bytes([ids[c], 0]) for c in members)
+                        + bytes([predictor, 0, point_transform]))
+        bits: list[str] = []
+        pieces = bytearray()
+
+        def flush():
+            text = "".join(bits)
+            text += "1" * (-len(text) % 8)
+            for k in range(0, len(text), 8):
+                byte = int(text[k:k + 8], 2)
+                pieces.append(byte)
+                if byte == 0xFF:
+                    pieces.append(0)
+            bits.clear()
+
+        def diff(c: int, y: int, x: int, first: bool) -> None:
+            p = planes[c]
+            if first:
+                pred = (1 << (7 - point_transform)) if x == 0 else p[y, x - 1]
+            elif x == 0:
+                pred = p[y - 1, 0]
+            else:
+                ra, rb, rc = int(p[y, x - 1]), int(p[y - 1, x]), int(p[y - 1, x - 1])
+                pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                        (ra + rb) >> 1)[predictor - 1]
+            d = (int(p[y, x]) - int(pred)) & 0xFFFF
+            d = d - 65536 if d >= 32768 else d
+            s = abs(d).bit_length()
+            code, length = codes[s]
+            bits.append(format(code, f"0{length}b"))
+            if 0 < s < 16:
+                bits.append(format(d if d >= 0 else d - 1 + (1 << s), f"0{s}b")[-s:])
+
+        if len(members) == 1:
+            rows, (cv,) = planes[members[0]].shape[0], (1,)
+            row_units = [[(members[0], y, x) for x in range(planes[members[0]].shape[1])] for y in range(rows)]
+        else:
+            row_units = []
+            for my in range(mcuy):
+                units = []
+                for mx in range(mcux):
+                    for c in members:
+                        ch, cv = sampling[c]
+                        units += [(c, my * cv + v, mx * ch + hh) for v in range(cv) for hh in range(ch)]
+                row_units.append(units)
+        # a sample row's first one after a restart is predicted as the first row
+        first_rows: dict[int, set] = {c: {0} for c in members}
+        for r, units in enumerate(row_units):
+            if restart_rows and r and r % restart_rows == 0:
+                flush()
+                pieces.extend(bytes([0xFF, 0xD0 + (r // restart_rows - 1) % 8]))
+                for c in members:
+                    first_rows[c].add(r * (sampling[c][1] if len(members) > 1 else 1))
+            for c, y, x in units:
+                diff(c, y, x, y in first_rows[c])
+        flush()
+        out += pieces
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def jpeg_header_only(marker: int, precision: int = 8, size: tuple[int, int] = (16, 16), components: int = 1) -> bytes:
+    """A JPEG whose frame header is ``marker`` (a SOF type) at ``precision``
+    bits, with tables and a scan of zeros: enough for a decoder to refuse
+    it or not (hierarchical, 12-bit, lossless arithmetic frames)."""
+    w, h = size
+    out = bytearray(b"\xff\xd8")
+    out += _segment(0xDB, bytes([0]) + bytes([1] * 64))
+    out += _segment(marker, struct.pack(">BHHB", precision, h, w, components)
+                    + b"".join(bytes([i + 1, 0x11, 0]) for i in range(components)))
+    table, _ = _canonical(_LOSSLESS_LENGTHS)
+    out += _segment(0xC4, b"\x00" + table) + _segment(0xC4, b"\x10" + table)
+    out += _segment(0xDA, bytes([components]) + b"".join(bytes([i + 1, 0]) for i in range(components))
+                    + bytes([0, 63, 0]))
+    out += b"\x00" * 64 + b"\xff\xd9"
+    return bytes(out)

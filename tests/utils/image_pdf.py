@@ -9,7 +9,10 @@ are ``(x, y, font_size, text)`` as ``documents/pdf/writer.py``'s
 ``[width 0 0 height x y]``. ``image`` is either an ``[H, W, C]`` uint8
 array (C 1, 3 or 4: DeviceGray, DeviceRGB, DeviceCMYK), written
 Flate-compressed, or ``("dct", jpeg_bytes, W, H, C)``, written as is with
-``/DCTDecode``.
+``/DCTDecode``, or ``("jpx", jpeg2000_bytes, W, H, C)`` with
+``/JPXDecode`` (C 0 writes no /ColorSpace, as a JPX image may leave it
+out); an optional sixth element holds more dictionary entries (bytes,
+such as ``/Decode [1 0] /SMaskInData 1``).
 """
 
 import zlib
@@ -24,9 +27,11 @@ def _escape(text: str) -> str:
 
 
 def _image_object(image) -> bytes:
+    extra = b""
     if isinstance(image, tuple):
-        _, data, w, h, c = image
-        filt = b"/DCTDecode"
+        kind, data, w, h, c = image[:5]
+        extra = image[5] if len(image) > 5 else b""
+        filt = b"/DCTDecode" if kind == "dct" else b"/JPXDecode"
     else:
         image = np.asarray(image, dtype=np.uint8)
         if image.ndim == 2:
@@ -34,9 +39,10 @@ def _image_object(image) -> bytes:
         h, w, c = image.shape
         data = zlib.compress(image.tobytes())
         filt = b"/FlateDecode"
+    space = b"/ColorSpace %s " % _SPACES[c] if c else b""
     return (
-        b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace %s "
-        b"/BitsPerComponent 8 /Filter %s /Length %d >>\nstream\n" % (w, h, _SPACES[c], filt, len(data))
+        b"<< /Type /XObject /Subtype /Image /Width %d /Height %d %s"
+        b"/BitsPerComponent 8 /Filter %s %s/Length %d >>\nstream\n" % (w, h, space, filt, extra, len(data))
         + data + b"\nendstream"
     )
 

@@ -23,12 +23,14 @@ import dataclasses
 import hashlib
 import io
 import json
+import struct
 from pathlib import Path
 
 import numpy as np
 from PIL import Image
 
 from tests.utils import image_encoders as enc
+from tests.utils import j2k_encoders as je
 from tests.utils.html_docs import build_html_documents
 from tests.utils.make_jpeg_fixtures import photo
 
@@ -38,6 +40,8 @@ IMAGES = DATA / "images"
 # PIL pages kept as digests (digests.json), not as pixels
 RATES = DATA / "image_rates"
 RATE_DIGESTS = RATES / "digests.json"
+# files PIL refuses to open or to decode, which the port must refuse too
+REFUSED = DATA / "images_refused"
 HTML_ORACLE = DATA / "html" / "oracle.json"
 ORACLE_CHUNKS = DATA / "alps_oracle_chunks.json"
 
@@ -88,6 +92,146 @@ def image_fixtures() -> dict[str, bytes]:
     out.update(tiff_fixtures(rng))
     out.update(webp_fixtures(rng))
     out.update(apng_fixtures(rng))
+    out.update(jpeg2000_fixtures())
+    out.update(jpeg_coding_fixtures())
+    return out
+
+
+def _jpeg2000(image: Image.Image, **options) -> bytes:
+    return _pil_bytes(image, "JPEG2000", **options)
+
+
+def jpeg2000_fixtures() -> dict[str, bytes]:
+    """JPEG 2000 images (``_97`` in a name: the irreversible 9/7 path):
+    PIL writes the options its save takes (JP2 and raw codestreams, tiles
+    and offsets, the five progressions, layers, resolutions, code-block
+    and precinct sizes, MCT, PLT, signed samples, gray, LA, RGBA, 16-bit
+    gray); OpenJPEG's encoder through ctypes (``j2k_encoders``) writes the
+    code-block styles, SOP / EPH, POC, RGN, tile-parts and subsampled
+    components; the rewrites put headers into PPM / PPT, add COC, QCC and
+    COM, switch to derived quantization, change the precision, and wrap
+    codestreams in JP2 boxes (``colr`` 12, 16, 17, 18, ``pclr`` with a
+    repeated colour, ``cmap``, ``cdef``)."""
+    rgb = Image.fromarray(photo(40, 56, 120))
+    out = {
+        "j2k_rgb.jp2": _jpeg2000(rgb),
+        "j2k_rgb_97.j2k": _jpeg2000(rgb, irreversible=True, no_jp2=True, quality_layers=[20]),
+        "j2k_tiles_offset.j2k": _jpeg2000(Image.fromarray(photo(45, 61, 121)), tile_size=(24, 20),
+                                          tile_offset=(3, 5), offset=(7, 9), no_jp2=True),
+        "j2k_layers_97.jp2": _jpeg2000(rgb, irreversible=True, quality_layers=[60, 30, 15], mct=1),
+        "j2k_one_resolution.j2k": _jpeg2000(rgb, num_resolutions=1, no_jp2=True),
+        "j2k_mct.j2k": _jpeg2000(rgb, mct=1, no_jp2=True, plt=True),
+        "j2k_signed.j2k": _jpeg2000(rgb, signed=True, no_jp2=True),
+        "j2k_gray.jp2": _jpeg2000(rgb.convert("L")),
+        "j2k_gray16.jp2": _jpeg2000(Image.fromarray((photo(30, 40, 122)[..., 0].astype(np.uint16) * 3))),
+        "j2k_la.jp2": _jpeg2000(Image.fromarray(np.dstack([photo(30, 40, 123)[..., :1],
+                                                          photo(30, 40, 124)[..., 1:2]]).copy(), "LA")),
+        "j2k_rgba_97.jp2": _jpeg2000(Image.fromarray(np.dstack([photo(30, 40, 125), photo(30, 40, 126)[..., 0]]),
+                                                     "RGBA"), irreversible=True),
+    }
+    big = Image.fromarray(photo(64, 80, 127))
+    for k, prog in enumerate(je.PROGRESSIONS):
+        options = {"progression": prog, "quality_layers": [40, 20, 0][:1 + k % 3], "no_jp2": True,
+                   "codeblock_size": (16, 16), "num_resolutions": 4}
+        if prog != "CPRL":  # OpenJPEG 2.5.4 writes CPRL with precincts that it cannot read back
+            options["precinct_size"] = (32, 32)
+        out[f"j2k_{prog.lower()}.j2k"] = _jpeg2000(big, **options)
+    comps = [photo(36, 44, 128)[..., c].astype(np.int32) for c in range(3)]
+    for name, style, irr in (("all_styles", 63, False), ("bypass_termall_97", je.BYPASS | je.TERMALL, True),
+                             ("vsc_segsym", je.VSC | je.SEGSYM, False), ("reset_pterm_97", je.RESET | je.PTERM, True)):
+        out[f"j2k_style_{name}.j2k"] = je.j2k_encode(comps, style=style, irreversible=irr, mct=1, codeblock=(16, 16),
+                                                   layers=[30.0, 8.0] if irr else [20.0, 0.0])
+    out["j2k_sop_eph.j2k"] = je.j2k_encode(comps, sop=True, eph=True, codeblock=(16, 16), layers=[20.0, 0.0])
+    packed = je.j2k_encode(comps, sop=True, eph=True, codeblock=(16, 16), layers=[20.0, 0.0], tile=(24, 24))
+    out["j2k_ppm.j2k"] = je.packed_headers(packed, "ppm")
+    out["j2k_ppt.j2k"] = je.packed_headers(packed, "ppt")
+    out["j2k_poc.j2k"] = je.j2k_encode(comps, precincts=[(16, 16)] * 4, codeblock=(8, 8), resolutions=4,
+                                       layers=[30.0, 0.0], pocs=[(1, 0, 0, 1, 2, 3, "RPCL"), (1, 2, 0, 2, 4, 3, "CPRL"),
+                                                               (1, 0, 0, 2, 4, 3, "LRCP")])
+    out["j2k_rgn.j2k"] = je.j2k_encode(comps, roi=(1, 5), codeblock=(16, 16))
+    out["j2k_tile_parts.j2k"] = je.j2k_encode(comps, tile=(24, 24), tile_parts="R", layers=[20.0, 0.0])
+    gray = photo(36, 44, 129)[..., 0].astype(np.int32)
+    coded = je.j2k_encode([gray])
+    for prec in (1, 4, 12):
+        out[f"j2k_precision_{prec}.j2k"] = je.with_siz_precision(coded, [prec])
+    out["j2k_precision_12_signed.j2k"] = je.with_siz_precision(coded, [12], [True])
+    out["j2k_precision_9.jp2"] = je.jp2(je.with_siz_precision(coded, [9]))
+    rgb_cs = je.j2k_encode(comps)
+    # COC and QCC restating COD and QCD for components 1 and 2, and a COM
+    segs = dict(je.segments(rgb_cs)[0])
+    out["j2k_coc_qcc.j2k"] = je.add_segments(rgb_cs, [(0xFF53, bytes([1]) + segs[0xFF52][4:]),
+                                                      (0xFF5D, bytes([2]) + segs[0xFF5C]), (0xFF64, b"\x00\x01port")])
+    # one resolution, irreversible: derived quantization reads the one step QCD expounds
+    single = je.j2k_encode(comps, irreversible=True, resolutions=1, layers=[10.0])
+    qcd = bytearray(dict(je.segments(single)[0])[0xFF5C])
+    qcd[0] = (qcd[0] & 0xE0) | 1
+    out["j2k_derived_97.j2k"] = je.replace_segment(single, 0xFF5C, bytes(qcd))
+    a = photo(44, 60, 130).astype(np.int32)
+    sub = [a[..., 0], a[::2, ::2, 1], a[::2, ::2, 2]]
+    sampled = je.j2k_encode(sub, subsampling=[(1, 1), (2, 2), (2, 2)])
+    out["j2k_subsampled_ycc.j2k"] = sampled  # a bare codestream subsampled: Pillow reads it as sYCC
+    out["j2k_subsampled_srgb.jp2"] = je.jp2(sampled)
+    out["j2k_sycc.jp2"] = je.jp2(rgb_cs, colr=struct.pack(">BBBI", 1, 0, 0, 18))
+    four = je.j2k_encode(comps + [comps[0] // 2])
+    out["j2k_cmyk.jp2"] = je.jp2(four, colr=struct.pack(">BBBI", 1, 0, 0, 12))
+    out["j2k_cdef.jp2"] = je.jp2(four, cdef=[(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 1, 0)])
+    out["j2k_icc.jp2"] = je.jp2(rgb_cs, colr=bytes([2, 0, 0]) + bytes(20))
+    indexes = (photo(30, 40, 131)[..., 0] // 16).astype(np.int32)
+    entries = [(16 * i, 255 - 16 * i, 40 * i % 256) for i in range(16)]
+    entries[5] = entries[9] = entries[2]  # getcolor reuses the first index of a repeated colour
+    out["j2k_palette.jp2"] = je.jp2(je.j2k_encode([indexes], precision=4), colr=struct.pack(">BBBI", 1, 0, 0, 16),
+                                    pclr=([7, 7, 7], entries), cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    return out
+
+
+def refused_fixtures() -> dict[str, bytes]:
+    """Files PIL refuses, each the port must refuse with
+    InvalidDocumentError: JPEG frames at 12 bits, hierarchical and lossless
+    arithmetic processes, two components, a lossless YCbCr frame; JPEG
+    2000 files OpenJPEG or Pillow's unpackers refuse."""
+    out = {"jpeg_12bit.jpg": enc.jpeg_header_only(0xC1, precision=12),
+           "jpeg_hierarchical.jpg": enc.jpeg_header_only(0xC5),
+           "jpeg_lossless_arithmetic.jpg": enc.jpeg_header_only(0xCB),
+           "jpeg_two_components.jpg": enc.jpeg_header_only(0xC0, components=2),
+           "jpeg_lossless_jfif_ycc.jpg": enc.jpeg_lossless(photo(20, 24, 132), predictor=1, jfif=True)}
+    comps = [photo(20, 24, 133)[..., c].astype(np.int32) for c in range(3)]
+    gray = je.j2k_encode(comps[:1])
+    out["j2k_palette_gray_colr.jp2"] = je.jp2(je.j2k_encode([comps[0] // 16], precision=4),
+                                              pclr=([7, 7, 7], [(i, i, i) for i in range(16)]),
+                                              cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    out["j2k_gray_as_rgb.jp2"] = je.jp2(je.j2k_encode(comps), colr=struct.pack(">BBBI", 1, 0, 0, 17))
+    out["j2k_five_components.j2k"] = je.j2k_encode(comps + comps[:2])
+    out["j2k_truncated.j2k"] = gray[:-40]
+    return out
+
+
+def jpeg_coding_fixtures() -> dict[str, bytes]:
+    """JPEG codings PIL cannot write: arithmetic-coded sequential and
+    progressive frames (with DAC conditioning and restarts) and lossless
+    frames (``image_encoders.jpeg_arithmetic`` / ``jpeg_lossless``), and
+    progressive JPEGs PIL writes, cut after chosen scans, which
+    libjpeg-turbo smooths."""
+    img = photo(45, 61, 140)
+    out = {"jpeg_arith_420.jpg": enc.jpeg_arithmetic(img),
+           "jpeg_arith_gray_dac.jpg": enc.jpeg_arithmetic(img[..., 0], dac={("dc", 0): (2, 5), ("ac", 0): 12}),
+           "jpeg_arith_444_restart.jpg": enc.jpeg_arithmetic(img, sampling=[(1, 1)] * 3, restart=3, quality=90),
+           "jpeg_arith_progressive.jpg": enc.jpeg_arithmetic(img, progressive=True,
+                                                             dac={("dc", 1): (0, 0), ("ac", 1): 2}),
+           "jpeg_arith_progressive_restart.jpg": enc.jpeg_arithmetic(photo(30, 40, 141), progressive=True, restart=2),
+           "jpeg_lossless_gray.jpg": enc.jpeg_lossless(img[..., 1], predictor=1),
+           "jpeg_lossless_rgb_restart.jpg": enc.jpeg_lossless(photo(24, 30, 142), predictor=4, restart_rows=5),
+           "jpeg_lossless_scans_pt2.jpg": enc.jpeg_lossless(photo(24, 30, 143), predictor=7, point_transform=2,
+                                                            interleaved=False),
+           "jpeg_lossless_subsampled.jpg": enc.jpeg_lossless(photo(25, 31, 144), predictor=6, restart_rows=3,
+                                                             sampling=[(2, 2), (1, 1), (1, 1)])}
+    for name, (h, w, sub, keep) in {"jpeg_smooth_dc_only.jpg": (48, 64, 2, 1),
+                                    "jpeg_smooth_narrow.jpg": (32, 24, 2, 1),
+                                    "jpeg_smooth_low_ac.jpg": (45, 61, 0, 4)}.items():
+        buf = io.BytesIO()
+        Image.fromarray(photo(h, w, 144 + keep)).save(buf, "JPEG", quality=80, progressive=True, subsampling=sub)
+        data = buf.getvalue()
+        scans = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+        out[name] = data[:scans[keep]] + b"\xff\xd9"  # the first `keep` scans
     return out
 
 
@@ -339,8 +483,10 @@ def rate_fixtures() -> dict[str, bytes]:
     """File name -> bytes of the documents the host decoders are timed on,
     each at a size users attach: an A4 fax page (1728 x 2200, Group 4), a
     1024 x 768 report screenshot in LZW TIFF and in lossless WebP, a 1024 x
-    768 photograph in lossy WebP, and a 640 x 480 screen recording of 4
-    frames in APNG."""
+    768 photograph in lossy WebP and in an arithmetic-coded JPEG, a letter
+    and a photograph on A4 pages at 150 dpi (1240 x 1754) in JPEG 2000
+    (reversible gray, irreversible RGB), and a 640 x 480 screen recording of
+    4 frames in APNG."""
     rng = np.random.default_rng(27)
     out = {"g4_a4_fax.tif": _pil_bytes(Image.fromarray(~text_page(rng, 2200, 1728)), "TIFF", compression="group4"),
            "lzw_report.tif": _pil_bytes(Image.fromarray(office_page(rng, 768, 1024, False)), "TIFF",
@@ -355,6 +501,15 @@ def rate_fixtures() -> dict[str, bytes]:
         frame[100 + 40 * k:140 + 40 * k, 100:400] = (200, 40 * k, 60)
         frames.append(Image.fromarray(frame))
     out["apng_screen.png"] = _pil_bytes(frames[0], "PNG", save_all=True, append_images=frames[1:], duration=80)
+    # a letter scanned at 150 dpi on A4 (1240 x 1754) as a reversible gray JPX, a photograph on an A4
+    # page as an irreversible RGB JPX, and a 1024 x 768 photograph as an arithmetic-coded JPEG (under the
+    # 64 KiB Pillow hands libjpeg at once: an arithmetic scan past it fails under Pillow)
+    letter = text_page(np.random.default_rng(28), 1754, 1240)
+    letter[800:] = False
+    out["jpx_letter_gray.jp2"] = _pil_bytes(Image.fromarray(np.where(letter, 30, 235).astype(np.uint8)), "JPEG2000")
+    out["jpx_photo_97.jp2"] = _pil_bytes(Image.fromarray(web_photo(1754, 1240, 28)), "JPEG2000", irreversible=True,
+                                         quality_layers=[40])
+    out["arith_photo.jpg"] = enc.jpeg_arithmetic(web_photo(768, 1024, 29), quality=70)
     return out
 
 
@@ -413,6 +568,9 @@ def main() -> None:
         for i, page in enumerate(pil_pages(data), start=1):
             decoded[f"{name}@{i}"] = page
     np.savez_compressed(IMAGES / "decoded.npz", **decoded)
+    REFUSED.mkdir(parents=True, exist_ok=True)
+    for name, data in sorted(refused_fixtures().items()):
+        (REFUSED / name).write_bytes(data)
     RATES.mkdir(parents=True, exist_ok=True)
     digests = {}
     for name, data in sorted(rate_fixtures().items()):
