@@ -398,6 +398,13 @@ LI_CHECKPOINT = ROOT / "checkpoints" / "alps-maxsim"
 LI_MAX_TOKENS = 256
 LI_GATE_CHUNKS = 256
 MAXSIM_ATOL = 1e-5
+# the sharded serving phase: 4 slots on the card where one is visible, every
+# card where more are; the service's text attachment, its retrievals, and
+# the texts of the direct data-parallel encode
+SHARDED_SLOTS = 4
+SHARDED_SERVICE_TEXTS, SHARDED_SERVICE_RETRIEVALS = 256, 8
+SHARDED_ENCODE_TEXTS = 512
+SHARDED_ENCODE_ATOL = 1e-3  # dp slots vs one encode, |difference| of unit embeddings
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, CUDA cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
@@ -792,6 +799,37 @@ def synthetic_texts(vocab: dict, n: int, seed: int) -> list[str]:
     words = sorted(w for w in vocab if w.isascii() and w.isalpha() and w.islower() and len(w) > 1)
     rng = np.random.default_rng(seed)
     return [" ".join(rng.choice(words, size=int(rng.integers(200, 254)))) for _ in range(n)]
+
+
+def main_inputs(embedder) -> tuple[int, list[str], list, list[str]]:
+    """The main path's inputs, which later phases share: the oracle's
+    chunks then seeded synthetic texts, N_DOCS in all; their chunk list,
+    each tagged ``oracle`` or ``synthetic``; and N_QUERIES queries of 8
+    consecutive words from as many seeded texts. Returns (the oracle's
+    count, texts, chunks, queries)."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.documents.model import build_chunks_list
+
+    oracle = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
+    texts = oracle + synthetic_texts(embedder.tokenizer.vocab, N_DOCS - len(oracle), seed=0)
+    chunks = build_chunks_list([(t, {"source": "oracle" if i < len(oracle) else "synthetic"})
+                                for i, t in enumerate(texts)])
+    rng = np.random.default_rng(1)
+    queries = []
+    for i in rng.choice(len(texts), size=N_QUERIES, replace=False):
+        words = texts[i].split()
+        j = int(rng.integers(0, max(1, len(words) - 8)))
+        queries.append(" ".join(words[j : j + 8]))
+    return len(oracle), texts, chunks, queries
+
+
+def late_interaction_tokens(li_emb, chunks) -> list:
+    """The late-interaction index's token embeddings of ``chunks``, each
+    cut to LI_MAX_TOKENS, as the retriever builds them."""
+    from dial_rag_tpu_torch.retrieval import LateInteractionRetriever
+
+    return asyncio.run(LateInteractionRetriever.build_index(li_emb, chunks, LI_MAX_TOKENS))
 
 
 def attention_inputs(torch, dev, b, s, heads, dh, seed, dtype=None):
@@ -3069,11 +3107,13 @@ def zipf_terms(rng, shape, vocab: int, s: float):
     return np.minimum(np.searchsorted(cdf, rng.random(shape), side="right"), vocab - 1)
 
 
-def bm25_1m_phase(torch, card) -> None:
+def bm25_1m_phase(torch, card) -> dict:
     """A seeded BM25 index at the dense 1M x 384 index's scale: 1M items of
     48 unique Zipf(1.1) terms over 262,144, built through
     ``from_term_weight_arrays`` (the band + CSC layout), queried in a batch
-    of 64 and singly, and held to a host scoring of the same weights."""
+    of 64 and singly, and held to a host scoring of the same weights.
+    Returns the host data, the queries, the batch's results and the
+    planted group, which the sharded serving phase shards."""
     import numpy as np
     import scipy.sparse
 
@@ -3163,6 +3203,8 @@ def bm25_1m_phase(torch, card) -> None:
           f"give the same bits; the planted {BM25_1M_GROUP} identical items rank latest first (score {vals[0]})")
     print(f"peak memory (BM25 1M): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
     del index, first, again
+    return {"vocab": vocab, "item_ids": item_ids, "terms": terms, "weights": weights, "queries": queries,
+            "batch": batch, "group": group, "planted": planted}
 
 
 def device_ms(torch, fn) -> float:
@@ -3177,14 +3219,16 @@ def scan_bound(queries: int, rows: int, dim: int, nbytes: float, peak_ops: float
     return bound(2.0 * queries * rows * dim, nbytes, peak_ops)
 
 
-def dense_layouts_phase(torch, card, dev, qs, n_rows: int = DENSE_ROWS) -> None:
+def dense_layouts_phase(torch, card, dev, qs, n_rows: int = DENSE_ROWS) -> dict:
     """The main path's seeded 1M x 384 matrix, with a planted group of tied
     rows, as float32, bfloat16, two_pass and int8 ``DenseIndex``es built
     from the host rows: each answers ``find_batch`` of the 64 queries and
     ``find`` of 5, timed, with its scan's transient memory; a lone query
     (float32 and bfloat16) ranked whole against a block at a time; two_pass
     against float32 with its fallbacks counted; int8 against the same code
-    on the CPU and against float32."""
+    on the CPU and against float32. Returns the host rows and each layout's
+    hits (the batch's, and the first query's alone with its distances),
+    which the sharded serving phase holds its sharded indexes to."""
     import numpy as np
 
     from dial_rag_tpu_torch.index import dense_index as di
@@ -3214,10 +3258,10 @@ def dense_layouts_phase(torch, card, dev, qs, n_rows: int = DENSE_ROWS) -> None:
         build_s[storage] = time.perf_counter() - t0
     n_pad = indexes["float32"]._emb.shape[0]
 
-    hits = {}
+    hits, one = {}, {}
     for storage, index in indexes.items():
         index.find_batch(qs)  # warm-up at the query shapes
-        index.find(qs[0])
+        one[storage] = index.find_with_distances(qs[0])
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3328,6 +3372,7 @@ def dense_layouts_phase(torch, card, dev, qs, n_rows: int = DENSE_ROWS) -> None:
           f"equal apart from {ties} near-ties; top-{HYBRID_K} overlap with float32 {overlap:.3f} over "
           f"{len(qs)} queries (at least {INT8_OVERLAP}) {card}")
     print(f"peak memory (dense layouts): {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}", flush=True)
+    return {"docs": docs, "hits": hits, "one": one}
 
 
 def late_interaction_phase(torch, card, li_emb, texts, chunks, queries) -> tuple[dict, list]:
@@ -3356,7 +3401,7 @@ def late_interaction_phase(torch, card, li_emb, texts, chunks, queries) -> tuple
     torch.cuda.reset_peak_memory_stats()
     fe.reset_launches()
     t0 = time.perf_counter()
-    tokens = asyncio.run(LateInteractionRetriever.build_index(li_emb, chunks, LI_MAX_TOKENS))
+    tokens = late_interaction_tokens(li_emb, chunks)
     t_encode = time.perf_counter() - t0
     n_tokens = sum(t.shape[0] for t in tokens)
     record = DocumentRecord(format_version=None, index_settings=IndexSettings(), chunks=chunks, text_index=None,
@@ -4277,6 +4322,261 @@ def concurrent_serving_phase(torch, card, embedder, li_emb, record, queries) -> 
     return launches
 
 
+def timed_device(torch, fn) -> tuple[float, str]:
+    """One call of ``fn``'s device time, ms: the profiler's kernels, or CUDA
+    events around the call where the trace holds no kernel."""
+    fn()
+    ms = sum(e.self_device_time_total for e in device_events(torch, fn, cpu=False)) / 1e3
+    if ms > 0:
+        return ms, "profiler"
+    return cuda_ms(torch, fn, iters=3, warmup=0), "cuda_events"
+
+
+def sharded_serving_phase(torch, card, embedder, li_emb, li_tokens, texts, queries, qs, dense, bm25) -> dict:
+    """The parallel package's serving half on the card (``parallel/``): a
+    mesh of every visible card, or SHARDED_SLOTS slots of cuda:0 where one
+    is visible. ``ShardedDenseIndex`` over the dense layouts phase's 1M x
+    384 rows in float32, bfloat16, two_pass and int8 (find_batch of the 64
+    queries, find of one), ``ShardedBm25SparseIndex`` over the BM25 1M
+    phase's postings (top_n_batch of its 64 queries, the planted group
+    across shards) and ``ShardedLateInteractionIndex`` over the late-
+    interaction phase's chunks, each held to the unsharded index on the card
+    (the same hits but near-ties, distances within the unsharded phase's
+    tolerance); the embedder's ``shard_over`` encode against the plain
+    encode, kernels 1-2 counted launching once a dp slot a layer a batch in
+    the first and once a layer a batch in the second; and the
+    app with ``parallel.data_parallel: true`` (a one-device mesh on one card)
+    against ``false``: the same indexing request, then retrievals, the same
+    hits, and encoder launches of dp slots (1 for ``false``) x layers x
+    encodes. Returns kernels 1-2's launches."""
+    import numpy as np
+
+    from dial_rag_tpu_torch.index.bm25 import Bm25Index
+    from dial_rag_tpu_torch.index.late_interaction import LateInteractionIndex
+    from dial_rag_tpu_torch.index.records import RetrievalType
+    from dial_rag_tpu_torch.ops import fused_encoder as fe
+    from dial_rag_tpu_torch.parallel.mesh import create_mesh
+    from dial_rag_tpu_torch.parallel.sharded_index import (
+        ShardedBm25SparseIndex,
+        ShardedDenseIndex,
+        ShardedLateInteractionIndex,
+    )
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    mesh = create_mesh() if cards > 1 else create_mesh(devices=["cuda:0"] * SHARDED_SLOTS)
+    print(f"sharded serving: mesh {mesh} over {cards} visible card(s) {card}", flush=True)
+    kernels = ("fused_attention_block", "fused_ffn_block")
+    launched = collections.Counter()
+    rows = []
+
+    def ids(hs):
+        return [h.chunk_id for h in hs]
+
+    def close(a, b) -> bool:
+        return abs(a - b) <= DENSE_ATOL + 1e-6 * abs(b)
+
+    # the dense layouts: the sharded index against the unsharded one's hits
+    for storage in ("float32", "bfloat16", "two_pass", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ShardedDenseIndex(RetrievalType.TEXT, dense["docs"], mesh, limit=HYBRID_K, storage_dtype=storage)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        index.find_batch(qs)  # warm-up at the query shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = index.find_batch(qs)
+        t_batch = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = index.find(qs[0])
+        t_one = time.perf_counter() - t0
+        batch_dev, batch_by = timed_device(torch, lambda: index.find_batch(qs))
+        one_dev, one_by = timed_device(torch, lambda: index.find(qs[0]))
+        ref_batch, ref_one = dense["hits"][storage], dense["one"][storage][0]
+        dist = [{h.chunk_id: -h.score for h in a} | {h.chunk_id: -h.score for h in b}
+                for a, b in zip(batch + [one], ref_batch + [ref_one])]
+        for a, b, dq in zip(batch + [one], ref_batch + [ref_one], dist):
+            common = {h.chunk_id: -h.score for h in b}
+            for h in a:
+                if h.chunk_id in common and not close(-h.score, common[h.chunk_id]):
+                    raise RuntimeError(f"sharded {storage}: row {h.chunk_id} at {-h.score}, unsharded "
+                                       f"{common[h.chunk_id]}")
+        ties = list_near_ties([ids(h) for h in batch + [one]], [ids(h) for h in ref_batch + [ref_one]],
+                              lambda qi, x, y: close(dist[qi][x], dist[qi][y]), f"sharded dense {storage}")
+        print(f"sharded dense {storage}: {index.n_shards} shards of {index._shards[0][1]._emb.shape[0]} rows, "
+              f"{index.nbytes / 1e9:.3f} GB built in {t_build:.2f} s; find_batch of {len(qs)} {t_batch * 1e3:.2f} ms "
+              f"(device {batch_dev:.3f} ms, timed_by {batch_by}); find {t_one * 1e3:.2f} ms (device {one_dev:.3f} ms, "
+              f"timed_by {one_by}); hits = the unsharded index's on {len(qs) + 1} queries apart from {ties} "
+              f"near-ties {card}", flush=True)
+        rows.append({"what": f"dense {storage}", "find_batch_ms": t_batch * 1e3, "find_batch_device_ms": batch_dev,
+                     "find_ms": t_one * 1e3, "find_device_ms": one_dev, "timed_by": batch_by})
+        del index
+        torch.cuda.empty_cache()
+
+    # BM25: the 1M-item postings, sharded from a host build without a band
+    n, v = len(bm25["terms"]), len(bm25["vocab"])
+    t0 = time.perf_counter()
+    base = Bm25Index.from_term_weight_arrays(bm25["vocab"], np.ones(v), bm25["item_ids"], bm25["terms"].ravel(),
+                                             bm25["weights"].ravel(), n, device="cpu", max_band_bytes=0)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse = ShardedBm25SparseIndex(base, mesh, limit=BM25_1M_GROUP)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    del base
+    sparse.top_n_batch_with_scores(bm25["queries"], HYBRID_K)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = sparse.top_n_batch_with_scores(bm25["queries"], HYBRID_K)
+    t_batch = time.perf_counter() - t0
+    batch_dev, batch_by = timed_device(torch, lambda: sparse.top_n_batch_with_scores(bm25["queries"], HYBRID_K))
+    for qi, ((idx, vals), (ref_idx, ref_vals)) in enumerate(zip(batch, bm25["batch"])):
+        if not np.array_equal(idx, ref_idx) or not np.allclose(vals, ref_vals, rtol=BM25_RTOL, atol=BM25_ATOL):
+            raise RuntimeError(f"sharded BM25 query {qi}: {idx.tolist()} {vals.tolist()}, unsharded "
+                               f"{ref_idx.tolist()} {ref_vals.tolist()}")
+    group = bm25["group"]
+    idx, vals = sparse.top_n_with_scores(bm25["planted"], BM25_1M_GROUP)
+    if idx.tolist() != group[::-1].tolist() or len(set(vals.tolist())) != 1:
+        raise RuntimeError(f"sharded BM25: the planted group ranks {idx.tolist()}, expected {group[::-1].tolist()}")
+    shards = sorted({int(i) // sparse._rows_per_shard for i in group})
+    band = sparse._shards[0][2]._band
+    print(f"sharded BM25 1M: {len(sparse._shards)} shards of {sparse._rows_per_shard} items (band "
+          f"{tuple(band.shape) if band is not None else None} each), {sparse.nbytes / 1e9:.3f} GB; host build "
+          f"{t_host:.1f} s, sharding {t_shard:.1f} s; top_n_batch of {len(bm25['queries'])} {t_batch * 1e3:.2f} ms "
+          f"(device {batch_dev:.3f} ms, timed_by {batch_by}) = the unsharded index's ids, scores within rtol "
+          f"{BM25_RTOL}; the planted {len(group)} tied items across shards {shards} rank latest first {card}",
+          flush=True)
+    rows.append({"what": "bm25 1M sparse", "find_batch_ms": t_batch * 1e3, "find_batch_device_ms": batch_dev,
+                 "timed_by": batch_by})
+    del sparse
+    torch.cuda.empty_cache()
+
+    # MaxSim over the late-interaction phase's chunk tokens
+    fe.reset_launches()
+    q_tokens = li_emb.embed_documents_tokens(queries, max_tokens=64)
+    for name in kernels:
+        launched[name] += fe.LAUNCHES[name]
+    ref = LateInteractionIndex(RetrievalType.TEXT, [li_tokens], max_chunk_tokens=LI_MAX_TOKENS, limit=HYBRID_K,
+                               device="cuda")
+    t0 = time.perf_counter()
+    li = ShardedLateInteractionIndex(RetrievalType.TEXT, [li_tokens], mesh, max_chunk_tokens=LI_MAX_TOKENS,
+                                     limit=HYBRID_K)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    li.find_batch(q_tokens)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = li.find_batch(q_tokens)
+    t_batch = time.perf_counter() - t0
+    batch_dev, batch_by = timed_device(torch, lambda: li.find_batch(q_tokens))
+    want = ref.find_batch(q_tokens)
+    one, one_s = li.find_with_scores(q_tokens[0])
+    ref_one, ref_one_s = ref.find_with_scores(q_tokens[0])
+    score = [{h.chunk_id: h.score for h in a} | {h.chunk_id: h.score for h in b}
+             for a, b in zip(got + [one], want + [ref_one])]
+    ties = list_near_ties([ids(h) for h in got + [one]], [ids(h) for h in want + [ref_one]],
+                          lambda qi, x, y: abs(score[qi][x] - score[qi][y]) <= MAXSIM_ATOL, "sharded MaxSim")
+    for a, b in zip(got + [one], want + [ref_one]):
+        common = {h.chunk_id: h.score for h in b}
+        if any(h.chunk_id in common and abs(h.score - common[h.chunk_id]) > MAXSIM_ATOL for h in a):
+            raise RuntimeError(f"sharded MaxSim scores {[h.score for h in a]}, unsharded {[h.score for h in b]}")
+    print(f"sharded MaxSim float32: {len(li._shards)} shards of {li._shards[0][1]._x.shape[0]} chunks, "
+          f"{li.nbytes / 1e9:.3f} GB built in {t_build:.2f} s; find_batch of {len(q_tokens)} {t_batch * 1e3:.2f} ms "
+          f"(device {batch_dev:.3f} ms, timed_by {batch_by}); hits = the unsharded index's apart from {ties} "
+          f"near-ties, scores within {MAXSIM_ATOL} {card}", flush=True)
+    rows.append({"what": "maxsim float32", "find_batch_ms": t_batch * 1e3, "find_batch_device_ms": batch_dev,
+                 "timed_by": batch_by})
+    del li, ref
+    torch.cuda.empty_cache()
+
+    # the data-parallel encode: dp slots on the mesh against one encode
+    sharded_emb = embedder.shard_over(mesh)
+    dp = mesh.devices.shape[0]
+    enc = texts[:SHARDED_ENCODE_TEXTS]
+    sharded_emb.embed_documents(enc[: sharded_emb.batch_size])  # warm-up at the slot shapes
+    torch.cuda.synchronize()
+    fe.reset_launches()
+    t0 = time.perf_counter()
+    got = sharded_emb.embed_documents(enc)
+    t_dp = time.perf_counter() - t0
+    dp_launches = {name: fe.LAUNCHES[name] for name in kernels}
+    batches = -(-len(enc) // sharded_emb.batch_size)
+    layers = embedder.encoder.config.num_layers
+    if any(n != dp * layers * batches for n in dp_launches.values()):
+        raise RuntimeError(f"shard_over's encode launched {dp_launches}, predicted {dp} slots x {layers} layers x "
+                           f"{batches} batches = {dp * layers * batches} each")
+    t0 = time.perf_counter()
+    plain = embedder.embed_documents(enc)
+    t_one = time.perf_counter() - t0
+    plain_launches = {name: fe.LAUNCHES[name] - dp_launches[name] for name in kernels}
+    if any(n != layers * batches for n in plain_launches.values()):
+        raise RuntimeError(f"the plain encode launched {plain_launches}, predicted {layers} layers x {batches} "
+                           f"batches = {layers * batches} each")
+    diff = float(np.abs(got - plain).max())
+    if got.shape != plain.shape or diff > SHARDED_ENCODE_ATOL:
+        raise RuntimeError(f"shard_over's encode is off the plain encode by {diff} (limit {SHARDED_ENCODE_ATOL})")
+    for name in kernels:
+        launched[name] += fe.LAUNCHES[name]
+    print(f"sharded encode (shard_over, bf16 auto: kernels 1-2): {len(enc)} texts in {t_dp:.3f} s over {dp} dp slots "
+          f"of {sharded_emb.batch_size // dp} rows, one encode {t_one:.3f} s; embeddings within {diff:.3g} (limit "
+          f"{SHARDED_ENCODE_ATOL}); launches {dp_launches} = {dp} x {layers} x {batches}, the plain encode's "
+          f"{plain_launches} = {layers} x {batches} {card}", flush=True)
+    del sharded_emb
+
+    # the app with data_parallel true (a one-device mesh on one card) and false
+    doc = "\n\n".join(texts[:SHARDED_SERVICE_TEXTS]).encode("utf-8")
+    link = "files/chip-smoke/sharded.txt"
+    attach = {"attachments": [{"url": link}]}
+    bodies = [{"messages": [{"role": "user", "content": "index it", "custom_content": attach}],
+               "custom_fields": {"configuration": {"request": {"type": "indexing"}}}}]
+    bodies += [{"messages": [{"role": "user", "content": q, "custom_content": attach}],
+                "custom_fields": {"configuration": {"request": {"type": "retrieval"}}}}
+               for q in queries[:SHARDED_SERVICE_RETRIEVALS]]
+    served = {}
+    for setting in ("false", "true"):  # the first boot's cold start lands on the unsharded app
+        fake = load_fake_dial().FakeDialCore()
+        dial_url = fake.start_sync()
+        fake.add_file(link, doc, "text/plain")
+        meshes = []
+        responses, app_launches, seconds = default_app_requests(
+            torch, fake, dial_url, f"data_parallel {setting}", bodies,
+            environ={"DIAL_RAG__PARALLEL__DATA_PARALLEL": setting}, on_app=lambda a: meshes.append(a.mesh))
+        if (meshes[0] is not None) != (setting == "true") or (
+                meshes[0] is not None and meshes[0].devices.size != max(cards, 1)):
+            raise RuntimeError(f"data_parallel {setting} booted the app with mesh {meshes[0]}")
+        stage = [st for st in json.loads(responses[0][1])["choices"][0]["message"]["custom_content"]["stages"]
+                 if st["name"].startswith("Processing document")]
+        n_chunks = int(stage[0]["content"].rsplit("Chunks: ", 1)[1].split()[0])
+        hits = []
+        for _, raw in responses[1:]:
+            message = json.loads(raw)["choices"][0]["message"]
+            att = [a for a in message["custom_content"]["attachments"]
+                   if a.get("type") == "application/x.aidial-rag.retrieval-response+json"]
+            hits.append([(c["attachment_url"], c["text"]) for c in json.loads(att[0]["data"])["chunks"]])
+        served[setting] = (hits, app_launches, seconds, n_chunks, meshes[0])
+        for name in kernels:
+            launched[name] += app_launches[name]
+    (hits_dp, launches_dp, s_dp, n_chunks, app_mesh), (hits_one, launches_one, s_one, _, _) = (
+        served["true"], served["false"])
+    bs = embedder.batch_size
+    encodes = -(-n_chunks // bs) + len(bodies) - 1  # the document batches, then one a retrieval
+    app_dp = app_mesh.devices.shape[0]  # each encode of the mesh's app runs in this many slots
+    if hits_dp != hits_one or not all(hits_dp):
+        raise RuntimeError(f"data_parallel true answered {hits_dp}, false {hits_one}")
+    if any(launches_one[k] != layers * encodes or launches_dp[k] != app_dp * layers * encodes for k in kernels):
+        raise RuntimeError(f"encoder launches with data_parallel true {launches_dp}, false {launches_one}; predicted "
+                           f"{app_dp} and 1 slots x {layers} layers x {encodes} encodes ({n_chunks} chunks / {bs} + "
+                           f"{len(bodies) - 1} queries)")
+    print(f"sharded service: data_parallel true (mesh {app_mesh}) and false on a text attachment of "
+          f"{n_chunks} chunks: an indexing request then {len(bodies) - 1} retrievals, {s_dp:.2f} s and {s_one:.2f} s "
+          f"of wall; the same hits on every retrieval; kernels 1-2 launches {launches_dp} and {launches_one} = "
+          f"predicted {app_dp} and 1 slots x {layers} layers x {encodes} encodes {card}", flush=True)
+    print(f"sharded serving rows: {json.dumps(rows)}")
+    print(f"sharded serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launched)
+
+
 def load_fake_dial():
     """``tests/utils/fake_dial_stdlib.py`` (standard library and numpy), loaded from its file."""
     spec = importlib.util.spec_from_file_location("fake_dial_stdlib", FAKE_DIAL)
@@ -4426,13 +4726,15 @@ def service_phase(torch, card, texts) -> dict:
     return result
 
 
-def default_app_requests(torch, fake, dial_url: str, what: str, bodies: list) -> tuple[list, dict, float]:
+def default_app_requests(torch, fake, dial_url: str, what: str, bodies: list, environ: dict | None = None,
+                         on_app=None) -> tuple[list, dict, float]:
     """POSTs ``bodies`` in turn over HTTP to the port's app in its default
     configuration (the production loader, no preset; alps-semantic as the
-    embedder; a fresh index store) on the started fake Dial Core ``fake``
-    at ``dial_url``, which it stops. Returns [(status, body bytes)],
-    kernels 1-2's launches over the requests (it fails if either launched
-    none) and their seconds of wall."""
+    embedder; a fresh index store; ``environ`` added to its environment) on
+    the started fake Dial Core ``fake`` at ``dial_url``, which it stops;
+    ``on_app(application)`` sees the booted app first. Returns [(status,
+    body bytes)], kernels 1-2's launches over the requests (it fails if
+    either launched none) and their seconds of wall."""
     import asyncio
 
     from dial_rag_tpu_torch.ops import fused_encoder as fe
@@ -4456,8 +4758,10 @@ def default_app_requests(torch, fake, dial_url: str, what: str, bodies: list) ->
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_requests_") as root:
             config = load_app_config(environ={"DIAL_URL": dial_url, "DIAL_RAG__INDEX_STORAGE__LOCAL_STORAGE_PATH": root,
-                                              "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT)})
+                                              "DIAL_RAG__EMBEDDER__MODEL_PATH": str(CHECKPOINT), **(environ or {})})
             app = app_module.create_app(config)
+            if on_app is not None:
+                on_app(app["dial_rag"])
             torch.cuda.synchronize()
             fe.reset_launches()
             t0 = time.perf_counter()
@@ -5568,7 +5872,6 @@ def main() -> int:
     from dial_rag_tpu_torch.native.build import load_native
     from dial_rag_tpu_torch.ops._build import build_kernels
     from dial_rag_tpu_torch.training.loop import pairs_to_batches
-    from dial_rag_tpu_torch.documents.model import build_chunks_list
     from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
     from dial_rag_tpu_torch.retrieval.semantic import SemanticRetriever
 
@@ -5609,8 +5912,8 @@ def main() -> int:
 
     embedder = BgeEmbedder.from_hf_checkpoint(str(CHECKPOINT), compute_dtype=torch.bfloat16, device="cuda")
     cfg = embedder.encoder.config
-    oracle = [c["text"] for c in json.loads(ORACLE_CHUNKS.read_text())]
-    texts = oracle + synthetic_texts(embedder.tokenizer.vocab, N_DOCS - len(oracle), seed=0)
+    n_oracle, texts, chunks, queries = main_inputs(embedder)
+    oracle = texts[:n_oracle]
     b, s, hid = 128, 256, cfg.hidden_size
     ids, mask = embedder.tokenizer.encode_batch(texts[len(oracle) : len(oracle) + b])
     assert ids.shape == (b, s), ids.shape
@@ -5652,14 +5955,6 @@ def main() -> int:
     t0 = time.perf_counter()
     tokens = sum(len(embedder.tokenizer.encode(t, embedder.max_len)) for t in texts)
     t_tok = time.perf_counter() - t0
-    chunks = build_chunks_list([(t, {"source": "oracle" if i < len(oracle) else "synthetic"})
-                                for i, t in enumerate(texts)])
-    rng = np.random.default_rng(1)
-    queries = []
-    for i in rng.choice(len(texts), size=N_QUERIES, replace=False):
-        words = texts[i].split()
-        j = int(rng.integers(0, max(1, len(words) - 8)))
-        queries.append(" ".join(words[j : j + 8]))
     embedder.embed_documents(texts[: embedder.batch_size])  # warm-up: first use of each op
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5782,10 +6077,10 @@ def main() -> int:
         launched[name] += n
 
     phase("BM25 1M")
-    bm25_1m_phase(torch, card)
+    bm25_1m = bm25_1m_phase(torch, card)
 
     phase("dense layouts")
-    dense_layouts_phase(torch, card, dev, qs)
+    dense = dense_layouts_phase(torch, card, dev, qs)
 
     phase("late interaction")
     li_emb = BgeEmbedder.from_hf_checkpoint(str(LI_CHECKPOINT), compute_dtype=torch.bfloat16, device="cuda")
@@ -5802,7 +6097,12 @@ def main() -> int:
     phase("concurrent serving")
     for name, n in concurrent_serving_phase(torch, card, embedder, li_emb, local_record, queries).items():
         launched[name] += n
-    del li_emb, li_tokens, local_record
+
+    phase("sharded serving")
+    for name, n in sharded_serving_phase(torch, card, embedder, li_emb, li_tokens, texts, queries, qs, dense,
+                                         bm25_1m).items():
+        launched[name] += n
+    del li_emb, li_tokens, local_record, dense, bm25_1m
     torch.cuda.empty_cache()
 
     phase("service")

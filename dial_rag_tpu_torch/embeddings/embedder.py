@@ -11,6 +11,12 @@ pads them. PyTorch launches asynchronously, so the host tokenizes the next
 batch while the card encodes the current one; the results come back to
 the host in one copy.
 
+``shard_over(mesh)`` makes an embedder that encodes data-parallel over a
+device mesh (``parallel/mesh.py``): a replica of the weights on each
+distinct device, each encode's rows split into dp slots, each slot encoded
+on its device, the outputs gathered in row order on the mesh's first
+device.
+
 On the card the encoder's "auto" route takes the fused bf16 blocks under
 bf16 and the f32 attention kernels ("pallas") under f32. An embedder
 built from trained params (``training.loop.train``) serves them as they
@@ -24,10 +30,11 @@ its row of the wave's output as a view on the device, so a dense scan of
 the wave reads that output in place.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -73,10 +80,63 @@ class BgeEmbedder:
     # identity of the weights; persisted indexes are keyed on it, so it is
     # byte-identical to the reference's for the same checkpoint
     model_id: str = "random"
+    # data-parallel encode (shard_over): the mesh, and the weights on each
+    # distinct device of it
+    mesh: object = None
+    replicas: dict | None = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.params = prepare_params(self.params, self.device, self.encoder.compute_dtype)
+
+    def shard_over(self, mesh) -> "BgeEmbedder":
+        """Data-parallel encode over ``mesh`` (the JAX package's
+        ``shard_over``): the weights replicated once on each distinct device;
+        the batch size rounded up to a multiple of dp; every encode's rows
+        padded to a multiple of dp and split into dp contiguous slots, each
+        encoded on its slot's device through the usual route, the outputs
+        gathered in row order on the mesh's first device. The forward itself
+        crosses no device. A device named more than once holds one replica
+        and encodes its slots one after another."""
+        dp = mesh.devices.shape[0]
+        sharded = dataclasses.replace(
+            self, device=mesh.first_device, batch_size=self.batch_size + (-self.batch_size) % dp,
+            mesh=mesh, replicas=None,
+        )
+        sharded.replicas = {
+            d: sharded.params if d == sharded.device else prepare_params(self.params, d, self.encoder.compute_dtype)
+            for d in dict.fromkeys(mesh.devices[:, 0])
+        }
+        return sharded
+
+    def _dp_rows(self, rows: int) -> int:
+        """``rows`` padded to a multiple of dp (on a mesh)."""
+        if self.mesh is None:
+            return rows
+        return rows + (-rows) % self.mesh.devices.shape[0]
+
+    def _run_rows(self, ids: np.ndarray, mask: np.ndarray, fn) -> torch.Tensor:
+        """``fn(params, ids, mask)`` over the batch's rows on the device,
+        or on a mesh over each dp slot's rows on its device, every slot
+        launched before the outputs are gathered in row order on the first
+        device."""
+        if self.mesh is None:
+            return fn(
+                self.params,
+                torch.from_numpy(ids).to(self.device, dtype=torch.long, non_blocking=True),
+                torch.from_numpy(mask).to(self.device, non_blocking=True),
+            )
+        from dial_rag_tpu_torch.parallel.mesh import dp_slots
+
+        outs = [
+            fn(
+                self.replicas[dev],
+                torch.from_numpy(ids[rows]).to(dev, dtype=torch.long, non_blocking=True),
+                torch.from_numpy(mask[rows]).to(dev, non_blocking=True),
+            )
+            for dev, rows in dp_slots(self.mesh, ids.shape[0])
+        ]
+        return torch.cat([o.to(self.device) for o in outs]) if len(outs) > 1 else outs[0]
 
     @classmethod
     def from_random(
@@ -214,17 +274,15 @@ class BgeEmbedder:
         return self.encoder.config.hidden_size
 
     def _encode_padded(self, texts: list[str], rows: int) -> torch.Tensor:
-        """One encode of ``texts`` padded to ``rows`` rows -> [rows, D] on
-        the device; the rows past ``len(texts)`` encode padding."""
+        """One encode of ``texts`` padded to ``rows`` rows (on a mesh, to
+        the next multiple of dp) -> [rows, D] on the device; the rows past
+        ``len(texts)`` encode padding."""
+        rows = self._dp_rows(rows)
         ids, mask = self.tokenizer.encode_batch(texts, max_len=self.max_len)
         if rows > len(texts):
             ids = np.pad(ids, ((0, rows - len(texts)), (0, 0)))
             mask = np.pad(mask, ((0, rows - len(texts)), (0, 0)))
-        return self.encoder.encode(
-            self.params,
-            torch.from_numpy(ids).to(self.device, dtype=torch.long, non_blocking=True),
-            torch.from_numpy(mask).to(self.device, non_blocking=True),
-        )
+        return self._run_rows(ids, mask, self.encoder.encode)
 
     def _encode_rows(self, texts: list[str], rows: int) -> torch.Tensor:
         """``_encode_padded``'s real rows, [len, D]."""
@@ -299,24 +357,27 @@ class BgeEmbedder:
         [rows, S, D] f32 final hidden states L2-normalised per token on the
         device, the [rows, S] mask on the device, the mask on the host)."""
         ids, mask = self.tokenizer.encode_batch(texts, max_len=min(self.max_len, max_tokens))
-        rows = _bucket_rows(len(texts), self.batch_size)
+        rows = self._dp_rows(_bucket_rows(len(texts), self.batch_size))
         if rows > len(texts):
             ids = np.pad(ids, ((0, rows - len(texts)), (0, 0)))
             mask = np.pad(mask, ((0, rows - len(texts)), (0, 0)))
-        mask_t = torch.from_numpy(mask).to(self.device, non_blocking=True)
-        with torch.inference_mode():
-            hidden = bert_forward(
-                self.params,
-                torch.from_numpy(ids).to(self.device, dtype=torch.long, non_blocking=True),
-                mask_t,
-                num_heads=self.encoder.config.num_heads,
-                compute_dtype=self.encoder.compute_dtype,
-                attention_impl=self.encoder.attention_impl,
-                gelu=self.encoder.gelu,
-            ).float()
-            norm = torch.sqrt(torch.sum(hidden * hidden, dim=-1, keepdim=True))
-            hidden = hidden / torch.clamp(norm, min=1e-12)
-        return hidden, mask_t, mask
+
+        def normalized_hidden(params, ids_t, mask_t):
+            with torch.inference_mode():
+                hidden = bert_forward(
+                    params,
+                    ids_t,
+                    mask_t,
+                    num_heads=self.encoder.config.num_heads,
+                    compute_dtype=self.encoder.compute_dtype,
+                    attention_impl=self.encoder.attention_impl,
+                    gelu=self.encoder.gelu,
+                ).float()
+                norm = torch.sqrt(torch.sum(hidden * hidden, dim=-1, keepdim=True))
+                return hidden / torch.clamp(norm, min=1e-12)
+
+        hidden = self._run_rows(ids, mask, normalized_hidden)
+        return hidden, torch.from_numpy(mask).to(self.device, non_blocking=True), mask
 
     def embed_documents_tokens(self, texts: list[str], max_tokens: int = 256) -> list[np.ndarray]:
         """Per-token embeddings for the late-interaction (MaxSim) index: one

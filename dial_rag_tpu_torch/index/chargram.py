@@ -410,6 +410,19 @@ class ChargramIndex:
             inner=inner, n_lo=n_lo, n_hi=n_hi, _vocab=vocab, _idf_arr=idf
         )
 
+    def with_inner(self, inner) -> "ChargramIndex":
+        """The same gram and idf state over another scoring index (the
+        retriever swaps in a sharded one built from a host build's inner
+        index)."""
+        return ChargramIndex(
+            inner=inner,
+            n_lo=self.n_lo,
+            n_hi=self.n_hi,
+            _vocab=self._vocab,
+            _idf_arr=self._idf_arr,
+            _packed_keys=self._packed_keys,
+        )
+
     def _key_of(self, gram: str):
         """Gram string -> the build path's vocab key: packed uint64 for
         <=8 ASCII bytes (windows are always <= n_hi <= 8 here; short

@@ -234,6 +234,14 @@ class DenseIndex:
         f32 bytes); near ties can reorder. Neither of the last two takes
         cosine, whose guarded denominator has no query-independent error
         bound."""
+        emb = self._start(retrieval_type, doc_embeddings, metric, limit, storage_dtype)
+        self.device = resolve_device(device)
+        if emb is not None:
+            self._load(np.pad(emb, ((0, _bucket_rows(self.n_rows) - self.n_rows), (0, 0))))
+
+    def _start(self, retrieval_type, doc_embeddings, metric, limit, storage_dtype) -> np.ndarray | None:
+        """Checks the layout and sets the index's fields; returns the
+        documents' rows [n_rows, D] in order (None when there is none)."""
         if storage_dtype not in _STORAGE:
             raise ValueError(f"unsupported storage_dtype {storage_dtype!r}; use one of {sorted(_STORAGE)}")
         self.retrieval_type = retrieval_type
@@ -245,7 +253,6 @@ class DenseIndex:
                 f"{storage_dtype} storage does not support cosine_sim (the eps-guarded denominator has no "
                 "query-independent certified error bound); use float32"
             )
-        self.device = resolve_device(device)
         non_empty = [(i, d) for i, d in enumerate(doc_embeddings) if d.num_rows]
         self._doc_ids = np.concatenate(
             [np.full(d.num_rows, i, dtype=np.int64) for i, d in non_empty] or [np.zeros(0, np.int64)]
@@ -253,23 +260,50 @@ class DenseIndex:
         self._chunk_ids = np.concatenate([d.chunk_ids for _, d in non_empty] or [np.zeros(0, np.int64)])
         self._clear()
         if not non_empty:
-            return
+            return None
         emb = np.concatenate([d.embeddings for _, d in non_empty], axis=0)
         self.n_rows, self.dim = emb.shape
-        emb = np.pad(emb, ((0, _bucket_rows(self.n_rows) - self.n_rows), (0, 0)))
-        if storage_dtype == "int8":
+        return emb
+
+    @classmethod
+    def shard(
+        cls,
+        rows: np.ndarray,
+        n_valid: int,
+        metric: Metric,
+        limit: int,
+        storage_dtype: str,
+        device: torch.device,
+    ) -> "DenseIndex":
+        """One shard of a sharded index (``parallel/sharded_index.py``):
+        the stored ``rows`` [R, D] as they are (the sharded index has padded
+        them), of which the first ``n_valid`` are real. Its scans report
+        shard-local row ids."""
+        self = cls.__new__(cls)
+        self.retrieval_type = RetrievalType.TEXT
+        self.metric, self.limit, self.storage_dtype, self.device = metric, limit, storage_dtype, device
+        self._doc_ids = self._chunk_ids = np.zeros(0, np.int64)
+        self._clear()
+        self.dim = rows.shape[1]
+        self._load(rows)
+        self.n_rows = n_valid
+        return self
+
+    def _load(self, emb: np.ndarray):
+        """Uploads the stored rows [R, D] f32 in the index's layout."""
+        if self.storage_dtype == "int8":
             q, scales, norm2 = quantize_rows_int8(emb)
             self._emb = torch.from_numpy(q).to(self.device)
             self._scales = torch.from_numpy(scales).to(self.device)
             self._rn2 = torch.from_numpy(norm2).to(self.device)
-        elif storage_dtype == "two_pass":
+        elif self.storage_dtype == "two_pass":
             self._emb_f32 = torch.from_numpy(emb).to(self.device)
             self._emb = self._emb_f32.to(torch.bfloat16)
             self._rn2 = self._row_norm2(self._emb)
             self._rn2_f32 = self._row_norm2(self._emb_f32)
             self._err = self._two_pass_error_terms()
         else:
-            self._set_matrix(torch.from_numpy(emb).to(self.device, dtype=_STORAGE[storage_dtype]))
+            self._set_matrix(torch.from_numpy(emb).to(self.device, dtype=_STORAGE[self.storage_dtype]))
 
     @classmethod
     def from_device_matrix(
@@ -415,10 +449,15 @@ class DenseIndex:
         """The window's f32 rows rescored, in groups of queries. If the
         check of any of the first ``n_real`` queries fails, all take the
         full f32 scan (the rest are padding, whose answers are dropped)."""
-        q = queries.shape[0]
         ok, blk = self._two_pass_window(queries, q_sq, k)
         if not bool(ok[:n_real].all()):
             return self._full_scan(queries, q_sq, k, self._emb_f32, self._rn2_f32)
+        return self._rescore(queries, q_sq, k, blk)
+
+    def _rescore(self, queries, q_sq, k, blk):
+        """Pass 2: the f32 rows of the selected blocks ``blk`` [Q, cb]
+        rescored -> stable top-k (values, row ids)."""
+        q = queries.shape[0]
         n_cand = blk.shape[1] * _TP_BLK
         rows = (blk[:, :, None] * _TP_BLK + torch.arange(_TP_BLK, device=blk.device)).reshape(q, n_cand)
         group = max(1, self._scan_budget() // (n_cand * self.dim * 4))
@@ -444,8 +483,12 @@ class DenseIndex:
         if self.storage_dtype == "two_pass":
             vals, idx = self._two_pass(queries, q_sq, k, n_real)
         else:
-            vals, idx = self._full_scan(queries, q_sq, k, self._emb if self._scales is None else None, self._rn2)
+            vals, idx = self._stored_scan(queries, q_sq, k)
         return vals[:n_real].cpu().numpy(), idx[:n_real].cpu().numpy()
+
+    def _stored_scan(self, queries, q_sq, k):
+        """The full scan of the stored layout (float32, bfloat16 or int8)."""
+        return self._full_scan(queries, q_sq, k, self._emb if self._scales is None else None, self._rn2)
 
     def _as_tensor(self, queries) -> torch.Tensor:
         if isinstance(queries, torch.Tensor):

@@ -121,11 +121,12 @@ def _maxsim_scores(x, counts, q_tokens, q_counts, x_scales=None):
     return out
 
 
-def pack_ragged_token_embeddings(doc_token_embeddings, max_chunk_tokens: int):
+def pack_ragged_token_embeddings(doc_token_embeddings, max_chunk_tokens: int, row_bucket=_bucket_rows_li):
     """Per-document ragged [t_i, D] chunk arrays -> (x [n_pad, T, D] f32,
-    counts [n_pad] int32, doc_ids, chunk_ids, n_rows, dim) on the host; x
-    is None when there is no row or no chunk has a token. A chunk whose
-    width differs from the index's keeps count 0 (never retrieved)."""
+    counts [n_pad] int32, doc_ids, chunk_ids, n_rows, dim) on the host,
+    ``n_pad = row_bucket(n_rows)``; x is None when there is no row or no
+    chunk has a token. A chunk whose width differs from the index's keeps
+    count 0 (never retrieved)."""
     per_chunk: list[np.ndarray] = []
     doc_ids: list[int] = []
     chunk_ids: list[int] = []
@@ -141,7 +142,7 @@ def pack_ragged_token_embeddings(doc_token_embeddings, max_chunk_tokens: int):
     dim = max((a.shape[1] for a in per_chunk if a.size), default=0)
     if n_rows == 0 or dim == 0:
         return None, None, None, None, n_rows, dim
-    n_pad = _bucket_rows_li(n_rows)
+    n_pad = row_bucket(n_rows)
     x = np.zeros((n_pad, max_chunk_tokens, dim), dtype=np.float32)
     counts = np.zeros((n_pad,), dtype=np.int32)
     for i, arr in enumerate(per_chunk):
@@ -232,13 +233,33 @@ class LateInteractionIndex:
             return
         self._doc_ids = doc_ids
         self._chunk_ids = chunk_ids
-        if storage_dtype == "int8":
+        self._load(x, counts)
+
+    @classmethod
+    def shard(cls, x: np.ndarray, counts: np.ndarray, n_valid: int, limit: int, storage_dtype: str,
+              device: torch.device) -> "LateInteractionIndex":
+        """One shard of a sharded index (``parallel/sharded_index.py``): the
+        packed rows ``x`` [R, T, D] and ``counts`` [R] as they are, of which
+        the first ``n_valid`` are real. Its scans report shard-local row ids."""
+        self = cls.__new__(cls)
+        self.retrieval_type = RetrievalType.TEXT
+        self.limit, self.t, self.storage_dtype, self.device = limit, x.shape[1], storage_dtype, device
+        self.n_rows, self.dim = n_valid, x.shape[2]
+        self._doc_ids = self._chunk_ids = np.zeros(0, np.int64)
+        self._load(x, counts)
+        return self
+
+    def _load(self, x: np.ndarray, counts: np.ndarray):
+        """Uploads the packed rows in the index's layout (int8: per token
+        absmax-quantized, the scales beside them)."""
+        if self.storage_dtype == "int8":
             absmax = np.max(np.abs(x), axis=2)  # [N, T]
             scales = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
             self._x = torch.from_numpy(np.rint(x / scales[:, :, None]).astype(np.int8)).to(self.device)
             self._x_scales = torch.from_numpy(scales).to(self.device)
         else:
-            self._x = torch.from_numpy(x).to(self.device, dtype=_STORAGE[storage_dtype])
+            self._x = torch.from_numpy(x).to(self.device, dtype=_STORAGE[self.storage_dtype])
+            self._x_scales = None
         self._counts = torch.from_numpy(counts).to(self.device)
 
     @property
@@ -253,13 +274,17 @@ class LateInteractionIndex:
     def _find(self, q_tok: torch.Tensor, q_counts: torch.Tensor, k: int):
         """Stable top-k (vals, idx) [G, k] on the host over the negated
         scores of the queries ``q_tok`` [G, qp, D]."""
+        vals, idx = self._find_device(q_tok, q_counts, k)
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _find_device(self, q_tok: torch.Tensor, q_counts: torch.Tensor, k: int):
+        """``_find``'s top-k left on the device."""
         scores = _maxsim_scores(
             self._x, self._counts, q_tok.to(self.device, torch.float32), q_counts.to(self.device), self._x_scales
         )
         n = scores.shape[0]
         dists = torch.where(torch.arange(n, device=self.device)[None, :] < self.n_rows, -scores.T, torch.inf)
-        vals, idx = stable_topk_rows(dists, torch.arange(n, device=self.device), k)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        return stable_topk_rows(dists, torch.arange(n, device=self.device), k)
 
     def find(self, query_tokens) -> list[SearchHit]:
         return self.find_with_scores(query_tokens)[0]

@@ -5,7 +5,8 @@ A record's persisted text index is its chunks' keyword tokens; the scoring
 structure is built at construction from every record's items, flattened
 in document order. Query preprocessing and the top-n tie-break (later item
 first) are the reference's; scoring runs on the device
-(``index/bm25.py``). Word-vector query expansion (``expansion_config``)
+(``index/bm25.py``), or with ``mesh`` over item rows sharded across its
+devices. Word-vector query expansion (``expansion_config``)
 scores each query as a stem -> weight mapping instead. ``aretrieve``
 coalesces with concurrent requests' scoring (``Bm25Index.atop_n_with_scores``).
 """
@@ -71,7 +72,10 @@ class Bm25Retriever:
         expansion_config: QueryExpansionConfig | None = None,
     ) -> "Bm25Retriever":
         """The index over every record's text index, on ``device``; raises
-        if no record has a token.
+        if no record has a token. With ``mesh`` a host build is sharded over
+        its devices by item rows: the dense weights when they fit the dense
+        layout, else the CSC postings (the later-item-first tie order
+        holds across shards).
 
         ``expansion_config`` turns on word-vector query expansion: word
         vectors are built from the records' chunk texts here, and each
@@ -79,10 +83,6 @@ class Bm25Retriever:
         path. Scores of unexpanded terms are unchanged. With
         ``device_cache`` the index and the word vectors are reused across
         requests over the same records."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Bm25Retriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
-            )
         doc_ids, counts = [], []
         for i, doc in enumerate(doc_records):
             if doc.text_index is not None:
@@ -92,9 +92,20 @@ class Bm25Retriever:
 
         def build():
             # the flat token list is made only here, on a cache miss
-            return Bm25Index.build([tokens for _, _, tokens in cls._iter_items(doc_records)], device=device)
+            tokenized = [tokens for _, _, tokens in cls._iter_items(doc_records)]
+            if mesh is not None:
+                from dial_rag_tpu_torch.parallel.sharded_index import ShardedBm25Index, ShardedBm25SparseIndex
 
-        index = cached_build(device_cache, doc_records, ("bm25", k, False, str(resolve_device(device))), build,
+                base = Bm25Index.build(tokenized, device="cpu", max_band_bytes=0)
+                if base._weights is not None:
+                    return ShardedBm25Index(base, mesh, limit=k)
+                # too large for the dense [N, V] weights: the CSC postings shard
+                return ShardedBm25SparseIndex(base, mesh, limit=k)
+            return Bm25Index.build(tokenized, device=device)
+
+        index = cached_build(device_cache, doc_records,
+                             ("bm25", k, mesh is not None, str(mesh.first_device if mesh else resolve_device(device))),
+                             build,
                              warm=lambda idx: idx.warm_query_buckets(k))
         expander = None
         if expansion_config is not None:

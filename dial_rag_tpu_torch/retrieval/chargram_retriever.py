@@ -5,7 +5,8 @@ The same structure as ``Bm25Retriever``: a record persists each chunk's
 surface words (``chargram_index``); the scoring structure is built at
 construction from every record's items flattened in document order, on
 the device (``index/chargram.py``, a weighted-query ``Bm25Index``). Ties
-go to the later item, as BM25's do. ``aretrieve`` coalesces with
+go to the later item, as BM25's do. With ``mesh`` the inner index's item
+rows shard over its devices through the BM25 sharded indexes. ``aretrieve`` coalesces with
 concurrent requests' scoring.
 """
 
@@ -65,12 +66,10 @@ class ChargramRetriever:
         device_cache=None,
         mesh=None,
     ) -> "ChargramRetriever":
-        """The index over every record's chargram words, on ``device``; with
+        """The index over every record's chargram words, on ``device``, or
+        with ``mesh`` its gram-weight rows sharded over the mesh's devices
+        (the inner index is a weighted-query ``Bm25Index``); with
         ``device_cache`` reused across requests over the same records."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ChargramRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
-            )
         doc_ids, counts = [], []
         for i, doc in enumerate(doc_records):
             if doc.chargram_index is not None:
@@ -80,10 +79,18 @@ class ChargramRetriever:
 
         def build():
             word_lists = [words for _, _, words in cls._iter_items(doc_records)]
+            if mesh is not None:
+                from dial_rag_tpu_torch.parallel.sharded_index import ShardedBm25Index, ShardedBm25SparseIndex
+
+                cg = ChargramIndex.build(word_lists, n_lo=n_lo, n_hi=n_hi, device="cpu", max_band_bytes=0)
+                if cg.inner._weights is not None:
+                    return cg.with_inner(ShardedBm25Index(cg.inner, mesh, limit=k))
+                return cg.with_inner(ShardedBm25SparseIndex(cg.inner, mesh, limit=k))
             return ChargramIndex.build(word_lists, n_lo=n_lo, n_hi=n_hi, device=device)
 
         index = cached_build(device_cache, doc_records,
-                             ("chargram", k, n_lo, n_hi, False, str(resolve_device(device))), build,
+                             ("chargram", k, n_lo, n_hi, mesh is not None,
+                              str(mesh.first_device if mesh else resolve_device(device))), build,
                              warm=lambda idx: idx.warm_query_buckets(k))
         return cls(doc_ids=np.asarray(doc_ids, dtype=np.int64), offsets=offsets, index=index, k=k)
 

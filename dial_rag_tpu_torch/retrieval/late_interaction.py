@@ -3,7 +3,8 @@
 
 Build: per-token embeddings of every chunk, kept ragged in the document
 record (``late_interaction_index``). Query: the query's per-token
-embeddings scored with MaxSim on the device (``index/late_interaction.py``).
+embeddings scored with MaxSim on the device (``index/late_interaction.py``),
+or with ``mesh`` over the chunk rows sharded across its devices.
 """
 
 import numpy as np
@@ -36,17 +37,22 @@ class LateInteractionRetriever:
         mesh=None,
     ) -> "LateInteractionRetriever":
         """The index over every record's per-token embeddings, on the
-        embedder's device; with ``device_cache`` reused across requests
-        over the same records."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "LateInteractionRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
-            )
+        embedder's device, or with ``mesh`` its chunk rows (and their token
+        tensors) sharded over the mesh's devices; with ``device_cache``
+        reused across requests over the same records."""
 
         def build():
+            per_doc = [doc.late_interaction_index or [] for doc in document_records]
+            if mesh is not None:
+                from dial_rag_tpu_torch.parallel.sharded_index import ShardedLateInteractionIndex
+
+                return ShardedLateInteractionIndex(
+                    RetrievalType.TEXT, per_doc, mesh, max_chunk_tokens=max_chunk_tokens, limit=k,
+                    storage_dtype=storage_dtype,
+                )
             return LateInteractionIndex(
                 RetrievalType.TEXT,
-                [doc.late_interaction_index or [] for doc in document_records],
+                per_doc,
                 max_chunk_tokens=max_chunk_tokens,
                 limit=k,
                 storage_dtype=storage_dtype,
@@ -54,7 +60,8 @@ class LateInteractionRetriever:
             )
 
         index = cached_build(device_cache, document_records,
-                             ("late_interaction", k, max_chunk_tokens, storage_dtype, False, str(embedder.device)),
+                             ("late_interaction", k, max_chunk_tokens, storage_dtype, mesh is not None,
+                              str(embedder.device)),
                              build,
                              warm=lambda idx: idx.warm_query_buckets())
         return cls(embedder=embedder, index=index)

@@ -6,7 +6,8 @@ Query: embed the query (with the instruction prefix) and scan the index.
 The metric defaults to sqeuclidean, as in the reference. ``aretrieve``
 coalesces with concurrent requests: their query encodes share one encode
 (``BgeEmbedder.aembed_query``) and their scans one scan
-(``DenseIndex.afind``).
+(``DenseIndex.afind``). With ``mesh`` the chunk matrix is row-sharded over
+its devices (``parallel/sharded_index.py``), in every storage layout.
 """
 
 import numpy as np
@@ -42,13 +43,10 @@ class SemanticRetriever:
     ) -> "SemanticRetriever":
         """``document_records``: records carrying ``embeddings_index``
         (MultiEmbeddings or None), one per document, in document order.
-        The index lives on the embedder's device. With ``device_cache``
-        (``index.device_cache.DeviceIndexCache``) the built index is reused
-        across requests over the same records."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SemanticRetriever mesh is not ported yet (ROADMAP Queue 1 item 10, the sharded indexes)"
-            )
+        The index lives on the embedder's device, or with ``mesh`` row-sharded
+        over its devices (per-shard stable top-k, one stable merge). With
+        ``device_cache`` (``index.device_cache.DeviceIndexCache``) the built
+        index is reused across requests over the same records."""
 
         def build():
             doc_embeddings = [
@@ -56,6 +54,12 @@ class SemanticRetriever:
                 for doc in document_records
                 if doc.embeddings_index is not None
             ]
+            if mesh is not None:
+                from dial_rag_tpu_torch.parallel.sharded_index import ShardedDenseIndex
+
+                return ShardedDenseIndex(
+                    RetrievalType.TEXT, doc_embeddings, mesh, metric=metric, limit=k, storage_dtype=storage_dtype
+                )
             return DenseIndex(
                 RetrievalType.TEXT,
                 doc_embeddings,
@@ -65,7 +69,7 @@ class SemanticRetriever:
                 device=embedder.device,
             )
 
-        key = ("semantic", str(metric), k, False, storage_dtype, str(embedder.device))
+        key = ("semantic", str(metric), k, mesh is not None, storage_dtype, str(embedder.device))
         index = cached_build(device_cache, document_records, key, build, warm=lambda idx: idx.warm_query_buckets())
         return cls(embedder=embedder, index=index)
 

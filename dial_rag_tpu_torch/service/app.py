@@ -8,10 +8,14 @@ endpoint, and a healthcheck. The local embedding model is a process-wide
 singleton running on the card (``device``, default ``cuda``; ``cpu`` only
 when the caller asks for it).
 
+With more than one visible card (or ``parallel.data_parallel: true``)
+the app builds a mesh over every card, as the JAX package's does: the
+embedders encode data-parallel over it (``BgeEmbedder.shard_over``) and
+the retrievers shard their indexes over it (``parallel/``).
+
 Where the port differs from the JAX package's app: it serves on the
-port's own HTTP module; a mesh (``parallel.data_parallel``) raises, as
-the sharded indexes wait for ROADMAP item 10; ``use_profiler`` raises
-(item 9c); the warm-up runs every tokenizer bucket and one dense scan."""
+port's own HTTP module; ``use_profiler`` raises (item 9c); the warm-up
+runs every tokenizer bucket and one dense scan."""
 
 import asyncio
 import json
@@ -22,7 +26,8 @@ import torch
 from dial_rag_tpu_torch.service import http
 from dial_rag_tpu_torch.embeddings.embedder import BgeEmbedder
 from dial_rag_tpu_torch.device import resolve_device
-from dial_rag_tpu_torch.errors import DialRagError, NotPortedError, RateLimitError
+from dial_rag_tpu_torch.errors import DialRagError, RateLimitError
+from dial_rag_tpu_torch.parallel.mesh import create_mesh, visible_devices
 from dial_rag_tpu_torch.runtime.limited import DialLimitedResources
 from dial_rag_tpu_torch.service.attachments import get_attachment_links
 from dial_rag_tpu_torch.service.commands import (
@@ -109,6 +114,8 @@ class DialRagApplication:
                     device=self.device,
                 )
         self.mesh = self._create_mesh(app_config, self.device)
+        if self.mesh is not None:
+            embedder = embedder.shard_over(self.mesh)
         self.embedder = embedder
         self.index_storage_holder = IndexStorageHolder(
             app_config.index_storage.in_memory_cache_capacity
@@ -132,24 +139,24 @@ class DialRagApplication:
                 batch_size=self.app_config.embedder.batch_size,
                 device=self.device,
             )
+            if self.mesh is not None:
+                embedder = embedder.shard_over(self.mesh)
             self._li_embedders[path] = embedder
         return self._li_embedders[path]
 
     @staticmethod
     def _create_mesh(app_config: AppConfig, device: torch.device):
-        """(dp,) mesh over all devices when data_parallel is on (auto:
-        only with >1 device — a 1-device mesh just adds overhead). The
-        port's indexes do not shard yet, so a mesh raises."""
+        """(dp,) mesh over every visible card of ``device``'s kind when
+        data_parallel is on (auto: only with more than one, where a
+        one-device mesh would only add overhead); None when it is off."""
         dp = app_config.parallel.data_parallel
         if dp is False:
             return None
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-        if dp is None and n <= 1:
+        devices = visible_devices(device)
+        if dp is None and len(devices) <= 1:
             return None
-        raise NotPortedError(
-            f"data-parallel serving over {n} devices is not ported yet "
-            "(ROADMAP Queue 1 item 10); set parallel.data_parallel to false"
-        )
+        logger.info(f"data-parallel over {len(devices)} devices")
+        return create_mesh(devices=devices)
 
     def _merge_config_sources(
         self, request: ChatRequest, commands: Commands

@@ -2,8 +2,9 @@
 stages.py + app.py doc_to_attach): retriever construction with stage
 wrappers, page-image selection, and the RetrievalResponse assembly.
 
-In the port ``mesh`` raises in every retriever (item 10). The BM25,
-chargram and multimodal arms take the embedder's device: the port's
+With ``mesh`` the semantic, late-interaction, BM25 and chargram indexes
+shard over its devices (``parallel/sharded_index.py``). Without it the
+BM25, chargram and multimodal arms take the embedder's device: the port's
 indexes live on a device the caller names. Page images are [H, W, 3]
 uint8 arrays, encoded to PNG by the port's encoder."""
 
@@ -119,7 +120,8 @@ def create_retriever(
 ):
     """AllDocuments short-circuit, else RRF ensemble of the available
     retrievers (reference retrieval_chain.py:193-252). With ``mesh`` the
-    semantic index rows are sharded over its devices; with
+    semantic, late-interaction, BM25 and chargram index rows are sharded
+    over its devices; with
     ``device_cache`` HBM-resident indexes are reused across requests.
 
     ``ensemble_weights`` maps arm name -> fusion weight (config

@@ -7,8 +7,8 @@ with the reference's lexical (``teacher_scores``) and corpus-level
 ``bank_cols``) distillation terms. One train step is a forward and
 backward through ``bert_forward`` (whose f32 ``"pallas"`` route runs the
 hand-written attention kernels forward and backward on the card), then
-an AdamW step and a learning-rate schedule step. Sharding over a mesh is
-not ported yet.
+an AdamW step and a learning-rate schedule step. The sharded train step
+(over a mesh) is the next slice of the port.
 """
 
 from dataclasses import dataclass
@@ -184,7 +184,10 @@ def make_train_step(
     tensor on the params' device) runs the loss forward and backward,
     then one optimizer and one schedule step, in place on ``state``."""
     if mesh is not None:
-        raise NotImplementedError("a sharded train step is not ported yet (ROADMAP: parallel)")
+        raise NotImplementedError(
+            "a sharded train step is not ported yet: ROADMAP Queue 1 item 10, the sharded train step "
+            "(the next bring-up slice); serving shards already (parallel/)"
+        )
 
     def step(state: TrainState, batch) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)

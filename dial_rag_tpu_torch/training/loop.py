@@ -250,7 +250,10 @@ def train(
     the current params into a stop-gradient embedding bank.
     ``on_step(state, loss)`` is called after every step."""
     if mesh is not None:
-        raise NotImplementedError("a sharded train loop is not ported yet (ROADMAP: parallel)")
+        raise NotImplementedError(
+            "a sharded train loop is not ported yet: ROADMAP Queue 1 item 10, the sharded train step "
+            "(the next bring-up slice); serving shards already (parallel/)"
+        )
     if (corpus_teacher is None) != (bank_tokens is None):
         raise ValueError("corpus distillation needs BOTH corpus_teacher and bank_tokens")
     device = resolve_device(device)

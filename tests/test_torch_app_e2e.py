@@ -1,8 +1,9 @@
 """The port's DIAL app end to end against the JAX package's, on the CPU.
 
 Every scenario of tests/test_app_e2e.py but those that need what the port
-does not serve yet (telemetry spans: item 9c; the mesh: item 10) runs
-twice, unchanged: once against the JAX app (aiohttp's test server) and
+does not serve yet (telemetry spans: item 9c) or more than the one device
+a CPU app sees (the two mesh scenarios, whose counterparts below patch
+the visible-device count) runs twice, unchanged: once against the JAX app (aiohttp's test server) and
 once against the port's app (its own HTTP server, ``service/http.py``,
 driven by aiohttp's client), each with a fresh ``PageImageFakeDial`` set
 up the same way and the same ``from_random`` weights (the JAX embedder's,
@@ -62,10 +63,16 @@ from tests.utils.pdf_builder import build_pdf
 # the scenarios that need a part the port does not serve yet
 NOT_PORTED = {
     "test_request_emits_telemetry_spans_and_counters": "9c",
-    "test_mesh_auto_enabled_on_multi_device": "10",
-    "test_mesh_disabled_by_config": "10",
 }
-SCENARIOS = sorted(n for n in dir(E) if n.startswith("test_") and n not in NOT_PORTED)
+# the scenarios that read the app's mesh, which a CPU app builds only when
+# it is told that more than one device is visible: their counterparts
+# below of the same names patch the count
+MESH_SCENARIOS = ("test_mesh_auto_enabled_on_multi_device", "test_mesh_disabled_by_config")
+SCENARIOS = sorted(n for n in dir(E) if n.startswith("test_") and n not in NOT_PORTED and n not in MESH_SCENARIOS)
+# scenarios whose documents pass the "All documents" limit, so that the
+# semantic, BM25, late-interaction and chargram arms each build an index
+INDEXED_SCENARIOS = ["test_device_index_cache_hits_on_repeat_query", "test_late_interaction_index_e2e",
+                     "test_chargram_index_e2e"]
 CHAT_PATH = "/openai/deployments/dial-rag/chat/completions"
 TIMING = re.compile(r" \[\d+\.\d+s\]")
 TOOK = re.compile(r" took \d+\.\d+s")  # a timed block's line in a stage's content
@@ -323,8 +330,94 @@ async def test_scenario_through_both_apps(name, embedders, monkeypatch):
 
 def test_every_scenario_is_ported_or_named():
     scenarios = {n for n in dir(E) if n.startswith("test_")}
-    assert set(NOT_PORTED) <= scenarios
-    assert len(SCENARIOS) == len(scenarios) - len(NOT_PORTED) == 33
+    assert set(NOT_PORTED) <= scenarios and set(MESH_SCENARIOS) <= scenarios
+    assert set(MESH_SCENARIOS) <= set(globals())  # each has its counterpart here
+    assert len(SCENARIOS) == len(scenarios) - len(NOT_PORTED) - len(MESH_SCENARIOS) == 33
+
+
+def eight_slots(device):
+    """The visible devices of a machine with 8 cards, as CPU slots."""
+    return [device] * 8
+
+
+async def test_mesh_auto_enabled_on_multi_device(embedders, monkeypatch):
+    """With more than one visible card and the default ``data_parallel``
+    (auto) the app builds a mesh over every card: 8 patched in, the mesh
+    is cuda:0..7; 1 patched in, there is none. A CPU app told of 8 devices
+    (8 CPU slots) shards its embedder and its indexes over them and
+    serves."""
+    import torch
+
+    auto = port_config.AppConfig()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    mesh = port_app.DialRagApplication._create_mesh(auto, torch.device("cuda"))
+    assert mesh.devices.size == 8 and dict(mesh.shape) == {"dp": 8, "tp": 1}
+    assert [str(d) for d in mesh.local_devices] == [f"cuda:{i}" for i in range(8)]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert port_app.DialRagApplication._create_mesh(auto, torch.device("cuda")) is None
+    monkeypatch.setattr(port_app, "visible_devices", eight_slots)
+    async with make_harness("port", embedders["port"], [])() as h:
+        app = h.client.server.app["dial_rag"]
+        assert app.mesh is not None and app.mesh.devices.size == 8
+        assert app.embedder.mesh is app.mesh and app.embedder.batch_size % 8 == 0
+
+
+async def test_mesh_disabled_by_config(embedders, monkeypatch):
+    import torch
+
+    off = port_config.AppConfig.model_validate({"parallel": {"data_parallel": False}})
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert port_app.DialRagApplication._create_mesh(off, torch.device("cuda")) is None
+    monkeypatch.setattr(port_app, "visible_devices", eight_slots)
+    async with make_harness("port", embedders["port"], [])({"parallel": {"data_parallel": False}}) as h:
+        app = h.client.server.app["dial_rag"]
+        assert app.mesh is None and app.embedder.mesh is None
+
+
+@pytest.mark.parametrize("name", INDEXED_SCENARIOS)
+async def test_indexed_scenario_on_a_mesh_of_8_slots(name, embedders, monkeypatch):
+    """A scenario whose requests build and query the four local arms'
+    indexes, the port's app on a mesh of 8 CPU slots (the default
+    configuration, 8 devices patched in) and the JAX app on the conftest's
+    8 host devices (a mesh too): every response equal."""
+    from dial_rag_tpu_torch.parallel import sharded_index
+
+    monkeypatch.setattr(port_app, "visible_devices", eight_slots)
+    merges = []
+    merge = sharded_index.merge_winners
+    monkeypatch.setattr(sharded_index, "merge_winners", lambda *a, **kw: merges.append(a[0].size) or merge(*a, **kw))
+    ref = await run_scenario(name, "jax", embedders["jax"], monkeypatch)
+    got = await run_scenario(name, "port", embedders["port"], monkeypatch)
+    assert merges and set(merges) == {8}  # the port's queries went through 8-shard indexes
+    assert ref and [r[0] for r in got] == [r[0] for r in ref]
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a == b, (name, i)
+
+
+async def test_data_parallel_true_serves_the_same_hits(embedders):
+    """``data_parallel: true`` on one device makes a one-device mesh, as
+    the JAX package does; its retrieval answers are the unsharded app's."""
+    bodies = {}
+    for dp in (True, False):
+        records: list = []
+        async with make_harness("port", embedders["port"], records)({"parallel": {"data_parallel": dp}}) as h:
+            app = h.client.server.app["dial_rag"]
+            assert (app.mesh is not None) == dp
+            if dp:
+                assert app.mesh.devices.size == 1 and app.embedder.mesh is app.mesh
+            h.fake.add_file("files/user-bucket/big.pdf", build_pdf(E._big_pdf_lines(), compress=True),
+                            "application/pdf")
+            for _ in range(2):  # the second request reads the cached indexes
+                resp = await h.chat({
+                    "messages": [E._attach_message("cadibona boundary pass", url="files/user-bucket/big.pdf")],
+                    "custom_fields": {"configuration": {"request": {"type": "retrieval"}}},
+                })
+                assert resp.status == 200
+        bodies[dp] = records
+    assert bodies[True] == bodies[False]
+    chunks = [c for r in bodies[True] for a in r[1][1]["choices"][0]["message"]["custom_content"]["attachments"]
+              if a.get("type") == RESPONSE_TYPE for c in a["data"]["chunks"]]
+    assert chunks
 
 
 async def _preset_request(pkg: str, preset: str, embedder, num_page_images: int) -> tuple[int, dict]:
@@ -584,8 +677,10 @@ async def test_image_index_configs_raise_not_implemented(config_name, embedders)
 
 
 async def test_profiler_and_mesh_raise_not_implemented(embedders):
-    """use_profiler waits for ROADMAP item 9c and data_parallel for item
-    10: each raises rather than serving without them."""
+    """use_profiler waits for ROADMAP item 9c and raises rather than
+    serving without it. data_parallel no longer raises: on (on the CPU's
+    one device) it builds a one-device mesh and the embedder shards over
+    it; auto with one device builds none."""
     from dial_rag_tpu_torch.service.profiler import profiler_if_enabled
 
     with pytest.raises(NotImplementedError, match="item 9c"):
@@ -594,8 +689,8 @@ async def test_profiler_and_mesh_raise_not_implemented(embedders):
     async with profiler_if_enabled(None, False):
         pass
     config = port_config.AppConfig.model_validate({"parallel": {"data_parallel": True}})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_app.create_app(config, embedder=embedders["port"], device="cpu")
+    app = port_app.DialRagApplication(config, embedders["port"], device="cpu")
+    assert app.mesh.devices.size == 1 and app.embedder.mesh is app.mesh and embedders["port"].mesh is None
     auto = port_config.AppConfig()
     assert port_app.DialRagApplication(auto, embedders["port"], device="cpu").mesh is None
 

@@ -9,7 +9,8 @@ four-arm RRF ensemble, against the JAX package's on the CPU:
   numpy and counted in ``PATHS``;
 - ``ChargramRetriever`` against the JAX retriever over two documents,
   ``has_index`` false on records whose words are all invalid, ``mesh``
-  (still to port) raising, ``device_cache`` hit on a second build;
+  (8 CPU slots, the inner index sharded through ``with_inner``) serving
+  the same hits, ``device_cache`` hit on a second build;
 - ``build_word_vectors`` equal to the JAX package's bit for bit,
   ``expand_query`` weights equal, and ``Bm25Retriever`` with expansion
   finding the synonym chunk (tests/test_word_vectors.py's corpus);
@@ -132,8 +133,15 @@ def test_chargram_retriever_matches_jax():
     assert not ChargramRetriever.has_index([bad]) and ChargramRetriever.has_index([bad, port_recs[0]])
     assert asyncio.run(r.build_index(port_recs[0].chunks)) == port_recs[0].chargram_index
     assert ChargramRetriever.from_doc_records([bad, port_recs[0]], k=2, device="cpu").retrieve("alps")[0].doc_id == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ChargramRetriever.from_doc_records(port_recs, device="cpu", mesh=object())
+    from dial_rag_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from dial_rag_tpu_torch.parallel.mesh import create_mesh
+
+    sharded = ChargramRetriever.from_doc_records(port_recs, k=4, device="cpu", mesh=create_mesh(devices=["cpu"] * 8))
+    jsharded = JaxChargramRetriever.from_doc_records(ref_recs, k=4, mesh=jax_create_mesh(8))
+    assert type(sharded._index.inner).__name__ == "ShardedBm25Index"
+    for q in QUERIES:
+        assert sharded.retrieve(q) == r.retrieve(q)
+        assert [h.key for h in sharded.retrieve(q)] == [h.key for h in jsharded.retrieve(q)]
 
 
 def test_chargram_device_cache_hit_on_second_build():

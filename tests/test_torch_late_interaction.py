@@ -14,8 +14,8 @@ against the JAX package's on the CPU (numpy-seeded inputs):
   ``embed_documents_tokens`` (2e-5, the reference's f32 gate), and
   ``embed_query_tokens_device``'s rows equal to the host rows bit for bit;
 - ``LateInteractionRetriever`` against the JAX retriever: ``retrieve``,
-  ``retrieve_batch`` and ``aretrieve``, ``mesh`` (still to port) raising,
-  and ``device_cache`` hit on a second build.
+  ``retrieve_batch`` and ``aretrieve``, ``mesh`` (8 CPU slots) serving
+  the same hits, and ``device_cache`` hit on a second build.
 """
 
 import asyncio
@@ -208,8 +208,18 @@ def test_retriever_matches_jax(maxsim_embedders):
         want = ref.retrieve(q)
         assert ids(single) == ids(want) == ids(hits) == ids(asyncio.run(r.aretrieve(q)))
         np.testing.assert_allclose([h.score for h in single], [h.score for h in want], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LateInteractionRetriever.from_doc_records(port, records, mesh=object())
+    from dial_rag_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from dial_rag_tpu_torch.parallel.mesh import create_mesh
+
+    sharded = LateInteractionRetriever.from_doc_records(port, records, k=3, max_chunk_tokens=32,
+                                                        mesh=create_mesh(devices=["cpu"] * 8))
+    jsharded = JaxLateInteractionRetriever.from_doc_records(jax_emb, jax_records, k=3, max_chunk_tokens=32,
+                                                            mesh=jax_create_mesh(8))
+    assert type(sharded.index).__name__ == "ShardedLateInteractionIndex"
+    for q in QUERIES:
+        assert sharded.retrieve(q) == r.retrieve(q)
+        assert ids(sharded.retrieve(q)) == ids(jsharded.retrieve(q))
+        assert ids(asyncio.run(sharded.aretrieve(q))) == ids(r.retrieve(q))
 
 
 def test_retriever_device_cache_hit_on_second_build(maxsim_embedders):

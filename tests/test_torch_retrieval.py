@@ -6,8 +6,8 @@ whole (keywords -> BM25, tokenize -> encode -> dense index, RRF).
   each function of the port against the JAX package's on the same hits;
 - retrievers over two small records: the same hits and scores (rtol 1e-6)
   as the JAX retrievers, ``retrieve_batch`` and ``aretrieve`` equal to
-  ``retrieve``, ``mesh`` (still to port) raising, ``device_cache`` hit on
-  a second build;
+  ``retrieve``, ``mesh`` (8 CPU slots) serving the JAX retriever's hits
+  on its 8-device mesh, ``device_cache`` hit on a second build;
 - the slice: tests/test_eval_harness.py's seeded corpus, record and
   encoder (carried across with ``params_from_jax_numpy``), the port fed
   its own parse of the corpus PDF (equal to the JAX package's chunks) and
@@ -173,9 +173,23 @@ def test_bm25_has_index_and_empty_records(pair):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_bm25_options_raise(pair, option):
-    _, _, records, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Bm25Retriever.from_doc_records(records, device="cpu", **{option: object()})
+    """``mesh`` used to raise until the sharded indexes were ported: now
+    the index shards over a mesh of 8 CPU slots and serves the unsharded
+    retriever's hits, and the JAX retriever's on its 8-device mesh."""
+    from dial_rag_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from dial_rag_tpu_torch.parallel.mesh import create_mesh
+    from dial_rag_tpu_torch.parallel.sharded_index import ShardedBm25Index
+
+    jax_records, _, records, _ = pair
+    sharded = Bm25Retriever.from_doc_records(records, k=3, device="cpu", **{option: create_mesh(devices=["cpu"] * 8)})
+    assert isinstance(sharded._index, ShardedBm25Index)
+    single = Bm25Retriever.from_doc_records(records, k=3, device="cpu")
+    ref = JaxBm25Retriever.from_doc_records(jax_records, k=3, mesh=jax_create_mesh(8))
+    for q in QUERIES:
+        hits = sharded.retrieve(q)
+        assert hits == single.retrieve(q)
+        assert keys(hits) == keys(ref.retrieve(q))
+        np.testing.assert_allclose([h.score for h in hits], [h.score for h in ref.retrieve(q)], rtol=1e-6)
 
 
 @pytest.mark.parametrize("expand", [False, True])
